@@ -1,0 +1,433 @@
+"""LLM engine process — serves the PyTorch engine over the engine HTTP
+contract: ``/`` ``/health`` ``/chat`` ``/generate`` ``/history`` ``/clear``
+``/metrics``.
+
+Reference: ``agentainer_tpu/engine/llm_serve.py``. Same routes, same request
+and response JSON, same ``AGENTAINER_*`` environment contract. What differs:
+
+- the HTTP server is the standard library's (``asyncio.start_server`` and a
+  minimal HTTP/1.1 reader, one request per connection): the machine with the
+  card has no aiohttp;
+- conversation turns live in the process-local store that the reference's
+  ``StoreClient`` falls back to with no control plane configured; the store
+  client, KV snapshots to the store, tenants, ``/park``, ``/prewarm``,
+  ``/profile``, ``/cancel`` and streaming come with later slices. A
+  ``stream=true`` body is answered buffered and a deadline header is
+  ignored, as the reference does with ``streaming=False`` and
+  ``deadlines=False``.
+
+Engine options ride ``AGENTAINER_MODEL_OPTIONS`` (JSON), including
+``device`` (default ``"cuda"``). Run: ``python -m
+agentainer_tpu_torch.engine.llm_serve`` with ``AGENTAINER_PORT`` and
+``AGENTAINER_MODEL_CONFIG`` set.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import fnmatch
+import json
+import os
+import signal
+import threading
+import time
+import traceback
+from dataclasses import dataclass
+from urllib.parse import urlsplit
+
+from ..core.protocol import LOADING_HEADER, PREFILL_POISON_HEADER, REQUEST_ID_HEADER
+
+MAX_TURNS = 50
+SESSION_CONVO_TTL_S = 7 * 24 * 3600
+_REASONS = {
+    200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
+    413: "Payload Too Large", 500: "Internal Server Error", 503: "Service Unavailable",
+}
+_MAX_BODY = 16 << 20
+
+
+class LocalStore:
+    """Process-local key/value + list store: the semantics of the reference
+    ``StoreClient``'s fallback when no control plane is configured
+    (``runtime/store_client.py``). State dies with the process."""
+
+    def __init__(self) -> None:
+        self._d: dict[str, list[str]] = {}
+
+    async def rpush(self, key: str, *values: str) -> int:
+        self._d.setdefault(key, []).extend(values)
+        return len(self._d[key])
+
+    async def lrange(self, key: str, start: int = 0, stop: int = -1) -> list[str]:
+        return self._d.get(key, [])[start : (stop + 1 if stop != -1 else None)]
+
+    async def ltrim(self, key: str, start: int, stop: int) -> None:
+        self._d[key] = self._d.get(key, [])[start : (stop + 1 if stop != -1 else None)]
+
+    async def expire(self, key: str, ttl: float) -> bool:
+        return key in self._d  # no sweeper: state dies with the process
+
+    async def delete(self, key: str) -> int:
+        return 1 if self._d.pop(key, None) is not None else 0
+
+    async def keys(self, pattern: str) -> list[str]:
+        return [k for k in self._d if fnmatch.fnmatchcase(k, pattern)]
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    headers: dict[str, str]  # lower-cased names
+    body: bytes
+
+    def json(self):
+        """The body as JSON; raises ValueError when malformed."""
+        return json.loads(self.body or b"null")
+
+
+@dataclass
+class Response:
+    status: int
+    doc: dict
+    headers: dict[str, str] | None = None
+
+
+class LLMServeApp:
+    """One agent's serving surface (one per process, env-configured)."""
+
+    def __init__(self, env: dict | None = None) -> None:
+        E = os.environ if env is None else env
+        self.engine = None
+        self.engine_error = ""
+        self.agent_id = E.get("AGENTAINER_AGENT_ID", "standalone")
+        self.agent_name = E.get("AGENTAINER_AGENT_NAME", self.agent_id)
+        self.config_name = E.get("AGENTAINER_MODEL_CONFIG", "tiny")
+        self.checkpoint = E.get("AGENTAINER_CHECKPOINT", "")
+        self.system_prompt = E.get("AGENTAINER_SYSTEM_PROMPT", "")
+        try:
+            self.model_options = json.loads(E.get("AGENTAINER_MODEL_OPTIONS", "") or "{}")
+        except json.JSONDecodeError:
+            self.model_options = {}
+        if not self.system_prompt:
+            self.system_prompt = str(self.model_options.get("system_prompt", ""))
+        try:
+            self.replica = int(E.get("AGENTAINER_REPLICA", "0") or 0)
+        except ValueError:
+            self.replica = 0
+        self.store = LocalStore()
+        self.started_at = time.time()
+        self.requests_total = 0
+        self.unhandled_errors = 0
+        self.last_unhandled_error = ""
+        self.port: int | None = None
+        self._ready = threading.Event()  # set once the loader finished (or died)
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._stop: asyncio.Event | None = None
+        self._routes = {
+            ("GET", "/"): self.h_root,
+            ("GET", "/health"): self.h_health,
+            ("POST", "/chat"): self.h_chat,
+            ("POST", "/generate"): self.h_generate,
+            ("GET", "/history"): self.h_history,
+            ("POST", "/clear"): self.h_clear,
+            ("GET", "/metrics"): self.h_metrics,
+        }
+
+    def _sess(self, session: str) -> str:
+        """Engine-side session namespace (matches the reference's)."""
+        return f"{self.agent_id}::{session}"
+
+    @property
+    def convo_key(self) -> str:
+        return f"agent:{self.agent_id}:conversations"
+
+    def _convo_session_key(self, session: str) -> str:
+        return f"{self.convo_key}:{session}"
+
+    # -- lifecycle ----------------------------------------------------------
+    def _load_engine(self) -> None:
+        """Build the engine (weight init + warmup: slow). Runs on a daemon
+        thread so /health answers while loading."""
+        try:
+            from .llm import LLMEngine
+
+            self.engine = LLMEngine.create(
+                config_name=self.config_name,
+                checkpoint=self.checkpoint,
+                options=dict(self.model_options),
+            )
+        except Exception as e:  # engine stays None; /chat reports 503
+            self.engine_error = f"{type(e).__name__}: {e}"
+            traceback.print_exc()
+        finally:
+            self._ready.set()
+
+    async def run(self, host: str = "127.0.0.1", port: int = 8000) -> None:
+        """Serve until ``stop()``; loads the engine in the background unless
+        one was injected before. Shuts the engine down on the way out."""
+        self._loop = asyncio.get_running_loop()
+        self._stop = asyncio.Event()
+        if self.engine is None:
+            threading.Thread(target=self._load_engine, daemon=True, name="model-loader").start()
+        else:
+            self._ready.set()
+        server = await asyncio.start_server(self._handle_conn, host, port)
+        self.port = server.sockets[0].getsockname()[1]
+        try:
+            await self._stop.wait()
+        finally:
+            server.close()
+            await server.wait_closed()
+            if self.engine is not None:
+                await asyncio.to_thread(self.engine.shutdown)
+
+    def stop(self) -> None:
+        """Thread-safe: ask ``run`` to return."""
+        if self._loop is not None and self._stop is not None:
+            self._loop.call_soon_threadsafe(self._stop.set)
+
+    # -- HTTP ---------------------------------------------------------------
+    async def _handle_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        try:
+            req = await self._read_request(reader)
+            if req is None:
+                return
+            resp = req if isinstance(req, Response) else await self._dispatch(req)
+            body = json.dumps(resp.doc).encode()
+            head = [
+                f"HTTP/1.1 {resp.status} {_REASONS.get(resp.status, 'Unknown')}",
+                "Content-Type: application/json; charset=utf-8",
+                f"Content-Length: {len(body)}",
+                "Connection: close",
+            ]
+            head += [f"{k}: {v}" for k, v in (resp.headers or {}).items()]
+            writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
+            await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError, ValueError):
+            pass  # client went away, or sent a line past the reader's limit
+        finally:
+            writer.close()
+
+    async def _read_request(self, reader: asyncio.StreamReader) -> Request | Response | None:
+        """One request off the connection; None for an empty or garbled
+        request line, a 413 Response for a bad Content-Length."""
+        line = await reader.readline()
+        if not line.strip():
+            return None
+        parts = line.decode("latin-1").split()
+        if len(parts) != 3:
+            return None
+        method, target, _ = parts
+        headers: dict[str, str] = {}
+        while True:
+            h = await reader.readline()
+            if h in (b"\r\n", b"\n", b""):
+                break
+            name, _, value = h.decode("latin-1").partition(":")
+            headers[name.strip().lower()] = value.strip()
+        try:
+            n = int(headers.get("content-length", "0") or 0)
+        except ValueError:
+            n = -1
+        if n < 0 or n > _MAX_BODY:
+            return Response(413, {"error": "bad or oversized Content-Length"})
+        body = await reader.readexactly(n) if n else b""
+        return Request(method, urlsplit(target).path or "/", headers, body)
+
+    async def _dispatch(self, req: Request) -> Response:
+        handler = self._routes.get((req.method, req.path))
+        if handler is None:
+            if any(path == req.path for _, path in self._routes):
+                return Response(405, {"error": f"method {req.method} not allowed"})
+            return Response(404, {"error": f"no route {req.path}"})
+        try:
+            return await handler(req)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            # any unhandled handler error becomes a JSON 500 carrying the
+            # exception string, with the traceback in the engine log
+            from .llm import PrefillFailed
+
+            self.unhandled_errors += 1
+            self.last_unhandled_error = f"{type(e).__name__}: {e}"
+            print(
+                f"[llm-serve] {req.method} {req.path} failed:\n{traceback.format_exc()}",
+                flush=True,
+            )
+            headers = {PREFILL_POISON_HEADER: "true"} if isinstance(e, PrefillFailed) else None
+            return Response(
+                500,
+                {"error": self.last_unhandled_error, "path": req.path, "agent_id": self.agent_id},
+                headers,
+            )
+
+    async def _ensure_engine(self) -> Response | None:
+        """While the model loads, answer fast with a "loading" marker (after
+        a short bounded wait) instead of stalling the handler."""
+        if self.engine is None and not self.engine_error:
+            await asyncio.to_thread(self._ready.wait, 2.0)
+        if self.engine is not None:
+            return None
+        if self.engine_error:
+            return Response(503, {"error": f"model runtime failed to load: {self.engine_error}"})
+        return Response(503, {"error": "model loading"}, {LOADING_HEADER: "true"})
+
+    # -- handlers -------------------------------------------------------------
+    async def h_root(self, req: Request) -> Response:
+        return Response(
+            200,
+            {
+                "agent": self.agent_name,
+                "engine": "llm",
+                "model": self.config_name,
+                "chips": [],
+                "status": "running" if self.engine else "loading",
+            },
+        )
+
+    async def h_health(self, req: Request) -> Response:
+        self.requests_total += 1
+        return Response(
+            200,
+            {
+                "status": "healthy",
+                "agent_id": self.agent_id,
+                "model_loaded": self.engine is not None,
+                "uptime_s": time.time() - self.started_at,
+            },
+        )
+
+    async def h_chat(self, req: Request) -> Response:
+        self.requests_total += 1
+        err = await self._ensure_engine()
+        if err is not None:
+            return err
+        try:
+            body = req.json()
+        except ValueError:
+            return Response(400, {"error": "invalid JSON"})
+        if not isinstance(body, dict):
+            return Response(400, {"error": "invalid JSON"})
+        message = str(body.get("message", ""))
+        session = str(body.get("session", "default"))
+        max_tokens = int(body.get("max_tokens", 64))
+        kw = {"ignore_eos": True} if body.get("ignore_eos") else {}
+        # persona parity: a brand-new session's context opens with the
+        # system prompt; later turns inherit it through the KV cache
+        prompt = message
+        if self.system_prompt and self._sess(session) not in self.engine.sessions:
+            prompt = f"{self.system_prompt}\n\n{message}"
+        result = await self.engine.chat(
+            session=self._sess(session),
+            message=prompt,
+            max_tokens=max_tokens,
+            request_id=req.headers.get(REQUEST_ID_HEADER.lower(), ""),
+            **kw,
+        )
+        await self._record_turn(session, message, result["text"])
+        return Response(
+            200,
+            {
+                "response": result["text"],
+                "agent": self.agent_name,
+                "model": self.config_name,
+                "usage": {
+                    "prompt_tokens": result["prompt_tokens"],
+                    "completion_tokens": result["completion_tokens"],
+                },
+                "ttft_ms": result.get("ttft_ms"),
+                "ttft_breakdown": result.get("ttft_breakdown"),
+            },
+        )
+
+    async def _record_turn(self, session: str, message: str, reply: str) -> None:
+        now = time.time()
+        key = self._convo_session_key(session)
+        await self.store.rpush(
+            key,
+            json.dumps({"role": "user", "content": message, "ts": now, "session": session}),
+            json.dumps({"role": "assistant", "content": reply, "ts": now, "session": session}),
+        )
+        await self.store.ltrim(key, -2 * MAX_TURNS, -1)
+        await self.store.expire(key, SESSION_CONVO_TTL_S)
+
+    async def h_generate(self, req: Request) -> Response:
+        """Raw completion endpoint (no conversation memory)."""
+        self.requests_total += 1
+        err = await self._ensure_engine()
+        if err is not None:
+            return err
+        try:
+            body = req.json()
+        except ValueError:
+            return Response(400, {"error": "invalid JSON"})
+        if not isinstance(body, dict):
+            return Response(400, {"error": "invalid JSON"})
+        result = await self.engine.generate(
+            prompt=str(body.get("prompt", "")),
+            max_tokens=int(body.get("max_tokens", 64)),
+            temperature=float(body.get("temperature", 0.0)),
+            top_k=int(body.get("top_k", 0)),
+            top_p=float(body.get("top_p", 1.0)),
+            request_id=req.headers.get(REQUEST_ID_HEADER.lower(), ""),
+        )
+        return Response(200, result)
+
+    async def h_history(self, req: Request) -> Response:
+        self.requests_total += 1
+        turns = []
+        keys = [self.convo_key] + sorted(await self.store.keys(f"{self.convo_key}:*"))
+        for key in keys:
+            for item in await self.store.lrange(key, 0, -1):
+                try:
+                    turns.append(json.loads(item))
+                except json.JSONDecodeError:
+                    continue
+        turns.sort(key=lambda t: t.get("ts", 0.0))
+        return Response(200, {"history": turns, "count": len(turns)})
+
+    async def h_clear(self, req: Request) -> Response:
+        self.requests_total += 1
+        await self.store.delete(self.convo_key)
+        for key in await self.store.keys(f"{self.convo_key}:*"):
+            await self.store.delete(key)
+        if self.engine is not None:
+            await asyncio.to_thread(self.engine.clear_sessions, f"{self.agent_id}::")
+        return Response(200, {"status": "cleared"})
+
+    async def h_metrics(self, req: Request) -> Response:
+        doc = {
+            "engine": "llm",
+            "model": self.config_name,
+            "replica": self.replica,
+            "requests_total": self.requests_total,
+            "uptime_s": time.time() - self.started_at,
+            "model_loaded": self.engine is not None,
+            "engine_error": self.engine_error or None,
+            "unhandled_errors": self.unhandled_errors,
+            "last_unhandled_error": self.last_unhandled_error or None,
+        }
+        if self.engine is not None:
+            doc.update(self.engine.metrics())
+        return Response(200, doc)
+
+
+def serve() -> None:
+    """Process entry point: serve on 127.0.0.1:$AGENTAINER_PORT until
+    SIGTERM/SIGINT."""
+    app = LLMServeApp()
+    port = int(os.environ.get("AGENTAINER_PORT", "8000"))
+
+    async def main() -> None:
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, app.stop)
+        await app.run("127.0.0.1", port)
+
+    asyncio.run(main())
+
+
+if __name__ == "__main__":
+    serve()
