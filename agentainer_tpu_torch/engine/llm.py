@@ -308,7 +308,7 @@ class LLMEngine:
                 loop=loop,
                 future=loop.create_future(),
             )
-            self._queue.put(req)
+            self._submit(req)
             await req.future
 
         async def _serve_all() -> None:
@@ -385,9 +385,7 @@ class LLMEngine:
             top_k=max(0, int(top_k)),
             top_p=min(1.0, max(0.0, float(top_p))) if top_p is not None else 1.0,
         )
-        self._queue.put(req)
-        if not self._worker.is_alive():
-            self._fail_pending(EngineShutdown("engine worker is gone"))
+        self._submit(req)
         result = await req.future
         if request_id:
             with self._lock:
@@ -572,10 +570,27 @@ class LLMEngine:
                 self._fail_item(item, e)
         self._waiting = still
 
+    def _submit(self, req: GenRequest) -> None:
+        """Queue ``req`` for the worker. The worker clears ``_running`` before
+        its final drain, so work queued after that drain is failed here
+        instead of waiting forever on a dead worker."""
+        self._queue.put(req)
+        if not self._running:
+            self._fail_queued(EngineShutdown("engine worker exited"))
+
     def _fail_pending(self, error: Exception) -> None:
         for item in self._waiting:
             self._fail_item(item, error)
         self._waiting = []
+        self._fail_queued(error)
+        for slot in self.slots:
+            if slot.request is not None:
+                self._fail_item(slot.request, error)
+                slot.request = None
+                slot.pending_prompt = []
+                slot.decoding = False
+
+    def _fail_queued(self, error: Exception) -> None:
         while True:
             try:
                 item = self._queue.get_nowait()
@@ -583,12 +598,6 @@ class LLMEngine:
                 break
             if item is not None:
                 self._fail_item(item, error)
-        for slot in self.slots:
-            if slot.request is not None:
-                self._fail_item(slot.request, error)
-                slot.request = None
-                slot.pending_prompt = []
-                slot.decoding = False
 
     def _note_error(self, e: Exception) -> None:
         self.worker_errors += 1

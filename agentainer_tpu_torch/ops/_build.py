@@ -1,16 +1,12 @@
 """Build and load the port's CUDA kernels (no reference counterpart: the
 JAX package's Pallas kernels are compiled by XLA inside ``jit``).
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``. The
-build happens at first use, never at import — a machine without ``nvcc``
-(CPU CI) imports every module of the port. Outputs go to ``_build/`` inside
-the package (listed in ``.gitignore``), named by a hash of the source and
-the flags, so an edited source rebuilds and a stale library is never loaded.
-
-``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
-them together; ``library(name)`` returns the loaded library, building it
-first if needed.
+``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``. The build
+happens at first use, never at import — a machine without ``nvcc`` (CPU CI)
+imports every module of the port. Outputs go to ``_build/`` inside the
+package (listed in ``.gitignore``), named by a hash of the source and the
+flags, so an edited source rebuilds and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -30,12 +26,6 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def sources() -> list[str]:
-    """Kernel source names (``csrc/<name>.cu``)."""
-    return sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu"))
 
 
 def _nvcc() -> str:
@@ -45,55 +35,27 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> tuple[str, str]:
+def library(name: str) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library, compiling it first if missing.
+    Raises with nvcc's output if the build fails. Callers cache the result
+    (with their C signatures set on it)."""
     src = os.path.join(_CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(_OUT, f"lib{name}-{digest}.so")
-
-
-def build_all(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every missing library in parallel; returns name → .so path.
-    Raises with nvcc's output if any build fails."""
-    names = sources() if names is None else names
-    os.makedirs(_OUT, exist_ok=True)
-    procs = {}
-    paths = {}
-    for name in names:
-        src, so = _target(name)
-        paths[name] = so
-        if os.path.exists(so):
-            continue
-        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        procs[name] = (
-            subprocess.Popen(
+    so = os.path.join(_OUT, f"lib{name}-{digest}.so")
+    with _lock:
+        if not os.path.exists(so):
+            os.makedirs(_OUT, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
-            ),
-            tmp,
-            so,
-        )
-    failed = []
-    for name, (proc, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out.decode(errors='replace')}")
-            continue
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
-
-
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build_all([name])[name])
-            _libs[name] = lib
-    return lib
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"kernel build failed: {name}: nvcc exit {proc.returncode}\n"
+                    + proc.stdout.decode(errors="replace")
+                )
+            os.replace(tmp, so)  # atomic: another process never loads half a file
+        return ctypes.CDLL(so)

@@ -14,21 +14,19 @@ from dataclasses import dataclass
 class ChipSpec:
     kind: str
     bf16_flops: float  # peak FLOP/s, bf16 into f32, dense
-    int8_ops: float  # peak OP/s, int8, dense
-    hbm_bytes: int
     hbm_gbps: float  # bytes/s
 
 
 # substring match against torch.cuda.get_device_name(), lowercased; first hit
-# wins. H100 SXM from NVIDIA's data sheet: 989 TFLOP/s bf16 dense,
-# 1979 TOP/s int8 dense, 80 GB HBM3 at 3.35 TB/s (at the 700 W power limit).
+# wins. H100 SXM from NVIDIA's data sheet: 989 TFLOP/s bf16 dense, HBM3 at
+# 3.35 TB/s (at the 700 W power limit).
 _SPECS: tuple[ChipSpec, ...] = (
-    ChipSpec("h100", 989e12, 1979e12, 80 * 10**9, 3.35e12),
+    ChipSpec("h100", 989e12, 3.35e12),
 )
 
 # CPU runs keep the MFU arithmetic runnable; the number is meaningless and
 # flagged by ``kind`` so callers can label it.
-_CPU = ChipSpec("cpu-fallback", 1e12, 1e12, 8 << 30, 50e9)
+_CPU = ChipSpec("cpu-fallback", 1e12, 50e9)
 
 
 def chip_spec(device=None) -> ChipSpec:
@@ -45,4 +43,4 @@ def chip_spec(device=None) -> ChipSpec:
         if s.kind in name:
             return s
     # an unlisted card: placeholder peaks, labelled so no MFU reads as real
-    return ChipSpec(f"unlisted: {name}", _CPU.bf16_flops, _CPU.int8_ops, _CPU.hbm_bytes, _CPU.hbm_gbps)
+    return ChipSpec(f"unlisted: {name}", _CPU.bf16_flops, _CPU.hbm_gbps)

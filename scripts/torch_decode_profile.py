@@ -1,10 +1,10 @@
 """Trace the PyTorch port's served decode on one GPU with torch.profiler.
 
-    python scripts/torch_decode_profile.py [--lanes 2] [--tokens 48]
+    python scripts/torch_decode_profile.py
 
 Builds the port's llama3-8b engine (bf16, random weights from seed 0) on
-the first CUDA device, serves ``--lanes`` concurrent greedy requests of
-``--tokens`` tokens once untraced (warm) and once under torch.profiler, and
+the first CUDA device, serves LANES concurrent greedy requests of TOKENS
+tokens once untraced (warm) and once under torch.profiler, and
 prints one JSON line: the card, wall time, tokens, engine ITL/TTFT, device
 busy time (the union of GPU kernel intervals), the device's idle share,
 kernel launches, and the ten kernels with the most device time. Needs a
@@ -13,7 +13,6 @@ CUDA device; exits 2 without one.
 
 from __future__ import annotations
 
-import argparse
 import asyncio
 import collections
 import json
@@ -21,6 +20,9 @@ import os
 import subprocess
 import sys
 import time
+
+LANES = 2
+TOKENS = 48
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -34,11 +36,6 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--lanes", type=int, default=2)
-    ap.add_argument("--tokens", type=int, default=48)
-    args = ap.parse_args()
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -56,8 +53,8 @@ def main() -> int:
 
     async def serve():
         return await asyncio.gather(*(
-            eng.generate(f"lane {i}: tell me a long story", max_tokens=args.tokens, ignore_eos=True)
-            for i in range(args.lanes)
+            eng.generate(f"lane {i}: tell me a long story", max_tokens=TOKENS, ignore_eos=True)
+            for i in range(LANES)
         ))
 
     try:
@@ -82,7 +79,7 @@ def main() -> int:
     tokens = sum(r["completion_tokens"] for r in out)
     print(json.dumps({
         "card": card,
-        "lanes": args.lanes,
+        "lanes": LANES,
         "tokens": tokens,
         "wall_s": wall_s,
         "decode_chunks": steps,

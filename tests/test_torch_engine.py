@@ -9,6 +9,7 @@ and a prompt longer than ``prefill_chunk``. Each engine is built once.
 """
 
 import asyncio
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -150,13 +151,12 @@ def test_create_on_cpu_serves():
         eng.shutdown()
 
 
-def test_dead_worker_fails_waiters_instead_of_hanging():
-    """An unexpected fault that kills the worker thread must fail every
-    queued and later request (EngineShutdown), never leave it waiting."""
-    cfg = tconfigs.get_config("tiny")
-    g = torch.Generator().manual_seed(0)
+def _dead_worker_engine():
+    """A tiny CPU engine whose worker thread died of an unexpected fault."""
     from agentainer_tpu_torch.models.llama import init_params
 
+    cfg = tconfigs.get_config("tiny")
+    g = torch.Generator().manual_seed(0)
     eng = TEngine(cfg, init_params(cfg, g, dtype=torch.float32), TTok(cfg.vocab_size),
                   max_batch=1, max_seq=64, device="cpu")
 
@@ -166,7 +166,35 @@ def test_dead_worker_fails_waiters_instead_of_hanging():
     eng._pump_queue = boom
     eng._worker.join(timeout=10)
     assert not eng._worker.is_alive()
+    return eng
+
+
+def test_dead_worker_fails_waiters_instead_of_hanging():
+    """An unexpected fault that kills the worker thread must fail every
+    queued and later request (EngineShutdown), never leave it waiting."""
+    eng = _dead_worker_engine()
     with pytest.raises(EngineShutdown):
         run(asyncio.wait_for(eng.generate("hi", max_tokens=2), timeout=10))
     assert "injected worker fault" in eng.last_worker_error
+    eng.shutdown()
+
+
+def test_warmup_on_a_dead_worker_raises_instead_of_hanging():
+    """Warmup queues its requests without the API's up-front check: work
+    queued after the worker's final drain must still fail, so a worker that
+    dies while the engine loads surfaces from create() at once."""
+    eng = _dead_worker_engine()
+    box = []
+
+    def _warm():
+        try:
+            eng.warmup()
+        except BaseException as e:
+            box.append(e)
+
+    t = threading.Thread(target=_warm, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive(), "warmup hung on a dead worker"
+    assert len(box) == 1 and isinstance(box[0], EngineShutdown)
     eng.shutdown()
