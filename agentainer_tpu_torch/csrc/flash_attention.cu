@@ -1,11 +1,12 @@
-// Flash attention over the dense KV arena, hand-written for Hopper (sm_90a).
+// Flash attention over the KV arena, hand-written for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the serving main path in
-// agentainer_tpu/ops/pallas_attention.py:
-//   flash_prefill  (body _prefill_kernel) -> atpu_flash_prefill below
-//   flash_decode   (body _decode_kernel)  -> atpu_flash_decode below
+// Replaces the four Pallas TPU kernels of agentainer_tpu/ops/pallas_attention.py:
+//   flash_prefill              (body _prefill_kernel)        -> atpu_flash_prefill
+//   flash_decode               (body _decode_kernel)         -> atpu_flash_decode
+//   fused_paged_flash_prefill  (body _paged_prefill_kernel)  -> atpu_paged_flash_prefill
+//   fused_paged_flash_decode   (body _paged_decode_kernel)   -> atpu_paged_flash_decode
 //
-// Both compute what the TPU kernels compute, with the same rules:
+// All four compute what the TPU kernels compute, with the same rules:
 //   - query row at position pos sees arena slot j iff j <= pos and j < S;
 //   - the G = H / KV query heads of a group share every staged K/V tile
 //     (K/V is read once per kv head, never repeated per query head);
@@ -16,22 +17,39 @@
 //   - a row with l == 0 (no visible slot: pos < 0) divides by 1 -> zeros;
 //   - inputs bf16 or f32, f32 accumulation, output in q's dtype.
 //
-// Layout: q [B, T, H, hd] and the arena k/v [B, S, KV, hd] are read IN
-// PLACE through their strides (element strides for the batch, sequence and
-// head axes; head_dim must be contiguous). The JAX wrapper transposes both
-// to head-major before its pallas_call; on the TPU those are XLA copies, and
-// this kernel has no need for them. head_dim is fixed at 128, the only size
-// kernel_supported admits; the wrapper raises for anything else.
+// One kernel body, two addressing policies. The paged kernels compute the
+// dense kernels' function; only the address of slot j changes:
+//   DenseArena: k[b, j, h, :]                      (arena [B, S, KV, hd])
+//   PagedArena: pool[table[b, j / ps], j % ps, h, :] (pool [P, ps, KV, hd],
+//               table [B, n_blocks] int32, S = n_blocks * ps)
+// prefill_kernel and decode_kernel are templated on the policy, so the tile
+// loop, the GQA packing and the masking exist once, and on the same K/V
+// values the paged and dense kernels are bit-identical (the served paged
+// path's greedy text equals the dense path's). A paged block stages its
+// lane's table row in shared memory once and looks the page up for every
+// 16-byte load, so any page size works (the dispatch gate still asks for
+// page_size % 8 == 0, as the reference's does); at the default page_size of
+// 64 each 64-slot K/V tile is exactly one page. Page ids are arbitrary and
+// lanes may share pages.
+//
+// Layout: q [B, T, H, hd], the arena k/v [B, S, KV, hd] and the pools
+// [P, ps, KV, hd] are read IN PLACE through their strides (element strides
+// for every axis but head_dim, which must be contiguous). The JAX wrapper
+// transposes q to head-major before its pallas_call; on the TPU that is an
+// XLA copy, and this kernel has no need for it. head_dim is fixed at 128,
+// the only size kernel_supported admits; the wrapper raises for anything
+// else.
 //
 // What bounds each kernel on an H100 SXM (989 TFLOP/s bf16 dense,
 // 3.35 TB/s HBM) and what the design does about it:
 //   - decode reads every live K/V byte once per step and does ~1 FLOP per
 //     byte: it is bounded by the BYTES of live K/V. One block per
-//     (batch, kv head) streams its arena row in 64-slot tiles with 16-byte
-//     loads per thread, and prefetches the next tile into registers while
-//     the current one is computed. At llama3-8b decode shapes (B = 8,
-//     KV = 8) that is only 64 blocks on 132 SMs; splitting the KV axis
-//     across blocks (split-KV plus a combine pass) is the next step.
+//     (batch, kv head) streams its arena row (or its pages) in 64-slot tiles
+//     with 16-byte loads per thread, and prefetches the next tile into
+//     registers while the current one is computed. At llama3-8b decode
+//     shapes (B = 8, KV = 8) that is only 64 blocks on 132 SMs; splitting
+//     the KV axis across blocks (split-KV plus a combine pass) is the next
+//     step.
 //   - prefill does ~T FLOPs per K/V byte: once T is large it is bounded by
 //     its FLOPs. This first version runs the two products on CUDA cores in
 //     f32 from shared memory (64x64 score tile per block, 4x8 register
@@ -50,6 +68,7 @@ namespace {
 constexpr int HD = 128;           // head_dim
 constexpr int KS = HD + 4;        // padded shared-memory row stride (floats)
 constexpr float NEG_INF = -1e30f;
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use on sm_90
 
 // ---- 16-byte vector loads of one dtype, widened to f32 ---------------------
 
@@ -104,6 +123,68 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// ---- where slot j of (lane b, kv head h) lives ------------------------------
+//
+// A policy is passed to the kernel by value. ``stage`` copies what the block
+// needs of the lane's addressing into shared memory (the paged table row);
+// ``lane`` binds (b, h) and returns an accessor whose krow(j) / vrow(j) give
+// the first element of slot j's head_dim row.
+
+template <typename T>
+struct DenseArena {
+  static constexpr bool kPaged = false;
+  const T* k;
+  const T* v;
+  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+
+  struct Lane {
+    const T* k;
+    const T* v;
+    long long k_ss, v_ss;
+    __device__ const T* krow(int j) const { return k + j * k_ss; }
+    __device__ const T* vrow(int j) const { return v + j * v_ss; }
+  };
+  __host__ __device__ int table_len() const { return 0; }
+  __device__ void stage(int, int*, int, int) const {}
+  __device__ Lane lane(int b, int h, const int*) const {
+    return {k + b * k_sb + h * k_sh, v + b * v_sb + h * v_sh, k_ss, v_ss};
+  }
+};
+
+template <typename T>
+struct PagedArena {
+  static constexpr bool kPaged = true;
+  const T* k;         // pool [P, ps, KV, hd]
+  const T* v;
+  const int* table;   // [B, n_blocks] physical page ids
+  long long t_sb;
+  int ps, n_blocks;
+  long long k_sp, k_sr, k_sh, v_sp, v_sr, v_sh;
+
+  struct Lane {
+    const T* k;
+    const T* v;
+    const int* tbl;   // the lane's table row, in shared memory
+    int ps;
+    long long k_sp, k_sr, v_sp, v_sr;
+    __device__ const T* krow(int j) const {
+      const int blk = j / ps;
+      return k + tbl[blk] * k_sp + (j - blk * ps) * k_sr;
+    }
+    __device__ const T* vrow(int j) const {
+      const int blk = j / ps;
+      return v + tbl[blk] * v_sp + (j - blk * ps) * v_sr;
+    }
+  };
+  __host__ __device__ int table_len() const { return n_blocks; }
+  __device__ void stage(int b, int* tbl_s, int tid, int nthreads) const {
+    for (int i = tid; i < n_blocks; i += nthreads) tbl_s[i] = table[b * t_sb + i];
+  }
+  __device__ Lane lane(int, int h, const int* tbl_s) const {
+    return {k + h * k_sh, v + h * v_sh, tbl_s, ps, k_sp, k_sr, v_sp, v_sr};
+  }
+};
+
 // ---- prefill --------------------------------------------------------------
 //
 // Grid (ceil(T / (BM / G)), KV, B), 128 threads. A block owns BM = 64 query
@@ -121,19 +202,19 @@ constexpr int PF_PS = PF_BK + 1;
 constexpr size_t PF_SMEM =
     sizeof(float) * (size_t)(PF_BM * KS + 2 * PF_BK * KS + PF_BM * PF_PS) + sizeof(int) * PF_BM;
 
-template <typename T>
+template <typename T, typename Arena>
 __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ pos, T* __restrict__ out, int T_len, int H, int S, int G,
-    long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long p_sb,
-    long long p_st, long long o_sb, long long o_st, long long o_sh, float scale) {
+    const T* __restrict__ q, const Arena arena, const int* __restrict__ pos,
+    T* __restrict__ out, int T_len, int H, int S, int G, long long q_sb, long long q_st,
+    long long q_sh, long long p_sb, long long p_st, long long o_sb, long long o_st,
+    long long o_sh, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                  // [BM][KS]
   float* k_s = q_s + PF_BM * KS;      // [BK][KS]
   float* v_s = k_s + PF_BK * KS;      // [BK][KS]
   float* p_s = v_s + PF_BK * KS;      // [BM][PS]
   int* pos_s = reinterpret_cast<int*>(p_s + PF_BM * PF_PS);  // [BM]
+  int* tbl_s = pos_s + PF_BM;         // [table_len] (paged only)
 
   constexpr int VN = Vec<T>::N;
   constexpr int VPR = HD / VN;  // vectors per row
@@ -161,7 +242,9 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(
     const int t = t0 + r / G;
     pos_s[r] = t < T_len ? pos[b * p_sb + t * p_st] : -1;
   }
+  arena.stage(b, tbl_s, tid, PF_THREADS);
   __syncthreads();
+  const auto lane = arena.lane(b, kvh, tbl_s);
 
   // the block's last visible slot: tiles past it are never loaded
   int kmax = -1;
@@ -188,8 +271,8 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(
       const int key = k0 + j;
       float kb[VN], vb[VN];
       if (key < S) {
-        Vec<T>::load(k + b * k_sb + key * k_ss + kvh * k_sh + c, kb);
-        Vec<T>::load(v + b * v_sb + key * v_ss + kvh * v_sh + c, vb);
+        Vec<T>::load(lane.krow(key) + c, kb);
+        Vec<T>::load(lane.vrow(key) + c, vb);
       } else {  // past the arena: zero, as the TPU kernel zeroes V there
 #pragma unroll
         for (int e = 0; e < VN; ++e) kb[e] = vb[e] = 0.f;
@@ -295,12 +378,13 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(
 // ---- decode ---------------------------------------------------------------
 //
 // Grid (KV, B), 256 threads. One block per (batch, kv head) handles all G
-// query heads of the group against its arena row, 64 slots per tile, up to
-// min(pos, S - 1). Scores: thread (j, gq) = (tid % 64, tid / 64) computes
-// key j for heads gq, gq + 4, ...; softmax statistics: warp w owns heads w,
-// w + 8, ...; P·V: thread (d, gh) = (tid % 128, tid / 128) owns head_dim
-// column d of heads gh, gh + 2, .... The next tile's K/V is fetched into
-// registers while the current tile is computed from shared memory.
+// query heads of the group against its arena row (or its pages), 64 slots
+// per tile, up to min(pos, S - 1). Scores: thread (j, gq) = (tid % 64,
+// tid / 64) computes key j for heads gq, gq + 4, ...; softmax statistics:
+// warp w owns heads w, w + 8, ...; P·V: thread (d, gh) = (tid % 128,
+// tid / 128) owns head_dim column d of heads gh, gh + 2, .... The next
+// tile's K/V is fetched into registers while the current tile is computed
+// from shared memory.
 
 constexpr int DC_THREADS = 256;
 constexpr int DC_BK = 64;
@@ -310,12 +394,11 @@ constexpr size_t decode_smem() {
   return sizeof(float) * (size_t)(G * KS + 2 * DC_BK * KS + G * DC_BK + 3 * G);
 }
 
-template <typename T, int G>
+template <typename T, int G, typename Arena>
 __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ pos, T* __restrict__ out, int S, long long q_sb, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long p_sb, long long o_sb, long long o_sh, float scale) {
+    const T* __restrict__ q, const Arena arena, const int* __restrict__ pos,
+    T* __restrict__ out, int S, long long q_sb, long long q_sh, long long p_sb,
+    long long o_sb, long long o_sh, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                 // [G][KS]
   float* k_s = q_s + G * KS;         // [BK][KS]
@@ -324,6 +407,7 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
   float* m_s = p_s + G * DC_BK;      // [G] running max
   float* l_s = m_s + G;              // [G] running sum
   float* a_s = l_s + G;              // [G] this tile's rescale factor
+  int* tbl_s = reinterpret_cast<int*>(a_s + G);  // [table_len] (paged only)
 
   constexpr int VN = Vec<T>::N;
   constexpr int VPR = HD / VN;
@@ -346,9 +430,10 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
+  arena.stage(b, tbl_s, tid, DC_THREADS);
+  if constexpr (Arena::kPaged) __syncthreads();  // the first fetch reads the table
+  const auto lane = arena.lane(b, kvh, tbl_s);
 
-  const T* kbase = k + b * k_sb + kvh * k_sh;
-  const T* vbase = v + b * v_sb + kvh * v_sh;
   uint4 kr[LPT], vr[LPT];
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -356,8 +441,8 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
       const int idx = tid + u * DC_THREADS;
       const int key = k0 + idx / VPR, c = (idx % VPR) * VN;
       if (key < S) {
-        kr[u] = Vec<T>::raw(kbase + key * k_ss + c);
-        vr[u] = Vec<T>::raw(vbase + key * v_ss + c);
+        kr[u] = Vec<T>::raw(lane.krow(key) + c);
+        vr[u] = Vec<T>::raw(lane.vrow(key) + c);
       } else {
         kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -371,7 +456,7 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
   for (int i = 0; i < GH; ++i) acc[i] = 0.f;
   const int d = tid % HD, gh = tid / HD;
   const int jq = tid % DC_BK, gq = tid / DC_BK;
-  const int warp = tid / 32, lane = tid % 32;
+  const int warp = tid / 32, lane_id = tid % 32;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * DC_BK;
@@ -407,21 +492,21 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
 
     // online-softmax statistics per head
     for (int g = warp; g < G; g += DC_THREADS / 32) {
-      const float s0 = p_s[g * DC_BK + lane], s1 = p_s[g * DC_BK + lane + 32];
+      const float s0 = p_s[g * DC_BK + lane_id], s1 = p_s[g * DC_BK + lane_id + 32];
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, mx);
-      const float p0 = (k0 + lane <= last) ? expf(s0 - m_new) : 0.f;
-      const float p1 = (k0 + lane + 32 <= last) ? expf(s1 - m_new) : 0.f;
-      p_s[g * DC_BK + lane] = p0;
-      p_s[g * DC_BK + lane + 32] = p1;
+      const float p0 = (k0 + lane_id <= last) ? expf(s0 - m_new) : 0.f;
+      const float p1 = (k0 + lane_id + 32 <= last) ? expf(s1 - m_new) : 0.f;
+      p_s[g * DC_BK + lane_id] = p0;
+      p_s[g * DC_BK + lane_id + 32] = p1;
       float sum = p0 + p1;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       __syncwarp();
-      if (lane == 0) {
+      if (lane_id == 0) {
         const float alpha = expf(m_old - m_new);
         a_s[g] = alpha;
         l_s[g] = l_s[g] * alpha + sum;
@@ -456,51 +541,73 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
   }
 }
 
+// ---- launchers ----------------------------------------------------------
+//
+// Element strides. Both entry points of a kernel share one layout for q,
+// positions and out; the arena's strides sit in between:
+//   prefill st = {q_b, q_t, q_h, <6 arena>, pos_b, pos_t, out_b, out_t, out_h[, table_b]}
+//   decode  st = {q_b, q_h, <6 arena>, pos_b, out_b, out_h[, table_b]}
+// where <6 arena> is {k_b, k_s, k_h, v_b, v_s, v_h} for the dense arena and
+// {k_page, k_row, k_h, v_page, v_row, v_h} for the pools.
+
 template <typename T>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v, const int* pos,
-                           void* out, int B, int T_len, int H, int KV, int S,
-                           const long long* st, float scale, cudaStream_t stream) {
+DenseArena<T> dense_arena(const void* k, const void* v, const long long* a) {
+  return {static_cast<const T*>(k), static_cast<const T*>(v), a[0], a[1], a[2], a[3], a[4], a[5]};
+}
+
+template <typename T>
+PagedArena<T> paged_arena(const void* k, const void* v, const void* table, long long t_sb,
+                          int ps, int n_blocks, const long long* a) {
+  return {static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int*>(table),
+          t_sb, ps, n_blocks, a[0], a[1], a[2], a[3], a[4], a[5]};
+}
+
+template <typename T, typename Arena>
+cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, void* out,
+                           int B, int T_len, int H, int KV, int S, const long long* st,
+                           float scale, cudaStream_t stream) {
   const int G = H / KV;
-  auto kern = prefill_kernel<T>;
+  auto kern = prefill_kernel<T, Arena>;
+  const size_t smem = PF_SMEM + sizeof(int) * (size_t)arena.table_len();
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PF_SMEM);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tok_per_block = PF_BM / G;
   dim3 grid((T_len + tok_per_block - 1) / tok_per_block, KV, B);
-  kern<<<grid, PF_THREADS, PF_SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(out), T_len, H, S, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], st[12], st[13], scale);
+  kern<<<grid, PF_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), arena, pos, static_cast<T*>(out), T_len, H, S, G, st[0], st[1],
+      st[2], st[9], st[10], st[11], st[12], st[13], scale);
   return cudaGetLastError();
 }
 
-template <typename T, int G>
-cudaError_t launch_decode_g(const void* q, const void* k, const void* v, const int* pos,
-                            void* out, int B, int KV, int S, const long long* st, float scale,
+template <typename T, int G, typename Arena>
+cudaError_t launch_decode_g(const void* q, const Arena& arena, const int* pos, void* out,
+                            int B, int KV, int S, const long long* st, float scale,
                             cudaStream_t stream) {
-  auto kern = decode_kernel<T, G>;
-  constexpr size_t smem = decode_smem<G>();
+  auto kern = decode_kernel<T, G, Arena>;
+  const size_t smem = decode_smem<G>() + sizeof(int) * (size_t)arena.table_len();
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(KV, B);
   kern<<<grid, DC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(out), S, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      static_cast<const T*>(q), arena, pos, static_cast<T*>(out), S, st[0], st[1], st[8],
       st[9], st[10], scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, const int* pos,
-                          void* out, int B, int H, int KV, int S, const long long* st,
-                          float scale, cudaStream_t stream) {
+template <typename T, typename Arena>
+cudaError_t launch_decode(const void* q, const Arena& arena, const int* pos, void* out,
+                          int B, int H, int KV, int S, const long long* st, float scale,
+                          cudaStream_t stream) {
   switch (H / KV) {
-    case 1: return launch_decode_g<T, 1>(q, k, v, pos, out, B, KV, S, st, scale, stream);
-    case 2: return launch_decode_g<T, 2>(q, k, v, pos, out, B, KV, S, st, scale, stream);
-    case 4: return launch_decode_g<T, 4>(q, k, v, pos, out, B, KV, S, st, scale, stream);
-    case 8: return launch_decode_g<T, 8>(q, k, v, pos, out, B, KV, S, st, scale, stream);
-    case 16: return launch_decode_g<T, 16>(q, k, v, pos, out, B, KV, S, st, scale, stream);
+    case 1: return launch_decode_g<T, 1>(q, arena, pos, out, B, KV, S, st, scale, stream);
+    case 2: return launch_decode_g<T, 2>(q, arena, pos, out, B, KV, S, st, scale, stream);
+    case 4: return launch_decode_g<T, 4>(q, arena, pos, out, B, KV, S, st, scale, stream);
+    case 8: return launch_decode_g<T, 8>(q, arena, pos, out, B, KV, S, st, scale, stream);
+    case 16: return launch_decode_g<T, 16>(q, arena, pos, out, B, KV, S, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -509,8 +616,9 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements:
-// st = {q_b, q_t, q_h, k_b, k_s, k_h, v_b, v_s, v_h, pos_b, pos_t, out_b, out_t, out_h}.
+// dtype: 0 = float32, 1 = bfloat16. Strides in elements, laid out as above.
+
+// Dense arena k/v [B, S, KV, hd].
 int atpu_flash_prefill(const void* q, const void* k, const void* v, const void* pos, void* out,
                        int dtype, int B, int T_len, int H, int KV, int S,
                        const long long* strides, float scale, void* stream) {
@@ -518,13 +626,15 @@ int atpu_flash_prefill(const void* q, const void* k, const void* v, const void* 
   const int* p = static_cast<const int*>(pos);
   if (H % KV != 0 || PF_BM % (H / KV) != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return (int)cudaSuccess;
+  const long long* a = strides + 3;
   cudaError_t err = dtype == 1
-      ? launch_prefill<__nv_bfloat16>(q, k, v, p, out, B, T_len, H, KV, S, strides, scale, s)
-      : launch_prefill<float>(q, k, v, p, out, B, T_len, H, KV, S, strides, scale, s);
+      ? launch_prefill<__nv_bfloat16>(q, dense_arena<__nv_bfloat16>(k, v, a), p, out, B, T_len,
+                                      H, KV, S, strides, scale, s)
+      : launch_prefill<float>(q, dense_arena<float>(k, v, a), p, out, B, T_len, H, KV, S,
+                              strides, scale, s);
   return (int)err;
 }
 
-// st = {q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, pos_b, out_b, out_h}.
 int atpu_flash_decode(const void* q, const void* k, const void* v, const void* pos, void* out,
                       int dtype, int B, int H, int KV, int S, const long long* strides,
                       float scale, void* stream) {
@@ -532,9 +642,56 @@ int atpu_flash_decode(const void* q, const void* k, const void* v, const void* p
   const int* p = static_cast<const int*>(pos);
   if (H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
+  const long long* a = strides + 2;
   cudaError_t err = dtype == 1
-      ? launch_decode<__nv_bfloat16>(q, k, v, p, out, B, H, KV, S, strides, scale, s)
-      : launch_decode<float>(q, k, v, p, out, B, H, KV, S, strides, scale, s);
+      ? launch_decode<__nv_bfloat16>(q, dense_arena<__nv_bfloat16>(k, v, a), p, out, B, H, KV,
+                                     S, strides, scale, s)
+      : launch_decode<float>(q, dense_arena<float>(k, v, a), p, out, B, H, KV, S, strides,
+                             scale, s);
+  return (int)err;
+}
+
+// Paged: pools [P, page_size, KV, hd], table [B, n_blocks] int32; the table's
+// batch stride is the last entry of strides.
+int atpu_paged_flash_prefill(const void* q, const void* k_pool, const void* v_pool,
+                             const void* table, const void* pos, void* out, int dtype, int B,
+                             int T_len, int H, int KV, int page_size, int n_blocks,
+                             const long long* strides, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  if (H % KV != 0 || PF_BM % (H / KV) != 0 || page_size <= 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T_len == 0) return (int)cudaSuccess;
+  const long long* a = strides + 3;
+  const long long t_sb = strides[14];
+  const int S = n_blocks * page_size;
+  cudaError_t err = dtype == 1
+      ? launch_prefill<__nv_bfloat16>(
+            q, paged_arena<__nv_bfloat16>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a),
+            p, out, B, T_len, H, KV, S, strides, scale, s)
+      : launch_prefill<float>(
+            q, paged_arena<float>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
+            B, T_len, H, KV, S, strides, scale, s);
+  return (int)err;
+}
+
+int atpu_paged_flash_decode(const void* q, const void* k_pool, const void* v_pool,
+                            const void* table, const void* pos, void* out, int dtype, int B,
+                            int H, int KV, int page_size, int n_blocks,
+                            const long long* strides, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  if (H % KV != 0 || page_size <= 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const long long* a = strides + 2;
+  const long long t_sb = strides[11];
+  const int S = n_blocks * page_size;
+  cudaError_t err = dtype == 1
+      ? launch_decode<__nv_bfloat16>(
+            q, paged_arena<__nv_bfloat16>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a),
+            p, out, B, H, KV, S, strides, scale, s)
+      : launch_decode<float>(
+            q, paged_arena<float>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
+            B, H, KV, S, strides, scale, s);
   return (int)err;
 }
 

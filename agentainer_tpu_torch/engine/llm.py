@@ -1,10 +1,10 @@
-"""Continuous-batching inference engine in PyTorch — the dense,
-single-device main path.
+"""Continuous-batching inference engine in PyTorch — the single-device
+main path, over the dense KV arena or the paged one.
 
 Reference: ``agentainer_tpu/engine/llm.py`` with ``prefix_cache=False``,
-``speculative=False``, ``deadlines=False``, ``paged_kv=False``,
-``fused_decode=False``, ``kv_tiering=False``, ``streaming=False`` and
-``approx_topk=False``; ``adaptive_decode`` is kept. The design carries over:
+``speculative=False``, ``deadlines=False``, ``fused_decode=False``,
+``kv_tiering=False``, ``streaming=False`` and ``approx_topk=False``;
+``adaptive_decode`` and ``paged_kv`` are kept. The design carries over:
 
 - a fixed slot batch ``[max_batch]`` decodes every active sequence each step
   at its own arena position; idle lanes decode at the scratch position
@@ -15,6 +15,12 @@ Reference: ``agentainer_tpu/engine/llm.py`` with ``prefix_cache=False``,
 - TTFT = prefill: the first token is sampled from the prefill logits;
 - sessions own KV: a chat session keeps its slot between turns and idle
   sessions are evicted LRU when slots run out;
+- ``paged_kv``: the arena is a pool of fixed-size pages with a block table
+  per lane. A session keeps its pages, not a lane, between turns, so
+  resident sessions outnumber ``max_batch``; idle residents are evicted LRU
+  when the pool runs dry, and a pool that cannot cover an in-flight request
+  fails that request with ``PagePoolExhausted`` (429) and rolls its session
+  back;
 - idempotent by request id: completed results are memoized.
 
 What differs from the reference, and why:
@@ -26,7 +32,12 @@ What differs from the reference, and why:
   synchronously (``.cpu()`` once per chunk). The reference's dispatch-ahead
   readback pipeline (``_PIPELINE_DEPTH``) becomes CUDA events and pinned
   buffers in a later slice;
-- the feature flags above are not ported yet: ``create`` raises
+- the paged allocator frees pages straight to the free list: the
+  reference's quarantine guards pages that a dispatched-but-unread chunk may
+  still write, and here no chunk is in flight when a page is freed (see
+  ``_free_page_ids``). The prefix-page mapping, tiering, snapshots of paged
+  sessions and the ``engine.page_alloc`` failpoint are not ported;
+- the other feature flags above are not ported yet: ``create`` raises
   ``ValueError`` naming any of them that is asked for, as it does for
   ``tp``/``ep``/``sp``/``pp`` > 1, ``quant`` and ``checkpoint``.
 
@@ -48,13 +59,19 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig, get_config
-from ..models.llama import KVCache, forward, init_params
-from ..ops.cuda_attention import flash_decode, flash_prefill
+from ..models.llama import KVCache, PagedKVCache, forward, init_params
+from ..ops.cuda_attention import (
+    flash_decode,
+    flash_prefill,
+    fused_paged_flash_decode,
+    fused_paged_flash_prefill,
+)
 from ..utils.hw import chip_spec
 from .sampling import sample_step
 from .tokenizer import load_tokenizer
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
+PAGE_SIZE_DEFAULT = 64
 
 # reference engine features this slice does not implement yet; /metrics
 # reports each as off. Asking for any of them — or for the reference's
@@ -63,7 +80,6 @@ FEATURE_FLAGS = (
     "prefix_cache",
     "speculative",
     "deadlines",
-    "paged_kv",
     "fused_decode",
     "kv_tiering",
     "streaming",
@@ -77,15 +93,51 @@ class EngineShutdown(RuntimeError):
     into every abandoned future instead of letting callers hang forever."""
 
 
+class EngineOverloaded(RuntimeError):
+    """Overload backpressure, not a fault. Carries a retry hint for the 429
+    Retry-After header."""
+
+    def __init__(self, depth: int, watermark: int, retry_after_s: float = 1.0):
+        super().__init__(f"engine overloaded: depth {depth} >= watermark {watermark}")
+        self.depth = depth
+        self.watermark = watermark
+        self.retry_after_s = retry_after_s
+
+
+class PagePoolExhausted(EngineOverloaded):
+    """Paged-arena allocation failed even after evicting idle residents:
+    the pool is full of in-flight pages. A policy signal that the serve
+    layer maps to 429 + Retry-After."""
+
+    def __init__(self, need: int, free: int):
+        super().__init__(depth=need, watermark=free)
+        self.args = (f"KV page pool exhausted: need {need} page(s), {free} free",)
+
+
 class PrefillFailed(RuntimeError):
     """Prefill broke for ONE request while the engine survived (per-request
     isolation); the serve layer marks the 500 as a poisoned input."""
 
 
 def _as_prefill_failure(e: Exception) -> Exception:
-    if isinstance(e, EngineShutdown):
+    """Policy terminations pass through typed (they map to their own HTTP
+    statuses); anything else becomes PrefillFailed."""
+    if isinstance(e, (EngineOverloaded, EngineShutdown)):
         return e
     return PrefillFailed(f"{type(e).__name__}: {e}")
+
+
+def _engine_device(device) -> torch.device:
+    """The engine's device: the card unless the caller asks for the CPU.
+    Asking for CUDA where there is no card raises instead of carrying on on
+    the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' (options['device'] = 'cpu') "
+            "to run on the CPU"
+        )
+    return device
 
 
 @dataclass
@@ -113,6 +165,25 @@ class GenRequest:
 
 
 @dataclass
+class PagedSession:
+    """A resident session in the paged arena: its KV lives in ``pages``
+    (physical page ids, logical order), not in a lane, so between turns it
+    holds only its pages and no compute lane."""
+
+    name: str
+    pages: list[int] = field(default_factory=list)
+    position: int = 0
+    pending_token: int | None = None
+    # bound compute lane while a request is in flight; None between turns
+    lane: int | None = None
+    last_used: float = 0.0
+    # admission-time pending token and position: a pool-exhaustion failure
+    # rolls the session back to them instead of dropping it
+    admit_pending: int | None = None
+    admit_position: int = 0
+
+
+@dataclass
 class Slot:
     idx: int
     session: str = ""
@@ -128,6 +199,9 @@ class Slot:
     dev_position: int = 0
     # this slot's lane in the decode carry is live
     decoding: bool = False
+    # paged arena: the session bound to this lane while a request is in
+    # flight (None in dense mode and between turns)
+    psess: PagedSession | None = None
 
 
 class LLMEngine:
@@ -141,13 +215,31 @@ class LLMEngine:
         decode_chunk: int = 8,
         prefill_chunk: int = 256,
         adaptive_decode: bool = True,
-        device="cpu",
+        paged_kv: bool = False,
+        page_size: int = PAGE_SIZE_DEFAULT,
+        kv_pages: int = 0,
+        device="cuda",
     ):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_batch = max_batch
+        self.device = _engine_device(device)
+        # Paged KV arena: sessions hold lists of fixed-size pages from one
+        # pool instead of dense [max_seq] rows. paged_kv=False keeps the
+        # dense arena.
+        self.paged = bool(paged_kv)
+        self.page_size = max(8, int(page_size or PAGE_SIZE_DEFAULT))
+        if self.paged:
+            # the logical arena tiles exactly into pages
+            max_seq = -(-max_seq // self.page_size) * self.page_size
         self.max_seq = max_seq
-        self.device = torch.device(device)
+        # pages per full logical sequence (the block-table width)
+        self._n_blocks = max(1, max_seq // self.page_size)
+        # pool: by default the dense arena's KV (max_batch x max_seq tokens),
+        # plus one scratch page per lane that absorbs parked-lane and
+        # padding writes without touching a session's pages
+        self._data_pages = max(1, int(kv_pages)) if kv_pages else max_batch * self._n_blocks
+        self._total_pages = self._data_pages + max_batch
         if self.device.type == "cuda" and self.device.index is None:
             # pin the index: the worker thread selects this device by it
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -172,9 +264,31 @@ class LLMEngine:
         self.scratch_pos = max_seq - 1  # idle-lane write target; never generated into
         self.params = params
         dtype = params["final_norm"].dtype
-        self.cache = KVCache.create(cfg, max_batch, max_seq, dtype=dtype, device=self.device)
+        if self.paged:
+            self.cache = PagedKVCache.create(
+                cfg, self._total_pages, self.page_size, dtype=dtype, device=self.device
+            )
+        else:
+            self.cache = KVCache.create(cfg, max_batch, max_seq, dtype=dtype, device=self.device)
         self.slots = [Slot(i) for i in range(max_batch)]
-        self.sessions: dict[str, int] = {}  # session name → owning slot index
+        # session name → owning slot index. Paged: the bound lane while a
+        # request is in flight, -1 while resident between turns (the KV
+        # lives in paged_sessions[name].pages)
+        self.sessions: dict[str, int] = {}
+
+        # -- paged-arena allocator (host side; _page_lock guards it) ------
+        # ids [0, _data_pages) are allocatable; id _data_pages + i is lane
+        # i's scratch page. The block table is host state (numpy), copied to
+        # the device once per dispatch.
+        self.paged_sessions: dict[str, PagedSession] = {}
+        self._page_lock = threading.RLock()
+        self._page_free: list[int] = list(range(self._data_pages - 1, -1, -1))
+        self._page_refs = np.zeros(self._total_pages, dtype=np.int64)
+        self._bt = np.empty((max_batch, self._n_blocks), dtype=np.int32)
+        for i in range(max_batch):
+            self._bt[i, :] = self._scratch_page(i)
+        self.page_exhausted_total = 0
+        self.pages_truncated = 0
 
         # Decode carry: (token, position, temperature, top_k, top_p) per lane
         # on the device. Idle lanes park at scratch_pos; a finished prompt's
@@ -224,12 +338,12 @@ class LLMEngine:
         self.flops_done = 0.0
         self.hbm_bytes_read = 0.0
         self._kv_bytes_per_pos = (
-            2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * self.cache.k_store.element_size()
+            2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * self.cache.k.element_size()
         )
         self.param_hbm_bytes = sum(
             t.numel() * t.element_size() for t in _leaves(params)
         )
-        self.kv_arena_bytes = 2 * self.cache.k.numel() * self.cache.k_store.element_size()
+        self.kv_arena_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
         self._chip = chip_spec(self.device)
         self._peak_flops = self._chip.bf16_flops
         self._peak_hbm_bps = self._chip.hbm_gbps
@@ -262,11 +376,7 @@ class LLMEngine:
             raise ValueError(f"quant={options['quant']!r}: quantized serving is not ported yet")
         if checkpoint:
             raise ValueError("checkpoint loading is not ported yet")
-        device = torch.device(options.get("device", "cuda"))
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass options['device'] = 'cpu' to run on the CPU"
-            )
+        device = _engine_device(options.get("device", "cuda"))
         cfg = get_config(config_name or "tiny")
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -282,6 +392,9 @@ class LLMEngine:
             decode_chunk=int(options.get("decode_chunk", 8)),
             prefill_chunk=int(options.get("prefill_chunk", 256)),
             adaptive_decode=bool(options.get("adaptive_decode", True)),
+            paged_kv=bool(options.get("paged_kv", False)),
+            page_size=int(options.get("page_size", PAGE_SIZE_DEFAULT) or PAGE_SIZE_DEFAULT),
+            kv_pages=int(options.get("kv_pages", 0) or 0),
             device=device,
         )
         if not options.get("skip_warmup"):
@@ -341,6 +454,8 @@ class LLMEngine:
         self.decode_chunk_hist = {}
         self.decode_chunks_shrunk = 0
         self.session_evictions = 0
+        self.page_exhausted_total = 0
+        self.pages_truncated = 0
         self.tokens_generated = 0
         self.prefills = 0
         self.decode_steps = 0
@@ -415,6 +530,16 @@ class LLMEngine:
 
     def clear_sessions(self, prefix: str = "") -> None:
         """Drop idle sessions (all, or those whose name starts with ``prefix``)."""
+        if self.paged:
+            with self._page_lock:
+                for name in [s for s in self.paged_sessions if s.startswith(prefix)]:
+                    sess = self.paged_sessions[name]
+                    if sess.lane is not None:
+                        continue  # request in flight; same skip as dense
+                    self._free_session_pages(sess)
+                    self.paged_sessions.pop(name, None)
+                    self.sessions.pop(name, None)
+            return
         with self._lock:
             for name in [s for s in self.sessions if s.startswith(prefix)]:
                 idx = self.sessions.pop(name)
@@ -444,6 +569,7 @@ class LLMEngine:
             },
             "decode_chunks_shrunk": self.decode_chunks_shrunk,
             **{flag: False for flag in FEATURE_FLAGS},
+            **self._paged_metrics(),
             "worker_errors": self.worker_errors,
             "last_worker_error": self.last_worker_error or None,
             "queue_depth": self._queue.qsize(),
@@ -458,8 +584,13 @@ class LLMEngine:
             "device": str(self.device),
             # launches of the hand-written attention kernels in this process
             "kernel_launches": {
-                "flash_prefill": flash_prefill.launches,
-                "flash_decode": flash_decode.launches,
+                fn.__name__: fn.launches
+                for fn in (
+                    flash_prefill,
+                    flash_decode,
+                    fused_paged_flash_prefill,
+                    fused_paged_flash_decode,
+                )
             },
             "flops_done": self.flops_done,
             "mfu_lifetime": round(self.flops_done / elapsed / self._peak_flops, 5),
@@ -471,6 +602,41 @@ class LLMEngine:
             "n_chips": 1,
             "param_hbm_bytes": self.param_hbm_bytes,
             "kv_arena_bytes": self.kv_arena_bytes,
+        }
+
+    def _paged_metrics(self) -> dict:
+        """The reference's paged gauges, under its key names. The prefix
+        page mapping is not ported, so its gauges are 0, and pages never
+        wait in quarantine here (``_free_page_ids``)."""
+        if not self.paged:
+            return {"paged_kv": False}
+        with self._page_lock:
+            free = len(self._page_free)
+            per_sess = sorted(len(s.pages) for s in self.paged_sessions.values())
+            live_tokens = sum(s.position for s in self.paged_sessions.values())
+        allocated = sum(per_sess)
+        # internal fragmentation: allocated page capacity that the resident
+        # sessions' live tokens do not fill
+        frag = (
+            round(100.0 * (1.0 - live_tokens / (allocated * self.page_size)), 2)
+            if allocated
+            else 0.0
+        )
+        return {
+            "paged_kv": True,
+            "page_size": self.page_size,
+            "kv_pages_total": self._data_pages,
+            "kv_pages_free": free,
+            "kv_pages_used": self._data_pages - free,
+            "kv_pages_quarantined": 0,
+            "kv_pages_prefix_pinned": 0,
+            "resident_sessions": len(self.paged_sessions),
+            "session_pages_p50": per_sess[len(per_sess) // 2] if per_sess else None,
+            "session_pages_max": per_sess[-1] if per_sess else None,
+            "kv_fragmentation_pct": frag,
+            "page_exhausted_total": self.page_exhausted_total,
+            "pages_truncated_total": self.pages_truncated,
+            "prefix_pages_shared_total": 0,
         }
 
     def shutdown(self) -> None:
@@ -610,9 +776,16 @@ class LLMEngine:
         except RuntimeError:
             pass  # caller's loop already closed; nobody left to notify
 
-    def _reset_slot(self, slot: Slot) -> None:
+    def _reset_slot(self, slot: Slot, rollback: bool = False) -> None:
         """Return a slot to cold idle after its request failed: its KV prefix
-        is no longer trusted."""
+        is no longer trusted. With ``rollback`` (a policy failure: pool
+        exhaustion, raised before any dispatch) the paged session's
+        pre-request KV is trusted and kept instead."""
+        if self.paged:
+            if rollback:
+                self._rollback_lane_session(slot)
+            else:
+                self._drop_lane_session(slot)
         if slot.decoding:
             self._park_lane(slot.idx)
         slot.request = None
@@ -663,6 +836,8 @@ class LLMEngine:
         return prompt, reset
 
     def _try_admit(self, req: GenRequest) -> bool:
+        if self.paged:
+            return self._try_admit_paged(req)
         slot = self._find_slot(req.session)
         if slot is None:
             return False
@@ -674,6 +849,49 @@ class LLMEngine:
         slot.pending_prompt = prompt
         slot.last_used = time.monotonic()
         return True
+
+    def _try_admit_paged(self, req: GenRequest) -> bool:
+        """Paged admission: bind the session (resident or new) to ANY free
+        lane — lanes carry no KV, the pages do. Runs under _page_lock: an
+        API-thread clear_sessions checks ``lane is None`` and frees pages,
+        so it must never interleave with a bind."""
+        with self._page_lock:
+            name = req.session
+            sess = self.paged_sessions.get(name) if name else None
+            if sess is not None and sess.lane is not None:
+                return False  # session busy: one request per session at a time
+            lane = next((s for s in self.slots if s.request is None), None)
+            if lane is None:
+                return False
+            fresh_session = sess is None
+            if fresh_session:
+                sess = PagedSession(name=name)
+            pend = sess.pending_token
+            prompt, reset = self._admit_prologue(sess.position, pend, req)
+            sess.pending_token = None
+            if reset:
+                # continuation didn't fit: reset the session's KV, pages too
+                self._free_session_pages(sess)
+                sess.position = 0
+            # pre-request state for a pool-exhaustion rollback; after a
+            # context reset there is none worth keeping
+            sess.admit_pending = pend if sess.position > 0 else None
+            sess.admit_position = sess.position
+            if fresh_session and name:
+                self.paged_sessions[name] = sess
+            sess.lane = lane.idx
+            sess.last_used = time.monotonic()
+            if name:
+                self.sessions[name] = lane.idx
+            lane.psess = sess
+            lane.session = name
+            lane.position = sess.position
+            lane.pending_token = None
+            lane.request = req
+            lane.pending_prompt = prompt
+            lane.last_used = time.monotonic()
+            self._bind_lane_bt(lane, sess)
+            return True
 
     def _find_slot(self, session: str) -> Slot | None:
         with self._lock:
@@ -730,9 +948,22 @@ class LLMEngine:
         bucket = self._bucket(n)
         padded = chunk + [0] * (bucket - n)
         # padding positions continue past the real tokens and may run past
-        # the arena end (dropped by KVCache.write); every in-arena padding
-        # slot is rewritten by a real token before any query can attend to it
+        # the arena end (dropped by KVCache.write, clamped to the scratch
+        # slot by scatter_paged_kv); every in-arena padding slot is rewritten
+        # by a real token before any query can attend to it
         positions = np.arange(slot.position, slot.position + bucket, dtype=np.int32)
+        if self.paged:
+            # pages cover the REAL tokens only; padding writes past them land
+            # in the lane's scratch page through the table's default
+            try:
+                self._ensure_lane_pages(slot, slot.position + n - 1)
+            except EngineOverloaded as e:
+                # backpressure, not a fault: fail THIS request with the typed
+                # 429 and roll its session back (the worker loop's prefill
+                # handler would count a worker error and drop the session)
+                self._fail_item(req, e)
+                self._reset_slot(slot, rollback=True)
+                return
         last_logits = self._prefill(slot.idx, padded, positions, n)
         self.flops_done += n * self.cfg.flops_per_token(slot.position + n // 2)
         self.hbm_bytes_read += self.param_hbm_bytes + (
@@ -767,22 +998,36 @@ class LLMEngine:
     ) -> torch.Tensor:
         """One bucket-padded prompt chunk through the model. K/V land in the
         slot's arena row IN PLACE through a row view (the reference slices
-        the row out of the donated cache and writes it back). Returns the
-        last real token's logits [V]."""
+        the row out of the donated cache and writes it back), or in the
+        pool through the lane's block-table row. Returns the last real
+        token's logits [V]."""
         tokens = torch.tensor([padded], dtype=torch.long, device=self.device)
         pos = torch.from_numpy(positions[None]).to(self.device)
-        logits = forward(self.params, self.cfg, tokens, pos, self.cache.row(slot_idx))
+        if self.paged:
+            cache, table = self.cache, self._device_table(slot_idx)
+        else:
+            cache, table = self.cache.row(slot_idx), None
+        logits = forward(self.params, self.cfg, tokens, pos, cache, block_table=table)
         return logits[0, n_real - 1]
+
+    def _device_table(self, lane: int | None = None) -> torch.Tensor:
+        """The block table on the device: lane ``lane``'s row, or every row.
+        A synchronous copy: the host mutates ``_bt`` right after."""
+        rows = self._bt if lane is None else self._bt[lane : lane + 1]
+        return torch.tensor(rows, dtype=torch.int32, device=self.device)
 
     def _decode_n(self, chunk: int) -> torch.Tensor:
         """``chunk`` autoregressive steps over every lane, chained on the
         device carry (the reference's ``lax.scan`` in ``decode_n``); returns
         the sampled tokens [chunk, B]."""
         all_greedy = all(t <= 0.0 for t in self._lane_temps)
+        # pages were pre-allocated for the whole chunk: one table serves it
+        table = self._device_table() if self.paged else None
         toks = []
         for _ in range(chunk):
             logits = forward(
-                self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache
+                self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
+                block_table=table,
             )
             nxt = sample_step(
                 logits[:, 0], self._gen, self._dtemps, self._dtopk, self._dtopp,
@@ -825,6 +1070,15 @@ class LLMEngine:
             "ttft_ms": round(req.ttft_ms, 2) if req.ttft_ms else None,
             "ttft_breakdown": breakdown,
         }
+        # Paged: settle the session before resolving the caller — sync the
+        # lane's final state back, then release the lane (the session stays
+        # resident in pages). "await chat() returned" then implies the
+        # session is settled.
+        if self.paged:
+            if slot.psess is not None:
+                slot.psess.position = slot.position
+                slot.psess.pending_token = slot.pending_token
+            self._detach_lane(slot)
         req.loop.call_soon_threadsafe(_resolve, req.future, result)
 
     def _decode_dispatch(self) -> None:
@@ -839,6 +1093,21 @@ class LLMEngine:
         if needed <= 0:
             return  # every live lane's whole budget is already in flight
         chunk = self._pick_chunk(needed)
+        if self.paged:
+            # pre-allocate pages covering every step of the chunk so the
+            # block table is constant across it; a lane the pool can't cover
+            # fails with 429 backpressure — the others keep decoding
+            kept = []
+            for s, r, p in snapshot:
+                try:
+                    self._ensure_lane_pages(s, p + chunk - 1)
+                    kept.append((s, r, p))
+                except EngineOverloaded as e:
+                    self._fail_item(r, e)
+                    self._reset_slot(s, rollback=True)
+            snapshot = kept
+            if not snapshot:
+                return
         toks = self._decode_n(chunk)
         for s, r, _ in snapshot:
             s.dev_position += chunk
@@ -934,6 +1203,171 @@ class LLMEngine:
                 slot.position = start + chunk
 
 
+    # -- paged arena: page allocator + block tables -------------------------
+    #
+    # Host-side bookkeeping for the device page pool: the free list, the
+    # refcounts and the block table live in numpy under _page_lock (the
+    # worker allocates; API threads clear sessions).
+
+    def _scratch_page(self, lane: int) -> int:
+        """Lane ``lane``'s own scratch page: every block-table entry not
+        covered by the bound session's pages points here, so parked decode
+        steps and bucket-padding writes land where no live query looks."""
+        return self._data_pages + lane
+
+    def _alloc_pages(self, n: int) -> list[int]:
+        """Take ``n`` pages off the free list, evicting idle resident
+        sessions LRU-first when it runs dry. Raises PagePoolExhausted (429
+        backpressure) when that cannot cover the need."""
+        if n <= 0:
+            return []
+        with self._page_lock:
+            if len(self._page_free) < n:
+                self._reclaim_pages(n)
+            if len(self._page_free) < n:
+                self.page_exhausted_total += 1
+                raise PagePoolExhausted(n, len(self._page_free))
+            ids = [self._page_free.pop() for _ in range(n)]
+            self._page_refs[ids] = 1
+            return ids
+
+    def _reclaim_pages(self, need: int) -> None:
+        """Evict idle resident sessions, least recently used first, until
+        ``need`` pages are free or none is left; sessions with a request in
+        flight are never touched. Caller holds _page_lock."""
+        while len(self._page_free) < need:
+            idle = [s for s in self.paged_sessions.values() if s.lane is None and s.pages]
+            if not idle:
+                break
+            victim = min(idle, key=lambda s: s.last_used)
+            self.session_evictions += 1
+            self._free_session_pages(victim)
+            self.paged_sessions.pop(victim.name, None)
+            self.sessions.pop(victim.name, None)
+
+    def _free_page_ids(self, ids: list[int]) -> None:
+        """Return zero-ref pages straight to the free list. The reference
+        parks them in a quarantine while readbacks are in flight, because a
+        chunk dispatched before the free may still write through the old
+        block table. Here no chunk is in flight at a free: every dispatch
+        is read back synchronously before the worker frees anything, and all
+        device writes go in order on one CUDA stream, so a write through a
+        stale table lands before any later owner's write to that page."""
+        with self._page_lock:
+            self._page_free.extend(ids)
+
+    def _decref_page(self, pid: int) -> None:
+        with self._page_lock:
+            self._page_refs[pid] -= 1
+            if self._page_refs[pid] <= 0:
+                self._page_refs[pid] = 0
+                self._free_page_ids([pid])
+
+    def _free_session_pages(self, sess: PagedSession) -> None:
+        pages, sess.pages = sess.pages, []
+        for pid in pages:
+            self._decref_page(pid)
+
+    def _bind_lane_bt(self, slot: Slot, sess: PagedSession) -> None:
+        """Point the lane's block-table row at the session's pages; every
+        uncovered block falls back to the lane's scratch page."""
+        self._bt[slot.idx, :] = self._scratch_page(slot.idx)
+        if sess.pages:
+            self._bt[slot.idx, : len(sess.pages)] = sess.pages
+
+    def _ensure_lane_pages(self, slot: Slot, upto_pos: int) -> None:
+        """Grow the bound session's pages (and the lane's table row) to cover
+        writes through logical position ``upto_pos`` (at most the last
+        position a request may reach, max_seq - 2). Called before every
+        prefill and decode dispatch; a failure surfaces as
+        PagePoolExhausted for THIS request only."""
+        sess = slot.psess
+        if sess is None:
+            return
+        blocks = min(max(0, upto_pos), self.max_seq - 2) // self.page_size + 1
+        have = len(sess.pages)
+        if have >= blocks:
+            return
+        new = self._alloc_pages(blocks - have)
+        with self._page_lock:
+            sess.pages.extend(new)
+            self._bt[slot.idx, have:blocks] = new
+
+    def _truncate_session_pages(self, sess: PagedSession) -> None:
+        """Free whole pages beyond the live context (what a decode chunk's
+        overshoot left behind)."""
+        with self._page_lock:
+            keep = 0 if sess.position <= 0 else (sess.position - 1) // self.page_size + 1
+            if len(sess.pages) <= keep:
+                return
+            tail = sess.pages[keep:]
+            del sess.pages[keep:]
+            if sess.lane is not None:
+                # un-map the freed blocks from the live lane: a stale entry
+                # is read-masked but must never be written through
+                self._bt[sess.lane, keep:] = self._scratch_page(sess.lane)
+            self.pages_truncated += len(tail)
+            for pid in tail:
+                self._decref_page(pid)
+
+    def _rollback_lane_session(self, slot: Slot) -> None:
+        """Paged lane reset for a POLICY failure (pool exhaustion, 429): no
+        dispatch died mid-write, so the session's KV below its admission-time
+        position is intact. Truncate back to it, restore the admission-time
+        pending token, and keep the session resident: the client's retry
+        continues the conversation instead of finding it gone."""
+        sess = slot.psess
+        if sess is None or not sess.name or sess.admit_position <= 0:
+            # fresh or anonymous context: nothing from before the request
+            self._drop_lane_session(slot)
+            return
+        with self._page_lock:
+            slot.psess = None
+            self._bt[slot.idx, :] = self._scratch_page(slot.idx)
+            sess.position = sess.admit_position
+            sess.pending_token = sess.admit_pending
+            sess.last_used = time.monotonic()
+            sess.lane = None
+            self.sessions[sess.name] = -1
+            self._truncate_session_pages(sess)
+        slot.session = ""
+
+    def _drop_lane_session(self, slot: Slot) -> None:
+        """Paged lane reset after a FAULT: the bound session's KV is no
+        longer trusted (the failed call may have died mid-write), so its
+        pages go back to the pool and the session leaves residency."""
+        with self._page_lock:
+            sess, slot.psess = slot.psess, None
+            self._bt[slot.idx, :] = self._scratch_page(slot.idx)
+            if sess is None:
+                return
+            self._free_session_pages(sess)
+            if sess.name:
+                self.paged_sessions.pop(sess.name, None)
+                self.sessions.pop(sess.name, None)
+            slot.session = ""
+
+    def _detach_lane(self, slot: Slot) -> None:
+        """A finished request releases its compute lane while the session
+        stays resident in pages — what lets resident sessions outnumber
+        max_batch. Sessionless generations free their pages at once."""
+        with self._page_lock:
+            sess, slot.psess = slot.psess, None
+            self._bt[slot.idx, :] = self._scratch_page(slot.idx)
+            if sess is None:
+                return
+            sess.last_used = time.monotonic()
+            sess.lane = None
+            if sess.name:
+                self.sessions[sess.name] = -1
+                self._truncate_session_pages(sess)
+            else:
+                self._free_session_pages(sess)
+        slot.session = ""
+        slot.position = 0
+        slot.pending_token = None
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -949,7 +1383,7 @@ def _resolve(future: asyncio.Future, result: dict) -> None:
 
 def _reject(future: asyncio.Future, error: Exception) -> None:
     if not future.done():
-        if isinstance(error, (EngineShutdown, PrefillFailed)):
+        if isinstance(error, (EngineShutdown, EngineOverloaded, PrefillFailed)):
             future.set_exception(error)  # callers can catch the type
         else:
             future.set_exception(RuntimeError(f"engine worker error: {error}"))

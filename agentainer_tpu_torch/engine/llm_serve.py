@@ -41,7 +41,8 @@ MAX_TURNS = 50
 SESSION_CONVO_TTL_S = 7 * 24 * 3600
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    413: "Payload Too Large", 500: "Internal Server Error", 503: "Service Unavailable",
+    413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error",
+    503: "Service Unavailable",
 }
 _MAX_BODY = 16 << 20
 
@@ -246,10 +247,18 @@ class LLMServeApp:
         except asyncio.CancelledError:
             raise
         except Exception as e:
-            # any unhandled handler error becomes a JSON 500 carrying the
-            # exception string, with the traceback in the engine log
-            from .llm import PrefillFailed
+            from .llm import EngineOverloaded, PrefillFailed
 
+            if isinstance(e, EngineOverloaded):
+                # overload backpressure (a full KV page pool) is policy, not
+                # an error: 429 with a retry hint, as the reference maps it
+                return Response(
+                    429,
+                    {"error": str(e), "depth": e.depth, "watermark": e.watermark},
+                    {"Retry-After": str(max(1, int(round(e.retry_after_s))))},
+                )
+            # any other handler error becomes a JSON 500 carrying the
+            # exception string, with the traceback in the engine log
             self.unhandled_errors += 1
             self.last_unhandled_error = f"{type(e).__name__}: {e}"
             print(

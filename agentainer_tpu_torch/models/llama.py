@@ -1,9 +1,10 @@
 """Llama-3-family transformer in PyTorch.
 
 Reference: ``agentainer_tpu/models/llama.py`` — ``KVCache``,
-``init_params``, ``_mlp``, ``_attention_block`` (the dense-cache branch and
-the no-cache causal branch), ``forward`` and ``greedy_decode``. MoE, the
-paged arena and the sequence-parallel hooks wait for later slices.
+``PagedKVCache``, ``init_params``, ``_mlp``, ``_attention_block`` (the
+paged branch, the dense-cache branch and the no-cache causal branch),
+``forward`` and ``greedy_decode``. MoE and the sequence-parallel hooks wait
+for later slices.
 
 Parameters keep the reference's tree: a dict whose ``layers`` entries carry
 a leading ``[n_layers, ...]`` axis and whose matmul weights are stored
@@ -20,7 +21,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import attention_reference, cache_attention, causal_mask, flash_attention
+from ..ops.attention import (
+    attention_reference,
+    cache_attention,
+    causal_mask,
+    flash_attention,
+    paged_cache_attention,
+    scatter_paged_kv,
+)
 from ..ops.norms import rms_norm
 from ..ops.quant import dequant, embed_lookup
 from ..ops.rope import apply_rope
@@ -78,6 +86,27 @@ class KVCache:
         self.v_store[layer].index_put_((b_idx, idx), v)
 
 
+class PagedKVCache:
+    """Block-table KV arena: pools ``k``/``v`` of ``[L, n_pages, page_size,
+    KV, hd]``. A sequence owns a list of pages (its block-table row) instead
+    of a dense arena row, so resident sessions are bounded by the pool, not
+    by the batch width. Writes go through ``scatter_paged_kv`` in place."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+        self.k = k
+        self.v = v
+
+    @staticmethod
+    def create(
+        cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16, device=None
+    ) -> "PagedKVCache":
+        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return PagedKVCache(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+        )
+
+
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16, device=None
 ) -> dict:
@@ -130,9 +159,10 @@ def _attention_block(
     cfg: ModelConfig,
     positions: torch.Tensor,
     mask: torch.Tensor | None,
-    cache: KVCache | None,
+    cache: KVCache | PagedKVCache | None,
     layer: int,
     use_flash: bool,
+    block_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     b, t, d = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -142,7 +172,15 @@ def _attention_block(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
+    if cache is not None and block_table is not None:
+        # paged arena: write through the block table into pool pages, then
+        # attend over the lanes' pages (same masking rule, same numbers as
+        # the dense branch below)
+        scatter_paged_kv(cache.k[layer], cache.v[layer], k, v, block_table, positions)
+        attn = paged_cache_attention(
+            q, cache.k[layer], cache.v[layer], block_table, positions, use_kernel=use_flash
+        )
+    elif cache is not None:
         # scatter this step's K/V into the arena at per-sequence positions,
         # then attend over this layer's arena view
         cache.write(layer, positions, k, v)
@@ -160,16 +198,19 @@ def forward(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, T] int
     positions: torch.Tensor,  # [B, T] int
-    cache: KVCache | None = None,
+    cache: KVCache | PagedKVCache | None = None,
     use_flash: bool = True,
+    block_table: torch.Tensor | None = None,  # [B, n_blocks] int
 ) -> torch.Tensor:
     """Returns logits [B, T, V] in f32.
 
     With a cache: serves prefill (T = prompt chunk) and decode (T = 1) with
     per-sequence positions, writing K/V into ``cache`` IN PLACE (the
-    reference returns an updated cache from donated buffers). Without: pure
-    causal self-attention. ``use_flash=False`` takes the plain attention path
-    even where the kernels would run."""
+    reference returns an updated cache from donated buffers). With
+    ``block_table`` the cache is a :class:`PagedKVCache` and every KV read
+    and write goes through the table. Without a cache: pure causal
+    self-attention. ``use_flash=False`` takes the plain attention path even
+    where the kernels would run."""
     if cfg.is_moe:
         raise ValueError("MoE configs are not ported yet")
     x = embed_lookup(params["embed"], tokens)
@@ -179,7 +220,7 @@ def forward(
         mask = causal_mask(t, device=x.device).expand(tokens.shape[0], t, t)
     for layer in range(cfg.n_layers):
         lp = {k: dequant(v[layer]) for k, v in params["layers"].items()}
-        x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash)
+        x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash, block_table)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _mlp(h, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -1,10 +1,10 @@
 """Attention ops — plain PyTorch reference implementations + CUDA kernel
 dispatch.
 
-Reference: ``agentainer_tpu/ops/attention.py`` (the dense half:
-``attention_reference``, ``causal_mask``, ``cache_mask``,
-``flash_attention``, ``cache_attention``). The paged half waits for the
-paged-KV slice.
+Reference: ``agentainer_tpu/ops/attention.py``: ``attention_reference``,
+``causal_mask``, ``cache_mask``, ``flash_attention``, ``cache_attention``
+and the paged half, ``gather_pages``, ``scatter_paged_kv`` and
+``paged_cache_attention``.
 
 Dispatch follows the reference's ``_use_pallas``: the hand-written kernels
 (ops/cuda_attention.py) run when the tensors live on a CUDA device and
@@ -17,7 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_attention import flash_attention_causal, flash_decode, flash_prefill, kernel_supported
+from .cuda_attention import (
+    flash_attention_causal,
+    flash_decode,
+    flash_prefill,
+    kernel_supported,
+    paged_flash_decode,
+    paged_flash_prefill,
+)
 
 NEG_INF = -1e30
 
@@ -100,4 +107,75 @@ def cache_attention(
         if q.shape[1] == 1:
             return flash_decode(q[:, 0], ck, cv, pos[:, 0])[:, None]
         return flash_prefill(q, ck, cv, pos)
+    return attention_reference(q, ck, cv, mask=cache_mask(positions, ck.shape[1]))
+
+
+# -- paged KV (block-table) variants ------------------------------------
+#
+# The paged arena replaces per-sequence arena rows with a global pool of
+# fixed-size pages ``[P, page_size, KV, hd]`` plus a per-lane block table
+# ``[B, n_blocks]`` of physical page ids. Logical position ``p`` of lane
+# ``b`` lives at ``(block_table[b, p // page_size], p % page_size)``. The
+# gathered view is laid out exactly like a dense arena row, so the plain
+# path runs the same math as the dense one.
+
+
+def gather_pages(
+    pool_k: torch.Tensor,  # [P, page_size, KV, hd]
+    pool_v: torch.Tensor,
+    block_table: torch.Tensor,  # [B, n_blocks] int physical page ids
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each lane's logical arena from its pages: ``[B, n_blocks * page_size,
+    KV, hd]`` copies."""
+    b, nb = block_table.shape
+    ps = pool_k.shape[1]
+    idx = block_table.long()
+    k = pool_k[idx].reshape(b, nb * ps, *pool_k.shape[2:])
+    v = pool_v[idx].reshape(b, nb * ps, *pool_v.shape[2:])
+    return k, v
+
+
+def scatter_paged_kv(
+    pool_k: torch.Tensor,  # [P, page_size, KV, hd], written IN PLACE
+    pool_v: torch.Tensor,
+    k_new: torch.Tensor,  # [B, T, KV, hd]
+    v_new: torch.Tensor,
+    block_table: torch.Tensor,  # [B, n_blocks]
+    positions: torch.Tensor,  # [B, T] int
+) -> None:
+    """Write this step's K/V through the block table into pool pages, in
+    place (the reference returns updated pools). Positions past the logical
+    arena (bucket padding) clamp to its last slot ``S - 1``, the lane's
+    scratch slot that no live query attends; the clamp keeps every write in
+    range, so the pool needs no spare slot (the dense ``KVCache`` does)."""
+    ps = pool_k.shape[1]
+    s = block_table.shape[1] * ps
+    cpos = torch.clamp(positions, max=s - 1).long()
+    b_idx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    pages = block_table.long()[b_idx, cpos // ps]
+    offs = cpos % ps
+    pool_k.index_put_((pages, offs), k_new)
+    pool_v.index_put_((pages, offs), v_new)
+
+
+def paged_cache_attention(
+    q: torch.Tensor,  # [B, T, H, hd]
+    pool_k: torch.Tensor,  # [P, page_size, KV, hd]
+    pool_v: torch.Tensor,
+    block_table: torch.Tensor,  # [B, n_blocks]
+    positions: torch.Tensor,  # [B, T]
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Attention over a paged arena. On CUDA with a kernel-shaped head it
+    sends T == 1 to ``paged_flash_decode`` and T > 1 to
+    ``paged_flash_prefill``; elsewhere — or with ``use_kernel=False``, the
+    reference's ``use_pallas=False`` — it gathers the lanes' pages and runs
+    the plain reference under ``cache_mask``."""
+    if use_kernel and _use_kernel(q, q.shape[2], pool_k.shape[2], q.shape[3]):
+        pos = positions.to(torch.int32)
+        table = block_table.to(torch.int32)
+        if q.shape[1] == 1:
+            return paged_flash_decode(q[:, 0], pool_k, pool_v, table, pos[:, 0])[:, None]
+        return paged_flash_prefill(q, pool_k, pool_v, table, pos)
+    ck, cv = gather_pages(pool_k, pool_v, block_table)
     return attention_reference(q, ck, cv, mask=cache_mask(positions, ck.shape[1]))

@@ -1,29 +1,42 @@
-"""Flash attention over the dense KV arena: CUDA kernels for Hopper and
-their plain PyTorch versions.
+"""Flash attention over the KV arena: CUDA kernels for Hopper and their
+plain PyTorch versions.
 
 Reference: ``agentainer_tpu/ops/pallas_attention.py`` — ``flash_prefill``
 (``_prefill_kernel``), ``flash_decode`` (``_decode_kernel``),
-``kernel_supported`` and ``flash_attention_tpu``. The paged kernels of that
-module are not ported yet.
+``fused_paged_flash_prefill`` (``_paged_prefill_kernel``),
+``fused_paged_flash_decode`` (``_paged_decode_kernel``), the paged dispatch
+seam ``paged_flash_prefill`` / ``paged_flash_decode`` with its gate
+``_fused_paged_enabled``, ``kernel_supported`` and ``flash_attention_tpu``.
 
 Every function here takes the reference's layout: q ``[B, T, H, hd]`` (or
-``[B, H, hd]`` for decode), the arena k/v ``[B, S, KV, hd]`` and per-row
-int positions. Row ``pos`` sees arena slot ``j`` iff ``j <= pos`` and
-``j < S``; scores and softmax are f32; a row that sees no slot (``pos <
-0``) returns zeros; the output has q's dtype.
+``[B, H, hd]`` for decode), the dense arena k/v ``[B, S, KV, hd]`` or the
+page pools ``[P, page_size, KV, hd]`` with a block table ``[B, n_blocks]``
+(logical slot ``j`` of lane ``b`` is row ``j % page_size`` of page
+``table[b, j // page_size]``, ``S = n_blocks * page_size``), and per-row int
+positions. Row ``pos`` sees slot ``j`` iff ``j <= pos`` and ``j < S``;
+scores and softmax are f32; a row that sees no slot (``pos < 0``) returns
+zeros; the output has q's dtype.
 
-- ``flash_prefill`` / ``flash_decode`` are the wrappers. On a CPU tensor
-  they run the plain version; on a CUDA tensor they launch the hand-written
-  kernel in ``csrc/flash_attention.cu`` (built by ``nvcc`` at first launch,
+- ``flash_prefill`` / ``flash_decode`` / ``fused_paged_flash_prefill`` /
+  ``fused_paged_flash_decode`` are the wrappers. On a CPU tensor they run
+  the plain version; on a CUDA tensor they launch the hand-written kernel in
+  ``csrc/flash_attention.cu`` (built by ``nvcc`` at first launch,
   ``ops/_build.py``) or raise — there is no fallback from the card to the
   plain version. Each wrapper counts its kernel launches in ``.launches``.
-- ``flash_prefill_plain`` / ``flash_decode_plain`` compute the same function
-  in plain PyTorch: the CPU tests hold them against the JAX kernels, and the
-  card's check holds the kernels against them.
+- ``*_plain`` compute the same functions in plain PyTorch (the paged ones
+  gather the lane's pages into a dense view first): the CPU tests hold them
+  against the JAX kernels, and the card's check holds the kernels against
+  them.
+- ``paged_flash_prefill`` / ``paged_flash_decode`` are the dispatch seam:
+  the fused paged kernel where ``_fused_paged_enabled`` holds for the page
+  and head shape, else a gather into a dense view and the dense kernel (the
+  reference's own second branch). That is a shape gate, not an error
+  fallback.
 
-The kernels read q, k and v in place through their strides (the engine's
-arena rows are strided views); head_dim must be contiguous and every other
-stride a multiple of 16 bytes, since the kernels load 16 bytes per thread.
+The kernels read q, the arena and the pools in place through their strides
+(the engine's arena rows are strided views); head_dim must be contiguous and
+every other stride a multiple of 16 bytes, since the kernels load 16 bytes
+per thread.
 """
 
 from __future__ import annotations
@@ -89,6 +102,23 @@ def flash_decode_plain(q, k, v, q_positions) -> torch.Tensor:
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def paged_flash_prefill_plain(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    """Plain PyTorch ``fused_paged_flash_prefill``: gather the lanes' pages
+    into dense views, then ``flash_prefill_plain``."""
+    from .attention import gather_pages  # deferred: attention.py imports this module
+
+    k, v = gather_pages(pool_k, pool_v, block_table)
+    return flash_prefill_plain(q, k, v, q_positions)
+
+
+def paged_flash_decode_plain(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    """Plain PyTorch ``fused_paged_flash_decode``."""
+    from .attention import gather_pages
+
+    k, v = gather_pages(pool_k, pool_v, block_table)
+    return flash_decode_plain(q, k, v, q_positions)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -112,11 +142,32 @@ def _lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
     ]
     lib.atpu_flash_decode.restype = i32
+    lib.atpu_paged_flash_prefill.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+    ]
+    lib.atpu_paged_flash_prefill.restype = i32
+    lib.atpu_paged_flash_decode.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+    ]
+    lib.atpu_paged_flash_decode.restype = i32
     return lib
 
 
-def _check_cuda(name: str, q, k, v, positions) -> None:
+def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
+    """What the kernels take: everything on q's CUDA device, one dtype for
+    q/k/v, int32 positions, a kernel-shaped head, 16-byte aligned strides;
+    for the paged kernels k/v are the pools and ``table`` an int32
+    ``[B, n_blocks]`` block table, contiguous in its last axis."""
     tensors = {"q": q, "k": k, "v": v, "positions": positions}
+    if table is not None:
+        tensors["block_table"] = table
+        if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != q.shape[0]:
+            raise ValueError(
+                f"{name}: block_table must be int32 [B, n_blocks], got "
+                f"{table.dtype} {tuple(table.shape)}"
+            )
+        if table.stride(-1) != 1:
+            raise ValueError(f"{name}: block_table must be contiguous in its last axis")
     for key, x in tensors.items():
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name}: {key} must be on q's CUDA device, got {x.device}")
@@ -196,6 +247,86 @@ def flash_decode(q, k, v, q_positions) -> torch.Tensor:
 
 
 flash_decode.launches = 0
+
+
+def fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    """``flash_prefill`` over a paged arena: q [B, T, H, hd] against the
+    pools [P, ps, KV, hd] through the block table [B, n_blocks], with no
+    gathered arena in between."""
+    if q.device.type == "cpu":
+        return paged_flash_prefill_plain(q, pool_k, pool_v, block_table, q_positions)
+    _check_cuda("fused_paged_flash_prefill", q, pool_k, pool_v, q_positions, block_table)
+    b, t, h, hd = q.shape
+    ps, kv = pool_k.shape[1], pool_k.shape[2]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    st = _strides(
+        (q, (0, 1, 2)), (pool_k, (0, 1, 2)), (pool_v, (0, 1, 2)), (q_positions, (0, 1)),
+        (out, (0, 1, 2)), (block_table, (0,)),
+    )
+    err = _lib().atpu_paged_flash_prefill(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), block_table.data_ptr(),
+        q_positions.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, t, h, kv, ps,
+        block_table.shape[1], st, 1.0 / hd**0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "fused_paged_flash_prefill")
+    fused_paged_flash_prefill.launches += 1
+    return out
+
+
+fused_paged_flash_prefill.launches = 0
+
+
+def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    """``flash_decode`` over a paged arena: q [B, H, hd]; pages past each
+    lane's position are never loaded."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, pool_k, pool_v, block_table, q_positions)
+    _check_cuda("fused_paged_flash_decode", q, pool_k, pool_v, q_positions, block_table)
+    b, h, hd = q.shape
+    ps, kv = pool_k.shape[1], pool_k.shape[2]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    st = _strides(
+        (q, (0, 1)), (pool_k, (0, 1, 2)), (pool_v, (0, 1, 2)), (q_positions, (0,)),
+        (out, (0, 1)), (block_table, (0,)),
+    )
+    err = _lib().atpu_paged_flash_decode(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), block_table.data_ptr(),
+        q_positions.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, kv, ps,
+        block_table.shape[1], st, 1.0 / hd**0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "fused_paged_flash_decode")
+    fused_paged_flash_decode.launches += 1
+    return out
+
+
+fused_paged_flash_decode.launches = 0
+
+
+def _fused_paged_enabled(page_size: int, head_dim: int) -> bool:
+    """The fused paged kernels' shape gate, as the reference's: pages a
+    multiple of 8 slots and the kernels' head_dim. Otherwise the seam below
+    gathers into a dense view and runs the dense kernel."""
+    return page_size % 8 == 0 and head_dim == HEAD_DIM
+
+
+def paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    if _fused_paged_enabled(pool_k.shape[1], q.shape[-1]):
+        return fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions)
+    from .attention import gather_pages
+
+    k, v = gather_pages(pool_k, pool_v, block_table)
+    return flash_prefill(q, k, v, q_positions)
+
+
+def paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
+    if _fused_paged_enabled(pool_k.shape[1], q.shape[-1]):
+        return fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions)
+    from .attention import gather_pages
+
+    k, v = gather_pages(pool_k, pool_v, block_table)
+    return flash_decode(q, k, v, q_positions)
 
 
 def flash_attention_causal(q, k, v) -> torch.Tensor:

@@ -71,3 +71,73 @@ def test_kernels_read_strided_arena_views(dev):
     got = ca.flash_decode(q, k, v, pos)
     want = ca.flash_decode_plain(q, k.contiguous(), v.contiguous(), pos)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+def _paged_case(g, dev, dtype, b, heads, kv_heads, ps, s):
+    """Pools, a scrambled block table in which lanes 0 and 1 share a page,
+    and a last lane parked: its row is all its own scratch page (the ids
+    past the data pages, one per lane, as the engine lays them out)."""
+    nb = s // ps
+    n_data = b * nb
+    pool_k, pool_v = (_randn(g, dev, dtype, n_data + b, ps, kv_heads, 128) for _ in range(2))
+    table = torch.randperm(n_data, generator=g, device=dev)[: b * nb].reshape(b, nb).int()
+    table[1, 0] = table[0, 0]
+    table[b - 1] = n_data + b - 1
+    return pool_k, pool_v, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 1), (32, 8)])
+def test_paged_decode_kernel_matches_plain(dev, dtype, page_size, heads, kv_heads):
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, s = 4, 256
+    pool_k, pool_v, table = _paged_case(g, dev, dtype, b, heads, kv_heads, page_size, s)
+    q = _randn(g, dev, dtype, b, heads, 128)
+    pos = torch.tensor([0, 37, 200, s - 1], device=dev, dtype=torch.int32)
+    before = ca.fused_paged_flash_decode.launches
+    got = ca.fused_paged_flash_decode(q, pool_k, pool_v, table, pos)
+    assert ca.fused_paged_flash_decode.launches == before + 1
+    want = ca.paged_flash_decode_plain(q, pool_k, pool_v, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 1), (32, 8)])
+def test_paged_prefill_kernel_matches_plain(dev, dtype, page_size, heads, kv_heads):
+    """Ragged offsets; lane 1's rows run past the arena end (bucket padding),
+    where slots j >= S are masked."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, t, s = 3, 70, 256
+    pool_k, pool_v, table = _paged_case(g, dev, dtype, b, heads, kv_heads, page_size, s)
+    q = _randn(g, dev, dtype, b, t, heads, 128)
+    pos = (torch.tensor([5, 220, 100], device=dev)[:, None] + torch.arange(t, device=dev)).int()
+    before = ca.fused_paged_flash_prefill.launches
+    got = ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos)
+    assert ca.fused_paged_flash_prefill.launches == before + 1
+    want = ca.paged_flash_prefill_plain(q, pool_k, pool_v, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernels_equal_dense_kernels_on_the_same_kv(dev, dtype):
+    """The paged kernels share the dense kernels' body: on the same K/V laid
+    out both ways (pages through a scrambled table, and the gathered dense
+    arena) the outputs are bit-identical."""
+    from agentainer_tpu_torch.ops.attention import gather_pages
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, s, heads, kv_heads = 4, 512, 32, 8
+    pool_k, pool_v, table = _paged_case(g, dev, dtype, b, heads, kv_heads, 64, s)
+    k, v = gather_pages(pool_k, pool_v, table)
+    q = _randn(g, dev, dtype, b, heads, 128)
+    pos = torch.tensor([3, 64, 300, s - 1], device=dev, dtype=torch.int32)
+    assert torch.equal(
+        ca.fused_paged_flash_decode(q, pool_k, pool_v, table, pos), ca.flash_decode(q, k, v, pos)
+    )
+    q = _randn(g, dev, dtype, b, 96, heads, 128)
+    pos = (torch.tensor([0, 100, 400, 60], device=dev)[:, None] + torch.arange(96, device=dev)).int()
+    assert torch.equal(
+        ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
+    )

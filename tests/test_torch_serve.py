@@ -80,7 +80,10 @@ def test_chat_twice_history_metrics_clear(server):
     status, m = call(server, "GET", "/metrics")
     assert status == 200 and m["engine"] == "llm" and m["model_loaded"] is True
     assert m["tokens_generated"] >= 2 and m["requests_total"] >= 3
-    assert set(m["kernel_launches"]) == {"flash_prefill", "flash_decode"}
+    assert set(m["kernel_launches"]) == {
+        "flash_prefill", "flash_decode", "fused_paged_flash_prefill", "fused_paged_flash_decode",
+    }
+    assert m["paged_kv"] is False
 
     status, doc = call(server, "POST", "/clear")
     assert status == 200 and doc == {"status": "cleared"}
