@@ -27,10 +27,10 @@
 // values the paged and dense kernels are bit-identical (the served paged
 // path's greedy text equals the dense path's). A paged block stages its
 // lane's table row in shared memory once and looks the page up for every
-// 16-byte load, so any page size works (the dispatch gate still asks for
-// page_size % 8 == 0, as the reference's does); at the default page_size of
-// 64 each 64-slot K/V tile is exactly one page. Page ids are arbitrary and
-// lanes may share pages.
+// 16-byte load, so any page size works and, unlike the reference, no
+// page-size gate sends a pool through a gathered dense view; at the default
+// page_size of 64 each 64-slot K/V tile is exactly one page. Page ids are
+// arbitrary and lanes may share pages.
 //
 // Layout: q [B, T, H, hd], the arena k/v [B, S, KV, hd] and the pools
 // [P, ps, KV, hd] are read IN PLACE through their strides (element strides

@@ -65,6 +65,7 @@ from ..ops.cuda_attention import (
     flash_prefill,
     fused_paged_flash_decode,
     fused_paged_flash_prefill,
+    kernel_supported,
 )
 from ..utils.hw import chip_spec
 from .sampling import sample_step
@@ -127,15 +128,21 @@ def _as_prefill_failure(e: Exception) -> Exception:
     return PrefillFailed(f"{type(e).__name__}: {e}")
 
 
-def _engine_device(device) -> torch.device:
+def _engine_device(device, cfg: ModelConfig) -> torch.device:
     """The engine's device: the card unless the caller asks for the CPU.
-    Asking for CUDA where there is no card raises instead of carrying on on
-    the CPU."""
+    Asking for CUDA where there is no card, or for a model whose attention
+    head the kernels do not take, raises instead of carrying on on the CPU
+    or in plain attention."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' (options['device'] = 'cpu') "
             "to run on the CPU"
+        )
+    if device.type == "cuda" and not kernel_supported(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
+        raise ValueError(
+            f"{cfg.name}: no attention kernel for {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads} kv heads of head_dim {cfg.head_dim}; pass device='cpu'"
         )
     return device
 
@@ -223,7 +230,7 @@ class LLMEngine:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_batch = max_batch
-        self.device = _engine_device(device)
+        self.device = _engine_device(device, cfg)
         # Paged KV arena: sessions hold lists of fixed-size pages from one
         # pool instead of dense [max_seq] rows. paged_kv=False keeps the
         # dense arena.
@@ -376,8 +383,8 @@ class LLMEngine:
             raise ValueError(f"quant={options['quant']!r}: quantized serving is not ported yet")
         if checkpoint:
             raise ValueError("checkpoint loading is not ported yet")
-        device = _engine_device(options.get("device", "cuda"))
         cfg = get_config(config_name or "tiny")
+        device = _engine_device(options.get("device", "cuda"), cfg)
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         gen = torch.Generator(device=device)
@@ -960,9 +967,11 @@ class LLMEngine:
             except EngineOverloaded as e:
                 # backpressure, not a fault: fail THIS request with the typed
                 # 429 and roll its session back (the worker loop's prefill
-                # handler would count a worker error and drop the session)
-                self._fail_item(req, e)
+                # handler would count a worker error and drop the session).
+                # Roll back before resolving, so the caller that sees the
+                # 429 finds its session as it was
                 self._reset_slot(slot, rollback=True)
+                self._fail_item(req, e)
                 return
         last_logits = self._prefill(slot.idx, padded, positions, n)
         self.flops_done += n * self.cfg.flops_per_token(slot.position + n // 2)
@@ -1103,8 +1112,8 @@ class LLMEngine:
                     self._ensure_lane_pages(s, p + chunk - 1)
                     kept.append((s, r, p))
                 except EngineOverloaded as e:
-                    self._fail_item(r, e)
                     self._reset_slot(s, rollback=True)
+                    self._fail_item(r, e)
             snapshot = kept
             if not snapshot:
                 return

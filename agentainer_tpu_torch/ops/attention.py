@@ -6,11 +6,14 @@ Reference: ``agentainer_tpu/ops/attention.py``: ``attention_reference``,
 and the paged half, ``gather_pages``, ``scatter_paged_kv`` and
 ``paged_cache_attention``.
 
-Dispatch follows the reference's ``_use_pallas``: the hand-written kernels
-(ops/cuda_attention.py) run when the tensors live on a CUDA device and
-``kernel_supported`` holds for the shape; anything else takes the plain
-reference path. Softmax runs in float32; GQA groups query heads over shared
-KV heads instead of repeating K/V.
+Dispatch: tensors on the card go to the hand-written kernels
+(ops/cuda_attention.py), whose wrappers raise for a head shape the kernels do
+not take (``kernel_supported``); only CPU tensors, or an explicit
+``use_kernel=False`` (the reference's ``use_pallas=False``), take the plain
+reference path. The reference also gives way to plain XLA for an unsupported
+head on the TPU; the port raises instead, so nothing on the card runs plain
+attention unnoticed. Softmax runs in float32; GQA groups query heads over
+shared KV heads instead of repeating K/V.
 """
 
 from __future__ import annotations
@@ -21,9 +24,8 @@ from .cuda_attention import (
     flash_attention_causal,
     flash_decode,
     flash_prefill,
-    kernel_supported,
-    paged_flash_decode,
-    paged_flash_prefill,
+    fused_paged_flash_decode,
+    fused_paged_flash_prefill,
 )
 
 NEG_INF = -1e30
@@ -68,8 +70,8 @@ def cache_mask(q_positions: torch.Tensor, cache_len: int) -> torch.Tensor:
     return slots <= q_positions[:, :, None]
 
 
-def _use_kernel(x: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
-    return x.device.type == "cuda" and kernel_supported(n_heads, n_kv_heads, head_dim)
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type != "cpu"
 
 
 def flash_attention(
@@ -79,9 +81,9 @@ def flash_attention(
     mask: torch.Tensor | None = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Dispatch: the prefill kernel on CUDA for causal no-cache attention,
-    the plain reference elsewhere."""
-    if causal and mask is None and _use_kernel(q, q.shape[2], k.shape[2], q.shape[3]):
+    """Dispatch: the prefill kernel on the card for causal no-cache
+    attention, the plain reference for CPU tensors or an explicit mask."""
+    if causal and mask is None and _on_card(q):
         return flash_attention_causal(q, k, v)
     if causal and mask is None:
         mask = causal_mask(q.shape[1], device=q.device)
@@ -97,12 +99,12 @@ def cache_attention(
 ) -> torch.Tensor:
     """Attention over the KV arena: row t sees slot j iff j <= positions[b,t].
 
-    The serving hot path (ragged cached prefill and T == 1 decode). On CUDA
-    with a kernel-shaped head it sends T > 1 to ``flash_prefill`` and
-    T == 1 to ``flash_decode``; elsewhere — or with ``use_kernel=False``,
-    the reference's ``use_pallas=False`` — it materializes ``cache_mask``
-    and runs the plain reference."""
-    if use_kernel and _use_kernel(q, q.shape[2], ck.shape[2], q.shape[3]):
+    The serving hot path (ragged cached prefill and T == 1 decode). On the
+    card it sends T > 1 to ``flash_prefill`` and T == 1 to
+    ``flash_decode``; on the CPU — or with ``use_kernel=False``, the
+    reference's ``use_pallas=False`` — it materializes ``cache_mask`` and
+    runs the plain reference."""
+    if use_kernel and _on_card(q):
         pos = positions.to(torch.int32)
         if q.shape[1] == 1:
             return flash_decode(q[:, 0], ck, cv, pos[:, 0])[:, None]
@@ -166,16 +168,17 @@ def paged_cache_attention(
     positions: torch.Tensor,  # [B, T]
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Attention over a paged arena. On CUDA with a kernel-shaped head it
-    sends T == 1 to ``paged_flash_decode`` and T > 1 to
-    ``paged_flash_prefill``; elsewhere — or with ``use_kernel=False``, the
-    reference's ``use_pallas=False`` — it gathers the lanes' pages and runs
-    the plain reference under ``cache_mask``."""
-    if use_kernel and _use_kernel(q, q.shape[2], pool_k.shape[2], q.shape[3]):
+    """Attention over a paged arena. On the card it sends T == 1 to
+    ``fused_paged_flash_decode`` and T > 1 to ``fused_paged_flash_prefill``,
+    which read the pages through the table for any page size; on the CPU —
+    or with ``use_kernel=False``, the reference's ``use_pallas=False`` — it
+    gathers the lanes' pages and runs the plain reference under
+    ``cache_mask``."""
+    if use_kernel and _on_card(q):
         pos = positions.to(torch.int32)
         table = block_table.to(torch.int32)
         if q.shape[1] == 1:
-            return paged_flash_decode(q[:, 0], pool_k, pool_v, table, pos[:, 0])[:, None]
-        return paged_flash_prefill(q, pool_k, pool_v, table, pos)
+            return fused_paged_flash_decode(q[:, 0], pool_k, pool_v, table, pos[:, 0])[:, None]
+        return fused_paged_flash_prefill(q, pool_k, pool_v, table, pos)
     ck, cv = gather_pages(pool_k, pool_v, block_table)
     return attention_reference(q, ck, cv, mask=cache_mask(positions, ck.shape[1]))

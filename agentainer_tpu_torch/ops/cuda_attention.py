@@ -4,9 +4,8 @@ plain PyTorch versions.
 Reference: ``agentainer_tpu/ops/pallas_attention.py`` — ``flash_prefill``
 (``_prefill_kernel``), ``flash_decode`` (``_decode_kernel``),
 ``fused_paged_flash_prefill`` (``_paged_prefill_kernel``),
-``fused_paged_flash_decode`` (``_paged_decode_kernel``), the paged dispatch
-seam ``paged_flash_prefill`` / ``paged_flash_decode`` with its gate
-``_fused_paged_enabled``, ``kernel_supported`` and ``flash_attention_tpu``.
+``fused_paged_flash_decode`` (``_paged_decode_kernel``), ``kernel_supported``
+and ``flash_attention_tpu``.
 
 Every function here takes the reference's layout: q ``[B, T, H, hd]`` (or
 ``[B, H, hd]`` for decode), the dense arena k/v ``[B, S, KV, hd]`` or the
@@ -27,11 +26,11 @@ zeros; the output has q's dtype.
   gather the lane's pages into a dense view first): the CPU tests hold them
   against the JAX kernels, and the card's check holds the kernels against
   them.
-- ``paged_flash_prefill`` / ``paged_flash_decode`` are the dispatch seam:
-  the fused paged kernel where ``_fused_paged_enabled`` holds for the page
-  and head shape, else a gather into a dense view and the dense kernel (the
-  reference's own second branch). That is a shape gate, not an error
-  fallback.
+
+The reference gates its fused paged kernels on ``page_size % 8 == 0`` (its
+sublane tiling) and gathers into a dense view otherwise. These kernels look
+the page up for every 16-byte load, so they take any page size and need no
+such gate or second branch.
 
 The kernels read q, the arena and the pools in place through their strides
 (the engine's arena rows are strided views); head_dim must be contiguous and
@@ -158,6 +157,11 @@ def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
     q/k/v, int32 positions, a kernel-shaped head, 16-byte aligned strides;
     for the paged kernels k/v are the pools and ``table`` an int32
     ``[B, n_blocks]`` block table, contiguous in its last axis."""
+    if not kernel_supported(q.shape[-2], k.shape[2], q.shape[-1]) or k.shape[-1] != HEAD_DIM:
+        raise ValueError(
+            f"{name}: unsupported shape q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"(head_dim {HEAD_DIM}, query heads per kv head in {_GROUPS})"
+        )
     tensors = {"q": q, "k": k, "v": v, "positions": positions}
     if table is not None:
         tensors["block_table"] = table
@@ -175,11 +179,6 @@ def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
         raise ValueError(f"{name}: q/k/v must share one dtype of {list(_DTYPES)}")
     if positions.dtype != torch.int32:
         raise ValueError(f"{name}: positions must be int32, got {positions.dtype}")
-    if not kernel_supported(q.shape[-2], k.shape[2], q.shape[-1]) or k.shape[-1] != HEAD_DIM:
-        raise ValueError(
-            f"{name}: unsupported shape q {tuple(q.shape)} k {tuple(k.shape)} "
-            f"(head_dim {HEAD_DIM}, query heads per kv head in {_GROUPS})"
-        )
     if k.shape != v.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     esize = q.element_size()
@@ -302,31 +301,6 @@ def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> tor
 
 
 fused_paged_flash_decode.launches = 0
-
-
-def _fused_paged_enabled(page_size: int, head_dim: int) -> bool:
-    """The fused paged kernels' shape gate, as the reference's: pages a
-    multiple of 8 slots and the kernels' head_dim. Otherwise the seam below
-    gathers into a dense view and runs the dense kernel."""
-    return page_size % 8 == 0 and head_dim == HEAD_DIM
-
-
-def paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
-    if _fused_paged_enabled(pool_k.shape[1], q.shape[-1]):
-        return fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions)
-    from .attention import gather_pages
-
-    k, v = gather_pages(pool_k, pool_v, block_table)
-    return flash_prefill(q, k, v, q_positions)
-
-
-def paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
-    if _fused_paged_enabled(pool_k.shape[1], q.shape[-1]):
-        return fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions)
-    from .attention import gather_pages
-
-    k, v = gather_pages(pool_k, pool_v, block_table)
-    return flash_decode(q, k, v, q_positions)
 
 
 def flash_attention_causal(q, k, v) -> torch.Tensor:

@@ -148,6 +148,24 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tca.flash_decode(q[:, 0], kv, kv, pos[:, 0])
 
 
+@pytest.mark.parametrize("op", ["flash_attention", "cache_attention", "paged_cache_attention"])
+def test_dispatch_off_the_cpu_raises_for_a_head_the_kernels_do_not_take(op):
+    """A tensor off the CPU whose head the kernels do not take (head_dim 64)
+    is refused by the kernel's wrapper; the dispatch never gives way to the
+    plain reference there (a meta tensor would run it without complaint)."""
+    q = torch.empty(1, 8, 4, 64, device="meta")
+    kv = torch.empty(1, 16, 2, 64, device="meta")
+    pos = torch.empty(1, 8, dtype=torch.int32, device="meta")
+    table = torch.empty(1, 1, dtype=torch.int32, device="meta")
+    calls = {
+        "flash_attention": lambda: tatt.flash_attention(q, kv, kv, causal=True),
+        "cache_attention": lambda: tatt.cache_attention(q, kv, kv, pos),
+        "paged_cache_attention": lambda: tatt.paged_cache_attention(q, kv, kv, table, pos),
+    }
+    with pytest.raises(ValueError, match="unsupported shape"):
+        calls[op]()
+
+
 def test_kernel_supported_shapes():
     assert tca.kernel_supported(32, 8, 128)
     assert not tca.kernel_supported(4, 2, 16)  # tiny: plain path

@@ -87,7 +87,7 @@ def _paged_case(g, dev, dtype, b, heads, kv_heads, ps, s):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("page_size", [16, 64, 12])
 @pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 1), (32, 8)])
 def test_paged_decode_kernel_matches_plain(dev, dtype, page_size, heads, kv_heads):
     g = torch.Generator(device=dev).manual_seed(3)
@@ -103,7 +103,7 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, page_size, heads, kv_head
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("page_size", [16, 64, 12])
 @pytest.mark.parametrize("heads,kv_heads", [(4, 2), (8, 1), (32, 8)])
 def test_paged_prefill_kernel_matches_plain(dev, dtype, page_size, heads, kv_heads):
     """Ragged offsets; lane 1's rows run past the arena end (bucket padding),
@@ -141,3 +141,18 @@ def test_paged_kernels_equal_dense_kernels_on_the_same_kv(dev, dtype):
     assert torch.equal(
         ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
     )
+
+
+def test_dispatch_on_the_card_raises_for_a_head_the_kernels_do_not_take(dev):
+    """head_dim 64 on the card is refused by the kernels' wrappers; the
+    dispatch does not run plain attention there."""
+    from agentainer_tpu_torch.ops.attention import cache_attention, paged_cache_attention
+
+    q = torch.zeros(1, 4, 4, 64, device=dev)
+    kv = torch.zeros(1, 16, 2, 64, device=dev)
+    pos = torch.arange(4, device=dev, dtype=torch.int32)[None]
+    table = torch.zeros(1, 1, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cache_attention(q, kv, kv, pos)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        paged_cache_attention(q, kv, kv, table, pos)

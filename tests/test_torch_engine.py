@@ -138,6 +138,19 @@ def test_engine_init_needs_a_card_unless_the_cpu_is_asked_for():
         TEngine(cfg, params, TTok(cfg.vocab_size), max_batch=1, max_seq=64)
 
 
+def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
+    """With a card, a model whose attention head the kernels do not take
+    (tiny: head_dim 16) is refused up front rather than served through plain
+    attention; llama3-8b's head is taken."""
+    from agentainer_tpu_torch.engine.llm import _engine_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        _engine_device("cuda", tconfigs.get_config("tiny"))
+    assert _engine_device("cuda", tconfigs.get_config("llama3-8b")).type == "cuda"
+    assert _engine_device("cpu", tconfigs.get_config("tiny")).type == "cpu"
+
+
 @pytest.mark.parametrize(
     "options,match",
     [

@@ -183,23 +183,29 @@ def test_paged_decode_plain_bf16():
     _close(got, want.astype(jnp.float32), BF16)
 
 
-@pytest.mark.parametrize("page_size,fused", [(16, True), (64, True), (12, False), (8, True)])
-def test_dispatch_seam_gate(page_size, fused):
-    """``page_size % 8 == 0`` and head_dim 128 take the fused kernel's
-    wrapper; anything else gathers and takes the dense kernel's wrapper. On
-    the CPU both run plain versions of one function."""
-    assert tca._fused_paged_enabled(page_size, 128) is fused
-    assert not tca._fused_paged_enabled(page_size, 64)
+@pytest.mark.parametrize("page_size", [16, 64, 12, 8])
+def test_paged_wrappers_take_any_page_size(page_size):
+    """The fused paged kernels look the page up per load, so no page-size
+    gate sends a page size that is not a multiple of 8 elsewhere:
+    ``paged_cache_attention`` and both wrappers agree with JAX's gathered
+    reference at every page size, decode and prefill alike."""
     b, heads, kv, hd, nb = 2, 4, 2, 128, 3
     pool_k, pool_v, table = _paged_fixture(13, b, nb, page_size, kv, hd, 8)
     rng = np.random.default_rng(14)
-    q, qd = _rand(rng, b, 5, heads, hd), _rand(rng, b, heads, hd)
+    q = _rand(rng, b, 5, heads, hd)
     pos = (np.array([0, 10], np.int32)[:, None] + np.arange(5, dtype=np.int32)).astype(np.int32)
     args = (_t(pool_k), _t(pool_v), _t(table))
-    ck, cv = tatt.gather_pages(*args)
-    _close(tca.paged_flash_prefill(_t(q), *args, _t(pos)), tca.flash_prefill_plain(_t(q), ck, cv, _t(pos)), 0)
-    dpos = _t(pos[:, -1])
-    _close(tca.paged_flash_decode(_t(qd), *args, dpos), tca.flash_decode_plain(_t(qd), ck, cv, dpos), 0)
+    want = {
+        t: jatt.paged_cache_attention(
+            *(jnp.asarray(x) for x in (q[:, :t], pool_k, pool_v, table, pos[:, -t:])),
+            use_pallas=False,
+        )
+        for t in (5, 1)
+    }
+    for t in (5, 1):
+        _close(tatt.paged_cache_attention(_t(q[:, :t]), *args, _t(pos[:, -t:])), want[t], F32)
+    _close(tca.fused_paged_flash_prefill(_t(q), *args, _t(pos)), want[5], F32)
+    _close(tca.fused_paged_flash_decode(_t(q[:, 0]), *args, _t(pos[:, -1])), want[1][:, 0], F32)
 
 
 def test_paged_wrappers_never_fall_back_off_the_cpu():
