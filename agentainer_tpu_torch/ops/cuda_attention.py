@@ -22,6 +22,11 @@ zeros; the output has q's dtype.
   ``csrc/flash_attention.cu`` (built by ``nvcc`` at first launch,
   ``ops/_build.py``) or raise — there is no fallback from the card to the
   plain version. Each wrapper counts its kernel launches in ``.launches``.
+- The decode kernels split the KV axis: ``flash_decode`` and
+  ``fused_paged_flash_decode`` launch two kernels per call, one block per
+  (kv head, lane, split of ``DECODE_SPLIT`` slots) writing f32 partials to
+  scratch the wrapper allocates, then a combine that merges the splits in
+  fixed order. ``.launches`` counts wrapper calls.
 - ``*_plain`` compute the same functions in plain PyTorch (the paged ones
   gather the lane's pages into a dense view first): the CPU tests hold them
   against the JAX kernels, and the card's check holds the kernels against
@@ -50,6 +55,10 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIM = 128  # the one head_dim the kernels are written for
 _GROUPS = (1, 2, 4, 8, 16)  # query heads per kv head the kernels instantiate
+# Slots per decode split: a multiple of the kernels' 64-slot tile, fixed here
+# so that the split (and so every bit of the result) depends on S alone, not
+# on the positions, the page size or the arena policy.
+DECODE_SPLIT = 256
 
 
 def kernel_supported(n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
@@ -138,7 +147,7 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.atpu_flash_prefill.restype = i32
     lib.atpu_flash_decode.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
     ]
     lib.atpu_flash_decode.restype = i32
     lib.atpu_paged_flash_prefill.argtypes = [
@@ -146,10 +155,18 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.atpu_paged_flash_prefill.restype = i32
     lib.atpu_paged_flash_decode.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float,
+        vp,
     ]
     lib.atpu_paged_flash_decode.restype = i32
     return lib
+
+
+@functools.cache
+def _decode_part_floats() -> int:
+    """f32 values of one (lane, head, split) partial (the library owns their
+    layout: acc[hd], m, l)."""
+    return _lib().atpu_decode_part_floats()
 
 
 def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
@@ -195,6 +212,15 @@ def _strides(*tensors_and_dims) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _decode_scratch(q, s_len: int) -> torch.Tensor:
+    """f32 partials of every (lane, head, split) that the split kernel
+    writes and the combine reads."""
+    b, h, _ = q.shape
+    n_split = -(-s_len // DECODE_SPLIT)
+    size = b * h * n_split * _decode_part_floats()
+    return torch.empty(size, dtype=torch.float32, device=q.device)
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
@@ -235,9 +261,10 @@ def flash_decode(q, k, v, q_positions) -> torch.Tensor:
     s, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     st = _strides((q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (q_positions, (0,)), (out, (0, 1)))
+    scratch = _decode_scratch(q, s)
     err = _lib().atpu_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, h, kv, s, st, 1.0 / hd**0.5,
+        scratch.data_ptr(), _DTYPES[q.dtype], b, h, kv, s, DECODE_SPLIT, st, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_decode")
@@ -289,10 +316,11 @@ def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> tor
         (q, (0, 1)), (pool_k, (0, 1, 2)), (pool_v, (0, 1, 2)), (q_positions, (0,)),
         (out, (0, 1)), (block_table, (0,)),
     )
+    scratch = _decode_scratch(q, ps * block_table.shape[1])
     err = _lib().atpu_paged_flash_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), block_table.data_ptr(),
-        q_positions.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, h, kv, ps,
-        block_table.shape[1], st, 1.0 / hd**0.5,
+        q_positions.data_ptr(), out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], b, h, kv,
+        ps, block_table.shape[1], DECODE_SPLIT, st, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "fused_paged_flash_decode")

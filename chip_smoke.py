@@ -13,11 +13,17 @@ exits non-zero):
                  KV 8, head_dim 128; the paged ones on the served pool
                  [264, 64, 8, 128] through a scrambled block table with a
                  shared page and a parked lane): in bf16 within one bf16
-                 rounding of the plain output, and on the same inputs in f32
-                 within 2e-5; kernel / plain / library times in bf16 (CUDA
-                 events; for the paged kernels, which no single library call
-                 computes, gather + SDPA as a yardstick), and the least time
-                 the card could take.
+                 rounding of the plain output (plus the stated P rounding
+                 for the tensor-core prefill), and on the same inputs in f32
+                 within 2e-5; kernel / plain / library times in bf16 (device
+                 span of single calls in a torch.profiler trace, with a cold
+                 L2, in turns, median and spread; for the paged kernels,
+                 which no single library call computes, gather + SDPA as a
+                 yardstick), the decode rows also at the served mix of 2
+                 live and 6 parked lanes, the least time the card could
+                 take, each kernel's device launches per call counted in the
+                 trace, and the card's SM clock and power draw sampled while
+                 each row runs.
 3. serve       — the port's standard-library ``llm_serve`` on a local port
                  with ``llama3-8b`` at full width and depth, bf16, random
                  weights from a seeded generator; /chat requests over three
@@ -63,6 +69,12 @@ PEAK_HBM_BPS = 3.35e12
 # by summation order only (the repo's f32 kernel tolerance,
 # tests/test_pallas_attention.py). Products run with TF32 off (set in main).
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-4
+# The bf16 prefill kernels run P·V on the tensor cores with P rounded to bf16
+# (the plain version keeps P in f32): at the served chunk that adds up to
+# ~8e-4 before the output's rounding, as measured on the CPU by
+# tests/test_torch_attention.py::test_bf16_p_rounding_error_at_the_served_prefill_shape.
+# The prefill rows add this to their bf16 atol; decode rounds nothing.
+BF16_P_ATOL = 1e-3
 F32_TOL = 2e-5
 # Logits of the model with the kernels against the plain attention path. f32:
 # the repo's tolerance for one model's f32 logits through two attention paths
@@ -76,6 +88,10 @@ H, KV, HD = 32, 8, 128  # llama3-8b attention
 S = 2048  # the engine's default max_seq
 B = 8  # the engine's default max_batch
 PS = 64  # the paged phase's page size
+# the timed decode positions: 8 lanes spread over the arena with one parked,
+# and the served step's mix of 2 live lanes near 300 and 6 parked at S - 1
+MIXED_POS = (0, 17, 130, 511, 777, 1024, 1500, S - 1)
+SERVED_MIX_POS = (299, 312, *(S - 1,) * 6)
 YARDSTICK = "gather_pages + scaled_dot_product_attention"
 # the four requests both serve phases send: (session, message)
 REQUESTS = (
@@ -90,47 +106,189 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
-    import torch
+ROUNDS = 10  # timing rounds; each times every function of a row twice, in turns
+FLUSH_BYTES = 256 << 20  # rewritten before each timed call: 5x the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000  # ~1 ms of device spin before each call: the host runs ahead
+MARK_CYCLES = 1_000  # the spin that parts a flush from the call after it
+TAIL_CYCLES = 400_000_000  # ~0.2 s of spin after a row: the last clock sample reads a busy card
+SOURCE = "agentainer_tpu_torch/csrc/flash_attention.cu"
+TIMING = (
+    "device span of one call (first start to last end of its device activities in a "
+    f"torch.profiler trace) with a cold L2 ({FLUSH_BYTES >> 20} MB rewritten before each), "
+    f"in turns with the row's other functions (a, b, c, c, b, a); median of {2 * ROUNDS}"
+)
+# Device launches one call of each wrapper is written to make (a decode call:
+# the split kernel, then the combine). The kernel phase counts them in the
+# trace of every timed call and fails on a difference.
+LAUNCHES_PER_CALL = {
+    "flash_prefill": 1, "flash_decode": 2,
+    "fused_paged_flash_prefill": 1, "fused_paged_flash_decode": 2,
+}
 
-    for _ in range(warm):
+
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(name: str) -> str:
+    """'void (anonymous namespace)::decode_kernel<...>(...)' -> 'decode_kernel'."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
+
+
+def time_in_turns(fns: dict, rounds: int = ROUNDS) -> tuple[dict[str, dict], dict]:
+    """Device time and device launches of single calls of each function,
+    cold and in turns.
+
+    Each round calls the functions in order and then in reverse, so drift
+    in clocks or neighbours reaches all of them alike. Before each call a
+    256 MB buffer is rewritten, which evicts the L2 (on the served path the
+    K/V is cold), and a spin kernel holds the stream, so the host runs ahead
+    of the device. Spins part the stream into flushes and calls: the whole
+    row runs under torch.profiler, and a call's time is the span of its
+    device activities in the trace, first start to last end, which host
+    stalls do not reach. nvidia-smi samples the SM clock and power while the
+    row runs. Returns, per function, the median, min and max in ms, the
+    device launches of one call (raises if two calls differ) and the names
+    of their kernels; and the row's clock samples."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for fn in fns.values():  # first launches, allocator
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    order = [name for _ in range(rounds) for name in (*fns, *reversed(fns))]
+    samples: list[str] = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _sampling(samples):
+            for name in order:
+                torch.cuda._sleep(MARK_CYCLES)
+                flush.zero_()
+                torch.cuda._sleep(SPIN_CYCLES)
+                fns[name]()
+            torch.cuda._sleep(MARK_CYCLES)
+            done = torch.cuda.Event()
+            done.record()
+            torch.cuda._sleep(TAIL_CYCLES)
+            done.synchronize()
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start,
+    )
+    groups: list[list] = []  # the activities between two spins: a flush, then a call, ...
+    for e in events:
+        if "spin_kernel" in e.name:
+            groups.append([])
+        elif groups:
+            groups[-1].append(e)
+    calls = groups[1:2 * len(order):2]
+    if len(groups) < 2 * len(order) + 1 or not all(calls):
+        raise RuntimeError(f"profiler trace: {len(groups)} spin-parted groups for {len(order)} calls")
+    per_fn = {name: [] for name in fns}
+    for name, acts in zip(order, calls):
+        per_fn[name].append(acts)
+    out = {}
+    for name, runs in per_fn.items():
+        launches = {len(acts) for acts in runs}
+        if len(launches) != 1:
+            raise RuntimeError(f"{name}: device launches per call differ between calls: {launches}")
+        ms = [
+            (max(e.time_range.end for e in acts) - min(e.time_range.start for e in acts)) / 1e3
+            for acts in runs
+        ]
+        out[name] = {
+            "median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "launches": launches.pop(), "kernels": [_kernel_name(e.name) for e in runs[0]],
+        }
+    return out, _clock_summary(samples)
+
+
+@contextlib.contextmanager
+def _sampling(samples: list):
+    """nvidia-smi's SM clock, power draw and power limit, sampled one after
+    another in a thread while the block runs."""
+    stop = threading.Event()
+
+    def run():
+        while not stop.is_set():
+            samples.append(smi("clocks.sm,power.draw,power.limit"))
+
+    th = threading.Thread(target=run, name="smi", daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        th.join(timeout=60)
+
+
+def _clock_summary(samples: list[str]) -> dict:
+    """Ranges of '<MHz> MHz, <W> W, <W> W' samples (a field nvidia-smi gives
+    as [N/A] is left out)."""
+    out = {"samples": len(samples)}
+    for i, name in enumerate(("sm_mhz", "power_w", "limit_w")):
+        vals = []
+        for line in samples:
+            with contextlib.suppress(ValueError, IndexError):
+                vals.append(float(line.split(",")[i].split()[0]))
+        out[f"{name}_min"], out[f"{name}_max"] = min(vals, default=None), max(vals, default=None)
+    return out
+
+
+def _timed(name: str, fns: dict) -> dict:
+    """``time_in_turns`` of a row's functions, as the row's keys: ``ms``
+    with its spread, ``launches_per_call`` and ``device_kernels`` for the
+    kernel ``name`` (raises unless it launched ``LAUNCHES_PER_CALL[name]``
+    per call), ``<fn>_ms`` with its spread for the others, and ``card``,
+    the clock samples."""
+    times, card = time_in_turns(fns)
+    out = {}
+    for fn, t in times.items():
+        key = "ms" if fn == "kernel" else f"{fn}_ms"
+        out.update({key: t["median"], f"{key}_min": t["min"], f"{key}_max": t["max"]})
+    kernel = times["kernel"]
+    if kernel["launches"] != LAUNCHES_PER_CALL[name]:
+        raise AssertionError(
+            f"{name}: {kernel['launches']} device launches per call ({kernel['kernels']}), "
+            f"written to make {LAUNCHES_PER_CALL[name]}"
+        )
+    return {**out, "launches_per_call": kernel["launches"], "device_kernels": kernel["kernels"], "card": card}
 
 
 def phase_build() -> str:
+    import torch
+
     from agentainer_tpu_torch.ops import cuda_attention as ca
 
     t0 = time.monotonic()
     ca._lib()
-    log(f"built and loaded csrc/flash_attention.cu in {time.monotonic() - t0:.1f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return smi.stdout.strip().splitlines()[0]
+    log(f"built and loaded csrc/flash_attention.cu in {time.monotonic() - t0:.1f}s "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    return smi("name,power.limit")
 
 
-def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, flops: float) -> dict:
     t_bytes, t_ops = bytes_moved / PEAK_HBM_BPS, flops / PEAK_BF16_FLOPS
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _compare(fn, plain, floats, rest) -> tuple[float, float]:
+def _compare(fn, plain, floats, rest, bf16_atol=BF16_ATOL) -> dict:
     """``fn`` against ``plain`` on the bf16 tensors ``floats`` (q, k, v) and
     on the same values in f32, with the int tensors ``rest`` as they are;
-    raises if either is out of tolerance, else returns both max abs errors."""
+    raises if either is out of tolerance, else returns both max abs errors
+    and their tolerances as the row's keys."""
     import torch
 
     errs = []
-    for dtype, rtol, atol in ((torch.bfloat16, BF16_RTOL, BF16_ATOL), (torch.float32, F32_TOL, F32_TOL)):
+    for dtype, rtol, atol in ((torch.bfloat16, BF16_RTOL, bf16_atol), (torch.float32, F32_TOL, F32_TOL)):
         args = (*(x.to(dtype) for x in floats), *rest)
         got, want = fn(*args).float(), plain(*args).float()
         torch.testing.assert_close(
@@ -138,7 +296,24 @@ def _compare(fn, plain, floats, rest) -> tuple[float, float]:
             msg=lambda m, d=dtype: f"{fn.__name__} ({d}) disagrees with its plain version: {m}",
         )
         errs.append((got - want).abs().max().item())
-    return errs[0], errs[1]
+    return {
+        "max_abs_err": errs[0], "tolerance": f"|d| <= {bf16_atol} + {BF16_RTOL} * |plain|",
+        "max_abs_err_f32": errs[1], "tolerance_f32": F32_TOL,
+    }
+
+
+def _row(name: str, replaces: int, **fields) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": SOURCE,
+        "replaces": f"agentainer_tpu/ops/pallas_attention.py:{replaces}", "timing": TIMING,
+        **fields,
+    }
+
+
+def _decode_mask(pos):
+    import torch
+
+    return (torch.arange(S, device=pos.device)[None, :] <= pos[:, None])[:, None, None]
 
 
 def phase_kernels() -> list[dict]:
@@ -161,56 +336,60 @@ def phase_kernels() -> list[dict]:
     b, t, off = 1, 256, 300
     q, k, v = randn(b, t, H, HD), randn(b, S, KV, HD), randn(b, S, KV, HD)
     pos = (off + torch.arange(t, device=dev, dtype=torch.int32))[None]
-    err, err32 = _compare(ca.flash_prefill, ca.flash_prefill_plain, (q, k, v), (pos,))
+    errs = _compare(ca.flash_prefill, ca.flash_prefill_plain, (q, k, v), (pos,), BF16_ATOL + BF16_P_ATOL)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(S, device=dev)[None, :] <= pos[0, :, None])[None, None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
     visible = (pos.clamp(max=S - 1) + 1).sum().item()  # visible slots summed over rows
     live = pos.max().item() + 1
     bytes_moved = 2 * (2 * q.numel() + 2 * b * live * KV * HD)  # q, out, live K and V
-    bound_ms, bound_by = _bound(bytes_moved, 4.0 * H * HD * visible)
-    out.append({
-        "name": "flash_prefill", "route": "cuda",
-        "source": "agentainer_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "agentainer_tpu/ops/pallas_attention.py:157",
-        "max_abs_err": err, "tolerance": f"|d| <= {BF16_ATOL} + {BF16_RTOL} * |plain|",
-        "max_abs_err_f32": err32, "tolerance_f32": F32_TOL,
-        "ms": time_ms(lambda: ca.flash_prefill(q, k, v, pos)),
-        "plain_ms": time_ms(lambda: ca.flash_prefill_plain(q, k, v, pos)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "library": "scaled_dot_product_attention",
-        "shape": f"q[{b},{t},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {off}..{off + t - 1}",
-    })
+    out.append(_row(
+        "flash_prefill", 157, **errs,
+        **_timed("flash_prefill", {
+            "kernel": lambda: ca.flash_prefill(q, k, v, pos),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            "plain": lambda: ca.flash_prefill_plain(q, k, v, pos),
+        }),
+        **_bound(bytes_moved, 4.0 * H * HD * visible), library="scaled_dot_product_attention",
+        shape=f"q[{b},{t},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {off}..{off + t - 1}",
+    ))
 
-    # decode: the engine's 8 lanes, mixed positions, one parked at S - 1
-    b = 8
+    # decode: the engine's 8 lanes at mixed positions, one parked at S - 1;
+    # then the served mix: 2 live lanes near 300, 6 parked at S - 1
+    b = B
     q, k, v = randn(b, H, HD), randn(b, S, KV, HD), randn(b, S, KV, HD)
-    pos = torch.tensor([0, 17, 130, 511, 777, 1024, 1500, S - 1], device=dev, dtype=torch.int32)
-    err, err32 = _compare(ca.flash_decode, ca.flash_decode_plain, (q, k, v), (pos,))
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    live = (pos.clamp(max=S - 1) + 1).sum().item()
-    bytes_moved = 2 * (2 * q.numel() + 2 * live * KV * HD)
-    bound_ms, bound_by = _bound(bytes_moved, 4.0 * H * HD * live)
-    out.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "agentainer_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "agentainer_tpu/ops/pallas_attention.py:268",
-        "max_abs_err": err, "tolerance": f"|d| <= {BF16_ATOL} + {BF16_RTOL} * |plain|",
-        "max_abs_err_f32": err32, "tolerance_f32": F32_TOL,
-        "ms": time_ms(lambda: ca.flash_decode(q, k, v, pos)),
-        "plain_ms": time_ms(lambda: ca.flash_decode_plain(q, k, v, pos)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "library": "scaled_dot_product_attention",
-        "shape": f"q[{b},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {pos.tolist()}",
-    })
+    shapes = {}
+    for key, pos in (("mixed", MIXED_POS), ("served_mix", SERVED_MIX_POS)):
+        pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+        mask = _decode_mask(pos)
+        live = (pos.clamp(max=S - 1) + 1).sum().item()
+        fns = {
+            "kernel": lambda pos=pos: ca.flash_decode(q, k, v, pos),
+            "library": lambda mask=mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        }
+        if key == "mixed":
+            fns["plain"] = lambda pos=pos: ca.flash_decode_plain(q, k, v, pos)
+        shapes[key] = {
+            **_timed("flash_decode", fns), **_bound(2 * (2 * q.numel() + 2 * live * KV * HD), 4.0 * H * HD * live),
+            "shape": f"q[{b},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {pos.tolist()}",
+        }
+        if key == "mixed":
+            errs = _compare(ca.flash_decode, ca.flash_decode_plain, (q, k, v), (pos,))
+    out.append(_row(
+        "flash_decode", 268, **errs, **shapes.pop("mixed"), library="scaled_dot_product_attention",
+        served_mix=shapes["served_mix"],
+    ))
     out += _paged_kernel_rows(randn, g)
     for row in out:
         ref = "library" if row["library_ms"] is not None else "yardstick"
         log(f"{row['name']}: max_abs_err bf16 {row['max_abs_err']:.3g} f32 {row['max_abs_err_f32']:.3g} "
-            f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} {ref} {row[ref + '_ms']:.4f} "
-            f"bound {row['bound_ms']:.4f}")
+            f"ms {row['ms']:.4f} [{row['ms_min']:.4f}, {row['ms_max']:.4f}] plain {row['plain_ms']:.4f} "
+            f"{ref} {row[ref + '_ms']:.4f} bound {row['bound_ms']:.4f} "
+            f"launches/call {row['launches_per_call']} {row['device_kernels']} card {row['card']}")
+        if "served_mix" in row:
+            mix = row["served_mix"]
+            log(f"{row['name']} served mix: ms {mix['ms']:.4f} [{mix['ms_min']:.4f}, {mix['ms_max']:.4f}] "
+                f"{ref} {mix[ref + '_ms']:.4f} bound {mix['bound_ms']:.4f} card {mix['card']}")
     return out
 
 
@@ -264,8 +443,9 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
     table = tables[:1]
     q = randn(1, t, H, HD)
     pos = (off + torch.arange(t, device=dev, dtype=torch.int32))[None]
-    err, err32 = _compare(
-        ca.fused_paged_flash_prefill, ca.paged_flash_prefill_plain, (q, pool_k, pool_v), (table, pos)
+    errs = _compare(
+        ca.fused_paged_flash_prefill, ca.paged_flash_prefill_plain, (q, pool_k, pool_v), (table, pos),
+        BF16_ATOL + BF16_P_ATOL,
     )
     mask = (torch.arange(S, device=dev)[None, :] <= pos[0, :, None])[None, None]
 
@@ -277,50 +457,53 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
 
     visible = (pos.clamp(max=S - 1) + 1).sum().item()
     bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos[:, -1]) * KV * HD + 4 * table.numel()
-    bound_ms, bound_by = _bound(bytes_moved, 4.0 * H * HD * visible)
-    rows.append({
-        "name": "fused_paged_flash_prefill", "route": "cuda",
-        "source": "agentainer_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "agentainer_tpu/ops/pallas_attention.py:454",
-        "max_abs_err": err, "tolerance": f"|d| <= {BF16_ATOL} + {BF16_RTOL} * |plain|",
-        "max_abs_err_f32": err32, "tolerance_f32": F32_TOL,
-        "ms": time_ms(lambda: ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos)),
-        "plain_ms": time_ms(lambda: ca.paged_flash_prefill_plain(q, pool_k, pool_v, table, pos)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "yardstick_ms": time_ms(gather_sdpa), "yardstick": YARDSTICK,
-        "shape": f"q[1,{t},{H},{HD}] {pool} table[1,{S // PS}], positions {off}..{off + t - 1}",
-    })
+    rows.append(_row(
+        "fused_paged_flash_prefill", 454, **errs,
+        **_timed("fused_paged_flash_prefill", {
+            "kernel": lambda: ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos),
+            "yardstick": gather_sdpa,
+            "plain": lambda: ca.paged_flash_prefill_plain(q, pool_k, pool_v, table, pos),
+        }),
+        **_bound(bytes_moved, 4.0 * H * HD * visible), library_ms=None, yardstick=YARDSTICK,
+        shape=f"q[1,{t},{H},{HD}] {pool} table[1,{S // PS}], positions {off}..{off + t - 1}",
+    ))
 
-    # decode: the engine's 8 lanes, mixed positions; lane 7 parked at S - 1
-    table = tables
+    # decode: the engine's 8 lanes at mixed positions, lane 7 parked at S - 1;
+    # then the served mix: lanes 0 and 1 live near 300, lanes 2-7 parked, each
+    # on its own scratch page as the engine parks them
     q = randn(B, H, HD)
-    pos = torch.tensor([0, 17, 130, 511, 777, 1024, 1500, S - 1], device=dev, dtype=torch.int32)
-    err, err32 = _compare(
-        ca.fused_paged_flash_decode, ca.paged_flash_decode_plain, (q, pool_k, pool_v), (table, pos)
-    )
-    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None]
+    parked = tables.clone()
+    parked[2:] = (B * (S // PS) + torch.arange(2, B, device=dev, dtype=torch.int32))[:, None]
+    shapes = {}
+    for key, table, pos in (("mixed", tables, MIXED_POS), ("served_mix", parked, SERVED_MIX_POS)):
+        pos = torch.tensor(pos, device=dev, dtype=torch.int32)
+        mask = _decode_mask(pos)
 
-    def gather_sdpa_decode():
-        k, v = gather_pages(pool_k, pool_v, table)
-        return F.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
-        )
+        def gather_sdpa_decode(table=table, mask=mask):
+            k, v = gather_pages(pool_k, pool_v, table)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+            )
 
-    visible = (pos.clamp(max=S - 1) + 1).sum().item()
-    bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos) * KV * HD + 4 * table.numel()
-    bound_ms, bound_by = _bound(bytes_moved, 4.0 * H * HD * visible)
-    rows.append({
-        "name": "fused_paged_flash_decode", "route": "cuda",
-        "source": "agentainer_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "agentainer_tpu/ops/pallas_attention.py:577",
-        "max_abs_err": err, "tolerance": f"|d| <= {BF16_ATOL} + {BF16_RTOL} * |plain|",
-        "max_abs_err_f32": err32, "tolerance_f32": F32_TOL,
-        "ms": time_ms(lambda: ca.fused_paged_flash_decode(q, pool_k, pool_v, table, pos)),
-        "plain_ms": time_ms(lambda: ca.paged_flash_decode_plain(q, pool_k, pool_v, table, pos)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "yardstick_ms": time_ms(gather_sdpa_decode), "yardstick": YARDSTICK,
-        "shape": f"q[{B},{H},{HD}] {pool} table[{B},{S // PS}], positions {pos.tolist()}",
-    })
+        fns = {
+            "kernel": lambda table=table, pos=pos: ca.fused_paged_flash_decode(q, pool_k, pool_v, table, pos),
+            "yardstick": gather_sdpa_decode,
+        }
+        if key == "mixed":
+            fns["plain"] = lambda: ca.paged_flash_decode_plain(q, pool_k, pool_v, tables, pos)
+            errs = _compare(
+                ca.fused_paged_flash_decode, ca.paged_flash_decode_plain, (q, pool_k, pool_v), (table, pos)
+            )
+        visible = (pos.clamp(max=S - 1) + 1).sum().item()
+        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos) * KV * HD + 4 * table.numel()
+        shapes[key] = {
+            **_timed("fused_paged_flash_decode", fns), **_bound(bytes_moved, 4.0 * H * HD * visible),
+            "shape": f"q[{B},{H},{HD}] {pool} table[{B},{S // PS}], positions {pos.tolist()}",
+        }
+    rows.append(_row(
+        "fused_paged_flash_decode", 577, **errs, **shapes.pop("mixed"), library_ms=None,
+        yardstick=YARDSTICK, served_mix=shapes["served_mix"],
+    ))
     return rows
 
 

@@ -9,6 +9,8 @@ themselves are held against the same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import importlib.util
+import os
 import subprocess
 import sys
 
@@ -171,6 +173,87 @@ def test_kernel_supported_shapes():
     assert not tca.kernel_supported(4, 2, 16)  # tiny: plain path
     assert not tca.kernel_supported(32, 8, 256)
     assert not tca.kernel_supported(12, 4, 128)  # 3 query heads per kv head
+
+
+def _split_decode_model(q, k, v, pos, split_len):
+    """Plain model of the CUDA decode's split-and-merge rule: ``decode_kernel``
+    (csrc/flash_attention.cu) writes f32 (m, l, acc) for every split of
+    ``split_len`` slots that starts at or before min(pos, S - 1), and
+    ``decode_combine_kernel`` merges the live splits in split order; a lane
+    with no live split (pos < 0) gives zeros. q [B, H, hd] → [B, H, hd]."""
+    b, h, hd = q.shape
+    s_len, kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kv, h // kv, hd)
+    out = torch.zeros(b, kv, h // kv, hd)
+    for i in range(b):
+        last = min(int(pos[i]), s_len - 1)
+        parts = []  # (m, l, acc) per live split, in split order
+        for s0 in range(0, last + 1, split_len):
+            sl = slice(s0, min(s0 + split_len, last + 1))
+            scores = torch.einsum("kgd,nkd->kgn", qg[i], k[i, sl].float()) / hd**0.5
+            m = scores.amax(-1)
+            p = torch.exp(scores - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgn,nkd->kgd", p, v[i, sl].float())))
+        if not parts:
+            continue
+        mm = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = acc = 0
+        for m, li, ai in parts:
+            f = torch.exp(m - mm)
+            l, acc = l + li * f, acc + ai * f[..., None]
+        out[i] = acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("split_len", [64, 256])
+def test_split_decode_merge_matches_jax_and_plain(split_len):
+    """The split-and-merge rule of the CUDA decode equals one pass over the
+    arena: positions -1 and 0, either side of a split boundary, a lane
+    whose later splits are wholly past its position, the arena's last slot,
+    and a position past the arena. f32, 2e-5."""
+    b, heads, kv_heads, hd, s = 8, 8, 2, 128, 600  # the last split is partial
+    L = split_len
+    rng = np.random.default_rng(11)
+    q, ck, cv = _rand(rng, b, heads, hd), _rand(rng, b, s, kv_heads, hd), _rand(rng, b, s, kv_heads, hd)
+    pos = np.array([-1, 0, L - 1, L, L + 1, 2 * L + 3, s - 1, s + 7], np.int32)
+    got = _split_decode_model(_t(q), _t(ck), _t(cv), _t(pos), split_len)
+    assert torch.count_nonzero(got[0]) == 0
+    _close(got, jpa.flash_decode(q, ck, cv, pos, interpret=True), F32)
+    _close(got, tca.flash_decode_plain(_t(q), _t(ck), _t(cv), _t(pos)), F32)
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # standard library only at import
+    return mod
+
+
+def test_bf16_p_rounding_error_at_the_served_prefill_shape():
+    """The tensor-core prefill rounds P to bf16 before P·V (the A operand of
+    the mma); the plain version keeps P in f32. At the served chunk (q
+    [1, 256, 32, 128], arena 2048, positions 300..555, bf16-valued inputs)
+    that adds up to ~8e-4 absolute error to outputs of |o| <= ~1: this
+    figure is the extra bf16 tolerance chip_smoke.py gives the prefill rows
+    (``BF16_P_ATOL``) on top of one bf16 rounding."""
+    b, t, heads, kv_heads, hd, s, off = 1, 256, 32, 8, 128, 2048, 300
+    rng = np.random.default_rng(12)
+    q, k, v = (
+        _t(_rand(rng, *shape)).to(torch.bfloat16).float()
+        for shape in ((b, t, heads, hd), (b, s, kv_heads, hd), (b, s, kv_heads, hd))
+    )
+    pos = torch.arange(off, off + t, dtype=torch.int32)[None]
+    qg = q.reshape(b, t, kv_heads, heads // kv_heads, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k) / hd**0.5
+    visible = (torch.arange(s)[None, None, :] <= pos[:, :, None])[:, None, None]
+    scores = torch.where(visible, scores, torch.full_like(scores, tca.NEG_INF))
+    p = torch.where(visible, torch.exp(scores - scores.amax(-1, keepdim=True)), torch.zeros(()))
+    l = p.sum(-1, keepdim=True)
+    rounded = torch.einsum("bkgts,bskd->btkgd", p.bfloat16().float(), v) / l.permute(0, 3, 1, 2, 4)
+    plain = tca.flash_prefill_plain(q, k, v, pos).reshape(rounded.shape)
+    err = (rounded - plain).abs().max().item()
+    assert 1e-4 < err <= _chip_smoke().BF16_P_ATOL, err
 
 
 def test_import_needs_no_nvcc():

@@ -128,19 +128,90 @@ def test_paged_kernels_equal_dense_kernels_on_the_same_kv(dev, dtype):
     from agentainer_tpu_torch.ops.attention import gather_pages
 
     g = torch.Generator(device=dev).manual_seed(5)
-    b, s, heads, kv_heads = 4, 512, 32, 8
+    b, s, heads, kv_heads = 4, 2048, 32, 8  # 8 decode splits
     pool_k, pool_v, table = _paged_case(g, dev, dtype, b, heads, kv_heads, 64, s)
     k, v = gather_pages(pool_k, pool_v, table)
     q = _randn(g, dev, dtype, b, heads, 128)
-    pos = torch.tensor([3, 64, 300, s - 1], device=dev, dtype=torch.int32)
+    pos = torch.tensor([3, 300, 1024, s - 1], device=dev, dtype=torch.int32)
     assert torch.equal(
         ca.fused_paged_flash_decode(q, pool_k, pool_v, table, pos), ca.flash_decode(q, k, v, pos)
     )
     q = _randn(g, dev, dtype, b, 96, heads, 128)
-    pos = (torch.tensor([0, 100, 400, 60], device=dev)[:, None] + torch.arange(96, device=dev)).int()
+    pos = (torch.tensor([0, 100, 1900, 600], device=dev)[:, None] + torch.arange(96, device=dev)).int()
     assert torch.equal(
         ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
     )
+
+
+GROUPS = [(8, 8), (16, 8), (32, 8), (16, 2), (32, 2)]  # G = 1, 2, 4, 8, 16
+
+
+def _split_boundaries(s):
+    """Every split's first and last slot, plus -1, 0 and past the arena."""
+    split = ca.DECODE_SPLIT
+    edges = [e for i in range(1, s // split) for e in (i * split - 1, i * split)]
+    return torch.tensor([-1, 0, *edges, s - 1, s + 5], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", GROUPS)
+def test_decode_kernel_on_every_split_boundary(dev, dtype, heads, kv_heads):
+    g = torch.Generator(device=dev).manual_seed(6)
+    s = 2048
+    pos = _split_boundaries(s).to(dev)
+    b = pos.numel()
+    q = _randn(g, dev, dtype, b, heads, 128)
+    k, v = (_randn(g, dev, dtype, b, s, kv_heads, 128) for _ in range(2))
+    got = ca.flash_decode(q, k, v, pos)
+    want = ca.flash_decode_plain(q, k, v, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.count_nonzero(got[0]) == 0  # pos -1 sees no slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_on_the_served_mix(dev, dtype):
+    """The served decode step: 2 live lanes near 300, 6 parked at S - 1."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, s = 8, 2048
+    q = _randn(g, dev, dtype, b, 32, 128)
+    k, v = (_randn(g, dev, dtype, b, s, 8, 128) for _ in range(2))
+    pos = torch.tensor([299, 312] + [s - 1] * 6, device=dev, dtype=torch.int32)
+    got = ca.flash_decode(q, k, v, pos)
+    torch.testing.assert_close(
+        got.float(), ca.flash_decode_plain(q, k, v, pos).float(), rtol=TOL[dtype], atol=TOL[dtype]
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", GROUPS)
+@pytest.mark.parametrize("t,offset", [(256, 300), (70, 1990)])
+def test_prefill_kernel_on_served_and_ragged_chunks(dev, dtype, heads, kv_heads, t, offset):
+    """The served 256-token chunk at offset 300, and a T that is not a
+    multiple of any block's 64 / G tokens whose rows run past the arena."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    s = 2048
+    q = _randn(g, dev, dtype, 1, t, heads, 128)
+    k, v = (_randn(g, dev, dtype, 1, s, kv_heads, 128) for _ in range(2))
+    pos = (offset + torch.arange(t, device=dev, dtype=torch.int32))[None]
+    got = ca.flash_prefill(q, k, v, pos)
+    torch.testing.assert_close(
+        got.float(), ca.flash_prefill_plain(q, k, v, pos).float(), rtol=TOL[dtype], atol=TOL[dtype]
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(dev, dtype):
+    """No atomics and fixed merge orders: two launches on the same inputs
+    give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    s = 2048
+    q = _randn(g, dev, dtype, 8, 32, 128)
+    k, v = (_randn(g, dev, dtype, 8, s, 8, 128) for _ in range(2))
+    pos = torch.tensor([0, 17, 130, 511, 777, 1024, 1500, s - 1], device=dev, dtype=torch.int32)
+    assert torch.equal(ca.flash_decode(q, k, v, pos), ca.flash_decode(q, k, v, pos))
+    q = _randn(g, dev, dtype, 1, 256, 32, 128)
+    pos = (300 + torch.arange(256, device=dev, dtype=torch.int32))[None]
+    assert torch.equal(ca.flash_prefill(q, k[:1], v[:1], pos), ca.flash_prefill(q, k[:1], v[:1], pos))
 
 
 def test_dispatch_on_the_card_raises_for_a_head_the_kernels_do_not_take(dev):
