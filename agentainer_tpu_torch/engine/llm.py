@@ -1,10 +1,10 @@
 """Continuous-batching inference engine in PyTorch — the single-device
 main path, over the dense KV arena or the paged one.
 
-Reference: ``agentainer_tpu/engine/llm.py`` with ``prefix_cache=False``,
-``speculative=False``, ``deadlines=False``, ``fused_decode=False``,
-``kv_tiering=False``, ``streaming=False`` and ``approx_topk=False``;
-``adaptive_decode`` and ``paged_kv`` are kept. The design carries over:
+Reference: ``agentainer_tpu/engine/llm.py`` with its defaults —
+``prefix_cache``, ``speculative`` and ``deadlines`` on, ``adaptive_decode``
+on, ``paged_kv`` off — and ``fused_decode=False``, ``kv_tiering=False``,
+``streaming=False`` and ``approx_topk=False``. The design carries over:
 
 - a fixed slot batch ``[max_batch]`` decodes every active sequence each step
   at its own arena position; idle lanes decode at the scratch position
@@ -21,6 +21,17 @@ Reference: ``agentainer_tpu/engine/llm.py`` with ``prefix_cache=False``,
   when the pool runs dry, and a pool that cannot cover an in-flight request
   fails that request with ``PagePoolExhausted`` (429) and rolls its session
   back;
+- ``prefix_cache``: bucket-length token prefixes of fresh contexts are
+  registered at their final prefill chunk and forked into a fresh session
+  at admission (dense: plain tensor copies out of and into the arena row;
+  paged: refcounted pages mapped read-only, a partial tail page copied);
+- ``speculative``: prompt-lookup drafting on the host and one batched
+  verify ``forward`` at ``[max_batch, K+1]`` per round, which runs through
+  the prefill kernels; greedy lanes accept on argmax agreement, sampled
+  lanes by rejection sampling with a point-mass proposal;
+- ``deadlines``: wall-clock deadlines checked before prefill and on every
+  worker iteration, ``cancel(request_id)``, a submit-side shed watermark,
+  and ``begin_drain``/``drain``;
 - idempotent by request id: completed results are memoized.
 
 What differs from the reference, and why:
@@ -35,11 +46,16 @@ What differs from the reference, and why:
 - the paged allocator frees pages straight to the free list: the
   reference's quarantine guards pages that a dispatched-but-unread chunk may
   still write, and here no chunk is in flight when a page is freed (see
-  ``_free_page_ids``). The prefix-page mapping, tiering, snapshots of paged
-  sessions and the ``engine.page_alloc`` failpoint are not ported;
+  ``_free_page_ids``). Tiering, snapshots of paged sessions and the
+  ``engine.page_alloc`` failpoint are not ported;
+- a lane drafts only after its first decode step, as in the reference,
+  whose gate sees an empty ``generated`` until the first token's readback
+  lands (``_try_speculate``); a verify round reads its tokens back
+  synchronously, as the reference's does;
 - the other feature flags above are not ported yet: ``create`` raises
   ``ValueError`` naming any of them that is asked for, as it does for
   ``tp``/``ep``/``sp``/``pp`` > 1, ``quant`` and ``checkpoint``.
+  ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
 
 The engine runs its device work on a dedicated worker thread; the serve
 layer talks to it through a thread-safe queue and asyncio futures resolved
@@ -50,6 +66,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import queue
 import threading
 import time
@@ -68,24 +85,28 @@ from ..ops.cuda_attention import (
     kernel_supported,
 )
 from ..utils.hw import chip_spec
-from .sampling import sample_step
+from .sampling import NEG_INF, sample_step
 from .tokenizer import load_tokenizer
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
 PAGE_SIZE_DEFAULT = 64
 
+# Self-speculative decoding (the reference's constants): verify buckets K
+# (one verify shape [max_batch, K+1] each, run once at warmup); the
+# acceptance-rate EMA that collapses a lane's draft length on rejecting
+# traffic; lookup-miss backoff and the probe cadence of collapsed lanes; how
+# far back the drafter's n-gram scan looks.
+SPEC_VERIFY_BUCKETS = (2, 4, 8)
+SPEC_EMA_ALPHA = 0.4
+SPEC_EMA_FLOOR = 0.125
+SPEC_MISS_BACKOFF = 4
+SPEC_PROBE_EVERY = 32
+SPEC_LOOKUP_WINDOW = 1024
+
 # reference engine features this slice does not implement yet; /metrics
 # reports each as off. Asking for any of them — or for the reference's
 # synthetic-int8 and routed-MoE options — raises instead of being ignored.
-FEATURE_FLAGS = (
-    "prefix_cache",
-    "speculative",
-    "deadlines",
-    "fused_decode",
-    "kv_tiering",
-    "streaming",
-    "approx_topk",
-)
+FEATURE_FLAGS = ("fused_decode", "kv_tiering", "streaming", "approx_topk")
 UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("synthetic", "routed")
 
 
@@ -94,9 +115,29 @@ class EngineShutdown(RuntimeError):
     into every abandoned future instead of letting callers hang forever."""
 
 
+class RequestAborted(RuntimeError):
+    """Base for per-request terminations that are policy, not faults: nobody
+    is waiting for the tokens any more. Passed to callers typed, so the
+    serve layer maps each to its HTTP status."""
+
+
+class RequestExpired(RequestAborted):
+    """Deadline passed before (or while) the request was served."""
+
+
+class RequestCancelled(RequestAborted):
+    """Explicit cancel(request_id): the client went away, or an operator
+    aborted the request."""
+
+
+class EngineDraining(RuntimeError):
+    """Drain in progress: no new admissions while in-flight work finishes."""
+
+
 class EngineOverloaded(RuntimeError):
-    """Overload backpressure, not a fault. Carries a retry hint for the 429
-    Retry-After header."""
+    """Overload backpressure, not a fault: the submit-side shed watermark or
+    a full KV page pool. Carries a retry hint for the 429 Retry-After
+    header."""
 
     def __init__(self, depth: int, watermark: int, retry_after_s: float = 1.0):
         super().__init__(f"engine overloaded: depth {depth} >= watermark {watermark}")
@@ -123,7 +164,7 @@ class PrefillFailed(RuntimeError):
 def _as_prefill_failure(e: Exception) -> Exception:
     """Policy terminations pass through typed (they map to their own HTTP
     statuses); anything else becomes PrefillFailed."""
-    if isinstance(e, (EngineOverloaded, EngineShutdown)):
+    if isinstance(e, (RequestAborted, EngineOverloaded, EngineShutdown)):
         return e
     return PrefillFailed(f"{type(e).__name__}: {e}")
 
@@ -156,6 +197,9 @@ class GenRequest:
     temperature: float
     loop: asyncio.AbstractEventLoop
     future: asyncio.Future
+    # absolute wall-clock give-up instant (time.time(); None = no deadline):
+    # checked at admission and on every worker iteration while in flight
+    deadline_at: float | None = None
     submitted_at: float = field(default_factory=time.monotonic)
     prefill_started_at: float | None = None
     # final prefill chunk + first-token injection dispatched
@@ -172,22 +216,54 @@ class GenRequest:
 
 
 @dataclass
+class PrefixEntry:
+    """One cached token prefix: the KV a prefill wrote for ``tokens`` (exact
+    bucket length). Dense: private copies ``k``/``v`` [L, bucket, KV, hd] in
+    the cache dtype (bit-exact, no cast). Paged: the entry pins the owner's
+    full ``pages`` by refcount, plus one copied ``tail_page`` holding the
+    partial last page (``tail_len`` tokens) of a level that is not
+    page-aligned. ``tokens`` is kept so a hash collision degrades to a
+    miss."""
+
+    k: torch.Tensor | None
+    v: torch.Tensor | None
+    tokens: tuple
+    nbytes: int
+    created: float
+    last_used: float
+    hits: int = 0
+    pages: list[int] | None = None
+    tail_page: int | None = None
+    tail_len: int = 0
+
+
+@dataclass
 class PagedSession:
     """A resident session in the paged arena: its KV lives in ``pages``
     (physical page ids, logical order), not in a lane, so between turns it
-    holds only its pages and no compute lane."""
+    holds only its pages and no compute lane. ``pages[:shared]`` are prefix
+    pages mapped read-only from the prefix cache (refcount-shared; the
+    session never writes below its fork point)."""
 
     name: str
     pages: list[int] = field(default_factory=list)
+    shared: int = 0
     position: int = 0
     pending_token: int | None = None
     # bound compute lane while a request is in flight; None between turns
     lane: int | None = None
     last_used: float = 0.0
-    # admission-time pending token and position: a pool-exhaustion failure
-    # rolls the session back to them instead of dropping it
+    # admission-time pending token, position and drafting corpus: a
+    # pool-exhaustion failure rolls the session back to them instead of
+    # dropping it
     admit_pending: int | None = None
     admit_position: int = 0
+    admit_spec_hist: list[int] = field(default_factory=list)
+    # self-speculation state persists across turns with the session (the
+    # bound lane mirrors it and syncs it back at finish)
+    spec_hist: list[int] = field(default_factory=list)
+    spec_ema: float = 1.0
+    spec_miss: int = 0
 
 
 @dataclass
@@ -195,6 +271,9 @@ class Slot:
     idx: int
     session: str = ""
     position: int = 0  # next cache position to write
+    # a fresh context's prompt (prefill from position 0), kept until its
+    # final prefill chunk registers its bucket prefixes; None otherwise
+    prefix_ctx: list[int] | None = None
     request: GenRequest | None = None
     # prompt tokens not yet prefilled (chunked prefill)
     pending_prompt: list[int] = field(default_factory=list)
@@ -206,6 +285,13 @@ class Slot:
     dev_position: int = 0
     # this slot's lane in the decode carry is live
     decoding: bool = False
+    # self-speculation: the token stream fed through this slot's KV (the
+    # drafter's corpus), the acceptance EMA setting the draft length, and
+    # lookup-miss / probe bookkeeping
+    spec_hist: list[int] = field(default_factory=list)
+    spec_ema: float = 1.0
+    spec_miss: int = 0
+    spec_probe_at: int = -(10**9)
     # paged arena: the session bound to this lane while a request is in
     # flight (None in dense mode and between turns)
     psess: PagedSession | None = None
@@ -222,9 +308,16 @@ class LLMEngine:
         decode_chunk: int = 8,
         prefill_chunk: int = 256,
         adaptive_decode: bool = True,
+        prefix_cache: bool = True,
+        prefix_cache_bytes: int = 0,
+        deadlines: bool = True,
+        shed_watermark: int = 0,
+        speculative: bool = True,
+        spec_gamma_max: int = 8,
         paged_kv: bool = False,
         page_size: int = PAGE_SIZE_DEFAULT,
         kv_pages: int = 0,
+        inloop_spec: bool = True,
         device="cuda",
     ):
         self.cfg = cfg
@@ -351,6 +444,65 @@ class LLMEngine:
             t.numel() * t.element_size() for t in _leaves(params)
         )
         self.kv_arena_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
+        self.prefill_chunks = 0  # prefill forwards (one per chunk)
+
+        # -- request lifecycle policy (deadlines=False: no expiry checks and
+        # no shed; cancel() is an API and works either way) ---------------
+        self.deadlines = bool(deadlines)
+        self.shed_watermark = max(0, int(shed_watermark))  # 0 = no shed
+        # request id → cancel-record time (monotonic), under self._lock; a
+        # marker whose request never arrives expires after _cancel_ttl_s
+        self._cancel_requested: dict[str, float] = {}
+        self._cancel_ttl_s = 30.0
+        self._draining = False
+        self.cancelled_total = 0
+        self.expired_total = 0
+        self.shed_total = 0
+
+        # -- prefix cache: bucket-length prefixes → their KV, forked into
+        # fresh sessions at admission; LRU under a bytes budget ------------
+        self.prefix_cache = bool(prefix_cache)
+        self._prefix_active = self.prefix_cache  # warmup serves with it off
+        # a hit must leave >= 1 prompt token to prefill
+        self._prefix_levels = [b for b in PREFILL_BUCKETS if b <= max_seq - 2]
+        self._prefix_entries: collections.OrderedDict[tuple, PrefixEntry] = (
+            collections.OrderedDict()
+        )
+        self._prefix_bytes = 0
+        # default budget: one more arena's worth (dense), or half the pool
+        # (paged: prefix pages are pinned inside the pool)
+        if prefix_cache_bytes:
+            self._prefix_budget = int(prefix_cache_bytes)
+        elif self.paged:
+            self._prefix_budget = self.kv_arena_bytes // 2
+        else:
+            self._prefix_budget = self.kv_arena_bytes
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_tokens_saved = 0
+        self.prefix_evictions = 0
+        self.prefix_pages_shared = 0
+        self.session_eviction_idle_s_recent: collections.deque[float] = collections.deque(maxlen=64)
+        self.prefix_eviction_idle_s_recent: collections.deque[float] = collections.deque(maxlen=64)
+
+        # -- self-speculative decoding -------------------------------------
+        self.speculative = bool(speculative)
+        gamma_max = max(1, min(int(spec_gamma_max), SPEC_VERIFY_BUCKETS[-1]))
+        self._spec_buckets = [b for b in SPEC_VERIFY_BUCKETS if b <= gamma_max] or [
+            SPEC_VERIFY_BUCKETS[0]
+        ]
+        # snap down to the largest verify bucket
+        self.spec_gamma_max = self._spec_buckets[-1]
+        # the reference's in-loop drafter lives in its fused decode loop,
+        # which the port does not have: the option is taken and stays off
+        self.inloop_spec = False
+        self._spec_active = self.speculative  # warmup serves with it off
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.spec_verify_hist: dict[int, int] = {}
+
         self._chip = chip_spec(self.device)
         self._peak_flops = self._chip.bf16_flops
         self._peak_hbm_bps = self._chip.hbm_gbps
@@ -399,9 +551,16 @@ class LLMEngine:
             decode_chunk=int(options.get("decode_chunk", 8)),
             prefill_chunk=int(options.get("prefill_chunk", 256)),
             adaptive_decode=bool(options.get("adaptive_decode", True)),
+            prefix_cache=bool(options.get("prefix_cache", True)),
+            prefix_cache_bytes=int(options.get("prefix_cache_bytes", 0) or 0),
+            deadlines=bool(options.get("deadlines", True)),
+            shed_watermark=int(options.get("shed_watermark", 0) or 0),
+            speculative=bool(options.get("speculative", True)),
+            spec_gamma_max=int(options.get("spec_gamma_max", 8) or 8),
             paged_kv=bool(options.get("paged_kv", False)),
             page_size=int(options.get("page_size", PAGE_SIZE_DEFAULT) or PAGE_SIZE_DEFAULT),
             kv_pages=int(options.get("kv_pages", 0) or 0),
+            inloop_spec=bool(options.get("inloop_spec", True)),
             device=device,
         )
         if not options.get("skip_warmup"):
@@ -449,12 +608,50 @@ class LLMEngine:
             except BaseException as e:  # surface warmup faults to create()
                 box.append(e)
 
-        t = threading.Thread(target=_runner, name="llm-warmup")
-        t.start()
-        t.join()
+        # prefix cache and speculation stay off while warmup serves: the
+        # filler prompts share a prefix (a hit would shrink a pass below its
+        # bucket) and are maximally repetitive (a verify round would replace
+        # the decode chunks warmup exists to run). Their shapes run below.
+        self._prefix_active = False
+        self._spec_active = False
+        try:
+            t = threading.Thread(target=_runner, name="llm-warmup")
+            t.start()
+            t.join()
+        finally:
+            self._prefix_active = self.prefix_cache
+            self._spec_active = self.speculative
         if box:
             raise box[0]
+        # the worker idles on its queue now: run the prefix copies and one
+        # verify round per bucket here, with every lane parked at scratch
+        # (the round's writes land in scratch slots, as parked decode's do)
+        with torch.no_grad(), _on_device(self.device):
+            if self.prefix_cache and self.paged:
+                scr = self._scratch_page(0)
+                self._copy_page(scr, scr)
+            elif self.prefix_cache:
+                for b in self._prefix_levels:
+                    k, v = self._prefix_slice(0, b)
+                    self._prefix_fork(0, k, v)
+            if self.speculative:
+                for b in self._spec_buckets:
+                    self._verify(
+                        np.zeros((self.max_batch, b), np.int64), np.zeros(self.max_batch, np.int64)
+                    )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.clear_sessions()
+        self._prefix_entries.clear()
+        self._prefix_bytes = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_tokens_saved = 0
+        self.prefix_evictions = 0
+        self.prefix_pages_shared = 0
+        self.session_eviction_idle_s_recent.clear()
+        self.prefix_eviction_idle_s_recent.clear()
+        self.prefill_chunks = 0
         self.ttft_ms_recent.clear()
         self.itl_ms_recent.clear()
         self.admission_ms_recent.clear()
@@ -473,6 +670,17 @@ class LLMEngine:
         self._started_at = time.monotonic()
 
     # -- public API (called from the serve layer's event loop) -------------
+    def load_depth(self) -> int:
+        """Queued + drained-but-unadmitted + in-flight requests: what the
+        shed watermark is compared with (approximate by design)."""
+        with self._queue.mutex:
+            queued = sum(1 for it in self._queue.queue if isinstance(it, GenRequest))
+        return (
+            queued
+            + sum(1 for it in self._waiting if isinstance(it, GenRequest))
+            + sum(1 for s in self.slots if s.request is not None)
+        )
+
     async def generate(
         self,
         prompt: str,
@@ -485,8 +693,10 @@ class LLMEngine:
         top_k: int = 0,
         top_p: float = 1.0,
     ) -> dict:
-        """``deadline_at`` is accepted and ignored, as the reference does with
-        ``deadlines=False``."""
+        """``deadline_at`` is a wall-clock instant (``time.time()``), honoured
+        with ``deadlines`` on and ignored with it off. Raises
+        ``EngineDraining`` while draining and ``EngineOverloaded`` past the
+        shed watermark, before anything is queued."""
         if request_id:
             with self._lock:
                 hit = self._completed.get(request_id)
@@ -494,6 +704,13 @@ class LLMEngine:
                 return dict(hit, replayed=True)
         if not self._running:
             raise EngineShutdown("engine shut down")
+        if self._draining:
+            raise EngineDraining("engine draining for shutdown")
+        if self.deadlines and self.shed_watermark:
+            depth = self.load_depth()
+            if depth >= self.shed_watermark:
+                self.shed_total += 1
+                raise EngineOverloaded(depth, self.shed_watermark)
         loop = asyncio.get_running_loop()
         req = GenRequest(
             id=request_id or f"gen-{time.monotonic_ns()}",
@@ -503,6 +720,7 @@ class LLMEngine:
             temperature=temperature,
             loop=loop,
             future=loop.create_future(),
+            deadline_at=deadline_at if self.deadlines else None,
             ignore_eos=ignore_eos,
             top_k=max(0, int(top_k)),
             top_p=min(1.0, max(0.0, float(top_p))) if top_p is not None else 1.0,
@@ -534,6 +752,45 @@ class LLMEngine:
             deadline_at=deadline_at,
             ignore_eos=ignore_eos,
         )
+
+    def cancel(self, request_id: str) -> bool:
+        """Abort a request by id: a queued or waiting one fails before
+        prefill, an in-flight lane is parked on the worker's next iteration
+        and its slot freed. False for an id already completed (its memoized
+        result stands); True means the worker will act on it."""
+        if not request_id:
+            return False
+        with self._lock:
+            if request_id in self._completed:
+                return False
+            self._cancel_requested[request_id] = time.monotonic()
+        return True
+
+    def begin_drain(self) -> None:
+        """Stop admitting (generate() raises EngineDraining); queued and
+        in-flight work keeps running."""
+        self._draining = True
+
+    def drain(self, budget_s: float = 10.0) -> bool:
+        """Block until every queued, waiting and in-flight request settles,
+        up to ``budget_s``; True on a clean drain. Called off the worker
+        thread; whatever is left is failed by the shutdown() after it."""
+        self.begin_drain()
+
+        def busy() -> bool:
+            return bool(
+                any(s.request is not None for s in self.slots)
+                or self._waiting
+                or not self._queue.empty()
+                or self._readbacks
+            )
+
+        deadline = time.monotonic() + max(0.0, budget_s)
+        while time.monotonic() < deadline:
+            if not busy():
+                return True
+            time.sleep(0.05)
+        return not busy()
 
     def clear_sessions(self, prefix: str = "") -> None:
         """Drop idle sessions (all, or those whose name starts with ``prefix``)."""
@@ -575,7 +832,40 @@ class LLMEngine:
                 str(k): v for k, v in sorted(self.decode_chunk_hist.copy().items())
             },
             "decode_chunks_shrunk": self.decode_chunks_shrunk,
+            "prefill_chunks": self.prefill_chunks,
             **{flag: False for flag in FEATURE_FLAGS},
+            # self-speculative decoding (the reference's keys)
+            "speculative": self.speculative,
+            "inloop_spec": self.inloop_spec,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_rejected": self.spec_rejected,
+            "spec_acceptance_rate": (
+                round(self.spec_accepted / self.spec_drafted, 4) if self.spec_drafted else None
+            ),
+            "spec_verify_hist": {
+                str(k): v for k, v in sorted(self.spec_verify_hist.copy().items())
+            },
+            "spec_slot_acceptance": [round(s.spec_ema, 3) for s in self.slots],
+            # request lifecycle policy
+            "deadlines": self.deadlines,
+            "cancelled_total": self.cancelled_total,
+            "expired_total": self.expired_total,
+            "shed_total": self.shed_total,
+            "shed_watermark": self.shed_watermark or None,
+            "draining": self._draining,
+            # prefix cache
+            "prefix_cache": self.prefix_cache,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_tokens_saved": self.prefix_tokens_saved,
+            "prefix_arena_entries": len(self._prefix_entries),
+            "prefix_arena_bytes": self._prefix_bytes,
+            "prefix_arena_capacity_bytes": self._prefix_budget,
+            "prefix_evictions_total": self.prefix_evictions,
+            "session_eviction_idle_s_p50": _p50(self.session_eviction_idle_s_recent),
+            "prefix_eviction_idle_s_p50": _p50(self.prefix_eviction_idle_s_recent),
             **self._paged_metrics(),
             "worker_errors": self.worker_errors,
             "last_worker_error": self.last_worker_error or None,
@@ -612,8 +902,7 @@ class LLMEngine:
         }
 
     def _paged_metrics(self) -> dict:
-        """The reference's paged gauges, under its key names. The prefix
-        page mapping is not ported, so its gauges are 0, and pages never
+        """The reference's paged gauges, under its key names. Pages never
         wait in quarantine here (``_free_page_ids``)."""
         if not self.paged:
             return {"paged_kv": False}
@@ -621,6 +910,7 @@ class LLMEngine:
             free = len(self._page_free)
             per_sess = sorted(len(s.pages) for s in self.paged_sessions.values())
             live_tokens = sum(s.position for s in self.paged_sessions.values())
+            pinned = len(self._prefix_pinned_page_ids())
         allocated = sum(per_sess)
         # internal fragmentation: allocated page capacity that the resident
         # sessions' live tokens do not fill
@@ -636,14 +926,14 @@ class LLMEngine:
             "kv_pages_free": free,
             "kv_pages_used": self._data_pages - free,
             "kv_pages_quarantined": 0,
-            "kv_pages_prefix_pinned": 0,
+            "kv_pages_prefix_pinned": pinned,
             "resident_sessions": len(self.paged_sessions),
             "session_pages_p50": per_sess[len(per_sess) // 2] if per_sess else None,
             "session_pages_max": per_sess[-1] if per_sess else None,
             "kv_fragmentation_pct": frag,
             "page_exhausted_total": self.page_exhausted_total,
             "pages_truncated_total": self.pages_truncated,
-            "prefix_pages_shared_total": 0,
+            "prefix_pages_shared_total": self.prefix_pages_shared,
         }
 
     def shutdown(self) -> None:
@@ -676,6 +966,9 @@ class LLMEngine:
             if self._sentinel:
                 break
             self._admit_waiting()
+            # cancelled or expired in-flight lanes go before any more device
+            # work is dispatched for them; their slots admit next iteration
+            self._reap_aborted()
             # ONE prefill chunk, then a decode chunk; when nothing is
             # decoding, prefill ticks back to back instead. Prefill faults
             # fail the culprit request only.
@@ -703,7 +996,10 @@ class LLMEngine:
                 # as soon as they are ready)
                 self._drain_readbacks()
                 if any(s.decoding for s in self.slots):
-                    self._decode_dispatch()
+                    # a verify round when lanes have drafts; otherwise (or
+                    # under contention) the plain decode ladder
+                    if not self._try_speculate():
+                        self._decode_dispatch()
                 else:
                     self._last_decode_end = None  # an idle gap isn't ITL
                 self._drain_readbacks()
@@ -736,12 +1032,73 @@ class LLMEngine:
         still = []
         for item in self._waiting:
             try:
-                if not self._try_admit(item):
+                if self._pre_reject(item):
+                    pass  # cancelled or expired before prefill: already failed
+                elif not self._try_admit(item):
                     still.append(item)
+            except EngineOverloaded as e:
+                # pool backpressure at admission (the prefix tail copy's
+                # page): a 429, not a worker fault
+                self._fail_item(item, e)
             except Exception as e:  # a poisoned request must not kill the worker
                 self._note_error(e)
                 self._fail_item(item, e)
         self._waiting = still
+
+    def _take_cancel(self, request_id: str) -> bool:
+        with self._lock:
+            return self._cancel_requested.pop(request_id, None) is not None
+
+    def _purge_stale_cancels(self) -> None:
+        """Drop cancel markers whose request never showed up (TTL)."""
+        if not self._cancel_requested:
+            return
+        cutoff = time.monotonic() - self._cancel_ttl_s
+        with self._lock:
+            for rid in [r for r, t in self._cancel_requested.items() if t < cutoff]:
+                del self._cancel_requested[rid]
+
+    def _pre_reject(self, req: GenRequest) -> bool:
+        """Fail a not-yet-admitted request whose caller is gone (cancelled,
+        or past its deadline): it costs no device work."""
+        if self._take_cancel(req.id):
+            self.cancelled_total += 1
+            self._fail_item(req, RequestCancelled(f"request {req.id} cancelled"))
+            return True
+        if self.deadlines and req.deadline_at is not None and time.time() > req.deadline_at:
+            self.expired_total += 1
+            self._fail_item(
+                req, RequestExpired(f"request {req.id} deadline exceeded before prefill")
+            )
+            return True
+        return False
+
+    def _reap_aborted(self) -> None:
+        """Per-iteration sweep of in-flight lanes: a cancelled request, or
+        one whose deadline passed mid-generation, is failed, its lane parked
+        and its slot freed (its session's KV holds a partial reply no
+        history will contain, so the session is dropped)."""
+        self._purge_stale_cancels()
+        if not self._cancel_requested and not (
+            self.deadlines
+            and any(s.request is not None and s.request.deadline_at is not None for s in self.slots)
+        ):
+            return
+        now = time.time()
+        for slot in self.slots:
+            req = slot.request
+            if req is None:
+                continue
+            if self._take_cancel(req.id):
+                self.cancelled_total += 1
+                err: Exception = RequestCancelled(f"request {req.id} cancelled mid-flight")
+            elif self.deadlines and req.deadline_at is not None and now > req.deadline_at:
+                self.expired_total += 1
+                err = RequestExpired(f"request {req.id} deadline exceeded mid-flight")
+            else:
+                continue
+            self._reset_slot(slot)
+            self._fail_item(req, err)
 
     def _submit(self, req: GenRequest) -> None:
         """Queue ``req`` for the worker. The worker clears ``_running`` before
@@ -784,22 +1141,29 @@ class LLMEngine:
             pass  # caller's loop already closed; nobody left to notify
 
     def _reset_slot(self, slot: Slot, rollback: bool = False) -> None:
-        """Return a slot to cold idle after its request failed: its KV prefix
-        is no longer trusted. With ``rollback`` (a policy failure: pool
-        exhaustion, raised before any dispatch) the paged session's
-        pre-request KV is trusted and kept instead."""
+        """Return a slot to cold idle after its request failed or was
+        aborted (the reference's ``_reset_slot`` and ``_abandon_slot`` in
+        one): park its lane; its KV prefix is no longer trusted. With
+        ``rollback`` (a policy failure: pool exhaustion, raised before any
+        dispatch) the paged session's pre-request KV is trusted and kept
+        instead."""
         if self.paged:
             if rollback:
                 self._rollback_lane_session(slot)
             else:
                 self._drop_lane_session(slot)
         if slot.decoding:
+            slot.dev_position = self.scratch_pos
             self._park_lane(slot.idx)
         slot.request = None
         slot.pending_prompt = []
         slot.decoding = False
         slot.position = 0
         slot.pending_token = None
+        slot.prefix_ctx = None
+        slot.spec_hist = []
+        slot.spec_ema = 1.0
+        slot.spec_miss = 0
         if slot.session:
             if self.sessions.get(slot.session) == slot.idx:
                 self.sessions.pop(slot.session, None)
@@ -852,8 +1216,33 @@ class LLMEngine:
         slot.pending_token = None
         if reset:
             slot.position = 0
+        fresh = slot.position == 0
+        # the drafting corpus mirrors the slot's fed stream: a fresh context
+        # replaces it, a continuing turn appends (the pending token rides in
+        # with the prompt)
+        if fresh:
+            slot.spec_hist = list(prompt)
+        else:
+            slot.spec_hist.extend(prompt)
+            del slot.spec_hist[: -self.max_seq]
+        forked = 0
+        if self._prefix_active and fresh:
+            # fork the longest cached prefix into the row instead of
+            # prefilling it again; register the rest at the final chunk
+            hit = self._prefix_lookup(prompt)
+            if hit is not None:
+                key, entry = hit
+                forked = key[0]
+                self._prefix_fork(slot.idx, entry.k, entry.v)
+                slot.position = forked
+                self._record_prefix_hit(key, entry)
+                # the fork streams the entry's KV once (a copy, no FLOPs)
+                self.hbm_bytes_read += forked * self._kv_bytes_per_pos
+            slot.prefix_ctx = list(prompt)
+        else:
+            slot.prefix_ctx = None
         slot.request = req
-        slot.pending_prompt = prompt
+        slot.pending_prompt = prompt[forked:]
         slot.last_used = time.monotonic()
         return True
 
@@ -880,10 +1269,36 @@ class LLMEngine:
                 # continuation didn't fit: reset the session's KV, pages too
                 self._free_session_pages(sess)
                 sess.position = 0
-            # pre-request state for a pool-exhaustion rollback; after a
-            # context reset there is none worth keeping
+            # pre-request state for a pool-exhaustion rollback (the prefix
+            # map and speculative accepts advance position mid-request, and
+            # spec_hist is extended in place); after a context reset there
+            # is none worth keeping
             sess.admit_pending = pend if sess.position > 0 else None
             sess.admit_position = sess.position
+            sess.admit_spec_hist = list(sess.spec_hist) if sess.position > 0 else []
+            fresh = sess.position == 0
+            if fresh:
+                sess.spec_hist = list(prompt)
+            else:
+                sess.spec_hist.extend(prompt)
+                del sess.spec_hist[: -self.max_seq]
+            forked = 0
+            try:
+                if self._prefix_active and fresh:
+                    hit = self._prefix_lookup(prompt)
+                    if hit is not None:
+                        forked = self._map_prefix_pages(sess, *hit)
+                    lane.prefix_ctx = list(prompt)
+                else:
+                    lane.prefix_ctx = None
+            except Exception:
+                # a half-built mapping must not stay resident: free what was
+                # mapped, then let _admit_waiting fail the request
+                self._free_session_pages(sess)
+                if not fresh_session and name:
+                    self.paged_sessions.pop(name, None)
+                    self.sessions.pop(name, None)
+                raise
             if fresh_session and name:
                 self.paged_sessions[name] = sess
             sess.lane = lane.idx
@@ -894,11 +1309,58 @@ class LLMEngine:
             lane.session = name
             lane.position = sess.position
             lane.pending_token = None
+            # the lane mirrors the session's speculation state (the corpus
+            # is the same list object, extended in place)
+            lane.spec_hist = sess.spec_hist
+            lane.spec_ema = sess.spec_ema
+            lane.spec_miss = sess.spec_miss
             lane.request = req
-            lane.pending_prompt = prompt
+            lane.pending_prompt = prompt[forked:]
             lane.last_used = time.monotonic()
             self._bind_lane_bt(lane, sess)
             return True
+
+    def _map_prefix_pages(self, sess: PagedSession, key: tuple, entry: PrefixEntry) -> int:
+        """Zero-copy prefix fork: the session maps the entry's full pages
+        read-only (one refcount each, no device traffic); only a partial
+        tail page is copied, because the session writes the rest of that
+        page. Returns the forked token count."""
+        b = key[0]
+        # take this session's references FIRST: the tail copy's allocation
+        # may reclaim, and reclaim may evict THIS entry; with the refs held,
+        # an eviction drops only the arena's pin
+        pages = list(entry.pages)
+        tail_src = entry.tail_page
+        with self._page_lock:
+            for pid in pages:
+                self._page_refs[pid] += 1
+            if tail_src is not None:
+                self._page_refs[tail_src] += 1
+        tail_copy = None
+        try:
+            if tail_src is not None:
+                tail_copy = self._alloc_pages(1)[0]
+                self._copy_page(tail_src, tail_copy)
+        except BaseException:
+            with self._page_lock:
+                for pid in pages:
+                    self._decref_page(pid)
+                if tail_copy is not None:
+                    self._decref_page(tail_copy)
+            raise
+        finally:
+            if tail_src is not None:
+                self._decref_page(tail_src)
+        sess.pages = pages
+        sess.shared = len(pages)
+        if tail_copy is not None:
+            sess.pages.append(tail_copy)
+        sess.position = b
+        self._record_prefix_hit(key, entry)
+        self.prefix_pages_shared += len(pages)
+        if tail_copy is not None:  # only the tail copy moves bytes
+            self.hbm_bytes_read += self.page_size * self._kv_bytes_per_pos
+        return b
 
     def _find_slot(self, session: str) -> Slot | None:
         with self._lock:
@@ -915,11 +1377,14 @@ class LLMEngine:
             slot = fresh[0] if fresh else min(idle, key=lambda s: s.last_used)
             if slot.session and self.sessions.get(slot.session) == slot.idx:
                 self.sessions.pop(slot.session, None)  # evict the LRU session's KV
-                self.session_evictions += 1
+                self._count_eviction("session", time.monotonic() - slot.last_used)
             slot.session = session
             slot.position = 0
             slot.pending_token = None
             slot.pending_prompt = []
+            slot.spec_hist = []
+            slot.spec_ema = 1.0  # new occupant: optimistic until measured
+            slot.spec_miss = 0
             if session:
                 self.sessions[session] = slot.idx
             return slot
@@ -982,6 +1447,9 @@ class LLMEngine:
         slot.last_used = time.monotonic()
         if not final:
             return
+        # the whole fresh context is in KV: register its bucket prefixes
+        # (positions [0, b) hold exactly ctx[:b]; padding lands above)
+        self._prefix_register(slot)
         first = sample_step(
             last_logits[None],
             self._gen,
@@ -1017,6 +1485,7 @@ class LLMEngine:
         else:
             cache, table = self.cache.row(slot_idx), None
         logits = forward(self.params, self.cfg, tokens, pos, cache, block_table=table)
+        self.prefill_chunks += 1
         return logits[0, n_real - 1]
 
     def _device_table(self, lane: int | None = None) -> torch.Tensor:
@@ -1058,6 +1527,12 @@ class LLMEngine:
         slot.pending_token = (
             (req.generated[-1] if req.generated else None) if pending_last else None
         )
+        # fold the reply into the drafting corpus; a held-out pending token
+        # arrives again with the next turn's prompt
+        slot.spec_hist.extend(
+            req.generated[:-1] if slot.pending_token is not None else req.generated
+        )
+        del slot.spec_hist[: -self.max_seq]
         if slot.decoding:
             slot.decoding = False
             slot.dev_position = self.scratch_pos
@@ -1089,6 +1564,9 @@ class LLMEngine:
                 slot.psess.pending_token = slot.pending_token
             self._detach_lane(slot)
         req.loop.call_soon_threadsafe(_resolve, req.future, result)
+        # a cancel that raced the natural finish loses: drop its marker
+        with self._lock:
+            self._cancel_requested.pop(req.id, None)
 
     def _decode_dispatch(self) -> None:
         """Run one decode chunk on the device carry and queue its token
@@ -1148,6 +1626,245 @@ class LLMEngine:
             if c >= target:
                 return c
         return self.decode_chunk
+
+    # -- self-speculative decoding (worker thread) ------------------------
+    #
+    # Prompt-lookup drafting: a lane's own token stream is the draft model.
+    # Per round the host drafts up to gamma tokens per lane, one verify
+    # forward at [max_batch, K+1] scores every lane's drafts, the longest
+    # agreeing prefix is accepted plus the model's own token at the first
+    # unverified row, and the lane's position is rewound past rejected
+    # drafts (their KV sits above the live length, where no query looks
+    # until the stream overwrites it; paged: whole pages of it go back to
+    # the pool).
+
+    def _verify(self, drafts: np.ndarray, dlen: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """One verify step over the decode carry for draft bucket K =
+        ``drafts.shape[1]``: feed each lane [carry token, draft_0..K-1] at
+        positions ``min(pos + arange(K+1), scratch)``, accept, and advance
+        the carry in place. Returns (emitted [B, K+1], count [B]) on the
+        device: lane b's next ``count[b]`` tokens are ``emitted[b, :count]``
+        (accepted drafts, then the bonus or correction token)."""
+        dev = self.device
+        k = drafts.shape[1]
+        d = torch.from_numpy(drafts).to(dev)
+        dl = torch.from_numpy(dlen).to(dev)
+        toks = torch.cat([self._dtok[:, None], d], dim=1)
+        offs = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
+        # parked lanes, and rows past a lane's draft, clamp at scratch
+        positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
+        table = self._device_table() if self.paged else None
+        logits = forward(self.params, self.cfg, toks, positions, self.cache, block_table=table)
+        greedy = logits.argmax(dim=-1)
+        all_greedy = all(t <= 0.0 for t in self._lane_temps)
+        # draft_j (= toks[:, j+1]) is scored by logits row j: greedy lanes
+        # accept on argmax agreement, sampled lanes with probability
+        # p_j(draft_j) (rejection sampling with a point-mass proposal)
+        ok = d == greedy[:, :k]
+        if not all_greedy:
+            u = torch.rand(d.shape, generator=self._gen, device=dev)
+            temps = torch.clamp(self._dtemps, min=1e-6)[:, None, None]
+            probs = torch.softmax(logits[:, :k] / temps, dim=-1)
+            p_draft = probs.gather(2, d[:, :, None])[:, :, 0]
+            ok = torch.where(self._dtemps[:, None] <= 0.0, ok, u < p_draft)
+        ok = ok & (torch.arange(k, device=dev)[None] < dl[:, None])
+        a = torch.cumprod(ok.long(), dim=1).sum(dim=1)  # accepted drafts [B]
+        # the bonus (all accepted) or correction token comes from row a; on
+        # a rejection the rejected draft is masked out of it
+        row_a = logits.gather(1, a[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0]
+        draft_a = toks.gather(1, torch.clamp(a + 1, max=k)[:, None])[:, 0]
+        vocab = torch.arange(row_a.shape[-1], device=dev)[None]
+        row_a = torch.where(
+            (vocab == draft_a[:, None]) & (a < dl)[:, None], torch.full_like(row_a, NEG_INF), row_a
+        )
+        bonus = sample_step(
+            row_a, self._gen, self._dtemps, self._dtopk, self._dtopp, all_greedy=all_greedy
+        )
+        m = torch.arange(k + 1, device=dev)[None]
+        shifted = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
+        emitted = torch.where(m < a[:, None], shifted, 0) + torch.where(m == a[:, None], bonus[:, None], 0)
+        count = a + 1
+        self._dtok = bonus
+        self._dpos = torch.clamp(self._dpos + count.to(torch.int32), max=self.scratch_pos)
+        return emitted, count
+
+    def _spec_gamma(self, slot: Slot) -> int:
+        """Draft length for one lane: the EMA times gamma_max, capped by the
+        request's remaining budget and the arena's headroom. Collapsed or
+        lookup-missing lanes draft 0, but for a 2-token probe every
+        SPEC_PROBE_EVERY decode steps."""
+        req = slot.request
+        if req is None or not req.generated:
+            return 0
+        if req.temperature > 0.0 and (req.top_k > 0 or req.top_p < 1.0):
+            # acceptance is against the unfiltered target: a filtered
+            # sampled lane rides verify rounds draft-free
+            return 0
+        cap = min(
+            self.spec_gamma_max,
+            req.max_tokens - len(req.generated) - 1,
+            self.max_seq - 2 - slot.position,
+        )
+        if cap <= 0:
+            return 0
+        if slot.spec_ema < SPEC_EMA_FLOOR or slot.spec_miss >= SPEC_MISS_BACKOFF:
+            probe_due = self.decode_steps - slot.spec_probe_at >= SPEC_PROBE_EVERY
+            return min(2, cap) if probe_due else 0
+        return min(max(1, int(round(slot.spec_ema * self.spec_gamma_max))), cap)
+
+    def _spec_draft(self, slot: Slot, gamma: int) -> list[int]:
+        """Prompt-lookup draft: what followed the latest earlier occurrence
+        of the stream's trailing 3-gram (else 2-gram), iterated on the
+        extended stream until ``gamma`` tokens or no match."""
+        seq = slot.spec_hist + slot.request.generated
+        base = len(seq)
+        while len(seq) - base < gamma:
+            got = self._spec_lookup(seq, gamma - (len(seq) - base))
+            if not got:
+                break
+            seq.extend(got)
+        return [int(t) for t in seq[base:]]
+
+    @staticmethod
+    def _spec_lookup(seq: list, want: int) -> list:
+        n_seq = len(seq)
+        for n in (3, 2):
+            if n_seq < n + 1:
+                continue
+            pat = seq[n_seq - n :]
+            floor = max(0, n_seq - n - 1 - SPEC_LOOKUP_WINDOW)
+            for i in range(n_seq - n - 1, floor - 1, -1):
+                if seq[i : i + n] == pat:
+                    return seq[i + n : i + n + want]
+        return []
+
+    def _try_speculate(self) -> bool:
+        """Run one verify round if the batch has draftable lanes; True when
+        one ran (the caller then skips the plain decode dispatch).
+
+        A steady-state optimization: under admission or prefill contention
+        the plain ladder keeps newcomers fast. The gate counts only lanes
+        past their first decode step (``dispatched > 1``): the reference
+        reads a lane's first token after that iteration's decode dispatch,
+        so its gate sees the lane without tokens; the port reads it before
+        (TTFT), and this keeps the same schedule. The round itself drafts
+        for every decoding lane."""
+        if not self._spec_active:
+            return False
+        if self._waiting or not self._queue.empty():
+            return False
+        if any(s.request is not None and s.pending_prompt for s in self.slots):
+            return False
+        if not any(
+            s.decoding and s.request is not None and s.request.dispatched > 1
+            and self._spec_gamma(s) > 0
+            for s in self.slots
+        ):
+            return False
+        plan = []
+        any_draft = False
+        for s in self.slots:
+            if not s.decoding or s.request is None:
+                continue
+            g = self._spec_gamma(s)
+            d = self._spec_draft(s, g) if g > 0 else []
+            if g > 0:
+                s.spec_probe_at = self.decode_steps
+                s.spec_miss = 0 if d else s.spec_miss + 1
+            any_draft = any_draft or bool(d)
+            plan.append((s, s.request, s.position, d))
+        if not any_draft:
+            return False
+        self._spec_round(plan)
+        return True
+
+    def _spec_round(self, plan: list) -> None:
+        """One verify forward for the whole batch, read back at once (the
+        next round's drafts depend on it). Every live lane advances at least
+        one token; lanes without a draft ride along as a decode step."""
+        gmax = max(len(d) for _, _, _, d in plan)
+        k = next(b for b in self._spec_buckets if b >= gmax)
+        if self.paged:
+            # pages must cover the verify write span [p, p + K]
+            kept = []
+            for s, r, p, d in plan:
+                try:
+                    self._ensure_lane_pages(s, p + k)
+                    kept.append((s, r, p, d))
+                except EngineOverloaded as e:
+                    self._reset_slot(s, rollback=True)
+                    self._fail_item(r, e)
+            plan = kept
+            if not plan:
+                return
+        drafts = np.zeros((self.max_batch, k), dtype=np.int64)
+        dlen = np.zeros((self.max_batch,), dtype=np.int64)
+        for s, _, _, d in plan:
+            if d:
+                drafts[s.idx, : len(d)] = d
+                dlen[s.idx] = len(d)
+        emitted_dev, count_dev = self._verify(drafts, dlen)
+        out = torch.cat([emitted_dev, count_dev[:, None]], dim=1).cpu().numpy()
+        emitted, count = out[:, :-1], out[:, -1]
+        end = time.monotonic()
+        self.spec_rounds += 1
+        self.spec_verify_hist[k] = self.spec_verify_hist.get(k, 0) + 1
+        self.decode_steps += 1
+        self._occupancy_sum += len(plan) / self.max_batch
+        # the weights stream ONCE for all K+1 rows, plus each lane's prefix
+        self.hbm_bytes_read += self.param_hbm_bytes + sum(
+            (p + k // 2) * self._kv_bytes_per_pos for _, _, p, _ in plan
+        )
+        eos = self.tokenizer.eos_id
+        total_used = 0
+        for slot, req, p, _ in plan:
+            if slot.request is not req:
+                continue
+            c = int(count[slot.idx])
+            n_draft = int(dlen[slot.idx])
+            self.spec_drafted += n_draft
+            self.spec_accepted += c - 1
+            self.spec_rejected += n_draft - (c - 1)
+            if n_draft:
+                slot.spec_ema = (1 - SPEC_EMA_ALPHA) * slot.spec_ema + SPEC_EMA_ALPHA * (
+                    (c - 1) / n_draft
+                )
+            outs = emitted[slot.idx]
+            remaining = req.max_tokens - len(req.generated)
+            used = 0
+            hit_eos = False
+            for j in range(min(c, remaining)):
+                used += 1
+                if not req.ignore_eos and int(outs[j]) == eos:
+                    hit_eos = True
+                    break
+            req.generated.extend(int(t) for t in outs[:used])
+            req.dispatched += c
+            self.tokens_generated += used
+            total_used += used
+            self.flops_done += used * self.cfg.flops_per_token(p + used // 2)
+            finished = hit_eos or len(req.generated) >= req.max_tokens
+            if finished and used < c:
+                # the used-th token was an accepted draft: already fed
+                slot.position = p + used + 1
+                slot.dev_position = slot.position
+                self._finish(slot, pending_last=False)
+            elif finished:
+                slot.position = p + c
+                slot.dev_position = slot.position
+                self._finish(slot, pending_last=True)
+            else:
+                # KV rewind: rows >= p + c hold rejected drafts
+                slot.position = p + c
+                slot.dev_position = slot.position
+                slot.last_used = end
+                if self.paged and slot.psess is not None:
+                    # paged rewind = page-tail truncation
+                    slot.psess.position = slot.position
+                    self._truncate_session_pages(slot.psess)
+        if self._last_decode_end is not None and total_used:
+            self.itl_ms_recent.append(1000 * (end - self._last_decode_end) / total_used)
+        self._last_decode_end = end
 
     def _drain_readbacks(self) -> None:
         """Process every queued readback in FIFO order. ``.cpu()`` waits for
@@ -1224,35 +1941,45 @@ class LLMEngine:
         steps and bucket-padding writes land where no live query looks."""
         return self._data_pages + lane
 
-    def _alloc_pages(self, n: int) -> list[int]:
+    def _alloc_pages(self, n: int, pin: bool = False) -> list[int]:
         """Take ``n`` pages off the free list, evicting idle resident
-        sessions LRU-first when it runs dry. Raises PagePoolExhausted (429
-        backpressure) when that cannot cover the need."""
+        sessions (then prefix pins) LRU-first when it runs dry. Raises
+        PagePoolExhausted (429 backpressure) when that cannot cover the
+        need. A ``pin`` (a best-effort prefix-cache page) takes only free
+        pages, and its failure is no exhaustion event."""
         if n <= 0:
             return []
         with self._page_lock:
-            if len(self._page_free) < n:
+            if len(self._page_free) < n and not pin:
                 self._reclaim_pages(n)
             if len(self._page_free) < n:
-                self.page_exhausted_total += 1
+                if not pin:
+                    self.page_exhausted_total += 1
                 raise PagePoolExhausted(n, len(self._page_free))
             ids = [self._page_free.pop() for _ in range(n)]
             self._page_refs[ids] = 1
             return ids
 
     def _reclaim_pages(self, need: int) -> None:
-        """Evict idle resident sessions, least recently used first, until
-        ``need`` pages are free or none is left; sessions with a request in
-        flight are never touched. Caller holds _page_lock."""
+        """Evict until ``need`` pages are free or nothing evictable is left:
+        idle resident sessions least recently used first (they can prefill
+        again), then prefix-cache pins (they cost only a later cold
+        prefill). Sessions with a request in flight are never touched.
+        Caller holds _page_lock."""
         while len(self._page_free) < need:
             idle = [s for s in self.paged_sessions.values() if s.lane is None and s.pages]
             if not idle:
                 break
             victim = min(idle, key=lambda s: s.last_used)
-            self.session_evictions += 1
+            self._count_eviction("session", time.monotonic() - victim.last_used)
             self._free_session_pages(victim)
             self.paged_sessions.pop(victim.name, None)
             self.sessions.pop(victim.name, None)
+        now = time.monotonic()
+        while len(self._page_free) < need and any(
+            e.pages is not None for e in self._prefix_entries.values()
+        ):
+            self._prefix_evict_lru(now)
 
     def _free_page_ids(self, ids: list[int]) -> None:
         """Return zero-ref pages straight to the free list. The reference
@@ -1273,7 +2000,7 @@ class LLMEngine:
                 self._free_page_ids([pid])
 
     def _free_session_pages(self, sess: PagedSession) -> None:
-        pages, sess.pages = sess.pages, []
+        pages, sess.pages, sess.shared = sess.pages, [], 0
         for pid in pages:
             self._decref_page(pid)
 
@@ -1303,10 +2030,12 @@ class LLMEngine:
             self._bt[slot.idx, have:blocks] = new
 
     def _truncate_session_pages(self, sess: PagedSession) -> None:
-        """Free whole pages beyond the live context (what a decode chunk's
-        overshoot left behind)."""
+        """Page-tail truncation: free whole pages beyond the live context
+        (what a decode chunk's overshoot or rejected drafts left behind).
+        Mapped prefix pages are never dropped."""
         with self._page_lock:
             keep = 0 if sess.position <= 0 else (sess.position - 1) // self.page_size + 1
+            keep = max(keep, sess.shared)
             if len(sess.pages) <= keep:
                 return
             tail = sess.pages[keep:]
@@ -1335,6 +2064,8 @@ class LLMEngine:
             self._bt[slot.idx, :] = self._scratch_page(slot.idx)
             sess.position = sess.admit_position
             sess.pending_token = sess.admit_pending
+            # the corpus was extended in place at admission and by accepts
+            sess.spec_hist = list(sess.admit_spec_hist)
             sess.last_used = time.monotonic()
             sess.lane = None
             self.sessions[sess.name] = -1
@@ -1365,6 +2096,8 @@ class LLMEngine:
             self._bt[slot.idx, :] = self._scratch_page(slot.idx)
             if sess is None:
                 return
+            sess.spec_ema = slot.spec_ema
+            sess.spec_miss = slot.spec_miss
             sess.last_used = time.monotonic()
             sess.lane = None
             if sess.name:
@@ -1375,6 +2108,198 @@ class LLMEngine:
         slot.session = ""
         slot.position = 0
         slot.pending_token = None
+        slot.spec_hist = []
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """One pool page copied, every layer (the partial-tail
+        copy-on-write of a prefix level that is not page-aligned). Full
+        pages are never copied: they are mapped."""
+        self.cache.k[:, dst].copy_(self.cache.k[:, src])
+        self.cache.v[:, dst].copy_(self.cache.v[:, src])
+
+    # -- prefix cache (cross-session KV reuse; worker thread) -------------
+
+    @staticmethod
+    def _rolling_hashes(tokens: list[int]) -> dict[int, int]:
+        """FNV-1a rolling hash of the token ids, sampled at every prefill
+        bucket boundary: hashes[b] keys the exact prefix tokens[:b]."""
+        h = 1469598103934665603
+        out: dict[int, int] = {}
+        bi = 0
+        for i, t in enumerate(tokens):
+            h = ((h ^ (int(t) + 1)) * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+            if bi < len(PREFILL_BUCKETS) and i + 1 == PREFILL_BUCKETS[bi]:
+                out[PREFILL_BUCKETS[bi]] = h
+                bi += 1
+        return out
+
+    def _prefix_slice(self, row: int, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Copies of a dense arena row's first ``bucket`` positions, every
+        layer, in the cache dtype (a forked prefix is bit-exact)."""
+        return (
+            self.cache.k_store[:, row, :bucket].clone(),
+            self.cache.v_store[:, row, :bucket].clone(),
+        )
+
+    def _prefix_fork(self, row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write a cached prefix into a dense arena row at position 0."""
+        self.cache.k_store[:, row, : k.shape[1]].copy_(k)
+        self.cache.v_store[:, row, : v.shape[1]].copy_(v)
+
+    def _prefix_lookup(self, prompt: list[int]):
+        """The longest cached prefix at bucket granularity, as (key, entry),
+        or None (a miss is counted when the prompt is long enough to hit).
+        A hit leaves at least one prompt token to prefill; the hash match is
+        verified by exact token equality."""
+        if not self._prefix_levels or len(prompt) <= self._prefix_levels[0]:
+            return None
+        hashes = self._rolling_hashes(prompt)
+        for b in reversed(self._prefix_levels):
+            if b > len(prompt) - 1:
+                continue
+            key = (b, hashes.get(b))
+            entry = self._prefix_entries.get(key)
+            if entry is not None and entry.tokens == tuple(prompt[:b]):
+                return key, entry
+        self.prefix_misses += 1
+        return None
+
+    def _record_prefix_hit(self, key: tuple, entry: PrefixEntry) -> None:
+        entry.hits += 1
+        entry.last_used = time.monotonic()
+        if key in self._prefix_entries:  # a reclaim may have evicted it
+            self._prefix_entries.move_to_end(key)
+        self.prefix_hits += 1
+        self.prefix_tokens_saved += key[0]
+
+    def _prefix_register(self, slot: Slot) -> None:
+        """Final-prefill-chunk hook: cache every bucket-level prefix of a
+        fresh context that is not cached yet. Best effort: a failure here
+        never fails the generation."""
+        ctx = slot.prefix_ctx
+        slot.prefix_ctx = None
+        if ctx is None or not self._prefix_active:
+            return
+        n = min(len(ctx), slot.position)
+        try:
+            hashes = self._rolling_hashes(ctx)
+            now = time.monotonic()
+            for b in self._prefix_levels:
+                if b > n:
+                    break
+                key = (b, hashes[b])
+                if key in self._prefix_entries:
+                    continue
+                if self.paged:
+                    if not self._prefix_register_paged(slot, ctx, b, key, now):
+                        break
+                    continue
+                nbytes = b * self._kv_bytes_per_pos
+                if nbytes > self._prefix_budget:
+                    break  # larger levels only grow
+                while self._prefix_bytes + nbytes > self._prefix_budget and self._prefix_entries:
+                    self._prefix_evict_lru(now)
+                k, v = self._prefix_slice(slot.idx, b)
+                self._prefix_entries[key] = PrefixEntry(
+                    k=k, v=v, tokens=tuple(ctx[:b]), nbytes=nbytes, created=now, last_used=now
+                )
+                self._prefix_bytes += nbytes
+        except Exception as e:  # recorded: /metrics last_worker_error
+            self._note_error(e)
+
+    def _prefix_register_paged(
+        self, slot: Slot, ctx: list[int], b: int, key: tuple, now: float
+    ) -> bool:
+        """Zero-copy paged registration: pin the owner's full pages below
+        ``b`` by refcount; a level that is not page-aligned also copies its
+        partial tail page once (the owner keeps writing that page). The
+        budget counts DISTINCT pinned pages, since levels of one context
+        share their full pages. False stops the level walk."""
+        sess = slot.psess
+        if sess is None:
+            return False
+        full, tail_len = divmod(b, self.page_size)
+        span = full + (1 if tail_len else 0)
+        page_bytes = self._page_nbytes()
+        nbytes = span * page_bytes
+        if nbytes > self._prefix_budget or len(sess.pages) < span:
+            return False
+        full_pages = sess.pages[:full]
+
+        def projected() -> int:
+            pinned = self._prefix_pinned_page_ids()
+            extra = sum(1 for p in full_pages if p not in pinned)
+            return (len(pinned) + extra + (1 if tail_len else 0)) * page_bytes
+
+        while projected() > self._prefix_budget and self._prefix_entries:
+            self._prefix_evict_lru(now)
+        tail_page = None
+        if tail_len:
+            # best effort without reclaim: pinning a prefix never evicts a
+            # resident session
+            try:
+                tail_page = self._alloc_pages(1, pin=True)[0]
+            except EngineOverloaded:
+                return False
+            self._copy_page(sess.pages[full], tail_page)
+        pages = list(full_pages)
+        with self._page_lock:
+            for pid in pages:
+                self._page_refs[pid] += 1
+        self._prefix_entries[key] = PrefixEntry(
+            k=None, v=None, tokens=tuple(ctx[:b]), nbytes=nbytes, created=now, last_used=now,
+            pages=pages, tail_page=tail_page, tail_len=tail_len,
+        )
+        self._recount_prefix_pinned()
+        return True
+
+    def _page_nbytes(self) -> int:
+        return self.kv_arena_bytes // self._total_pages
+
+    def _prefix_pinned_page_ids(self) -> set[int]:
+        """Distinct pool pages the paged prefix cache pins."""
+        pinned: set[int] = set()
+        for e in self._prefix_entries.values():
+            if e.pages is not None:
+                pinned.update(e.pages)
+                if e.tail_page is not None:
+                    pinned.add(e.tail_page)
+        return pinned
+
+    def _recount_prefix_pinned(self) -> None:
+        self._prefix_bytes = len(self._prefix_pinned_page_ids()) * self._page_nbytes()
+
+    def _prefix_evict_lru(self, now: float | None = None) -> None:
+        _, entry = self._prefix_entries.popitem(last=False)
+        self._prefix_bytes -= entry.nbytes
+        if entry.pages is not None:
+            # unpin: sessions mapping these pages keep their own references
+            for pid in entry.pages:
+                self._decref_page(pid)
+            if entry.tail_page is not None:
+                self._decref_page(entry.tail_page)
+            self._recount_prefix_pinned()
+        self._count_eviction("prefix", (now or time.monotonic()) - entry.last_used)
+
+    def _count_eviction(self, kind: str, idle_s: float) -> None:
+        """One counter path for session and prefix-cache evictions, with
+        the evictee's idle age."""
+        if kind == "session":
+            self.session_evictions += 1
+            self.session_eviction_idle_s_recent.append(idle_s)
+        else:
+            self.prefix_evictions += 1
+            self.prefix_eviction_idle_s_recent.append(idle_s)
+
+
+def _p50(xs) -> float | None:
+    s = sorted(xs)
+    return round(s[len(s) // 2], 2) if s else None
+
+
+def _on_device(device: torch.device):
+    """Make ``device`` current on this thread (the card), else nothing."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _leaves(tree):
@@ -1392,7 +2317,9 @@ def _resolve(future: asyncio.Future, result: dict) -> None:
 
 def _reject(future: asyncio.Future, error: Exception) -> None:
     if not future.done():
-        if isinstance(error, (EngineShutdown, EngineOverloaded, PrefillFailed)):
+        if isinstance(
+            error, (EngineShutdown, EngineOverloaded, PrefillFailed, RequestAborted, EngineDraining)
+        ):
             future.set_exception(error)  # callers can catch the type
         else:
             future.set_exception(RuntimeError(f"engine worker error: {error}"))

@@ -11,10 +11,18 @@ and response JSON, same ``AGENTAINER_*`` environment contract. What differs:
 - conversation turns live in the process-local store that the reference's
   ``StoreClient`` falls back to with no control plane configured; the store
   client, KV snapshots to the store, tenants, ``/park``, ``/prewarm``,
-  ``/profile``, ``/cancel`` and streaming come with later slices. A
-  ``stream=true`` body is answered buffered and a deadline header is
-  ignored, as the reference does with ``streaming=False`` and
-  ``deadlines=False``.
+  ``/profile`` and streaming come with later slices. A ``stream=true`` body
+  is answered buffered, as the reference does with ``streaming=False``;
+- the drain on the way out (``run`` after ``stop()``) takes no KV
+  snapshots: there is no store to put them in yet.
+
+Request lifecycle policy as the reference's: ``X-Agentainer-Deadline-Ms``
+(or the ``default_deadline_ms`` option) sets a deadline, ``POST /cancel``
+aborts a request by its ``X-Agentainer-Request-ID``, and the engine's
+policy rejections answer 429 (overload), 503 + ``X-Agentainer-Draining``
+(draining), 504 + ``X-Agentainer-Expired`` (deadline) and 499 (cancelled).
+The persona (``system_prompt``) is prefilled into the prefix cache at load
+(``prefix_prewarms``), so the first session already forks it.
 
 Engine options ride ``AGENTAINER_MODEL_OPTIONS`` (JSON), including
 ``device`` (default ``"cuda"``). Run: ``python -m
@@ -35,14 +43,21 @@ import traceback
 from dataclasses import dataclass
 from urllib.parse import urlsplit
 
-from ..core.protocol import LOADING_HEADER, PREFILL_POISON_HEADER, REQUEST_ID_HEADER
+from ..core.protocol import (
+    DEADLINE_HEADER,
+    DRAINING_HEADER,
+    EXPIRED_HEADER,
+    LOADING_HEADER,
+    PREFILL_POISON_HEADER,
+    REQUEST_ID_HEADER,
+)
 
 MAX_TURNS = 50
 SESSION_CONVO_TTL_S = 7 * 24 * 3600
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error",
-    503: "Service Unavailable",
+    413: "Payload Too Large", 429: "Too Many Requests", 499: "Client Closed Request",
+    500: "Internal Server Error", 503: "Service Unavailable", 504: "Gateway Timeout",
 }
 _MAX_BODY = 16 << 20
 
@@ -117,6 +132,16 @@ class LLMServeApp:
         except ValueError:
             self.replica = 0
         self.store = LocalStore()
+        # drain on the way out: budget, outcome
+        try:
+            self.drain_budget_s = float(
+                self.model_options.get("drain_budget_s", E.get("AGENTAINER_DRAIN_BUDGET_S", 10.0))
+            )
+        except (TypeError, ValueError):
+            self.drain_budget_s = 10.0
+        self.draining = False
+        self.drained_clean: bool | None = None
+        self.prefix_prewarms = 0
         self.started_at = time.time()
         self.requests_total = 0
         self.unhandled_errors = 0
@@ -132,6 +157,7 @@ class LLMServeApp:
             ("POST", "/generate"): self.h_generate,
             ("GET", "/history"): self.h_history,
             ("POST", "/clear"): self.h_clear,
+            ("POST", "/cancel"): self.h_cancel,
             ("GET", "/metrics"): self.h_metrics,
         }
 
@@ -153,20 +179,38 @@ class LLMServeApp:
         try:
             from .llm import LLMEngine
 
-            self.engine = LLMEngine.create(
+            engine = LLMEngine.create(
                 config_name=self.config_name,
                 checkpoint=self.checkpoint,
                 options=dict(self.model_options),
             )
+            asyncio.run(self._prewarm_prefix(engine))
+            self.engine = engine
         except Exception as e:  # engine stays None; /chat reports 503
             self.engine_error = f"{type(e).__name__}: {e}"
             traceback.print_exc()
         finally:
             self._ready.set()
 
+    async def _prewarm_prefix(self, engine) -> None:
+        """Register the persona header in the engine's prefix cache before
+        traffic arrives: a 1-token generation of ``"{persona}\\n\\n"``
+        prefills and caches its bucket prefixes, which every chat that opens
+        with ``f"{system_prompt}\\n\\n{message}"`` forks. Best effort."""
+        if not self.system_prompt or not getattr(engine, "prefix_cache", False):
+            return
+        try:
+            await engine.generate(prompt=f"{self.system_prompt}\n\n", max_tokens=1)
+            self.prefix_prewarms += 1
+        except Exception as e:  # logged; serving goes on without the prewarm
+            print(f"[llm-serve] persona prefix prewarm failed: {type(e).__name__}: {e}", flush=True)
+
     async def run(self, host: str = "127.0.0.1", port: int = 8000) -> None:
         """Serve until ``stop()``; loads the engine in the background unless
-        one was injected before. Shuts the engine down on the way out."""
+        one was injected before. On the way out the engine drains (no new
+        admissions, 503 + draining; in-flight work finishes within
+        ``drain_budget_s``), then the server closes and the engine shuts
+        down."""
         self._loop = asyncio.get_running_loop()
         self._stop = asyncio.Event()
         if self.engine is None:
@@ -177,6 +221,9 @@ class LLMServeApp:
         self.port = server.sockets[0].getsockname()[1]
         try:
             await self._stop.wait()
+            if self.engine is not None:
+                self.draining = True
+                self.drained_clean = await asyncio.to_thread(self.engine.drain, self.drain_budget_s)
         finally:
             server.close()
             await server.wait_closed()
@@ -184,7 +231,7 @@ class LLMServeApp:
                 await asyncio.to_thread(self.engine.shutdown)
 
     def stop(self) -> None:
-        """Thread-safe: ask ``run`` to return."""
+        """Thread-safe: ask ``run`` to drain the engine and return."""
         if self._loop is not None and self._stop is not None:
             self._loop.call_soon_threadsafe(self._stop.set)
 
@@ -247,16 +294,11 @@ class LLMServeApp:
         except asyncio.CancelledError:
             raise
         except Exception as e:
-            from .llm import EngineOverloaded, PrefillFailed
+            from .llm import PrefillFailed
 
-            if isinstance(e, EngineOverloaded):
-                # overload backpressure (a full KV page pool) is policy, not
-                # an error: 429 with a retry hint, as the reference maps it
-                return Response(
-                    429,
-                    {"error": str(e), "depth": e.depth, "watermark": e.watermark},
-                    {"Retry-After": str(max(1, int(round(e.retry_after_s))))},
-                )
+            resp = self._policy_response(e)
+            if resp is not None:
+                return resp
             # any other handler error becomes a JSON 500 carrying the
             # exception string, with the traceback in the engine log
             self.unhandled_errors += 1
@@ -271,6 +313,41 @@ class LLMServeApp:
                 {"error": self.last_unhandled_error, "path": req.path, "agent_id": self.agent_id},
                 headers,
             )
+
+    def _policy_response(self, e: BaseException) -> Response | None:
+        """The engine's lifecycle-policy rejections as HTTP, as the
+        reference maps them; None for a real error."""
+        from .llm import EngineDraining, EngineOverloaded, RequestCancelled, RequestExpired
+
+        if isinstance(e, EngineOverloaded):
+            return Response(
+                429,
+                {"error": str(e), "depth": e.depth, "watermark": e.watermark},
+                {"Retry-After": str(max(1, int(round(e.retry_after_s))))},
+            )
+        if isinstance(e, EngineDraining):
+            return Response(
+                503, {"error": "engine draining for restart"},
+                {DRAINING_HEADER: "true", "Retry-After": "5"},
+            )
+        if isinstance(e, RequestExpired):
+            return Response(504, {"error": str(e)}, {EXPIRED_HEADER: "true"})
+        if isinstance(e, RequestCancelled):
+            # the expiry marker too: a cancellation is not a completed reply
+            return Response(499, {"error": str(e)}, {EXPIRED_HEADER: "true"})
+        return None
+
+    def _deadline_from(self, req: Request) -> dict:
+        """``{"deadline_at": t}`` from the deadline header (remaining ms),
+        else the ``default_deadline_ms`` option; empty for none."""
+        raw = req.headers.get(DEADLINE_HEADER.lower(), "") or self.model_options.get(
+            "default_deadline_ms", ""
+        )
+        try:
+            ms = float(raw)
+        except (TypeError, ValueError):
+            return {}
+        return {"deadline_at": time.time() + ms / 1000.0} if ms > 0 else {}
 
     async def _ensure_engine(self) -> Response | None:
         """While the model loads, answer fast with a "loading" marker (after
@@ -301,7 +378,7 @@ class LLMServeApp:
         return Response(
             200,
             {
-                "status": "healthy",
+                "status": "draining" if self.draining else "healthy",
                 "agent_id": self.agent_id,
                 "model_loaded": self.engine is not None,
                 "uptime_s": time.time() - self.started_at,
@@ -334,6 +411,7 @@ class LLMServeApp:
             max_tokens=max_tokens,
             request_id=req.headers.get(REQUEST_ID_HEADER.lower(), ""),
             **kw,
+            **self._deadline_from(req),
         )
         await self._record_turn(session, message, result["text"])
         return Response(
@@ -381,6 +459,7 @@ class LLMServeApp:
             top_k=int(body.get("top_k", 0)),
             top_p=float(body.get("top_p", 1.0)),
             request_id=req.headers.get(REQUEST_ID_HEADER.lower(), ""),
+            **self._deadline_from(req),
         )
         return Response(200, result)
 
@@ -406,6 +485,23 @@ class LLMServeApp:
             await asyncio.to_thread(self.engine.clear_sessions, f"{self.agent_id}::")
         return Response(200, {"status": "cleared"})
 
+    async def h_cancel(self, req: Request) -> Response:
+        """Abort a request by id: queued work fails before prefill, an
+        in-flight lane is parked and its slot freed. ``cancelled`` is False
+        for an id already completed."""
+        self.requests_total += 1
+        err = await self._ensure_engine()
+        if err is not None:
+            return err
+        try:
+            body = req.json()
+        except ValueError:
+            return Response(400, {"error": "invalid JSON"})
+        rid = str(body.get("request_id", "")) if isinstance(body, dict) else ""
+        if not rid:
+            return Response(400, {"error": "request_id required"})
+        return Response(200, {"cancelled": bool(self.engine.cancel(rid))})
+
     async def h_metrics(self, req: Request) -> Response:
         doc = {
             "engine": "llm",
@@ -417,6 +513,9 @@ class LLMServeApp:
             "engine_error": self.engine_error or None,
             "unhandled_errors": self.unhandled_errors,
             "last_unhandled_error": self.last_unhandled_error or None,
+            "prefix_prewarms": self.prefix_prewarms,
+            "drain_budget_s": self.drain_budget_s,
+            "drained_clean": self.drained_clean,
         }
         if self.engine is not None:
             doc.update(self.engine.metrics())

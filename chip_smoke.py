@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, always all five, in order (any failure raises; the script then
+Phases, all of them on every run, in order (any failure raises; the script then
 exits non-zero):
 
 1. build       — compile the kernels of ``agentainer_tpu_torch/csrc`` with
@@ -20,13 +20,16 @@ exits non-zero):
                  L2, in turns, median and spread; for the paged kernels,
                  which no single library call computes, gather + SDPA as a
                  yardstick), the decode rows also at the served mix of 2
-                 live and 6 parked lanes, the least time the card could
-                 take, each kernel's device launches per call counted in the
-                 trace, and the card's SM clock and power draw sampled while
-                 each row runs.
+                 live and 6 parked lanes, the prefill rows also at the verify
+                 rounds of speculative decoding (q [8, K+1] for K = 8, 2, 4,
+                 the same mix), the least time the card could take, each
+                 kernel's device launches per call counted in the trace, and
+                 the card's SM clock and power draw sampled while each row
+                 runs.
 3. serve       — the port's standard-library ``llm_serve`` on a local port
                  with ``llama3-8b`` at full width and depth, bf16, random
-                 weights from a seeded generator; /chat requests over three
+                 weights from a seeded generator, with prefix cache,
+                 speculation and deadlines off; /chat requests over three
                  sessions (one with two turns, two requests in flight at
                  once). The dense kernels' launch counts are set to 0 just
                  before and read just after: each must be > 0.
@@ -37,10 +40,26 @@ exits non-zero):
                  Every request 200, >= 13 resident sessions, no eviction, no
                  pool exhaustion, no worker error; both paged kernels
                  launched, neither dense kernel.
-5. model       — ``forward`` logits with the kernels against ``forward``
+5. features    — the reference's defaults (prefix cache, speculation,
+   (dense,       deadlines) with a persona, dense and then paged: a
+   then paged)   sequential script (fresh sessions fork the persona; a JSON
+                 tool-call loop and two one-byte runs, which the random
+                 model repeats, speculate), a deadline passing while all 8
+                 lanes are busy (504, no prefill), ``POST /cancel`` of an
+                 in-flight request (499, its lane free for a newcomer), a
+                 burst past the shed watermark (429s, the rest 200). The
+                 prefill kernel's launches equal 32 layers × (prefill chunks
+                 + verify rounds); the dense and paged scripts give the same
+                 text.
+6. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
-                 llama3-8b width at 2 layers, in bf16 and in f32 (TF32 off).
+                 llama3-8b width at 2 layers, in bf16 and in f32 (TF32 off);
+                 a verify forward at [8, 9] against 9 one-token decode
+                 steps, and a tail prefill after a prefix fork against the
+                 full prefill, at the same tolerances; in bf16 the first
+                 index where greedy decoding through verify rounds leaves
+                 the plain stream (reported, not gated).
 
 Stdout ends with four lines: the served paths' and the model check's numbers
 (JSON), the card's name and power limit, a JSON object listing every kernel,
@@ -60,6 +79,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
@@ -92,6 +112,10 @@ PS = 64  # the paged phase's page size
 # and the served step's mix of 2 live lanes near 300 and 6 parked at S - 1
 MIXED_POS = (0, 17, 130, 511, 777, 1024, 1500, S - 1)
 SERVED_MIX_POS = (299, 312, *(S - 1,) * 6)
+# verify rounds of self-speculative decoding: the prefill kernels at
+# [B, K + 1] for the verify buckets K, lanes 0-1 live from 299 / 312, lanes
+# 2-7 parked with every row at S - 1
+VERIFY_KS = (8, 2, 4)
 YARDSTICK = "gather_pages + scaled_dot_product_attention"
 # the four requests both serve phases send: (session, message)
 REQUESTS = (
@@ -111,6 +135,7 @@ FLUSH_BYTES = 256 << 20  # rewritten before each timed call: 5x the H100's 50 MB
 SPIN_CYCLES = 2_000_000  # ~1 ms of device spin before each call: the host runs ahead
 MARK_CYCLES = 1_000  # the spin that parts a flush from the call after it
 TAIL_CYCLES = 400_000_000  # ~0.2 s of spin after a row: the last clock sample reads a busy card
+TRACE_ATTEMPTS = 3  # traces of a row taken before a lost device record fails it
 SOURCE = "agentainer_tpu_torch/csrc/flash_attention.cu"
 TIMING = (
     "device span of one call (first start to last end of its device activities in a "
@@ -152,20 +177,56 @@ def time_in_turns(fns: dict, rounds: int = ROUNDS) -> tuple[dict[str, dict], dic
     row runs under torch.profiler, and a call's time is the span of its
     device activities in the trace, first start to last end, which host
     stalls do not reach. nvidia-smi samples the SM clock and power while the
-    row runs. Returns, per function, the median, min and max in ms, the
-    device launches of one call (raises if two calls differ) and the names
-    of their kernels; and the row's clock samples."""
+    row runs. The profiler now and then loses device records; a trace that
+    does not part into exactly the flushes and calls issued, or whose calls
+    of one function differ in launches, is taken again, up to
+    ``TRACE_ATTEMPTS`` times. Returns, per function, the median, min and max
+    in ms, the device launches of one call and the names of their kernels;
+    and the row's clock samples."""
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for fn in fns.values():  # first launches, allocator
         fn()
     torch.cuda.synchronize()
     order = [name for _ in range(rounds) for name in (*fns, *reversed(fns))]
-    samples: list[str] = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        samples: list[str] = []
+        try:
+            per_fn = _traced_calls(fns, order, flush, samples)
+            break
+        except TraceIncomplete as e:
+            if attempt == TRACE_ATTEMPTS:
+                raise
+            log(f"trace attempt {attempt} of {TRACE_ATTEMPTS} incomplete ({e}); tracing the row again")
+    out = {}
+    for name, runs in per_fn.items():
+        ms = [
+            (max(e.time_range.end for e in acts) - min(e.time_range.start for e in acts)) / 1e3
+            for acts in runs
+        ]
+        out[name] = {
+            "median": statistics.median(ms), "min": min(ms), "max": max(ms),
+            "launches": len(runs[0]), "kernels": [_kernel_name(e.name) for e in runs[0]],
+        }
+    return out, _clock_summary(samples)
+
+
+class TraceIncomplete(RuntimeError):
+    """A profiler trace that lost device records."""
+
+
+def _traced_calls(fns: dict, order: list[str], flush, samples: list) -> dict[str, list[list]]:
+    """One traced pass over ``order``: per function, the device activities
+    of each of its calls. Raises ``TraceIncomplete`` unless the trace parts
+    into exactly what was issued (one flush activity, then a non-empty call,
+    per entry of ``order``) and every call of a function made as many device
+    launches as the others."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with _sampling(samples):
             for name in order:
@@ -183,32 +244,25 @@ def time_in_turns(fns: dict, rounds: int = ROUNDS) -> tuple[dict[str, dict], dic
         (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
         key=lambda e: e.time_range.start,
     )
-    groups: list[list] = []  # the activities between two spins: a flush, then a call, ...
+    # the activities after each spin: a flush, a call, ..., then the two
+    # empty tail groups
+    groups: list[list] = []
     for e in events:
         if "spin_kernel" in e.name:
             groups.append([])
         elif groups:
             groups[-1].append(e)
-    calls = groups[1:2 * len(order):2]
-    if len(groups) < 2 * len(order) + 1 or not all(calls):
-        raise RuntimeError(f"profiler trace: {len(groups)} spin-parted groups for {len(order)} calls")
+    flushes, calls = groups[0:2 * len(order):2], groups[1:2 * len(order):2]
+    if len(groups) != 2 * len(order) + 2 or any(len(f) != 1 for f in flushes) or not all(calls):
+        raise TraceIncomplete(f"{len(groups)} spin-parted groups for {len(order)} calls")
     per_fn = {name: [] for name in fns}
     for name, acts in zip(order, calls):
         per_fn[name].append(acts)
-    out = {}
     for name, runs in per_fn.items():
         launches = {len(acts) for acts in runs}
         if len(launches) != 1:
-            raise RuntimeError(f"{name}: device launches per call differ between calls: {launches}")
-        ms = [
-            (max(e.time_range.end for e in acts) - min(e.time_range.start for e in acts)) / 1e3
-            for acts in runs
-        ]
-        out[name] = {
-            "median": statistics.median(ms), "min": min(ms), "max": max(ms),
-            "launches": launches.pop(), "kernels": [_kernel_name(e.name) for e in runs[0]],
-        }
-    return out, _clock_summary(samples)
+            raise TraceIncomplete(f"{name}: device launches per call differ between calls: {launches}")
+    return per_fn
 
 
 @contextlib.contextmanager
@@ -353,6 +407,29 @@ def phase_kernels() -> list[dict]:
         shape=f"q[{b},{t},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {off}..{off + t - 1}",
     ))
 
+    # verify rounds: B = 8, T = K + 1, at the served mix
+    k, v = randn(B, S, KV, HD), randn(B, S, KV, HD)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    verify = {}
+    for kk in VERIFY_KS:
+        q = randn(B, kk + 1, H, HD)
+        pos = _verify_pos(kk, dev)
+        mask = (torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
+        live = (pos.max(dim=1).values.clamp(max=S - 1) + 1).sum().item()
+        visible = (pos.clamp(max=S - 1) + 1).sum().item()
+        verify[f"K={kk}"] = {
+            **_compare(ca.flash_prefill, ca.flash_prefill_plain, (q, k, v), (pos,), BF16_ATOL + BF16_P_ATOL),
+            **_timed("flash_prefill", {
+                "kernel": lambda q=q, pos=pos: ca.flash_prefill(q, k, v, pos),
+                "library": lambda q=q, mask=mask: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kt, vt, attn_mask=mask, enable_gqa=True),
+            }),
+            **_bound(2 * (2 * q.numel() + 2 * live * KV * HD), 4.0 * H * HD * visible),
+            "shape": f"q[{B},{kk + 1},{H},{HD}] kv[{B},{S},{KV},{HD}] bf16, {_VERIFY_MIX}",
+        }
+    out[-1]["verify"] = verify
+    del k, v, kt, vt
+
     # decode: the engine's 8 lanes at mixed positions, one parked at S - 1;
     # then the served mix: 2 live lanes near 300, 6 parked at S - 1
     b = B
@@ -390,7 +467,23 @@ def phase_kernels() -> list[dict]:
             mix = row["served_mix"]
             log(f"{row['name']} served mix: ms {mix['ms']:.4f} [{mix['ms_min']:.4f}, {mix['ms_max']:.4f}] "
                 f"{ref} {mix[ref + '_ms']:.4f} bound {mix['bound_ms']:.4f} card {mix['card']}")
+        for key, ver in row.get("verify", {}).items():
+            log(f"{row['name']} verify {key}: max_abs_err bf16 {ver['max_abs_err']:.3g} f32 "
+                f"{ver['max_abs_err_f32']:.3g} ms {ver['ms']:.4f} [{ver['ms_min']:.4f}, {ver['ms_max']:.4f}] "
+                f"{ref} {ver[ref + '_ms']:.4f} bound {ver['bound_ms']:.4f} launches/call "
+                f"{ver['launches_per_call']} card {ver['card']}")
     return out
+
+
+_VERIFY_MIX = "lanes 0-1 at 299/312 + arange(K + 1), lanes 2-7 at S - 1"
+
+
+def _verify_pos(kk: int, dev):
+    """Positions of a verify round at bucket K: [B, K + 1] int32."""
+    import torch
+
+    live = torch.tensor([299, 312], device=dev)[:, None] + torch.arange(kk + 1, device=dev)
+    return torch.cat([live, torch.full((B - 2, kk + 1), S - 1, device=dev)]).int()
 
 
 def _paged_table(g, dev):
@@ -504,17 +597,59 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
         "fused_paged_flash_decode", 577, **errs, **shapes.pop("mixed"), library_ms=None,
         yardstick=YARDSTICK, served_mix=shapes["served_mix"],
     ))
+
+    # verify rounds through the served table (lanes 2-7 parked on their
+    # scratch pages), B = 8, T = K + 1
+    verify = {}
+    for kk in VERIFY_KS:
+        q = randn(B, kk + 1, H, HD)
+        pos = _verify_pos(kk, dev)
+        mask = (torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
+
+        def gather_sdpa_verify(q=q, mask=mask):
+            k, v = gather_pages(pool_k, pool_v, parked)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+            )
+
+        visible = (pos.clamp(max=S - 1) + 1).sum().item()
+        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(parked, pos[:, -1]) * KV * HD + 4 * parked.numel()
+        verify[f"K={kk}"] = {
+            **_compare(
+                ca.fused_paged_flash_prefill, ca.paged_flash_prefill_plain, (q, pool_k, pool_v),
+                (parked, pos), BF16_ATOL + BF16_P_ATOL,
+            ),
+            **_timed("fused_paged_flash_prefill", {
+                "kernel": lambda q=q, pos=pos: ca.fused_paged_flash_prefill(q, pool_k, pool_v, parked, pos),
+                "yardstick": gather_sdpa_verify,
+            }),
+            **_bound(bytes_moved, 4.0 * H * HD * visible),
+            "shape": f"q[{B},{kk + 1},{H},{HD}] {pool} table[{B},{S // PS}], {_VERIFY_MIX}",
+        }
+    rows[0]["verify"] = verify
     return rows
 
 
 def _http(port: int, method: str, path: str, body: dict | None = None, timeout: float = 600):
+    status, _, doc = _http_any(port, method, path, body, timeout=timeout)
+    if status >= 400:
+        raise AssertionError(f"{method} {path}: {status} {doc}")
+    return status, doc
+
+
+def _http_any(port: int, method: str, path: str, body: dict | None = None,
+              headers: dict | None = None, timeout: float = 600):
+    """(status, headers, JSON body) of one request, error statuses included."""
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=data, method=method,
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, json.loads(resp.read())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
 
 
 @contextlib.contextmanager
@@ -586,11 +721,16 @@ PAGED_KEYS = (
 )
 
 
+# the features-off phases pin the reference's defaults off, so their gates
+# and numbers stay comparable with the runs before the features were ported
+FEATURES_OFF = {"prefix_cache": False, "speculative": False, "deadlines": False}
+
+
 def phase_serve() -> dict:
     """The dense arena: the four requests through both dense kernels."""
     from agentainer_tpu_torch.ops import cuda_attention as ca
 
-    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S}
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, **FEATURES_OFF}
     with _serving(options) as (app, load_s):
         log(f"llama3-8b engine loaded (init + warmup) in {load_s:.1f}s")
         kernels = (ca.flash_prefill, ca.flash_decode)
@@ -632,7 +772,7 @@ def phase_serve_paged(dense_texts: list[str]) -> dict:
     torch.cuda.empty_cache()  # the dense engine's weights and arena
     options = {
         "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "paged_kv": True,
-        "page_size": PS,
+        "page_size": PS, **FEATURES_OFF,
     }
     with _serving(options) as (app, load_s):
         log(f"llama3-8b paged engine loaded (init + warmup) in {load_s:.1f}s")
@@ -682,6 +822,182 @@ def phase_serve_paged(dense_texts: list[str]) -> dict:
         "pages": gauges,
         "after_four_requests": {k: after_four.get(k) for k in ("itl_ms_p50", "ttft_ms_p50", "decode_chunk_hist")},
         "same_text_as_dense": True,
+    }
+
+
+# the feature phases' persona (>= 64 tokens with the byte tokenizer, so the
+# persona's prefix reaches bucket 64 and 128) and their sequential script
+PERSONA = (
+    "You are Atlas, a careful assistant for a team of on-call engineers. Answer in short, "
+    "plain sentences, cite the runbook step you used, and say so when you are unsure."
+)
+JSON_LOOP = '{"tool": "search", "args": {"q": "w", "n": 5}}\n' * 4
+# (session, message, max_tokens); a session of None is a /generate prompt.
+# Random weights do not continue the JSON loop's text, so prompt lookup
+# finds no n-gram to draft from there. A prompt of one repeated byte is the
+# prompt-lookup-friendly request for a random model: every position of its
+# context feeds the same value vectors, so the hidden state at each new
+# position stays close to the prompt's and the model repeats its own token,
+# which the drafter then proposes and the verify round accepts.
+RUNS = ("a" * 512, "=" * 512)
+SCRIPT = (
+    ("f1", "Hello! Summarize the plot of a heist movie in one line.", 32),
+    ("f2", JSON_LOOP, 64),
+    ("f1", "Now tell it as a haiku.", 32),
+    ("f3", "List three prime numbers and explain why they are prime.", 32),
+    *((None, run, 96) for run in RUNS),
+)
+SPEC_COUNTS = ("spec_rounds", "spec_drafted", "spec_accepted", "prefix_hits", "prefix_tokens_saved")
+SHED_WATERMARK = 12  # the burst below sends 16 at once over 8 lanes
+FEATURE_KEYS = (
+    "prefix_hits", "prefix_misses", "prefix_tokens_saved", "prefix_arena_entries",
+    "spec_rounds", "spec_drafted", "spec_accepted", "spec_acceptance_rate", "spec_verify_hist",
+    "prefill_chunks", "expired_total", "cancelled_total", "shed_total", "prefills",
+    "itl_ms_p50", "ttft_ms_p50", "decode_chunk_hist", "worker_errors",
+)
+
+
+def _wait_metric(port: int, key: str, at_least: int, timeout: float = 120) -> dict:
+    t0 = time.monotonic()
+    while True:
+        _, m = _http(port, "GET", "/metrics")
+        if m[key] >= at_least:
+            return m
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"/metrics {key} stayed below {at_least}: {m[key]}")
+        time.sleep(0.05)
+
+
+def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None) -> dict:
+    """The reference's default serving features (prefix cache, speculation,
+    deadlines) with a persona: the sequential script (fresh sessions fork
+    the persona, the one-byte runs speculate), then a deadline that passes
+    while all 8 lanes are busy (504, no prefill), a cancel of an in-flight
+    request (499, its lane taken at once by a newcomer), and a burst past
+    the shed watermark (429s, the rest 200). The prefill kernel's launches
+    must equal n_layers × (prefill chunks + verify rounds)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = {
+        "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S,
+        "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA,
+    }
+    if paged:
+        options.update(paged_kv=True, page_size=PS)
+    prefill, decode = (
+        (ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode) if paged
+        else (ca.flash_prefill, ca.flash_decode)
+    )
+    others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
+                            ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
+    name = "paged" if paged else "dense"
+    with _serving(options) as (app, load_s):
+        port = app.port
+        log(f"llama3-8b {name} engine with the default features loaded in {load_s:.1f}s")
+        _, m0 = _http(port, "GET", "/metrics")
+        for fn in (prefill, decode, *others):
+            fn.launches = 0
+        t1 = time.monotonic()
+        replies, texts, per_request = [], [], []
+        for s, msg, n in SCRIPT:
+            _, mb = _http(port, "GET", "/metrics")
+            if s is None:
+                _, doc = _http(port, "POST", "/generate", {"prompt": msg, "max_tokens": n})
+                replies.append((s, doc))
+                texts.append(doc["text"])
+            else:
+                texts.append(_chat(port, replies, s, msg, n)["response"])
+            _, ma = _http(port, "GET", "/metrics")
+            per_request.append({k: ma[k] - mb[k] for k in SPEC_COUNTS})
+        script_s = time.monotonic() - t1
+        _, m1 = _http(port, "GET", "/metrics")
+
+        # 8 long requests hold every lane
+        results: dict = {}
+
+        def occupy(i):
+            results[i] = _http_any(port, "POST", "/chat", {
+                "session": f"occ{i}", "message": f"Occupant {i}: write a very long story.",
+                "max_tokens": 1500, "ignore_eos": True,
+            }, {"X-Agentainer-Request-ID": f"occ-{i}"})
+
+        threads = [threading.Thread(target=occupy, args=(i,)) for i in range(B)]
+        for th in threads:
+            th.start()
+        before = _wait_metric(port, "prefills", m1["prefills"] + B)
+        # 504: the deadline passes while the request waits for a lane
+        status, headers, doc = _http_any(
+            port, "POST", "/chat", {"session": "late", "message": "too late", "max_tokens": 4},
+            {"X-Agentainer-Deadline-Ms": "200"},
+        )
+        _, after = _http(port, "GET", "/metrics")
+        if status != 504 or headers.get("X-Agentainer-Expired") != "true":
+            raise AssertionError(f"deadline while every lane is busy: {status} {doc}")
+        if after["prefills"] != before["prefills"]:
+            raise AssertionError(f"the expired request was prefilled: {before['prefills']} -> {after['prefills']}")
+        # 499: cancel an in-flight occupant; a newcomer then takes its lane
+        _, cancel = _http(port, "POST", "/cancel", {"request_id": "occ-0"})
+        threads[0].join(timeout=120)
+        status, headers, doc = results[0]
+        if cancel != {"cancelled": True} or status != 499:
+            raise AssertionError(f"cancel of an in-flight request: {cancel} {status} {doc}")
+        newcomer = _chat(port, replies, "newcomer", "A short question after a cancel?", 4)
+        _, during = _http(port, "GET", "/metrics")
+        if during["active_requests"] != B - 1:
+            raise AssertionError(f"occupants while the newcomer ran: {during['active_requests']}")
+        for i in range(1, B):
+            _http(port, "POST", "/cancel", {"request_id": f"occ-{i}"})
+        for th in threads:
+            th.join(timeout=120)
+        statuses = sorted(results[i][0] for i in range(B))
+        if statuses != [499] * B:
+            raise AssertionError(f"cancelled occupants answered {statuses}")
+        # 429: a burst past the shed watermark
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            burst = list(pool.map(lambda i: _http_any(port, "POST", "/chat", {
+                "session": f"burst{i}", "message": f"Burst question {i}?", "max_tokens": 8,
+                "ignore_eos": True,
+            }), range(16)))
+        codes = sorted(r[0] for r in burst)
+        if codes.count(429) < 1 or codes.count(200) + codes.count(429) != 16:
+            raise AssertionError(f"burst past the shed watermark answered {codes}")
+        serve_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others)}
+        _, m2 = _http(port, "GET", "/metrics")
+
+    if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
+        raise AssertionError(f"prefix cache: prewarms {m0['prefix_prewarms']}, hits {m1['prefix_hits']}")
+    if m1["spec_rounds"] <= 0 or m1["spec_accepted"] <= 0:
+        raise AssertionError(f"no speculation in the script: {per_request}")
+    want = n_layers * (m2["prefill_chunks"] - m0["prefill_chunks"] + m2["spec_rounds"] - m0["spec_rounds"])
+    if launches[prefill.__name__] != want:
+        raise AssertionError(f"{prefill.__name__}: {launches[prefill.__name__]} launches, "
+                             f"{n_layers} x (prefill chunks + verify rounds) = {want}")
+    if launches[decode.__name__] <= 0 or any(launches[fn.__name__] for fn in others):
+        raise AssertionError(f"{name} feature phase launches: {launches}")
+    if m2["worker_errors"] or m2["expired_total"] < 1 or m2["cancelled_total"] < B or m2["shed_total"] < 1:
+        raise AssertionError(f"{name} feature phase counters: {({k: m2[k] for k in FEATURE_KEYS})}")
+    if script_texts is not None and texts != script_texts:
+        raise AssertionError(f"paged feature text differs from the dense feature phase's: {texts} {script_texts}")
+    log(f"{name} features: script in {script_s:.2f}s, served {serve_s:.2f}s; launches {launches}; "
+        f"after the script {({k: m1[k] for k in FEATURE_KEYS})}; per request {per_request}; burst {codes}")
+    return {
+        "launches": launches,
+        "load_s": load_s,
+        "script_s": script_s,
+        "serve_s": serve_s,
+        "prefix_prewarms": m0["prefix_prewarms"],
+        "after_script": {k: m1[k] for k in FEATURE_KEYS},
+        "script_per_request": per_request,
+        "end": {k: m2[k] for k in FEATURE_KEYS},
+        "script_ttft_ms": [doc["ttft_ms"] for _, doc in replies[: len(SCRIPT)]],
+        "newcomer_ttft_ms": newcomer["ttft_ms"],
+        "burst_codes": codes,
+        "texts": texts,
     }
 
 
@@ -747,13 +1063,112 @@ def phase_model() -> dict:
                 )
             elif paged_err / scale > BF16_LOGIT_TOL:
                 raise AssertionError(f"bf16 paged forward disagrees with the dense forward: {paged_err}")
-            out[name] = {"max_abs_err": err, "max_abs_logit": scale, "paged_vs_dense_max_abs_err": paged_err}
+            out[name] = {
+                "max_abs_err": err, "max_abs_logit": scale, "paged_vs_dense_max_abs_err": paged_err,
+                **_model_feature_checks(params, cfg, dtype, dev, scale),
+            }
             del params, logits, got, want, cache, paged
     out["tolerance"] = {
         "bfloat16": f"{BF16_LOGIT_TOL} * max(1, |logit|)", "float32": F32_LOGIT_TOL,
         "paged_vs_dense_float32": F32_TOL,
+        "verify_vs_decode_and_fork_vs_full": "as kernels vs plain",
     }
     return out
+
+
+def _model_feature_checks(params, cfg, dtype, dev, scale: float) -> dict:
+    """(a) a verify forward at [8, K + 1] (lanes 6-7 parked) against K + 1
+    one-token decode steps on a copy of the same arena, live lanes row by
+    row; (b) a tail prefill after a prefix fork (the first 64 positions
+    copied from another arena row) against the full prefill. f32 within
+    F32_LOGIT_TOL, bf16 within BF16_LOGIT_TOL of the largest logit. In bf16
+    also the first index where greedy decoding through verify rounds (each
+    drafting the plain stream's next K tokens) leaves the plain stream;
+    reported, not gated."""
+    import torch
+
+    from agentainer_tpu_torch.models.llama import KVCache, forward
+
+    name = str(dtype).removeprefix("torch.")
+    b, s, n_ctx, kk = B, 512, 128, 8
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    ar = lambda n, lo=0: torch.arange(lo, lo + n, device=dev, dtype=torch.int32)  # noqa: E731
+
+    def clone(c):
+        return KVCache(c.k_store.clone(), c.v_store.clone())
+
+    def check(what, got, want):
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what} ({name}): non-finite logits")
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=F32_LOGIT_TOL, atol=F32_LOGIT_TOL,
+                                       msg=lambda m: f"{what} (f32): {m}")
+        elif err / scale > BF16_LOGIT_TOL:
+            raise AssertionError(f"{what} (bf16): max abs err {err}")
+        log(f"2-layer llama3-8b {name}, {what}: max abs err {err:.3g}")
+        return err
+
+    ctx = torch.randint(0, cfg.vocab_size, (b, n_ctx), generator=g, device=dev)
+    cache = KVCache.create(cfg, b, s, dtype=dtype, device=dev)
+    pre = forward(params, cfg, ctx, ar(n_ctx).expand(b, n_ctx), cache)
+    base = clone(cache)
+    # (a) live lanes start at ragged positions, two crossing a 64-slot tile
+    start = torch.tensor([128, 100, 63, 120, 61, 125, s - 1, s - 1], device=dev, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (b, kk + 1), generator=g, device=dev)
+    positions = torch.clamp(start[:, None] + ar(kk + 1), max=s - 1)
+    ver = forward(params, cfg, toks, positions, cache)
+    seq_cache = clone(base)
+    seq = torch.cat([
+        forward(params, cfg, toks[:, j : j + 1], positions[:, j : j + 1], seq_cache) for j in range(kk + 1)
+    ], dim=1)
+    out = {"verify_vs_decode_max_abs_err": check("verify [8, 9] vs 9 decode steps", ver[:6], seq[:6])}
+    # (b) prefix fork + tail prefill against the full prefill (lane 0)
+    full = forward(params, cfg, ctx[:1, :96], ar(96)[None], KVCache.create(cfg, 1, s, dtype=dtype, device=dev))
+    forked = KVCache.create(cfg, 1, s, dtype=dtype, device=dev)
+    forked.k_store[:, 0, :64].copy_(base.k_store[:, 0, :64])
+    forked.v_store[:, 0, :64].copy_(base.v_store[:, 0, :64])
+    tail = forward(params, cfg, ctx[:1, 64:96], ar(32, 64)[None], forked)
+    out["fork_vs_full_max_abs_err"] = check("tail prefill after a fork vs full prefill", tail, full[:, 64:])
+    if dtype == torch.bfloat16:
+        out["greedy_spec_first_divergence"] = _greedy_divergence(params, cfg, base, pre, ar, s)
+        log(f"2-layer llama3-8b bf16: greedy through verify rounds leaves the plain stream at index "
+            f"{out['greedy_spec_first_divergence']} (None: never, in 48 tokens)")
+    return out
+
+
+def _greedy_divergence(params, cfg, base, pre, ar, s, n: int = 48, kk: int = 8):
+    """Lane 0 from the same prefilled arena: plain greedy decode for n
+    tokens, then greedy decode through verify rounds at [8, K + 1] whose
+    drafts are the plain stream's next K tokens (lanes 1-7 parked); the
+    first index where the two streams differ, or None."""
+    import torch
+
+    from agentainer_tpu_torch.models.llama import KVCache, forward
+
+    b, dev = B, pre.device
+    first = int(pre[0, -1].argmax())
+    plain, cache = [first], KVCache(base.k_store.clone(), base.v_store.clone())
+    tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    pos = torch.full((b, 1), s - 1, dtype=torch.int32, device=dev)
+    for i in range(n):
+        tok[0, 0], pos[0, 0] = plain[-1], 128 + i
+        plain.append(int(forward(params, cfg, tok, pos, cache)[0, 0].argmax()))
+    spec, cache, p = [first], KVCache(base.k_store.clone(), base.v_store.clone()), 128
+    while len(spec) <= n:
+        drafts = (plain[len(spec) : len(spec) + kk] + [0] * kk)[:kk]
+        toks = torch.zeros((b, kk + 1), dtype=torch.long, device=dev)
+        toks[0] = torch.tensor([spec[-1], *drafts], device=dev)
+        positions = torch.full((b, kk + 1), s - 1, dtype=torch.int32, device=dev)
+        positions[0] = ar(kk + 1, p)
+        greedy = forward(params, cfg, toks, positions, cache)[0].argmax(dim=-1).tolist()
+        a = 0
+        while a < kk and drafts[a] == greedy[a]:
+            a += 1
+        spec += drafts[:a] + [greedy[a]]
+        p += a + 1
+    return next((i for i, (x, y) in enumerate(zip(plain, spec[: n + 1])) if x != y), None)
 
 
 def main() -> int:
@@ -776,9 +1191,15 @@ def main() -> int:
     kernels = phase_kernels()
     report = {"serve": phase_serve()}
     report["serve_paged"] = phase_serve_paged(report["serve"].pop("texts"))
+    n_layers = 32  # llama3-8b at full depth in the feature phases
+    report["features"] = phase_serve_features(False, n_layers, None)
+    report["features_paged"] = phase_serve_features(True, n_layers, report["features"].pop("texts"))
+    report["features_paged"].pop("texts")
     for row in kernels:
-        path = "serve_paged" if "paged" in row["name"] else "serve"
-        row["launches"] = report[path]["launches"][row["name"]]
+        paged = "paged" in row["name"]
+        # the main path is the reference's default: the feature phases
+        row["launches"] = report["features_paged" if paged else "features"]["launches"][row["name"]]
+        row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
     report["model"] = phase_model()
     print(json.dumps(report))
     print(card)

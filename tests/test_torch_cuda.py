@@ -227,3 +227,72 @@ def test_dispatch_on_the_card_raises_for_a_head_the_kernels_do_not_take(dev):
         cache_attention(q, kv, kv, pos)
     with pytest.raises(ValueError, match="unsupported shape"):
         paged_cache_attention(q, kv, kv, table, pos)
+
+
+# -- verify rounds: the prefill kernels at B = 8, T = K + 1 ------------------
+
+VERIFY_T = [3, 5, 9]  # K + 1 for the verify buckets K = 2, 4, 8
+
+
+def _verify_positions(dev, t, s):
+    """The served verify mix: live lanes whose rows cross a 64-slot tile
+    (and, paged, a page) boundary — 62.., 299.., 312.., 1021.. — and four
+    parked lanes, every row at S - 1."""
+    live = torch.tensor([62, 299, 312, 1021], device=dev)[:, None] + torch.arange(t, device=dev)
+    parked = torch.full((4, t), s - 1, device=dev)
+    return torch.cat([live, parked]).int()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", GROUPS)
+@pytest.mark.parametrize("t", VERIFY_T)
+def test_prefill_kernel_at_verify_shapes(dev, dtype, heads, kv_heads, t):
+    g = torch.Generator(device=dev).manual_seed(10)
+    b, s = 8, 2048
+    q = _randn(g, dev, dtype, b, t, heads, 128)
+    k, v = (_randn(g, dev, dtype, b, s, kv_heads, 128) for _ in range(2))
+    pos = _verify_positions(dev, t, s)
+    got = ca.flash_prefill(q, k, v, pos)
+    torch.testing.assert_close(
+        got.float(), ca.flash_prefill_plain(q, k, v, pos).float(), rtol=TOL[dtype], atol=TOL[dtype]
+    )
+
+
+def _verify_paged_case(g, dev, dtype, heads, kv_heads, ps, t):
+    """Pools and a scrambled table for 8 lanes over S = the page multiple
+    nearest below 2048; the parked lanes' rows are all their scratch page."""
+    b = 8
+    s = (2048 // ps) * ps
+    nb = s // ps
+    pool_k, pool_v = (_randn(g, dev, dtype, b * nb + b, ps, kv_heads, 128) for _ in range(2))
+    table = torch.randperm(b * nb, generator=g, device=dev).reshape(b, nb).int()
+    table[4:] = (b * nb + torch.arange(4, b, device=dev, dtype=torch.int32))[:, None]
+    return pool_k, pool_v, table, _verify_positions(dev, t, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [12, 16, 64])
+@pytest.mark.parametrize("heads,kv_heads", GROUPS)
+@pytest.mark.parametrize("t", VERIFY_T)
+def test_paged_prefill_kernel_at_verify_shapes(dev, dtype, page_size, heads, kv_heads, t):
+    g = torch.Generator(device=dev).manual_seed(11)
+    pool_k, pool_v, table, pos = _verify_paged_case(g, dev, dtype, heads, kv_heads, page_size, t)
+    q = _randn(g, dev, dtype, 8, t, heads, 128)
+    got = ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos)
+    want = ca.paged_flash_prefill_plain(q, pool_k, pool_v, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", VERIFY_T)
+def test_paged_prefill_equals_dense_at_verify_shapes(dev, dtype, t):
+    """Bit for bit on the same K/V (page size 64, S = 2048)."""
+    from agentainer_tpu_torch.ops.attention import gather_pages
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    pool_k, pool_v, table, pos = _verify_paged_case(g, dev, dtype, 32, 8, 64, t)
+    k, v = gather_pages(pool_k, pool_v, table)
+    q = _randn(g, dev, dtype, 8, t, 32, 128)
+    assert torch.equal(
+        ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
+    )

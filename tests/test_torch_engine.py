@@ -3,7 +3,9 @@
 Both engines serve ``tiny`` in f32 with the SAME weights (the JAX
 ``init_params`` tree, carried over by ``params_from_numpy``) and the
 reference configured as the port's slice is: ``prefix_cache=False``,
-``speculative=False``, ``deadlines=False``. Greedy tokens must be
+``speculative=False``, ``deadlines=False`` (the features' own parity tests
+are tests/test_torch_prefix.py, test_torch_speculative.py and
+test_torch_deadlines.py). Greedy tokens must be
 identical: single requests, a concurrent mixed batch, a two-turn session
 and a prompt longer than ``prefill_chunk``. Each engine is built once.
 """
@@ -39,7 +41,10 @@ def engines():
         jcfg, jp, JTok(jcfg.vocab_size), **SHAPE,
         prefix_cache=False, speculative=False, deadlines=False,
     )
-    teng = TEngine(tcfg, tp, TTok(tcfg.vocab_size), **SHAPE, device="cpu")
+    teng = TEngine(
+        tcfg, tp, TTok(tcfg.vocab_size), **SHAPE,
+        prefix_cache=False, speculative=False, deadlines=False, device="cpu",
+    )
     teng.warmup()
     yield jeng, teng
     jeng.shutdown()
@@ -154,15 +159,22 @@ def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
 @pytest.mark.parametrize(
     "options,match",
     [
-        ({"prefix_cache": True}, "prefix_cache"),
-        # paged_kv is ported: only the unported option is named
+        # prefix_cache, speculative and paged_kv are ported: only the
+        # unported option asked beside them is named
         pytest.param(
-            {"speculative": True, "paged_kv": True}, "yet: speculative$",
+            {"prefix_cache": True, "fused_decode": True}, "yet: fused_decode$",
+            id="options0-prefix_cache",
+        ),
+        pytest.param(
+            {"speculative": True, "paged_kv": True, "kv_tiering": True}, "yet: kv_tiering$",
             id="options1-speculative, paged_kv",
         ),
         ({"streaming": True}, "streaming"),
         ({"tp": 2}, "tp=2"),
         ({"quant": "int8"}, "quant"),
+        ({"approx_topk": True}, "approx_topk"),
+        ({"synthetic": True}, "synthetic"),
+        ({"routed": True}, "routed"),
     ],
 )
 def test_create_rejects_unported_options(options, match):

@@ -282,7 +282,10 @@ def engines():
         jcfg, jp, JTok(jcfg.vocab_size), **SHAPE, **PAGED,
         prefix_cache=False, speculative=False, deadlines=False,
     )
-    teng = TEngine(tcfg, tp, TTok(tcfg.vocab_size), **SHAPE, **PAGED, device="cpu")
+    teng = TEngine(
+        tcfg, tp, TTok(tcfg.vocab_size), **SHAPE, **PAGED,
+        prefix_cache=False, speculative=False, deadlines=False, device="cpu",
+    )
     teng.warmup()
     yield jeng, teng
     jeng.shutdown()
