@@ -89,11 +89,19 @@
 // Plain C interface, loaded with ctypes. Every function launches on the
 // caller's stream, allocates nothing (the decode partials go to scratch the
 // caller passes in) and returns cudaGetLastError().
+//
+// The engine captures its decode and verify steps into CUDA graphs, so every
+// launch here must be legal inside stream capture: a launch makes no call but
+// the launch itself once the same shape has run eagerly (the dynamic
+// shared-memory limit is raised once per kernel instance and size, see
+// raise_smem_limit), and the decode combine's programmatic dependent launch
+// is recorded as a programmatic edge of the graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -1013,6 +1021,23 @@ PagedArena<T> paged_arena(const void* k, const void* v, const void* table, long 
           t_sb, ps, n_blocks, a[0], a[1], a[2], a[3], a[4], a[5]};
 }
 
+// Raise kernel Kern's dynamic shared-memory limit to at least smem bytes,
+// calling cudaFuncSetAttribute only when smem exceeds what this instance was
+// given before: the engine's warm eager calls set it, and the same shapes
+// captured into a graph afterwards launch without it.
+template <auto Kern>
+cudaError_t raise_smem_limit(size_t smem) {
+  static std::atomic<size_t> granted{0};
+  if (smem <= granted.load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  size_t prev = granted.load(std::memory_order_relaxed);
+  while (prev < smem && !granted.compare_exchange_weak(prev, smem)) {
+  }
+  return cudaSuccess;
+}
+
 template <typename T, typename Arena>
 cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, void* out,
                            int B, int T_len, int H, int KV, int S, const long long* st,
@@ -1021,8 +1046,7 @@ cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, vo
   auto kern = prefill_kernel<T, Arena>;
   const size_t smem = prefill_smem<T>() + sizeof(int) * (size_t)arena.table_len();
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = raise_smem_limit<&prefill_kernel<T, Arena>>(smem);
   if (err != cudaSuccess) return err;
   const int tok_per_block = PF_BM / G;
   dim3 grid((T_len + tok_per_block - 1) / tok_per_block, KV, B);
@@ -1039,8 +1063,7 @@ cudaError_t launch_decode_g(const void* q, const Arena& arena, const int* pos, f
   auto kern = decode_kernel<T, G, Arena>;
   const size_t smem = decode_smem<T, G>() + sizeof(int) * (size_t)arena.table_len();
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = raise_smem_limit<&decode_kernel<T, G, Arena>>(smem);
   if (err != cudaSuccess) return err;
   dim3 grid(KV, B, n_split);
   kern<<<grid, DC_THREADS, smem, stream>>>(static_cast<const T*>(q), arena, pos, part, S,

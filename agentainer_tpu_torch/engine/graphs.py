@@ -1,0 +1,257 @@
+"""The engine's dispatch-ahead plumbing on the card: CUDA graphs of its step
+functions, and pinned host transfers ordered by CUDA events.
+
+Reference: ``agentainer_tpu/engine/llm.py`` — the compiled decode ladder
+(``decode_n``, one jitted ``lax.scan`` per rung), the compiled verify step
+per draft bucket (``_verify_fn``), both compiled at warmup, and the
+asynchronous token readbacks of its worker loop (``_PIPELINE_DEPTH``). JAX
+compiles a step once and dispatches it without Python; here a step is
+captured once into a ``torch.cuda.CUDAGraph`` and replayed, which launches
+its few thousand kernels without the host walking the model again. A
+readback is a ``non_blocking`` copy into pinned host memory plus an event
+recorded after it; the worker polls the event (``query``) instead of
+blocking on the value.
+
+- ``StepGraphs`` captures the engine's step functions into graphs that
+  share one memory pool, after a warm eager call of each, and replays them.
+  A kernel wrapper called under capture counts in ``.captured``
+  (``ops/cuda_attention.py``); each graph keeps what its capture recorded
+  and adds it to the wrappers' ``.launches`` at every replay.
+- ``HostTransfers`` moves small arrays between the host and the engine's
+  stream through pinned buffers: uploads stage into a buffer that is not
+  rewritten until the event of its copy has landed, downloads land in a
+  buffer the caller hands back once it has read it.
+- On the CPU (the caller asked for it) there are no graphs and no events:
+  the engine runs the same step functions eagerly and ``LANDED`` stands in
+  for an event, reporting every transfer as landed.
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+import time
+
+import numpy as np
+import torch
+
+from ..ops.cuda_attention import (
+    flash_decode,
+    flash_prefill,
+    fused_paged_flash_decode,
+    fused_paged_flash_prefill,
+)
+
+KERNEL_WRAPPERS = (flash_prefill, flash_decode, fused_paged_flash_prefill, fused_paged_flash_decode)
+
+
+class _Landed:
+    """The CPU's stand-in for a CUDA event: a CPU copy has landed when it
+    returns."""
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
+LANDED = _Landed()
+
+
+class HostTransfers:
+    """Pinned host buffers for the copies between the host and the engine's
+    stream (the current stream of the calling thread), kept in free lists
+    per (shape, dtype)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._free: dict[tuple, list[torch.Tensor]] = collections.defaultdict(list)
+        # uploads whose copy may still be in flight: (buffer, event), oldest
+        # first; a buffer goes back to its free list once its event landed
+        self._staged: collections.deque = collections.deque()
+
+    def _take(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        free = self._free[(shape, dtype)]
+        return free.pop() if free else torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+
+    def give(self, buf: torch.Tensor) -> None:
+        """Hand back a download's buffer (its event has landed and it has
+        been read)."""
+        self._free[(tuple(buf.shape), buf.dtype)].append(buf)
+
+    def upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """Copy ``src`` into the device tensor ``dst`` in place, without
+        waiting for the stream: through a pinned buffer that is not reused
+        before the copy's event has landed."""
+        if not self.cuda:
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+            return
+        while self._staged and self._staged[0][1].query():
+            self.give(self._staged.popleft()[0])
+        buf = self._take(tuple(src.shape), dst.dtype)
+        buf.numpy()[...] = src
+        dst.copy_(buf, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._staged.append((buf, event))
+
+    def download(self, src: torch.Tensor):
+        """Start copying the device tensor ``src`` to the host; returns (host
+        buffer, event). The buffer holds ``src``'s values once the event has
+        landed; ``give`` it back after reading it."""
+        buf = self._take(tuple(src.shape), src.dtype)
+        if not self.cuda:
+            buf.copy_(src)
+            return buf, LANDED
+        buf.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return buf, event
+
+
+class StepGraphs:
+    """CUDA graphs of an engine's step functions, keyed by the engine's step
+    keys, sharing one memory pool. ``capture`` raises if any step cannot be
+    captured; ``replay`` raises for a key that was not captured."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self._capture_stream = torch.cuda.Stream(device)
+        self._graphs: dict = {}
+        self.replays = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def capture(self, steps: dict, generator: torch.Generator, sampled: set) -> None:
+        """Capture every ``steps[key]()`` into its graph. Each step runs once
+        eagerly first (kernel builds, library handles, shared-memory limits
+        and allocator growth happen outside capture); the steps in
+        ``sampled`` draw from ``generator``, which is registered with their
+        graphs so that every replay draws fresh numbers from its stream.
+        Records the capture's wall time and the pool's bytes.
+
+        The garbage collector is held off while capturing: a collection
+        under capture may free CUDA objects of a dead engine, and a graph's
+        teardown is refused while a stream captures, which invalidates the
+        capture."""
+        for fn in steps.values():
+            fn()
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for key, fn in steps.items():
+                graph = torch.cuda.CUDAGraph()
+                if key in sampled:
+                    graph.register_generator_state(generator)
+                before = [w.captured for w in KERNEL_WRAPPERS]
+                with torch.cuda.graph(
+                    graph, pool=self.pool, stream=self._capture_stream,
+                    capture_error_mode="thread_local",
+                ):
+                    out = fn()
+                counts = [
+                    (w, w.captured - n) for w, n in zip(KERNEL_WRAPPERS, before) if w.captured > n
+                ]
+                self._graphs[key] = (graph, out, counts)
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+
+    def replay(self, key):
+        """Launch step ``key``'s graph on the current stream; returns its
+        output tensor, which the next replay of the same key overwrites."""
+        try:
+            graph, out, counts = self._graphs[key]
+        except KeyError:
+            raise RuntimeError(f"no CUDA graph captured for step {key}: the engine was not warmed up") from None
+        graph.replay()
+        for wrapper, n in counts:
+            wrapper.launches += n
+        self.replays += 1
+        return out
+
+
+def compare_replay(graphs: StepGraphs, key, step, state: list, generator: torch.Generator) -> dict:
+    """Step ``key`` as its graph replay against ``step()`` run eagerly, from
+    one saved state: ``state`` lists every device tensor the step reads or
+    writes (carry, static inputs, KV arena or pools), all restored after.
+    Returns whether the outputs and every state tensor came out equal bit for
+    bit, and whether a second replay from the same state and generator state
+    repeats the first (the sampled steps' reproducibility)."""
+    saved = [t.clone() for t in state]
+    rng = generator.get_state()
+
+    def restore():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        generator.set_state(rng)
+
+    eager = step().clone()
+    eager_state = [t.clone() for t in state]
+    restore()
+    first = graphs.replay(key).clone()
+    same_state = all(torch.equal(a, b) for a, b in zip(state, eager_state))
+    del eager_state
+    restore()
+    second = graphs.replay(key).clone()
+    restore()
+    torch.cuda.synchronize(graphs.device)
+    return {
+        "tokens_equal": torch.equal(first, eager),
+        "state_equal": same_state,
+        "replay_repeats": torch.equal(first, second),
+    }
+
+
+def live_lanes(engine, positions: list[int], temperature: float, seed: int) -> None:
+    """Give an idle engine a live state to hold a step graph against its
+    eager step (``compare_replay``): lanes 0.. decode from ``positions``
+    with random tokens at ``temperature``, every verify bucket holds random
+    drafts of mixed lengths, and, paged, each live lane's blocks up to its
+    position map distinct free pages. ``park_lanes`` undoes it."""
+    g = np.random.default_rng(seed)
+    vocab = engine.cfg.vocab_size
+    with torch.no_grad(), engine._on_stream():
+        for i, p in enumerate(positions):
+            engine._inject_lane(i, int(g.integers(vocab)), p, temperature, 0, 1.0)
+        # parked lanes draft nothing, as in the engine's rounds
+        lengths = np.array([
+            (i * 3) % (engine.spec_gamma_max + 1) if i < len(positions) else 0
+            for i in range(engine.max_batch)
+        ])
+        for k, drafts in engine._vdrafts.items():
+            engine._xfer.upload(drafts, g.integers(vocab, size=(engine.max_batch, k)))
+        engine._xfer.upload(engine._vdlen, lengths)
+        if engine.paged:
+            with engine._page_lock:
+                free = list(engine._page_free)
+                for i, p in enumerate(positions):
+                    # the blocks a verify round from p may write
+                    n = min(p // engine.page_size + 2, engine._n_blocks)
+                    engine._bt[i, :n], free = free[:n], free[n:]
+            engine._sync_table()
+
+
+def park_lanes(engine) -> None:
+    """Park every lane and point every block-table row at its lane's
+    scratch page again."""
+    with torch.no_grad(), engine._on_stream():
+        for i in range(engine.max_batch):
+            engine._park_lane(i)
+            if engine.paged:
+                with engine._page_lock:
+                    engine._bt[i, :] = engine._scratch_page(i)
+        engine._sync_table()

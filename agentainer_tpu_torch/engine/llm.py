@@ -37,29 +37,44 @@ on, ``paged_kv`` off — and ``fused_decode=False``, ``kv_tiering=False``,
 What differs from the reference, and why:
 
 - there is no ``jit`` and no donation: the KV arena and the decode carry
-  are updated IN PLACE where the reference returned donated buffers;
-- the decode chunk is a Python loop of single-token forwards (the
-  reference's ``lax.scan``), and the worker reads each chunk's tokens back
-  synchronously (``.cpu()`` once per chunk). The reference's dispatch-ahead
-  readback pipeline (``_PIPELINE_DEPTH``) becomes CUDA events and pinned
-  buffers in a later slice;
-- the paged allocator frees pages straight to the free list: the
-  reference's quarantine guards pages that a dispatched-but-unread chunk may
-  still write, and here no chunk is in flight when a page is freed (see
-  ``_free_page_ids``). Tiering, snapshots of paged sessions and the
-  ``engine.page_alloc`` failpoint are not ported;
-- a lane drafts only after its first decode step, as in the reference,
-  whose gate sees an empty ``generated`` until the first token's readback
-  lands (``_try_speculate``); a verify round reads its tokens back
-  synchronously, as the reference's does;
+  are updated IN PLACE where the reference returned donated buffers. The
+  carry, the verify inputs and the block table are device buffers
+  allocated once and written with ``copy_``, so their addresses never
+  change;
+- the reference's compiled steps are CUDA graphs on the card: every decode
+  chunk (one graph per ladder rung, greedy or sampled; the reference's
+  ``lax.scan`` in ``decode_n``) and every verify round (one per draft
+  bucket, greedy or sampled; ``_verify_fn``) is one graph replay, captured
+  by ``warmup`` from the same step functions that run eagerly on the CPU
+  (``engine/graphs.py``). A capture that fails makes warmup raise. Prefill
+  stays eager;
+- token readbacks are pipelined as the reference's are
+  (``_PIPELINE_DEPTH`` = 1): a chunk's tokens and a prefill's first token
+  are copied ``non_blocking`` into pinned host buffers with a CUDA event
+  recorded after each copy; the worker processes landed entries in FIFO
+  order and blocks on the oldest only when the FIFO is deeper than the
+  depth or nothing else is dispatchable, admitting newcomers while it
+  waits. EOS and ``max_tokens`` are seen up to one chunk late, a finished
+  lane decodes on (parked garbage) until its park lands, and entries of a
+  request that finished earlier are skipped. A verify round reads its
+  tokens back synchronously, as the reference's does; it first drains the
+  pipeline;
+- the paged allocator frees pages straight to the free list, with no
+  quarantine, although a chunk dispatched before the free may still write
+  through the old block table: every device write goes on the engine's one
+  CUDA stream, so that write lands before any later owner's first write to
+  the page (see ``_free_page_ids``). Tiering, snapshots of paged sessions
+  and the ``engine.page_alloc`` failpoint are not ported;
+- a lane drafts only after its first token's readback has been processed,
+  as in the reference (``_try_speculate``);
 - the other feature flags above are not ported yet: ``create`` raises
   ``ValueError`` naming any of them that is asked for, as it does for
   ``tp``/``ep``/``sp``/``pp`` > 1, ``quant`` and ``checkpoint``.
   ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
 
-The engine runs its device work on a dedicated worker thread; the serve
-layer talks to it through a thread-safe queue and asyncio futures resolved
-with ``loop.call_soon_threadsafe``.
+The engine runs its device work on a dedicated worker thread, on one CUDA
+stream of its own; the serve layer talks to it through a thread-safe queue
+and asyncio futures resolved with ``loop.call_soon_threadsafe``.
 """
 
 from __future__ import annotations
@@ -67,6 +82,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import functools
 import queue
 import threading
 import time
@@ -85,6 +101,7 @@ from ..ops.cuda_attention import (
     kernel_supported,
 )
 from ..utils.hw import chip_spec
+from .graphs import HostTransfers, StepGraphs
 from .sampling import NEG_INF, sample_step
 from .tokenizer import load_tokenizer
 
@@ -297,7 +314,28 @@ class Slot:
     psess: PagedSession | None = None
 
 
+@dataclass
+class Readback:
+    """One token readback in flight: ``host`` is a pinned host copy of the
+    device tokens that holds them once ``event`` has landed. ``first``: the
+    prefill-sampled first token [1] of ``req`` on ``slot``; ``chunk``: a
+    decode chunk's tokens [chunk, B] for the lanes of ``snapshot``
+    ((slot, request, start position) as dispatched)."""
+
+    kind: str
+    host: torch.Tensor
+    event: object
+    slot: Slot | None = None
+    req: GenRequest | None = None
+    snapshot: list | None = None
+
+
 class LLMEngine:
+    # dispatch-ahead depth (the reference's): the worker runs at most one
+    # readback ahead of the one it processes, so the device-to-host copy and
+    # the host's bookkeeping ride under the next chunk's compute
+    _PIPELINE_DEPTH = 1
+
     def __init__(
         self,
         cfg: ModelConfig,
@@ -378,8 +416,9 @@ class LLMEngine:
 
         # -- paged-arena allocator (host side; _page_lock guards it) ------
         # ids [0, _data_pages) are allocatable; id _data_pages + i is lane
-        # i's scratch page. The block table is host state (numpy), copied to
-        # the device once per dispatch.
+        # i's scratch page. The block table is host state (numpy); its
+        # device copy ``_dbt`` is one static buffer, rewritten in place
+        # (``_sync_table``) before a dispatch when the host table changed.
         self.paged_sessions: dict[str, PagedSession] = {}
         self._page_lock = threading.RLock()
         self._page_free: list[int] = list(range(self._data_pages - 1, -1, -1))
@@ -387,27 +426,41 @@ class LLMEngine:
         self._bt = np.empty((max_batch, self._n_blocks), dtype=np.int32)
         for i in range(max_batch):
             self._bt[i, :] = self._scratch_page(i)
+        self._bt_sent = self._bt.copy()  # what _dbt holds (as of its last upload)
         self.page_exhausted_total = 0
         self.pages_truncated = 0
 
+        # The engine's stream: every device write of the engine (graph
+        # replays, staging copies, prefill, prefix copies, page copies) goes
+        # on it, in order.
+        dev = self.device
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._xfer = HostTransfers(dev)
         # Decode carry: (token, position, temperature, top_k, top_p) per lane
         # on the device. Idle lanes park at scratch_pos; a finished prompt's
-        # first token is written into its lane in place.
-        dev = self.device
+        # first token is written into its lane in place. These buffers, the
+        # verify inputs and the device block table are allocated once and
+        # only ever written in place: the step graphs replay their addresses.
         self._dtok = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         self._dpos = torch.full((max_batch,), self.scratch_pos, dtype=torch.int32, device=dev)
         self._dtemps = torch.zeros((max_batch,), dtype=torch.float32, device=dev)
         self._dtopk = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         self._dtopp = torch.ones((max_batch,), dtype=torch.float32, device=dev)
+        self._dbt = (
+            torch.tensor(self._bt, dtype=torch.int32, device=dev) if self.paged else None
+        )
         # host mirror of the lanes' temperatures: the all-greedy sampler fast
         # path is decided here, without reading the device
         self._lane_temps = [0.0] * max_batch
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(0)
-        # FIFO of token readbacks: ("first", slot, req, first_dev, t) and
-        # ("chunk", [(slot, req, start_pos)...], toks_dev, t); a stale entry
-        # is detected by `slot.request is not req` at processing time
-        self._readbacks: collections.deque = collections.deque()
+        # FIFO of token readbacks (Readback); a stale entry is detected by
+        # `slot.request is not req` at processing time
+        self._readbacks: collections.deque[Readback] = collections.deque()
+        # step graphs (the card; captured by warmup) and the warmup flag
+        # under which the card's steps run eagerly before capture
+        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
+        self._warming = False
 
         self._queue: queue.Queue[GenRequest | None] = queue.Queue()
         self._waiting: list = []  # submitted-but-unadmitted requests
@@ -429,6 +482,9 @@ class LLMEngine:
         self.last_worker_error = ""
         self.session_evictions = 0
         self.decode_steps = 0
+        # readbacks that crossed to the host (one per processed first token,
+        # decode chunk and verify round), as the reference counts them
+        self.host_syncs_total = 0
         self._occupancy_sum = 0.0
         self._last_decode_end: float | None = None
         self._started_at = time.monotonic()
@@ -502,6 +558,11 @@ class LLMEngine:
         self.spec_accepted = 0
         self.spec_rejected = 0
         self.spec_verify_hist: dict[int, int] = {}
+        # verify inputs: drafts per bucket [B, K] and draft lengths [B]
+        self._vdrafts = {
+            k: torch.zeros((max_batch, k), dtype=torch.long, device=dev) for k in self._spec_buckets
+        }
+        self._vdlen = torch.zeros((max_batch,), dtype=torch.long, device=dev)
 
         self._chip = chip_spec(self.device)
         self._peak_flops = self._chip.bf16_flops
@@ -565,14 +626,19 @@ class LLMEngine:
         )
         if not options.get("skip_warmup"):
             engine.warmup()
+        elif device.type == "cuda":
+            # the card serves through the step graphs only
+            engine.capture_step_graphs()
         return engine
 
     def warmup(self) -> None:
         """Serve one synthetic request per reachable prefill bucket and one
         per decode-ladder rung through the real worker machinery, so every
         first-use cost (kernel build and load, library handles, allocator
-        growth) is paid here instead of by the first user request. Serving
-        telemetry from warmup is dropped at the end."""
+        growth) is paid here instead of by the first user request; on the
+        card the steps run eagerly while warmup serves, and then every step
+        graph is captured (``capture_step_graphs``; a capture that fails
+        raises here). Serving telemetry from warmup is dropped at the end."""
         top_bucket = self._bucket(min(self.prefill_chunk, max(1, self.max_seq - 2)))
         filler = min(5, self.cfg.vocab_size - 1)
 
@@ -600,13 +666,20 @@ class LLMEngine:
             for c in self._decode_ladder:
                 await _one(1, min(c + 1, max(2, self.max_seq - 2)))
 
-        box: list[BaseException] = []
+        def serve_pass() -> None:
+            box: list[BaseException] = []
 
-        def _runner() -> None:
-            try:
-                asyncio.run(_serve_all())
-            except BaseException as e:  # surface warmup faults to create()
-                box.append(e)
+            def _runner() -> None:
+                try:
+                    asyncio.run(_serve_all())
+                except BaseException as e:  # surface warmup faults to create()
+                    box.append(e)
+
+            t = threading.Thread(target=_runner, name="llm-warmup")
+            t.start()
+            t.join()
+            if box:
+                raise box[0]
 
         # prefix cache and speculation stay off while warmup serves: the
         # filler prompts share a prefix (a hit would shrink a pass below its
@@ -615,32 +688,31 @@ class LLMEngine:
         self._prefix_active = False
         self._spec_active = False
         try:
-            t = threading.Thread(target=_runner, name="llm-warmup")
-            t.start()
-            t.join()
+            self._warming = True
+            try:
+                serve_pass()
+            finally:
+                self._warming = False
+            # the worker idles on its queue now: run the prefix copies here,
+            # then capture every step, with every lane parked at scratch
+            # (verify writes land in scratch slots, as parked decode's do)
+            with torch.no_grad(), self._on_stream():
+                if self.prefix_cache and self.paged:
+                    scr = self._scratch_page(0)
+                    self._copy_page(scr, scr)
+                elif self.prefix_cache:
+                    for b in self._prefix_levels:
+                        k, v = self._prefix_slice(0, b)
+                        self._prefix_fork(0, k, v)
+            self.capture_step_graphs()
+            if self._graphs is not None:
+                # serve again, through the graphs: the captures emptied the
+                # allocator's cache, which eager prefill would otherwise
+                # refill on the first user request
+                serve_pass()
         finally:
             self._prefix_active = self.prefix_cache
             self._spec_active = self.speculative
-        if box:
-            raise box[0]
-        # the worker idles on its queue now: run the prefix copies and one
-        # verify round per bucket here, with every lane parked at scratch
-        # (the round's writes land in scratch slots, as parked decode's do)
-        with torch.no_grad(), _on_device(self.device):
-            if self.prefix_cache and self.paged:
-                scr = self._scratch_page(0)
-                self._copy_page(scr, scr)
-            elif self.prefix_cache:
-                for b in self._prefix_levels:
-                    k, v = self._prefix_slice(0, b)
-                    self._prefix_fork(0, k, v)
-            if self.speculative:
-                for b in self._spec_buckets:
-                    self._verify(
-                        np.zeros((self.max_batch, b), np.int64), np.zeros(self.max_batch, np.int64)
-                    )
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
         self.clear_sessions()
         self._prefix_entries.clear()
         self._prefix_bytes = 0
@@ -663,11 +735,71 @@ class LLMEngine:
         self.tokens_generated = 0
         self.prefills = 0
         self.decode_steps = 0
+        self.host_syncs_total = 0
+        if self._graphs is not None:
+            self._graphs.replays = 0
         self._occupancy_sum = 0.0
         self.flops_done = 0.0
         self.hbm_bytes_read = 0.0
         self._last_decode_end = None
         self._started_at = time.monotonic()
+
+    def _step_keys(self) -> list[tuple]:
+        """Every step the worker dispatches: ("decode", rung, all_greedy)
+        for each decode-ladder rung and ("verify", K, all_greedy) for each
+        verify bucket (with speculation on)."""
+        keys = [("decode", c, g) for c in self._decode_ladder for g in (True, False)]
+        if self.speculative:
+            keys += [("verify", k, g) for k in self._spec_buckets for g in (True, False)]
+        return keys
+
+    def _step_fn(self, key: tuple):
+        """The eager step function of ``key``: what the CPU runs and what a
+        graph captures."""
+        kind, n, all_greedy = key
+        fn = self._decode_steps if kind == "decode" else self._verify_step
+        return functools.partial(fn, n, all_greedy)
+
+    def capture_step_graphs(self) -> None:
+        """Capture every step (``_step_keys``) into a CUDA graph, with every
+        lane parked, and park them again after. On the CPU there is nothing
+        to capture: the steps run eagerly. Raises if a capture fails; the
+        engine then does not come up."""
+        if self._graphs is None:
+            return
+        keys = self._step_keys()
+        sampled = {k for k in keys if not k[2]}
+        with torch.no_grad(), self._on_stream():
+            self._sync_table()
+            self._graphs.capture({k: self._step_fn(k) for k in keys}, self._gen, sampled)
+            # a graph's first launch uploads it to the device, a host cost
+            # paid here rather than in a user request's first chunk
+            for k in keys:
+                self._graphs.replay(k)
+            for i in range(self.max_batch):
+                self._park_lane(i)
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Make the engine's device and stream current on this thread (the
+        card), else nothing."""
+        if self._stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            yield
+
+    def _device_state(self) -> list[torch.Tensor]:
+        """Every device tensor a step reads or writes: the carry, the verify
+        inputs, the block table and the KV arena or pools."""
+        state = [self._dtok, self._dpos, self._dtemps, self._dtopk, self._dtopp, self._vdlen]
+        state += list(self._vdrafts.values())
+        if self.paged:
+            state += [self._dbt, self.cache.k, self.cache.v]
+        else:
+            state += [self.cache.k_store, self.cache.v_store]
+        return state
 
     # -- public API (called from the serve layer's event loop) -------------
     def load_depth(self) -> int:
@@ -833,6 +965,17 @@ class LLMEngine:
             },
             "decode_chunks_shrunk": self.decode_chunks_shrunk,
             "prefill_chunks": self.prefill_chunks,
+            # the dispatch-ahead pipeline and the step graphs (the card)
+            "host_syncs_total": self.host_syncs_total,
+            "host_syncs_per_token": (
+                round(self.host_syncs_total / self.tokens_generated, 4)
+                if self.tokens_generated
+                else None
+            ),
+            "graphs_captured": len(self._graphs) if self._graphs is not None else 0,
+            "graph_replays": self._graphs.replays if self._graphs is not None else 0,
+            "graph_capture_s": self._graphs.capture_s if self._graphs is not None else None,
+            "graph_pool_bytes": self._graphs.pool_bytes if self._graphs is not None else None,
             **{flag: False for flag in FEATURE_FLAGS},
             # self-speculative decoding (the reference's keys)
             "speculative": self.speculative,
@@ -902,8 +1045,7 @@ class LLMEngine:
         }
 
     def _paged_metrics(self) -> dict:
-        """The reference's paged gauges, under its key names. Pages never
-        wait in quarantine here (``_free_page_ids``)."""
+        """The reference's paged gauges, under its key names."""
         if not self.paged:
             return {"paged_kv": False}
         with self._page_lock:
@@ -925,6 +1067,9 @@ class LLMEngine:
             "kv_pages_total": self._data_pages,
             "kv_pages_free": free,
             "kv_pages_used": self._data_pages - free,
+            # no quarantine: freed pages go straight back to the free list,
+            # and stream order protects them from in-flight writes
+            # (_free_page_ids)
             "kv_pages_quarantined": 0,
             "kv_pages_prefix_pinned": pinned,
             "resident_sessions": len(self.paged_sessions),
@@ -948,7 +1093,7 @@ class LLMEngine:
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
-            with torch.no_grad():
+            with torch.no_grad(), self._on_stream():
                 self._serve()
         except Exception as e:  # recorded and reported: /metrics last_worker_error
             self._note_error(e)
@@ -959,9 +1104,15 @@ class LLMEngine:
             self._fail_pending(EngineShutdown("engine worker exited"))
 
     def _serve(self) -> None:
-        """The worker loop body (runs under no_grad on the engine's device)."""
+        """The worker loop body (runs under no_grad on the engine's stream).
+
+        Pipelined as the reference's: the device carry chains decode chunks
+        with no host round trip between them, each chunk's tokens are copied
+        to the host asynchronously at dispatch and processed one pipeline
+        slot later, so the copy and the host's bookkeeping ride under the
+        next chunk's compute."""
         while self._running and not self._sentinel:
-            busy = any(s.request is not None for s in self.slots)
+            busy = any(s.request is not None for s in self.slots) or bool(self._readbacks)
             self._pump_queue(0.0 if (busy or self._waiting) else 0.2)
             if self._sentinel:
                 break
@@ -991,10 +1142,6 @@ class LLMEngine:
             finally:
                 self._prefilling_slot = None
             try:
-                # first tokens land before the next decode chunk runs: TTFT is
-                # the prefill, not prefill + a chunk (the reference reads them
-                # as soon as they are ready)
-                self._drain_readbacks()
                 if any(s.decoding for s in self.slots):
                     # a verify round when lanes have drafts; otherwise (or
                     # under contention) the plain decode ladder
@@ -1002,7 +1149,14 @@ class LLMEngine:
                         self._decode_dispatch()
                 else:
                     self._last_decode_end = None  # an idle gap isn't ITL
-                self._drain_readbacks()
+                # process landed readbacks; block on the oldest when the
+                # pipeline is full (the backpressure bounding how far
+                # dispatch runs ahead of the device) or when nothing else is
+                # worth dispatching
+                self._drain_readbacks(
+                    block=len(self._readbacks) > self._PIPELINE_DEPTH
+                    or not self._has_dispatchable()
+                )
             except Exception as e:
                 # a decode fault is batch-wide (one call covers every lane)
                 self._note_error(e)
@@ -1013,6 +1167,18 @@ class LLMEngine:
                 self._readbacks.clear()
             if not any(s.request is not None for s in self.slots) and self._waiting:
                 time.sleep(0.002)  # all slots busy-by-session; brief backoff
+
+    def _has_dispatchable(self) -> bool:
+        """Device work left to dispatch: a pending prompt chunk, or a
+        decoding lane whose token budget is not all in flight yet."""
+        for s in self.slots:
+            if s.request is None:
+                continue
+            if s.pending_prompt:
+                return True
+            if s.decoding and s.request.dispatched < s.request.max_tokens:
+                return True
+        return False
 
     def _pump_queue(self, block_s: float) -> None:
         """Drain the submit queue into the waiting list (a burst admits
@@ -1174,12 +1340,19 @@ class LLMEngine:
     ) -> None:
         """Point lane ``idx`` of the decode carry at (token ``first`` — a
         device scalar or int —, ``position``) with its sampling parameters;
-        in place (the reference's jitted donated scatter)."""
-        self._dtok[idx] = first
-        self._dpos[idx] = position
-        self._dtemps[idx] = temp
-        self._dtopk[idx] = top_k
-        self._dtopp[idx] = top_p
+        in place (the reference's jitted donated scatter). Python numbers go
+        in by ``fill_`` (a kernel argument): ``t[idx] = number`` on a CUDA
+        tensor is a synchronous host-to-device copy, which would wait for
+        the chunk in flight."""
+        lane = slice(idx, idx + 1)
+        if isinstance(first, torch.Tensor):
+            self._dtok[lane].copy_(first.reshape(1))
+        else:
+            self._dtok[lane].fill_(first)
+        self._dpos[lane].fill_(position)
+        self._dtemps[lane].fill_(temp)
+        self._dtopk[lane].fill_(top_k)
+        self._dtopp[lane].fill_(top_p)
         self._lane_temps[idx] = temp
 
     def _park_lane(self, idx: int) -> None:
@@ -1423,7 +1596,6 @@ class LLMEngine:
         # the arena end (dropped by KVCache.write, clamped to the scratch
         # slot by scatter_paged_kv); every in-arena padding slot is rewritten
         # by a real token before any query can attend to it
-        positions = np.arange(slot.position, slot.position + bucket, dtype=np.int32)
         if self.paged:
             # pages cover the REAL tokens only; padding writes past them land
             # in the lane's scratch page through the table's default
@@ -1438,7 +1610,7 @@ class LLMEngine:
                 self._reset_slot(slot, rollback=True)
                 self._fail_item(req, e)
                 return
-        last_logits = self._prefill(slot.idx, padded, positions, n)
+        last_logits = self._prefill(slot.idx, padded, slot.position, n)
         self.flops_done += n * self.cfg.flops_per_token(slot.position + n // 2)
         self.hbm_bytes_read += self.param_hbm_bytes + (
             (slot.position + n // 2) * self._kv_bytes_per_pos
@@ -1450,12 +1622,13 @@ class LLMEngine:
         # the whole fresh context is in KV: register its bucket prefixes
         # (positions [0, b) hold exactly ctx[:b]; padding lands above)
         self._prefix_register(slot)
+        dev = self.device
         first = sample_step(
             last_logits[None],
             self._gen,
-            torch.tensor([req.temperature], dtype=torch.float32, device=self.device),
-            torch.tensor([req.top_k], dtype=torch.long, device=self.device),
-            torch.tensor([req.top_p], dtype=torch.float32, device=self.device),
+            torch.full((1,), req.temperature, dtype=torch.float32, device=dev),
+            torch.full((1,), req.top_k, dtype=torch.long, device=dev),
+            torch.full((1,), req.top_p, dtype=torch.float32, device=dev),
             all_greedy=req.temperature <= 0.0,
         )
         # the lane continues from the sampled token WITHOUT waiting for it to
@@ -1468,53 +1641,74 @@ class LLMEngine:
         req.prefill_done_at = time.monotonic()
         req.dispatched = 1  # the prefill-sampled first token
         self.prefills += 1
-        self._readbacks.append(("first", slot, req, first, time.monotonic()))
+        host, event = self._xfer.download(first)
+        self._push_readback(Readback("first", host, event, slot=slot, req=req))
 
-    def _prefill(
-        self, slot_idx: int, padded: list[int], positions: np.ndarray, n_real: int
-    ) -> torch.Tensor:
-        """One bucket-padded prompt chunk through the model. K/V land in the
-        slot's arena row IN PLACE through a row view (the reference slices
-        the row out of the donated cache and writes it back), or in the
-        pool through the lane's block-table row. Returns the last real
-        token's logits [V]."""
-        tokens = torch.tensor([padded], dtype=torch.long, device=self.device)
-        pos = torch.from_numpy(positions[None]).to(self.device)
+    def _prefill(self, slot_idx: int, padded: list[int], start: int, n_real: int) -> torch.Tensor:
+        """One bucket-padded prompt chunk at positions ``start...`` through
+        the model, eagerly. K/V land in the slot's arena row IN PLACE through
+        a row view (the reference slices the row out of the donated cache and
+        writes it back), or in the pool through the lane's block-table row.
+        Returns the last real token's logits [V]."""
+        dev = self.device
+        tokens = torch.empty((1, len(padded)), dtype=torch.long, device=dev)
+        self._xfer.upload(tokens, np.asarray([padded], dtype=np.int64))
+        pos = torch.arange(start, start + len(padded), dtype=torch.int32, device=dev)[None]
         if self.paged:
-            cache, table = self.cache, self._device_table(slot_idx)
+            self._sync_table()
+            cache, table = self.cache, self._dbt[slot_idx : slot_idx + 1]
         else:
             cache, table = self.cache.row(slot_idx), None
         logits = forward(self.params, self.cfg, tokens, pos, cache, block_table=table)
         self.prefill_chunks += 1
         return logits[0, n_real - 1]
 
-    def _device_table(self, lane: int | None = None) -> torch.Tensor:
-        """The block table on the device: lane ``lane``'s row, or every row.
-        A synchronous copy: the host mutates ``_bt`` right after."""
-        rows = self._bt if lane is None else self._bt[lane : lane + 1]
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
+    def _sync_table(self) -> None:
+        """Bring the device block table up to the host's, in place, if the
+        host's changed since the last upload. The copy goes on the engine's
+        stream after every dispatch made so far, so a chunk already in
+        flight keeps reading the table it was dispatched with."""
+        if not self.paged:
+            return
+        with self._page_lock:
+            if np.array_equal(self._bt, self._bt_sent):
+                return
+            self._bt_sent[...] = self._bt
+            self._xfer.upload(self._dbt, self._bt)
+
+    def _run_step(self, key: tuple) -> torch.Tensor:
+        """Dispatch step ``key``: its graph's replay on the card, the step
+        function eagerly on the CPU (and on the card only while warmup
+        serves, before the graphs are captured)."""
+        if self._graphs is not None and not self._warming:
+            return self._graphs.replay(key)
+        return self._step_fn(key)()
 
     def _decode_n(self, chunk: int) -> torch.Tensor:
-        """``chunk`` autoregressive steps over every lane, chained on the
-        device carry (the reference's ``lax.scan`` in ``decode_n``); returns
-        the sampled tokens [chunk, B]."""
-        all_greedy = all(t <= 0.0 for t in self._lane_temps)
-        # pages were pre-allocated for the whole chunk: one table serves it
-        table = self._device_table() if self.paged else None
+        """Dispatch one decode chunk of ``chunk`` steps over every lane;
+        returns the sampled tokens [chunk, B] on the device."""
+        return self._run_step(("decode", chunk, all(t <= 0.0 for t in self._lane_temps)))
+
+    def _decode_steps(self, chunk: int, all_greedy: bool) -> torch.Tensor:
+        """The decode step function: ``chunk`` autoregressive steps over
+        every lane, chained on the device carry in place (the reference's
+        ``lax.scan`` in ``decode_n``); returns the sampled tokens [chunk,
+        B]. Pages were allocated for the whole chunk before dispatch, so one
+        block table serves it."""
         toks = []
         for _ in range(chunk):
             logits = forward(
                 self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
-                block_table=table,
+                block_table=self._dbt,
             )
             nxt = sample_step(
                 logits[:, 0], self._gen, self._dtemps, self._dtopk, self._dtopp,
                 all_greedy=all_greedy,
             )
-            self._dtok = nxt
+            self._dtok.copy_(nxt)
             # clamp: parked lanes decode forever at the scratch position; real
             # lanes never reach it (admission budgets position + max_tokens)
-            self._dpos = torch.clamp(self._dpos + 1, max=self.scratch_pos)
+            self._dpos.copy_(torch.clamp(self._dpos + 1, max=self.scratch_pos))
             toks.append(nxt)
         return torch.stack(toks)
 
@@ -1595,6 +1789,7 @@ class LLMEngine:
             snapshot = kept
             if not snapshot:
                 return
+            self._sync_table()
         toks = self._decode_n(chunk)
         for s, r, _ in snapshot:
             s.dev_position += chunk
@@ -1605,7 +1800,8 @@ class LLMEngine:
         self.hbm_bytes_read += chunk * self.param_hbm_bytes + sum(
             chunk * (p + chunk // 2) * self._kv_bytes_per_pos for _, _, p in snapshot
         )
-        self._readbacks.append(("chunk", snapshot, toks, time.monotonic()))
+        host, event = self._xfer.download(toks)
+        self._push_readback(Readback("chunk", host, event, snapshot=snapshot))
 
     def _pick_chunk(self, needed: int) -> int:
         """Adaptive decode-chunk policy: contention — a mid-prefill prompt, or
@@ -1638,25 +1834,40 @@ class LLMEngine:
     # until the stream overwrites it; paged: whole pages of it go back to
     # the pool).
 
-    def _verify(self, drafts: np.ndarray, dlen: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        """One verify step over the decode carry for draft bucket K =
-        ``drafts.shape[1]``: feed each lane [carry token, draft_0..K-1] at
-        positions ``min(pos + arange(K+1), scratch)``, accept, and advance
-        the carry in place. Returns (emitted [B, K+1], count [B]) on the
-        device: lane b's next ``count[b]`` tokens are ``emitted[b, :count]``
-        (accepted drafts, then the bonus or correction token)."""
-        dev = self.device
+    def _verify(self, drafts: np.ndarray, dlen: np.ndarray) -> torch.Tensor:
+        """Dispatch one verify round for draft bucket K = ``drafts.shape[1]``
+        (drafts [B, K], lengths [B], written into the static verify inputs);
+        returns ``_verify_step``'s output on the device."""
         k = drafts.shape[1]
-        d = torch.from_numpy(drafts).to(dev)
-        dl = torch.from_numpy(dlen).to(dev)
+        self._xfer.upload(self._vdrafts[k], drafts)
+        self._xfer.upload(self._vdlen, dlen)
+        return self._run_step(("verify", k, all(t <= 0.0 for t in self._lane_temps)))
+
+    def _verify_step(self, k: int, all_greedy: bool) -> torch.Tensor:
+        """The verify step function over the decode carry for bucket K:
+        feed each lane [carry token, draft_0..K-1] at positions
+        ``min(pos + arange(K+1), scratch)``, accept, and advance the carry in
+        place. Returns [B, K+2]: lane b's next ``out[b, K+1]`` (count)
+        tokens are ``out[b, :count]`` (accepted drafts, then the bonus or
+        correction token)."""
+        dev = self.device
+        dl = self._vdlen
+        # rows past a lane's drafts repeat its carry token (the reference
+        # feeds 0 there; those rows are never accepted either way): the rows
+        # of a parked lane, all at the scratch position, then feed one token
+        # and write the same bytes to the one scratch slot they share, so the
+        # step is deterministic and a graph replay equals the eager step
+        d = torch.where(
+            torch.arange(k, device=dev)[None] < dl[:, None], self._vdrafts[k], self._dtok[:, None]
+        )
         toks = torch.cat([self._dtok[:, None], d], dim=1)
         offs = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
         # parked lanes, and rows past a lane's draft, clamp at scratch
         positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
-        table = self._device_table() if self.paged else None
-        logits = forward(self.params, self.cfg, toks, positions, self.cache, block_table=table)
+        logits = forward(
+            self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt
+        )
         greedy = logits.argmax(dim=-1)
-        all_greedy = all(t <= 0.0 for t in self._lane_temps)
         # draft_j (= toks[:, j+1]) is scored by logits row j: greedy lanes
         # accept on argmax agreement, sampled lanes with probability
         # p_j(draft_j) (rejection sampling with a point-mass proposal)
@@ -1684,9 +1895,9 @@ class LLMEngine:
         shifted = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
         emitted = torch.where(m < a[:, None], shifted, 0) + torch.where(m == a[:, None], bonus[:, None], 0)
         count = a + 1
-        self._dtok = bonus
-        self._dpos = torch.clamp(self._dpos + count.to(torch.int32), max=self.scratch_pos)
-        return emitted, count
+        self._dtok.copy_(bonus)
+        self._dpos.copy_(torch.clamp(self._dpos + count.to(torch.int32), max=self.scratch_pos))
+        return torch.cat([emitted, count[:, None]], dim=1)
 
     def _spec_gamma(self, slot: Slot) -> int:
         """Draft length for one lane: the EMA times gamma_max, capped by the
@@ -1743,12 +1954,12 @@ class LLMEngine:
         one ran (the caller then skips the plain decode dispatch).
 
         A steady-state optimization: under admission or prefill contention
-        the plain ladder keeps newcomers fast. The gate counts only lanes
-        past their first decode step (``dispatched > 1``): the reference
-        reads a lane's first token after that iteration's decode dispatch,
-        so its gate sees the lane without tokens; the port reads it before
-        (TTFT), and this keeps the same schedule. The round itself drafts
-        for every decoding lane."""
+        the plain ladder keeps newcomers fast. A lane drafts once its first
+        token's readback has been processed (``_spec_gamma`` needs a
+        generated token). Drafting needs the host's view of every lane's
+        stream to be current, so the round first drains the readback
+        pipeline (admitting while it waits), then checks contention again.
+        The round itself drafts for every decoding lane."""
         if not self._spec_active:
             return False
         if self._waiting or not self._queue.empty():
@@ -1756,10 +1967,15 @@ class LLMEngine:
         if any(s.request is not None and s.pending_prompt for s in self.slots):
             return False
         if not any(
-            s.decoding and s.request is not None and s.request.dispatched > 1
-            and self._spec_gamma(s) > 0
+            s.decoding and s.request is not None and self._spec_gamma(s) > 0
             for s in self.slots
         ):
+            return False
+        while self._readbacks:
+            self._drain_readbacks(block=True)
+            if self._sentinel:
+                return True  # unwind; the worker loop re-checks the sentinel
+        if self._waiting or any(s.request is not None and s.pending_prompt for s in self.slots):
             return False
         plan = []
         any_draft = False
@@ -1803,8 +2019,15 @@ class LLMEngine:
             if d:
                 drafts[s.idx, : len(d)] = d
                 dlen[s.idx] = len(d)
-        emitted_dev, count_dev = self._verify(drafts, dlen)
-        out = torch.cat([emitted_dev, count_dev[:, None]], dim=1).cpu().numpy()
+        if self.paged:
+            self._sync_table()
+        # read back at once (the next round's drafts depend on it), as the
+        # reference's verify round is
+        host, event = self._xfer.download(self._verify(drafts, dlen))
+        event.synchronize()
+        out = host.numpy().copy()
+        self._xfer.give(host)
+        self.host_syncs_total += 1
         emitted, count = out[:, :-1], out[:, -1]
         end = time.monotonic()
         self.spec_rounds += 1
@@ -1866,21 +2089,101 @@ class LLMEngine:
             self.itl_ms_recent.append(1000 * (end - self._last_decode_end) / total_used)
         self._last_decode_end = end
 
-    def _drain_readbacks(self) -> None:
-        """Process every queued readback in FIFO order. ``.cpu()`` waits for
-        the device: one synchronous readback per chunk in this slice."""
+    def _push_readback(self, entry: Readback) -> None:
+        """Queue a readback. The FIFO never holds more than
+        ``_PIPELINE_DEPTH + 1`` entries: when it is full the oldest is
+        waited for and processed first (the new entry's work is already on
+        the device behind it)."""
+        while len(self._readbacks) > self._PIPELINE_DEPTH:
+            self._process_oldest()
+        self._readbacks.append(entry)
+
+    def _landed(self, event) -> bool:
+        """Has a readback's copy landed, without waiting for it."""
+        return event.query()
+
+    def _drain_readbacks(self, block: bool) -> None:
+        """Process landed readbacks in FIFO order. An entry is forced to
+        completion when ``block`` asks for one (nothing else to dispatch)
+        or while the FIFO is deeper than the pipeline depth; a forced wait
+        keeps admitting (``_wait_admitting``), except with
+        ``adaptive_decode`` off, the reference's fixed-cadence baseline,
+        which blocks in processing."""
         while self._readbacks:
-            entry = self._readbacks.popleft()
-            if entry[0] == "first":
+            entry = self._readbacks[0]
+            if not (block or len(self._readbacks) > self._PIPELINE_DEPTH):
+                if not self._landed(entry.event):
+                    return
+            elif self.adaptive_decode:
+                self._wait_admitting(entry.event)
+                if self._sentinel:
+                    return
+                if not self._readbacks or self._readbacks[0] is not entry:
+                    # a prefill dispatched while waiting pushed past the
+                    # bound, and the push processed this entry
+                    block = False
+                    continue
+            self._process_oldest()
+            block = False
+
+    def _wait_admitting(self, event) -> None:
+        """Forced-drain wait that keeps admitting: poll the submit queue
+        while the readback's copy lands, and dispatch a fresh arrival's
+        FIRST prefill chunk at once (later chunks ride the normal
+        interleave); the device runs it behind the chunk in flight. The
+        wait is on the queue (a 1 ms get), so an enqueue wakes the worker
+        at once."""
+        while not self._sentinel:
+            self._pump_queue(0.0)
+            if self._sentinel:
+                return
+            if self._waiting:
+                self._admit_waiting()
+            while any(
+                s.request is not None and s.pending_prompt and s.request.prefill_started_at is None
+                for s in self.slots
+            ):
+                try:
+                    self._prefill_tick()
+                except Exception as e:
+                    # the same per-request isolation as the worker loop's tick
+                    self._note_error(e)
+                    slot = self._prefilling_slot
+                    if slot is not None and slot.request is not None:
+                        self._fail_item(slot.request, _as_prefill_failure(e))
+                        self._reset_slot(slot)
+                finally:
+                    self._prefilling_slot = None
+            if event.query():
+                return
+            try:
+                item = self._queue.get(timeout=0.001)
+            except queue.Empty:
+                continue
+            if item is None:
+                self._sentinel = True
+                return
+            self._waiting.append(item)
+
+    def _process_oldest(self) -> None:
+        """Pop the oldest readback, wait for its copy if it has not landed,
+        and process it."""
+        entry = self._readbacks.popleft()
+        entry.event.synchronize()
+        try:
+            if entry.kind == "first":
                 self._process_first(entry)
             else:
                 self._process_chunk(entry)
+        finally:
+            self._xfer.give(entry.host)
 
-    def _process_first(self, entry) -> None:
-        _, slot, req, first, _ = entry
+    def _process_first(self, entry: Readback) -> None:
+        slot, req = entry.slot, entry.req
         if slot.request is not req:
-            return  # request failed/superseded meanwhile
-        first_id = int(first.cpu()[0])
+            return  # request failed/superseded while the copy was in flight
+        first_id = int(entry.host[0])
+        self.host_syncs_total += 1
         now = time.monotonic()
         req.ttft_ms = 1000 * (now - req.submitted_at)
         self.ttft_ms_recent.append(req.ttft_ms)
@@ -1892,18 +2195,20 @@ class LLMEngine:
             # first token not yet in KV: carried into the next turn's prompt
             self._finish(slot, pending_last=True)
 
-    def _process_chunk(self, entry) -> None:
-        _, snapshot, toks_dev, _ = entry
-        toks = toks_dev.cpu().numpy()  # [chunk, B]
+    def _process_chunk(self, entry: Readback) -> None:
+        toks = entry.host.numpy()  # [chunk, B]
+        self.host_syncs_total += 1
         chunk = toks.shape[0]
+        # ITL = wall time between consecutive chunk completions (including
+        # any interleaved prefill chunk) per generated token
         end = time.monotonic()
         if self._last_decode_end is not None:
             self.itl_ms_recent.append(1000 * (end - self._last_decode_end) / chunk)
         self._last_decode_end = end
         eos = self.tokenizer.eos_id
-        for slot, req, start in snapshot:
+        for slot, req, start in entry.snapshot:
             if slot.request is not req or not req.generated:
-                continue  # finished in an earlier entry
+                continue  # finished in an earlier (lagged) entry
             outs = toks[:, slot.idx]
             remaining = req.max_tokens - len(req.generated)
             used = 0
@@ -1927,7 +2232,6 @@ class LLMEngine:
                 self._finish(slot, pending_last=True)
             else:
                 slot.position = start + chunk
-
 
     # -- paged arena: page allocator + block tables -------------------------
     #
@@ -1982,13 +2286,17 @@ class LLMEngine:
             self._prefix_evict_lru(now)
 
     def _free_page_ids(self, ids: list[int]) -> None:
-        """Return zero-ref pages straight to the free list. The reference
-        parks them in a quarantine while readbacks are in flight, because a
-        chunk dispatched before the free may still write through the old
-        block table. Here no chunk is in flight at a free: every dispatch
-        is read back synchronously before the worker frees anything, and all
-        device writes go in order on one CUDA stream, so a write through a
-        stale table lands before any later owner's write to that page."""
+        """Return zero-ref pages straight to the free list, with no
+        quarantine. The reference parks them in one while readbacks are in
+        flight, because a chunk dispatched before the free may still write
+        through the old block table; here too a chunk may be in flight at a
+        free (the readback pipeline). Stream order makes it safe: every
+        device write of the engine goes on its one CUDA stream — graph
+        replays, staging copies (the block table's too), prefill, prefix
+        copies and page copies — so a write through the stale table lands
+        before any later owner's first write to the page, and a later owner
+        never attends above its own live length, which it writes before it
+        reads."""
         with self._page_lock:
             self._page_free.extend(ids)
 
@@ -2295,11 +2603,6 @@ class LLMEngine:
 def _p50(xs) -> float | None:
     s = sorted(xs)
     return round(s[len(s) // 2], 2) if s else None
-
-
-def _on_device(device: torch.device):
-    """Make ``device`` current on this thread (the card), else nothing."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _leaves(tree):

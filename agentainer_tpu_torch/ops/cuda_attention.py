@@ -21,7 +21,11 @@ zeros; the output has q's dtype.
   the plain version; on a CUDA tensor they launch the hand-written kernel in
   ``csrc/flash_attention.cu`` (built by ``nvcc`` at first launch,
   ``ops/_build.py``) or raise — there is no fallback from the card to the
-  plain version. Each wrapper counts its kernel launches in ``.launches``.
+  plain version. Each wrapper counts its kernel launches in ``.launches``;
+  a call made while its stream is being captured into a CUDA graph launches
+  nothing and counts in ``.captured`` instead, and the engine's graphs add
+  what they captured to ``.launches`` at every replay
+  (``engine/graphs.py``), so ``.launches`` counts kernel calls that ran.
 - The decode kernels split the KV axis: ``flash_decode`` and
   ``fused_paged_flash_decode`` launch two kernels per call, one block per
   (kv head, lane, split of ``DECODE_SPLIT`` slots) writing f32 partials to
@@ -226,6 +230,15 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
 
 
+def _count(wrapper) -> None:
+    """One kernel call of ``wrapper``: run now (``.launches``), or recorded
+    into a CUDA graph under capture (``.captured``)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def flash_prefill(q, k, v, q_positions) -> torch.Tensor:
     """Ragged cached causal GQA attention: q [B, T, H, hd] over the arena
     k/v [B, S, KV, hd]; row t sees slot j iff j <= q_positions[b, t]."""
@@ -244,11 +257,12 @@ def flash_prefill(q, k, v, q_positions) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_prefill")
-    flash_prefill.launches += 1
+    _count(flash_prefill)
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.captured = 0
 
 
 def flash_decode(q, k, v, q_positions) -> torch.Tensor:
@@ -268,11 +282,12 @@ def flash_decode(q, k, v, q_positions) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_decode")
-    flash_decode.launches += 1
+    _count(flash_decode)
     return out
 
 
 flash_decode.launches = 0
+flash_decode.captured = 0
 
 
 def fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
@@ -296,11 +311,12 @@ def fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> to
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "fused_paged_flash_prefill")
-    fused_paged_flash_prefill.launches += 1
+    _count(fused_paged_flash_prefill)
     return out
 
 
 fused_paged_flash_prefill.launches = 0
+fused_paged_flash_prefill.captured = 0
 
 
 def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
@@ -324,11 +340,12 @@ def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> tor
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "fused_paged_flash_decode")
-    fused_paged_flash_decode.launches += 1
+    _count(fused_paged_flash_decode)
     return out
 
 
 fused_paged_flash_decode.launches = 0
+fused_paged_flash_decode.captured = 0
 
 
 def flash_attention_causal(q, k, v) -> torch.Tensor:

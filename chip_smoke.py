@@ -51,6 +51,15 @@ exits non-zero):
                  prefill kernel's launches equal 32 layers × (prefill chunks
                  + verify rounds); the dense and paged scripts give the same
                  text.
+   graphs      — inside each feature phase, after its served gates, on
+                 the same engine (llama3-8b, full width and depth, bf16):
+                 from one saved state with lanes 0-3 live at 40 / 300 / 777
+                 / 1500 and lanes 4-7 parked, every captured step graph
+                 (decode rungs 1/2/4/8 and verify buckets K 2/4/8) against
+                 its eager step function: greedy tokens, carry, verify
+                 inputs, block table and KV arena or pool bytes equal bit
+                 for bit; sampled, two replays from one generator state
+                 give the same tokens.
 6. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
@@ -61,7 +70,12 @@ exits non-zero):
                  index where greedy decoding through verify rounds leaves
                  the plain stream (reported, not gated).
 
-Stdout ends with four lines: the served paths' and the model check's numbers
+Every served phase runs on the engine's CUDA graphs with pipelined
+readbacks, and must replay graphs (``graph_replays`` > 0).
+
+Stdout ends with five lines: each served phase's pipeline numbers (graph
+replays, ``host_syncs_per_token``, ITL and TTFT p50, graph capture seconds
+and pool bytes; JSON), the served paths' and the model check's numbers
 (JSON), the card's name and power limit, a JSON object listing every kernel,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is visible or the port's package is missing.
@@ -714,6 +728,22 @@ METRIC_KEYS = (
     "tokens_generated", "prefills", "decode_steps", "decode_chunk_hist",
     "itl_ms_p50", "ttft_ms_p50", "param_hbm_bytes", "kv_arena_bytes", "chip_kind",
 )
+# the dispatch-ahead pipeline and the step graphs, per served phase
+PIPELINE_KEYS = (
+    "graph_replays", "host_syncs_total", "host_syncs_per_token", "itl_ms_p50", "ttft_ms_p50",
+    "graphs_captured", "graph_capture_s", "graph_pool_bytes",
+)
+
+
+def _pipeline(name: str, before: dict, after: dict) -> dict:
+    """A served phase's pipeline numbers; raises unless the phase replayed
+    step graphs."""
+    out = {k: after.get(k) for k in PIPELINE_KEYS}
+    out["graph_replays"] = after["graph_replays"] - before["graph_replays"]
+    if out["graph_replays"] <= 0 or not out["graphs_captured"]:
+        raise AssertionError(f"{name}: the served path replayed no step graph: {out}")
+    log(f"{name} pipeline: {out}")
+    return out
 PAGED_KEYS = (
     "resident_sessions", "session_evictions_total", "kv_pages_total", "kv_pages_used",
     "kv_pages_free", "session_pages_p50", "session_pages_max", "kv_fragmentation_pct",
@@ -733,6 +763,7 @@ def phase_serve() -> dict:
     options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, **FEATURES_OFF}
     with _serving(options) as (app, load_s):
         log(f"llama3-8b engine loaded (init + warmup) in {load_s:.1f}s")
+        _, m0 = _http(app.port, "GET", "/metrics")
         kernels = (ca.flash_prefill, ca.flash_decode)
         for fn in kernels:
             fn.launches = 0
@@ -747,6 +778,7 @@ def phase_serve() -> dict:
             raise AssertionError(f"{name} was never launched on the served path")
     log(f"served {len(replies)} /chat requests in {serve_s:.2f}s; launches {launches}")
     return {
+        "pipeline": _pipeline("dense", m0, metrics),
         "launches": launches,
         "requests": len(replies),
         "load_s": load_s,
@@ -776,6 +808,7 @@ def phase_serve_paged(dense_texts: list[str]) -> dict:
     }
     with _serving(options) as (app, load_s):
         log(f"llama3-8b paged engine loaded (init + warmup) in {load_s:.1f}s")
+        _, m0 = _http(app.port, "GET", "/metrics")
         kernels = (
             ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
             ca.fused_paged_flash_decode,
@@ -812,6 +845,7 @@ def phase_serve_paged(dense_texts: list[str]) -> dict:
             raise AssertionError(f"{name} launched {launches[name]} times on the paged served path")
     log(f"paged: served {len(replies)} /chat requests in {serve_s:.2f}s; launches {launches}; {gauges}")
     return {
+        "pipeline": _pipeline("paged", m0, metrics),
         "launches": launches,
         "requests": len(replies),
         "load_s": load_s,
@@ -968,6 +1002,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         serve_s = time.monotonic() - t1
         launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others)}
         _, m2 = _http(port, "GET", "/metrics")
+        pipeline = _pipeline(f"{name} features", m0, m2)
+        graphs = phase_graphs(app.engine, name)
 
     if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
         raise AssertionError(f"prefix cache: prewarms {m0['prefix_prewarms']}, hits {m1['prefix_hits']}")
@@ -986,6 +1022,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     log(f"{name} features: script in {script_s:.2f}s, served {serve_s:.2f}s; launches {launches}; "
         f"after the script {({k: m1[k] for k in FEATURE_KEYS})}; per request {per_request}; burst {codes}")
     return {
+        "pipeline": pipeline,
+        "graphs": graphs,
         "launches": launches,
         "load_s": load_s,
         "script_s": script_s,
@@ -999,6 +1037,48 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         "burst_codes": codes,
         "texts": texts,
     }
+
+
+# lanes 0-3 live in the graph phase (a 64-slot tile and a page crossed by
+# the verify rows), lanes 4-7 parked
+GRAPH_LIVE_POS = (40, 300, 777, 1500)
+
+
+def phase_graphs(engine, name: str) -> dict:
+    """Every captured step graph of a served engine against its eager step
+    function, from one saved state (``compare_replay``): greedy steps must
+    give equal tokens, carry, verify inputs, block table and KV bytes, bit
+    for bit; sampled steps must repeat their tokens when replayed twice from
+    one generator state (whether a sampled replay equals the eager sampled
+    step is reported, not gated). The engine is idle; its lanes are parked
+    again after."""
+    import torch
+
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+
+    keys = engine._step_keys()
+    want = {("decode", c) for c in (1, 2, 4, 8)} | {("verify", k) for k in (2, 4, 8)}
+    if {(kind, n) for kind, n, _ in keys} != want or len(engine._graphs) != len(keys):
+        raise AssertionError(f"{name}: captured {len(engine._graphs)} graphs for steps {keys}")
+    out = {}
+    t0 = time.monotonic()
+    for temperature, greedy in ((0.0, True), (1.0, False)):
+        live_lanes(engine, list(GRAPH_LIVE_POS), temperature, seed=int(greedy))
+        try:
+            for key in (k for k in keys if k[2] == greedy):
+                with torch.no_grad(), engine._on_stream():
+                    got = compare_replay(
+                        engine._graphs, key, engine._step_fn(key), engine._device_state(), engine._gen
+                    )
+                tag = f"{key[0]}{key[1]}_{'greedy' if greedy else 'sampled'}"
+                ok = got["replay_repeats"] and (not greedy or (got["tokens_equal"] and got["state_equal"]))
+                if not ok:
+                    raise AssertionError(f"{name} graph {tag} against its eager step: {got}")
+                out[tag] = got
+        finally:
+            park_lanes(engine)
+    log(f"{name} graphs: {len(out)} steps held against eager in {time.monotonic() - t0:.1f}s: {out}")
+    return out
 
 
 def phase_model() -> dict:
@@ -1201,6 +1281,9 @@ def main() -> int:
         row["launches"] = report["features_paged" if paged else "features"]["launches"][row["name"]]
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
     report["model"] = phase_model()
+    print(json.dumps({"pipeline": {
+        phase: report[phase]["pipeline"] for phase in ("serve", "serve_paged", "features", "features_paged")
+    }}))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"kernels": kernels}))

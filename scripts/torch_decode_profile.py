@@ -6,9 +6,11 @@ Builds the port's llama3-8b engine (bf16, random weights from seed 0) on
 the first CUDA device, serves LANES concurrent greedy requests of TOKENS
 tokens once untraced (warm) and once under torch.profiler, and
 prints one JSON line: the card, wall time, tokens, engine ITL/TTFT, device
-busy time (the union of GPU kernel intervals), the device's idle share,
-kernel launches, and the ten kernels with the most device time. Needs a
-CUDA device; exits 2 without one.
+busy time (the union of GPU kernel intervals, kernels replayed from CUDA
+graphs included), the device's idle share, kernel launches in the trace
+and per decode step of the batch, the engine's graph replays and host syncs
+per token in the traced window, and the ten kernels with the most device
+time. Needs a CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def main() -> int:
     try:
         asyncio.run(serve())  # warm, untraced
         steps0, itl0 = eng.decode_steps, len(eng.itl_ms_recent)
+        m0 = eng.metrics()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -68,6 +71,7 @@ def main() -> int:
             wall_s = time.perf_counter() - t0
         itl = sorted(list(eng.itl_ms_recent)[itl0:])
         steps = eng.decode_steps - steps0
+        m1 = eng.metrics()
     finally:
         eng.shutdown()
 
@@ -77,6 +81,10 @@ def main() -> int:
         by_name[e.name] += e.time_range.end - e.time_range.start
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     tokens = sum(r["completion_tokens"] for r in out)
+    hist0 = m0["decode_chunk_hist"]
+    # batch-wide decode steps: each chunk of c steps advances every lane c tokens
+    token_steps = sum(int(c) * (n - hist0.get(c, 0)) for c, n in m1["decode_chunk_hist"].items())
+    syncs = m1.get("host_syncs_total", 0) - m0.get("host_syncs_total", 0)
     print(json.dumps({
         "card": card,
         "lanes": LANES,
@@ -86,6 +94,10 @@ def main() -> int:
         "itl_ms_p50": itl[len(itl) // 2] if itl else None,
         "ttft_ms": [r["ttft_ms"] for r in out],
         "kernel_launches": len(kernels),
+        "decode_token_steps": token_steps,
+        "kernel_launches_per_decode_step": len(kernels) / token_steps if token_steps else None,
+        "graph_replays": m1.get("graph_replays", 0) - m0.get("graph_replays", 0),
+        "host_syncs_per_token": syncs / tokens if tokens else None,
         "device_busy_s": busy_us / 1e6 if kernels else None,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if kernels else None,
         "top_kernels_ms": {

@@ -8,6 +8,8 @@ Tolerances: f32 2e-5 with TF32 off (stated and set in the fixture), bf16
 3e-2, as tests/test_pallas_attention.py holds the Pallas kernels.
 """
 
+import time
+
 import pytest
 import torch
 
@@ -296,3 +298,213 @@ def test_paged_prefill_equals_dense_at_verify_shapes(dev, dtype, t):
     assert torch.equal(
         ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
     )
+
+
+# -- the engine's step graphs: 2 layers at llama3-8b width, bf16 -------------
+
+
+def _graph_engine(**options):
+    """A warmed card engine of llama3-8b's width at 2 layers (random bf16
+    weights from seed 0); warmup captures its step graphs."""
+    import dataclasses
+
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, g, dtype=torch.bfloat16, device="cuda")
+    opts = dict(max_batch=8, max_seq=1024, page_size=64, device="cuda")
+    opts.update(options)
+    eng = LLMEngine(cfg, params, ByteTokenizer(cfg.vocab_size), **opts)
+    eng.warmup()
+    return eng
+
+
+@pytest.fixture(scope="module", params=["dense", "paged"])
+def graph_engine(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eng = _graph_engine(paged_kv=request.param == "paged")
+    yield eng
+    eng.shutdown()
+
+
+GRAPH_KEYS = [("decode", c) for c in (1, 2, 4, 8)] + [("verify", k) for k in (2, 4, 8)]
+LIVE = [40, 300, 777, 1000]  # lanes 0-3 live (a 64-slot tile and a page crossed), 4-7 parked
+
+
+@pytest.mark.parametrize("kind,n", GRAPH_KEYS)
+def test_graph_replay_equals_eager_bit_for_bit(graph_engine, kind, n):
+    """From one saved state, the greedy step's replay gives the eager step's
+    tokens, carry, verify inputs, block table and KV bytes, bit for bit."""
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+
+    eng = graph_engine
+    key = (kind, n, True)
+    live_lanes(eng, LIVE, 0.0, seed=n)
+    try:
+        with torch.no_grad(), eng._on_stream():
+            got = compare_replay(eng._graphs, key, eng._step_fn(key), eng._device_state(), eng._gen)
+    finally:
+        park_lanes(eng)
+    assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+
+
+@pytest.mark.parametrize("kind,n", [("decode", 8), ("verify", 4)])
+def test_graph_replays_count_the_eager_calls_launches(graph_engine, kind, n):
+    """N replays add N times the kernel calls of one eager step to the
+    wrappers' ``launches``; capture added none."""
+    from agentainer_tpu_torch.engine.graphs import KERNEL_WRAPPERS, live_lanes, park_lanes
+
+    eng = graph_engine
+    key = (kind, n, True)
+    live_lanes(eng, LIVE, 0.0, seed=0)
+    state = eng._device_state()
+    try:
+        with torch.no_grad(), eng._on_stream():
+            saved = [t.clone() for t in state]
+            before = [w.launches for w in KERNEL_WRAPPERS]
+            eng._step_fn(key)()
+            eager = [w.launches - b for w, b in zip(KERNEL_WRAPPERS, before)]
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            before = [w.launches for w in KERNEL_WRAPPERS]
+            for _ in range(3):
+                eng._graphs.replay(key)
+            torch.cuda.synchronize()
+            replayed = [w.launches - b for w, b in zip(KERNEL_WRAPPERS, before)]
+            for t, s in zip(state, saved):
+                t.copy_(s)
+    finally:
+        park_lanes(eng)
+    assert sum(eager) == 2 * (n if kind == "decode" else 1)  # one attention call per layer
+    assert replayed == [3 * e for e in eager]
+
+
+@pytest.mark.parametrize("kind,n", [("decode", 4), ("verify", 8)])
+def test_sampled_graph_replays_a_seeded_stream(graph_engine, kind, n):
+    """The sampled step's graph draws from the engine's generator: from the
+    same generator state two replays repeat each other, and a replay after
+    another draws fresh numbers."""
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+
+    eng = graph_engine
+    key = (kind, n, False)
+    live_lanes(eng, LIVE, 1.0, seed=1)
+    state = eng._device_state()
+    try:
+        with torch.no_grad(), eng._on_stream():
+            got = compare_replay(eng._graphs, key, eng._step_fn(key), state, eng._gen)
+            saved = [t.clone() for t in state]
+            first = eng._graphs.replay(key).clone()
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            again = eng._graphs.replay(key).clone()
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            fresh = not torch.equal(first, again)  # on the stream that made them
+    finally:
+        park_lanes(eng)
+    assert got["replay_repeats"], got
+    assert fresh, (first, again)
+
+
+def test_paged_pages_freed_under_an_in_flight_chunk_are_safe_to_reuse(dev):
+    """A paged session is cancelled while a decode chunk that writes its
+    pages is still in flight (each chunk waits behind a ~40 ms spin), its
+    pages go straight back to the free list, and the next session takes
+    them at once: its greedy tokens equal the same request's on a quiet
+    engine. Stream order, not a quarantine, keeps the stale write ahead of
+    the new owner's."""
+    import asyncio
+
+    eng = _graph_engine(
+        paged_kv=True, max_batch=1, max_seq=512, kv_pages=12, prefix_cache=False,
+        speculative=False,
+    )
+    try:
+        decode_n, free_ids, alloc = eng._decode_n, eng._free_page_ids, eng._alloc_pages
+        log = {"freed": [], "taken": []}
+
+        def in_flight() -> bool:
+            return any(not e.event.query() for e in eng._readbacks)
+
+        def state():
+            return [time.perf_counter(), [(e.kind, e.event.query()) for e in eng._readbacks]]
+
+        def slow_decode(chunk):
+            torch.cuda._sleep(80_000_000)
+            return decode_n(chunk)
+
+        def logged_free(ids):
+            log["freed"].append((list(ids), in_flight(), state()))
+            free_ids(ids)
+
+        def logged_alloc(n, pin=False):
+            ids = alloc(n, pin)
+            log["taken"].append((list(ids), in_flight(), state()))
+            return ids
+
+        eng._decode_n, eng._free_page_ids, eng._alloc_pages = slow_decode, logged_free, logged_alloc
+        prompt = "the new owner of the pages " * 3
+
+        async def overlap():
+            a = asyncio.ensure_future(eng.generate(
+                "a long request " * 4, max_tokens=300, ignore_eos=True, request_id="A", session="a",
+            ))
+            while eng.decode_steps < 3:
+                await asyncio.sleep(0.005)
+            b = asyncio.ensure_future(eng.generate(prompt, max_tokens=24, ignore_eos=True, session="b"))
+            await asyncio.sleep(0)
+            eng.cancel("A")
+            done = await asyncio.gather(a, b, return_exceptions=True)
+            return done
+
+        a, b = asyncio.run(overlap())
+        eng._decode_n, eng._free_page_ids, eng._alloc_pages = decode_n, free_ids, alloc
+        assert type(a).__name__ == "RequestCancelled", a
+        stale = {p for ids, flying, _ in log["freed"] if flying for p in ids}
+        assert stale, log
+        assert any(flying and stale & set(ids) for ids, flying, _ in log["taken"]), log
+        assert stale & set(eng.paged_sessions["b"].pages)
+        eng.clear_sessions()
+        quiet = asyncio.run(eng.generate(prompt, max_tokens=24, ignore_eos=True, session="b2"))
+        assert b["tokens"] == quiet["tokens"]
+        assert eng.worker_errors == 0, eng.last_worker_error
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_served_path_makes_no_implicit_host_sync(dev, paged):
+    """Served traffic — prefill, graph-replayed decode chunks, verify rounds
+    and their readbacks — under ``torch.cuda.set_sync_debug_mode("error")``:
+    no operation of the worker waits for the device behind its back (the
+    readbacks wait on their CUDA events, which the mode does not flag)."""
+    import asyncio
+
+    eng = _graph_engine(paged_kv=paged, max_seq=512)
+    try:
+        async def traffic():
+            return await asyncio.gather(
+                eng.generate("a" * 200, max_tokens=40),  # one repeated byte: verify rounds
+                eng.generate("a plain request", max_tokens=21, ignore_eos=True),
+                eng.generate("sampled " * 3, max_tokens=13, temperature=1.0, ignore_eos=True),
+            )
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                torch.ones(1, device=dev).item()  # the mode is on
+            out = asyncio.run(traffic())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.worker_errors == 0, eng.last_worker_error
+        assert [r["completion_tokens"] for r in out[1:]] == [21, 13]
+        m = eng.metrics()
+        assert m["graph_replays"] > 0 and m["spec_rounds"] > 0, m
+    finally:
+        eng.shutdown()

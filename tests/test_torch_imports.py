@@ -41,6 +41,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.ops.attention",
         "agentainer_tpu_torch.ops.cuda_attention",
         "agentainer_tpu_torch.engine.llm",
+        "agentainer_tpu_torch.engine.graphs",
         "agentainer_tpu_torch.engine.llm_serve",
         "agentainer_tpu_torch.engine.sampling",
         "agentainer_tpu_torch.engine.tokenizer",
