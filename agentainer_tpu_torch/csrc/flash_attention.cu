@@ -1021,19 +1021,26 @@ PagedArena<T> paged_arena(const void* k, const void* v, const void* table, long 
           t_sb, ps, n_blocks, a[0], a[1], a[2], a[3], a[4], a[5]};
 }
 
-// Raise kernel Kern's dynamic shared-memory limit to at least smem bytes,
-// calling cudaFuncSetAttribute only when smem exceeds what this instance was
-// given before: the engine's warm eager calls set it, and the same shapes
-// captured into a graph afterwards launch without it.
+// Raise kernel Kern's dynamic shared-memory limit on the current device to
+// at least smem bytes, calling cudaFuncSetAttribute only when smem exceeds
+// what this instance was given on that device before: the engine's warm
+// eager calls set it, and the same shapes captured into a graph afterwards
+// launch without it. The attribute is per device, so engines on two cards
+// of one process each set their own.
+constexpr int kMaxDevices = 64;
+
 template <auto Kern>
 cudaError_t raise_smem_limit(size_t smem) {
-  static std::atomic<size_t> granted{0};
-  if (smem <= granted.load(std::memory_order_relaxed)) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<size_t> granted[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  size_t prev = granted.load(std::memory_order_relaxed);
-  while (prev < smem && !granted.compare_exchange_weak(prev, smem)) {
+  std::atomic<size_t>* g = dev < kMaxDevices ? &granted[dev] : nullptr;
+  if (g != nullptr && smem <= g->load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || g == nullptr) return err;
+  size_t prev = g->load(std::memory_order_relaxed);
+  while (prev < smem && !g->compare_exchange_weak(prev, smem)) {
   }
   return cudaSuccess;
 }

@@ -63,13 +63,26 @@ What differs from the reference, and why:
   quarantine, although a chunk dispatched before the free may still write
   through the old block table: every device write goes on the engine's one
   CUDA stream, so that write lands before any later owner's first write to
-  the page (see ``_free_page_ids``). Tiering, snapshots of paged sessions
-  and the ``engine.page_alloc`` failpoint are not ported;
+  the page (see ``_free_page_ids``). Tiering and the
+  ``engine.page_alloc`` failpoint are not ported;
 - a lane drafts only after its first token's readback has been processed,
   as in the reference (``_try_speculate``);
+- KV snapshots (``snapshot_session``/``restore_session``, the reference's
+  blob format, ``engine/checkpoint.py``) on both arenas: staging copies the
+  live prefix (dense: the row's ``[:position]``, with no power-of-two
+  bucket, which bounded XLA compiles; paged: only the session's live
+  pages) into pinned host memory on the engine's stream with an event, and
+  the wait and the npz pack run in ``asyncio.to_thread``; a restore writes
+  into the existing arena tensors in place on that stream, from a pinned
+  copy kept until its event lands, so the step graphs replay over the
+  restored KV without being captured again;
+- ``create(checkpoint=)`` loads a HuggingFace directory (with its own
+  ``config.json``) onto the engine's device; ``options["chips"]`` places
+  the engine on ``cuda:{chip}`` (one chip; an id past the visible devices
+  falls back to the first, as in the reference);
 - the other feature flags above are not ported yet: ``create`` raises
   ``ValueError`` naming any of them that is asked for, as it does for
-  ``tp``/``ep``/``sp``/``pp`` > 1, ``quant`` and ``checkpoint``.
+  ``tp``/``ep``/``sp``/``pp`` > 1, more than one chip and ``quant``.
   ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
@@ -101,7 +114,9 @@ from ..ops.cuda_attention import (
     kernel_supported,
 )
 from ..utils.hw import chip_spec
-from .graphs import HostTransfers, StepGraphs
+from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot, restore_kv_slot
+from .graphs import LANDED, HostTransfers, StepGraphs
+from .hf_convert import config_from_hf, is_hf_checkpoint
 from .sampling import NEG_INF, sample_step
 from .tokenizer import load_tokenizer
 
@@ -125,6 +140,11 @@ SPEC_LOOKUP_WINDOW = 1024
 # synthetic-int8 and routed-MoE options — raises instead of being ignored.
 FEATURE_FLAGS = ("fused_decode", "kv_tiering", "streaming", "approx_topk")
 UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("synthetic", "routed")
+
+
+class SnapshotDeferred(Exception):
+    """KV snapshot postponed: the engine is busy (or the global limiter is
+    saturated) and durability is not yet overdue. Retry on a later turn."""
 
 
 class EngineShutdown(RuntimeError):
@@ -186,17 +206,26 @@ def _as_prefill_failure(e: Exception) -> Exception:
     return PrefillFailed(f"{type(e).__name__}: {e}")
 
 
-def _engine_device(device, cfg: ModelConfig) -> torch.device:
+def _engine_device(device, cfg: ModelConfig, chips=()) -> torch.device:
     """The engine's device: the card unless the caller asks for the CPU.
     Asking for CUDA where there is no card, or for a model whose attention
     head the kernels do not take, raises instead of carrying on on the CPU
-    or in plain attention."""
+    or in plain attention. On the card ``chips`` (the control plane's
+    assignment) places the engine: one chip ``i`` is ``cuda:i`` when that
+    device is visible and the first device otherwise (the reference's
+    fallback); more than one raises, since the port serves on one device.
+    The CPU ignores them."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' (options['device'] = 'cpu') "
             "to run on the CPU"
         )
+    if device.type == "cuda" and chips:
+        if len(chips) > 1:
+            raise ValueError(f"chips={list(chips)}: the port serves on a single device")
+        chip = int(chips[0])
+        device = torch.device("cuda", chip if 0 <= chip < torch.cuda.device_count() else 0)
     if device.type == "cuda" and not kernel_supported(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
         raise ValueError(
             f"{cfg.name}: no attention kernel for {cfg.n_heads} heads over "
@@ -230,6 +259,48 @@ class GenRequest:
     # tokens sampled on the device so far (first token + dispatched decode
     # steps): the remaining budget bounds how large a chunk is worth running
     dispatched: int = 0
+
+
+@dataclass
+class SnapshotCmd:
+    """Worker-queue command: stage a session's live KV prefix into pinned
+    host memory for the caller to pack. Resolves with a ``StagedKV``,
+    ``None`` (no such session, or nothing to save) or ``"rate-limited"``."""
+
+    session: str
+    loop: asyncio.AbstractEventLoop
+    future: asyncio.Future
+
+
+@dataclass
+class StagedKV:
+    """A staged snapshot: host ``k``/``v`` ``[L, n >= position, KV, hd]``
+    that hold the session's KV once ``event`` has landed; when the staging
+    began and how long its pinned allocation took."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    event: object
+    position: int
+    pending_token: int | None
+    staged_at: float
+    alloc_ms: float
+
+
+@dataclass
+class RestoreCmd:
+    """Worker-queue command: write a KV snapshot (host tensors ``[L,
+    position, KV, hd]`` in the arena's dtype, pinned on the card) into the
+    arena for ``session``. Resolves with True, or False when it does not
+    fit or the session is busy."""
+
+    session: str
+    k: torch.Tensor
+    v: torch.Tensor
+    position: int
+    pending_token: int | None
+    loop: asyncio.AbstractEventLoop
+    future: asyncio.Future
 
 
 @dataclass
@@ -515,6 +586,29 @@ class LLMEngine:
         self.expired_total = 0
         self.shed_total = 0
 
+        # -- KV snapshots (the reference's limiter): one staging per gap,
+        # wider while other requests decode, and a per-session durability
+        # floor that forces one through a busy engine eventually ---------
+        self.snapshot_min_gap_s = 2.0
+        self.snapshot_force_s = 30.0
+        self.snapshot_busy_gap_s = 10.0
+        # gap-free first snapshot
+        self._last_snapshot_at = time.monotonic() - self.snapshot_min_gap_s
+        # session → SnapshotCmd parked until the session's request settles
+        self._snap_parked: dict[str, SnapshotCmd] = {}
+        # per-session staging times for the durability floor
+        self._snap_last_by_session: dict[str, float] = {}
+        self._snap_epoch0 = time.monotonic()
+        # restores whose host-to-device copy may be in flight: (event, k, v)
+        # — the pinned sources live until their event has landed
+        self._restore_staging: collections.deque = collections.deque()
+        self.kv_snapshots_total = 0
+        self.kv_restores_total = 0
+        # per snapshot: position, alloc_ms (its pinned buffers), stage_ms
+        # (staging began → landed on the host), pack_ms, raw_bytes,
+        # blob_bytes
+        self.snapshot_timings: collections.deque[dict] = collections.deque(maxlen=64)
+
         # -- prefix cache: bucket-length prefixes → their KV, forked into
         # fresh sessions at admission; LRU under a bytes budget ------------
         self.prefix_cache = bool(prefix_cache)
@@ -564,6 +658,8 @@ class LLMEngine:
         }
         self._vdlen = torch.zeros((max_batch,), dtype=torch.long, device=dev)
 
+        # a checkpoint load's bytes_read and seconds (create sets it)
+        self.checkpoint_load: dict = {}
         self._chip = chip_spec(self.device)
         self._peak_flops = self._chip.bf16_flops
         self._peak_hbm_bps = self._chip.hbm_gbps
@@ -579,12 +675,15 @@ class LLMEngine:
         checkpoint: str = "",
         options: dict | None = None,
     ) -> "LLMEngine":
-        """Build an engine with random weights from ``options["seed"]``.
+        """Build an engine with the weights of ``checkpoint`` (a HuggingFace
+        directory, whose ``config.json`` gives the model config), or with
+        random weights from ``options["seed"]``.
 
         ``options["device"]`` defaults to ``"cuda"``; with no card this
         raises rather than carrying on on the CPU — pass ``"cpu"`` to ask
-        for it. dtype follows the reference: bf16 on the card, f32 on the
-        CPU."""
+        for it. ``options["chips"]`` places a card engine
+        (``_engine_device``). dtype follows the reference: bf16 on the
+        card, f32 on the CPU."""
         options = options or {}
         asked = [f for f in UNSUPPORTED_OPTIONS if options.get(f)]
         if asked:
@@ -594,15 +693,33 @@ class LLMEngine:
                 raise ValueError(f"{axis}={options[axis]}: the port serves on a single device")
         if options.get("quant"):
             raise ValueError(f"quant={options['quant']!r}: quantized serving is not ported yet")
-        if checkpoint:
-            raise ValueError("checkpoint loading is not ported yet")
-        cfg = get_config(config_name or "tiny")
-        device = _engine_device(options.get("device", "cuda"), cfg)
+        if checkpoint and is_hf_checkpoint(checkpoint):
+            # the checkpoint's own config.json; an explicit config name
+            # stands in for a missing or unusable one
+            try:
+                cfg = config_from_hf(checkpoint)
+            except (OSError, KeyError, ValueError) as e:
+                if not config_name:
+                    raise ValueError(
+                        f"checkpoint {checkpoint!r} has no usable config.json ({e!r}); "
+                        "pass model.config explicitly"
+                    ) from e
+                cfg = get_config(config_name)
+        else:
+            cfg = get_config(config_name or "tiny")
+        if cfg.is_moe:
+            raise ValueError(f"{cfg.name}: MoE configs are not ported yet")
+        chips = [int(c) for c in options.get("chips", []) or []]
+        device = _engine_device(options.get("device", "cuda"), cfg, chips)
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(options.get("seed", 0)))
-        params = init_params(cfg, gen, dtype=dtype, device=device)
+        load_stats: dict = {}
+        if checkpoint:
+            params = load_params(cfg, checkpoint, dtype=dtype, device=device, stats=load_stats)
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(options.get("seed", 0)))
+            params = init_params(cfg, gen, dtype=dtype, device=device)
         engine = cls(
             cfg,
             params,
@@ -624,6 +741,7 @@ class LLMEngine:
             inloop_spec=bool(options.get("inloop_spec", True)),
             device=device,
         )
+        engine.checkpoint_load = load_stats
         if not options.get("skip_warmup"):
             engine.warmup()
         elif device.type == "cuda":
@@ -924,6 +1042,88 @@ class LLMEngine:
             time.sleep(0.05)
         return not busy()
 
+    def has_session(self, session: str) -> bool:
+        """Whether the engine holds ``session``'s KV: in a slot (dense) or
+        in pages (paged; ``sessions`` maps a resident session to -1). The
+        serve layer asks this, never ``sessions`` itself."""
+        return session in self.sessions
+
+    async def snapshot_session(self, session: str) -> bytes | None:
+        """Serialize a session's live KV prefix (the reference's blob,
+        ``engine/checkpoint.py``). The worker stages the prefix into pinned
+        host memory on the engine's stream between dispatches; the wait for
+        that copy and the npz pack run in a thread, so neither the worker
+        nor the event loop blocks on the transfer. A session mid-generation
+        parks the command until its request finishes; the staging limiter
+        may bounce it, and after five bounces this raises
+        ``SnapshotDeferred``. None: no such session, or nothing to save."""
+        loop = asyncio.get_running_loop()
+        staged = None
+        for _ in range(5):
+            cmd = SnapshotCmd(session=session, loop=loop, future=loop.create_future())
+            self._submit(cmd)
+            staged = await cmd.future
+            if staged != "rate-limited":
+                break
+            await asyncio.sleep(self.snapshot_min_gap_s)
+        if staged == "rate-limited":
+            raise SnapshotDeferred(session)
+        if staged is None:
+            return None
+        meta = {"session": session, "pending_token": staged.pending_token}
+        if self.paged:
+            # staged from the live pages only; the payload is the dense
+            # staging's, so blobs restore across both arenas
+            meta["page_size"] = self.page_size
+        return await asyncio.to_thread(self._pack_staged, staged, meta)
+
+    def _pack_staged(self, staged: StagedKV, meta: dict) -> bytes:
+        """The thread half of a snapshot: wait for the staging copy, then
+        pack the npz blob."""
+        staged.event.synchronize()
+        landed = time.monotonic()
+        k, position = staged.k, staged.position
+        blob = pack_kv_snapshot(k, staged.v, position, meta)
+        self.snapshot_timings.append({
+            "position": position,
+            "alloc_ms": staged.alloc_ms,
+            "stage_ms": 1000 * (landed - staged.staged_at),
+            "pack_ms": 1000 * (time.monotonic() - landed),
+            "raw_bytes": 2 * k[:, :position].numel() * k.element_size(),
+            "blob_bytes": len(blob),
+        })
+        return blob
+
+    async def restore_session(self, session: str, blob: bytes) -> bool:
+        """Load a snapshot blob into the arena for ``session``, through the
+        worker. False when it does not fit (at or past ``max_seq - 1``, a
+        model of other shapes, no free pages) or the session is busy;
+        raises ``ValueError`` for a malformed blob."""
+        dtype = self.cache.k.dtype
+        pin = self.device.type == "cuda"
+
+        def host_copy():
+            # decompress, cast to the arena's dtype and pin, off the loop
+            k, v, header = deserialize_kv_slot(blob)
+            k, v = k.to(dtype), v.to(dtype)
+            if pin:
+                k, v = k.pin_memory(), v.pin_memory()
+            return k, v, header
+
+        k, v, header = await asyncio.to_thread(host_copy)
+        loop = asyncio.get_running_loop()
+        cmd = RestoreCmd(
+            session=session,
+            k=k,
+            v=v,
+            position=int(header["position"]),
+            pending_token=header.get("pending_token"),
+            loop=loop,
+            future=loop.create_future(),
+        )
+        self._submit(cmd)
+        return await cmd.future
+
     def clear_sessions(self, prefix: str = "") -> None:
         """Drop idle sessions (all, or those whose name starts with ``prefix``)."""
         if self.paged:
@@ -932,6 +1132,7 @@ class LLMEngine:
                     sess = self.paged_sessions[name]
                     if sess.lane is not None:
                         continue  # request in flight; same skip as dense
+                    self._flush_parked_snapshot(name)
                     self._free_session_pages(sess)
                     self.paged_sessions.pop(name, None)
                     self.sessions.pop(name, None)
@@ -939,6 +1140,7 @@ class LLMEngine:
         with self._lock:
             for name in [s for s in self.sessions if s.startswith(prefix)]:
                 idx = self.sessions.pop(name)
+                self._flush_parked_snapshot(name)
                 slot = self.slots[idx]
                 if slot.request is None:
                     slot.session = ""
@@ -998,6 +1200,9 @@ class LLMEngine:
             "shed_total": self.shed_total,
             "shed_watermark": self.shed_watermark or None,
             "draining": self._draining,
+            # KV snapshots staged and restores written
+            "kv_snapshots_total": self.kv_snapshots_total,
+            "kv_restores_total": self.kv_restores_total,
             # prefix cache
             "prefix_cache": self.prefix_cache,
             "prefix_hits": self.prefix_hits,
@@ -1042,6 +1247,8 @@ class LLMEngine:
             "n_chips": 1,
             "param_hbm_bytes": self.param_hbm_bytes,
             "kv_arena_bytes": self.kv_arena_bytes,
+            "checkpoint_bytes_read": self.checkpoint_load.get("bytes_read"),
+            "checkpoint_load_s": self.checkpoint_load.get("seconds"),
         }
 
     def _paged_metrics(self) -> dict:
@@ -1087,6 +1294,8 @@ class LLMEngine:
         self._worker.join(timeout=30)
         # items enqueued after the worker's own exit drain must fail too
         self._fail_pending(EngineShutdown("engine shut down"))
+        for session in list(self._snap_parked):
+            self._flush_parked_snapshot(session)
 
     # -- worker thread ----------------------------------------------------
     def _loop(self) -> None:
@@ -1198,7 +1407,11 @@ class LLMEngine:
         still = []
         for item in self._waiting:
             try:
-                if self._pre_reject(item):
+                if isinstance(item, RestoreCmd):
+                    self._do_restore(item)
+                elif isinstance(item, SnapshotCmd):
+                    self._do_snapshot(item)
+                elif self._pre_reject(item):
                     pass  # cancelled or expired before prefill: already failed
                 elif not self._try_admit(item):
                     still.append(item)
@@ -1333,6 +1546,7 @@ class LLMEngine:
         if slot.session:
             if self.sessions.get(slot.session) == slot.idx:
                 self.sessions.pop(slot.session, None)
+                self._flush_parked_snapshot(slot.session)
             slot.session = ""
 
     def _inject_lane(
@@ -1551,6 +1765,7 @@ class LLMEngine:
             if slot.session and self.sessions.get(slot.session) == slot.idx:
                 self.sessions.pop(slot.session, None)  # evict the LRU session's KV
                 self._count_eviction("session", time.monotonic() - slot.last_used)
+                self._flush_parked_snapshot(slot.session)
             slot.session = session
             slot.position = 0
             slot.pending_token = None
@@ -1749,18 +1964,24 @@ class LLMEngine:
             "ttft_breakdown": breakdown,
         }
         # Paged: settle the session before resolving the caller — sync the
-        # lane's final state back, then release the lane (the session stays
-        # resident in pages). "await chat() returned" then implies the
-        # session is settled.
+        # lane's final state back, stage any snapshot parked on it (the
+        # staging reads the synced session), then release the lane (the
+        # session stays resident in pages). "await chat() returned" then
+        # implies the session is settled.
         if self.paged:
             if slot.psess is not None:
                 slot.psess.position = slot.position
                 slot.psess.pending_token = slot.pending_token
+            self._service_parked_snapshot(slot)
             self._detach_lane(slot)
         req.loop.call_soon_threadsafe(_resolve, req.future, result)
         # a cancel that raced the natural finish loses: drop its marker
         with self._lock:
             self._cancel_requested.pop(req.id, None)
+        if not self.paged:
+            # the slot is idle right now: stage a snapshot parked while the
+            # request generated
+            self._service_parked_snapshot(slot)
 
     def _decode_dispatch(self) -> None:
         """Run one decode chunk on the device carry and queue its token
@@ -2233,6 +2454,219 @@ class LLMEngine:
             else:
                 slot.position = start + chunk
 
+    # -- KV snapshots and restores (worker thread) --------------------------
+    #
+    # Both arenas give one payload: the session's live prefix [L, position,
+    # KV, hd] in the arena's dtype. Every device operation goes on the
+    # engine's stream between dispatches, so a staging copy reads what the
+    # dispatches before it wrote, and a restore's writes land before any
+    # later dispatch reads them.
+
+    def _do_snapshot(self, cmd: SnapshotCmd) -> None:
+        """Stage a settled session's prefix now; a session mid-generation
+        parks the command until its request finishes (one parked command
+        per session; another bounces as rate-limited)."""
+        if self.paged:
+            sess = self.paged_sessions.get(cmd.session)
+            busy = sess is not None and sess.lane is not None
+        else:
+            idx = self.sessions.get(cmd.session)
+            sess = self.slots[idx] if idx is not None else None
+            busy = sess is not None and sess.request is not None
+        if sess is None:
+            cmd.loop.call_soon_threadsafe(_resolve, cmd.future, None)
+            return
+        # the durability clock of a session starts at its first snapshot
+        self._snap_last_by_session.setdefault(cmd.session, time.monotonic())
+        if busy:
+            if cmd.session in self._snap_parked:
+                cmd.loop.call_soon_threadsafe(_resolve, cmd.future, "rate-limited")
+            else:
+                self._snap_parked[cmd.session] = cmd
+            return
+        if self.paged:
+            self._stage_snapshot_paged(cmd, sess)
+        else:
+            self._stage_snapshot(cmd, sess)
+
+    def _snap_gate(self, session: str) -> bool:
+        """The staging limiter (dense and paged alike): True = rate-limited
+        this time. Stagings are spaced by ``snapshot_min_gap_s``, by
+        ``snapshot_busy_gap_s`` while other requests decode, and a busy
+        engine stages a session only once its last staging is
+        ``snapshot_force_s`` old (the durability floor)."""
+        now = time.monotonic()
+        busy = any(s.decoding or s.pending_prompt for s in self.slots)
+        session_last = self._snap_last_by_session.get(session, self._snap_epoch0)
+        overdue = now - session_last >= self.snapshot_force_s
+        gap = self.snapshot_busy_gap_s if busy else self.snapshot_min_gap_s
+        gap_ok = now - self._last_snapshot_at >= gap
+        return (not gap_ok) or (busy and not overdue)
+
+    def _stage_snapshot(self, cmd: SnapshotCmd, slot: Slot) -> None:
+        """Stage a settled dense slot's ``[:position]`` (limiter-gated)."""
+        staged = None
+        if self._snap_gate(cmd.session):
+            staged = "rate-limited"
+        elif slot.position > 0:
+            staged = self._stage_kv(
+                cmd.session,
+                self.cache.k_store[:, slot.idx, : slot.position],
+                self.cache.v_store[:, slot.idx, : slot.position],
+                slot.position,
+                slot.pending_token,
+            )
+        cmd.loop.call_soon_threadsafe(_resolve, cmd.future, staged)
+
+    def _stage_snapshot_paged(self, cmd: SnapshotCmd, sess: PagedSession) -> None:
+        """Stage a resident session's live pages only (ceil(position /
+        page_size) of them), gathered into one contiguous ``[L, count *
+        page_size, KV, hd]`` buffer (limiter-gated)."""
+        staged = None
+        if self._snap_gate(cmd.session):
+            staged = "rate-limited"
+        elif sess.position > 0 and sess.pages:
+            count = min(len(sess.pages), (sess.position - 1) // self.page_size + 1)
+            ids = torch.empty((count,), dtype=torch.long, device=self.device)
+            self._xfer.upload(ids, np.asarray(sess.pages[:count], dtype=np.int64))
+            n_layers, _, ps, kv, hd = self.cache.k.shape
+            staged = self._stage_kv(
+                cmd.session,
+                self.cache.k.index_select(1, ids).reshape(n_layers, count * ps, kv, hd),
+                self.cache.v.index_select(1, ids).reshape(n_layers, count * ps, kv, hd),
+                sess.position,
+                sess.pending_token,
+            )
+        cmd.loop.call_soon_threadsafe(_resolve, cmd.future, staged)
+
+    def _stage_kv(self, session: str, k, v, position: int, pending: int | None) -> StagedKV:
+        """Copy device ``k``/``v`` to the host without waiting: into pinned
+        memory with an event recorded after the copies (the card; the
+        host allocator caches pinned blocks, so only a new size class
+        allocates), or a plain copy (the CPU)."""
+        now = time.monotonic()
+        self._last_snapshot_at = now
+        self._snap_last_by_session[session] = now
+        self.kv_snapshots_total += 1
+        if self._stream is None:
+            return StagedKV(k.clone(), v.clone(), LANDED, position, pending, now, 0.0)
+        hk = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+        hv = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        alloc_ms = 1000 * (time.monotonic() - now)
+        hk.copy_(k, non_blocking=True)
+        hv.copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return StagedKV(hk, hv, event, position, pending, now, alloc_ms)
+
+    def _service_parked_snapshot(self, slot: Slot) -> None:
+        """At a request's finish: stage a snapshot parked on its session
+        while the slot is provably idle."""
+        cmd = self._snap_parked.pop(slot.session, None) if slot.session else None
+        if cmd is None:
+            return
+        if self.paged:
+            if slot.psess is not None:
+                self._stage_snapshot_paged(cmd, slot.psess)
+            else:
+                cmd.loop.call_soon_threadsafe(_resolve, cmd.future, None)
+        else:
+            self._stage_snapshot(cmd, slot)
+
+    def _flush_parked_snapshot(self, session: str) -> None:
+        """The session is going away (eviction, reset, clear, shutdown): a
+        parked snapshot resolves with None instead of hanging its caller."""
+        self._snap_last_by_session.pop(session, None)
+        cmd = self._snap_parked.pop(session, None)
+        if cmd is not None:
+            cmd.loop.call_soon_threadsafe(_resolve, cmd.future, None)
+
+    def _do_restore(self, cmd: RestoreCmd) -> None:
+        """Write a snapshot into the arena: dense into the session's slot
+        (``_find_slot``, a fresh one evicting the LRU idle session), paged
+        into freshly allocated pages with no lane bound. Resolves False when
+        it does not fit or the session is busy, and resolves even when the
+        write raises."""
+        ok = False
+        try:
+            n_layers, kv, hd = self.cache.k.shape[0], *self.cache.k.shape[3:]
+            fits = (
+                bool(cmd.session)
+                and 0 < cmd.position < self.max_seq - 1
+                and cmd.k.shape[0] == n_layers
+                and tuple(cmd.k.shape[2:]) == (kv, hd)
+            )
+            if not fits:
+                return
+            if self.paged:
+                ok = self._do_restore_paged(cmd)
+                return
+            slot = self._find_slot(cmd.session)
+            if slot is None:
+                return  # the session is busy
+            restore_kv_slot(self.cache, slot.idx, cmd.k, cmd.v)
+            self._hold_restore_source(cmd)
+            slot.position = cmd.position
+            slot.pending_token = cmd.pending_token
+            # the drafting corpus of the replaced context is gone
+            slot.spec_hist, slot.spec_ema, slot.spec_miss = [], 1.0, 0
+            # live now: without the stamp it would be the next LRU victim
+            slot.last_used = time.monotonic()
+            ok = True
+        finally:
+            self.kv_restores_total += ok
+            cmd.loop.call_soon_threadsafe(_resolve, cmd.future, ok)
+
+    def _do_restore_paged(self, cmd: RestoreCmd) -> bool:
+        """Restore into pages, not a lane: the session becomes resident
+        without a compute lane. A live session is never clobbered; pool
+        exhaustion returns False (the caller prefills instead)."""
+        with self._page_lock:
+            existing = self.paged_sessions.get(cmd.session)
+            if existing is not None:
+                if existing.lane is not None:
+                    return False  # mid-generation
+                self._free_session_pages(existing)
+                self.paged_sessions.pop(cmd.session, None)
+                self.sessions.pop(cmd.session, None)
+        count = (cmd.position - 1) // self.page_size + 1
+        try:
+            pages = self._alloc_pages(count)
+        except EngineOverloaded:
+            return False
+        ids = torch.empty((count,), dtype=torch.long, device=self.device)
+        self._xfer.upload(ids, np.asarray(pages, dtype=np.int64))
+        n_layers, _, ps, kv, hd = self.cache.k.shape
+        for pool, src in ((self.cache.k, cmd.k), (self.cache.v, cmd.v)):
+            # the tail of the last page past position is never read before
+            # it is written
+            tmp = torch.zeros((n_layers, count * ps, kv, hd), dtype=pool.dtype, device=self.device)
+            tmp[:, : cmd.position].copy_(src, non_blocking=True)
+            pool.index_copy_(1, ids, tmp.view(n_layers, count, ps, kv, hd))
+        self._hold_restore_source(cmd)
+        sess = PagedSession(
+            name=cmd.session,
+            pages=pages,
+            position=cmd.position,
+            pending_token=cmd.pending_token,
+            last_used=time.monotonic(),
+        )
+        with self._page_lock:
+            self.paged_sessions[cmd.session] = sess
+            self.sessions[cmd.session] = -1
+        return True
+
+    def _hold_restore_source(self, cmd: RestoreCmd) -> None:
+        """Keep a restore's pinned host tensors alive until the copies out
+        of them have landed (the card); sources of landed copies go."""
+        if self._stream is None:
+            return
+        while self._restore_staging and self._restore_staging[0][0].query():
+            self._restore_staging.popleft()
+        event = torch.cuda.Event()
+        event.record()
+        self._restore_staging.append((event, cmd.k, cmd.v))
+
     # -- paged arena: page allocator + block tables -------------------------
     #
     # Host-side bookkeeping for the device page pool: the free list, the
@@ -2279,6 +2713,7 @@ class LLMEngine:
             self._free_session_pages(victim)
             self.paged_sessions.pop(victim.name, None)
             self.sessions.pop(victim.name, None)
+            self._flush_parked_snapshot(victim.name)
         now = time.monotonic()
         while len(self._page_free) < need and any(
             e.pages is not None for e in self._prefix_entries.values()
@@ -2379,6 +2814,11 @@ class LLMEngine:
             self.sessions[sess.name] = -1
             self._truncate_session_pages(sess)
         slot.session = ""
+        # the session is idle now: stage a snapshot parked while the failed
+        # request was in flight, or its caller would wait forever
+        cmd = self._snap_parked.pop(sess.name, None)
+        if cmd is not None:
+            self._stage_snapshot_paged(cmd, sess)
 
     def _drop_lane_session(self, slot: Slot) -> None:
         """Paged lane reset after a FAULT: the bound session's KV is no
@@ -2393,6 +2833,7 @@ class LLMEngine:
             if sess.name:
                 self.paged_sessions.pop(sess.name, None)
                 self.sessions.pop(sess.name, None)
+                self._flush_parked_snapshot(sess.name)
             slot.session = ""
 
     def _detach_lane(self, slot: Slot) -> None:

@@ -3,18 +3,32 @@ contract: ``/`` ``/health`` ``/chat`` ``/generate`` ``/history`` ``/clear``
 ``/metrics``.
 
 Reference: ``agentainer_tpu/engine/llm_serve.py``. Same routes, same request
-and response JSON, same ``AGENTAINER_*`` environment contract. What differs:
+and response JSON, same ``AGENTAINER_*`` environment contract: the model
+config, ``AGENTAINER_CHECKPOINT`` (a HuggingFace directory), the persona,
+the assigned chips (``AGENTAINER_CHIPS``, passed as ``options["chips"]``)
+and the fleet defaults in the ``ATPU_*`` variables (``_engine_options``).
+What differs:
 
 - the HTTP server is the standard library's (``asyncio.start_server`` and a
   minimal HTTP/1.1 reader, one request per connection): the machine with the
   card has no aiohttp;
 - conversation turns live in the process-local store that the reference's
-  ``StoreClient`` falls back to with no control plane configured; the store
-  client, KV snapshots to the store, tenants, ``/park``, ``/prewarm``,
-  ``/profile`` and streaming come with later slices. A ``stream=true`` body
-  is answered buffered, as the reference does with ``streaming=False``;
-- the drain on the way out (``run`` after ``stop()``) takes no KV
-  snapshots: there is no store to put them in yet.
+  ``StoreClient`` falls back to with no control plane configured. The
+  reference snapshots a session's KV to the store after its turns, restores
+  an unknown session from the store before admitting it and snapshots the
+  resident sessions in the drain, all only with a connected store; so they
+  wait for the store client, which calls the engine's
+  ``snapshot_session``/``restore_session`` (ported). Tenants, ``/park``,
+  ``/prewarm``, ``/profile`` and streaming also come with later slices. A
+  ``stream=true`` body is answered buffered, as the reference does with
+  ``streaming=False``;
+- only the ``llm`` flavor is served: ``AGENTAINER_ENGINE=assistant`` fails
+  the load with a message, as does a fleet flag for an engine feature the
+  port lacks (``create`` refuses it);
+- ``AGENTAINER_WARM_BOOT`` has no counterpart: in the reference it skips
+  warmup when the XLA compile cache is warm, but here warmup also captures
+  the step graphs and replays each once, which uploads it to the device;
+  skipping that would move the upload into the first requests.
 
 Request lifecycle policy as the reference's: ``X-Agentainer-Deadline-Ms``
 (or the ``default_deadline_ms`` option) sets a deadline, ``POST /cancel``
@@ -52,6 +66,20 @@ from ..core.protocol import (
     REQUEST_ID_HEADER,
 )
 
+# engine option ← its fleet-default variable (the reference's list); a
+# per-deployment option wins, and 1/true/yes are true
+FLEET_FLAGS = (
+    ("speculative", "ATPU_SPECULATIVE"),
+    ("paged_kv", "ATPU_PAGED_KV"),
+    ("adaptive_decode", "ATPU_ADAPTIVE_DECODE"),
+    ("prefix_cache", "ATPU_PREFIX_CACHE"),
+    ("deadlines", "ATPU_DEADLINES"),
+    ("fused_decode", "ATPU_FUSED_DECODE"),
+    ("inloop_spec", "ATPU_INLOOP_SPEC"),
+    ("approx_topk", "ATPU_APPROX_TOPK"),
+    ("kv_tiering", "ATPU_KV_TIERING"),
+    ("streaming", "ATPU_STREAMING"),
+)
 MAX_TURNS = 50
 SESSION_CONVO_TTL_S = 7 * 24 * 3600
 _REASONS = {
@@ -114,6 +142,7 @@ class LLMServeApp:
 
     def __init__(self, env: dict | None = None) -> None:
         E = os.environ if env is None else env
+        self._env = E
         self.engine = None
         self.engine_error = ""
         self.agent_id = E.get("AGENTAINER_AGENT_ID", "standalone")
@@ -121,6 +150,8 @@ class LLMServeApp:
         self.config_name = E.get("AGENTAINER_MODEL_CONFIG", "tiny")
         self.checkpoint = E.get("AGENTAINER_CHECKPOINT", "")
         self.system_prompt = E.get("AGENTAINER_SYSTEM_PROMPT", "")
+        self.flavor = E.get("AGENTAINER_ENGINE", "llm")
+        self.chips = tuple(int(c) for c in E.get("AGENTAINER_CHIPS", "0").split(",") if c != "")
         try:
             self.model_options = json.loads(E.get("AGENTAINER_MODEL_OPTIONS", "") or "{}")
         except json.JSONDecodeError:
@@ -172,17 +203,34 @@ class LLMServeApp:
     def _convo_session_key(self, session: str) -> str:
         return f"{self.convo_key}:{session}"
 
+    def _engine_options(self) -> dict:
+        """The engine's options: the deployment's own
+        (``AGENTAINER_MODEL_OPTIONS``) over the fleet defaults of
+        ``FLEET_FLAGS``, and the assigned chips."""
+        opts = dict(self.model_options)
+        for flag, env_name in FLEET_FLAGS:
+            raw = self._env.get(env_name)
+            if raw is not None and flag not in opts:
+                opts[flag] = raw.lower() in ("1", "true", "yes")
+        if self.chips:
+            opts["chips"] = list(self.chips)
+        return opts
+
     # -- lifecycle ----------------------------------------------------------
     def _load_engine(self) -> None:
-        """Build the engine (weight init + warmup: slow). Runs on a daemon
+        """Build the engine (weights + warmup: slow). Runs on a daemon
         thread so /health answers while loading."""
         try:
+            if self.flavor != "llm":
+                raise ValueError(
+                    f"engine flavor {self.flavor!r} is not ported yet; the PyTorch port serves 'llm'"
+                )
             from .llm import LLMEngine
 
             engine = LLMEngine.create(
                 config_name=self.config_name,
                 checkpoint=self.checkpoint,
-                options=dict(self.model_options),
+                options=self._engine_options(),
             )
             asyncio.run(self._prewarm_prefix(engine))
             self.engine = engine
@@ -368,7 +416,7 @@ class LLMServeApp:
                 "agent": self.agent_name,
                 "engine": "llm",
                 "model": self.config_name,
-                "chips": [],
+                "chips": list(self.chips),
                 "status": "running" if self.engine else "loading",
             },
         )
@@ -403,7 +451,7 @@ class LLMServeApp:
         # persona parity: a brand-new session's context opens with the
         # system prompt; later turns inherit it through the KV cache
         prompt = message
-        if self.system_prompt and self._sess(session) not in self.engine.sessions:
+        if self.system_prompt and not self.engine.has_session(self._sess(session)):
             prompt = f"{self.system_prompt}\n\n{message}"
         result = await self.engine.chat(
             session=self._sess(session),

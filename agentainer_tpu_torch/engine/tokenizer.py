@@ -5,7 +5,9 @@ is a self-contained byte-level tokenizer (any vocab ≥ 259 works; ids are
 stable across runs, which matters because conversation state persists
 across engine restarts). When a checkpoint directory carries a HuggingFace
 ``tokenizer.json`` the real BPE is used instead; the ``tokenizers`` package
-is imported only then (the machine with the card does not have it).
+is imported only then. Where it is missing (the machine with the card does
+not have it) ``load_tokenizer`` raises: the byte tokenizer over real
+weights would serve garbage.
 """
 
 from __future__ import annotations
@@ -57,5 +59,12 @@ def load_tokenizer(vocab_size: int, checkpoint: str = ""):
     if checkpoint:
         cand = os.path.join(checkpoint, "tokenizer.json")
         if os.path.isfile(cand):
+            try:
+                import tokenizers  # noqa: F401
+            except ImportError as e:
+                raise ImportError(
+                    f"{cand} needs the 'tokenizers' package, which is not installed; "
+                    "install it to serve this checkpoint"
+                ) from e
             return HFTokenizer(cand)
     return ByteTokenizer(vocab_size)

@@ -60,7 +60,26 @@ exits non-zero):
                  inputs, block table and KV arena or pool bytes equal bit
                  for bit; sampled, two replays from one generator state
                  give the same tokens.
-6. model       — ``forward`` logits with the kernels against ``forward``
+6. checkpoint  — the dense phase's weights (seed 0, bf16) transposed back
+                 to HF's [out, in] and written as a llama3-8b HuggingFace
+                 checkpoint into a temporary directory (4 safetensors
+                 shards written with the standard library, an index, the
+                 published config.json; 16.06 GB; the phase fails naming
+                 the free bytes when the disk lacks the room), then served
+                 through ``AGENTAINER_CHECKPOINT`` with the features off:
+                 the four requests must give the dense phase's greedy text;
+                 load seconds, bytes read and GB/s printed beside the card.
+7. resume      — crash-resume across arenas from that checkpoint, with the
+                 reference's default features: a dense engine serves turn
+                 one of session s, snapshots it and shuts down; a paged
+                 engine serves turns one and two of session u (a snapshot
+                 of u after turn one), restores s and serves its turn two.
+                 Gates: s's turn two equals u's (on a difference the logit
+                 gap at the diverging token is printed), the two blobs'
+                 payloads are bit-equal, the restore binds no lane, all four
+                 kernels launch. Blob bytes, stage, pack and restore ms
+                 printed. The directory is removed at the end.
+8. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
                  llama3-8b width at 2 layers, in bf16 and in f32 (TF32 off);
@@ -75,8 +94,8 @@ readbacks, and must replay graphs (``graph_replays`` > 0).
 
 Stdout ends with five lines: each served phase's pipeline numbers (graph
 replays, ``host_syncs_per_token``, ITL and TTFT p50, graph capture seconds
-and pool bytes; JSON), the served paths' and the model check's numbers
-(JSON), the card's name and power limit, a JSON object listing every kernel,
+and pool bytes; JSON), the served paths', the checkpoint plane's and the
+model check's numbers (JSON), the card's name and power limit, a JSON object listing every kernel,
 and ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is visible or the port's package is missing.
 """
@@ -89,8 +108,10 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -667,14 +688,16 @@ def _http_any(port: int, method: str, path: str, body: dict | None = None,
 
 
 @contextlib.contextmanager
-def _serving(options: dict):
-    """The port's ``llm_serve`` app for llama3-8b on a local port, loaded;
-    yields (app, load seconds) and stops it on the way out."""
+def _serving(options: dict, checkpoint: str = ""):
+    """The port's ``llm_serve`` app for llama3-8b on a local port (from a
+    checkpoint directory when one is named), loaded; yields (app, load
+    seconds) and stops it on the way out."""
     from agentainer_tpu_torch.engine.llm_serve import LLMServeApp
 
     app = LLMServeApp(env={
         "AGENTAINER_AGENT_ID": "chip-smoke",
         "AGENTAINER_MODEL_CONFIG": "llama3-8b",
+        "AGENTAINER_CHECKPOINT": checkpoint,
         "AGENTAINER_MODEL_OPTIONS": json.dumps(options),
     })
     th = threading.Thread(target=lambda: asyncio.run(app.run("127.0.0.1", 0)), name="serve")
@@ -1081,6 +1104,265 @@ def phase_graphs(engine, name: str) -> dict:
     return out
 
 
+# -- the checkpoint plane -----------------------------------------------------
+
+# llama3-8b's published config.json fields, as a HF checkpoint carries them
+LLAMA3_8B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "vocab_size": 128256,
+    "hidden_size": 4096, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "intermediate_size": 14336, "max_position_embeddings": 8192,
+    "rope_theta": 500000.0, "rms_norm_eps": 1e-05, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+CKPT_SHARDS = 4
+CKPT_MARGIN = 1 << 30  # free bytes kept beside the checkpoint
+
+
+def _hf_named(params: dict, n_layers: int) -> dict:
+    """The port's parameter tree under HF's names, each projection
+    transposed back to HF's [out, in] (views; copied one at a time by the
+    writer)."""
+    lay = params["layers"]
+    named = {"model.embed_tokens.weight": params["embed"]}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        named[p + "input_layernorm.weight"] = lay["attn_norm"][i]
+        for leaf, proj in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj")):
+            named[f"{p}{proj}.weight"] = lay[leaf][i].t()
+        named[p + "post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+        for leaf, proj in (("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                           ("w_down", "mlp.down_proj")):
+            named[f"{p}{proj}.weight"] = lay[leaf][i].t()
+    named["model.norm.weight"] = params["final_norm"]
+    named["lm_head.weight"] = params["lm_head"].t()
+    return named
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """One bf16 safetensors file, written with the standard library: the
+    8-byte little-endian header length, the JSON header (dtype, shape,
+    data_offsets per tensor), then each tensor's bytes, copied to the host
+    one tensor at a time. Returns the bytes written."""
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().cpu().view(torch.int16).numpy()))
+    return 8 + len(raw) + offset
+
+
+def phase_write_checkpoint(root: str) -> dict:
+    """The dense serve phase's weights (llama3-8b, bf16, seed 0, as
+    ``create`` makes them) written as a HF checkpoint: ``CKPT_SHARDS``
+    safetensors files with an index and llama3-8b's config.json. Fails,
+    naming the free bytes, if the disk lacks the room."""
+    import shutil
+
+    import torch
+
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+
+    cfg = get_config("llama3-8b")
+    need = cfg.param_bytes() + CKPT_MARGIN
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(f"{root}: {free} bytes free, the checkpoint needs {need}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=torch.device("cuda", 0))
+    named = _hf_named(params, cfg.n_layers)
+    names = list(named)
+    per = -(-len(names) // CKPT_SHARDS)
+    weight_map, written = {}, 0
+    for i in range(CKPT_SHARDS):
+        shard = f"model-{i + 1:05d}-of-{CKPT_SHARDS:05d}.safetensors"
+        part = names[i * per : (i + 1) * per]
+        written += _write_safetensors(os.path.join(root, shard), {n: named[n] for n in part})
+        weight_map.update({n: shard for n in part})
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": cfg.param_bytes()}, "weight_map": weight_map}, f)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(LLAMA3_8B_HF_CONFIG, f)
+    del params, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    write_s = time.monotonic() - t0
+    log(f"wrote a {written}-byte llama3-8b HF checkpoint ({CKPT_SHARDS} shards) in {write_s:.1f}s")
+    return {"bytes": written, "write_s": write_s, "free_before": free, "shards": CKPT_SHARDS}
+
+
+def phase_checkpoint(root: str, dense_texts: list[str], card: str) -> dict:
+    """``/chat`` served from the checkpoint through ``AGENTAINER_CHECKPOINT``
+    (its config.json gives the model), the features off as in the dense
+    phase: the four requests must give the dense phase's greedy text, since
+    the bf16 weights and their transposes went to disk and back exactly."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = {"device": "cuda", "max_batch": B, "max_seq": S, **FEATURES_OFF}
+    with _serving(options, checkpoint=root) as (app, load_s):
+        _, m0 = _http(app.port, "GET", "/metrics")
+        kernels = (ca.flash_prefill, ca.flash_decode)
+        for fn in kernels:
+            fn.launches = 0
+        replies = []
+        texts = _four_requests(app.port, replies)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        _, metrics = _http(app.port, "GET", "/metrics")
+    if texts != dense_texts:
+        raise AssertionError(f"greedy text served from the checkpoint differs from the dense phase's: "
+                             f"{texts} {dense_texts}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched serving from the checkpoint")
+    read, secs = metrics["checkpoint_bytes_read"], metrics["checkpoint_load_s"]
+    log(f"checkpoint: loaded {read} bytes in {secs:.2f}s ({read / secs / 1e9:.2f} GB/s) on {card}; "
+        f"engine up in {load_s:.1f}s; the four requests' text equals the dense phase's; launches {launches}")
+    return {
+        "pipeline": _pipeline("checkpoint", m0, metrics),
+        "bytes_read": read, "load_s": secs, "gb_per_s": read / secs / 1e9, "engine_up_s": load_s,
+        "launches": launches, "same_text_as_dense": True, "card": card,
+        "metrics": {k: metrics.get(k) for k in METRIC_KEYS},
+    }
+
+
+# crash-resume: turn one, a snapshot, the crash, turn two on another engine
+RESUME_TURNS = (
+    ("Tell me the story of a lighthouse keeper who finds an old map in the lamp room.", 192),
+    ("What did the map show, and where did it lead?", 48),
+)
+
+
+def _logit_gap(engine, stream: list[int], a: int, b: int) -> float:
+    """The last position's logit of token ``a`` minus token ``b`` after
+    feeding ``stream`` through the engine's model (a fresh one-row cache)."""
+    import torch
+
+    from agentainer_tpu_torch.models.llama import KVCache, forward
+
+    dev = engine.device
+    with torch.no_grad():
+        cache = KVCache.create(engine.cfg, 1, len(stream) + 1, dtype=engine.cache.k.dtype, device=dev)
+        toks = torch.tensor([stream], device=dev)
+        pos = torch.arange(len(stream), device=dev, dtype=torch.int32)[None]
+        logits = forward(engine.params, engine.cfg, toks, pos, cache)[0, -1]
+    return float(logits[a] - logits[b])
+
+
+def phase_resume(root: str, card: str) -> dict:
+    """Crash-resume across arenas, llama3-8b from the checkpoint with the
+    reference's default features: a dense engine serves turn one of session
+    s, snapshots it and shuts down; a paged engine serves turns one and two
+    of session u with the same messages (a snapshot of u after turn one),
+    then restores s and serves its turn two. Gates: s's turn two equals
+    u's, the two blobs' payloads are bit-equal, the restore bound no lane,
+    and all four kernels launched."""
+    import torch
+
+    from agentainer_tpu_torch.engine.checkpoint import deserialize_kv_slot
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    (m1, n1), (m2, n2) = RESUME_TURNS
+    opts = {"device": "cuda", "max_batch": B, "max_seq": S}
+    kernels = (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in kernels:
+        fn.launches = 0
+
+    async def chat(eng, session, message, n):
+        return (await eng.chat(session, message, max_tokens=n, ignore_eos=True))["tokens"]
+
+    t0 = time.monotonic()
+    dense = LLMEngine.create("", checkpoint=root, options=opts)
+    try:
+        s1 = asyncio.run(chat(dense, "s", m1, n1))
+        t1 = time.monotonic()
+        blob = asyncio.run(dense.snapshot_session("s"))
+        snap_wall_ms = 1000 * (time.monotonic() - t1)
+        snap = dict(dense.snapshot_timings[-1])
+        # the same snapshot again, its pinned size class now cached (the
+        # limiter's 2 s gap opened for it)
+        dense.snapshot_min_gap_s = 0.0
+        again = asyncio.run(dense.snapshot_session("s"))
+        warm = dict(dense.snapshot_timings[-1])
+    finally:
+        dense.shutdown()  # the crash
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = LLMEngine.create("", checkpoint=root, options={**opts, "paged_kv": True, "page_size": PS})
+    try:
+        u1 = asyncio.run(chat(paged, "u", m1, n1))
+        pblob = asyncio.run(paged.snapshot_session("u"))
+        paged_snap = dict(paged.snapshot_timings[-1])
+        u2 = asyncio.run(chat(paged, "u", m2, n2))
+        t1 = time.monotonic()
+        restored = asyncio.run(paged.restore_session("s", blob))
+        torch.cuda.synchronize()
+        restore_ms = 1000 * (time.monotonic() - t1)
+        lane = paged.paged_sessions["s"].lane if restored else "not restored"
+        s2 = asyncio.run(chat(paged, "s", m2, n2))
+        gap = None
+        if s2 != u2:
+            j = next(i for i, (x, y) in enumerate(zip(s2, u2)) if x != y)
+            enc = paged.tokenizer.encode
+            stream = enc(m1) + u1 + enc(m2) + u2[:j]
+            gap = _logit_gap(paged, stream, u2[j], s2[j])
+            log(f"resume: turn two diverges at token {j}: {u2[j]} (uninterrupted) vs {s2[j]} "
+                f"(restored); logit gap {gap:.4g} after the uninterrupted stream")
+        m = paged.metrics()
+    finally:
+        paged.shutdown()
+    total_s = time.monotonic() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    (dk, dv, dh), (pk, pv, ph) = deserialize_kv_slot(blob), deserialize_kv_slot(pblob)
+    same_payload = dh["position"] == ph["position"] and torch.equal(dk, pk) and torch.equal(dv, pv)
+    out = {
+        "position": dh["position"], "blob_raw_bytes": snap["raw_bytes"], "blob_bytes": len(blob),
+        "alloc_ms": snap["alloc_ms"], "stage_ms": snap["stage_ms"], "pack_ms": snap["pack_ms"],
+        "snapshot_wall_ms": snap_wall_ms, "warm_alloc_ms": warm["alloc_ms"],
+        "warm_stage_ms": warm["stage_ms"], "warm_pack_ms": warm["pack_ms"],
+        "same_blob_again": deserialize_kv_slot(again)[0].equal(dk),
+        "paged_alloc_ms": paged_snap["alloc_ms"], "paged_stage_ms": paged_snap["stage_ms"],
+        "paged_pack_ms": paged_snap["pack_ms"],
+        "restore_ms": restore_ms, "restored_lane": lane, "same_turn_one": s1 == u1,
+        "same_payload": same_payload, "same_turn_two": s2 == u2, "logit_gap": gap,
+        "launches": launches, "spec_rounds": m["spec_rounds"], "worker_errors": m["worker_errors"],
+        "phase_s": total_s, "card": card,
+    }
+    log(f"resume: {out}")
+    if not restored or lane is not None:
+        raise AssertionError(f"the dense snapshot did not restore into pages without a lane: {restored} {lane}")
+    if not same_payload:
+        raise AssertionError(f"the paged snapshot of u differs from the dense snapshot of s: {dh} {ph}")
+    if s2 != u2:
+        raise AssertionError(f"restored turn two {s2} differs from the uninterrupted {u2}")
+    for fn in kernels:
+        if launches[fn.__name__] <= 0:
+            raise AssertionError(f"{fn.__name__} was never launched in the resume phase: {launches}")
+    if m["worker_errors"]:
+        raise AssertionError(f"resume phase worker errors: {m['worker_errors']}")
+    return out
+
+
 def phase_model() -> dict:
     """Logits of a prefill chunk then one decode step: with the kernels
     against the plain attention path (dense arena), and the paged forward
@@ -1270,11 +1552,19 @@ def main() -> int:
     card = phase_build()
     kernels = phase_kernels()
     report = {"serve": phase_serve()}
-    report["serve_paged"] = phase_serve_paged(report["serve"].pop("texts"))
+    dense_texts = report["serve"].pop("texts")
+    report["serve_paged"] = phase_serve_paged(dense_texts)
     n_layers = 32  # llama3-8b at full depth in the feature phases
     report["features"] = phase_serve_features(False, n_layers, None)
     report["features_paged"] = phase_serve_features(True, n_layers, report["features"].pop("texts"))
     report["features_paged"].pop("texts")
+    root = tempfile.mkdtemp(prefix="atpu-hf-llama3-8b-")
+    try:
+        report["checkpoint_write"] = phase_write_checkpoint(root)
+        report["checkpoint"] = phase_checkpoint(root, dense_texts, card)
+        report["resume"] = phase_resume(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
@@ -1282,7 +1572,8 @@ def main() -> int:
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
     report["model"] = phase_model()
     print(json.dumps({"pipeline": {
-        phase: report[phase]["pipeline"] for phase in ("serve", "serve_paged", "features", "features_paged")
+        phase: report[phase]["pipeline"]
+        for phase in ("serve", "serve_paged", "features", "features_paged", "checkpoint")
     }}))
     print(json.dumps(report))
     print(card)

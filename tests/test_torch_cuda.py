@@ -8,6 +8,7 @@ Tolerances: f32 2e-5 with TF32 off (stated and set in the fixture), bf16
 3e-2, as tests/test_pallas_attention.py holds the Pallas kernels.
 """
 
+import json
 import time
 
 import pytest
@@ -508,3 +509,236 @@ def test_served_path_makes_no_implicit_host_sync(dev, paged):
         assert m["graph_replays"] > 0 and m["spec_rounds"] > 0, m
     finally:
         eng.shutdown()
+
+
+# -- the checkpoint plane on the card: 2 layers at llama3-8b width, bf16 -----
+
+
+def _snapshot_engine(**options):
+    """A warmed 2-layer card engine with speculation and the prefix cache
+    off (greedy continuations then compare exactly), the staging limiter
+    spaced to nothing."""
+    eng = _graph_engine(speculative=False, prefix_cache=False, **options)
+    eng.snapshot_min_gap_s = 0.0
+    return eng
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_restore_after_capture_replays_the_restored_kv(dev, paged):
+    """A snapshot restored into an engine whose step graphs are captured:
+    the arena tensors keep their addresses, a decode replay over the
+    restored session equals its eager step bit for bit, and the restored
+    session continues exactly as the original does."""
+    import asyncio
+
+    from agentainer_tpu_torch.engine.graphs import compare_replay, park_lanes
+
+    eng = _snapshot_engine(paged_kv=paged)
+    try:
+        state = eng._device_state()
+        ptrs = [t.data_ptr() for t in state]
+
+        async def first():
+            await eng.chat("orig", "a conversation worth keeping " * 6, max_tokens=40, ignore_eos=True)
+            blob = await eng.snapshot_session("orig")
+            assert await eng.restore_session("copy", blob) is True
+            return blob
+
+        asyncio.run(first())
+        assert [t.data_ptr() for t in eng._device_state()] == ptrs
+        # lane 0 decodes the restored session, the others stay parked
+        with torch.no_grad(), eng._on_stream():
+            if paged:
+                sess = eng.paged_sessions["copy"]
+                assert sess.lane is None
+                slot, pos = eng.slots[0], sess.position
+                eng._bind_lane_bt(slot, sess)
+                eng._sync_table()
+            else:
+                slot = eng.slots[eng.sessions["copy"]]
+                pos = slot.position
+            eng._inject_lane(slot.idx, 17, pos, 0.0, 0, 1.0)
+            key = ("decode", 1, True)
+            got = compare_replay(eng._graphs, key, eng._step_fn(key), eng._device_state(), eng._gen)
+        park_lanes(eng)
+        assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+
+        async def second():
+            a = await eng.chat("orig", "and then", max_tokens=24, ignore_eos=True)
+            b = await eng.chat("copy", "and then", max_tokens=24, ignore_eos=True)
+            return a["tokens"], b["tokens"]
+
+        a, b = asyncio.run(second())
+        assert a == b
+        assert eng.worker_errors == 0, eng.last_worker_error
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_snapshot_under_load_stages_at_the_finish(dev, paged):
+    """A snapshot asked for while a chunk of the same session is in flight
+    parks, is staged at the request's finish, and carries the payload of a
+    snapshot of the same turn taken on a quiet engine."""
+    import asyncio
+
+    from agentainer_tpu_torch.engine.checkpoint import deserialize_kv_slot
+
+    eng = _snapshot_engine(paged_kv=paged)
+    prompt = "a long request under load " * 4
+    try:
+
+        async def busy():
+            gen = asyncio.ensure_future(eng.chat("L", prompt, max_tokens=300, ignore_eos=True))
+            while not any(s.decoding and s.session == "L" for s in eng.slots):
+                await asyncio.sleep(0.001)
+            snap = asyncio.ensure_future(eng.snapshot_session("L"))
+            while "L" not in eng._snap_parked:
+                await asyncio.sleep(0.001)
+            assert not gen.done()
+            return await gen, await snap
+
+        _, blob = asyncio.run(busy())
+
+        async def quiet():
+            await eng.chat("Q", prompt, max_tokens=300, ignore_eos=True)
+            return await eng.snapshot_session("Q")
+
+        (k, v, h), (qk, qv, qh) = deserialize_kv_slot(blob), deserialize_kv_slot(asyncio.run(quiet()))
+        assert h["position"] == qh["position"] and h["pending_token"] == qh["pending_token"]
+        assert torch.equal(k, qk) and torch.equal(v, qv)
+    finally:
+        eng.shutdown()
+
+
+def _write_safetensors(path, tensors: dict) -> None:
+    """A bf16 safetensors file written with the standard library: the 8-byte
+    header length, the JSON header, then each tensor's bytes in order."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.int16).numpy().tobytes())
+
+
+def test_stdlib_reader_loads_a_full_width_checkpoint_onto_the_card(dev, tmp_path):
+    """A 2-layer llama3-8b-width checkpoint in HF's layout, sharded over two
+    files with an index, loads onto the card bit-equal to the tree it was
+    written from."""
+    import dataclasses
+
+    from agentainer_tpu_torch.engine.hf_convert import load_hf_params
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    lay = params["layers"]
+    named = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        named[p + "input_layernorm.weight"] = lay["attn_norm"][i]
+        named[p + "post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+        for leaf, proj in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                           ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                           ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                           ("w_down", "mlp.down_proj")):
+            named[p + proj + ".weight"] = lay[leaf][i].t()
+    named["lm_head.weight"] = params["lm_head"].t()
+    names = list(named)
+    shards = {"model-00001-of-00002.safetensors": names[::2], "model-00002-of-00002.safetensors": names[1::2]}
+    for shard, part in shards.items():
+        _write_safetensors(tmp_path / shard, {n: named[n] for n in part})
+    (tmp_path / "model.safetensors.index.json").write_text(
+        json.dumps({"weight_map": {n: s for s, part in shards.items() for n in part}})
+    )
+    stats = {}
+    got = load_hf_params(cfg, tmp_path, dtype=torch.bfloat16, device="cuda", stats=stats)
+    assert stats["bytes_read"] == 2 * cfg.param_count()
+    for key in ("embed", "final_norm", "lm_head"):
+        assert got[key].device.type == "cuda" and torch.equal(got[key], params[key]), key
+    for key, t in lay.items():
+        assert torch.equal(got["layers"][key], t), key
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_snapshot_and_restore_make_no_implicit_host_sync(dev, paged):
+    """Served traffic with a snapshot and a restore in flight under
+    ``torch.cuda.set_sync_debug_mode("error")``: the worker never waits for
+    the device; the snapshot's wait is on its CUDA event, in the thread
+    that packs the blob."""
+    import asyncio
+
+    eng = _graph_engine(paged_kv=paged, max_seq=512)
+    # the limiter lets a snapshot through while other requests decode
+    eng.snapshot_min_gap_s = eng.snapshot_busy_gap_s = eng.snapshot_force_s = 0.0
+    try:
+
+        async def warm():
+            await eng.chat("s", "the session to save " * 3, max_tokens=20, ignore_eos=True)
+            return await eng.snapshot_session("s")
+
+        blob = asyncio.run(warm())
+
+        async def traffic():
+            return await asyncio.gather(
+                eng.generate("a" * 200, max_tokens=40),
+                eng.generate("a plain request", max_tokens=21, ignore_eos=True),
+                eng.snapshot_session("s"),
+                eng.restore_session("r", blob),
+            )
+
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = asyncio.run(traffic())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert eng.worker_errors == 0, eng.last_worker_error
+        assert out[1]["completion_tokens"] == 21
+        assert out[2] is not None and out[3] is True
+    finally:
+        eng.shutdown()
+
+
+def test_chips_place_the_engine_on_that_card(dev):
+    """``options["chips"] = [1]`` runs the engine, its stream, graphs and
+    pinned buffers on cuda:1, leaving cuda:0 untouched, and it decodes the
+    tokens an engine on cuda:0 decodes from the same weights."""
+    import asyncio
+    import dataclasses
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("this machine has one GPU: placing an engine on another card needs two")
+    from agentainer_tpu_torch.engine.llm import LLMEngine, _engine_device
+    from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    params0 = init_params(cfg, torch.Generator(device="cuda:0").manual_seed(0), device="cuda:0")
+    out = {}
+    for chip in (1, 0):
+        device = _engine_device("cuda", cfg, [chip])
+        assert device == torch.device("cuda", chip)
+        params = {k: (v.to(device) if torch.is_tensor(v) else {n: t.to(device) for n, t in v.items()})
+                  for k, v in params0.items()}
+        before = torch.cuda.memory_allocated(0)
+        eng = LLMEngine(cfg, params, ByteTokenizer(cfg.vocab_size), max_batch=4, max_seq=512,
+                        device=device)
+        try:
+            eng.warmup()
+            r = asyncio.run(eng.generate("placed on a card", max_tokens=16, ignore_eos=True))
+            out[chip] = r["tokens"]
+            assert eng.metrics()["graph_replays"] > 0
+            assert eng.cache.k.device == device and eng._dtok.device == device
+            if chip == 1:
+                assert torch.cuda.memory_allocated(0) == before
+        finally:
+            eng.shutdown()
+    assert out[0] == out[1]

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor the packages the
+machine with the card lacks (``ml_dtypes``, ``safetensors``, ``orbax``).
 
 Runs in a fresh interpreter (this test process has JAX loaded by
 conftest): import every module of ``agentainer_tpu_torch``, then list the
@@ -21,6 +22,7 @@ leaked = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith(("jax.", "jaxlib"))
     or n == "agentainer_tpu" or n.startswith("agentainer_tpu.")
+    or n.split(".")[0] in ("ml_dtypes", "safetensors", "orbax")
 )
 print(json.dumps({"imported": names, "leaked": leaked}))
 """
@@ -40,6 +42,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.models.convert",
         "agentainer_tpu_torch.ops.attention",
         "agentainer_tpu_torch.ops.cuda_attention",
+        "agentainer_tpu_torch.engine.checkpoint",
+        "agentainer_tpu_torch.engine.hf_convert",
         "agentainer_tpu_torch.engine.llm",
         "agentainer_tpu_torch.engine.graphs",
         "agentainer_tpu_torch.engine.llm_serve",
