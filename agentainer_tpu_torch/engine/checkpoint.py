@@ -45,14 +45,21 @@ SNAP_VERSION = 3
 
 
 def load_params(
-    cfg: ModelConfig, path: str | Path, dtype=torch.bfloat16, device="cpu", stats: dict | None = None
+    cfg: ModelConfig,
+    path: str | Path,
+    dtype=torch.bfloat16,
+    device="cpu",
+    stats: dict | None = None,
+    quant: str = "",
 ) -> dict:
     """Weights from a HuggingFace checkpoint directory (``config.json`` +
     ``*.safetensors``) on ``device`` in ``dtype``; any other layout
-    raises. ``stats`` receives the load's ``bytes_read`` and ``seconds``."""
+    raises. ``quant="int8"`` quantizes the matmul weights as they stream
+    (the reference's ``quantize_params(load_params(...))``, bit for bit).
+    ``stats`` receives the load's ``bytes_read`` and ``seconds``."""
     path = Path(path).expanduser().resolve()
     if is_hf_checkpoint(path):
-        return load_hf_params(cfg, path, dtype, device, stats)
+        return load_hf_params(cfg, path, dtype, device, stats, quant)
     raise ValueError(
         f"{path}: not a HuggingFace checkpoint (no *.safetensors). The reference's other "
         "layout, an orbax PyTree directory, is not read by the PyTorch port"

@@ -35,7 +35,14 @@ What differs from the reference, and why:
   most ``_STREAM_BYTES``, through a staging buffer (pinned on the card) to
   the device, where it is cast and transposed into its leaf. The host
   holds one block at a time, never a stacked layer tensor (the reference
-  stacks and transposes on the host, then hands the engine host arrays).
+  stacks and transposes on the host, then hands the engine host arrays);
+- with ``quant="int8"`` each matmul weight is quantized on the device one
+  layer slice at a time, right after the slice lands and is transposed
+  there (``ops/quant.quantize_array``'s arithmetic): the dense model never
+  exists whole on the device, and the result equals the reference's
+  ``quantize_params(load_params(...))`` bit for bit. Tied embeddings
+  quantize ``lm_head`` from the dense ``embed.t()`` before ``embed``
+  itself is quantized.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ import numpy as np
 import torch
 
 from ..models.configs import ModelConfig
+from ..ops.quant import QTensor, quantize_array, quantize_into
+from .quant import QUANT_SCHEMES
 
 # safetensors dtype → (raw little-endian numpy dtype, torch dtype)
 _DTYPES = {
@@ -213,10 +222,15 @@ def load_hf_params(
     dtype: torch.dtype = torch.bfloat16,
     device="cpu",
     stats: dict | None = None,
+    quant: str = "",
 ) -> dict:
     """Map a HF Llama/Mixtral checkpoint directory onto the port's
-    parameter tree on ``device`` in ``dtype``, streamed tensor by tensor.
-    ``stats``, when given, receives ``bytes_read`` and ``seconds``."""
+    parameter tree on ``device`` in ``dtype``, streamed tensor by tensor
+    (``quant="int8"``: the matmul weights as int8 ``QTensor``s, quantized
+    slice by slice as they land). ``stats``, when given, receives
+    ``bytes_read`` and ``seconds``."""
+    if quant and quant not in QUANT_SCHEMES:
+        raise ValueError(f"unknown quant scheme {quant!r} (supported: {', '.join(QUANT_SCHEMES)})")
     t0 = time.perf_counter()
     p = Path(path).expanduser().resolve()
     files = _open_shards(p)
@@ -226,37 +240,64 @@ def load_hf_params(
     def empty(*shape):
         return torch.empty(shape, dtype=dtype, device=dev)
 
+    def weight(*shape):
+        """A matmul leaf: dense, or int8 with its per-channel scale."""
+        if not quant:
+            return empty(*shape)
+        return QTensor(
+            torch.empty(shape, dtype=torch.int8, device=dev),
+            empty(*shape[:-2], 1, shape[-1]),
+        )
+
     layers = {
         "attn_norm": empty(L, d),
-        "wq": empty(L, d, cfg.n_heads * hd),
-        "wk": empty(L, d, cfg.n_kv_heads * hd),
-        "wv": empty(L, d, cfg.n_kv_heads * hd),
-        "wo": empty(L, cfg.n_heads * hd, d),
+        "wq": weight(L, d, cfg.n_heads * hd),
+        "wk": weight(L, d, cfg.n_kv_heads * hd),
+        "wv": weight(L, d, cfg.n_kv_heads * hd),
+        "wo": weight(L, cfg.n_heads * hd, d),
         "mlp_norm": empty(L, d),
     }
     ffn = (L, cfg.n_experts) if cfg.is_moe else (L,)
-    layers["w_gate"] = empty(*ffn, d, cfg.ffn_dim)
-    layers["w_up"] = empty(*ffn, d, cfg.ffn_dim)
-    layers["w_down"] = empty(*ffn, cfg.ffn_dim, d)
+    layers["w_gate"] = weight(*ffn, d, cfg.ffn_dim)
+    layers["w_up"] = weight(*ffn, d, cfg.ffn_dim)
+    layers["w_down"] = weight(*ffn, cfg.ffn_dim, d)
     if cfg.is_moe:
-        layers["router"] = empty(L, d, cfg.n_experts)
+        layers["router"] = weight(L, d, cfg.n_experts)
     params = {
+        # dense while it loads (a tied lm_head is its transpose); quantized last
         "embed": empty(cfg.vocab_size, d),
         "layers": layers,
         "final_norm": empty(d),
-        "lm_head": empty(d, cfg.vocab_size),
+        "lm_head": weight(d, cfg.vocab_size),
     }
+    staging: dict[tuple, torch.Tensor] = {}  # one dense slice per shape (quant)
 
     st = _Streamer(dev)
 
-    def load(dst: torch.Tensor, name: str, transpose: bool) -> None:
+    def load(dst, name: str, transpose: bool) -> None:
+        """``dst``: a dense leaf (or slice), or a ``(q, scale)`` slice of
+        an int8 leaf, filled through a dense staging slice."""
         if name not in files:
             raise ValueError(f"{p}: the checkpoint has no tensor {name}")
         f = files[name]
+        dense = dst
+        if isinstance(dst, tuple):
+            shape = tuple(dst[0].shape)
+            dense = staging.get(shape)
+            if dense is None:
+                dense = staging[shape] = empty(*shape)
         try:
-            st.copy(dst, f.array(name), f.dtype(name), transpose)
+            st.copy(dense, f.array(name), f.dtype(name), transpose)
         except ValueError as e:
             raise ValueError(f"{p}: {name}: {e}") from None
+        if isinstance(dst, tuple):
+            quantize_into(dense, *dst)
+
+    def at(leaf, *index):
+        """The slice ``index`` of a leaf: a view, or (q, scale) views."""
+        if isinstance(leaf, QTensor):
+            return (leaf.q[index], leaf.scale[index])
+        return leaf[index]
 
     ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
     with ctx, torch.no_grad():
@@ -266,21 +307,26 @@ def load_hf_params(
             load(layers["attn_norm"][i], pre + "input_layernorm.weight", False)
             load(layers["mlp_norm"][i], pre + "post_attention_layernorm.weight", False)
             for leaf, proj in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
-                load(layers[leaf][i], pre + f"self_attn.{proj}.weight", True)
+                load(at(layers[leaf], i), pre + f"self_attn.{proj}.weight", True)
             if cfg.is_moe:
-                load(layers["router"][i], pre + "block_sparse_moe.gate.weight", True)
+                load(at(layers["router"], i), pre + "block_sparse_moe.gate.weight", True)
                 for e in range(cfg.n_experts):
                     ex = pre + f"block_sparse_moe.experts.{e}."
                     for leaf, w in (("w_gate", "w1"), ("w_down", "w2"), ("w_up", "w3")):
-                        load(layers[leaf][i, e], ex + w + ".weight", True)
+                        load(at(layers[leaf], i, e), ex + w + ".weight", True)
             else:
                 for leaf, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
-                    load(layers[leaf][i], pre + f"mlp.{proj}.weight", True)
+                    load(at(layers[leaf], i), pre + f"mlp.{proj}.weight", True)
         load(params["final_norm"], "model.norm.weight", False)
         if "lm_head.weight" in files:
-            load(params["lm_head"], "lm_head.weight", True)
+            load(at(params["lm_head"]), "lm_head.weight", True)
+        elif quant:  # tied embeddings, quantized from the dense transpose
+            quantize_into(params["embed"].t(), *at(params["lm_head"]))
         else:  # tied embeddings
             params["lm_head"].copy_(params["embed"].t())
+        staging.clear()
+        if quant:
+            params["embed"] = quantize_array(params["embed"], dtype)
         if dev.type == "cuda":
             # the engine's own stream reads these leaves: they must have landed
             torch.cuda.synchronize(dev)

@@ -80,9 +80,15 @@ What differs from the reference, and why:
   ``config.json``) onto the engine's device; ``options["chips"]`` places
   the engine on ``cuda:{chip}`` (one chip; an id past the visible devices
   falls back to the first, as in the reference);
+- ``quant: int8`` (``create``) serves int8 weights as the reference does:
+  from a checkpoint quantized as it streams, on the device from a seeded
+  synthetic draw (``synthetic: true``), or quantized from the seeded random
+  init; every weight product runs the fused int8 kernel
+  (``ops/cuda_quant.w8a16_matmul``);
 - the other feature flags above are not ported yet: ``create`` raises
   ``ValueError`` naming any of them that is asked for, as it does for
-  ``tp``/``ep``/``sp``/``pp`` > 1, more than one chip and ``quant``.
+  ``tp``/``ep``/``sp``/``pp`` > 1 (with or without ``quant``) and more
+  than one chip.
   ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
@@ -106,17 +112,13 @@ import torch
 
 from ..models.configs import ModelConfig, get_config
 from ..models.llama import KVCache, PagedKVCache, forward, init_params
-from ..ops.cuda_attention import (
-    flash_decode,
-    flash_prefill,
-    fused_paged_flash_decode,
-    fused_paged_flash_prefill,
-    kernel_supported,
-)
+from ..ops import cuda_quant
+from ..ops.cuda_attention import kernel_supported
 from ..utils.hw import chip_spec
 from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot, restore_kv_slot
-from .graphs import LANDED, HostTransfers, StepGraphs
+from .graphs import KERNEL_WRAPPERS, LANDED, HostTransfers, StepGraphs
 from .hf_convert import config_from_hf, is_hf_checkpoint
+from .quant import QUANT_SCHEMES, param_bytes_actual, quantize_params, synthetic_quantized_params
 from .sampling import NEG_INF, sample_step
 from .tokenizer import load_tokenizer
 
@@ -137,9 +139,9 @@ SPEC_LOOKUP_WINDOW = 1024
 
 # reference engine features this slice does not implement yet; /metrics
 # reports each as off. Asking for any of them — or for the reference's
-# synthetic-int8 and routed-MoE options — raises instead of being ignored.
+# routed-MoE option — raises instead of being ignored.
 FEATURE_FLAGS = ("fused_decode", "kv_tiering", "streaming", "approx_topk")
-UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("synthetic", "routed")
+UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("routed",)
 
 
 class SnapshotDeferred(Exception):
@@ -206,11 +208,12 @@ def _as_prefill_failure(e: Exception) -> Exception:
     return PrefillFailed(f"{type(e).__name__}: {e}")
 
 
-def _engine_device(device, cfg: ModelConfig, chips=()) -> torch.device:
+def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "") -> torch.device:
     """The engine's device: the card unless the caller asks for the CPU.
     Asking for CUDA where there is no card, or for a model whose attention
-    head the kernels do not take, raises instead of carrying on on the CPU
-    or in plain attention. On the card ``chips`` (the control plane's
+    head the kernels do not take (or, with ``quant``, whose weight shapes
+    the int8 kernel does not take), raises instead of carrying on on the
+    CPU or in plain attention. On the card ``chips`` (the control plane's
     assignment) places the engine: one chip ``i`` is ``cuda:i`` when that
     device is visible and the first device otherwise (the reference's
     fallback); more than one raises, since the port serves on one device.
@@ -231,7 +234,20 @@ def _engine_device(device, cfg: ModelConfig, chips=()) -> torch.device:
             f"{cfg.name}: no attention kernel for {cfg.n_heads} heads over "
             f"{cfg.n_kv_heads} kv heads of head_dim {cfg.head_dim}; pass device='cpu'"
         )
+    if device.type == "cuda" and quant:
+        bad = [kn for kn in _weight_shapes(cfg) if not cuda_quant.supported(*kn)]
+        if bad:
+            raise ValueError(
+                f"{cfg.name}: no int8 kernel for weights (K, N) {bad} "
+                f"(K % {cuda_quant.BK} == 0, N % 16 == 0); pass device='cpu'"
+            )
     return device
+
+
+def _weight_shapes(cfg: ModelConfig) -> list[tuple[int, int]]:
+    """(K, N) of every weight product of a forward."""
+    d, q, kv = cfg.dim, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return [(d, q), (d, kv), (q, d), (d, cfg.ffn_dim), (cfg.ffn_dim, d), (d, cfg.vocab_size)]
 
 
 @dataclass
@@ -567,9 +583,7 @@ class LLMEngine:
         self._kv_bytes_per_pos = (
             2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * self.cache.k.element_size()
         )
-        self.param_hbm_bytes = sum(
-            t.numel() * t.element_size() for t in _leaves(params)
-        )
+        self.param_hbm_bytes = param_bytes_actual(params)
         self.kv_arena_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
         self.prefill_chunks = 0  # prefill forwards (one per chunk)
 
@@ -664,6 +678,11 @@ class LLMEngine:
         self._peak_flops = self._chip.bf16_flops
         self._peak_hbm_bps = self._chip.hbm_gbps
 
+        if self._stream is not None:
+            # the weights (a quantization or a synthetic draw may still be
+            # running) and the buffers above were written on the creator's
+            # stream: the engine's stream starts after them
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
         self._worker = threading.Thread(target=self._loop, daemon=True, name="llm-engine")
         self._worker.start()
 
@@ -688,11 +707,12 @@ class LLMEngine:
         asked = [f for f in UNSUPPORTED_OPTIONS if options.get(f)]
         if asked:
             raise ValueError(f"engine options not supported by the port yet: {', '.join(asked)}")
+        quant = str(options.get("quant", "") or "").lower()
+        if quant and quant not in QUANT_SCHEMES:
+            raise ValueError(f"unknown quant scheme {quant!r} (supported: {', '.join(QUANT_SCHEMES)})")
         for axis in ("tp", "ep", "sp", "pp"):
             if int(options.get(axis, 0) or 0) > 1:
                 raise ValueError(f"{axis}={options[axis]}: the port serves on a single device")
-        if options.get("quant"):
-            raise ValueError(f"quant={options['quant']!r}: quantized serving is not ported yet")
         if checkpoint and is_hf_checkpoint(checkpoint):
             # the checkpoint's own config.json; an explicit config name
             # stands in for a missing or unusable one
@@ -710,16 +730,27 @@ class LLMEngine:
         if cfg.is_moe:
             raise ValueError(f"{cfg.name}: MoE configs are not ported yet")
         chips = [int(c) for c in options.get("chips", []) or []]
-        device = _engine_device(options.get("device", "cuda"), cfg, chips)
+        device = _engine_device(options.get("device", "cuda"), cfg, chips, quant)
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         load_stats: dict = {}
         if checkpoint:
-            params = load_params(cfg, checkpoint, dtype=dtype, device=device, stats=load_stats)
+            # int8: quantized slice by slice as it streams
+            params = load_params(
+                cfg, checkpoint, dtype=dtype, device=device, stats=load_stats, quant=quant
+            )
         else:
             gen = torch.Generator(device=device)
             gen.manual_seed(int(options.get("seed", 0)))
-            params = init_params(cfg, gen, dtype=dtype, device=device)
+            if quant and options.get("synthetic"):
+                # benchmark-grade int8 weights drawn in device memory
+                params = synthetic_quantized_params(cfg, dtype, device, gen)
+            else:
+                # ``synthetic`` without ``quant`` is a plain random init, as
+                # in the reference
+                params = init_params(cfg, gen, dtype=dtype, device=device)
+                if quant:
+                    params = quantize_params(params, dtype)
         engine = cls(
             cfg,
             params,
@@ -1227,16 +1258,8 @@ class LLMEngine:
             "max_batch": self.max_batch,
             "max_seq": self.max_seq,
             "device": str(self.device),
-            # launches of the hand-written attention kernels in this process
-            "kernel_launches": {
-                fn.__name__: fn.launches
-                for fn in (
-                    flash_prefill,
-                    flash_decode,
-                    fused_paged_flash_prefill,
-                    fused_paged_flash_decode,
-                )
-            },
+            # launches of the hand-written kernels in this process
+            "kernel_launches": {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
             "flops_done": self.flops_done,
             "mfu_lifetime": round(self.flops_done / elapsed / self._peak_flops, 5),
             "hbm_bytes_read": self.hbm_bytes_read,
@@ -3044,14 +3067,6 @@ class LLMEngine:
 def _p50(xs) -> float | None:
     s = sorted(xs)
     return round(s[len(s) // 2], 2) if s else None
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _resolve(future: asyncio.Future, result: dict) -> None:

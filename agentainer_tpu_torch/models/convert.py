@@ -4,7 +4,9 @@ The JAX ``init_params`` tree, already turned into numpy arrays by the
 caller (``jax.tree.map(np.asarray, params)``), becomes the port's
 parameters. The port keeps the reference's tree and its ``[in, out]``
 matmul layout (``x @ w``), so no leaf is transposed: each array is copied
-as it is onto ``device`` in ``dtype``.
+as it is onto ``device`` in ``dtype``. A quantized tree
+(``engine/quant.quantize_params``) carries its int8 leaves across as the
+port's ``QTensor``: ``q`` stays int8, ``scale`` comes into ``dtype``.
 """
 
 from __future__ import annotations
@@ -12,16 +14,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quant import QTensor
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32):
-    """Nested dict/list/tuple of numpy arrays → the same structure of torch
-    tensors on ``device`` in ``dtype``."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
-    arr = np.asarray(tree)
+
+def _is_qtensor(tree) -> bool:
+    """A quantized leaf of either framework, known by its fields (the
+    port does not import the JAX package's type)."""
+    return isinstance(tree, tuple) and getattr(tree, "_fields", None) == ("q", "scale")
+
+
+def _tensor(arr, device, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
     if arr.dtype.kind not in "fc":  # e.g. ml_dtypes bfloat16 arrives as kind 'V'
         arr = arr.astype(np.float32)
     # copy: arrays handed out by JAX are read-only, torch tensors are not
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree, device="cpu", dtype=torch.float32):
+    """Nested dict/list/tuple of numpy arrays → the same structure of torch
+    tensors on ``device`` in ``dtype``; a ``(q, scale)`` leaf → ``QTensor``
+    with int8 ``q``."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if _is_qtensor(tree):
+        q = np.asarray(tree.q)
+        if q.dtype != np.int8:
+            raise ValueError(f"quantized leaf with q of dtype {q.dtype}, expected int8")
+        return QTensor(
+            q=torch.from_numpy(np.array(q, order="C", copy=True)).to(device),
+            scale=_tensor(tree.scale, device, dtype),
+        )
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    return _tensor(tree, device, dtype)

@@ -10,7 +10,11 @@ Parameters keep the reference's tree: a dict whose ``layers`` entries carry
 a leading ``[n_layers, ...]`` axis and whose matmul weights are stored
 ``[in, out]`` (``x @ w``), so a JAX ``init_params`` tree converts leaf for
 leaf (models/convert.py). The reference's ``lax.scan`` over the stacked
-layers is a Python loop here; each iteration slices one layer as a view.
+layers is a Python loop here; each iteration slices one layer as a view
+(an int8 ``QTensor`` leaf field by field, ``ops/quant.layer_slice``).
+Every weight product goes through ``ops/quant.qmatmul``: ``x @ w`` for a
+dense weight, the fused int8 kernel for a quantized one (the reference
+dequantizes and leaves the fusion to XLA).
 
 Rounding points follow the reference: norms and RoPE compute in f32 and
 cast back, attention softmax is f32, logits are f32.
@@ -30,7 +34,7 @@ from ..ops.attention import (
     scatter_paged_kv,
 )
 from ..ops.norms import rms_norm
-from ..ops.quant import dequant, embed_lookup
+from ..ops.quant import embed_lookup, layer_slice, qmatmul
 from ..ops.rope import apply_rope
 from .configs import ModelConfig
 
@@ -149,8 +153,8 @@ def init_params(
 
 def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
     """SwiGLU."""
-    gate = F.silu(x @ lp["w_gate"])
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = F.silu(qmatmul(x, lp["w_gate"]))
+    return qmatmul(gate * qmatmul(x, lp["w_up"]), lp["w_down"])
 
 
 def _attention_block(
@@ -166,9 +170,9 @@ def _attention_block(
 ) -> torch.Tensor:
     b, t, d = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = qmatmul(h, lp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = qmatmul(h, lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = qmatmul(h, lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -189,7 +193,7 @@ def _attention_block(
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = attention_reference(q, k, v, mask=mask)
-    out = attn.reshape(b, t, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    out = qmatmul(attn.reshape(b, t, cfg.n_heads * cfg.head_dim), lp["wo"])
     return x + out
 
 
@@ -219,12 +223,12 @@ def forward(
         t = tokens.shape[1]
         mask = causal_mask(t, device=x.device).expand(tokens.shape[0], t, t)
     for layer in range(cfg.n_layers):
-        lp = {k: dequant(v[layer]) for k, v in params["layers"].items()}
+        lp = {k: layer_slice(v, layer) for k, v in params["layers"].items()}
         x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash, block_table)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _mlp(h, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ dequant(params["lm_head"])).float()
+    return qmatmul(x, params["lm_head"]).float()
 
 
 @torch.inference_mode()

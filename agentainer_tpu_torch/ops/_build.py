@@ -26,6 +26,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}  # one per source: two sources build at once
 
 
 def _nvcc() -> str:
@@ -44,6 +45,8 @@ def library(name: str) -> ctypes.CDLL:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = os.path.join(_OUT, f"lib{name}-{digest}.so")
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if not os.path.exists(so):
             os.makedirs(_OUT, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"

@@ -26,6 +26,16 @@ exits non-zero):
                  kernel's device launches per call counted in the trace, and
                  the card's SM clock and power draw sampled while each row
                  runs.
+2b. int8 kernel — ``w8a16_matmul`` (``csrc/w8a16_gemm.cu``) against its
+                 plain PyTorch version at every (K, N) of llama3-8b's and
+                 bench-1b's weights for M = 8, 24, 40, 72 and 256 (decode,
+                 the verify rounds, a prefill chunk), random int8 weights and
+                 scales from a seeded generator, within one bf16 rounding;
+                 timed at M = 8 and 256 at every llama3-8b (K, N) beside its
+                 bound, the plain version, the bf16 cuBLAS product of the
+                 dense weight (the product int8 replaces), ``x @ dequant(w)``
+                 (what the port would run without the kernel) and, where
+                 this torch build has it for CUDA, ``torch._weight_int8pack_mm``.
 3. serve       — the port's standard-library ``llm_serve`` on a local port
                  with ``llama3-8b`` at full width and depth, bf16, random
                  weights from a seeded generator, with prefix cache,
@@ -60,6 +70,13 @@ exits non-zero):
                  inputs, block table and KV arena or pool bytes equal bit
                  for bit; sampled, two replays from one generator state
                  give the same tokens.
+   int8        — the feature phases again with ``quant: int8, synthetic:
+   (dense,       true`` (int8 weights drawn on the card), dense then paged:
+   then paged)   the same gates, plus ``param_hbm_bytes`` = 8,033,544,704,
+                 ``w8a16_matmul`` launched 7 per layer + 1 per forward (225
+                 at 32 layers) through the graph replays and no other weight
+                 product, the same greedy text for one prompt in two fresh
+                 sessions; peak device memory beside the bf16 phases'.
 6. checkpoint  — the dense phase's weights (seed 0, bf16) transposed back
                  to HF's [out, in] and written as a llama3-8b HuggingFace
                  checkpoint into a temporary directory (4 safetensors
@@ -69,6 +86,10 @@ exits non-zero):
                  through ``AGENTAINER_CHECKPOINT`` with the features off:
                  the four requests must give the dense phase's greedy text;
                  load seconds, bytes read and GB/s printed beside the card.
+   int8 ckpt   — that checkpoint served with ``quant: int8`` (quantized as
+                 it streams) and, after it, a ``quant: int8`` engine from the
+                 seed-0 random init: the two int8 trees bit-equal leaf by
+                 leaf, and the four requests' greedy text equal.
 7. resume      — crash-resume across arenas from that checkpoint, with the
                  reference's default features: a dense engine serves turn
                  one of session s, snapshots it and shuts down; a paged
@@ -87,7 +108,10 @@ exits non-zero):
                  steps, and a tail prefill after a prefix fork against the
                  full prefill, at the same tolerances; in bf16 the first
                  index where greedy decoding through verify rounds leaves
-                 the plain stream (reported, not gated).
+                 the plain stream (reported, not gated). Then the same
+                 2-layer model in int8: logits with ``w8a16_matmul`` against
+                 the kernel's plain version (``qmatmul`` forced to it), bf16,
+                 within 3e-2 of the largest logit.
 
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0).
@@ -159,6 +183,28 @@ REQUESTS = (
     ("b", "List three prime numbers and explain why they are prime."),
     ("c", "List three prime numbers and explain why they are prime."),
 )
+
+
+# the int8-weight GEMM: llama3-8b's weights and their (K, N); bench-1b's
+# (K, N); the rows a product takes (decode, verify K = 2 / 4 / 8, a prefill
+# chunk), and the rows timed
+W8_WEIGHTS = {
+    "wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+    "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096),
+    "lm_head": (4096, 128256),
+}
+BENCH_1B_KN = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000))
+W8_MS = (8, 24, 40, 72, 256)
+W8_TIMED_MS = (8, 256)
+# kernel against plain: both sum in f32 and round once to bf16, so they may
+# differ by one bf16 rounding plus the f32 sum-order error (<< 1e-4 here)
+W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
+W8_SOURCE = "agentainer_tpu_torch/csrc/w8a16_gemm.cu"
+# not a pallas_call: XLA's fused convert + dot of x @ dequant(w)
+W8_REPLACES = "agentainer_tpu/ops/quant.py:40"
+INT8 = {"quant": "int8", "synthetic": True}
+INT8_PARAM_BYTES = 8_033_544_704  # llama3-8b's int8 tree (the reference's, jax.eval_shape)
+W8_PER_LAYER = 7  # wq, wk, wv, wo, w_gate, w_up, w_down; + lm_head per forward
 
 
 def log(msg: str) -> None:
@@ -332,7 +378,7 @@ def _clock_summary(samples: list[str]) -> dict:
     return out
 
 
-def _timed(name: str, fns: dict) -> dict:
+def _timed(name: str, fns: dict, want_launches: int | None = None) -> dict:
     """``time_in_turns`` of a row's functions, as the row's keys: ``ms``
     with its spread, ``launches_per_call`` and ``device_kernels`` for the
     kernel ``name`` (raises unless it launched ``LAUNCHES_PER_CALL[name]``
@@ -344,10 +390,11 @@ def _timed(name: str, fns: dict) -> dict:
         key = "ms" if fn == "kernel" else f"{fn}_ms"
         out.update({key: t["median"], f"{key}_min": t["min"], f"{key}_max": t["max"]})
     kernel = times["kernel"]
-    if kernel["launches"] != LAUNCHES_PER_CALL[name]:
+    want = LAUNCHES_PER_CALL[name] if want_launches is None else want_launches
+    if kernel["launches"] != want:
         raise AssertionError(
             f"{name}: {kernel['launches']} device launches per call ({kernel['kernels']}), "
-            f"written to make {LAUNCHES_PER_CALL[name]}"
+            f"written to make {want}"
         )
     return {**out, "launches_per_call": kernel["launches"], "device_kernels": kernel["kernels"], "card": card}
 
@@ -356,11 +403,13 @@ def phase_build() -> str:
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops import cuda_quant as cq
 
     t0 = time.monotonic()
-    ca._lib()
-    log(f"built and loaded csrc/flash_attention.cu in {time.monotonic() - t0:.1f}s "
-        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        list(pool.map(lambda build: build(), (ca._lib, cq._lib)))
+    log(f"built and loaded csrc/flash_attention.cu and csrc/w8a16_gemm.cu in "
+        f"{time.monotonic() - t0:.1f}s (torch {torch.__version__}, CUDA {torch.version.cuda})")
     return smi("name,power.limit")
 
 
@@ -508,6 +557,114 @@ def phase_kernels() -> list[dict]:
                 f"{ref} {ver[ref + '_ms']:.4f} bound {ver['bound_ms']:.4f} launches/call "
                 f"{ver['launches_per_call']} card {ver['card']}")
     return out
+
+
+def _int8pack_library(x, q, scale):
+    """``torch._weight_int8pack_mm`` on the card, as a library yardstick
+    of the int8 product (timed only; the port never calls it): a function
+    of x, or None where this torch build lacks it for CUDA or computes
+    something else on these inputs."""
+    import torch
+
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    qt, sc = q.t().contiguous(), scale.reshape(-1).contiguous()
+    try:
+        got = fn(x, qt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"torch._weight_int8pack_mm is not available on this card: {str(e).splitlines()[0]}")
+        return None
+    from agentainer_tpu_torch.ops.cuda_quant import w8a16_matmul_plain
+
+    want = w8a16_matmul_plain(x, q, scale).float()
+    if (got.float() - want).abs().max().item() > BF16_LOGIT_TOL * max(1.0, want.abs().max().item()):
+        log("torch._weight_int8pack_mm computes another function here; no library time")
+        return None
+    return lambda: fn(x, qt, sc)
+
+
+def phase_w8a16() -> dict:
+    """``w8a16_matmul`` against its plain version at every (K, N, M), then
+    timed at llama3-8b's (K, N) for M = 8 and 256 (see the docstring)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops.quant import dequant, QTensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    bf = torch.bfloat16
+
+    def inputs(m, k, n):
+        x = torch.randn((m, k), generator=g, device=dev).to(bf)
+        q = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g, device=dev)
+        scale = ((0.5 + torch.rand((1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(bf)
+        return x, q, scale
+
+    shapes = sorted(set(W8_WEIGHTS.values()) | set(BENCH_1B_KN))
+    worst, checked = 0.0, 0
+    t0 = time.monotonic()
+    for k, n in shapes:
+        for m in W8_MS:
+            x, q, scale = inputs(m, k, n)
+            got, want = cq.w8a16_matmul(x, q, scale).float(), cq.w8a16_matmul_plain(x, q, scale).float()
+            torch.testing.assert_close(
+                got, want, rtol=W8_RTOL, atol=W8_ATOL,
+                msg=lambda msg, m=m, k=k, n=n: f"w8a16_matmul M={m} K={k} N={n} disagrees with plain: {msg}",
+            )
+            worst = max(worst, (got - want).abs().max().item())
+            checked += 1
+    log(f"w8a16_matmul held its plain version at {checked} (K, N, M) in {time.monotonic() - t0:.1f}s; "
+        f"max abs err {worst:.3g}")
+
+    timed = []
+    names = {}
+    for weight, kn in W8_WEIGHTS.items():
+        names.setdefault(kn, []).append(weight)
+    for (k, n), weights in names.items():
+        for m in W8_TIMED_MS:
+            x, q, scale = inputs(m, k, n)
+            dense = dequant(QTensor(q, scale))
+            bm, splits = cq.plan(m, n, k)
+            fns = {
+                "kernel": lambda x=x, q=q, scale=scale: cq.w8a16_matmul(x, q, scale),
+                "plain": lambda x=x, q=q, scale=scale: cq.w8a16_matmul_plain(x, q, scale),
+                "cublas_bf16": lambda x=x, dense=dense: x @ dense,
+                "dequant_matmul": lambda x=x, q=q, scale=scale: x @ dequant(QTensor(q, scale)),
+            }
+            library = _int8pack_library(x, q, scale)
+            if library is not None:
+                fns["library"] = library
+            row = _timed("w8a16_matmul", fns, want_launches=1 + (splits > 1))
+            if library is None:
+                row["library_ms"] = None
+            timed.append({
+                "weights": weights, "shape": f"x[{m},{k}] bf16, q[{k},{n}] int8, scale[1,{n}] bf16",
+                "M": m, "K": k, "N": n, "block_m": bm, "splits": splits,
+                **row, **_bound(k * n + 2 * n + 2 * m * k + 2 * m * n, 2.0 * m * k * n),
+            })
+            r = timed[-1]
+            log(f"w8a16_matmul {'/'.join(weights)} M={m}: ms {r['ms']:.4f} [{r['ms_min']:.4f}, "
+                f"{r['ms_max']:.4f}] bound {r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} "
+                f"cublas bf16 {r['cublas_bf16_ms']:.4f} x@dequant(w) {r['dequant_matmul_ms']:.4f} "
+                f"library {r['library_ms']} splits {splits} launches/call {r['launches_per_call']} "
+                f"card {r['card']}")
+            del x, q, scale, dense, fns, library
+    main = next(r for r in timed if "w_gate" in r["weights"] and r["M"] == 8)
+    return {
+        "name": "w8a16_matmul", "route": "cuda", "source": W8_SOURCE, "replaces": W8_REPLACES,
+        "timing": TIMING, "max_abs_err": worst,
+        "tolerance": f"|d| <= {W8_ATOL} + {W8_RTOL} * |plain|", "checked": checked,
+        "library": "torch._weight_int8pack_mm" if main["library_ms"] is not None else None,
+        **{key: main[key] for key in (
+            "shape", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cublas_bf16_ms", "dequant_matmul_ms", "launches_per_call", "device_kernels", "card",
+        )},
+        "timed": timed,
+    }
 
 
 _VERIFY_MIX = "lanes 0-1 at 299/312 + arange(K + 1), lanes 2-7 at S - 1"
@@ -925,38 +1082,57 @@ def _wait_metric(port: int, key: str, at_least: int, timeout: float = 120) -> di
         time.sleep(0.05)
 
 
-def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None) -> dict:
+def _forwards(before: dict, after: dict) -> int:
+    """Model forwards between two /metrics readings: prefill chunks, decode
+    steps (chunk length × chunks, per rung) and verify rounds."""
+    h0, h1 = before["decode_chunk_hist"], after["decode_chunk_hist"]
+    steps = sum(int(c) * (n - h0.get(c, 0)) for c, n in h1.items())
+    return (after["prefill_chunks"] - before["prefill_chunks"]) + steps + (
+        after["spec_rounds"] - before["spec_rounds"]
+    )
+
+
+def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
+                         quant: bool = False) -> dict:
     """The reference's default serving features (prefix cache, speculation,
     deadlines) with a persona: the sequential script (fresh sessions fork
     the persona, the one-byte runs speculate), then a deadline that passes
     while all 8 lanes are busy (504, no prefill), a cancel of an in-flight
     request (499, its lane taken at once by a newcomer), and a burst past
     the shed watermark (429s, the rest 200). The prefill kernel's launches
-    must equal n_layers × (prefill chunks + verify rounds)."""
+    must equal n_layers × (prefill chunks + verify rounds). With ``quant``
+    the weights are int8 (``quant: int8, synthetic: true``): the int8
+    footprint, ``w8a16_matmul`` launched for every weight product of every
+    forward, and one prompt's greedy text equal in two fresh sessions; in
+    bf16 the int8 kernel must not launch."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops import cuda_quant as cq
 
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     options = {
         "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S,
         "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA,
     }
     if paged:
         options.update(paged_kv=True, page_size=PS)
+    if quant:
+        options.update(INT8)
     prefill, decode = (
         (ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode) if paged
         else (ca.flash_prefill, ca.flash_decode)
     )
     others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
                             ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
-    name = "paged" if paged else "dense"
+    name = ("int8 " if quant else "") + ("paged" if paged else "dense")
     with _serving(options) as (app, load_s):
         port = app.port
         log(f"llama3-8b {name} engine with the default features loaded in {load_s:.1f}s")
         _, m0 = _http(port, "GET", "/metrics")
-        for fn in (prefill, decode, *others):
+        for fn in (prefill, decode, *others, cq.w8a16_matmul):
             fn.launches = 0
         t1 = time.monotonic()
         replies, texts, per_request = [], [], []
@@ -971,6 +1147,10 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
             _, ma = _http(port, "GET", "/metrics")
             per_request.append({k: ma[k] - mb[k] for k in SPEC_COUNTS})
         script_s = time.monotonic() - t1
+        if quant:  # one prompt, two fresh sessions: the same greedy text
+            twins = [_chat(port, replies, s, REQUESTS[2][1], 16)["response"] for s in ("i8a", "i8b")]
+            if twins[0] != twins[1]:
+                raise AssertionError(f"{name}: same prompt, fresh sessions, different greedy text: {twins}")
         _, m1 = _http(port, "GET", "/metrics")
 
         # 8 long requests hold every lane
@@ -1023,10 +1203,19 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         if codes.count(429) < 1 or codes.count(200) + codes.count(429) != 16:
             raise AssertionError(f"burst past the shed watermark answered {codes}")
         serve_s = time.monotonic() - t1
-        launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others)}
+        launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, cq.w8a16_matmul)}
         _, m2 = _http(port, "GET", "/metrics")
         pipeline = _pipeline(f"{name} features", m0, m2)
         graphs = phase_graphs(app.engine, name)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = _forwards(m0, m2)
+    w8 = launches["w8a16_matmul"]
+    want_w8 = (W8_PER_LAYER * n_layers + 1) * forwards if quant else 0
+    if w8 != want_w8:
+        raise AssertionError(f"{name}: w8a16_matmul launched {w8} times, want {want_w8} "
+                             f"({forwards} forwards)")
+    if quant and m2["param_hbm_bytes"] != INT8_PARAM_BYTES:
+        raise AssertionError(f"{name}: param_hbm_bytes {m2['param_hbm_bytes']}, want {INT8_PARAM_BYTES}")
 
     if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
         raise AssertionError(f"prefix cache: prewarms {m0['prefix_prewarms']}, hits {m1['prefix_hits']}")
@@ -1048,6 +1237,9 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         "pipeline": pipeline,
         "graphs": graphs,
         "launches": launches,
+        "forwards": forwards,
+        "param_hbm_bytes": m2["param_hbm_bytes"],
+        "peak_memory_bytes": peak,
         "load_s": load_s,
         "script_s": script_s,
         "serve_s": serve_s,
@@ -1240,6 +1432,67 @@ def phase_checkpoint(root: str, dense_texts: list[str], card: str) -> dict:
         "launches": launches, "same_text_as_dense": True, "card": card,
         "metrics": {k: metrics.get(k) for k in METRIC_KEYS},
     }
+
+
+def _int8_leaves(params: dict, prefix: str = ""):
+    from agentainer_tpu_torch.ops.quant import QTensor
+
+    for key, val in params.items():
+        if isinstance(val, dict):
+            yield from _int8_leaves(val, f"{prefix}{key}.")
+        elif isinstance(val, QTensor):
+            yield f"{prefix}{key}.q", val.q
+            yield f"{prefix}{key}.scale", val.scale
+        else:
+            yield f"{prefix}{key}", val
+
+
+def phase_checkpoint_int8(root: str, card: str) -> dict:
+    """The checkpoint served with ``quant: int8`` (each weight quantized on
+    the card as it streams), then a ``quant: int8`` engine from the seed-0
+    random init (the checkpoint's weights, quantized a layer slice at a
+    time): the two int8 trees bit-equal leaf by leaf, the four requests'
+    greedy text equal, every weight product through ``w8a16_matmul``."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+
+    out, texts, trees = {}, {}, {}
+    for source in ("checkpoint", "random init"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "quant": "int8", **FEATURES_OFF}
+        with _serving(options, checkpoint=root if source == "checkpoint" else "") as (app, load_s):
+            _, m0 = _http(app.port, "GET", "/metrics")
+            cq.w8a16_matmul.launches = 0
+            replies = []
+            texts[source] = _four_requests(app.port, replies)
+            w8 = cq.w8a16_matmul.launches
+            _, metrics = _http(app.port, "GET", "/metrics")
+            trees[source] = dict(_int8_leaves(app.engine.params))
+        forwards = _forwards(m0, metrics)
+        if w8 != (W8_PER_LAYER * 32 + 1) * forwards or metrics["param_hbm_bytes"] != INT8_PARAM_BYTES:
+            raise AssertionError(f"int8 from the {source}: w8a16_matmul {w8} launches for {forwards} "
+                                 f"forwards; param_hbm_bytes {metrics['param_hbm_bytes']}")
+        out[source] = {
+            "pipeline": _pipeline(f"int8 from the {source}", m0, metrics), "engine_up_s": load_s,
+            "checkpoint_load_s": metrics["checkpoint_load_s"], "bytes_read": metrics["checkpoint_bytes_read"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "w8a16_launches": w8,
+            "forwards": forwards,
+        }
+        log(f"int8 from the {source}: engine up in {load_s:.1f}s, {out[source]}")
+    a, b = trees["checkpoint"], trees["random init"]
+    differ = [k for k in a if k not in b or a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or differ:
+        raise AssertionError(f"int8 tree from the checkpoint differs from the random init's: {differ}")
+    if texts["checkpoint"] != texts["random init"]:
+        raise AssertionError(f"int8 greedy text differs: {texts}")
+    read, secs = out["checkpoint"]["bytes_read"], out["checkpoint"]["checkpoint_load_s"]
+    log(f"int8 checkpoint: {len(a)} leaves bit-equal to the random init's; the same greedy text; "
+        f"loaded and quantized {read} bytes in {secs:.2f}s ({read / secs / 1e9:.2f} GB/s) on {card}")
+    del trees, a, b
+    return {**out, "leaves_equal": True, "same_text": True, "gb_per_s": read / secs / 1e9, "card": card}
 
 
 # crash-resume: turn one, a snapshot, the crash, turn two on another engine
@@ -1438,6 +1691,59 @@ def phase_model() -> dict:
     return out
 
 
+def phase_model_int8() -> dict:
+    """The 2-layer llama3-8b-width model in int8 (bf16 init from seed 1,
+    quantized on the card): a prefill chunk then one decode step, logits
+    with ``w8a16_matmul`` against the kernel's plain version (``qmatmul``
+    forced to it), both with the attention kernels, within
+    ``BF16_LOGIT_TOL`` of the largest logit; the kernel launches 7 per
+    layer + 1 per forward."""
+    import dataclasses
+
+    import torch
+
+    from agentainer_tpu_torch.engine.quant import quantize_params
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import KVCache, forward, init_params
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops import quant as tq
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    dev = torch.device("cuda")
+    b, t, s = 2, 128, 512
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    with torch.no_grad():
+        params = quantize_params(init_params(cfg, g, dtype=torch.bfloat16, device=dev), torch.bfloat16)
+        tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+        pos = (torch.tensor([0, 200], device=dev)[:, None] + torch.arange(t, device=dev)[None]).to(torch.int32)
+        logits = {}
+        for kernel in (True, False):
+            before = cq.w8a16_matmul.launches
+            if not kernel:
+                tq.w8a16_matmul = cq.w8a16_matmul_plain
+            try:
+                cache = KVCache.create(cfg, b, s, dtype=torch.bfloat16, device=dev)
+                pre = forward(params, cfg, tokens, pos, cache)
+                dec = forward(params, cfg, tokens[:, -1:], pos[:, -1:] + 1, cache)
+            finally:
+                tq.w8a16_matmul = cq.w8a16_matmul
+            launched = cq.w8a16_matmul.launches - before
+            want = (W8_PER_LAYER * cfg.n_layers + 1) * 2 if kernel else 0
+            if launched != want:
+                raise AssertionError(f"int8 forward (kernel={kernel}): {launched} launches, want {want}")
+            logits[kernel] = torch.cat([pre, dec], dim=1)
+    got, want = logits[True], logits[False]
+    if not torch.isfinite(got).all():
+        raise AssertionError("int8 forward with the kernel gave non-finite logits")
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    log(f"2-layer llama3-8b int8 forward, w8a16_matmul vs plain: max abs err {err:.3g}, max |logit| {scale:.3g}")
+    if err / scale > BF16_LOGIT_TOL:
+        raise AssertionError(f"int8 forward with the kernel disagrees with the plain path: {err}")
+    return {"max_abs_err": err, "max_abs_logit": scale, "tolerance": f"{BF16_LOGIT_TOL} * max(1, |logit|)"}
+
+
 def _model_feature_checks(params, cfg, dtype, dev, scale: float) -> dict:
     """(a) a verify forward at [8, K + 1] (lanes 6-7 parked) against K + 1
     one-token decode steps on a copy of the same arena, live lanes row by
@@ -1549,8 +1855,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.monotonic()
     card = phase_build()
     kernels = phase_kernels()
+    w8_row = phase_w8a16()
     report = {"serve": phase_serve()}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = phase_serve_paged(dense_texts)
@@ -1558,10 +1866,14 @@ def main() -> int:
     report["features"] = phase_serve_features(False, n_layers, None)
     report["features_paged"] = phase_serve_features(True, n_layers, report["features"].pop("texts"))
     report["features_paged"].pop("texts")
+    report["int8"] = phase_serve_features(False, n_layers, None, quant=True)
+    report["int8_paged"] = phase_serve_features(True, n_layers, report["int8"].pop("texts"), quant=True)
+    report["int8_paged"].pop("texts")
     root = tempfile.mkdtemp(prefix="atpu-hf-llama3-8b-")
     try:
         report["checkpoint_write"] = phase_write_checkpoint(root)
         report["checkpoint"] = phase_checkpoint(root, dense_texts, card)
+        report["checkpoint_int8"] = phase_checkpoint_int8(root, card)
         report["resume"] = phase_resume(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1570,10 +1882,17 @@ def main() -> int:
         # the main path is the reference's default: the feature phases
         row["launches"] = report["features_paged" if paged else "features"]["launches"][row["name"]]
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
+    # the int8 kernel's main path: the int8 feature phases (dense; paged beside)
+    w8_row["launches"] = report["int8"]["launches"]["w8a16_matmul"]
+    w8_row["launches_paged"] = report["int8_paged"]["launches"]["w8a16_matmul"]
+    kernels.append(w8_row)
     report["model"] = phase_model()
+    report["model_int8"] = phase_model_int8()
+    report["elapsed_s"] = time.monotonic() - t_start
+    log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {
         phase: report[phase]["pipeline"]
-        for phase in ("serve", "serve_paged", "features", "features_paged", "checkpoint")
+        for phase in ("serve", "serve_paged", "features", "features_paged", "int8", "int8_paged", "checkpoint")
     }}))
     print(json.dumps(report))
     print(card)

@@ -1,16 +1,21 @@
 """Trace the PyTorch port's served decode on one GPU with torch.profiler.
 
-    python scripts/torch_decode_profile.py
+    python scripts/torch_decode_profile.py [int8]
 
-Builds the port's llama3-8b engine (bf16, random weights from seed 0) on
-the first CUDA device, serves LANES concurrent greedy requests of TOKENS
+Builds the port's llama3-8b engine (bf16, random weights from seed 0; with
+``int8``, the same weights quantized by ``quant: int8``) on the first CUDA
+device, serves LANES concurrent greedy requests of TOKENS
 tokens once untraced (warm) and once under torch.profiler, and
 prints one JSON line: the card, wall time, tokens, engine ITL/TTFT, device
 busy time (the union of GPU kernel intervals, kernels replayed from CUDA
 graphs included), the device's idle share, kernel launches in the trace
 and per decode step of the batch, the engine's graph replays and host syncs
-per token in the traced window, and the ten kernels with the most device
-time. Needs a CUDA device; exits 2 without one.
+per token in the traced window, the ten kernels with the most device
+time, and, after serving, what one decode step of the engine's 8-step
+decode graph costs with lanes 0-1 live at 300 / 312 and 6 parked: its
+device time (REPLAYS replays back to back, timed with CUDA events) and the
+host time of the replay call itself (the launch, from an idle device). Needs a CUDA device;
+exits 2 without one.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import time
 
 LANES = 2
 TOKENS = 48
+REPLAYS = 10
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -35,6 +41,38 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
         total += b - max(a, end)
         end = b
     return total
+
+
+def _decode_step_ms(eng) -> dict:
+    """Device ms and host launch ms of one decode step of the idle
+    engine's 8-step greedy graph, lanes 0-1 live at 300 / 312, the rest
+    parked."""
+    import torch
+
+    from agentainer_tpu_torch.engine.graphs import live_lanes, park_lanes
+
+    key = ("decode", 8, True)
+    live_lanes(eng, [300, 312], 0.0, seed=0)
+    try:
+        with torch.no_grad(), eng._on_stream():
+            host = []
+            for _ in range(REPLAYS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng._graphs.replay(key)
+                host.append(time.perf_counter() - t0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPLAYS):
+                eng._graphs.replay(key)
+            end.record()
+            end.synchronize()
+            return {
+                "device_ms": start.elapsed_time(end) / REPLAYS / key[1],
+                "host_launch_ms": 1e3 * sorted(host)[len(host) // 2] / key[1],
+            }
+    finally:
+        park_lanes(eng)
 
 
 def main() -> int:
@@ -51,7 +89,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    eng = LLMEngine.create("llama3-8b", options={"device": "cuda", "seed": 0})
+    quant = "int8" if sys.argv[1:] == ["int8"] else ""
+    eng = LLMEngine.create("llama3-8b", options={"device": "cuda", "seed": 0, "quant": quant})
 
     async def serve():
         return await asyncio.gather(*(
@@ -72,6 +111,7 @@ def main() -> int:
         itl = sorted(list(eng.itl_ms_recent)[itl0:])
         steps = eng.decode_steps - steps0
         m1 = eng.metrics()
+        step_ms = _decode_step_ms(eng)
     finally:
         eng.shutdown()
 
@@ -87,6 +127,8 @@ def main() -> int:
     syncs = m1.get("host_syncs_total", 0) - m0.get("host_syncs_total", 0)
     print(json.dumps({
         "card": card,
+        "quant": quant or None,
+        "param_hbm_bytes": m1["param_hbm_bytes"],
         "lanes": LANES,
         "tokens": tokens,
         "wall_s": wall_s,
@@ -100,6 +142,8 @@ def main() -> int:
         "host_syncs_per_token": syncs / tokens if tokens else None,
         "device_busy_s": busy_us / 1e6 if kernels else None,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if kernels else None,
+        "decode_step_device_ms": step_ms["device_ms"],
+        "decode_step_host_launch_ms": step_ms["host_launch_ms"],
         "top_kernels_ms": {
             name[:80]: round(us / 1e3, 3)
             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]

@@ -301,15 +301,132 @@ def test_paged_prefill_equals_dense_at_verify_shapes(dev, dtype, t):
     )
 
 
+# -- the int8-weight GEMM ------------------------------------------------------
+
+# (K, N) of llama3-8b's and bench-1b's weights, and a narrow N that is not a
+# multiple of the 128-column tile
+W8_SHAPES = [
+    (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
+    (2048, 5632), (5632, 2048), (2048, 32000), (256, 48),
+]
+# decode, ragged rows, the verify buckets, prefill chunks
+W8_MS = [1, 8, 13, 16, 24, 40, 72, 100, 256]
+# one bf16 rounding of the output, plus the f32 sum-order error (far below
+# 1e-4 at these widths): within the repo's bf16 3e-2
+W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
+
+
+def _w8_case(g, dev, m, k, n):
+    from agentainer_tpu_torch.ops.quant import quantize_array
+
+    x = _randn(g, dev, torch.bfloat16, m, k)
+    w = _randn(g, dev, torch.float32, k, n) * 0.02
+    qt = quantize_array(w, torch.bfloat16)
+    return x, qt.q, qt.scale
+
+
+@pytest.mark.parametrize("k,n", W8_SHAPES)
+def test_w8a16_kernel_matches_plain(dev, k, n):
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    for m in W8_MS:
+        x, q, scale = _w8_case(g, dev, m, k, n)
+        before = cuda_quant.w8a16_matmul.launches
+        got = cuda_quant.w8a16_matmul(x, q, scale)
+        assert cuda_quant.w8a16_matmul.launches == before + 1
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+        want = cuda_quant.w8a16_matmul_plain(x, q, scale)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=W8_RTOL, atol=W8_ATOL,
+            msg=lambda msg, m=m: f"M={m} K={k} N={n} {cuda_quant.plan(m, n, k)}: {msg}",
+        )
+
+
+def test_w8a16_split_is_deterministic_and_matches_one_split(dev):
+    """The split-K path (wk at decode: 16 splits) gives the same bits run to
+    run, and the one-split kernel's result within one bf16 rounding."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, q, scale = _w8_case(g, dev, 8, 4096, 1024)
+    assert cuda_quant.plan(8, 1024, 4096)[1] > 1
+    a, b = cuda_quant.w8a16_matmul(x, q, scale), cuda_quant.w8a16_matmul(x, q, scale)
+    assert torch.equal(a, b)
+    one = torch.empty_like(a)
+    lib = cuda_quant._lib()
+    err = lib.atpu_w8a16_matmul(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), one.data_ptr(), None, 8, 1024, 4096, 16, 1,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    assert err == 0
+    torch.testing.assert_close(a.float(), one.float(), rtol=W8_RTOL, atol=W8_ATOL)
+
+
+def test_w8a16_raises_for_what_the_kernel_does_not_take(dev):
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, q, scale = _w8_case(g, dev, 8, 128, 64)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_quant.w8a16_matmul(x[:, :96].contiguous(), q[:96].contiguous(), scale)
+    with pytest.raises(ValueError, match="bf16 x"):
+        cuda_quant.w8a16_matmul(x.float(), q, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_quant.w8a16_matmul(x, q.t().contiguous().t(), scale)
+
+
+def test_int8_decode_graph_counts_every_weight_product(dev):
+    """An int8 engine's captured decode graph: each replay adds 7 kernel
+    calls per layer plus 1 for lm_head per forward to ``launches``, as the
+    eager step makes them, and the replay equals the eager step bit for
+    bit."""
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    eng = _graph_engine(quant=True)
+    w8 = cuda_quant.w8a16_matmul
+    try:
+        for kind, n in (("decode", 8), ("verify", 4)):
+            key = (kind, n, True)
+            forwards = n if kind == "decode" else 1
+            live_lanes(eng, LIVE, 0.0, seed=n)
+            try:
+                with torch.no_grad(), eng._on_stream():
+                    state = eng._device_state()
+                    saved = [t.clone() for t in state]
+                    before = w8.launches
+                    eng._step_fn(key)()
+                    eager = w8.launches - before
+                    for t, s in zip(state, saved):
+                        t.copy_(s)
+                    before = w8.launches
+                    eng._graphs.replay(key)
+                    eng._graphs.replay(key)
+                    torch.cuda.synchronize()
+                    replayed = w8.launches - before
+                    for t, s in zip(state, saved):
+                        t.copy_(s)
+                    got = compare_replay(eng._graphs, key, eng._step_fn(key), state, eng._gen)
+            finally:
+                park_lanes(eng)
+            assert eager == (7 * 2 + 1) * forwards and replayed == 2 * eager, (kind, eager, replayed)
+            assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+    finally:
+        eng.shutdown()
+
+
 # -- the engine's step graphs: 2 layers at llama3-8b width, bf16 -------------
 
 
-def _graph_engine(**options):
+def _graph_engine(quant: bool = False, **options):
     """A warmed card engine of llama3-8b's width at 2 layers (random bf16
-    weights from seed 0); warmup captures its step graphs."""
+    weights from seed 0, quantized to int8 with ``quant``); warmup captures
+    its step graphs."""
     import dataclasses
 
     from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.engine.quant import quantize_params
     from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
     from agentainer_tpu_torch.models.configs import get_config
     from agentainer_tpu_torch.models.llama import init_params
@@ -317,6 +434,8 @@ def _graph_engine(**options):
     cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, g, dtype=torch.bfloat16, device="cuda")
+    if quant:
+        params = quantize_params(params, torch.bfloat16)
     opts = dict(max_batch=8, max_seq=1024, page_size=64, device="cuda")
     opts.update(options)
     eng = LLMEngine(cfg, params, ByteTokenizer(cfg.vocab_size), **opts)
@@ -485,9 +604,24 @@ def test_served_path_makes_no_implicit_host_sync(dev, paged):
     and their readbacks — under ``torch.cuda.set_sync_debug_mode("error")``:
     no operation of the worker waits for the device behind its back (the
     readbacks wait on their CUDA events, which the mode does not flag)."""
+    _serve_without_host_sync(dev, _graph_engine(paged_kv=paged, max_seq=512))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_int8_served_path_makes_no_implicit_host_sync(dev, paged):
+    """The same traffic on an int8 engine: every weight product is the
+    int8 kernel, and none waits for the device."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    eng = _graph_engine(quant=True, paged_kv=paged, max_seq=512)
+    before = cuda_quant.w8a16_matmul.launches
+    _serve_without_host_sync(dev, eng)
+    assert cuda_quant.w8a16_matmul.launches > before
+
+
+def _serve_without_host_sync(dev, eng) -> None:
     import asyncio
 
-    eng = _graph_engine(paged_kv=paged, max_seq=512)
     try:
         async def traffic():
             return await asyncio.gather(

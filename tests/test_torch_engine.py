@@ -171,9 +171,13 @@ def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
         ),
         ({"streaming": True}, "streaming"),
         ({"tp": 2}, "tp=2"),
-        ({"quant": "int8"}, "quant"),
+        # int8 serving is ported: another scheme, and int8 beside an
+        # unported axis, still raise
+        pytest.param({"quant": "int4"}, "unknown quant scheme 'int4'", id="options4-quant"),
         ({"approx_topk": True}, "approx_topk"),
-        ({"synthetic": True}, "synthetic"),
+        pytest.param(
+            {"quant": "int8", "synthetic": True, "tp": 2}, "tp=2", id="options6-synthetic"
+        ),
         ({"routed": True}, "routed"),
     ],
 )

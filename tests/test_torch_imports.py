@@ -42,6 +42,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.models.convert",
         "agentainer_tpu_torch.ops.attention",
         "agentainer_tpu_torch.ops.cuda_attention",
+        "agentainer_tpu_torch.ops.cuda_quant",
+        "agentainer_tpu_torch.ops.quant",
+        "agentainer_tpu_torch.engine.quant",
         "agentainer_tpu_torch.engine.checkpoint",
         "agentainer_tpu_torch.engine.hf_convert",
         "agentainer_tpu_torch.engine.llm",

@@ -81,3 +81,32 @@ def test_dequant_matches_jax():
     _close(tquant.dequant(tq), jquant.dequant(jq), 2e-5)
     dense = torch.from_numpy(w)
     assert tquant.dequant(dense) is dense
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quantized_jax_tree_round_trips_through_params_from_numpy(dtype):
+    """A quantized JAX tree comes across as the port's QTensor: q stays int8
+    bit for bit, scale comes into the asked dtype, dense leaves stay dense."""
+    import jax
+
+    from agentainer_tpu.engine.quant import quantize_params
+    from agentainer_tpu_torch.models.convert import params_from_numpy
+
+    rng = np.random.default_rng(4)
+    tree = {
+        "embed": rng.standard_normal((32, 16)).astype(np.float32),
+        "layers": {
+            "wq": rng.standard_normal((2, 16, 16)).astype(np.float32),
+            "attn_norm": np.ones((2, 16), np.float32),
+        },
+    }
+    jq = jax.tree.map(np.asarray, quantize_params(tree, dtype=jnp.float32))
+    got = params_from_numpy(jq, dtype=DTYPES[dtype][1])
+    for key, want in (("embed", jq["embed"]), ("wq", jq["layers"]["wq"])):
+        leaf = got[key] if key == "embed" else got["layers"][key]
+        assert type(leaf) is tquant.QTensor
+        assert leaf.q.dtype == torch.int8 and leaf.scale.dtype == DTYPES[dtype][1]
+        np.testing.assert_array_equal(leaf.q.numpy(), want.q)
+        _close(leaf.scale, want.scale, 0.0 if dtype == "float32" else DTYPES[dtype][2])
+    norm = got["layers"]["attn_norm"]
+    assert isinstance(norm, torch.Tensor) and norm.dtype == DTYPES[dtype][1]

@@ -53,6 +53,20 @@ def test_engine_options_equal_the_reference(monkeypatch, flag, env_name, raw, de
     assert got["chips"] == [3]
 
 
+@pytest.mark.parametrize(
+    "options", [{"quant": "int8"}, {"quant": "int8", "synthetic": True}, {"synthetic": True}]
+)
+def test_quant_and_synthetic_reach_the_engine_unchanged(monkeypatch, options):
+    """The deployment's ``quant`` and ``synthetic`` options pass through
+    ``_engine_options`` as they are (no ``ATPU_*`` variable sets them), as
+    in the reference."""
+    _clean(monkeypatch)
+    monkeypatch.setenv("AGENTAINER_MODEL_OPTIONS", json.dumps({"device": "cpu", **options}))
+    got = LLMServeApp()._engine_options()
+    assert got == JApp()._engine_options()
+    assert {k: v for k, v in got.items() if k != "chips"} == {"device": "cpu", **options}
+
+
 def test_the_reference_fleet_flag_list_is_the_ports():
     """FLEET_FLAGS names every ATPU_* variable the reference's
     ``_engine_options`` reads, and no other."""
