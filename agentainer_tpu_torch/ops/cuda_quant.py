@@ -5,14 +5,14 @@ Reference: no ``pallas_call``. The JAX package computes ``x @ dequant(w)``
 (``agentainer_tpu/ops/quant.py``, ``agentainer_tpu/models/llama.py``) and
 XLA fuses the int8 convert and the scale into the dot. ``w8a16_matmul`` is
 that fusion on the card (``csrc/w8a16_gemm.cu``, note at the top): the int8
-weight is read as stored and widened in registers, so no dense weight is
-written to device memory.
+weight is read as stored by TMA and widened in registers into ``wgmma``, so
+no dense weight is written to device memory.
 
 - ``w8a16_matmul(x, q, scale)``: ``x [M, K]`` against one layer's ``q [K,
   N]`` int8 and ``scale [1, N]`` → ``[M, N]`` in x's dtype. On a CPU tensor
-  it runs the plain version; on a CUDA tensor it launches the kernel (built
-  by ``nvcc`` at first launch, ``ops/_build.py``) or raises — there is no
-  fallback from the card to the plain version. It counts its calls in
+  it runs the plain version; on a CUDA tensor it launches the kernel once
+  (built by ``nvcc`` at first launch, ``ops/_build.py``) or raises — there
+  is no fallback from the card to the plain version. It counts its calls in
   ``.launches``, or in ``.captured`` while its stream is being captured into
   a CUDA graph (``engine/graphs.py`` adds a graph's captured calls to
   ``.launches`` at every replay), as the attention wrappers do.
@@ -35,32 +35,53 @@ from .cuda_attention import _count, _raise_on
 
 BN = 128  # output channels per block
 BK = 64  # contraction depth of one pipeline stage
-BLOCK_MS = (16, 64, 128)  # token tiles the kernel instantiates
-# Blocks a split aims for: two per SM of an H100 (132 SMs). A constant, not
-# the card's count, so that the split (and the sum order) is the same
+BLOCK_MS = (8, 24, 40, 72, 128, 256)  # token tiles the kernel instantiates (wgmma N)
+# The splits of a column tile run as one thread-block cluster, and a block
+# takes a whole SM, so a split count s fits one wave of an H100 while the
+# tiles are at most the clusters of s blocks it runs at once
+# (cudaOccupancyMaxActiveClusters on an H100 SXM, for every token tile:
+# GPCs of 16-18 SMs; ``atpu_w8a16_max_clusters`` asks the card). Constants,
+# not the card's numbers, so that the split (and the sum order) is the same
 # everywhere.
-TARGET_BLOCKS = 2 * 132
+CLUSTERS_PER_WAVE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 MIN_SPLIT_STEPS = 4  # contraction tiles a split covers at least
-MAX_SPLITS = 16
 
 
 def supported(k: int, n: int) -> bool:
     """Shapes the kernel takes: K a multiple of its 64-deep tile, N of 16
-    (one 16-byte copy of int8 output channels)."""
+    (16-byte rows for TMA)."""
     return k > 0 and n > 0 and k % BK == 0 and n % 16 == 0
 
 
+def _splits(tiles: int, k: int) -> int:
+    """The most splits whose clusters still fit one wave
+    (``CLUSTERS_PER_WAVE``) with each split over at least
+    ``MIN_SPLIT_STEPS`` tiles of the contraction."""
+    return max(
+        s for s, fit in CLUSTERS_PER_WAVE.items()
+        if s == 1 or (tiles <= fit and (k // BK) // s >= MIN_SPLIT_STEPS)
+    )
+
+
+@functools.cache
 def plan(m: int, n: int, k: int) -> tuple[int, int]:
-    """(token tile, contraction splits) for ``[m, k] @ [k, n]``: the
-    smallest tile that holds all m rows, the largest (128) beyond it — one
-    widened weight fragment then feeds the most products
-    (``scripts/torch_w8a16_sweep.py`` measured 128 rows fastest at m = 72
-    and 256); the contraction split so that about ``TARGET_BLOCKS`` blocks
-    run, each over at least ``MIN_SPLIT_STEPS`` tiles of it."""
-    bm = next((b for b in BLOCK_MS if m <= b), BLOCK_MS[-1])
-    tiles = -(-m // bm) * -(-n // BN)
-    splits = min(TARGET_BLOCKS // max(1, tiles), (k // BK) // MIN_SPLIT_STEPS, MAX_SPLITS)
-    return bm, max(1, splits)
+    """(token tile, contraction splits) for ``[m, k] @ [k, n]``. Up to 128
+    rows, the smallest tile that holds them all. Beyond, 256 or 128 rows:
+    256 widens each weight tile once for a whole prefill chunk, 128 makes
+    twice the blocks, so 128 when its blocks fit one wave
+    (``CLUSTERS_PER_WAVE[1]``) and are more than 256's or 256's do not fit.
+    Then the most splits that fit (``_splits``)."""
+
+    def tiles(bm):
+        return -(-m // bm) * -(-n // BN)
+
+    if m <= 128:
+        bm = next(b for b in BLOCK_MS if m <= b)
+    else:
+        b256, b128 = (tiles(b) * _splits(tiles(b), k) for b in (256, 128))
+        wave = CLUSTERS_PER_WAVE[1]
+        bm = 128 if b128 <= wave and (b256 > wave or b128 > b256) else 256
+    return bm, _splits(tiles(bm), k)
 
 
 def w8a16_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -74,14 +95,16 @@ def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
     lib = _build.library("w8a16_gemm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.atpu_w8a16_matmul.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.atpu_w8a16_matmul.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.atpu_w8a16_matmul.restype = i32
+    lib.atpu_w8a16_max_clusters.argtypes = [i32, i32]
+    lib.atpu_w8a16_max_clusters.restype = i32
     return lib
 
 
 def _check_cuda(x, q, scale) -> None:
-    tensors = {"x": x, "q": q, "scale": scale}
-    for key, t in tensors.items():
+    """Raise unless the kernel takes these tensors."""
+    for key, t in (("x", x), ("q", q), ("scale", scale)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"w8a16_matmul: {key} must be on x's CUDA device, got {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -109,13 +132,9 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     k, n = q.shape
     bm, splits = plan(m, n, k)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = (
-        torch.empty(splits * m * n, dtype=torch.float32, device=x.device) if splits > 1 else None
-    )
     err = _lib().atpu_w8a16_matmul(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), m, n, k, bm, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, bm, splits,
+        torch._C._cuda_getCurrentRawStream(x.device.index),
     )
     _raise_on(err, "w8a16_matmul")
     _count(w8a16_matmul)

@@ -28,14 +28,20 @@ exits non-zero):
                  runs.
 2b. int8 kernel — ``w8a16_matmul`` (``csrc/w8a16_gemm.cu``) against its
                  plain PyTorch version at every (K, N) of llama3-8b's and
-                 bench-1b's weights for M = 8, 24, 40, 72 and 256 (decode,
-                 the verify rounds, a prefill chunk), random int8 weights and
-                 scales from a seeded generator, within one bf16 rounding;
-                 timed at M = 8 and 256 at every llama3-8b (K, N) beside its
-                 bound, the plain version, the bf16 cuBLAS product of the
-                 dense weight (the product int8 replaces), ``x @ dequant(w)``
-                 (what the port would run without the kernel) and, where
-                 this torch build has it for CUDA, ``torch._weight_int8pack_mm``.
+                 bench-1b's weights for M = 1, 8, 9, 24, 40, 72, 255, 256
+                 and 300 (decode, the verify rounds, a prefill chunk, ragged
+                 counts on both sides of the token tiles), random int8
+                 weights and scales from a seeded generator, within one bf16
+                 rounding, two calls bit-equal; timed at M = 8, 72 and 256 at
+                 every llama3-8b (K, N) beside its bound, the plain version,
+                 the bf16 cuBLAS product of the dense weight (the product
+                 int8 replaces), ``x @ dequant(w)`` (what the port would run
+                 without the kernel) and, where this torch build has it for
+                 CUDA, ``torch._weight_int8pack_mm``, with one device launch
+                 per call; then the wrapper's host cost per call at M = 8
+                 beside the bf16 product's (``host_cost``: host clock with
+                 the device held, and CUDA events back to back; no
+                 profiler).
 3. serve       — the port's standard-library ``llm_serve`` on a local port
                  with ``llama3-8b`` at full width and depth, bf16, random
                  weights from a seeded generator, with prefix cache,
@@ -187,15 +193,17 @@ REQUESTS = (
 
 # the int8-weight GEMM: llama3-8b's weights and their (K, N); bench-1b's
 # (K, N); the rows a product takes (decode, verify K = 2 / 4 / 8, a prefill
-# chunk), and the rows timed
+# chunk, and ragged counts on both sides of the token tiles), and the rows
+# timed (decode, the largest verify round, a prefill chunk)
 W8_WEIGHTS = {
     "wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
     "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096),
     "lm_head": (4096, 128256),
 }
 BENCH_1B_KN = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000))
-W8_MS = (8, 24, 40, 72, 256)
-W8_TIMED_MS = (8, 256)
+W8_MS = (1, 8, 9, 24, 40, 72, 255, 256, 300)
+W8_TIMED_MS = (8, 72, 256)
+HOST_CALLS = 200  # calls per host-cost loop
 # kernel against plain: both sum in f32 and round once to bf16, so they may
 # differ by one bf16 rounding plus the f32 sum-order error (<< 1e-4 here)
 W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
@@ -585,9 +593,36 @@ def _int8pack_library(x, q, scale):
     return lambda: fn(x, qt, sc)
 
 
+def host_cost(fn, calls: int = HOST_CALLS) -> dict:
+    """What one call of ``fn`` costs the host, without a profiler:
+    ``host_us``, the host clock around ``calls`` calls while a spin kernel
+    holds the device (the loop only enqueues: the wrapper's Python, its
+    checks and allocation, the launch); ``loop_us``, CUDA events around
+    ``calls`` calls back to back on an idle device (per call, the larger of
+    the host's and the device's time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(TAIL_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"host_us": 1e6 * host_s / calls, "loop_us": 1e3 * start.elapsed_time(end) / calls}
+
+
 def phase_w8a16() -> dict:
     """``w8a16_matmul`` against its plain version at every (K, N, M), then
-    timed at llama3-8b's (K, N) for M = 8 and 256 (see the docstring)."""
+    timed at llama3-8b's (K, N) for M = 8, 72 and 256, and its host cost
+    per call beside the bf16 product's (see the docstring)."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_quant as cq
@@ -613,12 +648,15 @@ def phase_w8a16() -> dict:
             got, want = cq.w8a16_matmul(x, q, scale).float(), cq.w8a16_matmul_plain(x, q, scale).float()
             torch.testing.assert_close(
                 got, want, rtol=W8_RTOL, atol=W8_ATOL,
-                msg=lambda msg, m=m, k=k, n=n: f"w8a16_matmul M={m} K={k} N={n} disagrees with plain: {msg}",
+                msg=lambda msg, m=m, k=k, n=n: f"w8a16_matmul M={m} K={k} N={n} {cq.plan(m, n, k)} disagrees "
+                f"with plain: {msg}",
             )
+            if not torch.equal(cq.w8a16_matmul(x, q, scale), cq.w8a16_matmul(x, q, scale)):
+                raise AssertionError(f"w8a16_matmul M={m} K={k} N={n}: two calls differ")
             worst = max(worst, (got - want).abs().max().item())
             checked += 1
-    log(f"w8a16_matmul held its plain version at {checked} (K, N, M) in {time.monotonic() - t0:.1f}s; "
-        f"max abs err {worst:.3g}")
+    log(f"w8a16_matmul held its plain version at {checked} (K, N, M), two calls bit-equal, in "
+        f"{time.monotonic() - t0:.1f}s; max abs err {worst:.3g}")
 
     timed = []
     names = {}
@@ -638,7 +676,7 @@ def phase_w8a16() -> dict:
             library = _int8pack_library(x, q, scale)
             if library is not None:
                 fns["library"] = library
-            row = _timed("w8a16_matmul", fns, want_launches=1 + (splits > 1))
+            row = _timed("w8a16_matmul", fns, want_launches=1)
             if library is None:
                 row["library_ms"] = None
             timed.append({
@@ -650,9 +688,23 @@ def phase_w8a16() -> dict:
             log(f"w8a16_matmul {'/'.join(weights)} M={m}: ms {r['ms']:.4f} [{r['ms_min']:.4f}, "
                 f"{r['ms_max']:.4f}] bound {r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} "
                 f"cublas bf16 {r['cublas_bf16_ms']:.4f} x@dequant(w) {r['dequant_matmul_ms']:.4f} "
-                f"library {r['library_ms']} splits {splits} launches/call {r['launches_per_call']} "
+                f"library {r['library_ms']} tile {bm} splits {splits} launches/call {r['launches_per_call']} "
                 f"card {r['card']}")
             del x, q, scale, dense, fns, library
+    # the wrapper's host cost at decode, beside the bf16 product's
+    host = {}
+    for (k, n), weights in names.items():
+        x, q, scale = inputs(8, k, n)
+        dense = dequant(QTensor(q, scale))
+        host["/".join(weights)] = {
+            "w8a16_matmul": host_cost(lambda x=x, q=q, scale=scale: cq.w8a16_matmul(x, q, scale)),
+            "bf16_matmul": host_cost(lambda x=x, dense=dense: x @ dense),
+        }
+        del x, q, scale, dense
+    log("host us per call at M = 8 (host clock, device held; and CUDA events back to back): " + "; ".join(
+        f"{w}: w8a16_matmul {h['w8a16_matmul']['host_us']:.2f} / {h['w8a16_matmul']['loop_us']:.2f}, "
+        f"bf16 {h['bf16_matmul']['host_us']:.2f} / {h['bf16_matmul']['loop_us']:.2f}" for w, h in host.items()
+    ))
     main = next(r for r in timed if "w_gate" in r["weights"] and r["M"] == 8)
     return {
         "name": "w8a16_matmul", "route": "cuda", "source": W8_SOURCE, "replaces": W8_REPLACES,
@@ -663,7 +715,7 @@ def phase_w8a16() -> dict:
             "shape", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cublas_bf16_ms", "dequant_matmul_ms", "launches_per_call", "device_kernels", "card",
         )},
-        "timed": timed,
+        "timed": timed, "host_us": host,
     }
 
 

@@ -1,20 +1,32 @@
-"""Time the int8-weight GEMM at every token tile and split count it can run.
+"""Time the int8-weight GEMM at every split count it can run, and its
+wrapper's host cost.
 
-    python scripts/torch_w8a16_sweep.py
+    python scripts/torch_w8a16_sweep.py                      # the sweep
+    python scripts/torch_w8a16_sweep.py --host [--package DIR]
 
-For each (K, N) of llama3-8b's weights and each M (8: a decode step; 24,
-40, 72: the verify rounds; 256: a prefill chunk), every (token tile,
-contraction splits) the kernel takes (``agentainer_tpu_torch/csrc/
-w8a16_gemm.cu``; tiles 16 / 64 / 128, splits up to 16 and at most one per
-four 64-deep tiles of K) is checked against the plain version and timed
+The sweep: for each (K, N) of llama3-8b's weights and each M (8: a decode
+step; 24, 40, 72: the verify rounds; 256: a prefill chunk), the plan's token
+tile at every contraction split the kernel takes (``agentainer_tpu_torch/
+csrc/w8a16_gemm.cu``: 1, 2, 4 or 8 blocks of one cluster, each over at
+least ``MIN_SPLIT_STEPS`` 64-deep tiles), and at M = 256 also the 128-row
+tile (two token tiles), is checked against the plain version and timed
 through the library's C entry point with ``chip_smoke.time_in_turns``
-(device span of single calls in a profiler trace, cold L2, in turns),
-beside the split that ``cuda_quant.plan`` picks. Prints one JSON line per
-(K, N, M), then the card. Needs a CUDA device; exits 2 without one.
+(device span of single calls in a profiler trace, cold L2, in turns), beside
+the bf16 cuBLAS product of the dense weight and the (tile, split) that
+``cuda_quant.plan`` picks. One JSON line per (K, N, M).
+
+``--host``: the host cost of one ``w8a16_matmul`` call at M = 8 for each
+(K, N), beside the bf16 product's (``chip_smoke.host_cost``: the host clock
+around a loop while the device is held, and CUDA events around a loop back
+to back). ``--package DIR`` imports ``agentainer_tpu_torch`` from the
+checkout at DIR instead, to time another version's wrapper in the same run.
+
+Prints the card last. Needs a CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -22,44 +34,37 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
 MS = (8, 24, 40, 72, 256)
-SPLITS = (1, 2, 4, 8, 16)
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("no CUDA device visible", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    import chip_smoke
-    from agentainer_tpu_torch.ops import cuda_quant as cq
-
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _inputs(torch, g, m, k, n):
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g, device=dev)
+    scale = ((0.5 + torch.rand((1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(torch.bfloat16)
+    return x, q, scale
+
+
+def sweep(torch, chip_smoke, cq) -> None:
+    g = torch.Generator(device="cuda")
     g.manual_seed(11)
     lib = cq._lib()
     for k, n in SHAPES:
         for m in MS:
-            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-            q = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g, device=dev)
-            scale = ((0.5 + torch.rand((1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(torch.bfloat16)
+            x, q, scale = _inputs(torch, g, m, k, n)
             want = cq.w8a16_matmul_plain(x, q, scale).float()
+            dense = q.to(torch.bfloat16) * scale
+            plan_bm, _ = cq.plan(m, n, k)
             fns = {}
-            for bm in (16, 64, 128):
-                if (m <= 16) != (bm == 16):
-                    continue
-                for splits in SPLITS:
-                    if splits > 1 and splits > (k // cq.BK) // cq.MIN_SPLIT_STEPS:
+            for bm in sorted({plan_bm, 128} if m > 128 else {plan_bm}):
+                for splits in cq.CLUSTERS_PER_WAVE:
+                    if splits > 1 and (k // cq.BK) // splits < cq.MIN_SPLIT_STEPS:
                         continue
-                    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-                    part = torch.empty(max(1, splits * m * n), dtype=torch.float32, device=dev)
+                    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
 
-                    def call(bm=bm, splits=splits, out=out, part=part):
+                    def call(bm=bm, splits=splits, out=out):
                         err = lib.atpu_w8a16_matmul(
-                            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
-                            m, n, k, bm, splits, torch.cuda.current_stream().cuda_stream,
+                            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, bm, splits,
+                            torch.cuda.current_stream().cuda_stream,
                         )
                         if err:
                             raise RuntimeError(f"cudaError {err}")
@@ -72,17 +77,50 @@ def main() -> int:
                         msg=lambda msg, bm=bm, splits=splits: f"M={m} K={k} N={n} bm={bm} splits={splits}: {msg}",
                     )
                     fns[f"bm{bm}_s{splits}"] = call
+            fns["cublas_bf16"] = lambda x=x, dense=dense: x @ dense
             times, card = chip_smoke.time_in_turns(fns)
             row = {
                 "K": k, "N": n, "M": m, "plan": "bm{}_s{}".format(*cq.plan(m, n, k)),
                 **chip_smoke._bound(k * n + 2 * n + 2 * m * k + 2 * m * n, 2.0 * m * k * n),
-                "ms": {name: round(t["median"], 5) for name, t in times.items()},
-                "ms_min_max": {name: (round(t["min"], 5), round(t["max"], 5)) for name, t in times.items()},
+                "ms": {name: t["median"] for name, t in times.items()},
+                "ms_min_max": {name: (t["min"], t["max"]) for name, t in times.items()},
                 "sm_mhz": (card["sm_mhz_min"], card["sm_mhz_max"]),
             }
-            best = min(row["ms"], key=row["ms"].get)
-            row["best"] = best
+            row["best"] = min((name for name in row["ms"] if name != "cublas_bf16"), key=row["ms"].get)
             print(json.dumps(row), flush=True)
+
+
+def host(torch, chip_smoke, cq) -> None:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    for k, n in SHAPES:
+        x, q, scale = _inputs(torch, g, 8, k, n)
+        dense = q.to(torch.bfloat16) * scale
+        print(json.dumps({
+            "K": k, "N": n, "M": 8, "package": os.path.dirname(os.path.dirname(os.path.abspath(cq.__file__))),
+            "w8a16_matmul": chip_smoke.host_cost(lambda: cq.w8a16_matmul(x, q, scale)),
+            "bf16_matmul": chip_smoke.host_cost(lambda: x @ dense),
+        }), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--host", action="store_true", help="time the wrapper's host cost instead of the sweep")
+    ap.add_argument("--package", default=ROOT, help="checkout to import agentainer_tpu_torch from")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    sys.path.insert(0, os.path.abspath(args.package))
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (host if args.host else sweep)(torch, chip_smoke, cq)
     print(chip_smoke.smi("name,power.limit"))
     return 0
 

@@ -309,8 +309,8 @@ W8_SHAPES = [
     (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
     (2048, 5632), (5632, 2048), (2048, 32000), (256, 48),
 ]
-# decode, ragged rows, the verify buckets, prefill chunks
-W8_MS = [1, 8, 13, 16, 24, 40, 72, 100, 256]
+# decode, ragged rows, the verify buckets, prefill chunks, two token tiles
+W8_MS = [1, 8, 9, 13, 16, 24, 40, 64, 72, 100, 255, 256, 300]
 # one bf16 rounding of the output, plus the f32 sum-order error (far below
 # 1e-4 at these widths): within the repo's bf16 3e-2
 W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
@@ -344,23 +344,86 @@ def test_w8a16_kernel_matches_plain(dev, k, n):
 
 
 def test_w8a16_split_is_deterministic_and_matches_one_split(dev):
-    """The split-K path (wk at decode: 16 splits) gives the same bits run to
-    run, and the one-split kernel's result within one bf16 rounding."""
+    """The cluster-split path (wk: 8 splits at decode, 6 at a prefill chunk,
+    summed in rank order through distributed shared memory) gives the same
+    bits run to run, and the one-split kernel's result within one bf16
+    rounding."""
     from agentainer_tpu_torch.ops import cuda_quant
 
     g = torch.Generator(device=dev).manual_seed(3)
-    x, q, scale = _w8_case(g, dev, 8, 4096, 1024)
-    assert cuda_quant.plan(8, 1024, 4096)[1] > 1
-    a, b = cuda_quant.w8a16_matmul(x, q, scale), cuda_quant.w8a16_matmul(x, q, scale)
-    assert torch.equal(a, b)
-    one = torch.empty_like(a)
+    for m in (8, 256):
+        x, q, scale = _w8_case(g, dev, m, 4096, 1024)
+        bm, splits = cuda_quant.plan(m, 1024, 4096)
+        assert splits == (8 if m == 8 else 6)
+        a, b = cuda_quant.w8a16_matmul(x, q, scale), cuda_quant.w8a16_matmul(x, q, scale)
+        assert torch.equal(a, b)
+        one = torch.empty_like(a)
+        err = cuda_quant._lib().atpu_w8a16_matmul(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), one.data_ptr(), m, 1024, 4096, bm, 1,
+            torch.cuda.current_stream().cuda_stream,
+        )
+        assert err == 0
+        torch.testing.assert_close(a.float(), one.float(), rtol=W8_RTOL, atol=W8_ATOL)
+
+
+@pytest.mark.parametrize("m", [8, 72, 256])
+def test_w8a16_graph_replay_equals_eager(dev, m):
+    """A CUDA graph of the kernel (its tensor maps captured by value) gives
+    the eager call's bits at every replay, split or not."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    cases = [_w8_case(g, dev, m, k, n) for k, n in ((4096, 1024), (4096, 14336))]
+    eager = [cuda_quant.w8a16_matmul(x, q, scale) for x, q, scale in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_quant.w8a16_matmul.captured
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        outs = [cuda_quant.w8a16_matmul(x, q, scale) for x, q, scale in cases]
+    assert cuda_quant.w8a16_matmul.captured == before + len(cases)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+def test_w8a16_cluster_constants_are_the_cards(dev):
+    """The plan's CLUSTERS_PER_WAVE are what an H100 runs at once for every
+    token tile, so a planned split fits one wave."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    if "H100" not in torch.cuda.get_device_name(dev):
+        pytest.skip("the constants describe an H100")
     lib = cuda_quant._lib()
-    err = lib.atpu_w8a16_matmul(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), one.data_ptr(), None, 8, 1024, 4096, 16, 1,
-        torch.cuda.current_stream().cuda_stream,
-    )
-    assert err == 0
-    torch.testing.assert_close(a.float(), one.float(), rtol=W8_RTOL, atol=W8_ATOL)
+    for bm in cuda_quant.BLOCK_MS:
+        got = {s: lib.atpu_w8a16_max_clusters(bm, s) for s in cuda_quant.CLUSTERS_PER_WAVE}
+        assert got == cuda_quant.CLUSTERS_PER_WAVE, (bm, got)
+
+
+def test_w8a16_library_refuses_what_the_kernel_does_not_take(dev):
+    """The C entry point answers cudaErrorInvalidValue (1) for a token tile
+    it has no body for, a split count outside 1..min(8, K / 64), or a shape
+    off the tiles, and launches nothing."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x, q, scale = _w8_case(g, dev, 8, 256, 64)
+    out = torch.full((8, 64), 7.0, dtype=torch.bfloat16, device=dev)
+    lib = cuda_quant._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, n, k, bm, splits in (
+        (8, 64, 256, 16, 1), (8, 64, 256, 8, 0), (8, 64, 256, 8, 5), (8, 64, 256, 8, 9),
+        (8, 64, 200, 8, 1), (8, 40, 256, 8, 1),
+    ):
+        assert lib.atpu_w8a16_matmul(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k, bm, splits, stream
+        ) == 1, (m, n, k, bm, splits)
+    torch.cuda.synchronize()
+    assert bool((out.float() == 7.0).all())
 
 
 def test_w8a16_raises_for_what_the_kernel_does_not_take(dev):

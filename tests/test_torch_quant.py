@@ -473,11 +473,12 @@ def test_kernel_takes_every_weight_and_plans_within_k(name):
         assert cuda_quant.supported(k, n), (k, n)
         for m in (8, 24, 40, 72, 32, 256):
             bm, splits = cuda_quant.plan(m, n, k)
-            assert bm == (16 if m <= 16 else 64 if m <= 64 else 128)
+            assert bm == min(b for b in cuda_quant.BLOCK_MS if b >= m) or (m > 128 and bm == 128)
             assert 1 <= splits <= k // cuda_quant.BK // cuda_quant.MIN_SPLIT_STEPS or splits == 1
-    # decode's narrow products split; a 128256-wide head does not
-    assert cuda_quant.plan(8, 1024, 4096) == (16, 16)
-    assert cuda_quant.plan(8, 128256, 4096) == (16, 1)
+            assert splits in cuda_quant.CLUSTERS_PER_WAVE
+    # decode's narrow products split over a cluster of 8; a 128256-wide head does not
+    assert cuda_quant.plan(8, 1024, 4096) == (8, 8)
+    assert cuda_quant.plan(8, 128256, 4096) == (8, 1)
 
 
 def test_card_engine_refuses_weights_the_int8_kernel_does_not_take(monkeypatch):
