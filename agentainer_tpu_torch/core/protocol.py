@@ -19,3 +19,14 @@ DRAINING_HEADER = "X-Agentainer-Draining"
 EXPIRED_HEADER = "X-Agentainer-Expired"
 # the request itself broke prefill on a healthy engine
 PREFILL_POISON_HEADER = "X-Agentainer-Prefill-Poisoned"
+
+# SSE streaming (stream=true on /chat, the engine's streaming option)
+STREAM_CONTENT_TYPE = "text/event-stream"
+# the standard SSE reconnect header; also the splice cursor of a resumed
+# stream: the serve layer re-emits the request's deterministic sequence and
+# skips every offset <= this value
+LAST_EVENT_ID_HEADER = "Last-Event-ID"
+# SSE event names on the wire
+STREAM_EVENT_TOKEN = "token"
+STREAM_EVENT_DONE = "done"
+STREAM_EVENT_ERROR = "error"

@@ -19,7 +19,9 @@
 //
 // One kernel body, two addressing policies. The paged kernels compute the
 // dense kernels' function; only the address of slot j changes:
-//   DenseArena: k[b, j, h, :]                      (arena [B, S, KV, hd])
+//   DenseArena: k[b, j, h, :]                      (arena [B, S, KV, hd]; the
+//               prefill entry point may map query row b to arena row rows[b],
+//               a device int32 [B], so that one CUDA graph serves any slot)
 //   PagedArena: pool[table[b, j / ps], j % ps, h, :] (pool [P, ps, KV, hd],
 //               table [B, n_blocks] int32, S = n_blocks * ps)
 // prefill_kernel and decode_kernel are templated on the policy, so the tile
@@ -238,6 +240,10 @@ struct DenseArena {
   const T* k;
   const T* v;
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  // optional [B] int32 arena row of each query batch row, read on the device
+  // (the engine's prefill graphs take their slot from device memory); null
+  // means row b reads arena row b
+  const int* rows;
 
   struct Lane {
     const T* k;
@@ -249,7 +255,8 @@ struct DenseArena {
   __host__ __device__ int table_len() const { return 0; }
   __device__ void stage(int, int*, int, int) const {}
   __device__ Lane lane(int b, int h, const int*) const {
-    return {k + b * k_sb + h * k_sh, v + b * v_sb + h * v_sh, k_ss, v_ss};
+    const long long r = rows != nullptr ? rows[b] : b;
+    return {k + r * k_sb + h * k_sh, v + r * v_sb + h * v_sh, k_ss, v_ss};
   }
 };
 
@@ -1010,8 +1017,10 @@ __global__ void __launch_bounds__(HD) decode_combine_kernel(
 // {k_page, k_row, k_h, v_page, v_row, v_h} for the pools.
 
 template <typename T>
-DenseArena<T> dense_arena(const void* k, const void* v, const long long* a) {
-  return {static_cast<const T*>(k), static_cast<const T*>(v), a[0], a[1], a[2], a[3], a[4], a[5]};
+DenseArena<T> dense_arena(const void* k, const void* v, const long long* a,
+                          const void* rows = nullptr) {
+  return {static_cast<const T*>(k), static_cast<const T*>(v), a[0], a[1], a[2], a[3], a[4], a[5],
+          static_cast<const int*>(rows)};
 }
 
 template <typename T>
@@ -1125,19 +1134,20 @@ extern "C" {
 // atpu_decode_part_floats() floats; split_len is a positive multiple of 64.
 int atpu_decode_part_floats() { return PART; }
 
-// Dense arena k/v [B, S, KV, hd].
-int atpu_flash_prefill(const void* q, const void* k, const void* v, const void* pos, void* out,
-                       int dtype, int B, int T_len, int H, int KV, int S,
-                       const long long* strides, float scale, void* stream) {
+// Dense arena k/v [R, S, KV, hd]; rows (nullable) is a device int32 [B]:
+// query row b attends over arena row rows[b] (row b when null).
+int atpu_flash_prefill(const void* q, const void* k, const void* v, const void* pos,
+                       const void* rows, void* out, int dtype, int B, int T_len, int H, int KV,
+                       int S, const long long* strides, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   if (H % KV != 0 || PF_BM % (H / KV) != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return (int)cudaSuccess;
   const long long* a = strides + 3;
   cudaError_t err = dtype == 1
-      ? launch_prefill<bf16>(q, dense_arena<bf16>(k, v, a), p, out, B, T_len, H, KV, S, strides,
-                             scale, s)
-      : launch_prefill<float>(q, dense_arena<float>(k, v, a), p, out, B, T_len, H, KV, S,
+      ? launch_prefill<bf16>(q, dense_arena<bf16>(k, v, a, rows), p, out, B, T_len, H, KV, S,
+                             strides, scale, s)
+      : launch_prefill<float>(q, dense_arena<float>(k, v, a, rows), p, out, B, T_len, H, KV, S,
                               strides, scale, s);
   return (int)err;
 }

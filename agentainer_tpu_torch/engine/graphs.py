@@ -1,9 +1,10 @@
 """The engine's dispatch-ahead plumbing on the card: CUDA graphs of its step
 functions, and pinned host transfers ordered by CUDA events.
 
-Reference: ``agentainer_tpu/engine/llm.py`` — the compiled decode ladder
+Reference: ``agentainer_tpu/engine/llm.py`` — the jitted prefill, compiled
+once per bucket shape (``self._prefill``), the compiled decode ladder
 (``decode_n``, one jitted ``lax.scan`` per rung), the compiled verify step
-per draft bucket (``_verify_fn``), both compiled at warmup, and the
+per draft bucket (``_verify_fn``), all compiled at warmup, and the
 asynchronous token readbacks of its worker loop (``_PIPELINE_DEPTH``). JAX
 compiles a step once and dispatches it without Python; here a step is
 captured once into a ``torch.cuda.CUDAGraph`` and replayed, which launches
@@ -16,7 +17,9 @@ blocking on the value.
   share one memory pool, after a warm eager call of each, and replays them.
   A kernel wrapper called under capture counts in ``.captured``
   (``ops/cuda_attention.py``); each graph keeps what its capture recorded
-  and adds it to the wrappers' ``.launches`` at every replay.
+  and adds it to the wrappers' ``.launches`` at every replay. Replays and
+  capture seconds are also kept per kind of step (a key's first field:
+  ``prefill``, ``decode``, ``verify``).
 - ``HostTransfers`` moves small arrays between the host and the engine's
   stream through pinned buffers: uploads stage into a buffer that is not
   rewritten until the event of its copy has landed, downloads land in a
@@ -124,11 +127,17 @@ class StepGraphs:
         self._capture_stream = torch.cuda.Stream(device)
         self._graphs: dict = {}
         self.replays = 0
+        self.replays_by_kind: collections.Counter = collections.Counter()
         self.capture_s = 0.0
+        self.capture_s_by_kind: dict = {}
         self.pool_bytes = 0
 
     def __len__(self) -> int:
         return len(self._graphs)
+
+    def reset_replays(self) -> None:
+        self.replays = 0
+        self.replays_by_kind.clear()
 
     def capture(self, steps: dict, generator: torch.Generator, sampled: set) -> None:
         """Capture every ``steps[key]()`` into its graph. Each step runs once
@@ -151,8 +160,10 @@ class StepGraphs:
         t0 = time.perf_counter()
         collecting = gc.isenabled()
         gc.disable()
+        by_kind: dict = collections.defaultdict(float)
         try:
             for key, fn in steps.items():
+                t_key = time.perf_counter()
                 graph = torch.cuda.CUDAGraph()
                 if key in sampled:
                     graph.register_generator_state(generator)
@@ -166,11 +177,13 @@ class StepGraphs:
                     (w, w.captured - n) for w, n in zip(KERNEL_WRAPPERS, before) if w.captured > n
                 ]
                 self._graphs[key] = (graph, out, counts)
+                by_kind[key[0]] += time.perf_counter() - t_key
         finally:
             if collecting:
                 gc.enable()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
+        self.capture_s_by_kind = dict(by_kind)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def replay(self, key):
@@ -184,6 +197,7 @@ class StepGraphs:
         for wrapper, n in counts:
             wrapper.launches += n
         self.replays += 1
+        self.replays_by_kind[key[0]] += 1
         return out
 
 
@@ -219,12 +233,17 @@ def compare_replay(graphs: StepGraphs, key, step, state: list, generator: torch.
     }
 
 
-def live_lanes(engine, positions: list[int], temperature: float, seed: int) -> None:
+def live_lanes(
+    engine, positions: list[int], temperature: float, seed: int, prefill_lane: int = 1
+) -> None:
     """Give an idle engine a live state to hold a step graph against its
     eager step (``compare_replay``): lanes 0.. decode from ``positions``
     with random tokens at ``temperature``, every verify bucket holds random
-    drafts of mixed lengths, and, paged, each live lane's blocks up to its
-    position map distinct free pages. ``park_lanes`` undoes it."""
+    drafts of mixed lengths, the prefill inputs hold random tokens for lane
+    ``prefill_lane`` from its position with a final chunk shorter than the
+    smallest bucket, and, paged, each live lane's blocks up to what a verify
+    round or a prefill chunk from its position writes map distinct free
+    pages. ``park_lanes`` undoes it."""
     g = np.random.default_rng(seed)
     vocab = engine.cfg.vocab_size
     with torch.no_grad(), engine._on_stream():
@@ -238,19 +257,25 @@ def live_lanes(engine, positions: list[int], temperature: float, seed: int) -> N
         for k, drafts in engine._vdrafts.items():
             engine._xfer.upload(drafts, g.integers(vocab, size=(engine.max_batch, k)))
         engine._xfer.upload(engine._vdlen, lengths)
+        meta = g.integers(vocab, size=engine._pinput.shape)
+        meta[:3] = (positions[prefill_lane], engine._prefill_buckets[0] - 5, prefill_lane)
+        engine._xfer.upload(engine._pinput, meta)
         if engine.paged:
+            span = max(engine._prefill_buckets[-1], engine.spec_gamma_max + 1)
             with engine._page_lock:
                 free = list(engine._page_free)
                 for i, p in enumerate(positions):
-                    # the blocks a verify round from p may write
-                    n = min(p // engine.page_size + 2, engine._n_blocks)
+                    # the blocks a verify round or a prefill chunk from p
+                    # may write
+                    n = min((p + span) // engine.page_size + 1, engine._n_blocks)
                     engine._bt[i, :n], free = free[:n], free[n:]
             engine._sync_table()
+            engine._pbt.copy_(engine._dbt[prefill_lane : prefill_lane + 1])
 
 
 def park_lanes(engine) -> None:
-    """Park every lane and point every block-table row at its lane's
-    scratch page again."""
+    """Park every lane and the prefill inputs, and point every block-table
+    row at its lane's scratch page again."""
     with torch.no_grad(), engine._on_stream():
         for i in range(engine.max_batch):
             engine._park_lane(i)
@@ -258,3 +283,4 @@ def park_lanes(engine) -> None:
                 with engine._page_lock:
                     engine._bt[i, :] = engine._scratch_page(i)
         engine._sync_table()
+        engine._park_prefill_inputs()

@@ -3,8 +3,8 @@ main path, over the dense KV arena or the paged one.
 
 Reference: ``agentainer_tpu/engine/llm.py`` with its defaults —
 ``prefix_cache``, ``speculative`` and ``deadlines`` on, ``adaptive_decode``
-on, ``paged_kv`` off — and ``fused_decode=False``, ``kv_tiering=False``,
-``streaming=False`` and ``approx_topk=False``. The design carries over:
+on, ``paged_kv``, ``streaming`` and ``approx_topk`` off — and
+``fused_decode=False`` and ``kv_tiering=False``. The design carries over:
 
 - a fixed slot batch ``[max_batch]`` decodes every active sequence each step
   at its own arena position; idle lanes decode at the scratch position
@@ -32,6 +32,12 @@ on, ``paged_kv`` off — and ``fused_decode=False``, ``kv_tiering=False``,
 - ``deadlines``: wall-clock deadlines checked before prefill and on every
   worker iteration, ``cancel(request_id)``, a submit-side shed watermark,
   and ``begin_drain``/``drain``;
+- ``streaming``: ``generate``/``chat(emit=)`` hand a request's tokens to
+  ``emit(start, ids)`` as the worker processes their readbacks (the first
+  token, a decode chunk's used tokens, a verify round's accepted ones), with
+  no extra device sync; the serve layer frames them as SSE;
+- ``approx_topk``: sampled lanes filter over the ``APPROX_SEG`` largest
+  logits (``engine/sampling.py``), a static choice of every sampled step;
 - idempotent by request id: completed results are memoized.
 
 What differs from the reference, and why:
@@ -41,13 +47,20 @@ What differs from the reference, and why:
   carry, the verify inputs and the block table are device buffers
   allocated once and written with ``copy_``, so their addresses never
   change;
-- the reference's compiled steps are CUDA graphs on the card: every decode
-  chunk (one graph per ladder rung, greedy or sampled; the reference's
-  ``lax.scan`` in ``decode_n``) and every verify round (one per draft
-  bucket, greedy or sampled; ``_verify_fn``) is one graph replay, captured
-  by ``warmup`` from the same step functions that run eagerly on the CPU
-  (``engine/graphs.py``). A capture that fails makes warmup raise. Prefill
-  stays eager;
+- the reference's compiled steps are CUDA graphs on the card: every
+  prefill chunk (one graph per reachable bucket; the reference's jitted
+  prefill, compiled per bucket shape), every decode chunk (one graph per
+  ladder rung, greedy or sampled; the reference's ``lax.scan`` in
+  ``decode_n``) and every verify round (one per draft bucket, greedy or
+  sampled; ``_verify_fn``) is one graph replay, captured by ``warmup`` from
+  the same step functions that run eagerly on the CPU
+  (``engine/graphs.py``). A capture that fails makes warmup raise. A
+  prefill step reads its chunk, start, last real index and dense arena row
+  from one static buffer (``_pinput``) and, paged, the lane's block-table
+  row from ``_pbt``; the prefill kernel and the KV write take the arena row
+  from device memory (``KVCache.at_rows``), so one graph per bucket serves
+  every slot; only the last real token's hidden state goes through
+  ``lm_head``, on the CPU as on the card;
 - token readbacks are pipelined as the reference's are
   (``_PIPELINE_DEPTH`` = 1): a chunk's tokens and a prefill's first token
   are copied ``non_blocking`` into pinned host buffers with a CUDA event
@@ -85,10 +98,10 @@ What differs from the reference, and why:
   synthetic draw (``synthetic: true``), or quantized from the seeded random
   init; every weight product runs the fused int8 kernel
   (``ops/cuda_quant.w8a16_matmul``);
-- the other feature flags above are not ported yet: ``create`` raises
-  ``ValueError`` naming any of them that is asked for, as it does for
-  ``tp``/``ep``/``sp``/``pp`` > 1 (with or without ``quant``) and more
-  than one chip.
+- ``fused_decode`` and ``kv_tiering`` are not ported yet: ``create``
+  raises ``ValueError`` naming either when it is asked for, as it does for
+  the reference's ``routed`` MoE option, ``tp``/``ep``/``sp``/``pp`` > 1
+  (with or without ``quant``) and more than one chip.
   ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
@@ -137,10 +150,10 @@ SPEC_MISS_BACKOFF = 4
 SPEC_PROBE_EVERY = 32
 SPEC_LOOKUP_WINDOW = 1024
 
-# reference engine features this slice does not implement yet; /metrics
+# reference engine features the port does not implement yet; /metrics
 # reports each as off. Asking for any of them — or for the reference's
 # routed-MoE option — raises instead of being ignored.
-FEATURE_FLAGS = ("fused_decode", "kv_tiering", "streaming", "approx_topk")
+FEATURE_FLAGS = ("fused_decode", "kv_tiering")
 UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("routed",)
 
 
@@ -275,6 +288,22 @@ class GenRequest:
     # tokens sampled on the device so far (first token + dispatched decode
     # steps): the remaining budget bounds how large a chunk is worth running
     dispatched: int = 0
+    # SSE streaming: called on the worker thread as ``emit(start, ids)``
+    # right after tokens land in ``generated`` (start = offset of ids[0]),
+    # from the readbacks the worker processes anyway; batches arrive in
+    # order and contiguous. None for a buffered request.
+    emit: object = None
+
+    def emit_appended(self, n_new: int) -> None:
+        """Report the last ``n_new`` tokens of ``generated`` to ``emit``
+        (nothing without one). Never raises into the worker: a consumer
+        that went away must not fail the generation."""
+        if self.emit is None or n_new <= 0:
+            return
+        try:
+            self.emit(len(self.generated) - n_new, self.generated[-n_new:])
+        except Exception:
+            pass
 
 
 @dataclass
@@ -301,6 +330,19 @@ class StagedKV:
     pending_token: int | None
     staged_at: float
     alloc_ms: float
+
+
+@dataclass
+class ProfileCmd:
+    """Worker-queue command: record a ``torch.profiler`` trace for
+    ``duration_s``. The worker starts and stops the profiler itself,
+    between dispatches: it is the thread that launches the engine's device
+    work, and the profiler's start and stop must not race those launches.
+    Resolves with the stopped profiler, for the caller to export."""
+
+    duration_s: float
+    loop: asyncio.AbstractEventLoop
+    future: asyncio.Future
 
 
 @dataclass
@@ -443,6 +485,8 @@ class LLMEngine:
         page_size: int = PAGE_SIZE_DEFAULT,
         kv_pages: int = 0,
         inloop_spec: bool = True,
+        streaming: bool = False,
+        approx_topk: bool = False,
         device="cuda",
     ):
         self.cfg = cfg
@@ -487,6 +531,15 @@ class LLMEngine:
         clamped = min(max(PREFILL_BUCKETS[0], prefill_chunk), PREFILL_BUCKETS[-1])
         self.prefill_chunk = max(b for b in PREFILL_BUCKETS if b <= clamped)
         self.scratch_pos = max_seq - 1  # idle-lane write target; never generated into
+        # every bucket a prefill chunk can take: a chunk holds at most
+        # prefill_chunk tokens, and an admitted prompt at most max_seq - 2
+        top_bucket = self._bucket(min(self.prefill_chunk, max(1, max_seq - 2)))
+        self._prefill_buckets = [b for b in PREFILL_BUCKETS if b <= top_bucket]
+        # SSE token streaming: the serve layer streams a request when this is
+        # on (tokens reach it through GenRequest.emit); the approximate
+        # top-k sampler is a static choice of every sampled step
+        self.streaming = bool(streaming)
+        self.approx_topk = bool(approx_topk)
         self.params = params
         dtype = params["final_norm"].dtype
         if self.paged:
@@ -616,6 +669,8 @@ class LLMEngine:
         # restores whose host-to-device copy may be in flight: (event, k, v)
         # — the pinned sources live until their event has landed
         self._restore_staging: collections.deque = collections.deque()
+        # a profile in progress: (profiler, stop instant, its ProfileCmd)
+        self._profile: tuple | None = None
         self.kv_snapshots_total = 0
         self.kv_restores_total = 0
         # per snapshot: position, alloc_ms (its pinned buffers), stage_ms
@@ -671,6 +726,16 @@ class LLMEngine:
             k: torch.zeros((max_batch, k), dtype=torch.long, device=dev) for k in self._spec_buckets
         }
         self._vdlen = torch.zeros((max_batch,), dtype=torch.long, device=dev)
+        # prefill inputs, one static buffer for every bucket: [start
+        # position, index of the last real token, dense arena row] then the
+        # bucket's tokens; the paged step reads the lane's block-table row
+        # from ``_pbt``, copied from the table before each chunk
+        self._pinput = torch.zeros(
+            (3 + self._prefill_buckets[-1],), dtype=torch.long, device=dev
+        )
+        self._pbt = (
+            torch.zeros((1, self._n_blocks), dtype=torch.int32, device=dev) if self.paged else None
+        )
 
         # a checkpoint load's bytes_read and seconds (create sets it)
         self.checkpoint_load: dict = {}
@@ -770,6 +835,8 @@ class LLMEngine:
             page_size=int(options.get("page_size", PAGE_SIZE_DEFAULT) or PAGE_SIZE_DEFAULT),
             kv_pages=int(options.get("kv_pages", 0) or 0),
             inloop_spec=bool(options.get("inloop_spec", True)),
+            streaming=bool(options.get("streaming", False)),
+            approx_topk=bool(options.get("approx_topk", False)),
             device=device,
         )
         engine.checkpoint_load = load_stats
@@ -786,9 +853,14 @@ class LLMEngine:
         first-use cost (kernel build and load, library handles, allocator
         growth) is paid here instead of by the first user request; on the
         card the steps run eagerly while warmup serves, and then every step
-        graph is captured (``capture_step_graphs``; a capture that fails
-        raises here). Serving telemetry from warmup is dropped at the end."""
-        top_bucket = self._bucket(min(self.prefill_chunk, max(1, self.max_seq - 2)))
+        graph — prefill buckets, decode rungs, verify buckets — is captured
+        (``capture_step_graphs``; a capture that fails raises here). Serving
+        telemetry from warmup is dropped at the end.
+
+        Warmup serves once: after the captures (which empty the
+        allocator's cache) only a chunk's first-token sample (a few bytes)
+        and a prefix registration's copies allocate outside the graphs'
+        pool, so there is no eager step left for a second pass to warm."""
         filler = min(5, self.cfg.vocab_size - 1)
 
         async def _one(n_prompt: int, mt: int) -> None:
@@ -806,9 +878,7 @@ class LLMEngine:
             await req.future
 
         async def _serve_all() -> None:
-            for b in PREFILL_BUCKETS:
-                if b > top_bucket:
-                    break
+            for b in self._prefill_buckets:
                 n = max(1, min(b, self.max_seq - 2))
                 mt = max(1, min(self.decode_chunk, self.max_seq - 1 - n))
                 await _one(n, mt)
@@ -854,11 +924,6 @@ class LLMEngine:
                         k, v = self._prefix_slice(0, b)
                         self._prefix_fork(0, k, v)
             self.capture_step_graphs()
-            if self._graphs is not None:
-                # serve again, through the graphs: the captures emptied the
-                # allocator's cache, which eager prefill would otherwise
-                # refill on the first user request
-                serve_pass()
         finally:
             self._prefix_active = self.prefix_cache
             self._spec_active = self.speculative
@@ -886,7 +951,7 @@ class LLMEngine:
         self.decode_steps = 0
         self.host_syncs_total = 0
         if self._graphs is not None:
-            self._graphs.replays = 0
+            self._graphs.reset_replays()
         self._occupancy_sum = 0.0
         self.flops_done = 0.0
         self.hbm_bytes_read = 0.0
@@ -894,10 +959,13 @@ class LLMEngine:
         self._started_at = time.monotonic()
 
     def _step_keys(self) -> list[tuple]:
-        """Every step the worker dispatches: ("decode", rung, all_greedy)
-        for each decode-ladder rung and ("verify", K, all_greedy) for each
-        verify bucket (with speculation on)."""
-        keys = [("decode", c, g) for c in self._decode_ladder for g in (True, False)]
+        """Every step the worker dispatches: ("prefill", bucket, True) for
+        each reachable prefill bucket (the first token is sampled after the
+        step, so it draws nothing), ("decode", rung, all_greedy) for each
+        decode-ladder rung and ("verify", K, all_greedy) for each verify
+        bucket (with speculation on)."""
+        keys = [("prefill", b, True) for b in self._prefill_buckets]
+        keys += [("decode", c, g) for c in self._decode_ladder for g in (True, False)]
         if self.speculative:
             keys += [("verify", k, g) for k in self._spec_buckets for g in (True, False)]
         return keys
@@ -906,20 +974,34 @@ class LLMEngine:
         """The eager step function of ``key``: what the CPU runs and what a
         graph captures."""
         kind, n, all_greedy = key
+        if kind == "prefill":
+            return functools.partial(self._prefill_step, n)
         fn = self._decode_steps if kind == "decode" else self._verify_step
         return functools.partial(fn, n, all_greedy)
 
+    def _park_prefill_inputs(self) -> None:
+        """Point the prefill inputs where a step writes nothing live: from
+        the scratch position of arena row 0 (dense; the positions past it
+        land in the spare slot) or through lane 0's scratch page (paged)."""
+        meta = np.zeros(self._pinput.shape, dtype=np.int64)
+        meta[0] = self.scratch_pos
+        self._xfer.upload(self._pinput, meta)
+        if self.paged:
+            self._pbt.fill_(self._scratch_page(0))
+
     def capture_step_graphs(self) -> None:
         """Capture every step (``_step_keys``) into a CUDA graph, with every
-        lane parked, and park them again after. On the CPU there is nothing
-        to capture: the steps run eagerly. Raises if a capture fails; the
-        engine then does not come up."""
+        lane parked and the prefill inputs at scratch, and park them again
+        after. On the CPU there is nothing to capture: the steps run
+        eagerly. Raises if a capture fails; the engine then does not come
+        up."""
         if self._graphs is None:
             return
         keys = self._step_keys()
         sampled = {k for k in keys if not k[2]}
         with torch.no_grad(), self._on_stream():
             self._sync_table()
+            self._park_prefill_inputs()
             self._graphs.capture({k: self._step_fn(k) for k in keys}, self._gen, sampled)
             # a graph's first launch uploads it to the device, a host cost
             # paid here rather than in a user request's first chunk
@@ -941,11 +1023,11 @@ class LLMEngine:
 
     def _device_state(self) -> list[torch.Tensor]:
         """Every device tensor a step reads or writes: the carry, the verify
-        inputs, the block table and the KV arena or pools."""
+        and prefill inputs, the block tables and the KV arena or pools."""
         state = [self._dtok, self._dpos, self._dtemps, self._dtopk, self._dtopp, self._vdlen]
-        state += list(self._vdrafts.values())
+        state += [*self._vdrafts.values(), self._pinput]
         if self.paged:
-            state += [self._dbt, self.cache.k, self.cache.v]
+            state += [self._dbt, self._pbt, self.cache.k, self.cache.v]
         else:
             state += [self.cache.k_store, self.cache.v_store]
         return state
@@ -973,9 +1055,12 @@ class LLMEngine:
         ignore_eos: bool = False,
         top_k: int = 0,
         top_p: float = 1.0,
+        emit=None,
     ) -> dict:
         """``deadline_at`` is a wall-clock instant (``time.time()``), honoured
-        with ``deadlines`` on and ignored with it off. Raises
+        with ``deadlines`` on and ignored with it off. ``emit(start, ids)``
+        receives the tokens as they reach the host (``GenRequest.emit``); a
+        memoized replay returns its result without calling it. Raises
         ``EngineDraining`` while draining and ``EngineOverloaded`` past the
         shed watermark, before anything is queued."""
         if request_id:
@@ -1005,6 +1090,7 @@ class LLMEngine:
             ignore_eos=ignore_eos,
             top_k=max(0, int(top_k)),
             top_p=min(1.0, max(0.0, float(top_p))) if top_p is not None else 1.0,
+            emit=emit,
         )
         self._submit(req)
         result = await req.future
@@ -1023,6 +1109,7 @@ class LLMEngine:
         request_id: str = "",
         deadline_at: float | None = None,
         ignore_eos: bool = False,
+        emit=None,
     ) -> dict:
         return await self.generate(
             prompt=message,
@@ -1032,6 +1119,7 @@ class LLMEngine:
             session=session or "default",
             deadline_at=deadline_at,
             ignore_eos=ignore_eos,
+            emit=emit,
         )
 
     def cancel(self, request_id: str) -> bool:
@@ -1125,6 +1213,17 @@ class LLMEngine:
         })
         return blob
 
+    async def profile(self, duration_s: float):
+        """Record a ``torch.profiler`` trace of the engine's work for
+        ``duration_s`` seconds (the card's kernels and the CPU's operators;
+        the CPU's only on the CPU); returns the stopped profiler (export it
+        with ``export_chrome_trace``). The worker starts and stops it
+        between dispatches (``ProfileCmd``); one capture at a time."""
+        loop = asyncio.get_running_loop()
+        cmd = ProfileCmd(duration_s=float(duration_s), loop=loop, future=loop.create_future())
+        self._submit(cmd)
+        return await cmd.future
+
     async def restore_session(self, session: str, blob: bytes) -> bool:
         """Load a snapshot blob into the arena for ``session``, through the
         worker. False when it does not fit (at or past ``max_seq - 1``, a
@@ -1209,7 +1308,16 @@ class LLMEngine:
             "graph_replays": self._graphs.replays if self._graphs is not None else 0,
             "graph_capture_s": self._graphs.capture_s if self._graphs is not None else None,
             "graph_pool_bytes": self._graphs.pool_bytes if self._graphs is not None else None,
+            # the prefill graphs' share of the two above
+            "prefill_graph_replays": (
+                self._graphs.replays_by_kind["prefill"] if self._graphs is not None else 0
+            ),
+            "prefill_graph_capture_s": (
+                self._graphs.capture_s_by_kind.get("prefill") if self._graphs is not None else None
+            ),
             **{flag: False for flag in FEATURE_FLAGS},
+            "streaming": self.streaming,
+            "approx_topk": self.approx_topk,
             # self-speculative decoding (the reference's keys)
             "speculative": self.speculative,
             "inloop_spec": self.inloop_spec,
@@ -1330,6 +1438,7 @@ class LLMEngine:
         except Exception as e:  # recorded and reported: /metrics last_worker_error
             self._note_error(e)
         finally:
+            self._profile_tick(stop=True)
             # nothing may hang on a dead worker: fail queued, waiting and
             # in-flight work whether the loop ended or crashed
             self._running = False
@@ -1344,6 +1453,7 @@ class LLMEngine:
         slot later, so the copy and the host's bookkeeping ride under the
         next chunk's compute."""
         while self._running and not self._sentinel:
+            self._profile_tick()
             busy = any(s.request is not None for s in self.slots) or bool(self._readbacks)
             self._pump_queue(0.0 if (busy or self._waiting) else 0.2)
             if self._sentinel:
@@ -1434,6 +1544,8 @@ class LLMEngine:
                     self._do_restore(item)
                 elif isinstance(item, SnapshotCmd):
                     self._do_snapshot(item)
+                elif isinstance(item, ProfileCmd):
+                    self._start_profile(item)
                 elif self._pre_reject(item):
                     pass  # cancelled or expired before prefill: already failed
                 elif not self._try_admit(item):
@@ -1446,6 +1558,34 @@ class LLMEngine:
                 self._note_error(e)
                 self._fail_item(item, e)
         self._waiting = still
+
+    def _start_profile(self, cmd: ProfileCmd) -> None:
+        """Start the profiler on the worker thread (between dispatches)."""
+        if self._profile is not None:
+            self._fail_item(cmd, RuntimeError("profile already running"))
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        self._profile = (prof, time.monotonic() + cmd.duration_s, cmd)
+
+    def _profile_tick(self, stop: bool = False) -> None:
+        """Stop a profile whose time is up (or any, with ``stop``) and hand
+        the profiler to its caller."""
+        if self._profile is None:
+            return
+        prof, until, cmd = self._profile
+        if not stop and time.monotonic() < until:
+            return
+        self._profile = None
+        try:
+            prof.stop()
+        except Exception as e:
+            self._fail_item(cmd, e)
+            return
+        cmd.loop.call_soon_threadsafe(_resolve, cmd.future, prof)
 
     def _take_cancel(self, request_id: str) -> bool:
         with self._lock:
@@ -1868,6 +2008,7 @@ class LLMEngine:
             torch.full((1,), req.top_k, dtype=torch.long, device=dev),
             torch.full((1,), req.top_p, dtype=torch.float32, device=dev),
             all_greedy=req.temperature <= 0.0,
+            approx_topk=self.approx_topk,
         )
         # the lane continues from the sampled token WITHOUT waiting for it to
         # reach the host; the value lands through the readback FIFO
@@ -1883,23 +2024,46 @@ class LLMEngine:
         self._push_readback(Readback("first", host, event, slot=slot, req=req))
 
     def _prefill(self, slot_idx: int, padded: list[int], start: int, n_real: int) -> torch.Tensor:
-        """One bucket-padded prompt chunk at positions ``start...`` through
-        the model, eagerly. K/V land in the slot's arena row IN PLACE through
-        a row view (the reference slices the row out of the donated cache and
-        writes it back), or in the pool through the lane's block-table row.
+        """Dispatch one bucket-padded prompt chunk at positions
+        ``start...``: its bucket's graph replay on the card, the step
+        function on the CPU (the reference's jitted prefill, one compile per
+        bucket). The chunk, its start, its last real index and the slot's
+        arena row go into the static prefill inputs in one upload; paged,
+        the lane's block-table row is copied into ``_pbt`` on the device.
         Returns the last real token's logits [V]."""
-        dev = self.device
-        tokens = torch.empty((1, len(padded)), dtype=torch.long, device=dev)
-        self._xfer.upload(tokens, np.asarray([padded], dtype=np.int64))
-        pos = torch.arange(start, start + len(padded), dtype=torch.int32, device=dev)[None]
+        bucket = len(padded)
+        meta = np.empty((3 + bucket,), dtype=np.int64)
+        meta[:3] = (start, n_real - 1, slot_idx)
+        meta[3:] = padded
+        self._xfer.upload(self._pinput[: 3 + bucket], meta)
         if self.paged:
             self._sync_table()
-            cache, table = self.cache, self._dbt[slot_idx : slot_idx + 1]
-        else:
-            cache, table = self.cache.row(slot_idx), None
-        logits = forward(self.params, self.cfg, tokens, pos, cache, block_table=table)
+            self._pbt.copy_(self._dbt[slot_idx : slot_idx + 1])
+        logits = self._run_step(("prefill", bucket, True))
         self.prefill_chunks += 1
-        return logits[0, n_real - 1]
+        return logits
+
+    def _prefill_step(self, bucket: int) -> torch.Tensor:
+        """The prefill step function of one bucket, over the static prefill
+        inputs: the chunk's tokens at positions ``start + arange(bucket)``
+        through the model, K/V written IN PLACE into the arena row the
+        inputs name (the kernel and the KV write read the row from device
+        memory) or into the pool through ``_pbt``. Only the last real
+        token's hidden state goes through ``lm_head``. Returns its logits
+        [V] (the reference slices them out of the full chunk's)."""
+        meta = self._pinput
+        tokens = meta[3 : 3 + bucket][None]
+        pos = meta[0:1, None].to(torch.int32) + torch.arange(
+            bucket, dtype=torch.int32, device=self.device
+        )[None]
+        if self.paged:
+            cache, table = self.cache, self._pbt
+        else:
+            cache, table = self.cache.at_rows(meta[2:3].to(torch.int32)), None
+        logits = forward(
+            self.params, self.cfg, tokens, pos, cache, block_table=table, last_index=meta[1:2]
+        )
+        return logits[0, 0]
 
     def _sync_table(self) -> None:
         """Bring the device block table up to the host's, in place, if the
@@ -1941,7 +2105,7 @@ class LLMEngine:
             )
             nxt = sample_step(
                 logits[:, 0], self._gen, self._dtemps, self._dtopk, self._dtopp,
-                all_greedy=all_greedy,
+                all_greedy=all_greedy, approx_topk=self.approx_topk,
             )
             self._dtok.copy_(nxt)
             # clamp: parked lanes decode forever at the scratch position; real
@@ -2133,7 +2297,8 @@ class LLMEngine:
             (vocab == draft_a[:, None]) & (a < dl)[:, None], torch.full_like(row_a, NEG_INF), row_a
         )
         bonus = sample_step(
-            row_a, self._gen, self._dtemps, self._dtopk, self._dtopp, all_greedy=all_greedy
+            row_a, self._gen, self._dtemps, self._dtopk, self._dtopp, all_greedy=all_greedy,
+            approx_topk=self.approx_topk,
         )
         m = torch.arange(k + 1, device=dev)[None]
         shifted = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
@@ -2306,6 +2471,7 @@ class LLMEngine:
                     hit_eos = True
                     break
             req.generated.extend(int(t) for t in outs[:used])
+            req.emit_appended(used)
             req.dispatched += c
             self.tokens_generated += used
             total_used += used
@@ -2432,6 +2598,7 @@ class LLMEngine:
         req.ttft_ms = 1000 * (now - req.submitted_at)
         self.ttft_ms_recent.append(req.ttft_ms)
         req.generated.append(first_id)
+        req.emit_appended(1)
         self.tokens_generated += 1
         if len(req.generated) >= req.max_tokens or (
             not req.ignore_eos and first_id == self.tokenizer.eos_id
@@ -2463,6 +2630,7 @@ class LLMEngine:
                     hit_eos = True
                     break
             req.generated.extend(int(t) for t in outs[:used])
+            req.emit_appended(used)
             self.tokens_generated += used
             self.flops_done += used * self.cfg.flops_per_token(start + used // 2)
             finished = hit_eos or len(req.generated) >= req.max_tokens

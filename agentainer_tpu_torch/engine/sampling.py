@@ -1,10 +1,13 @@
 """Token sampling: greedy / temperature / top-k / top-p.
 
 Reference: ``agentainer_tpu/engine/sampling.py`` (``sample``,
-``sample_step``). Filters are masks over the full vocab so one call serves a
-batch mixing greedy and filtered lanes; the exact path pays ONE descending
-sort shared by the top-k threshold and the top-p cumulative. The opt-in
-``approx_topk`` segment sampler is not ported yet.
+``sample_step``, ``APPROX_SEG``). Filters are masks over the full vocab so
+one call serves a batch mixing greedy and filtered lanes; the exact path
+pays ONE descending sort shared by the top-k threshold and the top-p
+cumulative. The opt-in ``approx_topk`` path (the reference's ``_approx``)
+takes both from the ``APPROX_SEG`` largest logits instead of a sort: the
+reference's ``jax.lax.approx_max_k`` is exact top-k off the TPU, and here it
+is ``torch.topk``, so the keep sets equal the reference's on the CPU.
 
 Random draws come from an explicit ``torch.Generator`` (Gumbel-max over the
 scaled logits). They cannot reproduce JAX's threefry stream: across the two
@@ -16,30 +19,42 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# the approximate sampler's segment (the reference's): top_k clamps to it,
+# and top-p renormalizes over its mass
+APPROX_SEG = 128
 
 
 def filter_logits(
     logits: torch.Tensor,  # [B, V] float32
     top_k: torch.Tensor,  # [B] int, <= 0 → disabled
     top_p: torch.Tensor,  # [B] float, >= 1 → disabled
+    approx_topk: bool = False,
 ) -> torch.Tensor:
     """Per-lane top-k then top-p: dropped tokens become NEG_INF, kept ones
     keep their logit untouched. A lane whose filters are off is returned
-    unchanged."""
+    unchanged. ``approx_topk`` reads both thresholds off the ``APPROX_SEG``
+    largest logits (descending) instead of the sorted row: top_k clamps to
+    the segment, and the top-p cutoff to its last entry, so a flat
+    distribution keeps the segment."""
     V = logits.shape[-1]
-    # ONE shared descending sort: the top-k threshold reads it at k - 1, and
-    # masking it below kth reproduces sort(filtered) for the top-p cumulative
-    desc = torch.sort(logits, dim=-1, descending=True).values
-    k_eff = top_k.long().clamp(1, V)
+    if approx_topk:
+        desc = torch.topk(logits, min(V, APPROX_SEG), dim=-1, sorted=True).values
+    else:
+        # ONE shared descending sort: the top-k threshold reads it at k - 1,
+        # and masking it below kth reproduces sort(filtered) for the top-p
+        # cumulative
+        desc = torch.sort(logits, dim=-1, descending=True).values
+    n = desc.shape[-1]
+    k_eff = top_k.long().clamp(1, n)
     kth = torch.gather(desc, 1, (k_eff - 1)[:, None])  # [B, 1]
     k_on = (top_k > 0)[:, None]
     neg = torch.full_like(logits, NEG_INF)
     filtered = torch.where(k_on & (logits < kth), neg, logits)
-    sorted_logits = torch.where(k_on & (desc < kth), neg, desc)
+    sorted_logits = torch.where(k_on & (desc < kth), NEG_INF, desc)
 
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
-    cutoff_idx = (cum < top_p[:, None]).sum(dim=-1).clamp(max=V - 1)  # [B]
+    cutoff_idx = (cum < top_p[:, None]).sum(dim=-1).clamp(max=n - 1)  # [B]
     cutoff_logit = torch.gather(sorted_logits, 1, cutoff_idx[:, None])
     p_on = (top_p < 1.0)[:, None]
     return torch.where(p_on & (filtered < cutoff_logit), neg, filtered)
@@ -94,14 +109,13 @@ def sample_step(
     (``lax.cond``); eager PyTorch would need a host sync to read the flag,
     so callers that know it on the host (the engine does: it owns the
     lanes' sampling parameters) pass ``all_greedy``; None reads it from
-    ``temperature``."""
-    if approx_topk:
-        raise ValueError("approx_topk is not supported by the port yet")
+    ``temperature``. ``approx_topk`` (static) filters over the
+    ``APPROX_SEG`` segment (``filter_logits``); greedy lanes are unaffected."""
     greedy = torch.argmax(logits, dim=-1)
     if all_greedy is None:
         all_greedy = bool((temperature <= 0.0).all())
     if all_greedy:
         return greedy
-    filtered = filter_logits(logits, top_k, top_p)
+    filtered = filter_logits(logits, top_k, top_p, approx_topk)
     sampled = _draw(filtered, temperature, generator)
     return torch.where(temperature <= 0.0, greedy, sampled)

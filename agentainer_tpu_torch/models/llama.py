@@ -47,11 +47,17 @@ class KVCache:
     padding can run past the arena end), while torch's ``index_put_`` raises
     on the CPU and asserts on the card. Out-of-range writes are redirected
     to the spare slot S, which attention never reads — the same effect
-    without a host sync to filter them. ``k``/``v`` are views without it."""
+    without a host sync to filter them. ``k``/``v`` are views without it.
 
-    def __init__(self, k_store: torch.Tensor, v_store: torch.Tensor):
+    ``rows`` (a device int tensor ``[B']``, see ``at_rows``) makes batch row
+    b of a forward write and attend arena row ``rows[b]``: the arena row is
+    read from device memory, so a CUDA graph of the forward serves
+    whichever slot the buffer names."""
+
+    def __init__(self, k_store: torch.Tensor, v_store: torch.Tensor, rows=None):
         self.k_store = k_store
         self.v_store = v_store
+        self.rows = rows
 
     @staticmethod
     def create(
@@ -80,12 +86,20 @@ class KVCache:
         this arena (the reference slices the row and writes it back)."""
         return KVCache(self.k_store[:, b : b + 1], self.v_store[:, b : b + 1])
 
+    def at_rows(self, rows: torch.Tensor) -> "KVCache":
+        """The whole arena, addressed through ``rows`` (int32 ``[B']`` on the
+        arena's device): batch row b of a forward is arena row rows[b]."""
+        return KVCache(self.k_store, self.v_store, rows)
+
     def write(self, layer: int, positions: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         """In-place scatter of this step's k/v [B, T, KV, hd] at per-row
-        ``positions`` [B, T] (the reference's donated ``.at[].set``)."""
+        ``positions`` [B, T] (the reference's donated ``.at[].set``), into
+        arena rows ``rows`` when set."""
         s = self.max_seq
         idx = torch.where((positions >= 0) & (positions < s), positions, s).long()
-        b_idx = torch.arange(k.shape[0], device=k.device)[:, None].expand_as(idx)
+        b_idx = (
+            torch.arange(k.shape[0], device=k.device) if self.rows is None else self.rows.long()
+        )[:, None].expand_as(idx)
         self.k_store[layer].index_put_((b_idx, idx), k)
         self.v_store[layer].index_put_((b_idx, idx), v)
 
@@ -188,7 +202,9 @@ def _attention_block(
         # scatter this step's K/V into the arena at per-sequence positions,
         # then attend over this layer's arena view
         cache.write(layer, positions, k, v)
-        attn = cache_attention(q, cache.k[layer], cache.v[layer], positions, use_kernel=use_flash)
+        attn = cache_attention(
+            q, cache.k[layer], cache.v[layer], positions, use_kernel=use_flash, rows=cache.rows
+        )
     elif use_flash:
         attn = flash_attention(q, k, v, causal=True)
     else:
@@ -205,8 +221,12 @@ def forward(
     cache: KVCache | PagedKVCache | None = None,
     use_flash: bool = True,
     block_table: torch.Tensor | None = None,  # [B, n_blocks] int
+    last_index: torch.Tensor | None = None,  # [B] int
 ) -> torch.Tensor:
-    """Returns logits [B, T, V] in f32.
+    """Returns logits [B, T, V] in f32; with ``last_index`` only row
+    ``last_index[b]`` of each sequence goes through the final norm and
+    ``lm_head``, and the logits are [B, 1, V] (a prefill chunk needs its last
+    real token's only).
 
     With a cache: serves prefill (T = prompt chunk) and decode (T = 1) with
     per-sequence positions, writing K/V into ``cache`` IN PLACE (the
@@ -227,6 +247,8 @@ def forward(
         x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash, block_table)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _mlp(h, lp)
+    if last_index is not None:
+        x = x.gather(1, last_index.long()[:, None, None].expand(-1, 1, x.shape[-1]))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return qmatmul(x, params["lm_head"]).float()
 

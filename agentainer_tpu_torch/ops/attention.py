@@ -96,6 +96,7 @@ def cache_attention(
     cv: torch.Tensor,  # [B, S, KV, hd]
     positions: torch.Tensor,  # [B, T] int per-sequence absolute positions
     use_kernel: bool = True,
+    rows: torch.Tensor | None = None,  # [B] int arena row of each sequence
 ) -> torch.Tensor:
     """Attention over the KV arena: row t sees slot j iff j <= positions[b,t].
 
@@ -103,9 +104,16 @@ def cache_attention(
     card it sends T > 1 to ``flash_prefill`` and T == 1 to
     ``flash_decode``; on the CPU — or with ``use_kernel=False``, the
     reference's ``use_pallas=False`` — it materializes ``cache_mask`` and
-    runs the plain reference."""
+    runs the plain reference. ``rows`` sends sequence b to arena row
+    rows[b] (the prefill kernel reads it on the device; elsewhere the rows
+    are gathered first)."""
+    if rows is not None and not (use_kernel and _on_card(q) and q.shape[1] > 1):
+        ck, cv = ck.index_select(0, rows.long()), cv.index_select(0, rows.long())
+        rows = None
     if use_kernel and _on_card(q):
         pos = positions.to(torch.int32)
+        if rows is not None:
+            return flash_prefill(q, ck, cv, pos, rows.to(torch.int32))
         if q.shape[1] == 1:
             return flash_decode(q[:, 0], ck, cv, pos[:, 0])[:, None]
         return flash_prefill(q, ck, cv, pos)

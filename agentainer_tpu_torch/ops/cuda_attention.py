@@ -98,8 +98,11 @@ def _attend_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch
     return out / l.permute(0, 3, 1, 2, 4)
 
 
-def flash_prefill_plain(q, k, v, q_positions) -> torch.Tensor:
-    """Plain PyTorch ``flash_prefill``: q [B, T, H, hd] → [B, T, H, hd]."""
+def flash_prefill_plain(q, k, v, q_positions, rows=None) -> torch.Tensor:
+    """Plain PyTorch ``flash_prefill``: q [B, T, H, hd] → [B, T, H, hd];
+    with ``rows`` ([B] int), query row b attends over arena row rows[b]."""
+    if rows is not None:
+        k, v = k.index_select(0, rows.long()), v.index_select(0, rows.long())
     b, t, h, hd = q.shape
     kv = k.shape[2]
     out = _attend_plain(q.reshape(b, t, kv, h // kv, hd), k, v, q_positions)
@@ -147,7 +150,7 @@ def _lib() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: without argtypes ctypes
     # passes Python ints as 32-bit C ints and cuts the pointers
     lib.atpu_flash_prefill.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
     ]
     lib.atpu_flash_prefill.restype = i32
     lib.atpu_flash_decode.argtypes = [
@@ -173,11 +176,13 @@ def _decode_part_floats() -> int:
     return _lib().atpu_decode_part_floats()
 
 
-def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
+def _check_cuda(name: str, q, k, v, positions, table=None, rows=None) -> None:
     """What the kernels take: everything on q's CUDA device, one dtype for
     q/k/v, int32 positions, a kernel-shaped head, 16-byte aligned strides;
     for the paged kernels k/v are the pools and ``table`` an int32
-    ``[B, n_blocks]`` block table, contiguous in its last axis."""
+    ``[B, n_blocks]`` block table, contiguous in its last axis; a dense
+    prefill's ``rows`` is a contiguous int32 ``[B]``, and without it the
+    arena has q's batch."""
     if not kernel_supported(q.shape[-2], k.shape[2], q.shape[-1]) or k.shape[-1] != HEAD_DIM:
         raise ValueError(
             f"{name}: unsupported shape q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -193,6 +198,14 @@ def _check_cuda(name: str, q, k, v, positions, table=None) -> None:
             )
         if table.stride(-1) != 1:
             raise ValueError(f"{name}: block_table must be contiguous in its last axis")
+    if rows is not None:
+        tensors["rows"] = rows
+        if rows.dtype != torch.int32 or tuple(rows.shape) != (q.shape[0],) or rows.stride(0) != 1:
+            raise ValueError(
+                f"{name}: rows must be a contiguous int32 [B], got {rows.dtype} {tuple(rows.shape)}"
+            )
+    elif table is None and k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: arena batch {k.shape[0]} != q batch {q.shape[0]} without rows")
     for key, x in tensors.items():
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name}: {key} must be on q's CUDA device, got {x.device}")
@@ -239,12 +252,15 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
-def flash_prefill(q, k, v, q_positions) -> torch.Tensor:
+def flash_prefill(q, k, v, q_positions, rows=None) -> torch.Tensor:
     """Ragged cached causal GQA attention: q [B, T, H, hd] over the arena
-    k/v [B, S, KV, hd]; row t sees slot j iff j <= q_positions[b, t]."""
+    k/v [B, S, KV, hd]; row t sees slot j iff j <= q_positions[b, t].
+    ``rows`` (an int32 [B] on the device; the arena may then have any number
+    of rows) sends query row b to arena row rows[b], read by the kernel, so
+    a CUDA graph of the call serves whichever slot the buffer names."""
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, q_positions)
-    _check_cuda("flash_prefill", q, k, v, q_positions)
+        return flash_prefill_plain(q, k, v, q_positions, rows)
+    _check_cuda("flash_prefill", q, k, v, q_positions, rows=rows)
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -252,7 +268,8 @@ def flash_prefill(q, k, v, q_positions) -> torch.Tensor:
         (q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (q_positions, (0, 1)), (out, (0, 1, 2))
     )
     err = _lib().atpu_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        rows.data_ptr() if rows is not None else None, out.data_ptr(),
         _DTYPES[q.dtype], b, t, h, kv, s, st, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -15,7 +15,10 @@ exits non-zero):
                  shared page and a parked lane): in bf16 within one bf16
                  rounding of the plain output (plus the stated P rounding
                  for the tensor-core prefill), and on the same inputs in f32
-                 within 2e-5; kernel / plain / library times in bf16 (device
+                 within 2e-5 (the dense prefill also as the engine's
+                 prefill graphs call it: the whole [8, 2048] arena with the
+                 slot's row in device memory, bit-equal to the call on the
+                 row's view); kernel / plain / library times in bf16 (device
                  span of single calls in a torch.profiler trace, with a cold
                  L2, in turns, median and spread; for the paged kernels,
                  which no single library call computes, gather + SDPA as a
@@ -67,15 +70,27 @@ exits non-zero):
                  prefill kernel's launches equal 32 layers × (prefill chunks
                  + verify rounds); the dense and paged scripts give the same
                  text.
+   stream      — inside each feature phase (the engines run with the
+                 ``streaming`` option): one streamed /chat whose ids run
+                 0..n-1 and whose joined deltas and ``done`` equal the
+                 buffered /chat of the same prompt in another session,
+                 with the buffered request's host syncs.
    graphs      — inside each feature phase, after its served gates, on
                  the same engine (llama3-8b, full width and depth, bf16):
                  from one saved state with lanes 0-3 live at 40 / 300 / 777
-                 / 1500 and lanes 4-7 parked, every captured step graph
-                 (decode rungs 1/2/4/8 and verify buckets K 2/4/8) against
-                 its eager step function: greedy tokens, carry, verify
-                 inputs, block table and KV arena or pool bytes equal bit
-                 for bit; sampled, two replays from one generator state
-                 give the same tokens.
+                 / 1500 and lanes 4-7 parked and the prefill inputs set for
+                 lane 1 from 300, every captured step graph (prefill
+                 buckets 32/64/128/256, decode rungs 1/2/4/8 and verify
+                 buckets K 2/4/8) against its eager step function: greedy
+                 tokens or logits, carry, verify and prefill inputs, block
+                 tables and KV arena or pool bytes equal bit for bit;
+                 sampled, two replays from one generator state give the
+                 same tokens.
+   main extras — on the dense bf16 feature engine only: it samples through
+                 ``approx_topk`` (three sampled /generate requests), serves
+                 ``/profile`` while a long /chat decodes (the trace names
+                 the port's kernels), and an ``assistant``-flavor app
+                 attached to it (no second load) serves two turns.
    int8        — the feature phases again with ``quant: int8, synthetic:
    (dense,       true`` (int8 weights drawn on the card), dense then paged:
    then paged)   the same gates, plus ``param_hbm_bytes`` = 8,033,544,704,
@@ -120,7 +135,10 @@ exits non-zero):
                  within 3e-2 of the largest logit.
 
 Every served phase runs on the engine's CUDA graphs with pipelined
-readbacks, and must replay graphs (``graph_replays`` > 0).
+readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
+chunk is one prefill graph replay (``prefill_graph_replays`` =
+``prefill_chunks``), and each phase reports its prefill graphs' replays and
+capture seconds and its engine-up seconds.
 
 Stdout ends with five lines: each served phase's pipeline numbers (graph
 replays, ``host_syncs_per_token``, ITL and TTFT p50, graph capture seconds
@@ -135,6 +153,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -225,6 +244,7 @@ SPIN_CYCLES = 2_000_000  # ~1 ms of device spin before each call: the host runs 
 MARK_CYCLES = 1_000  # the spin that parts a flush from the call after it
 TAIL_CYCLES = 400_000_000  # ~0.2 s of spin after a row: the last clock sample reads a busy card
 TRACE_ATTEMPTS = 3  # traces of a row taken before a lost device record fails it
+HANG_DUMP_S = 1150  # past this the script dumps its threads' stacks and exits
 SOURCE = "agentainer_tpu_torch/csrc/flash_attention.cu"
 TIMING = (
     "device span of one call (first start to last end of its device activities in a "
@@ -488,8 +508,19 @@ def phase_kernels() -> list[dict]:
     visible = (pos.clamp(max=S - 1) + 1).sum().item()  # visible slots summed over rows
     live = pos.max().item() + 1
     bytes_moved = 2 * (2 * q.numel() + 2 * b * live * KV * HD)  # q, out, live K and V
+    # the served call: the engine's prefill graphs pass the whole arena
+    # [B, S] and the slot's row in device memory
+    ka, va = randn(B, S, KV, HD), randn(B, S, KV, HD)
+    rows = torch.tensor([5], device=dev, dtype=torch.int32)
+    slot_row = _compare(
+        ca.flash_prefill, ca.flash_prefill_plain, (q, ka, va), (pos, rows), BF16_ATOL + BF16_P_ATOL
+    )
+    if not torch.equal(ca.flash_prefill(q, ka, va, pos, rows), ca.flash_prefill(q, ka[5:6], va[5:6], pos)):
+        raise AssertionError("flash_prefill through a row map differs from the same call on the row's view")
+    slot_row.update(equal_to_row_view=True, shape=f"q[{b},{t},{H},{HD}] kv[{B},{S},{KV},{HD}] bf16, rows [5]")
+    del ka, va
     out.append(_row(
-        "flash_prefill", 157, **errs,
+        "flash_prefill", 157, **errs, slot_row=slot_row,
         **_timed("flash_prefill", {
             "kernel": lambda: ca.flash_prefill(q, k, v, pos),
             "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
@@ -897,7 +928,7 @@ def _http_any(port: int, method: str, path: str, body: dict | None = None,
 
 
 @contextlib.contextmanager
-def _serving(options: dict, checkpoint: str = ""):
+def _serving(options: dict, checkpoint: str = "", env: dict | None = None):
     """The port's ``llm_serve`` app for llama3-8b on a local port (from a
     checkpoint directory when one is named), loaded; yields (app, load
     seconds) and stops it on the way out."""
@@ -908,6 +939,7 @@ def _serving(options: dict, checkpoint: str = ""):
         "AGENTAINER_MODEL_CONFIG": "llama3-8b",
         "AGENTAINER_CHECKPOINT": checkpoint,
         "AGENTAINER_MODEL_OPTIONS": json.dumps(options),
+        **(env or {}),
     })
     th = threading.Thread(target=lambda: asyncio.run(app.run("127.0.0.1", 0)), name="serve")
     th.start()
@@ -944,6 +976,82 @@ def _chat(port: int, replies: list, session: str, message: str, max_tokens: int 
     return doc
 
 
+def _parse_sse(raw: bytes) -> list[dict]:
+    """SSE frames: {"event", "id", "data"} or {"comment"}."""
+    frames = []
+    for block in raw.decode().split("\n\n"):
+        if not block.strip():
+            continue
+        frame: dict = {}
+        for line in block.split("\n"):
+            if line.startswith(":"):
+                frame["comment"] = line[1:].strip()
+            else:
+                key, _, value = line.partition(": ")
+                frame[key] = json.loads(value) if key == "data" else value
+        frames.append(frame)
+    return frames
+
+
+STREAM_PROMPT = "Explain in two sentences why the sky is blue."
+STREAM_TOKENS = 24
+
+
+def _stream_check(port: int, name: str, tokenizer) -> dict:
+    """One streamed /chat against the buffered /chat of the same prompt in
+    another fresh session: ids 0..n-1, the streamed tokens decode to the
+    buffered greedy text, ``done`` carries the buffered body, and the
+    stream made the buffered request's host syncs. Whether the joined text
+    deltas equal it is reported: as in the reference, a delta is the
+    decoded prefix's new tail, and a byte-level token that ends inside a
+    UTF-8 character decodes to a replacement character that a later token
+    rewrites, which the deltas already sent keep."""
+    _, m0 = _http(port, "GET", "/metrics")
+    buffered = _chat(port, [], "stream-b", STREAM_PROMPT, STREAM_TOKENS)
+    _, m1 = _http(port, "GET", "/metrics")
+    body = {"session": "stream-s", "message": STREAM_PROMPT, "max_tokens": STREAM_TOKENS,
+            "ignore_eos": True, "stream": True}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/chat", data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        ctype = resp.headers.get("Content-Type")
+        first_frame_s = None
+        raw = b""
+        while chunk := resp.read1(65536):
+            if first_frame_s is None and b"event: token" in raw + chunk:
+                first_frame_s = time.monotonic() - t0
+            raw += chunk
+    _, m2 = _http(port, "GET", "/metrics")
+    frames = _parse_sse(raw)
+    tokens = [f for f in frames if f.get("event") == "token"]
+    done = frames[-1] if frames else {}
+    text = tokenizer.decode([f["data"]["token"] for f in tokens])
+    syncs = [m1["host_syncs_total"] - m0["host_syncs_total"], m2["host_syncs_total"] - m1["host_syncs_total"]]
+    steps = [m1["decode_steps"] - m0["decode_steps"], m2["decode_steps"] - m1["decode_steps"]]
+    out = {
+        "content_type": ctype, "events": len(tokens), "text_equal": text == buffered["response"],
+        "joined_deltas_equal": "".join(f["data"]["text"] for f in tokens) == buffered["response"],
+        "host_syncs": {"buffered": syncs[0], "streamed": syncs[1]},
+        "dispatches": {"buffered": steps[0], "streamed": steps[1]},
+        "first_frame_ms": None if first_frame_s is None else 1e3 * first_frame_s,
+        "buffered_ttft_ms": buffered["ttft_ms"],
+    }
+    if ctype != "text/event-stream" or [int(f["id"]) for f in tokens] != list(range(STREAM_TOKENS)):
+        raise AssertionError(f"{name}: streamed /chat ids {[f.get('id') for f in tokens]} ({ctype})")
+    if not out["text_equal"] or done.get("event") != "done" or done["data"]["response"] != buffered["response"]:
+        raise AssertionError(f"{name}: streamed text {text!r} != buffered {buffered['response']!r}")
+    # emission adds no device sync: with the same dispatches, the same syncs
+    if steps[0] == steps[1] and syncs[0] != syncs[1]:
+        raise AssertionError(f"{name}: streamed host syncs {syncs[1]} != buffered {syncs[0]} ({steps})")
+    if syncs[1] - steps[1] != syncs[0] - steps[0]:
+        raise AssertionError(f"{name}: host syncs beyond the dispatches differ: {syncs} {steps}")
+    log(f"{name} stream: {out}")
+    return out
+
+
 def _four_requests(port: int, replies: list) -> list[str]:
     """Session a's two turns, then b and c in flight at once with the same
     prompt; returns the four responses' text in that order."""
@@ -963,17 +1071,22 @@ METRIC_KEYS = (
 # the dispatch-ahead pipeline and the step graphs, per served phase
 PIPELINE_KEYS = (
     "graph_replays", "host_syncs_total", "host_syncs_per_token", "itl_ms_p50", "ttft_ms_p50",
-    "graphs_captured", "graph_capture_s", "graph_pool_bytes",
+    "graphs_captured", "graph_capture_s", "graph_pool_bytes", "prefill_graph_replays",
+    "prefill_graph_capture_s", "prefill_chunks",
 )
 
 
-def _pipeline(name: str, before: dict, after: dict) -> dict:
+def _pipeline(name: str, before: dict, after: dict, load_s: float | None = None) -> dict:
     """A served phase's pipeline numbers; raises unless the phase replayed
-    step graphs."""
+    step graphs and every prefill chunk was one prefill graph replay."""
     out = {k: after.get(k) for k in PIPELINE_KEYS}
-    out["graph_replays"] = after["graph_replays"] - before["graph_replays"]
+    for key in ("graph_replays", "prefill_graph_replays", "prefill_chunks"):
+        out[key] = after[key] - before[key]
+    out["engine_up_s"] = load_s
     if out["graph_replays"] <= 0 or not out["graphs_captured"]:
         raise AssertionError(f"{name}: the served path replayed no step graph: {out}")
+    if out["prefill_chunks"] <= 0 or out["prefill_graph_replays"] != out["prefill_chunks"]:
+        raise AssertionError(f"{name}: prefill graph replays != prefill chunks: {out}")
     log(f"{name} pipeline: {out}")
     return out
 PAGED_KEYS = (
@@ -1010,7 +1123,7 @@ def phase_serve() -> dict:
             raise AssertionError(f"{name} was never launched on the served path")
     log(f"served {len(replies)} /chat requests in {serve_s:.2f}s; launches {launches}")
     return {
-        "pipeline": _pipeline("dense", m0, metrics),
+        "pipeline": _pipeline("dense", m0, metrics, load_s),
         "launches": launches,
         "requests": len(replies),
         "load_s": load_s,
@@ -1077,7 +1190,7 @@ def phase_serve_paged(dense_texts: list[str]) -> dict:
             raise AssertionError(f"{name} launched {launches[name]} times on the paged served path")
     log(f"paged: served {len(replies)} /chat requests in {serve_s:.2f}s; launches {launches}; {gauges}")
     return {
-        "pipeline": _pipeline("paged", m0, metrics),
+        "pipeline": _pipeline("paged", m0, metrics, load_s),
         "launches": launches,
         "requests": len(replies),
         "load_s": load_s,
@@ -1167,12 +1280,18 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     torch.cuda.reset_peak_memory_stats()
     options = {
         "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S,
-        "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA,
+        "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA, "streaming": True,
     }
     if paged:
         options.update(paged_kv=True, page_size=PS)
     if quant:
         options.update(INT8)
+    # the dense bf16 engine also samples through approx_topk, and serves
+    # /profile and an assistant-flavor app attached to it
+    main = not paged and not quant
+    if main:
+        options["approx_topk"] = True
+    profile_dir = tempfile.mkdtemp(prefix="atpu-profile-") if main else ""
     prefill, decode = (
         (ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode) if paged
         else (ca.flash_prefill, ca.flash_decode)
@@ -1180,7 +1299,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
                             ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
     name = ("int8 " if quant else "") + ("paged" if paged else "dense")
-    with _serving(options) as (app, load_s):
+    extra: dict = {}
+    with _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}) as (app, load_s):
         port = app.port
         log(f"llama3-8b {name} engine with the default features loaded in {load_s:.1f}s")
         _, m0 = _http(port, "GET", "/metrics")
@@ -1203,6 +1323,9 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
             twins = [_chat(port, replies, s, REQUESTS[2][1], 16)["response"] for s in ("i8a", "i8b")]
             if twins[0] != twins[1]:
                 raise AssertionError(f"{name}: same prompt, fresh sessions, different greedy text: {twins}")
+        stream = _stream_check(port, name, app.engine.tokenizer)
+        if main:
+            extra["approx_topk"] = _approx_sampled(port, name)
         _, m1 = _http(port, "GET", "/metrics")
 
         # 8 long requests hold every lane
@@ -1257,8 +1380,13 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         serve_s = time.monotonic() - t1
         launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, cq.w8a16_matmul)}
         _, m2 = _http(port, "GET", "/metrics")
-        pipeline = _pipeline(f"{name} features", m0, m2)
+        pipeline = _pipeline(f"{name} features", m0, m2, load_s)
         graphs = phase_graphs(app.engine, name)
+        if main:
+            extra["profile"] = _profile_during_a_request(port, profile_dir)
+            extra["assistant"] = _assistant_turns(app)
+    if profile_dir:
+        shutil.rmtree(profile_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     forwards = _forwards(m0, m2)
     w8 = launches["w8a16_matmul"]
@@ -1288,6 +1416,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     return {
         "pipeline": pipeline,
         "graphs": graphs,
+        "stream": stream,
+        **extra,
         "launches": launches,
         "forwards": forwards,
         "param_hbm_bytes": m2["param_hbm_bytes"],
@@ -1304,6 +1434,96 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         "burst_codes": codes,
         "texts": texts,
     }
+
+
+# sampled /generate requests on the approx_topk engine: (top_k, top_p)
+APPROX_SAMPLED = ((50, 0.9), (200, 1.0), (0, 0.5))
+
+
+def _approx_sampled(port: int, name: str) -> dict:
+    """Sampled /generate requests on an engine that samples through
+    ``approx_topk`` (its sampled decode and verify graphs were captured
+    with it); each answers 200 with tokens."""
+    _, m0 = _http(port, "GET", "/metrics")
+    if m0["approx_topk"] is not True:
+        raise AssertionError(f"{name}: approx_topk is off: {m0['approx_topk']}")
+    out = []
+    for top_k, top_p in APPROX_SAMPLED:
+        _, doc = _http(port, "POST", "/generate", {
+            "prompt": f"Sampled request, top_k {top_k}, top_p {top_p}:", "max_tokens": 16,
+            "temperature": 1.0, "top_k": top_k, "top_p": top_p,
+        })
+        if doc["completion_tokens"] <= 0:
+            raise AssertionError(f"{name}: approx_topk sampled request: {doc}")
+        out.append({"top_k": top_k, "top_p": top_p, "completion_tokens": doc["completion_tokens"]})
+    _, m1 = _http(port, "GET", "/metrics")
+    log(f"{name} approx_topk sampled: {out}")
+    return {"requests": out, "graph_replays": m1["graph_replays"] - m0["graph_replays"]}
+
+
+# the port's kernels by their device names in a profiler trace
+KERNEL_NAMES = {"prefill_kernel", "decode_kernel", "decode_combine_kernel", "w8a16_kernel"}
+
+
+def _profile_during_a_request(port: int, trace_dir: str) -> dict:
+    """``/profile`` while a long /chat decodes: 200 with the trace
+    directory, and its Chrome trace names the port's kernels."""
+    box: dict = {}
+    th = threading.Thread(target=lambda: box.update(doc=_http(port, "POST", "/chat", {
+        "session": "profiled", "message": "A long answer, please.", "max_tokens": 400,
+        "ignore_eos": True,
+    })[1]))
+    th.start()
+    time.sleep(0.3)
+    _, doc = _http(port, "POST", "/profile", {"duration_s": 0.5})
+    th.join(timeout=300)
+    if doc["trace_dir"] != trace_dir or box.get("doc", {}).get("usage", {}).get("completion_tokens") != 400:
+        raise AssertionError(f"/profile during a request: {doc} {box}")
+    names: set = set()
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    for f in files:
+        with open(os.path.join(trace_dir, f)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        names |= {_kernel_name(e.get("name", "")) for e in events if e.get("cat") == "kernel"}
+    found = sorted(names & KERNEL_NAMES)
+    if "decode_kernel" not in found:
+        raise AssertionError(f"/profile trace holds none of the port's kernels: {sorted(names)[:20]}")
+    log(f"/profile: {doc}; {len(files)} trace file(s); port kernels in it: {found}")
+    return {"reply": doc, "files": len(files), "port_kernels": found}
+
+
+ASSISTANT_TURNS = ("Who are you?", "Say that again, in fewer words.")
+
+
+def _assistant_turns(app) -> dict:
+    """An assistant-flavor app attached to a loaded engine (no second load):
+    two turns of one session, each generated statelessly from the flattened
+    prompt; each reply beside the llm flavor's /generate of that prompt
+    (reported: a prefix fork of the second call may move a bf16 near-tie)."""
+    from agentainer_tpu_torch.engine.llm_serve import ASSISTANT_PERSONA, LLMServeApp, Request
+
+    asst = LLMServeApp(env={
+        "AGENTAINER_AGENT_ID": "chip-smoke-assistant", "AGENTAINER_MODEL_CONFIG": "llama3-8b",
+        "AGENTAINER_ENGINE": "assistant",
+    })
+    asst.engine = app.engine
+    turns = []
+    for msg in ASSISTANT_TURNS:
+        prompt = asyncio.run(asst._flattened_prompt("asst", msg))
+        body = json.dumps({"session": "asst", "message": msg, "max_tokens": 16}).encode()
+        resp = asyncio.run(asst.h_chat(Request("POST", "/chat", {}, body)))
+        if (resp.status != 200 or resp.doc["persona"] != ASSISTANT_PERSONA
+                or resp.doc["usage"]["completion_tokens"] != 16):
+            raise AssertionError(f"assistant /chat: {resp.status} {resp.doc}")
+        _, gen = _http(app.port, "POST", "/generate", {"prompt": prompt, "max_tokens": 16})
+        # (random weights: most of llama3-8b's ids decode to no byte, so a
+        # reply's text may be empty)
+        turns.append({"prompt_chars": len(prompt), "response": resp.doc["response"],
+                      "equal_to_generate": resp.doc["response"] == gen["text"]})
+    if f"Assistant: {turns[0]['response']}" not in asyncio.run(asst._flattened_prompt("asst", "x")):
+        raise AssertionError("assistant: the second turn's prompt lacks the first reply")
+    log(f"assistant flavor on the dense engine: {turns}")
+    return {"turns": turns}
 
 
 # lanes 0-3 live in the graph phase (a 64-slot tile and a page crossed by
@@ -1324,7 +1544,10 @@ def phase_graphs(engine, name: str) -> dict:
     from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
 
     keys = engine._step_keys()
-    want = {("decode", c) for c in (1, 2, 4, 8)} | {("verify", k) for k in (2, 4, 8)}
+    want = (
+        {("prefill", b) for b in (32, 64, 128, 256)} | {("decode", c) for c in (1, 2, 4, 8)}
+        | {("verify", k) for k in (2, 4, 8)}
+    )
     if {(kind, n) for kind, n, _ in keys} != want or len(engine._graphs) != len(keys):
         raise AssertionError(f"{name}: captured {len(engine._graphs)} graphs for steps {keys}")
     out = {}
@@ -1907,6 +2130,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # a hang prints every thread's stack before the caller's time limit
+    faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     t_start = time.monotonic()
     card = phase_build()
     kernels = phase_kernels()

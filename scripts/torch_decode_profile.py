@@ -1,6 +1,6 @@
 """Trace the PyTorch port's served decode on one GPU with torch.profiler.
 
-    python scripts/torch_decode_profile.py [int8]
+    python scripts/torch_decode_profile.py [int8] [--package DIR]
 
 Builds the port's llama3-8b engine (bf16, random weights from seed 0; with
 ``int8``, the same weights quantized by ``quant: int8``) on the first CUDA
@@ -14,8 +14,13 @@ per token in the traced window, the ten kernels with the most device
 time, and, after serving, what one decode step of the engine's 8-step
 decode graph costs with lanes 0-1 live at 300 / 312 and 6 parked: its
 device time (REPLAYS replays back to back, timed with CUDA events) and the
-host time of the replay call itself (the launch, from an idle device). Needs a CUDA device;
-exits 2 without one.
+host time of the replay call itself (the launch, from an idle device). It
+also prints the engine's up seconds (``create``: weights, warmup and graph
+capture), its graph capture seconds (the prefill graphs' share beside it)
+and pool bytes, and the TTFT of the untraced warm serve. ``--package DIR``
+imports ``agentainer_tpu_torch`` from the checkout at DIR instead (another
+commit's engine under this script, to time two in turns). Needs a CUDA
+device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -82,15 +87,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    args = sys.argv[1:]
+    package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if "--package" in args:
+        i = args.index("--package")
+        package = os.path.abspath(args[i + 1])
+        del args[i : i + 2]
+    sys.path.insert(0, package)
     from agentainer_tpu_torch.engine.llm import LLMEngine
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    quant = "int8" if sys.argv[1:] == ["int8"] else ""
+    quant = "int8" if args == ["int8"] else ""
+    t_up = time.perf_counter()
     eng = LLMEngine.create("llama3-8b", options={"device": "cuda", "seed": 0, "quant": quant})
+    engine_up_s = time.perf_counter() - t_up
 
     async def serve():
         return await asyncio.gather(*(
@@ -99,7 +112,7 @@ def main() -> int:
         ))
 
     try:
-        asyncio.run(serve())  # warm, untraced
+        warm = asyncio.run(serve())  # warm, untraced
         steps0, itl0 = eng.decode_steps, len(eng.itl_ms_recent)
         m0 = eng.metrics()
         torch.cuda.synchronize()
@@ -127,7 +140,14 @@ def main() -> int:
     syncs = m1.get("host_syncs_total", 0) - m0.get("host_syncs_total", 0)
     print(json.dumps({
         "card": card,
+        "package": package,
         "quant": quant or None,
+        "engine_up_s": engine_up_s,
+        "graph_capture_s": m1.get("graph_capture_s"),
+        "prefill_graph_capture_s": m1.get("prefill_graph_capture_s"),
+        "graphs_captured": m1.get("graphs_captured"),
+        "graph_pool_bytes": m1.get("graph_pool_bytes"),
+        "ttft_ms_untraced": [r["ttft_ms"] for r in warm],
         "param_hbm_bytes": m1["param_hbm_bytes"],
         "lanes": LANES,
         "tokens": tokens,

@@ -515,7 +515,10 @@ def graph_engine(request):
     eng.shutdown()
 
 
-GRAPH_KEYS = [("decode", c) for c in (1, 2, 4, 8)] + [("verify", k) for k in (2, 4, 8)]
+GRAPH_KEYS = (
+    [("decode", c) for c in (1, 2, 4, 8)] + [("verify", k) for k in (2, 4, 8)]
+    + [("prefill", b) for b in (32, 64, 128, 256)]
+)
 LIVE = [40, 300, 777, 1000]  # lanes 0-3 live (a 64-slot tile and a page crossed), 4-7 parked
 
 
@@ -536,7 +539,7 @@ def test_graph_replay_equals_eager_bit_for_bit(graph_engine, kind, n):
     assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
 
 
-@pytest.mark.parametrize("kind,n", [("decode", 8), ("verify", 4)])
+@pytest.mark.parametrize("kind,n", [("decode", 8), ("verify", 4), ("prefill", 128)])
 def test_graph_replays_count_the_eager_calls_launches(graph_engine, kind, n):
     """N replays add N times the kernel calls of one eager step to the
     wrappers' ``launches``; capture added none."""
@@ -564,6 +567,8 @@ def test_graph_replays_count_the_eager_calls_launches(graph_engine, kind, n):
     finally:
         park_lanes(eng)
     assert sum(eager) == 2 * (n if kind == "decode" else 1)  # one attention call per layer
+    if kind == "prefill":
+        assert eng._graphs.replays_by_kind["prefill"] >= 3
     assert replayed == [3 * e for e in eager]
 
 
@@ -685,12 +690,18 @@ def test_int8_served_path_makes_no_implicit_host_sync(dev, paged):
 def _serve_without_host_sync(dev, eng) -> None:
     import asyncio
 
+    streamed: list[int] = []
     try:
         async def traffic():
             return await asyncio.gather(
                 eng.generate("a" * 200, max_tokens=40),  # one repeated byte: verify rounds
                 eng.generate("a plain request", max_tokens=21, ignore_eos=True),
                 eng.generate("sampled " * 3, max_tokens=13, temperature=1.0, ignore_eos=True),
+                # a streamed request: its tokens reach emit from the readbacks
+                eng.generate(
+                    "a streamed request " * 20, max_tokens=17, ignore_eos=True,
+                    emit=lambda start, ids: streamed.extend(ids),
+                ),
             )
 
         torch.cuda.set_sync_debug_mode("error")
@@ -701,9 +712,12 @@ def _serve_without_host_sync(dev, eng) -> None:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert eng.worker_errors == 0, eng.last_worker_error
-        assert [r["completion_tokens"] for r in out[1:]] == [21, 13]
+        assert [r["completion_tokens"] for r in out[1:]] == [21, 13, 17]
+        assert streamed == out[3]["tokens"]
         m = eng.metrics()
         assert m["graph_replays"] > 0 and m["spec_rounds"] > 0, m
+        # every prefill chunk was one graph replay
+        assert m["prefill_graph_replays"] == m["prefill_chunks"] > 0, m
     finally:
         eng.shutdown()
 
@@ -939,3 +953,91 @@ def test_chips_place_the_engine_on_that_card(dev):
         finally:
             eng.shutdown()
     assert out[0] == out[1]
+
+
+# -- prefill graphs, streaming and approx_topk on the card -------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_through_a_row_map_equals_the_row_view(dev, dtype):
+    """The dense prefill kernel reading its arena row from device memory
+    (``rows``) gives the bits of the same call on the row's view, and holds
+    its plain version."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = _randn(g, dev, dtype, 1, 256, 32, 128)
+    k, v = (_randn(g, dev, dtype, 8, 2048, 8, 128) for _ in range(2))
+    pos = (300 + torch.arange(256, device=dev, dtype=torch.int32))[None]
+    for row in (0, 5):
+        rows = torch.tensor([row], device=dev, dtype=torch.int32)
+        got = ca.flash_prefill(q, k, v, pos, rows)
+        assert torch.equal(got, ca.flash_prefill(q, k[row : row + 1], v[row : row + 1], pos))
+        torch.testing.assert_close(
+            got.float(), ca.flash_prefill_plain(q, k, v, pos, rows).float(),
+            rtol=TOL[dtype], atol=TOL[dtype],
+        )
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_prefill_replays_equal_eager_on_two_lanes(dev, paged, quant):
+    """Every prefill bucket's graph, replayed for lane 0 from position 40
+    and for lane 1 from 300 (27 real tokens: a chunk shorter than every
+    bucket), equals its eager step bit for bit: logits, prefill inputs and
+    every KV byte."""
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+
+    eng = _graph_engine(quant=quant, paged_kv=paged)
+    try:
+        assert eng._prefill_buckets == [32, 64, 128, 256]
+        for lane in (0, 1):
+            for b in eng._prefill_buckets:
+                key = ("prefill", b, True)
+                live_lanes(eng, LIVE, 0.0, seed=b, prefill_lane=lane)
+                try:
+                    with torch.no_grad(), eng._on_stream():
+                        got = compare_replay(
+                            eng._graphs, key, eng._step_fn(key), eng._device_state(), eng._gen
+                        )
+                finally:
+                    park_lanes(eng)
+                assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], (lane, b, got)
+    finally:
+        eng.shutdown()
+
+
+def test_a_streamed_request_makes_no_more_host_syncs_than_a_buffered_one(dev):
+    """The same prompt buffered, then streamed (no prefix cache: both
+    prefill the whole prompt the same way): the same tokens, and the same
+    host syncs."""
+    import asyncio
+
+    eng = _graph_engine(max_seq=512, prefix_cache=False)
+    try:
+        def syncs(**kw):
+            before = eng.metrics()["host_syncs_total"]
+            res = asyncio.run(eng.generate("the same prompt " * 5, max_tokens=24, ignore_eos=True, **kw))
+            return eng.metrics()["host_syncs_total"] - before, res["tokens"]
+
+        buffered, want = syncs()
+        seen: list[int] = []
+        streamed, got = syncs(emit=lambda start, ids: seen.extend(ids))
+    finally:
+        eng.shutdown()
+    assert streamed == buffered > 0 and got == want == seen
+
+
+def test_approx_topk_draws_fall_in_the_plain_keep_set(dev):
+    """``approx_topk`` on the card (``torch.topk`` over the segment) draws
+    only tokens the plain filter keeps, for every lane's filter."""
+    from agentainer_tpu_torch.engine import sampling
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((8, 128256), generator=g, device=dev) * 3
+    top_k = torch.tensor([0, 1, 50, 200, 0, 0, 40, 500], device=dev)
+    top_p = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.9, 0.5, 0.8, 0.95], device=dev)
+    temps = torch.ones(8, device=dev)
+    keep = sampling.filter_logits(logits.cpu(), top_k.cpu(), top_p.cpu(), approx_topk=True) > sampling.NEG_INF
+    for _ in range(20):
+        draws = sampling.sample_step(logits, g, temps, top_k, top_p, all_greedy=False, approx_topk=True)
+        assert bool(keep[torch.arange(8), draws.cpu()].all())
+    assert int(keep[1:].sum(dim=-1).max()) <= sampling.APPROX_SEG  # lane 0 filters nothing

@@ -169,12 +169,19 @@ def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
             {"speculative": True, "paged_kv": True, "kv_tiering": True}, "yet: kv_tiering$",
             id="options1-speculative, paged_kv",
         ),
-        ({"streaming": True}, "streaming"),
+        # streaming and approx_topk are ported: asked beside an
+        # unported option, only that one is named
+        pytest.param(
+            {"streaming": True, "kv_tiering": True}, "yet: kv_tiering$", id="options2-streaming"
+        ),
         ({"tp": 2}, "tp=2"),
         # int8 serving is ported: another scheme, and int8 beside an
         # unported axis, still raise
         pytest.param({"quant": "int4"}, "unknown quant scheme 'int4'", id="options4-quant"),
-        ({"approx_topk": True}, "approx_topk"),
+        pytest.param(
+            {"approx_topk": True, "fused_decode": True}, "yet: fused_decode$",
+            id="options5-approx_topk",
+        ),
         pytest.param(
             {"quant": "int8", "synthetic": True, "tp": 2}, "tp=2", id="options6-synthetic"
         ),

@@ -318,19 +318,26 @@ def test_has_dispatchable_matches_jax(slots, want):
     assert jllm.LLMEngine._has_dispatchable(SimpleNamespace(slots=lanes())) is want
 
 
+# the prefill buckets a max_seq of 128 reaches (chunks of at most 126 tokens)
+PREFILL_KEYS = [("prefill", b, True) for b in (32, 64, 128)]
+
+
 @pytest.mark.parametrize(
     "options,keys",
     [
-        ({}, [("decode", c, g) for c in (1, 2, 4, 8) for g in (True, False)]
+        ({}, PREFILL_KEYS + [("decode", c, g) for c in (1, 2, 4, 8) for g in (True, False)]
             + [("verify", k, g) for k in (2, 4, 8) for g in (True, False)]),
-        ({"speculative": False}, [("decode", c, g) for c in (1, 2, 4, 8) for g in (True, False)]),
+        ({"speculative": False},
+            PREFILL_KEYS + [("decode", c, g) for c in (1, 2, 4, 8) for g in (True, False)]),
         ({"adaptive_decode": False, "spec_gamma_max": 4},
-            [("decode", 8, g) for g in (True, False)] + [("verify", k, g) for k in (2, 4) for g in (True, False)]),
+            PREFILL_KEYS + [("decode", 8, g) for g in (True, False)]
+            + [("verify", k, g) for k in (2, 4) for g in (True, False)]),
     ],
 )
 def test_step_keys_cover_the_ladders(weights, options, keys):
-    """One step (one graph on the card) per decode-ladder rung and per
-    verify bucket, greedy and sampled; on the CPU nothing is captured."""
+    """One step (one graph on the card) per reachable prefill bucket, per
+    decode-ladder rung and per verify bucket, greedy and sampled (a prefill
+    step draws nothing); on the CPU nothing is captured."""
     _, _, tcfg, tp = weights
     eng = tllm.LLMEngine(tcfg, tp, TTok(tcfg.vocab_size), max_batch=2, max_seq=128, **options, device="cpu")
     try:

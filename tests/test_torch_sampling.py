@@ -98,6 +98,64 @@ def test_mixed_lanes_keep_greedy_lanes_exact():
 
 
 def test_approx_topk_not_supported_yet():
+    """``approx_topk`` was refused before the port had it; now it samples.
+    Over a vocab narrower than ``APPROX_SEG`` the segment is the whole row,
+    so from one generator state it draws what the exact sampler draws."""
     logits = torch.from_numpy(_logits(4))
-    with pytest.raises(ValueError, match="approx_topk"):
-        ts.sample_step(logits, None, torch.ones(4), torch.zeros(4), torch.ones(4), approx_topk=True)
+    temps, topk, topp = torch.ones(4), torch.tensor([0, 3, 0, 9]), torch.tensor([1.0, 1.0, 0.6, 0.8])
+    approx = ts.sample_step(
+        logits, torch.Generator().manual_seed(5), temps, topk, topp, approx_topk=True
+    )
+    exact = ts.sample_step(logits, torch.Generator().manual_seed(5), temps, topk, topp)
+    assert V < ts.APPROX_SEG and approx.tolist() == exact.tolist()
+
+
+# approx_topk: the segment matters only past APPROX_SEG entries
+V_WIDE = 4 * ts.APPROX_SEG
+KEEP_DRAWS = 8192  # rows drawn at once; a kept token of 512 is missed w.p. ~1e-7
+
+
+def _jax_approx_keep_set(logits: np.ndarray, top_k: int, top_p: float) -> set:
+    """The reference ``_approx`` keep set, read off one draw per row of the
+    row tiled KEEP_DRAWS times, at a temperature at which every kept token
+    is near-uniformly likely."""
+    rows = jnp.asarray(np.tile(logits, (KEEP_DRAWS, 1)))
+    draws = js.sample_step(
+        rows, jax.random.PRNGKey(1), jnp.full((KEEP_DRAWS,), 1e6, jnp.float32),
+        jnp.full((KEEP_DRAWS,), top_k, jnp.int32), jnp.full((KEEP_DRAWS,), top_p, jnp.float32),
+        approx_topk=True,
+    )
+    return set(np.asarray(draws).tolist())
+
+
+@pytest.mark.parametrize("top_p", [1.0, 0.9, 0.5])
+@pytest.mark.parametrize("top_k", [0, 1, 50, 200])
+def test_approx_topk_keep_sets_equal_the_reference(top_k, top_p):
+    """Over a vocab four segments wide: top_k above the segment clamps to
+    it, top-p renormalizes over the segment's mass; with both filters off
+    the whole row is kept."""
+    logits = (np.random.default_rng(top_k * 7 + int(top_p * 10)).standard_normal(V_WIDE) * 2).astype(np.float32)
+    filtered = ts.filter_logits(
+        torch.from_numpy(logits)[None], torch.tensor([top_k]), torch.tensor([top_p]), approx_topk=True
+    )
+    got = set(torch.nonzero(filtered[0] > ts.NEG_INF).flatten().tolist())
+    assert got == _jax_approx_keep_set(logits, top_k, top_p)
+    if top_k == 200:
+        assert len(got) <= ts.APPROX_SEG
+    g = torch.Generator().manual_seed(top_k)
+    draws = ts.sample_step(
+        torch.from_numpy(np.tile(logits, (64, 1))), g, torch.ones(64), torch.full((64,), top_k),
+        torch.full((64,), top_p), approx_topk=True,
+    )
+    assert set(draws.tolist()) <= got
+
+
+def test_approx_topk_keeps_the_segment_of_a_flat_distribution():
+    """Flat logits: the top-p cumulative never reaches 0.99 inside the
+    segment, and the cutoff index clamps to the segment's last entry."""
+    logits = np.zeros(V_WIDE, np.float32)
+    filtered = ts.filter_logits(
+        torch.from_numpy(logits)[None], torch.tensor([0]), torch.tensor([0.99]), approx_topk=True
+    )
+    got = set(torch.nonzero(filtered[0] > ts.NEG_INF).flatten().tolist())
+    assert got == _jax_approx_keep_set(logits, 0, 0.99) == set(range(V_WIDE))

@@ -5,9 +5,9 @@ reference on the CPU.
   option the reference's ``LLMServeApp._engine_options`` makes of it, with
   and without a per-deployment option (which wins), and the assigned chips
   (``AGENTAINER_CHIPS``) ride in ``options["chips"]``;
-- a fleet flag for an engine feature the port lacks, and the ``assistant``
-  flavor, fail the load with a message that ``/health`` and ``/chat``
-  report;
+- a fleet flag for an engine feature the port lacks fails the load (the
+  ``assistant`` flavor too, asked with one) with a message that
+  ``/health`` and ``/chat`` report;
 - ``_engine_device`` maps one chip to ``cuda:{chip}`` (the first device
   for an id past the visible ones), refuses more than one, and leaves the
   CPU alone;
@@ -80,7 +80,12 @@ def test_the_reference_fleet_flag_list_is_the_ports():
 @pytest.mark.parametrize(
     "env,needle",
     [
-        ({"AGENTAINER_ENGINE": "assistant"}, "not ported yet"),
+        # the assistant flavor is served now: asked with an unported flag,
+        # the load fails on the flag alone
+        pytest.param(
+            {"AGENTAINER_ENGINE": "assistant", "ATPU_KV_TIERING": "1"}, "kv_tiering",
+            id="env0-not ported yet",
+        ),
         ({"ATPU_FUSED_DECODE": "1"}, "fused_decode"),
         ({"ATPU_KV_TIERING": "true"}, "kv_tiering"),
     ],
