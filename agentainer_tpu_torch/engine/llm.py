@@ -3,8 +3,9 @@ main path, over the dense KV arena or the paged one.
 
 Reference: ``agentainer_tpu/engine/llm.py`` with its defaults —
 ``prefix_cache``, ``speculative`` and ``deadlines`` on, ``adaptive_decode``
-on, ``paged_kv``, ``streaming`` and ``approx_topk`` off — and
-``fused_decode=False`` and ``kv_tiering=False``. The design carries over:
+on, ``paged_kv``, ``streaming``, ``approx_topk``, ``fused_decode`` and
+``kv_tiering`` off, ``inloop_spec`` on (it acts with ``fused_decode``) and
+``tier_quantize`` 1. The design carries over:
 
 - a fixed slot batch ``[max_batch]`` decodes every active sequence each step
   at its own arena position; idle lanes decode at the scratch position
@@ -38,6 +39,24 @@ on, ``paged_kv``, ``streaming`` and ``approx_topk`` off — and
   no extra device sync; the serve layer frames them as SSE;
 - ``approx_topk``: sampled lanes filter over the ``APPROX_SEG`` largest
   logits (``engine/sampling.py``), a static choice of every sampled step;
+- ``fused_decode``: decode runs as an on-device loop of up to
+  ``_fused_cap`` iterations (a bound in device memory) with per-lane EOS
+  masking and budget freezing, a whole-batch early exit decided on the
+  device and one packed readback per loop (``_fused_dispatch``,
+  ``_process_fused``; the host rescan has the last word on budget). With
+  ``inloop_spec`` (and ``speculative``) each iteration drafts from a
+  ``FUSED_HIST_W``-token history carry and verifies up to ``FUSED_SPEC_K``
+  drafts as a branch of the same loop body; without it, host-side
+  speculation composes between loops. A lane prefilled while a loop is in
+  flight is staged into a shadow carry that the next loop absorbs at entry
+  (``_stage_lane``);
+- ``kv_tiering``: idle sessions demote from the device into a host tier of
+  pinned memory (``park_session``, and under paged pool pressure before
+  any destructive eviction) and promote back at their next turn or on a
+  ``prewarm_session`` hint; ``tier_quantize`` 1 keeps int8 pages with
+  per-page scales there. ``park_session`` returns the exact SNAP_VERSION 3
+  blob, packed before any quantization;
+- failpoints (``faults``) at the reference's engine seams;
 - idempotent by request id: completed results are memoized.
 
 What differs from the reference, and why:
@@ -76,8 +95,8 @@ What differs from the reference, and why:
   quarantine, although a chunk dispatched before the free may still write
   through the old block table: every device write goes on the engine's one
   CUDA stream, so that write lands before any later owner's first write to
-  the page (see ``_free_page_ids``). Tiering and the
-  ``engine.page_alloc`` failpoint are not ported;
+  the page (see ``_free_page_ids``). A demotion's pages wait in a
+  quarantine until their staging copy has landed (``_page_quarantine``);
 - a lane drafts only after its first token's readback has been processed,
   as in the reference (``_try_speculate``);
 - KV snapshots (``snapshot_session``/``restore_session``, the reference's
@@ -98,11 +117,23 @@ What differs from the reference, and why:
   synthetic draw (``synthetic: true``), or quantized from the seeded random
   init; every weight product runs the fused int8 kernel
   (``ops/cuda_quant.w8a16_matmul``);
-- ``fused_decode`` and ``kv_tiering`` are not ported yet: ``create``
-  raises ``ValueError`` naming either when it is asked for, as it does for
-  the reference's ``routed`` MoE option, ``tp``/``ep``/``sp``/``pp`` > 1
-  (with or without ``quant``) and more than one chip.
-  ``inloop_spec`` is taken and has no effect: it needs ``fused_decode``.
+- the fused loop is one executable CUDA graph on the card: one iteration's
+  segments are captured as graphs and assembled around a CUDA WHILE node
+  (and, with ``inloop_spec``, two IF nodes for the verify and plain
+  branches) by ``engine/graphs.py::LoopGraph``; the loop's random draws
+  are made before it starts (one row of uniforms per iteration, the
+  reference's one key per iteration), so a sampled stream advances the
+  generator by the same amount whatever iteration the loop exits at. The
+  host's record of a lane's start position in a loop dispatched while
+  another was in flight is corrected when the earlier loop's readback is
+  processed (the reference keeps the upper bound it dispatched with);
+- the host tier holds pinned torch tensors (exact) or numpy int8 pages
+  (``tier_quantize``, the reference's numpy quantizer); a promotion copies
+  from pinned memory without waiting and keeps its source alive until the
+  copy's event has landed;
+- ``create`` raises ``ValueError`` for the reference's ``routed`` MoE
+  option, ``tp``/``ep``/``sp``/``pp`` > 1 (with or without ``quant``) and
+  more than one chip.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
 stream of its own; the serve layer talks to it through a thread-safe queue
@@ -123,15 +154,23 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import faults
 from ..models.configs import ModelConfig, get_config
 from ..models.llama import KVCache, PagedKVCache, forward, init_params
 from ..ops import cuda_quant
 from ..ops.cuda_attention import kernel_supported
 from ..utils.hw import chip_spec
 from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot, restore_kv_slot
-from .graphs import KERNEL_WRAPPERS, LANDED, HostTransfers, StepGraphs
+from .graphs import KERNEL_WRAPPERS, LANDED, HostTransfers, StepGraphs, run_loop_eager
 from .hf_convert import config_from_hf, is_hf_checkpoint
-from .quant import QUANT_SCHEMES, param_bytes_actual, quantize_params, synthetic_quantized_params
+from .quant import (
+    QUANT_SCHEMES,
+    dequantize_kv_pages,
+    param_bytes_actual,
+    quantize_kv_pages,
+    quantize_params,
+    synthetic_quantized_params,
+)
 from .sampling import NEG_INF, sample_step
 from .tokenizer import load_tokenizer
 
@@ -150,11 +189,16 @@ SPEC_MISS_BACKOFF = 4
 SPEC_PROBE_EVERY = 32
 SPEC_LOOKUP_WINDOW = 1024
 
-# reference engine features the port does not implement yet; /metrics
-# reports each as off. Asking for any of them — or for the reference's
-# routed-MoE option — raises instead of being ignored.
-FEATURE_FLAGS = ("fused_decode", "kv_tiering")
-UNSUPPORTED_OPTIONS = FEATURE_FLAGS + ("routed",)
+# The fused decode loop (the reference's constants): the in-loop drafter's
+# token-history window and draft length, and the loop bound's multiple of
+# decode_chunk at steady state (``_fused_cap``).
+FUSED_HIST_W = 64
+FUSED_SPEC_K = 4
+FUSED_RUNG_MULT = 4
+
+# the reference's routed-MoE option is not ported yet: asking for it raises
+# instead of being ignored
+UNSUPPORTED_OPTIONS = ("routed",)
 
 
 class SnapshotDeferred(Exception):
@@ -206,6 +250,17 @@ class PagePoolExhausted(EngineOverloaded):
     def __init__(self, need: int, free: int):
         super().__init__(depth=need, watermark=free)
         self.args = (f"KV page pool exhausted: need {need} page(s), {free} free",)
+
+
+class TierPromoteFailed(EngineOverloaded):
+    """Host-tier promotion failed (an injected ``engine.kv_promote`` fault,
+    or no room in the pool even after pressure demotion): the session stays
+    parked, its context preserved, and the turn answers 429 + Retry-After,
+    so a retry finds it still promotable."""
+
+    def __init__(self, session: str):
+        super().__init__(depth=0, watermark=0)
+        self.args = (f"KV tier promotion failed for session {session!r}",)
 
 
 class PrefillFailed(RuntimeError):
@@ -362,6 +417,80 @@ class RestoreCmd:
 
 
 @dataclass
+class ParkCmd:
+    """Worker-queue command: demote an idle session's KV into the host tier
+    (``kv_tiering``). Resolves with the exact staged ``StagedKV`` for the
+    caller's blob, or None (tiering off, session unknown or busy, or the
+    demote failpoint fired)."""
+
+    session: str
+    loop: asyncio.AbstractEventLoop
+    future: asyncio.Future
+
+
+@dataclass
+class PrewarmCmd:
+    """Worker-queue command: promote a host-tier session onto the device
+    ahead of its next turn. Resolves True when the session is
+    device-resident afterwards."""
+
+    session: str
+    loop: asyncio.AbstractEventLoop
+    future: asyncio.Future
+
+
+@dataclass
+class TieredEntry:
+    """One parked session in the host tier: the position-trimmed KV prefix
+    ``[L, position, KV, hd]`` as pinned tensors in the cache's dtype, or,
+    ``quantized``, as numpy int8 pages with per-page scales
+    (``quantize_kv_pages``). Speculation state parks with the KV."""
+
+    k: object
+    v: object
+    position: int
+    pending_token: int | None
+    nbytes: int
+    parked_at: float
+    quantized: bool = False
+    k_scale: object = None
+    v_scale: object = None
+    pages: int = 0
+    spec_hist: list[int] = field(default_factory=list)
+    spec_ema: float = 1.0
+    spec_miss: int = 0
+
+
+@dataclass
+class FusedState:
+    """The fused loop's device state, allocated once (the loop's segments
+    are separate graphs, so everything that crosses a segment lives here):
+    the loop counters and flags, the per-lane emission record, the in-loop
+    drafts and a branch's candidates, and the loop's uniforms."""
+
+    it: torch.Tensor  # [1] iterations run
+    nverify: torch.Tensor  # [1] of them on the verify branch
+    cont: torch.Tensor  # [1] bool: run another iteration
+    spec: torch.Tensor  # [1] bool: this iteration verifies drafts
+    done: torch.Tensor  # [B] bool: EOS (or not live)
+    full: torch.Tensor  # [B] bool: hit its budget (frozen, not finished)
+    emitted: torch.Tensor  # [cap + 2, B]: emitted tokens, -1 past a count; last row drops
+    nemit: torch.Tensor  # [B]
+    reason: torch.Tensor  # [B] 0 running / 1 EOS
+    nacc: torch.Tensor  # [B] accepted drafts
+    ndr: torch.Tensor  # [B] drafted tokens
+    rec: torch.Tensor  # [B] bool: active this iteration
+    room: torch.Tensor  # [B] budget left this iteration
+    drafts: torch.Tensor  # [B, K]
+    dlen: torch.Tensor  # [B]
+    cand: torch.Tensor  # [B, K + 1] the branch's candidate tokens
+    navail: torch.Tensor  # [B]
+    acc: torch.Tensor  # [B]
+    dln: torch.Tensor  # [B]
+    noise: torch.Tensor  # [cap, B, V] uniforms, one row per iteration
+
+
+@dataclass
 class PrefixEntry:
     """One cached token prefix: the KV a prefill wrote for ``tokens`` (exact
     bucket length). Dense: private copies ``k``/``v`` [L, bucket, KV, hd] in
@@ -449,7 +578,10 @@ class Readback:
     device tokens that holds them once ``event`` has landed. ``first``: the
     prefill-sampled first token [1] of ``req`` on ``slot``; ``chunk``: a
     decode chunk's tokens [chunk, B] for the lanes of ``snapshot``
-    ((slot, request, start position) as dispatched)."""
+    ((slot, request, start position) as dispatched); ``fused``: a fused
+    loop's packed readback [cap + 7, B] for the lanes of ``snapshot``
+    ([slot, request, start position, budget] as dispatched; the start is
+    corrected once an earlier loop's readback is processed)."""
 
     kind: str
     host: torch.Tensor
@@ -457,6 +589,11 @@ class Readback:
     slot: Slot | None = None
     req: GenRequest | None = None
     snapshot: list | None = None
+    # a fused loop: its bound, its step key, and whether it ran as a graph
+    # (its kernel calls are then counted from the readback)
+    chunk: int = 0
+    key: tuple | None = None
+    graphed: bool = False
 
 
 class LLMEngine:
@@ -487,6 +624,9 @@ class LLMEngine:
         inloop_spec: bool = True,
         streaming: bool = False,
         approx_topk: bool = False,
+        fused_decode: bool = False,
+        kv_tiering: bool = False,
+        tier_quantize: int = 1,
         device="cuda",
     ):
         self.cfg = cfg
@@ -569,6 +709,9 @@ class LLMEngine:
         self._bt_sent = self._bt.copy()  # what _dbt holds (as of its last upload)
         self.page_exhausted_total = 0
         self.pages_truncated = 0
+        # a demotion's freed pages, with the event of its staging copy: they
+        # rejoin the free list once the copy has landed (_reap_quarantine)
+        self._page_quarantine: collections.deque = collections.deque()
 
         # The engine's stream: every device write of the engine (graph
         # replays, staging copies, prefill, prefix copies, page copies) goes
@@ -589,6 +732,10 @@ class LLMEngine:
         self._dbt = (
             torch.tensor(self._bt, dtype=torch.int32, device=dev) if self.paged else None
         )
+        # the in-loop drafter's token-history carry (right-aligned recent
+        # tokens) and its valid length; written only with in-loop spec
+        self._dhist = torch.zeros((max_batch, FUSED_HIST_W), dtype=torch.long, device=dev)
+        self._dhlen = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         # host mirror of the lanes' temperatures: the all-greedy sampler fast
         # path is decided here, without reading the device
         self._lane_temps = [0.0] * max_batch
@@ -597,6 +744,8 @@ class LLMEngine:
         # FIFO of token readbacks (Readback); a stale entry is detected by
         # `slot.request is not req` at processing time
         self._readbacks: collections.deque[Readback] = collections.deque()
+        # the entry being queued while the FIFO makes room for it
+        self._pushing: Readback | None = None
         # step graphs (the card; captured by warmup) and the warmup flag
         # under which the card's steps run eagerly before capture
         self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
@@ -666,8 +815,9 @@ class LLMEngine:
         # per-session staging times for the durability floor
         self._snap_last_by_session: dict[str, float] = {}
         self._snap_epoch0 = time.monotonic()
-        # restores whose host-to-device copy may be in flight: (event, k, v)
-        # — the pinned sources live until their event has landed
+        # restores and tier promotions whose host-to-device copy may be in
+        # flight: (event, k, v) — the pinned sources live until their event
+        # has landed
         self._restore_staging: collections.deque = collections.deque()
         # a profile in progress: (profiler, stop instant, its ProfileCmd)
         self._profile: tuple | None = None
@@ -712,9 +862,54 @@ class LLMEngine:
         ]
         # snap down to the largest verify bucket
         self.spec_gamma_max = self._spec_buckets[-1]
-        # the reference's in-loop drafter lives in its fused decode loop,
-        # which the port does not have: the option is taken and stays off
-        self.inloop_spec = False
+        # -- the fused decode loop ----------------------------------------
+        self.fused_decode = bool(fused_decode)
+        # the in-loop drafter needs the loop and speculation (reference)
+        self.inloop_spec = bool(inloop_spec) and self.fused_decode and self.speculative
+        self.inloop_spec_drafted = 0
+        self.inloop_spec_accepted = 0
+        # the loop's static bound: its buffers are sized by it, and a
+        # dispatch runs any bound in [1, cap] (``_pick_fused_chunk``)
+        self._fused_cap = max(self.decode_chunk, FUSED_RUNG_MULT * self.decode_chunk)
+        self.fused_loops_total = 0
+        self.fused_steps_total = 0
+        # of those iterations, the ones that took the verify branch
+        self.fused_verify_steps_total = 0
+        self.fused_early_exits_total = 0
+        self.fused_exit_reason_hist: dict[str, int] = {}
+        # double-buffered injection: a lane prefilled while a loop is in
+        # flight is written into the shadow carry, and the next loop absorbs
+        # it at entry (``armed``); an occupied slot falls back to injecting
+        # into the live carry
+        self._fused_inject = self.fused_decode
+        self._staged_lane: int | None = None
+        self.fused_injections_total = 0
+        self.fused_inject_fallbacks_total = 0
+        if self.fused_decode:
+            B, k_f = max_batch, FUSED_SPEC_K if self.inloop_spec else 0
+            self._stok = torch.zeros_like(self._dtok)
+            self._spos = torch.full_like(self._dpos, self.scratch_pos)
+            self._stemps = torch.zeros_like(self._dtemps)
+            self._stopk = torch.zeros_like(self._dtopk)
+            self._stopp = torch.ones_like(self._dtopp)
+            self._shist = torch.zeros_like(self._dhist)
+            self._shlen = torch.zeros_like(self._dhlen)
+            # a loop's inputs, one upload: armed, live, budgets, ignore_eos
+            # [B] each, then the loop bound
+            self._finput = torch.zeros((4 * B + 1,), dtype=torch.long, device=dev)
+
+            def zeros(*shape, dtype=torch.long):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            self._fl = FusedState(
+                it=zeros(1), nverify=zeros(1), cont=zeros(1, dtype=torch.bool),
+                spec=zeros(1, dtype=torch.bool), done=zeros(B, dtype=torch.bool),
+                full=zeros(B, dtype=torch.bool), emitted=zeros(self._fused_cap + 2, B),
+                nemit=zeros(B), reason=zeros(B), nacc=zeros(B), ndr=zeros(B),
+                rec=zeros(B, dtype=torch.bool), room=zeros(B), drafts=zeros(B, max(1, k_f)),
+                dlen=zeros(B), cand=zeros(B, k_f + 1), navail=zeros(B), acc=zeros(B),
+                dln=zeros(B), noise=zeros(self._fused_cap, B, cfg.vocab_size, dtype=torch.float32),
+            )
         self._spec_active = self.speculative  # warmup serves with it off
         self.spec_rounds = 0
         self.spec_drafted = 0
@@ -736,6 +931,32 @@ class LLMEngine:
         self._pbt = (
             torch.zeros((1, self._n_blocks), dtype=torch.int32, device=dev) if self.paged else None
         )
+
+        # -- the tiered KV hierarchy (device -> pinned host RAM) -------------
+        # _tier_lock guards the host tier and its gauges: API threads read
+        # them while the worker demotes and promotes
+        self.kv_tiering = bool(kv_tiering)
+        self.tier_quantize = int(tier_quantize)
+        self._tier_lock = threading.Lock()
+        self._host_tier: collections.OrderedDict[str, TieredEntry] = collections.OrderedDict()
+        # host bytes for parked KV; past it the LRU entries are dropped
+        self.tier_host_budget_bytes = self.kv_arena_bytes
+        self.tier_host_bytes = 0
+        self.tier_quantized_pages = 0
+        self.tier_demotions_total = 0
+        self.tier_promotions_total = 0
+        self.tier_pressure_demotions_total = 0
+        self.tier_prewarm_hits_total = 0
+        self.tier_demote_failures_total = 0
+        self.tier_promote_failures_total = 0
+        self.tier_host_evictions_total = 0
+        self.tier_promote_overlap_ms_total = 0.0
+        # promotion start instants by session, consumed when the session's
+        # next request dispatches its first prefill chunk
+        self._tier_promote_started: dict[str, float] = {}
+        self.tier_promote_overlap_ms_recent: collections.deque[float] = collections.deque(maxlen=64)
+        # per park and promotion: kind, session, bytes, ms (stage or copy)
+        self.tier_timings: collections.deque[dict] = collections.deque(maxlen=64)
 
         # a checkpoint load's bytes_read and seconds (create sets it)
         self.checkpoint_load: dict = {}
@@ -837,6 +1058,9 @@ class LLMEngine:
             inloop_spec=bool(options.get("inloop_spec", True)),
             streaming=bool(options.get("streaming", False)),
             approx_topk=bool(options.get("approx_topk", False)),
+            fused_decode=bool(options.get("fused_decode", False)),
+            kv_tiering=bool(options.get("kv_tiering", False)),
+            tier_quantize=int(options.get("tier_quantize", 1)),
             device=device,
         )
         engine.checkpoint_load = load_stats
@@ -943,6 +1167,15 @@ class LLMEngine:
         self.admission_ms_recent.clear()
         self.decode_chunk_hist = {}
         self.decode_chunks_shrunk = 0
+        self.fused_loops_total = 0
+        self.fused_steps_total = 0
+        self.fused_verify_steps_total = 0
+        self.fused_early_exits_total = 0
+        self.fused_exit_reason_hist = {}
+        self.fused_injections_total = 0
+        self.fused_inject_fallbacks_total = 0
+        self.inloop_spec_drafted = 0
+        self.inloop_spec_accepted = 0
         self.session_evictions = 0
         self.page_exhausted_total = 0
         self.pages_truncated = 0
@@ -962,20 +1195,27 @@ class LLMEngine:
         """Every step the worker dispatches: ("prefill", bucket, True) for
         each reachable prefill bucket (the first token is sampled after the
         step, so it draws nothing), ("decode", rung, all_greedy) for each
-        decode-ladder rung and ("verify", K, all_greedy) for each verify
-        bucket (with speculation on)."""
+        decode-ladder rung, or with ``fused_decode`` ("fused", cap,
+        all_greedy) for the fused loop, and ("verify", K, all_greedy) for
+        each verify bucket (with host-side speculation)."""
         keys = [("prefill", b, True) for b in self._prefill_buckets]
-        keys += [("decode", c, g) for c in self._decode_ladder for g in (True, False)]
-        if self.speculative:
+        if self.fused_decode:
+            keys += [("fused", self._fused_cap, g) for g in (True, False)]
+        else:
+            keys += [("decode", c, g) for c in self._decode_ladder for g in (True, False)]
+        if self.speculative and not self.inloop_spec:
             keys += [("verify", k, g) for k in self._spec_buckets for g in (True, False)]
         return keys
 
     def _step_fn(self, key: tuple):
         """The eager step function of ``key``: what the CPU runs and what a
-        graph captures."""
+        graph captures (a fused loop's graph is assembled from the segments
+        its eager loop runs, ``_fused_parts``)."""
         kind, n, all_greedy = key
         if kind == "prefill":
             return functools.partial(self._prefill_step, n)
+        if kind == "fused":
+            return functools.partial(self._fused_steps, all_greedy)
         fn = self._decode_steps if kind == "decode" else self._verify_step
         return functools.partial(fn, n, all_greedy)
 
@@ -998,13 +1238,36 @@ class LLMEngine:
         if self._graphs is None:
             return
         keys = self._step_keys()
-        sampled = {k for k in keys if not k[2]}
+        steps = {k: self._step_fn(k) for k in keys if k[0] != "fused"}
+        sampled = {k for k in steps if not k[2]}
+        kept = set()
+        if self.fused_decode:
+            # a loop's segments are kept graphs; its prologue is replayed on
+            # its own, so the sampled one draws its uniforms off the
+            # generator registered with it
+            for g in (True, False):
+                for name, (key, fn) in self._fused_parts(g).items():
+                    steps[key] = fn
+                    if name != "prologue":
+                        kept.add(key)
+                    elif not g:
+                        sampled.add(key)
         with torch.no_grad(), self._on_stream():
             self._sync_table()
             self._park_prefill_inputs()
-            self._graphs.capture({k: self._step_fn(k) for k in keys}, self._gen, sampled)
+            self._graphs.capture(steps, self._gen, sampled, kept)
+            if self.fused_decode:
+                fl = self._fl
+                for g in (True, False):
+                    part = {name: key for name, (key, _) in self._fused_parts(g).items()}
+                    self._graphs.build_loop(
+                        ("fused", self._fused_cap, g), part["prologue"], part["plain"], fl.cont,
+                        pre=part["pre"], verify=part.get("verify"), post=part["post"],
+                        tail=part["tail"], spec=fl.spec,
+                    )
             # a graph's first launch uploads it to the device, a host cost
-            # paid here rather than in a user request's first chunk
+            # paid here rather than in a user request's first chunk (a
+            # parked fused loop runs no iteration)
             for k in keys:
                 self._graphs.replay(k)
             for i in range(self.max_batch):
@@ -1025,7 +1288,11 @@ class LLMEngine:
         """Every device tensor a step reads or writes: the carry, the verify
         and prefill inputs, the block tables and the KV arena or pools."""
         state = [self._dtok, self._dpos, self._dtemps, self._dtopk, self._dtopp, self._vdlen]
-        state += [*self._vdrafts.values(), self._pinput]
+        state += [*self._vdrafts.values(), self._pinput, self._dhist, self._dhlen]
+        if self.fused_decode:
+            state += [self._stok, self._spos, self._stemps, self._stopk, self._stopp]
+            state += [self._shist, self._shlen, self._finput]
+            state += [getattr(self._fl, f) for f in self._fl.__dataclass_fields__]
         if self.paged:
             state += [self._dbt, self._pbt, self.cache.k, self.cache.v]
         else:
@@ -1068,6 +1335,8 @@ class LLMEngine:
                 hit = self._completed.get(request_id)
             if hit is not None:
                 return dict(hit, replayed=True)
+        # failpoint: a submit-side fault surfaces like any submit error
+        await faults.fire_async("engine.submit")
         if not self._running:
             raise EngineShutdown("engine shut down")
         if self._draining:
@@ -1162,10 +1431,46 @@ class LLMEngine:
         return not busy()
 
     def has_session(self, session: str) -> bool:
-        """Whether the engine holds ``session``'s KV: in a slot (dense) or
-        in pages (paged; ``sessions`` maps a resident session to -1). The
-        serve layer asks this, never ``sessions`` itself."""
-        return session in self.sessions
+        """Whether the engine holds ``session``'s KV: in a slot (dense), in
+        pages (paged; ``sessions`` maps a resident session to -1) or parked
+        in the host tier. The serve layer asks this, never ``sessions``
+        itself, so a parked session is never taken for an unknown one."""
+        if session in self.sessions:
+            return True
+        with self._tier_lock:
+            return session in self._host_tier
+
+    async def park_session(self, session: str) -> bytes | None:
+        """Demote an idle session's KV off the device into the host tier
+        and return its exact SNAP_VERSION 3 blob (packed from the staged
+        bytes, before any quantization), for a store to keep. None: tiering
+        off, the session unknown or busy, or the ``engine.kv_demote``
+        failpoint fired; the session is then left as it was."""
+        if not self.kv_tiering:
+            return None
+        loop = asyncio.get_running_loop()
+        cmd = ParkCmd(session=session, loop=loop, future=loop.create_future())
+        self._submit(cmd)
+        staged = await cmd.future
+        if staged is None:
+            return None
+        meta = {"session": session, "pending_token": staged.pending_token}
+        if self.paged:
+            meta["page_size"] = self.page_size
+        return await asyncio.to_thread(
+            pack_kv_snapshot, staged.k, staged.v, staged.position, meta
+        )
+
+    async def prewarm_session(self, session: str) -> bool:
+        """Promote a host-tier session onto the device ahead of its next
+        turn. True when the session is device-resident afterwards (also when
+        it already was)."""
+        if not self.kv_tiering:
+            return False
+        loop = asyncio.get_running_loop()
+        cmd = PrewarmCmd(session=session, loop=loop, future=loop.create_future())
+        self._submit(cmd)
+        return bool(await cmd.future)
 
     async def snapshot_session(self, session: str) -> bytes | None:
         """Serialize a session's live KV prefix (the reference's blob,
@@ -1177,6 +1482,9 @@ class LLMEngine:
         may bounce it, and after five bounces this raises
         ``SnapshotDeferred``. None: no such session, or nothing to save."""
         loop = asyncio.get_running_loop()
+        # failpoint: a snapshot fault surfaces to the caller, never into
+        # the decode path
+        await faults.fire_async("engine.snapshot")
         staged = None
         for _ in range(5):
             cmd = SnapshotCmd(session=session, loop=loop, future=loop.create_future())
@@ -1255,7 +1563,11 @@ class LLMEngine:
         return await cmd.future
 
     def clear_sessions(self, prefix: str = "") -> None:
-        """Drop idle sessions (all, or those whose name starts with ``prefix``)."""
+        """Drop idle sessions (all, or those whose name starts with
+        ``prefix``), host-tier entries included."""
+        with self._tier_lock:
+            for name in [s for s in self._host_tier if s.startswith(prefix)]:
+                self._tier_drop_locked(name)
         if self.paged:
             with self._page_lock:
                 for name in [s for s in self.paged_sessions if s.startswith(prefix)]:
@@ -1315,9 +1627,27 @@ class LLMEngine:
             "prefill_graph_capture_s": (
                 self._graphs.capture_s_by_kind.get("prefill") if self._graphs is not None else None
             ),
-            **{flag: False for flag in FEATURE_FLAGS},
             "streaming": self.streaming,
             "approx_topk": self.approx_topk,
+            # the fused decode loop (the reference's keys): loops dispatched,
+            # iterations run, early exits and their reasons, staged lanes
+            # absorbed and fallbacks, and the in-loop drafter's counts, read
+            # back in the loop's one packed transfer
+            "fused_decode": self.fused_decode,
+            "fused_loops_total": self.fused_loops_total,
+            "fused_steps_total": self.fused_steps_total,
+            "fused_verify_steps_total": self.fused_verify_steps_total,
+            "fused_early_exits_total": self.fused_early_exits_total,
+            "fused_exit_reason_hist": dict(sorted(self.fused_exit_reason_hist.copy().items())),
+            "fused_injections_total": self.fused_injections_total,
+            "fused_inject_fallbacks_total": self.fused_inject_fallbacks_total,
+            "inloop_spec_drafted": self.inloop_spec_drafted,
+            "inloop_spec_accepted": self.inloop_spec_accepted,
+            "inloop_spec_acceptance_rate": (
+                round(self.inloop_spec_accepted / self.inloop_spec_drafted, 4)
+                if self.inloop_spec_drafted
+                else None
+            ),
             # self-speculative decoding (the reference's keys)
             "speculative": self.speculative,
             "inloop_spec": self.inloop_spec,
@@ -1354,6 +1684,7 @@ class LLMEngine:
             "session_eviction_idle_s_p50": _p50(self.session_eviction_idle_s_recent),
             "prefix_eviction_idle_s_p50": _p50(self.prefix_eviction_idle_s_recent),
             **self._paged_metrics(),
+            **self._tier_metrics(),
             "worker_errors": self.worker_errors,
             "last_worker_error": self.last_worker_error or None,
             "queue_depth": self._queue.qsize(),
@@ -1391,6 +1722,7 @@ class LLMEngine:
             per_sess = sorted(len(s.pages) for s in self.paged_sessions.values())
             live_tokens = sum(s.position for s in self.paged_sessions.values())
             pinned = len(self._prefix_pinned_page_ids())
+            quarantined = sum(len(ids) for _, ids in self._page_quarantine)
         allocated = sum(per_sess)
         # internal fragmentation: allocated page capacity that the resident
         # sessions' live tokens do not fill
@@ -1405,10 +1737,10 @@ class LLMEngine:
             "kv_pages_total": self._data_pages,
             "kv_pages_free": free,
             "kv_pages_used": self._data_pages - free,
-            # no quarantine: freed pages go straight back to the free list,
-            # and stream order protects them from in-flight writes
-            # (_free_page_ids)
-            "kv_pages_quarantined": 0,
+            # only a demotion's pages wait in quarantine, until its staging
+            # copy has landed; other frees go straight back to the free list
+            # (stream order protects them, _free_page_ids)
+            "kv_pages_quarantined": quarantined,
             "kv_pages_prefix_pinned": pinned,
             "resident_sessions": len(self.paged_sessions),
             "session_pages_p50": per_sess[len(per_sess) // 2] if per_sess else None,
@@ -1486,9 +1818,14 @@ class LLMEngine:
             try:
                 if any(s.decoding for s in self.slots):
                     # a verify round when lanes have drafts; otherwise (or
-                    # under contention) the plain decode ladder
-                    if not self._try_speculate():
-                        self._decode_dispatch()
+                    # under contention) the plain decode ladder or a fused
+                    # loop. With in-loop spec the loop drafts and verifies
+                    # itself, and host-side speculation is bypassed
+                    if self.inloop_spec or not self._try_speculate():
+                        if self.fused_decode:
+                            self._fused_dispatch()
+                        else:
+                            self._decode_dispatch()
                 else:
                     self._last_decode_end = None  # an idle gap isn't ITL
                 # process landed readbacks; block on the oldest when the
@@ -1546,8 +1883,18 @@ class LLMEngine:
                     self._do_snapshot(item)
                 elif isinstance(item, ProfileCmd):
                     self._start_profile(item)
+                elif isinstance(item, ParkCmd):
+                    staged = self._tier_demote(item.session) if self.kv_tiering else None
+                    item.loop.call_soon_threadsafe(_resolve, item.future, staged)
+                elif isinstance(item, PrewarmCmd):
+                    ok = self._tier_promote(item.session, prewarm=True) if self.kv_tiering else False
+                    item.loop.call_soon_threadsafe(_resolve, item.future, ok)
                 elif self._pre_reject(item):
                     pass  # cancelled or expired before prefill: already failed
+                elif self._tier_needs_promote(item) and not self._tier_promote(item.session):
+                    # a parked session whose swap-in failed: typed 429, and
+                    # the entry stays parked for the retry
+                    raise TierPromoteFailed(item.session)
                 elif not self._try_admit(item):
                     still.append(item)
             except EngineOverloaded as e:
@@ -1697,6 +2044,9 @@ class LLMEngine:
         if slot.decoding:
             slot.dev_position = self.scratch_pos
             self._park_lane(slot.idx)
+        if self._staged_lane == slot.idx:
+            # a staged lane not absorbed yet must not arm into the next loop
+            self._staged_lane = None
         slot.request = None
         slot.pending_prompt = []
         slot.decoding = False
@@ -1713,29 +2063,49 @@ class LLMEngine:
             slot.session = ""
 
     def _inject_lane(
-        self, idx: int, first, position: int, temp: float, top_k: int, top_p: float
+        self, idx: int, first, position: int, temp: float, top_k: int, top_p: float,
+        hist_row: np.ndarray | None = None, hist_n: int = 0, staged: bool = False,
     ) -> None:
-        """Point lane ``idx`` of the decode carry at (token ``first`` — a
-        device scalar or int —, ``position``) with its sampling parameters;
-        in place (the reference's jitted donated scatter). Python numbers go
-        in by ``fill_`` (a kernel argument): ``t[idx] = number`` on a CUDA
-        tensor is a synchronous host-to-device copy, which would wait for
-        the chunk in flight."""
+        """Point lane ``idx`` of the decode carry (the shadow carry with
+        ``staged``) at (token ``first`` — a device scalar or int —,
+        ``position``) with its sampling parameters; in place (the
+        reference's jitted donated scatter). Python numbers go in by
+        ``fill_`` (a kernel argument): ``t[idx] = number`` on a CUDA tensor
+        is a synchronous host-to-device copy, which would wait for the chunk
+        in flight. With in-loop spec, ``hist_row`` (the prompt tail,
+        right-aligned, [FUSED_HIST_W]) seeds the drafter's history shifted
+        left one slot, ``first`` lands in the newest slot and the valid
+        length is ``hist_n``; None empties it."""
+        tok, pos, temps, topk, topp, hist, hlen = (
+            (self._stok, self._spos, self._stemps, self._stopk, self._stopp, self._shist, self._shlen)
+            if staged
+            else (self._dtok, self._dpos, self._dtemps, self._dtopk, self._dtopp, self._dhist, self._dhlen)
+        )
         lane = slice(idx, idx + 1)
         if isinstance(first, torch.Tensor):
-            self._dtok[lane].copy_(first.reshape(1))
+            tok[lane].copy_(first.reshape(1))
         else:
-            self._dtok[lane].fill_(first)
-        self._dpos[lane].fill_(position)
-        self._dtemps[lane].fill_(temp)
-        self._dtopk[lane].fill_(top_k)
-        self._dtopp[lane].fill_(top_p)
+            tok[lane].fill_(first)
+        pos[lane].fill_(position)
+        temps[lane].fill_(temp)
+        topk[lane].fill_(top_k)
+        topp[lane].fill_(top_p)
         self._lane_temps[idx] = temp
+        if self.inloop_spec:
+            if hist_row is None:
+                hist[idx].fill_(0)
+            else:
+                self._xfer.upload(hist[idx, :-1], hist_row[1:])
+            hist[idx, -1:].copy_(tok[lane])
+            hlen[lane].fill_(hist_n)
 
     def _park_lane(self, idx: int) -> None:
         """Idle/finished lanes decode at the scratch position with neutral
         sampling state."""
         self._inject_lane(idx, 0, self.scratch_pos, 0.0, 0, 1.0)
+        if self._staged_lane == idx:
+            # a staged lane parked before a loop absorbed it must not arm
+            self._staged_lane = None
 
     def _admit_prologue(
         self, position: int, pending_token: int | None, req: GenRequest
@@ -1961,9 +2331,20 @@ class LLMEngine:
         )
         self._prefilling_slot = slot
         req = slot.request
+        # failpoint: a poisoned prefill fails THIS request only; warmup's
+        # requests (no id) are exempt
+        if req.id:
+            faults.fire("engine.prefill")
         if req.prefill_started_at is None:
             req.prefill_started_at = time.monotonic()
             self.admission_ms_recent.append(1000 * (req.prefill_started_at - req.submitted_at))
+            # a tier promotion's start to this first chunk: restore time
+            # hidden behind the request's queue wait
+            t0 = self._tier_promote_started.pop(req.session, None) if req.session else None
+            if t0 is not None:
+                hidden = 1000 * (req.prefill_started_at - t0)
+                self.tier_promote_overlap_ms_total += hidden
+                self.tier_promote_overlap_ms_recent.append(hidden)
         chunk = slot.pending_prompt[: self.prefill_chunk]
         slot.pending_prompt = slot.pending_prompt[self.prefill_chunk :]
         final = not slot.pending_prompt
@@ -2010,11 +2391,34 @@ class LLMEngine:
             all_greedy=req.temperature <= 0.0,
             approx_topk=self.approx_topk,
         )
+        hist_row, hist_n = None, 0
+        if self.inloop_spec:
+            # seed the in-loop drafter with the prompt tail, right-aligned
+            ctx = req.prompt_ids[-(FUSED_HIST_W - 1) :]
+            hist_row = np.zeros((FUSED_HIST_W,), dtype=np.int64)
+            if ctx:
+                hist_row[FUSED_HIST_W - len(ctx) :] = ctx
+            hist_n = min(len(ctx) + 1, FUSED_HIST_W)
         # the lane continues from the sampled token WITHOUT waiting for it to
-        # reach the host; the value lands through the readback FIFO
-        self._inject_lane(
-            slot.idx, first[0], slot.position, req.temperature, req.top_k, req.top_p
+        # reach the host; the value lands through the readback FIFO. With a
+        # fused loop in flight and the staging slot free, the lane goes into
+        # the shadow carry, which the next loop absorbs at entry (host-side
+        # speculation reads the live carry, so only with in-loop spec or
+        # none)
+        loop_in_flight = self._fused_inject and any(e.kind == "fused" for e in self._readbacks)
+        stage = (
+            loop_in_flight
+            and self._staged_lane is None
+            and (self.inloop_spec or not self._spec_active)
         )
+        if loop_in_flight and not stage:
+            self.fused_inject_fallbacks_total += 1
+        self._inject_lane(
+            slot.idx, first[0], slot.position, req.temperature, req.top_k, req.top_p,
+            hist_row, hist_n, staged=stage,
+        )
+        if stage:
+            self._staged_lane = slot.idx
         slot.dev_position = slot.position
         slot.decoding = True
         req.prefill_done_at = time.monotonic()
@@ -2181,6 +2585,10 @@ class LLMEngine:
         needed = max(r.max_tokens - r.dispatched for _, r, _ in snapshot)
         if needed <= 0:
             return  # every live lane's whole budget is already in flight
+        # failpoint: a decode fault is batch-wide (one call covers every
+        # lane); warmup's requests (no id) are exempt
+        if any(r.id for _, r, _ in snapshot):
+            faults.fire("engine.decode_step")
         chunk = self._pick_chunk(needed)
         if self.paged:
             # pre-allocate pages covering every step of the chunk so the
@@ -2230,6 +2638,365 @@ class LLMEngine:
             if c >= target:
                 return c
         return self.decode_chunk
+
+    # -- the fused decode loop (worker thread) ----------------------------
+    #
+    # One dispatch runs up to ``nsteps`` decode iterations on the device
+    # (the reference's ``lax.while_loop`` in ``_fused_fn``) and reads its
+    # tokens back once, packed. An iteration is four segments over the
+    # ``FusedState`` buffers — ``_fused_pre`` (the active set and, with
+    # in-loop spec, the drafts), ``_fused_plain`` or ``_fused_verify`` (one
+    # forward), ``_fused_post`` (EOS, budgets, emission rows, the carry and
+    # the history, the next ``cont``) — between ``_fused_prologue`` (absorb
+    # the staged lane, reset the loop state, draw the loop's uniforms) and
+    # ``_fused_tail`` (pack the readback). On the card they are graphs
+    # assembled into one loop graph; on the CPU ``run_loop_eager`` drives
+    # the same functions.
+
+    def _fused_parts(self, all_greedy: bool) -> dict:
+        """The fused loop's segments: name -> (graph key, step function).
+        The segments that draw nothing and read no sampling choice are
+        shared by both variants."""
+        cap = self._fused_cap
+        parts = {
+            "prologue": (("fused_pro", cap, all_greedy), functools.partial(self._fused_prologue, all_greedy)),
+            "pre": (("fused_pre", cap, True), self._fused_pre),
+            "plain": (("fused_plain", cap, all_greedy), functools.partial(self._fused_plain, all_greedy)),
+            "post": (("fused_post", cap, True), self._fused_post),
+            "tail": (("fused_tail", cap, True), self._fused_tail),
+        }
+        if self.inloop_spec:
+            parts["verify"] = (
+                ("fused_verify", cap, all_greedy), functools.partial(self._fused_verify, all_greedy),
+            )
+        return parts
+
+    def _fused_steps(self, all_greedy: bool) -> torch.Tensor:
+        """The fused loop run eagerly (the CPU's runner): the prologue, the
+        iterations while ``cont`` holds, the packed readback."""
+        fn = {name: f for name, (_, f) in self._fused_parts(all_greedy).items()}
+        fn["prologue"]()
+        fl = self._fl
+        run_loop_eager(
+            fl.cont, fn["plain"], pre=fn["pre"], verify=fn.get("verify"), post=fn["post"], spec=fl.spec
+        )
+        return fn["tail"]()
+
+    def _fused_inputs(self):
+        """Views of the loop's uploaded inputs: armed, live, budgets,
+        ignore_eos [B] and the bound [1]."""
+        b, f = self.max_batch, self._finput
+        return f[:b] != 0, f[b : 2 * b] != 0, f[2 * b : 3 * b], f[3 * b : 4 * b] != 0, f[4 * b :]
+
+    def _fused_prologue(self, all_greedy: bool) -> None:
+        """Absorb the staged lane into the carry (``armed``), reset the loop
+        state and decide whether a first iteration runs. A sampled loop
+        draws one row of uniforms per iteration up front, so every replay
+        advances the generator by the same amount."""
+        fl = self._fl
+        armed, live, budgets, _, nsteps = self._fused_inputs()
+        for live_t, staged_t in (
+            (self._dtok, self._stok), (self._dpos, self._spos), (self._dtemps, self._stemps),
+            (self._dtopk, self._stopk), (self._dtopp, self._stopp), (self._dhlen, self._shlen),
+        ):
+            live_t.copy_(torch.where(armed, staged_t, live_t))
+        self._dhist.copy_(torch.where(armed[:, None], self._shist, self._dhist))
+        fl.done.copy_(~live | (budgets <= 0))
+        fl.full.zero_()
+        fl.emitted.fill_(-1)
+        for t in (fl.nemit, fl.reason, fl.nacc, fl.ndr, fl.it, fl.nverify):
+            t.zero_()
+        fl.cont.copy_((nsteps > 0) & (~fl.done).any())
+        if not all_greedy:
+            fl.noise.uniform_(0.0, 1.0, generator=self._gen)
+
+    def _fused_sample(self, logits: torch.Tensor, all_greedy: bool) -> torch.Tensor:
+        """An iteration's sampler over the carry's parameters, from the
+        iteration's row of uniforms."""
+        fl = self._fl
+        noise = None if all_greedy else fl.noise.index_select(0, fl.it)[0]
+        return sample_step(
+            logits, None, self._dtemps, self._dtopk, self._dtopp, all_greedy=all_greedy,
+            approx_topk=self.approx_topk, noise=noise,
+        )
+
+    def _fused_pre(self) -> None:
+        """An iteration's active set and budget room; with in-loop spec the
+        drafts (greedy active lanes with room, each up to its match
+        distance) and whether any lane drafted."""
+        fl = self._fl
+        _, _, budgets, _, _ = self._fused_inputs()
+        fl.rec.copy_(~(fl.done | fl.full))
+        fl.room.copy_(budgets - fl.nemit)
+        if not self.inloop_spec:
+            return
+        exists, dstar, drafts = draft_from_hist(self._dhist, self._dhlen, FUSED_SPEC_K)
+        dlen = torch.where(
+            exists & (self._dtemps <= 0.0) & fl.rec,
+            torch.minimum(torch.clamp(dstar, max=FUSED_SPEC_K), torch.clamp(fl.room - 1, min=0)),
+            0,
+        )
+        fl.drafts.copy_(drafts)
+        fl.dlen.copy_(dlen)
+        fl.spec.copy_((dlen > 0).any().reshape(1))
+
+    def _fused_plain(self, all_greedy: bool) -> None:
+        """The plain branch: one [B, 1] decode step; an active lane's one
+        candidate is the sampled token."""
+        fl = self._fl
+        logits = forward(
+            self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
+            block_table=self._dbt,
+        )
+        nxt = self._fused_sample(logits[:, 0], all_greedy)
+        fl.cand.zero_()
+        fl.cand[:, 0].copy_(nxt)
+        fl.navail.copy_(fl.rec.long())
+        fl.acc.zero_()
+        fl.dln.zero_()
+
+    def _fused_verify(self, all_greedy: bool) -> None:
+        """The verify branch: the carry token and the K drafts as one
+        [B, K+1] forward; greedy lanes accept the drafts that agree with the
+        argmax, and row j > 0's candidate is the verifier's argmax (an
+        accepted draft or the correction)."""
+        fl = self._fl
+        k = FUSED_SPEC_K
+        dev = self.device
+        toks = torch.cat([self._dtok[:, None], fl.drafts], dim=1)
+        offs = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
+        positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
+        logits = forward(self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt)
+        greedy = logits.argmax(dim=-1)
+        valid = torch.arange(k, device=dev)[None] < fl.dlen[:, None]
+        ok = (fl.drafts == greedy[:, :k]) & valid
+        a = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        nxt0 = self._fused_sample(logits[:, 0], all_greedy)
+        fl.cand.copy_(torch.cat([nxt0[:, None], greedy[:, 1:]], dim=1))
+        fl.navail.copy_(torch.where(fl.rec, a + 1, 0))
+        fl.acc.copy_(torch.where(fl.rec, a, 0))
+        fl.dln.copy_(torch.where(fl.rec, fl.dlen, 0))
+        fl.nverify.add_(1)
+
+    def _fused_post(self) -> None:
+        """Emit an iteration's candidates: cap them by budget room, stop at
+        the first EOS (the lane is done and parks at scratch; its EOS token
+        is recorded, never fed), freeze a lane that reached its budget
+        (``full``: it keeps its real token and position, and only the host
+        decides it finished), append the emitted tokens to the lane's rows,
+        advance the carry and the history, and decide ``cont``."""
+        fl = self._fl
+        dev = self.device
+        _, _, budgets, ign, nsteps = self._fused_inputs()
+        width = fl.cand.shape[1]
+        cap_rows = self._fused_cap + 1
+        navail = torch.minimum(fl.navail, torch.clamp(fl.room, min=0))
+        cols = torch.arange(width, device=dev)[None]
+        is_emit = cols < navail[:, None]
+        is_eos = is_emit & (fl.cand == self.tokenizer.eos_id) & ~ign[:, None]
+        has_eos = is_eos.any(dim=1)
+        cnt = torch.where(has_eos, is_eos.long().argmax(dim=1) + 1, navail)
+        fl.nemit.add_(cnt)
+        fl.reason.copy_(torch.where((fl.reason == 0) & has_eos, 1, fl.reason))
+        fl.done.logical_or_(has_eos)
+        fl.full.logical_or_(fl.rec & ~has_eos & (fl.nemit >= budgets))
+        last = fl.cand.gather(1, torch.clamp(cnt - 1, min=0)[:, None])[:, 0]
+        self._dtok.copy_(torch.where(cnt > 0, last, self._dtok))
+        self._dpos.copy_(
+            torch.where(
+                fl.done, self.scratch_pos, torch.clamp(self._dpos + cnt, max=self.scratch_pos)
+            ).to(torch.int32)
+        )
+        lanes = torch.arange(self.max_batch, device=dev)
+        for j in range(width):
+            rows = torch.where(j < cnt, fl.nemit - cnt + j, cap_rows)
+            fl.emitted.index_put_((rows, lanes), fl.cand[:, j])
+        if self.inloop_spec:
+            ext = torch.cat([self._dhist, fl.cand], dim=1)
+            shift = torch.arange(FUSED_HIST_W, device=dev)[None] + cnt[:, None]
+            self._dhist.copy_(ext.gather(1, shift))
+            self._dhlen.copy_(torch.clamp(self._dhlen + cnt, max=FUSED_HIST_W))
+        fl.nacc.add_(fl.acc)
+        fl.ndr.add_(fl.dln)
+        fl.it.add_(1)
+        fl.cont.copy_((nsteps > fl.it) & (~(fl.done | fl.full)).any())
+
+    def _fused_tail(self) -> torch.Tensor:
+        """The loop's one readback, [cap + 7, B] int32: rows [0, cap + 1)
+        the emitted tokens (-1 past a lane's count), then the counts, the
+        finish reasons (0 running, 1 EOS), the iterations run (broadcast),
+        the accepted and drafted counts (the reference's [cap + 6, B]), and
+        the iterations that took the verify branch (broadcast), from which
+        the host counts the loop's kernel calls."""
+        fl = self._fl
+        b = self.max_batch
+        return torch.cat(
+            [
+                fl.emitted[: self._fused_cap + 1], fl.nemit[None], fl.reason[None],
+                fl.it.expand(1, b), fl.nacc[None], fl.ndr[None], fl.nverify.expand(1, b),
+            ]
+        ).to(torch.int32)
+
+    def _fused_dispatch(self) -> None:
+        """Dispatch one fused loop over every decoding lane (the
+        ``fused_decode`` replacement of ``_decode_dispatch``) and queue its
+        packed readback. Paged lanes get pages ``FUSED_SPEC_K`` positions
+        past the loop's reach, since the verify branch writes draft rows
+        there. A lane's emission budget is ``min(remaining, chunk + 1)``:
+        the host counts iterations, not emissions, so it only ever
+        overestimates what is left, and the device freezes a lane at its
+        budget without finishing it."""
+        base = [(s, s.request, s.dev_position) for s in self.slots if s.decoding and s.request is not None]
+        if not base:
+            return
+        needed = max(r.max_tokens - r.dispatched for _, r, _ in base)
+        if needed <= 0:
+            return
+        # failpoint: the batch-wide seam of the fused path; warmup's
+        # requests (no id) are exempt
+        if any(r.id for _, r, _ in base):
+            faults.fire("engine.fused_decode")
+        chunk = self._pick_fused_chunk()
+        if self.paged:
+            kept = []
+            for s, r, p in base:
+                try:
+                    self._ensure_lane_pages(s, p + chunk + FUSED_SPEC_K)
+                    kept.append((s, r, p))
+                except EngineOverloaded as e:
+                    self._reset_slot(s, rollback=True)
+                    self._fail_item(r, e)
+            base = kept
+            if not base:
+                return
+            self._sync_table()
+        b = self.max_batch
+        meta = np.zeros((4 * b + 1,), dtype=np.int64)
+        for s, r, _ in base:
+            meta[b + s.idx] = 1
+            meta[2 * b + s.idx] = min(r.max_tokens - r.dispatched, chunk + 1)
+            meta[3 * b + s.idx] = int(r.ignore_eos)
+        if self._staged_lane is not None:
+            meta[self._staged_lane] = 1
+        meta[4 * b] = chunk
+        self._xfer.upload(self._finput, meta)
+        key = ("fused", self._fused_cap, all(t <= 0.0 for t in self._lane_temps))
+        graphed = self._graphs is not None and not self._warming
+        packed = self._run_step(key)
+        if self._staged_lane is not None:
+            # the loop just dispatched absorbs the staged lane at entry
+            self._staged_lane = None
+            self.fused_injections_total += 1
+        snapshot = [[s, r, p, int(meta[2 * b + s.idx])] for s, r, p in base]
+        for s, r, _, adv in snapshot:
+            # an upper bound, settled when the readback is processed
+            s.dev_position += adv
+            r.dispatched += chunk
+        self.fused_loops_total += 1
+        self.decode_chunk_hist[chunk] = self.decode_chunk_hist.get(chunk, 0) + 1
+        self.decode_steps += 1
+        self._occupancy_sum += len(snapshot) / self.max_batch
+        host, event = self._xfer.download(packed)
+        self._push_readback(
+            Readback("fused", host, event, snapshot=snapshot, chunk=chunk, key=key, graphed=graphed)
+        )
+
+    def _pick_fused_chunk(self) -> int:
+        """The fused loop's bound: the smallest ladder rung under contention
+        (a prompt mid-prefill, or a waiting request with a free lane), as
+        ``_pick_chunk``; otherwise the cap (per-lane budgets freeze finished
+        lanes, and the loop exits when no lane is active)."""
+        if not self.adaptive_decode:
+            return self.decode_chunk
+        contended = any(s.request is not None and s.pending_prompt for s in self.slots)
+        if not contended and (self._waiting or not self._queue.empty()):
+            contended = any(s.request is None for s in self.slots)
+        if contended and self._decode_ladder[0] < self._fused_cap:
+            self.decode_chunks_shrunk += 1
+            return self._decode_ladder[0]
+        return self._fused_cap
+
+    def _process_fused(self, entry: Readback) -> None:
+        """Process a fused loop's packed readback, its one host sync. The
+        host rescans the emitted tokens against its own budget and EOS
+        policy, as ``_process_chunk`` does, and decides every finish: an EOS
+        lane parked on the device without feeding its token, and a budget
+        lane froze before feeding past its cap, so both finish with
+        ``pending_last`` at ``start + used``. A live lane's device position
+        is ``start + count``: later loops of the lane in flight start there,
+        and its ``dev_position`` is that plus their budgets."""
+        packed = entry.host.numpy()
+        cap_rows = self._fused_cap + 1
+        self.host_syncs_total += 1
+        steps = int(packed[cap_rows + 2, 0])
+        verify_steps = int(packed[cap_rows + 5, 0])
+        if entry.graphed:
+            self._graphs.add_loop_launches(entry.key, steps - verify_steps, verify_steps)
+        self.fused_steps_total += steps
+        self.fused_verify_steps_total += verify_steps
+        reason = "early_all_finished" if steps < entry.chunk else "limit"
+        if steps < entry.chunk:
+            self.fused_early_exits_total += 1
+        self.fused_exit_reason_hist[reason] = self.fused_exit_reason_hist.get(reason, 0) + 1
+        end = time.monotonic()
+        # ITL per token: the deepest live lane's emissions are the loop's
+        # token depth (in-loop spec emits several per iteration)
+        depth = max(
+            (int(packed[cap_rows, s.idx]) for s, r, _, _ in entry.snapshot if s.request is r),
+            default=0,
+        ) or steps
+        if self._last_decode_end is not None and depth:
+            self.itl_ms_recent.append(1000 * (end - self._last_decode_end) / depth)
+        self._last_decode_end = end
+        # the weights stream once per iteration run, plus each lane's prefix
+        self.hbm_bytes_read += steps * self.param_hbm_bytes + sum(
+            steps * (p + steps // 2) * self._kv_bytes_per_pos for _, _, p, _ in entry.snapshot
+        )
+        eos = self.tokenizer.eos_id
+        for slot, req, start, _ in entry.snapshot:
+            if slot.request is not req or not req.generated:
+                continue  # finished or aborted earlier; the first token comes first
+            cnt = int(packed[cap_rows, slot.idx])
+            self.inloop_spec_accepted += int(packed[cap_rows + 3, slot.idx])
+            self.inloop_spec_drafted += int(packed[cap_rows + 4, slot.idx])
+            outs = packed[:cnt, slot.idx]
+            remaining = req.max_tokens - len(req.generated)
+            used = 0
+            hit_eos = False
+            for j in range(min(cnt, remaining)):
+                used += 1
+                if not req.ignore_eos and int(outs[j]) == eos:
+                    hit_eos = True
+                    break
+            req.generated.extend(int(t) for t in outs[:used])
+            req.emit_appended(used)
+            self.tokens_generated += used
+            self.flops_done += used * self.cfg.flops_per_token(start + used // 2)
+            if hit_eos or len(req.generated) >= req.max_tokens:
+                slot.position = start + used
+                self._finish(slot, pending_last=True)
+                continue
+            slot.position = start + used
+            if int(packed[cap_rows + 1, slot.idx]) != 0:
+                # the device parked a lane the host keeps (its EOS policy
+                # disagreed): point the lane at its last token again
+                slot.dev_position = slot.position
+                self._inject_lane(
+                    slot.idx, int(outs[used - 1]), slot.position, req.temperature, req.top_k,
+                    req.top_p,
+                )
+                continue
+            # the next loop of this lane in flight started where this one
+            # ended; the lane's device position is that plus the budgets
+            # of the loops in flight
+            at = pending = start + cnt
+            for later in (*self._readbacks, *((self._pushing,) if self._pushing else ())):
+                for item in later.snapshot if later.kind == "fused" else ():
+                    if item[0] is slot and item[1] is req:
+                        if pending == at:
+                            item[2] = at
+                        pending += item[3]
+            slot.dev_position = pending
 
     # -- self-speculative decoding (worker thread) ------------------------
     #
@@ -2503,9 +3270,14 @@ class LLMEngine:
         """Queue a readback. The FIFO never holds more than
         ``_PIPELINE_DEPTH + 1`` entries: when it is full the oldest is
         waited for and processed first (the new entry's work is already on
-        the device behind it)."""
-        while len(self._readbacks) > self._PIPELINE_DEPTH:
-            self._process_oldest()
+        the device behind it, and ``_pushing`` shows it to that
+        processing)."""
+        self._pushing = entry
+        try:
+            while len(self._readbacks) > self._PIPELINE_DEPTH:
+                self._process_oldest()
+        finally:
+            self._pushing = None
         self._readbacks.append(entry)
 
     def _landed(self, event) -> bool:
@@ -2583,6 +3355,8 @@ class LLMEngine:
         try:
             if entry.kind == "first":
                 self._process_first(entry)
+            elif entry.kind == "fused":
+                self._process_fused(entry)
             else:
                 self._process_chunk(entry)
         finally:
@@ -2730,15 +3504,19 @@ class LLMEngine:
             )
         cmd.loop.call_soon_threadsafe(_resolve, cmd.future, staged)
 
-    def _stage_kv(self, session: str, k, v, position: int, pending: int | None) -> StagedKV:
+    def _stage_kv(
+        self, session: str, k, v, position: int, pending: int | None, count_snapshot: bool = True
+    ) -> StagedKV:
         """Copy device ``k``/``v`` to the host without waiting: into pinned
         memory with an event recorded after the copies (the card; the
         host allocator caches pinned blocks, so only a new size class
-        allocates), or a plain copy (the CPU)."""
+        allocates), or a plain copy (the CPU). A snapshot counts for the
+        limiter (``count_snapshot``); a tier demotion does not."""
         now = time.monotonic()
-        self._last_snapshot_at = now
-        self._snap_last_by_session[session] = now
-        self.kv_snapshots_total += 1
+        if count_snapshot:
+            self._last_snapshot_at = now
+            self._snap_last_by_session[session] = now
+            self.kv_snapshots_total += 1
         if self._stream is None:
             return StagedKV(k.clone(), v.clone(), LANDED, position, pending, now, 0.0)
         hk = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
@@ -2796,7 +3574,7 @@ class LLMEngine:
             if slot is None:
                 return  # the session is busy
             restore_kv_slot(self.cache, slot.idx, cmd.k, cmd.v)
-            self._hold_restore_source(cmd)
+            self._hold_host_source(cmd.k, cmd.v)
             slot.position = cmd.position
             slot.pending_token = cmd.pending_token
             # the drafting corpus of the replaced context is gone
@@ -2825,16 +3603,8 @@ class LLMEngine:
             pages = self._alloc_pages(count)
         except EngineOverloaded:
             return False
-        ids = torch.empty((count,), dtype=torch.long, device=self.device)
-        self._xfer.upload(ids, np.asarray(pages, dtype=np.int64))
-        n_layers, _, ps, kv, hd = self.cache.k.shape
-        for pool, src in ((self.cache.k, cmd.k), (self.cache.v, cmd.v)):
-            # the tail of the last page past position is never read before
-            # it is written
-            tmp = torch.zeros((n_layers, count * ps, kv, hd), dtype=pool.dtype, device=self.device)
-            tmp[:, : cmd.position].copy_(src, non_blocking=True)
-            pool.index_copy_(1, ids, tmp.view(n_layers, count, ps, kv, hd))
-        self._hold_restore_source(cmd)
+        self._write_pages(pages, cmd.k, cmd.v, cmd.position)
+        self._hold_host_source(cmd.k, cmd.v)
         sess = PagedSession(
             name=cmd.session,
             pages=pages,
@@ -2847,16 +3617,287 @@ class LLMEngine:
             self.sessions[cmd.session] = -1
         return True
 
-    def _hold_restore_source(self, cmd: RestoreCmd) -> None:
-        """Keep a restore's pinned host tensors alive until the copies out
-        of them have landed (the card); sources of landed copies go."""
+    def _write_pages(self, pages: list[int], k, v, position: int) -> None:
+        """Write a host prefix ``[L, position, KV, hd]`` (the cache's dtype;
+        pinned on the card, copied without waiting) into ``pages``."""
+        count = len(pages)
+        ids = torch.empty((count,), dtype=torch.long, device=self.device)
+        self._xfer.upload(ids, np.asarray(pages, dtype=np.int64))
+        n_layers, _, ps, kv, hd = self.cache.k.shape
+        for pool, src in ((self.cache.k, k), (self.cache.v, v)):
+            # the tail of the last page past position is never read before
+            # it is written
+            tmp = torch.zeros((n_layers, count * ps, kv, hd), dtype=pool.dtype, device=self.device)
+            tmp[:, :position].copy_(src, non_blocking=True)
+            pool.index_copy_(1, ids, tmp.view(n_layers, count, ps, kv, hd))
+
+    def _hold_host_source(self, k, v) -> None:
+        """Keep pinned host tensors (a restore's, a promotion's) alive until
+        the copies queued out of them so far have landed (the card): a
+        host-tier entry dropped right after its promotion must not free or
+        reuse its buffers before the stream passes the copy. Sources of
+        landed copies go."""
         if self._stream is None:
             return
         while self._restore_staging and self._restore_staging[0][0].query():
             self._restore_staging.popleft()
         event = torch.cuda.Event()
         event.record()
-        self._restore_staging.append((event, cmd.k, cmd.v))
+        self._restore_staging.append((event, k, v))
+
+    # -- the tiered KV hierarchy: device -> pinned host RAM (worker thread)
+    #
+    # A demotion stages the session's live prefix into pinned host memory
+    # (the snapshot plane's staging), waits for it, frees the device
+    # residency (pages through the quarantine) and keeps the bytes in the
+    # host tier, exact or as int8 pages (``tier_quantize``); a promotion
+    # writes them back without waiting, as a restore does.
+
+    def _tier_needs_promote(self, item) -> bool:
+        """This request's session is parked in the host tier and must swap
+        in before it can be admitted."""
+        if not (self.kv_tiering and isinstance(item, GenRequest) and item.session):
+            return False
+        if item.session in self.sessions:
+            return False
+        with self._tier_lock:
+            return item.session in self._host_tier
+
+    def _tier_demote(self, session: str, pressure: bool = False) -> StagedKV | None:
+        """Stage an idle session's exact KV prefix to the host, free its
+        device residency and insert its host-tier entry. Returns the exact
+        staged prefix (the park's blob is packed from it, before any
+        quantization), or None with the session untouched."""
+        try:
+            # failpoint: a failed demote leaves the session resident
+            faults.fire("engine.kv_demote")
+        except Exception:
+            self.tier_demote_failures_total += 1
+            return None
+        t0 = time.monotonic()
+        if self.paged:
+            sess = self.paged_sessions.get(session)
+            if sess is None or sess.lane is not None or not sess.pages or sess.position <= 0:
+                return None
+            count = min(len(sess.pages), (sess.position - 1) // self.page_size + 1)
+            ids = torch.empty((count,), dtype=torch.long, device=self.device)
+            self._xfer.upload(ids, np.asarray(sess.pages[:count], dtype=np.int64))
+            n_layers, _, ps, kv, hd = self.cache.k.shape
+            k_src = self.cache.k.index_select(1, ids).reshape(n_layers, count * ps, kv, hd)
+            v_src = self.cache.v.index_select(1, ids).reshape(n_layers, count * ps, kv, hd)
+            position, pending = sess.position, sess.pending_token
+            spec = (list(sess.spec_hist), sess.spec_ema, sess.spec_miss)
+        else:
+            idx = self.sessions.get(session)
+            if idx is None or idx < 0:
+                return None
+            slot = self.slots[idx]
+            if slot.request is not None or slot.position <= 0:
+                return None
+            position, pending = slot.position, slot.pending_token
+            k_src = self.cache.k_store[:, idx, :position]
+            v_src = self.cache.v_store[:, idx, :position]
+            spec = (list(slot.spec_hist), slot.spec_ema, slot.spec_miss)
+        staged = self._stage_kv(session, k_src, v_src, position, pending, count_snapshot=False)
+        # the device residency goes now: later writes to its pages or row
+        # are ordered after the staging copy on the engine's stream, and
+        # freed pages wait in quarantine until the copy has landed
+        self._flush_parked_snapshot(session)
+        if self.paged:
+            with self._page_lock:
+                self._free_session_pages(sess, quarantine=staged.event)
+                self.paged_sessions.pop(session, None)
+                self.sessions.pop(session, None)
+        else:
+            self.sessions.pop(session, None)
+            slot.session = ""
+            slot.position = 0
+            slot.pending_token = None
+            slot.prefix_ctx = None
+            slot.spec_hist, slot.spec_ema, slot.spec_miss = [], 1.0, 0
+        staged.event.synchronize()
+        self._reap_quarantine(0)  # the copy has landed: its pages are free
+        k, v = staged.k[:, :position], staged.v[:, :position]
+        if self.tier_quantize:
+            qk, sk = quantize_kv_pages(k.float().numpy(), self.page_size)
+            qv, sv = quantize_kv_pages(v.float().numpy(), self.page_size)
+            entry = TieredEntry(
+                k=qk, v=qv, k_scale=sk, v_scale=sv, quantized=True, pages=int(qk.shape[1]),
+                position=position, pending_token=pending,
+                nbytes=qk.nbytes + qv.nbytes + sk.nbytes + sv.nbytes, parked_at=time.monotonic(),
+                spec_hist=spec[0], spec_ema=spec[1], spec_miss=spec[2],
+            )
+        else:
+            entry = TieredEntry(
+                k=k, v=v, position=position, pending_token=pending,
+                nbytes=2 * k.numel() * k.element_size(), parked_at=time.monotonic(),
+                spec_hist=spec[0], spec_ema=spec[1], spec_miss=spec[2],
+            )
+        self._tier_insert_host(session, entry, pressure=pressure)
+        self.tier_timings.append({
+            "kind": "park", "session": session, "position": position,
+            "bytes": 2 * k.numel() * k.element_size(), "host_bytes": entry.nbytes,
+            "ms": 1000 * (time.monotonic() - t0),
+        })
+        return staged
+
+    def _tier_drop_locked(self, session: str) -> TieredEntry | None:
+        """Remove a host-tier entry and its share of the gauges (caller
+        holds _tier_lock)."""
+        entry = self._host_tier.pop(session, None)
+        if entry is not None:
+            self.tier_host_bytes -= entry.nbytes
+            if entry.quantized:
+                self.tier_quantized_pages -= entry.pages
+        return entry
+
+    def _tier_insert_host(self, session: str, entry: TieredEntry, pressure: bool = False) -> None:
+        """Insert (or replace) a host-tier entry; past the host budget the
+        least recently parked entries are dropped (a store would keep their
+        blobs; here their context is gone)."""
+        with self._tier_lock:
+            self._tier_drop_locked(session)
+            self._host_tier[session] = entry
+            self.tier_host_bytes += entry.nbytes
+            if entry.quantized:
+                self.tier_quantized_pages += entry.pages
+            self.tier_demotions_total += 1
+            if pressure:
+                self.tier_pressure_demotions_total += 1
+            while self.tier_host_bytes > self.tier_host_budget_bytes and len(self._host_tier) > 1:
+                self._tier_drop_locked(next(iter(self._host_tier)))
+                self.tier_host_evictions_total += 1
+
+    def _tier_promote(self, session: str, prewarm: bool = False) -> bool:
+        """Swap a host-tier session back onto the device, without waiting for
+        the copy (from the admission path it overlaps the turn's queue
+        wait). On failure the entry stays parked and False returns."""
+        with self._tier_lock:
+            entry = self._host_tier.get(session)
+        if entry is None:
+            return session in self.sessions
+        t0 = time.monotonic()
+        try:
+            faults.fire("engine.kv_promote")
+        except Exception:
+            self.tier_promote_failures_total += 1
+            return False
+        dtype = self.cache.k.dtype
+        if entry.quantized:
+            k = torch.from_numpy(dequantize_kv_pages(entry.k, entry.k_scale, entry.position)).to(dtype)
+            v = torch.from_numpy(dequantize_kv_pages(entry.v, entry.v_scale, entry.position)).to(dtype)
+            if self._stream is not None:
+                k, v = k.pin_memory(), v.pin_memory()
+        else:
+            k, v = entry.k, entry.v
+        ok = (
+            self._tier_promote_paged(session, entry, k, v)
+            if self.paged
+            else self._tier_promote_dense(session, entry, k, v)
+        )
+        if not ok:
+            self.tier_promote_failures_total += 1
+            return False
+        self._hold_host_source(k, v)
+        with self._tier_lock:
+            self._tier_drop_locked(session)
+        self.tier_promotions_total += 1
+        if prewarm:
+            self.tier_prewarm_hits_total += 1
+        if len(self._tier_promote_started) > 256:
+            for name in [n for n, t in self._tier_promote_started.items() if t < t0 - 300.0]:
+                self._tier_promote_started.pop(name, None)
+        self._tier_promote_started[session] = t0
+        self.tier_timings.append({
+            "kind": "promote", "session": session, "position": entry.position,
+            "bytes": 2 * k.numel() * k.element_size(), "ms": 1000 * (time.monotonic() - t0),
+        })
+        return True
+
+    def _tier_promote_paged(self, session: str, entry: TieredEntry, k, v) -> bool:
+        if not 0 < entry.position < self.max_seq - 1:
+            return False
+        if session in self.paged_sessions:
+            return True  # already resident: the host entry is stale
+        count = (entry.position - 1) // self.page_size + 1
+        try:
+            pages = self._alloc_pages(count, serving=False)
+        except EngineOverloaded:
+            return False
+        self._write_pages(pages, k, v, entry.position)
+        sess = PagedSession(
+            name=session, pages=pages, position=entry.position,
+            pending_token=entry.pending_token, last_used=time.monotonic(),
+            spec_hist=list(entry.spec_hist), spec_ema=entry.spec_ema, spec_miss=entry.spec_miss,
+        )
+        with self._page_lock:
+            self.paged_sessions[session] = sess
+            self.sessions[session] = -1
+        return True
+
+    def _tier_promote_dense(self, session: str, entry: TieredEntry, k, v) -> bool:
+        if not 0 < entry.position < self.max_seq - 1:
+            return False
+        slot = self._find_slot(session)
+        if slot is None:
+            return False
+        restore_kv_slot(self.cache, slot.idx, k, v)
+        slot.position = entry.position
+        slot.pending_token = entry.pending_token
+        slot.last_used = time.monotonic()
+        slot.spec_hist = list(entry.spec_hist)
+        slot.spec_ema = entry.spec_ema
+        slot.spec_miss = entry.spec_miss
+        return True
+
+    def _tier_pressure_demote(self, need: int) -> None:
+        """Paged pool pressure: demote idle resident sessions, least
+        recently used first, into the host tier until ``need`` pages are
+        free or in quarantine. Where ``_reclaim_pages`` destroys a victim's
+        context, a demotion keeps it for the victim's next turn."""
+        if not (self.kv_tiering and self.paged):
+            return
+
+        def short() -> bool:
+            with self._page_lock:
+                quarantined = sum(len(ids) for _, ids in self._page_quarantine)
+                return len(self._page_free) + quarantined < need
+
+        while short():
+            with self._page_lock:
+                idle = [
+                    s for s in self.paged_sessions.values()
+                    if s.lane is None and s.pages and s.position > 0 and s.name
+                ]
+            if not idle:
+                return
+            victim = min(idle, key=lambda s: s.last_used)
+            if self._tier_demote(victim.name, pressure=True) is None:
+                return  # the demote failpoint fired: stop, do not spin
+
+    def _tier_metrics(self) -> dict:
+        """The reference's tier gauges and counters."""
+        with self._tier_lock:
+            host_sessions = len(self._host_tier)
+            host_bytes = self.tier_host_bytes
+            quantized_pages = self.tier_quantized_pages
+        return {
+            "kv_tiering": self.kv_tiering,
+            "tier_quantize": self.tier_quantize,
+            "tier_host_sessions": host_sessions,
+            "tier_host_bytes": host_bytes,
+            "tier_host_budget_bytes": self.tier_host_budget_bytes,
+            "tier_quantized_pages": quantized_pages,
+            "tier_demotions_total": self.tier_demotions_total,
+            "tier_promotions_total": self.tier_promotions_total,
+            "tier_pressure_demotions_total": self.tier_pressure_demotions_total,
+            "tier_prewarm_hits_total": self.tier_prewarm_hits_total,
+            "tier_demote_failures_total": self.tier_demote_failures_total,
+            "tier_promote_failures_total": self.tier_promote_failures_total,
+            "tier_host_evictions_total": self.tier_host_evictions_total,
+            "tier_promote_overlap_ms_total": round(self.tier_promote_overlap_ms_total, 2),
+            "tier_promote_overlap_ms_p50": _p50(self.tier_promote_overlap_ms_recent),
+        }
 
     # -- paged arena: page allocator + block tables -------------------------
     #
@@ -2870,14 +3911,32 @@ class LLMEngine:
         steps and bucket-padding writes land where no live query looks."""
         return self._data_pages + lane
 
-    def _alloc_pages(self, n: int, pin: bool = False) -> list[int]:
-        """Take ``n`` pages off the free list, evicting idle resident
-        sessions (then prefix pins) LRU-first when it runs dry. Raises
-        PagePoolExhausted (429 backpressure) when that cannot cover the
-        need. A ``pin`` (a best-effort prefix-cache page) takes only free
-        pages, and its failure is no exhaustion event."""
+    def _alloc_pages(self, n: int, pin: bool = False, serving: bool = True) -> list[int]:
+        """Take ``n`` pages off the free list; when it runs dry, with
+        ``kv_tiering`` demote idle resident sessions into the host tier
+        first, then evict idle resident sessions (then prefix pins)
+        LRU-first. Raises PagePoolExhausted (429 backpressure) when that
+        cannot cover the need. A ``pin`` (a best-effort prefix-cache page)
+        takes only free pages, and its failure is no exhaustion event. A
+        ``serving`` allocation (a request's own pages) passes the
+        ``engine.page_alloc`` failpoint, whose fault is the same 429."""
         if n <= 0:
             return []
+        if serving and not pin:
+            try:
+                faults.fire("engine.page_alloc")
+            except Exception as e:
+                self.page_exhausted_total += 1
+                with self._page_lock:
+                    free = len(self._page_free)
+                raise PagePoolExhausted(n, free) from e
+        self._reap_quarantine(n)
+        if not pin and self.kv_tiering:
+            with self._page_lock:
+                short = len(self._page_free) < n
+            if short:
+                self._tier_pressure_demote(n)
+                self._reap_quarantine(n)
         with self._page_lock:
             if len(self._page_free) < n and not pin:
                 self._reclaim_pages(n)
@@ -2926,17 +3985,40 @@ class LLMEngine:
         with self._page_lock:
             self._page_free.extend(ids)
 
-    def _decref_page(self, pid: int) -> None:
+    def _decref_page(self, pid: int, freed: list | None = None) -> None:
+        """Drop one reference; a page whose last reference goes returns to
+        the free list, or into ``freed`` when the caller quarantines it."""
         with self._page_lock:
             self._page_refs[pid] -= 1
             if self._page_refs[pid] <= 0:
                 self._page_refs[pid] = 0
-                self._free_page_ids([pid])
+                if freed is None:
+                    self._free_page_ids([pid])
+                else:
+                    freed.append(pid)
 
-    def _free_session_pages(self, sess: PagedSession) -> None:
+    def _free_session_pages(self, sess: PagedSession, quarantine=None) -> None:
+        """Release a session's page references. With ``quarantine`` (the
+        event of a demotion's staging copy) the freed pages wait until the
+        copy has landed before they can be allocated again."""
         pages, sess.pages, sess.shared = sess.pages, [], 0
+        freed = [] if quarantine is not None else None
         for pid in pages:
-            self._decref_page(pid)
+            self._decref_page(pid, freed)
+        if freed:
+            with self._page_lock:
+                self._page_quarantine.append((quarantine, freed))
+
+    def _reap_quarantine(self, need: int) -> None:
+        """Return quarantined pages whose staging copy has landed; when the
+        free list still cannot cover ``need``, wait for the copies."""
+        with self._page_lock:
+            while self._page_quarantine and (
+                self._page_quarantine[0][0].query() or len(self._page_free) < need
+            ):
+                event, ids = self._page_quarantine.popleft()
+                event.synchronize()
+                self._page_free.extend(ids)
 
     def _bind_lane_bt(self, slot: Slot, sess: PagedSession) -> None:
         """Point the lane's block-table row at the session's pages; every
@@ -2958,7 +4040,8 @@ class LLMEngine:
         have = len(sess.pages)
         if have >= blocks:
             return
-        new = self._alloc_pages(blocks - have)
+        serving = slot.request is not None and bool(slot.request.id)
+        new = self._alloc_pages(blocks - have, serving=serving)
         with self._page_lock:
             sess.pages.extend(new)
             self._bt[slot.idx, have:blocks] = new
@@ -3230,6 +4313,29 @@ class LLMEngine:
         else:
             self.prefix_evictions += 1
             self.prefix_eviction_idle_s_recent.append(idle_s)
+
+
+def draft_from_hist(hist: torch.Tensor, hlen: torch.Tensor, k: int):
+    """The in-loop drafter (the reference's ``draft_from_hist`` in
+    ``_fused_fn``): match each lane's trailing 3-gram (else 2-gram) of its
+    right-aligned history ``hist`` [B, W] (``hlen`` valid tokens) at the
+    smallest distance d back, and draft the ``k`` tokens that followed the
+    match (clamped at the newest). Returns (a match exists [B], d [B],
+    drafts [B, k])."""
+    w = hist.shape[1]
+    dev = hist.device
+
+    def match(n: int):
+        d = torch.arange(1, w - n + 1, device=dev)
+        idx = (w - n - d)[:, None] + torch.arange(n, device=dev)[None]
+        m = (hist[:, idx] == hist[:, w - n :][:, None, :]).all(dim=-1) & (hlen[:, None] >= d[None] + n)
+        return m.any(dim=1), d[m.long().argmax(dim=1)]
+
+    any3, d3 = match(3)
+    any2, d2 = match(2)
+    dstar = torch.where(any3, d3, d2)
+    gidx = torch.clamp((w - dstar)[:, None] + torch.arange(k, device=dev)[None], max=w - 1)
+    return any3 | any2, dstar, hist.gather(1, gidx)
 
 
 def _p50(xs) -> float | None:

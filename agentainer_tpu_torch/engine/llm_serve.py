@@ -1,6 +1,6 @@
 """LLM engine process — serves the PyTorch engine over the engine HTTP
 contract: ``/`` ``/health`` ``/chat`` ``/generate`` ``/history`` ``/clear``
-``/cancel`` ``/profile`` ``/metrics``.
+``/cancel`` ``/profile`` ``/metrics`` ``/park`` ``/prewarm``.
 
 Reference: ``agentainer_tpu/engine/llm_serve.py``. Same routes, same request
 and response JSON, same ``AGENTAINER_*`` environment contract: the model
@@ -18,9 +18,11 @@ What differs:
   an unknown session from the store before admitting it and snapshots the
   resident sessions in the drain, all only with a connected store; so they
   wait for the store client, which calls the engine's
-  ``snapshot_session``/``restore_session`` (ported). Tenants, ``/park`` and
-  ``/prewarm`` come with later slices; a fleet flag for an engine feature
-  the port lacks fails the load (``create`` refuses it);
+  ``snapshot_session``/``restore_session`` (ported). ``/park`` and
+  ``/prewarm`` (with ``kv_tiering``) demote a session into the engine's
+  host tier and promote it back; with no store connected the park's blob
+  is written nowhere and a prewarm has no cold tier to fall back to, as in
+  the reference without a store. Tenants come with a later slice;
 - SSE streaming (``stream=true`` on ``/chat`` with the engine's
   ``streaming`` option; a body asking for it with the option off is
   answered buffered, as in the reference): the standard-library server
@@ -72,6 +74,7 @@ import traceback
 from dataclasses import dataclass
 from urllib.parse import urlsplit
 
+from .. import faults
 from ..core.protocol import (
     DEADLINE_HEADER,
     DRAINING_HEADER,
@@ -254,6 +257,11 @@ class LLMServeApp:
         self.draining = False
         self.drained_clean: bool | None = None
         self.prefix_prewarms = 0
+        # the tiered KV hierarchy's park and prewarm hints
+        self.kv_parks = 0
+        self.kv_park_errors = 0
+        self.kv_prewarms = 0
+        self.kv_prewarm_errors = 0
         # SSE streaming: the keep-alive cadence (per deployment, else the
         # fleet default) and the stream counters
         try:
@@ -285,6 +293,8 @@ class LLMServeApp:
             ("POST", "/cancel"): self.h_cancel,
             ("POST", "/profile"): self.h_profile,
             ("GET", "/metrics"): self.h_metrics,
+            ("POST", "/park"): self.h_park,
+            ("POST", "/prewarm"): self.h_prewarm,
         }
 
     def _sess(self, session: str) -> str:
@@ -679,6 +689,9 @@ class LLMServeApp:
                 delta, text = new_text[len(text):], new_text
                 if off <= last_acked:
                     continue  # the consumer holds it already
+                # failpoint: the per-event emission seam; an armed error
+                # truncates the stream (no done frame)
+                await faults.fire_async("engine.stream")
                 await out.write(
                     _sse_frame(STREAM_EVENT_TOKEN, off, {"offset": off, "token": int(tid), "text": delta})
                 )
@@ -888,6 +901,57 @@ class LLMServeApp:
             self._profiling = False
         return Response(200, {"trace_dir": trace_dir, "duration_s": duration, "agent_id": self.agent_id})
 
+    async def _hint_session(self, req: Request) -> tuple[str | None, Response | None]:
+        """The session a /park or /prewarm body names (default "default"),
+        or the answer for a body that is not JSON or an engine not up."""
+        self.requests_total += 1
+        err = await self._ensure_engine()
+        if err is not None:
+            return None, err
+        try:
+            body = req.json()
+        except ValueError:
+            return None, Response(400, {"error": "invalid JSON"})
+        if not isinstance(body, dict):
+            body = {}
+        return str(body.get("session", "default")), None
+
+    async def h_park(self, req: Request) -> Response:
+        """Tiering hint: demote an idle session off the device into the
+        engine's host tier. The answer carries the exact blob's size; with
+        no store connected the blob is written nowhere."""
+        session, err = await self._hint_session(req)
+        if err is not None:
+            return err
+        if not getattr(self.engine, "kv_tiering", False):
+            return Response(200, {"parked": False, "reason": "tiering off"})
+        try:
+            blob = await self.engine.park_session(self._sess(session))
+        except Exception as e:
+            self.kv_park_errors += 1
+            return Response(200, {"parked": False, "reason": f"{type(e).__name__}: {e}"})
+        if blob is None:
+            return Response(200, {"parked": False, "reason": "unknown or busy"})
+        self.kv_parks += 1
+        return Response(200, {"parked": True, "bytes": len(blob)})
+
+    async def h_prewarm(self, req: Request) -> Response:
+        """Tiering hint: promote a parked session onto the device ahead of
+        its next turn (best effort: a turn promotes it anyway)."""
+        session, err = await self._hint_session(req)
+        if err is not None:
+            return err
+        if not getattr(self.engine, "kv_tiering", False):
+            return Response(200, {"prewarmed": False, "reason": "tiering off"})
+        ok = False
+        try:
+            ok = bool(await self.engine.prewarm_session(self._sess(session)))
+        except Exception:
+            self.kv_prewarm_errors += 1
+        if ok:
+            self.kv_prewarms += 1
+        return Response(200, {"prewarmed": ok})
+
     async def h_metrics(self, req: Request) -> Response:
         doc = {
             "engine": "llm",
@@ -900,6 +964,10 @@ class LLMServeApp:
             "unhandled_errors": self.unhandled_errors,
             "last_unhandled_error": self.last_unhandled_error or None,
             "prefix_prewarms": self.prefix_prewarms,
+            "kv_parks": self.kv_parks,
+            "kv_park_errors": self.kv_park_errors,
+            "kv_prewarms": self.kv_prewarms,
+            "kv_prewarm_errors": self.kv_prewarm_errors,
             "drain_budget_s": self.drain_budget_s,
             "drained_clean": self.drained_clean,
             "flatten_history": self.flatten_history,

@@ -60,10 +60,11 @@ def filter_logits(
     return torch.where(p_on & (filtered < cutoff_logit), neg, filtered)
 
 
-def _draw(filtered: torch.Tensor, temperature: torch.Tensor, generator) -> torch.Tensor:
-    """Gumbel-max draw from softmax(filtered / temperature) per lane."""
+def _draw(filtered: torch.Tensor, temperature: torch.Tensor, generator, noise=None) -> torch.Tensor:
+    """Gumbel-max draw from softmax(filtered / temperature) per lane, from
+    uniforms drawn off ``generator`` or given as ``noise`` (same shape)."""
     scaled = filtered / torch.clamp(temperature, min=1e-6)[:, None]
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    u = noise if noise is not None else torch.rand(scaled.shape, generator=generator, device=scaled.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     return torch.argmax(scaled + gumbel, dim=-1)
 
@@ -99,6 +100,7 @@ def sample_step(
     *,
     all_greedy: bool | None = None,
     approx_topk: bool = False,
+    noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-lane sampler: every filter is a per-lane ARRAY, so one call
     serves a batch mixing greedy, temperature, top-k and top-p lanes.
@@ -110,12 +112,15 @@ def sample_step(
     so callers that know it on the host (the engine does: it owns the
     lanes' sampling parameters) pass ``all_greedy``; None reads it from
     ``temperature``. ``approx_topk`` (static) filters over the
-    ``APPROX_SEG`` segment (``filter_logits``); greedy lanes are unaffected."""
+    ``APPROX_SEG`` segment (``filter_logits``); greedy lanes are unaffected.
+    ``noise`` ([B, V] uniforms in [0, 1)) replaces the generator's draw: the
+    fused decode loop draws a whole loop's uniforms before it starts, as the
+    reference splits one key per iteration before its loop."""
     greedy = torch.argmax(logits, dim=-1)
     if all_greedy is None:
         all_greedy = bool((temperature <= 0.0).all())
     if all_greedy:
         return greedy
     filtered = filter_logits(logits, top_k, top_p, approx_topk)
-    sampled = _draw(filtered, temperature, generator)
+    sampled = _draw(filtered, temperature, generator, noise)
     return torch.where(temperature <= 0.0, greedy, sampled)

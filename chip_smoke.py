@@ -134,6 +134,48 @@ exits non-zero):
                  the kernel's plain version (``qmatmul`` forced to it), bf16,
                  within 3e-2 of the largest logit.
 
+9. fused      — the fused on-device decode loop, at full width and depth:
+   dense         the serve phase's options plus ``fused_decode`` (no
+                 speculation, so every iteration is the ladder's [8, 1]
+                 decode step): the four requests give the serve phase's
+                 greedy text token for token; one host readback per loop
+                 (``host_syncs_total`` = first tokens + loops) and
+                 ``host_syncs_per_token`` beside the serve phase's; an
+                 early exit in the served counters (a 4-token request) and
+                 on the device (a replay whose one lane freezes at 3 of 32
+                 iterations launches the decode kernel and its combine
+                 32 × 3 times in a profiler trace).
+   paged         the feature phase's options (paged) plus ``fused_decode``
+                 with in-loop spec: the feature gates, in-loop drafts
+                 accepted on the one-byte runs, a lane absorbed into a loop
+                 in flight (``fused_injections_total``), the prefill kernel
+                 at 32 × (chunks + verify iterations); the first index where
+                 the script's text leaves the unfused paged phase's is
+                 reported, not gated.
+   graphs        inside both, and on the 2-layer int8 model as a fused
+                 engine (``w8a16_matmul`` inside the conditional bodies):
+                 each loop graph (greedy, sampled) against the eager loop
+                 over the same segments from one saved state — lanes 0-2
+                 live (lane 1 with a budget of 9), lane 3 armed from the
+                 shadow carry, repeating histories: packed readback, carry,
+                 history, loop state and KV bytes equal bit for bit
+                 (greedy), two replays equal (sampled); capture seconds and
+                 pool bytes printed.
+10. tiering    — the reference's defaults plus ``kv_tiering``:
+   paged         ``tier_quantize`` 0, a 64-page pool (512 MiB): a control
+                 session's two turns; another session parked (``/park``:
+                 its own pages leave the pool, it stays known), prewarmed
+                 (``/prewarm``) and its turn two equal to the control's;
+                 16 sessions of ~300 tokens in sequence: no 429, no
+                 destructive eviction, ≥ 4 pressure demotions, and the first
+                 of them served turn two through a promotion, equal to the
+                 control's.
+   dense         ``tier_quantize`` 1: a parked and prewarmed session's KV
+                 within half a quantization step of each page's scale (plus
+                 the bf16 rounding) of the parked exact bytes; the numpy
+                 quantizer's ms on a 2,048-token session. Every park's and
+                 promotion's bytes, ms and GB/s beside the card.
+
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
 chunk is one prefill graph replay (``prefill_graph_replays`` =
@@ -1227,6 +1269,12 @@ SCRIPT = (
     *((None, run, 96) for run in RUNS),
 )
 SPEC_COUNTS = ("spec_rounds", "spec_drafted", "spec_accepted", "prefix_hits", "prefix_tokens_saved")
+FUSED_COUNTS = ("inloop_spec_drafted", "inloop_spec_accepted", "fused_loops_total", "fused_steps_total")
+FUSED_KEYS = (
+    "fused_loops_total", "fused_steps_total", "fused_verify_steps_total", "fused_early_exits_total",
+    "fused_exit_reason_hist", "fused_injections_total", "fused_inject_fallbacks_total",
+    "inloop_spec_drafted", "inloop_spec_accepted", "host_syncs_total", "prefills",
+)
 SHED_WATERMARK = 12  # the burst below sends 16 at once over 8 lanes
 FEATURE_KEYS = (
     "prefix_hits", "prefix_misses", "prefix_tokens_saved", "prefix_arena_entries",
@@ -1258,7 +1306,7 @@ def _forwards(before: dict, after: dict) -> int:
 
 
 def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
-                         quant: bool = False) -> dict:
+                         quant: bool = False, fused: bool = False) -> dict:
     """The reference's default serving features (prefix cache, speculation,
     deadlines) with a persona: the sequential script (fresh sessions fork
     the persona, the one-byte runs speculate), then a deadline that passes
@@ -1269,7 +1317,15 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     the weights are int8 (``quant: int8, synthetic: true``): the int8
     footprint, ``w8a16_matmul`` launched for every weight product of every
     forward, and one prompt's greedy text equal in two fresh sessions; in
-    bf16 the int8 kernel must not launch."""
+    bf16 the int8 kernel must not launch. With ``fused`` decode runs as
+    fused loops with in-loop speculation: the one-byte runs must accept
+    in-loop drafts, a request arriving while a loop is in flight must be
+    absorbed from the shadow carry (``fused_injections_total``), the
+    prefill kernel's launches count the loops' verify iterations too, the
+    loop graphs are held against their eager loop (``phase_fused_graphs``)
+    and the script's text is compared with ``script_texts`` (the first index
+    where it differs is reported, not gated: a bf16 verify may pick another
+    argmax on a near tie)."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
@@ -1286,9 +1342,11 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         options.update(paged_kv=True, page_size=PS)
     if quant:
         options.update(INT8)
+    if fused:
+        options["fused_decode"] = True
     # the dense bf16 engine also samples through approx_topk, and serves
     # /profile and an assistant-flavor app attached to it
-    main = not paged and not quant
+    main = not paged and not quant and not fused
     if main:
         options["approx_topk"] = True
     profile_dir = tempfile.mkdtemp(prefix="atpu-profile-") if main else ""
@@ -1298,7 +1356,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     )
     others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
                             ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
-    name = ("int8 " if quant else "") + ("paged" if paged else "dense")
+    name = ("int8 " if quant else "") + ("fused " if fused else "") + ("paged" if paged else "dense")
+    counts = SPEC_COUNTS + (FUSED_COUNTS if fused else ())
     extra: dict = {}
     with _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}) as (app, load_s):
         port = app.port
@@ -1317,7 +1376,7 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
             else:
                 texts.append(_chat(port, replies, s, msg, n)["response"])
             _, ma = _http(port, "GET", "/metrics")
-            per_request.append({k: ma[k] - mb[k] for k in SPEC_COUNTS})
+            per_request.append({k: ma[k] - mb[k] for k in counts})
         script_s = time.monotonic() - t1
         if quant:  # one prompt, two fresh sessions: the same greedy text
             twins = [_chat(port, replies, s, REQUESTS[2][1], 16)["response"] for s in ("i8a", "i8b")]
@@ -1381,7 +1440,7 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, cq.w8a16_matmul)}
         _, m2 = _http(port, "GET", "/metrics")
         pipeline = _pipeline(f"{name} features", m0, m2, load_s)
-        graphs = phase_graphs(app.engine, name)
+        graphs = phase_fused_graphs(app.engine, name) if fused else phase_graphs(app.engine, name)
         if main:
             extra["profile"] = _profile_during_a_request(port, profile_dir)
             extra["assistant"] = _assistant_turns(app)
@@ -1399,17 +1458,32 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
 
     if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
         raise AssertionError(f"prefix cache: prewarms {m0['prefix_prewarms']}, hits {m1['prefix_hits']}")
-    if m1["spec_rounds"] <= 0 or m1["spec_accepted"] <= 0:
+    if fused:
+        runs = per_request[-len(RUNS):]
+        if sum(r["inloop_spec_accepted"] for r in runs) <= 0 or m1["spec_rounds"] != 0:
+            raise AssertionError(f"{name}: no in-loop draft accepted on the one-byte runs: {per_request}")
+        if m2["fused_injections_total"] <= 0 or m2["fused_loops_total"] <= 0:
+            raise AssertionError(f"{name}: no lane absorbed into a loop in flight: "
+                                 f"{({k: m2[k] for k in FUSED_KEYS})}")
+    elif m1["spec_rounds"] <= 0 or m1["spec_accepted"] <= 0:
         raise AssertionError(f"no speculation in the script: {per_request}")
-    want = n_layers * (m2["prefill_chunks"] - m0["prefill_chunks"] + m2["spec_rounds"] - m0["spec_rounds"])
+    verify_steps = m2.get("fused_verify_steps_total", 0) - m0.get("fused_verify_steps_total", 0)
+    want = n_layers * (m2["prefill_chunks"] - m0["prefill_chunks"] + m2["spec_rounds"] - m0["spec_rounds"]
+                       + verify_steps)
     if launches[prefill.__name__] != want:
         raise AssertionError(f"{prefill.__name__}: {launches[prefill.__name__]} launches, "
-                             f"{n_layers} x (prefill chunks + verify rounds) = {want}")
+                             f"{n_layers} x (prefill chunks + verify rounds + loop verify iterations) "
+                             f"= {want}")
     if launches[decode.__name__] <= 0 or any(launches[fn.__name__] for fn in others):
         raise AssertionError(f"{name} feature phase launches: {launches}")
     if m2["worker_errors"] or m2["expired_total"] < 1 or m2["cancelled_total"] < B or m2["shed_total"] < 1:
         raise AssertionError(f"{name} feature phase counters: {({k: m2[k] for k in FEATURE_KEYS})}")
-    if script_texts is not None and texts != script_texts:
+    if fused and script_texts is not None:
+        extra["first_divergence"] = _first_divergence(texts, script_texts)
+        extra["fused"] = {k: m2[k] - m0[k] if isinstance(m2[k], int) else m2[k] for k in FUSED_KEYS}
+        log(f"{name}: first divergence from the unfused phase's script text: {extra['first_divergence']}; "
+            f"fused counters {extra['fused']}")
+    elif script_texts is not None and texts != script_texts:
         raise AssertionError(f"paged feature text differs from the dense feature phase's: {texts} {script_texts}")
     log(f"{name} features: script in {script_s:.2f}s, served {serve_s:.2f}s; launches {launches}; "
         f"after the script {({k: m1[k] for k in FEATURE_KEYS})}; per request {per_request}; burst {codes}")
@@ -2114,6 +2188,398 @@ def _greedy_divergence(params, cfg, base, pre, ar, s, n: int = 48, kk: int = 8):
     return next((i for i, (x, y) in enumerate(zip(plain, spec[: n + 1])) if x != y), None)
 
 
+# -- the fused decode loop ---------------------------------------------------
+
+
+def _first_divergence(got: list[str], want: list[str]) -> dict:
+    """Per text pair, the first character index where ``got`` leaves
+    ``want`` (None when equal)."""
+    out = []
+    for a, b in zip(got, want):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None and len(a) != len(b):
+            i = min(len(a), len(b))
+        out.append(i)
+    return {"first_index": out, "equal": sum(i is None for i in out), "of": len(out)}
+
+
+def phase_fused_graphs(engine, name: str) -> dict:
+    """Each captured fused loop of a served engine against the eager loop
+    over the same segment functions, from one saved state
+    (``compare_replay``): lanes 0-2 live at 40 / 300 / 777 (lane 1 with a
+    budget of 9), lane 3 armed from the shadow carry, histories that repeat
+    (with in-loop spec the verify branch runs), a bound of cap - 3. Greedy:
+    packed readback, carry, history, shadow carry, loop state and KV bytes
+    equal bit for bit; sampled: two replays from one generator state give
+    the same tokens. Prints the loop graphs' capture seconds (their
+    segments' and the assembly's) and the engine's pool bytes."""
+    import torch
+
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_fused, live_lanes, park_lanes
+
+    cap = engine._fused_cap
+    keys = engine._step_keys()
+    if {k for k in keys if k[0] == "fused"} != {("fused", cap, True), ("fused", cap, False)}:
+        raise AssertionError(f"{name}: fused loop keys {keys}")
+    out = {}
+    t0 = time.monotonic()
+    for temperature, greedy in ((0.0, True), (1.0, False)):
+        key = ("fused", cap, greedy)
+        live_lanes(engine, list(GRAPH_LIVE_POS), temperature, seed=int(greedy))
+        live_fused(engine, list(GRAPH_LIVE_POS[:3]), temperature, seed=int(greedy), nsteps=cap - 3,
+                   budgets=[cap + 1, 9, cap + 1], armed_lane=3)
+        try:
+            with torch.no_grad(), engine._on_stream():
+                got = compare_replay(engine._graphs, key, engine._step_fn(key), engine._device_state(),
+                                     engine._gen)
+                packed = engine._graphs.replay(key).cpu()
+        finally:
+            park_lanes(engine)
+        rows = cap + 1
+        got.update(iterations=int(packed[rows + 2, 0]), verify_iterations=int(packed[rows + 5, 0]),
+                   emitted=[int(x) for x in packed[rows, :4]])
+        ok = got["replay_repeats"] and (not greedy or (got["tokens_equal"] and got["state_equal"]))
+        if not ok or got["emitted"][1] != 9:
+            raise AssertionError(f"{name} fused loop {'greedy' if greedy else 'sampled'} against its "
+                                 f"eager loop: {got}")
+        if greedy and engine.inloop_spec and got["verify_iterations"] <= 0:
+            raise AssertionError(f"{name}: the verify branch never ran in the held loop: {got}")
+        out["greedy" if greedy else "sampled"] = got
+    by_kind = engine._graphs.capture_s_by_kind
+    out["capture_s"] = {k: round(v, 4) for k, v in by_kind.items() if k.startswith("fused")}
+    out["graph_capture_s"] = engine._graphs.capture_s
+    out["graph_pool_bytes"] = engine._graphs.pool_bytes
+    out["pool_bytes_by_kind"] = engine._graphs.pool_bytes_by_kind
+    out["inloop_spec"] = engine.inloop_spec
+    out["torch_if_node_api"] = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    log(f"{name} fused graphs held against the eager loop in {time.monotonic() - t0:.1f}s: {out}")
+    return out
+
+
+def _fused_early_exit(engine, name: str) -> dict:
+    """One loop replay with the bound at the cap whose one live lane (lane
+    0 at 300) freezes at its budget of 3, under torch.profiler: the dense
+    decode kernel and its combine must launch n_layers x (the iterations
+    the readback reports) times on the device, and the iterations must be
+    fewer than the bound. The loop graph is assembled again once the
+    profiler has come up (``StepGraphs.rebuild_loop``); a trace that lost
+    device records is taken again, up to TRACE_ATTEMPTS times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from agentainer_tpu_torch.engine.graphs import live_fused, live_lanes, park_lanes
+
+    cap = engine._fused_cap
+    key = ("fused", cap, True)
+    n_layers = engine.cfg.n_layers
+    # the profiler traces every iteration only of a loop graph instantiated
+    # after it first came up (StepGraphs.rebuild_loop)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    engine._graphs.rebuild_loop(key)
+    for attempt in range(TRACE_ATTEMPTS):
+        live_lanes(engine, [300, 312], 0.0, seed=0)
+        live_fused(engine, [300], 0.0, seed=0, nsteps=cap, budgets=[3])
+        try:
+            with torch.no_grad(), engine._on_stream():
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    packed = engine._graphs.replay(key).clone()
+                    torch.cuda.synchronize()
+        finally:
+            park_lanes(engine)
+        steps = int(packed[cap + 3, 0])
+        names = [_kernel_name(e.name) for e in prof.events() if e.device_type.name == "CUDA"]
+        decode, combine = names.count("decode_kernel"), names.count("decode_combine_kernel")
+        if decode == combine == n_layers * steps:
+            break
+    out = {"bound": cap, "iterations": steps, "decode_kernel": decode, "decode_combine_kernel": combine,
+           "device_launches_want": 2 * n_layers * steps, "attempts": attempt + 1}
+    if not (0 < steps < cap and decode == combine == n_layers * steps):
+        raise AssertionError(f"{name}: the loop's early exit is not shown on the device: {out}")
+    log(f"{name} early exit on the device: {out}")
+    return out
+
+
+def phase_fused_dense(dense_texts: list[str], serve: dict) -> dict:
+    """llama3-8b at full width and depth, bf16, seed 0, the serve phase's
+    options (features off) plus ``fused_decode``: the four requests must
+    give the serve phase's greedy text token for token (a loop iteration is
+    the ladder's [8, 1] decode step), one host readback per loop
+    (``host_syncs_total`` = first tokens + loops), ``host_syncs_per_token``
+    beside the serve phase's, an early exit proven on the device
+    (``_fused_early_exit``) and in the served counters (a 4-token request:
+    its loop freezes at 3 of 32 iterations), and the loop graphs held
+    against their eager loop (``phase_fused_graphs``)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, **FEATURES_OFF,
+               "fused_decode": True}
+    kernels = (ca.flash_prefill, ca.flash_decode)
+    with _serving(options) as (app, load_s):
+        log(f"llama3-8b fused dense engine loaded (init + warmup) in {load_s:.1f}s")
+        _, m0 = _http(app.port, "GET", "/metrics")
+        for fn in kernels:
+            fn.launches = 0
+        replies = []
+        t1 = time.monotonic()
+        texts = _four_requests(app.port, replies)
+        serve_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        _, m1 = _http(app.port, "GET", "/metrics")
+        _http(app.port, "POST", "/generate", {"prompt": "Four tokens, please.", "max_tokens": 4})
+        _, m2 = _http(app.port, "GET", "/metrics")
+        early = _fused_early_exit(app.engine, "fused dense")
+        graphs = phase_fused_graphs(app.engine, "fused dense")
+    loops = m1["fused_loops_total"] - m0["fused_loops_total"]
+    syncs = m1["host_syncs_total"] - m0["host_syncs_total"]
+    prefills = m1["prefills"] - m0["prefills"]
+    exits = (m2["fused_exit_reason_hist"].get("early_all_finished", 0)
+             - m1["fused_exit_reason_hist"].get("early_all_finished", 0))
+    if texts != dense_texts:
+        raise AssertionError(f"fused dense text differs from the serve phase's: {texts} {dense_texts}")
+    if loops <= 0 or syncs != prefills + loops or exits < 1:
+        raise AssertionError(f"fused dense: loops {loops}, host syncs {syncs}, prefills {prefills}, "
+                             f"early exits {exits}")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"fused dense launches: {launches}")
+    out = {
+        "pipeline": _pipeline("fused dense", m0, m1, load_s),
+        "launches": launches,
+        "serve_s": serve_s,
+        "loops": loops,
+        "loop_iterations": m1["fused_steps_total"] - m0["fused_steps_total"],
+        "host_syncs": syncs,
+        "host_syncs_per_token": m1["host_syncs_per_token"],
+        "serve_phase_host_syncs_per_token": serve["pipeline"]["host_syncs_per_token"],
+        "itl_ms_p50": m1["itl_ms_p50"],
+        "serve_phase_itl_ms_p50": serve["pipeline"]["itl_ms_p50"],
+        "early_exit": early,
+        "graphs": graphs,
+        "same_text_as_serve": True,
+    }
+    log(f"fused dense: {({k: v for k, v in out.items() if k not in ('graphs', 'pipeline')})}")
+    return out
+
+
+def phase_fused_int8_graphs() -> dict:
+    """The 2-layer llama3-8b-width model in int8 (bf16 init from seed 1,
+    quantized on the card) as a fused engine with in-loop spec: its loop
+    graphs against their eager loop (``phase_fused_graphs``), with
+    ``w8a16_matmul`` launched inside the loop's conditional bodies."""
+    import dataclasses
+
+    import torch
+
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.engine.quant import quantize_params
+    from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    with torch.no_grad():
+        params = quantize_params(init_params(cfg, g, dtype=torch.bfloat16, device="cuda"), torch.bfloat16)
+    eng = LLMEngine(cfg, params, ByteTokenizer(cfg.vocab_size), max_batch=B, max_seq=S,
+                    fused_decode=True, device="cuda")
+    try:
+        eng.warmup()
+        return phase_fused_graphs(eng, "int8 2-layer fused")
+    finally:
+        eng.shutdown()
+
+
+# -- the tiered KV hierarchy -------------------------------------------------
+
+TIER_PARAGRAPH = (
+    "The on-call rotation hands over at nine. Check the dashboards for the ingest queue, the "
+    "replication lag and the error budget, note anything unusual in the handover document, and "
+    "page the secondary if a metric stays red for more than ten minutes. Close with a summary. "
+)
+
+
+def _tier_prompt(i: int) -> str:
+    """A ~280-byte turn-one prompt (about 300 tokens of context with its
+    reply: 5 pages of 64), distinct per session from its first byte."""
+    return f"[{i:02d}] " + TIER_PARAGRAPH[: 275 - 5]
+
+
+def _tier_timings(engine, card: str) -> list[dict]:
+    out = []
+    for t in engine.tier_timings:
+        row = dict(t)
+        row["gb_per_s"] = round(t["bytes"] / (t["ms"] / 1e3) / 1e9, 3) if t["ms"] > 0 else None
+        row["card"] = card
+        out.append(row)
+    return out
+
+
+def phase_tiering_paged(card: str) -> dict:
+    """The reference's defaults plus ``kv_tiering`` with ``tier_quantize``
+    0 on a 64-page pool (a llama3-8b page is 64 x 8 x 128 x 2 B x 2 x 32 =
+    8,388,608 B: 512 MiB). A control session c serves turns one and two;
+    session s serves turn one, is parked (``kv_pages_used`` falls by its
+    pages, ``has_session`` holds), prewarmed, and its turn two must equal
+    c's token for token. Then 16 sessions serve turn one in sequence (about
+    80 pages against 64; the first with c's prompt): no 429, no
+    destructive eviction, at least 4 pressure demotions; the first of them,
+    demoted, serves turn two through a promotion, equal to c's."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "paged_kv": True,
+               "page_size": PS, "kv_pages": 64, "kv_tiering": True, "tier_quantize": 0}
+    turn2 = "Now list the three checks as bullet points."
+    with _serving(options) as (app, load_s):
+        port, eng = app.port, app.engine
+        log(f"llama3-8b tiering (paged) engine loaded in {load_s:.1f}s")
+        replies: list = []
+        c1 = _chat(port, replies, "c", _tier_prompt(0), 16)
+        c2 = _chat(port, replies, "c", turn2, 16)
+        _chat(port, replies, "s", _tier_prompt(0), 16)
+        _, m0 = _http(port, "GET", "/metrics")
+        # s forked c's cached prefix: its shared pages stay pinned by the
+        # prefix cache, its own pages go back to the pool
+        sess = eng.paged_sessions["chip-smoke::s"]
+        pages_s = len(sess.pages)
+        own_s = sum(1 for p in sess.pages if eng._page_refs[p] == 1)
+        _, park = _http(port, "POST", "/park", {"session": "s"})
+        _, m1 = _http(port, "GET", "/metrics")
+        if not park.get("parked") or m0["kv_pages_used"] - m1["kv_pages_used"] != own_s:
+            raise AssertionError(f"/park of s: {park}, pages used {m0['kv_pages_used']} -> "
+                                 f"{m1['kv_pages_used']}, s held {pages_s} ({own_s} its own)")
+        if not eng.has_session("chip-smoke::s") or "chip-smoke::s" in eng.sessions:
+            raise AssertionError("a parked session must stay known and leave the device")
+        _, pre = _http(port, "POST", "/prewarm", {"session": "s"})
+        s2 = _chat(port, replies, "s", turn2, 16)
+        if pre != {"prewarmed": True} or s2["response"] != c2["response"]:
+            raise AssertionError(f"s after park and prewarm: {pre}, {s2['response']!r} != {c2['response']!r}")
+        _, m2 = _http(port, "GET", "/metrics")
+        codes = []
+        for i in range(16):
+            status, _, doc = _http_any(port, "POST", "/chat", {
+                "session": f"x{i}", "message": _tier_prompt(0 if i == 0 else i + 1),
+                "max_tokens": 16, "ignore_eos": True,
+            })
+            codes.append(status)
+        _, m3 = _http(port, "GET", "/metrics")
+        x0 = "chip-smoke::x0"
+        demoted_first = eng.has_session(x0) and x0 not in eng.sessions
+        x0_2 = _chat(port, replies, "x0", turn2, 16)
+        _, m4 = _http(port, "GET", "/metrics")
+        timings = _tier_timings(eng, card)
+    pressure = m3["tier_pressure_demotions_total"] - m2["tier_pressure_demotions_total"]
+    evictions = m3["session_evictions_total"] - m2["session_evictions_total"]
+    promoted = m4["tier_promotions_total"] - m3["tier_promotions_total"]
+    out = {
+        "load_s": load_s, "pages_of_s": pages_s, "own_pages_of_s": own_s, "park": park,
+        "pages_used": [m0["kv_pages_used"], m1["kv_pages_used"]],
+        "codes": codes, "pressure_demotions": pressure, "destructive_evictions": evictions,
+        "x0_demoted": demoted_first, "x0_promotions": promoted,
+        "tier": {k: m4[k] for k in m4 if k.startswith("tier_")},
+        "timings": timings, "card": card,
+    }
+    if codes != [200] * 16 or evictions != 0 or pressure < 4:
+        raise AssertionError(f"tiering under pool pressure: {out}")
+    if not demoted_first or promoted < 1 or x0_2["response"] != c2["response"]:
+        raise AssertionError(f"the first demoted session's turn two: {x0_2['response']!r} != "
+                             f"{c2['response']!r}; {out}")
+    log(f"tiering paged ({card}): {out}")
+    out["c_turn_one_tokens"] = c1["usage"]["completion_tokens"]
+    return out
+
+
+def _quantizer_cost(card: str) -> dict:
+    """The host tier's numpy quantizer (``quantize_kv_pages``) on one
+    llama3-8b session's KV at 2,048 tokens: 32 x 2048 x 8 x 128 x 2 B =
+    134,217,728 B per tensor (k and v: 268,435,456 B), from a pinned bf16
+    copy, timed on the host."""
+    import numpy as np
+    import torch
+
+    from agentainer_tpu_torch.engine.quant import quantize_kv_pages
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    k = torch.randn((32, S, 8, 128), generator=g, device="cuda").to(torch.bfloat16).cpu()
+    t0 = time.perf_counter()
+    q, scale = quantize_kv_pages(k.float().numpy(), PS)
+    dt = time.perf_counter() - t0
+    out = {"tokens": S, "bytes_per_tensor": k.numel() * 2, "ms_per_tensor": 1e3 * dt,
+           "ms_k_and_v": 2e3 * dt, "int8_bytes": int(q.nbytes + scale.nbytes), "card_host": card}
+    if q.dtype != np.int8:
+        raise AssertionError(f"quantize_kv_pages gave {q.dtype}")
+    return out
+
+
+def phase_tiering_dense(card: str) -> dict:
+    """The reference's defaults plus ``kv_tiering`` with ``tier_quantize``
+    1 (its default): a control session c serves two turns; session s serves
+    turn one, is parked (``tier_quantized_pages`` > 0) and promoted by
+    ``/prewarm``; the promoted KV in s's arena row must lie within half a
+    quantization step of each page's scale (plus the bf16 rounding of the
+    dequantized value) of the parked exact bytes (the park's blob). Turn
+    two's first divergence from c's is reported, not gated. Also the numpy
+    quantizer's time on a 2,048-token session (``_quantizer_cost``)."""
+    import torch
+
+    from agentainer_tpu_torch.engine.checkpoint import deserialize_kv_slot
+    from agentainer_tpu_torch.engine.quant import quantize_kv_pages
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "kv_tiering": True,
+               "tier_quantize": 1}
+    turn2 = "Now list the three checks as bullet points."
+    with _serving(options) as (app, load_s):
+        port, eng = app.port, app.engine
+        replies: list = []
+        _chat(port, replies, "c", _tier_prompt(0), 16)
+        c2 = _chat(port, replies, "c", turn2, 16)
+        _chat(port, replies, "s", _tier_prompt(0), 16)
+        name = "chip-smoke::s"
+        blob = asyncio.run(eng.park_session(name))
+        _, m1 = _http(port, "GET", "/metrics")
+        _, pre = _http(port, "POST", "/prewarm", {"session": "s"})
+        k_exact, v_exact, header = deserialize_kv_slot(blob)
+        pos = header["position"]
+        with torch.no_grad():
+            row = eng.sessions[name]
+            got = [eng.cache.k_store[:, row, :pos].float().cpu(), eng.cache.v_store[:, row, :pos].float().cpu()]
+        worst = 0.0
+        for promoted, exact in zip(got, (k_exact, v_exact)):
+            _, scale = quantize_kv_pages(exact.float().numpy(), eng.page_size)
+            step = torch.from_numpy(scale).expand(-1, -1, eng.page_size, -1, exact.shape[-1])
+            step = step.reshape(scale.shape[0], -1, *exact.shape[2:])[:, :pos]
+            exact_f = exact.float()
+            bound = 0.5 * step + exact_f.abs() * 2.0**-8 + 1e-30
+            worst = max(worst, ((promoted - exact_f).abs() / bound).max().item())
+        s2 = _chat(port, replies, "s", turn2, 16)
+        _, m2 = _http(port, "GET", "/metrics")
+        timings = _tier_timings(eng, card)
+    out = {
+        "load_s": load_s, "position": pos, "blob_bytes": len(blob), "prewarm": pre,
+        "tier_quantized_pages_parked": m1["tier_quantized_pages"],
+        "tier_host_bytes_parked": m1["tier_host_bytes"],
+        "worst_error_over_bound": worst,
+        "bound": "0.5 * page scale + |value| * 2^-8 (bf16 rounding)",
+        "turn_two_divergence": _first_divergence([s2["response"]], [c2["response"]]),
+        "promotions": m2["tier_promotions_total"], "timings": timings,
+        "quantizer": _quantizer_cost(card), "card": card,
+    }
+    if pre != {"prewarmed": True} or m1["tier_quantized_pages"] <= 0 or worst > 1.0:
+        raise AssertionError(f"tiering dense (int8 host tier): {out}")
+    log(f"tiering dense ({card}): {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2139,10 +2605,15 @@ def main() -> int:
     report = {"serve": phase_serve()}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = phase_serve_paged(dense_texts)
+    report["fused"] = phase_fused_dense(dense_texts, report["serve"])
     n_layers = 32  # llama3-8b at full depth in the feature phases
     report["features"] = phase_serve_features(False, n_layers, None)
     report["features_paged"] = phase_serve_features(True, n_layers, report["features"].pop("texts"))
-    report["features_paged"].pop("texts")
+    paged_texts = report["features_paged"].pop("texts")
+    report["fused_paged"] = phase_serve_features(True, n_layers, paged_texts, fused=True)
+    report["fused_paged"].pop("texts")
+    report["tiering_paged"] = phase_tiering_paged(card)
+    report["tiering_dense"] = phase_tiering_dense(card)
     report["int8"] = phase_serve_features(False, n_layers, None, quant=True)
     report["int8_paged"] = phase_serve_features(True, n_layers, report["int8"].pop("texts"), quant=True)
     report["int8_paged"].pop("texts")
@@ -2159,17 +2630,25 @@ def main() -> int:
         # the main path is the reference's default: the feature phases
         row["launches"] = report["features_paged" if paged else "features"]["launches"][row["name"]]
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
+        # the fused path: the fused dense phase (features off) and the fused
+        # paged feature phase (in-loop spec)
+        row["launches_fused"] = (
+            report["fused_paged"]["launches"][row["name"]] if paged
+            else report["fused"]["launches"].get(row["name"])
+        )
     # the int8 kernel's main path: the int8 feature phases (dense; paged beside)
     w8_row["launches"] = report["int8"]["launches"]["w8a16_matmul"]
     w8_row["launches_paged"] = report["int8_paged"]["launches"]["w8a16_matmul"]
     kernels.append(w8_row)
     report["model"] = phase_model()
     report["model_int8"] = phase_model_int8()
+    report["fused_int8_graphs"] = phase_fused_int8_graphs()
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {
         phase: report[phase]["pipeline"]
-        for phase in ("serve", "serve_paged", "features", "features_paged", "int8", "int8_paged", "checkpoint")
+        for phase in ("serve", "serve_paged", "fused", "features", "features_paged", "fused_paged", "int8",
+                      "int8_paged", "checkpoint")
     }}))
     print(json.dumps(report))
     print(card)

@@ -1,6 +1,6 @@
 """Trace the PyTorch port's served decode on one GPU with torch.profiler.
 
-    python scripts/torch_decode_profile.py [int8] [--package DIR]
+    python scripts/torch_decode_profile.py [int8] [--fused] [--package DIR]
 
 Builds the port's llama3-8b engine (bf16, random weights from seed 0; with
 ``int8``, the same weights quantized by ``quant: int8``) on the first CUDA
@@ -11,13 +11,20 @@ busy time (the union of GPU kernel intervals, kernels replayed from CUDA
 graphs included), the device's idle share, kernel launches in the trace
 and per decode step of the batch, the engine's graph replays and host syncs
 per token in the traced window, the ten kernels with the most device
-time, and, after serving, what one decode step of the engine's 8-step
-decode graph costs with lanes 0-1 live at 300 / 312 and 6 parked: its
-device time (REPLAYS replays back to back, timed with CUDA events) and the
-host time of the replay call itself (the launch, from an idle device). It
-also prints the engine's up seconds (``create``: weights, warmup and graph
-capture), its graph capture seconds (the prefill graphs' share beside it)
-and pool bytes, and the TTFT of the untraced warm serve. ``--package DIR``
+time, and, after the warm serve and before any profiler came up, what one
+decode step of the engine's 8-step decode graph costs with lanes 0-1 live
+at 300 / 312 and 6 parked: its device time (the median of REPLAYS
+replays, each timed with CUDA events) and the host time of the replay
+call itself (the launch, from an idle device). It also prints the
+engine's up seconds (``create``: weights, warmup and graph capture), its
+graph capture seconds (the prefill graphs' share beside it) and pool
+bytes, and the TTFT, ITL p50 and wall time of the untraced warm serve.
+``--fused`` builds the engine with ``fused_decode`` (in-loop spec on, as by
+default): its decode step is then one iteration of an idle loop of the
+full bound (lanes 0-1 live, no history, every iteration run), timed the
+same way per iteration, and again once the loop graphs were assembled
+anew after the profiler came up (the traced window runs those), and the
+decode steps of the traced window are the loops' iterations. ``--package DIR``
 imports ``agentainer_tpu_torch`` from the checkout at DIR instead (another
 commit's engine under this script, to time two in turns). Needs a CUDA
 device; exits 2 without one.
@@ -50,34 +57,53 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 def _decode_step_ms(eng) -> dict:
     """Device ms and host launch ms of one decode step of the idle
-    engine's 8-step greedy graph, lanes 0-1 live at 300 / 312, the rest
-    parked."""
+    engine's 8-step greedy graph (a fused engine: one iteration of its
+    greedy loop at the full bound, every iteration run), lanes 0-1 live at
+    300 / 312, the rest parked."""
     import torch
 
-    from agentainer_tpu_torch.engine.graphs import live_lanes, park_lanes
+    from agentainer_tpu_torch.engine import graphs
 
-    key = ("decode", 8, True)
-    live_lanes(eng, [300, 312], 0.0, seed=0)
+    fused = getattr(eng, "fused_decode", False)
+    key = ("fused", eng._fused_cap, True) if fused else ("decode", 8, True)
+    steps = key[1]
+
+    def arm():
+        graphs.live_lanes(eng, [300, 312], 0.0, seed=0)
+        if fused:
+            # budgets past the bound: no lane freezes before it
+            graphs.live_fused(eng, [300, 312], 0.0, seed=0, nsteps=steps, budgets=[4 * steps] * 2)
+            with eng._on_stream():
+                eng._dhlen.zero_()  # no history: every iteration is a plain decode step
+
+    arm()
     try:
         with torch.no_grad(), eng._on_stream():
             host = []
             for _ in range(REPLAYS):
+                arm()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 eng._graphs.replay(key)
                 host.append(time.perf_counter() - t0)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+            device = []
             for _ in range(REPLAYS):
-                eng._graphs.replay(key)
-            end.record()
-            end.synchronize()
+                arm()
+                start.record()
+                out = eng._graphs.replay(key)
+                end.record()
+                end.synchronize()
+                device.append(start.elapsed_time(end))
+            if fused:
+                steps = int(out[eng._fused_cap + 3, 0])
             return {
-                "device_ms": start.elapsed_time(end) / REPLAYS / key[1],
-                "host_launch_ms": 1e3 * sorted(host)[len(host) // 2] / key[1],
+                "device_ms": sorted(device)[len(device) // 2] / steps,
+                "host_launch_ms": 1e3 * sorted(host)[len(host) // 2] / steps,
+                "steps_per_replay": steps,
             }
     finally:
-        park_lanes(eng)
+        graphs.park_lanes(eng)
 
 
 def main() -> int:
@@ -100,9 +126,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    fused = "--fused" in args
+    if fused:
+        args.remove("--fused")
     quant = "int8" if args == ["int8"] else ""
     t_up = time.perf_counter()
-    eng = LLMEngine.create("llama3-8b", options={"device": "cuda", "seed": 0, "quant": quant})
+    eng = LLMEngine.create(
+        "llama3-8b", options={"device": "cuda", "seed": 0, "quant": quant, "fused_decode": fused}
+    )
     engine_up_s = time.perf_counter() - t_up
 
     async def serve():
@@ -112,7 +143,23 @@ def main() -> int:
         ))
 
     try:
+        itl0 = len(eng.itl_ms_recent)
+        t0 = time.perf_counter()
         warm = asyncio.run(serve())  # warm, untraced
+        warm_wall_s = time.perf_counter() - t0
+        itl_warm = sorted(list(eng.itl_ms_recent)[itl0:])
+        # the step's time from the graphs built at warmup, before any
+        # profiler came up
+        step_ms = _decode_step_ms(eng)
+        step_rebuilt = None
+        if fused:
+            # the profiler traces every loop iteration only of a loop graph
+            # instantiated after it first came up (StepGraphs.rebuild_loop)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                torch.cuda.synchronize()
+            for greedy in (True, False):
+                eng._graphs.rebuild_loop(("fused", eng._fused_cap, greedy))
+            step_rebuilt = _decode_step_ms(eng)
         steps0, itl0 = eng.decode_steps, len(eng.itl_ms_recent)
         m0 = eng.metrics()
         torch.cuda.synchronize()
@@ -124,7 +171,6 @@ def main() -> int:
         itl = sorted(list(eng.itl_ms_recent)[itl0:])
         steps = eng.decode_steps - steps0
         m1 = eng.metrics()
-        step_ms = _decode_step_ms(eng)
     finally:
         eng.shutdown()
 
@@ -135,19 +181,27 @@ def main() -> int:
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
     tokens = sum(r["completion_tokens"] for r in out)
     hist0 = m0["decode_chunk_hist"]
-    # batch-wide decode steps: each chunk of c steps advances every lane c tokens
-    token_steps = sum(int(c) * (n - hist0.get(c, 0)) for c, n in m1["decode_chunk_hist"].items())
+    # batch-wide decode steps: each chunk of c steps advances every lane c
+    # tokens; a fused loop's steps are the iterations it ran
+    token_steps = (
+        m1["fused_steps_total"] - m0["fused_steps_total"] if fused
+        else sum(int(c) * (n - hist0.get(c, 0)) for c, n in m1["decode_chunk_hist"].items())
+    )
     syncs = m1.get("host_syncs_total", 0) - m0.get("host_syncs_total", 0)
     print(json.dumps({
         "card": card,
         "package": package,
         "quant": quant or None,
+        "fused_decode": fused,
+        "fused_loops": m1.get("fused_loops_total", 0) - m0.get("fused_loops_total", 0),
         "engine_up_s": engine_up_s,
         "graph_capture_s": m1.get("graph_capture_s"),
         "prefill_graph_capture_s": m1.get("prefill_graph_capture_s"),
         "graphs_captured": m1.get("graphs_captured"),
         "graph_pool_bytes": m1.get("graph_pool_bytes"),
         "ttft_ms_untraced": [r["ttft_ms"] for r in warm],
+        "itl_ms_p50_untraced": itl_warm[len(itl_warm) // 2] if itl_warm else None,
+        "wall_s_untraced": warm_wall_s,
         "param_hbm_bytes": m1["param_hbm_bytes"],
         "lanes": LANES,
         "tokens": tokens,
@@ -164,6 +218,11 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if kernels else None,
         "decode_step_device_ms": step_ms["device_ms"],
         "decode_step_host_launch_ms": step_ms["host_launch_ms"],
+        "decode_steps_per_replay": step_ms["steps_per_replay"],
+        # the loop graphs assembled again after the profiler came up, as
+        # the traced window runs them
+        "decode_step_device_ms_rebuilt": step_rebuilt and step_rebuilt["device_ms"],
+        "decode_step_host_launch_ms_rebuilt": step_rebuilt and step_rebuilt["host_launch_ms"],
         "top_kernels_ms": {
             name[:80]: round(us / 1e3, 3)
             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]

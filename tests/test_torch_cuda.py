@@ -631,8 +631,8 @@ def test_paged_pages_freed_under_an_in_flight_chunk_are_safe_to_reuse(dev):
             log["freed"].append((list(ids), in_flight(), state()))
             free_ids(ids)
 
-        def logged_alloc(n, pin=False):
-            ids = alloc(n, pin)
+        def logged_alloc(n, pin=False, **kw):
+            ids = alloc(n, pin, **kw)
             log["taken"].append((list(ids), in_flight(), state()))
             return ids
 
@@ -1041,3 +1041,180 @@ def test_approx_topk_draws_fall_in_the_plain_keep_set(dev):
         draws = sampling.sample_step(logits, g, temps, top_k, top_p, all_greedy=False, approx_topk=True)
         assert bool(keep[torch.arange(8), draws.cpu()].all())
     assert int(keep[1:].sum(dim=-1).max()) <= sampling.APPROX_SEG  # lane 0 filters nothing
+
+
+# -- the fused decode loop and the KV tiers on the card: 2 layers ----------
+
+FUSED_CASES = [
+    pytest.param({}, id="dense"),
+    pytest.param({"paged_kv": True}, id="paged"),
+    pytest.param({"quant": True}, id="int8"),
+    pytest.param({"quant": True, "paged_kv": True}, id="int8-paged"),
+]
+
+
+@pytest.mark.parametrize("inloop", [True, False], ids=["inloop", "plain"])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_loop_graph_equals_eager_bit_for_bit(dev, case, inloop):
+    """The captured loop (a WHILE node over the iteration's segment graphs,
+    with the verify and plain branches as IF nodes when in-loop spec is on)
+    against the eager loop over the same segment functions, from one
+    saved state: greedy lanes give the same packed readback, carry,
+    history, shadow carry and KV bytes, bit for bit, with the verify branch
+    taken (in-loop) and one lane absorbed from the shadow carry; a sampled
+    loop replayed twice from one generator state repeats itself. The
+    int8 engines run ``w8a16_matmul`` inside the conditional bodies."""
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_fused, live_lanes, park_lanes
+
+    opts = dict(case)
+    quant = opts.pop("quant", False)
+    eng = _graph_engine(quant=quant, fused_decode=True, inloop_spec=inloop, **opts)
+    try:
+        assert eng.inloop_spec is inloop
+        out = {}
+        for temperature, greedy in ((0.0, True), (1.0, False)):
+            key = ("fused", eng._fused_cap, greedy)
+            live_lanes(eng, LIVE, temperature, seed=int(greedy))
+            live_fused(eng, LIVE[:3], temperature, seed=int(greedy), nsteps=eng._fused_cap - 3,
+                       budgets=[eng._fused_cap + 1, 9, eng._fused_cap + 1], armed_lane=3)
+            try:
+                with torch.no_grad(), eng._on_stream():
+                    got = compare_replay(eng._graphs, key, eng._step_fn(key), eng._device_state(), eng._gen)
+                    packed = eng._graphs.replay(key).clone().cpu()
+            finally:
+                park_lanes(eng)
+            out[greedy] = (got, packed)
+        got, packed = out[True]
+        assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+        cap_rows = eng._fused_cap + 1
+        # lane 0 runs every iteration (with in-loop spec it may reach its
+        # budget first)
+        assert packed[cap_rows + 2, 0] == eng._fused_cap - 3 or inloop, packed[cap_rows:]
+        assert packed[cap_rows, 1] == 9  # lane 1 froze at its budget
+        if inloop:
+            assert packed[cap_rows + 5, 0] > 0, packed[cap_rows:]  # verify iterations ran
+        assert out[False][0]["replay_repeats"], out[False][0]
+    finally:
+        eng.shutdown()
+
+
+def test_fused_loop_exits_early_on_the_device(dev):
+    """A loop bound of the full cap whose one live lane freezes at its
+    budget of 3 runs 3 iterations: in a profiler trace of the replay the
+    dense decode kernel and its combine launch n_layers x 2 x 3 times, not
+    x nsteps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from agentainer_tpu_torch.engine.graphs import live_fused, live_lanes, park_lanes
+
+    eng = _graph_engine(fused_decode=True, speculative=False)
+    try:
+        key = ("fused", eng._fused_cap, True)
+        # the profiler traces every iteration only of a loop graph
+        # instantiated after it first came up (StepGraphs.rebuild_loop); a
+        # trace that lost device records is taken again, up to 3 times, as
+        # chip_smoke.py does
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        eng._graphs.rebuild_loop(key)
+        for _ in range(3):
+            live_lanes(eng, LIVE[:2], 0.0, seed=0)
+            live_fused(eng, LIVE[:1], 0.0, seed=0, nsteps=eng._fused_cap, budgets=[3])
+            with torch.no_grad(), eng._on_stream():
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    packed = eng._graphs.replay(key).clone()
+                    torch.cuda.synchronize()
+            park_lanes(eng)
+            steps = int(packed[eng._fused_cap + 3, 0])
+            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+            decode = sum("decode_kernel" in n and "combine" not in n for n in names)
+            combine = sum("decode_combine_kernel" in n for n in names)
+            if decode == combine == eng.cfg.n_layers * steps:
+                break
+        assert steps == 3, packed[eng._fused_cap + 1 :]
+        assert decode == combine == eng.cfg.n_layers * steps, (decode, combine)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_fused_engine_serves_the_unfused_greedy_text(dev, paged):
+    """With speculation off a fused loop's iteration is the ladder's [8, 1]
+    decode step: the served greedy tokens equal the unfused engine's, with
+    one readback per loop and no implicit host sync."""
+    import asyncio
+
+    prompts = ["a plain request", "another, longer, request " * 4, "third"]
+
+    async def traffic(eng):
+        return await asyncio.gather(*(eng.generate(p, max_tokens=45, ignore_eos=True) for p in prompts))
+
+    want_eng = _graph_engine(speculative=False, paged_kv=paged)
+    try:
+        want = [r["tokens"] for r in asyncio.run(traffic(want_eng))]
+    finally:
+        want_eng.shutdown()
+    eng = _graph_engine(fused_decode=True, speculative=False, paged_kv=paged)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [r["tokens"] for r in asyncio.run(traffic(eng))]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        m = eng.metrics()
+        assert eng.worker_errors == 0, eng.last_worker_error
+        assert got == want
+        assert m["fused_loops_total"] > 0 and m["host_syncs_total"] == m["prefills"] + m["fused_loops_total"]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_pinned_park_and_promote_round_trip_bit_exact(dev, paged):
+    """tier_quantize 0: a parked session's KV leaves through pinned memory
+    and comes back bit for bit (its pages or row hold the same bytes after
+    the promotion), and its next turn continues as a never-parked one."""
+    import asyncio
+
+    from agentainer_tpu_torch.engine.checkpoint import deserialize_kv_slot
+
+    def kv(eng, name):
+        if paged:
+            sess = eng.paged_sessions[name]
+            ids = torch.tensor(sess.pages, device=dev)
+            n, _, ps, kvh, hd = eng.cache.k.shape
+            k = eng.cache.k.index_select(1, ids).reshape(n, -1, kvh, hd)[:, : sess.position]
+            v = eng.cache.v.index_select(1, ids).reshape(n, -1, kvh, hd)[:, : sess.position]
+            return k.cpu(), v.cpu()
+        idx = eng.sessions[name]
+        pos = eng.slots[idx].position
+        return eng.cache.k_store[:, idx, :pos].cpu(), eng.cache.v_store[:, idx, :pos].cpu()
+
+    async def turns(eng, park):
+        a = await eng.chat("s", "turn one, with some length to it " * 3, max_tokens=9)
+        before = kv(eng, "s")
+        if park:
+            blob = await eng.park_session("s")
+            bk, bv, header = deserialize_kv_slot(blob)
+            assert torch.equal(bk, before[0]) and torch.equal(bv, before[1])
+            assert "s" not in eng.sessions and eng.has_session("s")
+            assert await eng.prewarm_session("s") is True
+            after = kv(eng, "s")
+            assert torch.equal(after[0], before[0]) and torch.equal(after[1], before[1])
+        b = await eng.chat("s", "turn two", max_tokens=9)
+        return a["tokens"], b["tokens"]
+
+    results = []
+    for park in (False, True):
+        eng = _graph_engine(kv_tiering=True, tier_quantize=0, paged_kv=paged, speculative=False)
+        try:
+            results.append(asyncio.run(turns(eng, park)))
+            assert eng.worker_errors == 0, eng.last_worker_error
+            if park:
+                m = eng.metrics()
+                assert m["tier_demotions_total"] == m["tier_promotions_total"] == 1
+                assert {t["kind"] for t in eng.tier_timings} == {"park", "promote"}
+        finally:
+            eng.shutdown()
+    assert results[0] == results[1]

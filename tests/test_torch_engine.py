@@ -159,28 +159,29 @@ def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
 @pytest.mark.parametrize(
     "options,match",
     [
-        # prefix_cache, speculative and paged_kv are ported: only the
-        # unported option asked beside them is named
+        # prefix_cache, speculative, paged_kv, fused_decode and kv_tiering
+        # are ported: asked beside the unported routed option, only that one
+        # is named
         pytest.param(
-            {"prefix_cache": True, "fused_decode": True}, "yet: fused_decode$",
+            {"prefix_cache": True, "fused_decode": True, "routed": True}, "yet: routed$",
             id="options0-prefix_cache",
         ),
         pytest.param(
-            {"speculative": True, "paged_kv": True, "kv_tiering": True}, "yet: kv_tiering$",
-            id="options1-speculative, paged_kv",
+            {"speculative": True, "paged_kv": True, "kv_tiering": True, "routed": True},
+            "yet: routed$", id="options1-speculative, paged_kv",
         ),
-        # streaming and approx_topk are ported: asked beside an
-        # unported option, only that one is named
+        # streaming and approx_topk are ported too
         pytest.param(
-            {"streaming": True, "kv_tiering": True}, "yet: kv_tiering$", id="options2-streaming"
+            {"streaming": True, "kv_tiering": True, "tier_quantize": 0, "routed": True},
+            "yet: routed$", id="options2-streaming",
         ),
         ({"tp": 2}, "tp=2"),
         # int8 serving is ported: another scheme, and int8 beside an
         # unported axis, still raise
         pytest.param({"quant": "int4"}, "unknown quant scheme 'int4'", id="options4-quant"),
         pytest.param(
-            {"approx_topk": True, "fused_decode": True}, "yet: fused_decode$",
-            id="options5-approx_topk",
+            {"approx_topk": True, "fused_decode": True, "inloop_spec": False, "routed": True},
+            "yet: routed$", id="options5-approx_topk",
         ),
         pytest.param(
             {"quant": "int8", "synthetic": True, "tp": 2}, "tp=2", id="options6-synthetic"
