@@ -24,7 +24,7 @@
 // by the weight bytes (w_gate 4096 x 14336: about 17.6 us); a 256-row
 // prefill chunk by its FLOPs (w_gate: about 30.4 us).
 //
-// Design (w8a16_kernel<BM>, one body for every M; the wrapper's plan picks
+// Design (w8a16_grouped_kernel<BM>, one body for every M and E; the wrapper's plan picks
 // the token tile BM and the split from the shape):
 //   - a block owns BN = 128 output channels x BM tokens (BM = 8, 24, 40,
 //     72, 128 or 256, the wgmma N) and a range of the contraction. A ring of
@@ -32,9 +32,9 @@
 //     producer warp(group): the q tile [64][128] int8 as stored and the x
 //     tile [BM][64] bf16, both with 128-byte swizzle, completing on the
 //     stage's mbarrier (rows past M and columns past N arrive as zeros).
-//     The ring is as deep as 227 KB of shared memory allows (16 stages at
-//     BM <= 40, 5 at 256), so a decode block keeps 128 KB of weights in
-//     flight;
+//     The ring is as deep as 227 KB of shared memory allows, rounded down
+//     to a multiple of the stage pairs (16 stages at BM <= 40, 12 at 72, 5
+//     at 256), so a decode block keeps 128 KB of weights in flight;
 //   - consumer warpgroups of 64 output channels each: a warp reads its 16
 //     channels of the int8 tile with ldmatrix.trans at the swizzled address
 //     (16-bit pairs: two k values of two neighbouring channels per thread)
@@ -75,6 +75,29 @@
 //     not at all): the result is the same bits on every run and in a
 //     replayed CUDA graph, fixed by the shape alone.
 //
+// The grouped product (the same kernel; the 2-D product above is its case
+// E = 1 with a shared x):
+//
+//   y[e, m, n] = bf16( scale[e, n] * sum_k x_e[m, k] * q[e, k, n] ),  e < E
+//
+// q [E, K, N] int8 is an expert stack (one layer's slice of the port's [L, E,
+// K, N] leaf), scale [E, 1, N] bf16, y [E, M, N] bf16, and x_e is either one
+// x [M, K] shared by every expert or x [E, M, K], one per expert. What it
+// replaces: not a pallas_call either; XLA's fusion of the int8 convert into
+// the reference's expert einsums (agentainer_tpu/models/llama.py:143-145,
+// shared x for gate and up and per-expert input for down; :229-231, the
+// routed path's per-expert buffers). All E experts run in one launch: q is
+// contiguous [E * K, N], so the 2-D weight map serves it with expert e's
+// contraction tiles at row e * K + k0 (K % 64 == 0: a tile never crosses
+// experts); a per-expert x is contiguous [E * M, K] and its map gives expert
+// e's tile at row e * M + m0 (a tile that runs past row M reads the next
+// expert's rows, which feed only output rows that are never stored; past the
+// last expert TMA fills zeros); blockIdx.z carries the expert and the token
+// tile, e * ceil(M / BM) + i. Bound on an H100 SXM: the larger of (E K N +
+// 2 E N + 2 M K [E times for per-expert x] + 2 E M N) bytes / 3.35 TB/s and
+// 2 E M K N FLOPs / 989 TFLOP/s: at Mixtral-8x7B's decode (M = 8) each of a
+// layer's three stacks is 469.8 MB of int8, about 0.140 ms.
+//
 // A wait on an mbarrier that has not completed after about 10 s of clock
 // traps: a fault in the schedule ends the kernel with an error rather than
 // hanging the card.
@@ -106,11 +129,6 @@ template <int BM>
 __host__ __device__ constexpr int stage_bytes() {
   return Q_TILE + BM * X_ROW;
 }
-template <int BM>
-__host__ __device__ constexpr int stages() {  // as many as 227 KB hold, at most MAX_STAGES
-  const int fit = (int)((MAX_SMEM - 1024) / (stage_bytes<BM>() + 16));
-  return fit < MAX_STAGES ? fit : MAX_STAGES;
-}
 // Consumer warpgroups of a block, each 64 output channels: up to 72 tokens
 // four, in two pairs that take alternate stages (two widen + wgmma chains
 // in flight); beyond, two on every stage. Besides them one producer: a warp
@@ -120,6 +138,19 @@ __host__ __device__ constexpr int stages() {  // as many as 227 KB hold, at most
 template <int BM>
 __host__ __device__ constexpr int consumers() {
   return BM <= 72 ? 4 : 2;
+}
+// As many stages as 227 KB hold, at most MAX_STAGES, and a multiple of the
+// stage pairs: then every round of a slot goes to the same pair, which has
+// seen the slot's previous round complete before it waits on the next. (A
+// pair that waits on a slot whose previous round went to the other pair may
+// find that round's fill still in flight, and a parity wait cannot tell one
+// round from the round before it: it would return at once and read the slot
+// before its bytes land.)
+template <int BM>
+__host__ __device__ constexpr int stages() {
+  const int fit = (int)((MAX_SMEM - 1024) / (stage_bytes<BM>() + 16));
+  const int n = fit < MAX_STAGES ? fit : MAX_STAGES;
+  return n - n % (consumers<BM>() / 2);
 }
 template <int BM>
 __host__ __device__ constexpr int threads() {
@@ -359,19 +390,23 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// grid (splits, ceil(N / BN), ceil(M / BM)), clusters of (splits, 1, 1):
-// block (s, j, i) computes output channels [j * BN, +BN) of tokens
-// [i * BM, +BM) over contraction tiles [s * steps / splits, (s + 1) * steps
-// / splits) of steps = K / BK, and split s is its cluster's rank s.
+// One block: output channels [blockIdx.y * BN, +BN) of tokens [m0, +BM) of
+// a product whose weight tiles start at row q_row0 of q's map and whose x
+// tile starts at row x_row of x's map; scale and out are the product's own
+// (already offset to its expert). Contraction tiles [s * steps / splits,
+// (s + 1) * steps / splits) of steps = K / BK, split s being the block's
+// rank in its cluster of (splits, 1, 1).
 template <int BM>
-__global__ void __launch_bounds__(threads<BM>(), 1) w8a16_kernel(
-    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap x_map,
-    const bf16* __restrict__ scale, bf16* __restrict__ out, int M, int N, int K, int splits) {
+__device__ __forceinline__ void w8a16_block(const CUtensorMap* q_map, const CUtensorMap* x_map,
+                                            const bf16* __restrict__ scale, bf16* __restrict__ out,
+                                            int M, int N, int K, int splits, int m0, int q_row0,
+                                            int x_row) {
   constexpr int STAGES = stages<BM>();
   constexpr int STAGE = stage_bytes<BM>();
   constexpr int WGS = consumers<BM>();
   constexpr int PAIRS = WGS / 2;  // stage pairs: pair p takes the stages s with s % PAIRS == p
   static_assert(BM % 8 == 0 && BM <= 256, "wgmma takes 8..256 tokens in steps of 8");
+  static_assert(STAGES % PAIRS == 0, "each slot's rounds all go to one pair");
   static_assert((size_t)PAIRS * BM * PART_ROW * 4 <= (size_t)STAGES * STAGE, "the partials reuse the ring");
   static_assert(smem_bytes<BM>() <= MAX_SMEM, "stages do not fit in shared memory");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -383,7 +418,7 @@ __global__ void __launch_bounds__(threads<BM>(), 1) w8a16_kernel(
   const uint32_t empty0 = full0 + 8 * STAGES;
 
   const int split = (int)cluster_rank();
-  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int n0 = blockIdx.y * BN;
   const int steps = K / BK;
   const int s_begin = (int)((long long)steps * split / splits);
   const int n_steps = (int)((long long)steps * (split + 1) / splits) - s_begin;
@@ -410,8 +445,8 @@ __global__ void __launch_bounds__(threads<BM>(), 1) w8a16_kernel(
         const uint32_t dst = ring_s + slot * STAGE;
         const int k0 = (s_begin + step) * BK;
         mbar_arrive_expect_tx(bar, STAGE);
-        tma_load_2d(dst, &q_map, n0, k0, bar);
-        tma_load_2d(dst + Q_TILE, &x_map, k0, m0, bar);
+        tma_load_2d(dst, q_map, n0, q_row0 + k0, bar);
+        tma_load_2d(dst + Q_TILE, x_map, k0, x_row, bar);
       }
     }
     if (splits > 1) {  // the consumers' two cluster barriers count every thread
@@ -533,6 +568,22 @@ __global__ void __launch_bounds__(threads<BM>(), 1) w8a16_kernel(
   if (splits > 1) cluster_sync();  // no block leaves while another still reads its partials
 }
 
+// grid (splits, ceil(N / BN), E * m_tiles), m_tiles = ceil(M / BM), clusters
+// of (splits, 1, 1): block (s, j, e * m_tiles + i) computes expert e's output
+// channels [j * BN, +BN) of tokens [i * BM, +BM), split s of the
+// contraction. q's map is [E * K, N]; x's is [E * M, K] when x_per_expert,
+// else [M, K]. The 2-D product is the case E = 1 with a shared x.
+template <int BM>
+__global__ void __launch_bounds__(threads<BM>(), 1) w8a16_grouped_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap x_map,
+    const bf16* __restrict__ scale, bf16* __restrict__ out, int M, int N, int K, int splits,
+    int m_tiles, int x_per_expert) {
+  const int e = (int)blockIdx.z / m_tiles;
+  const int m0 = ((int)blockIdx.z - e * m_tiles) * BM;
+  w8a16_block<BM>(&q_map, &x_map, scale + (size_t)e * N, out + (size_t)e * M * N, M, N, K, splits,
+                  m0, e * K, x_per_expert ? e * M + m0 : m0);
+}
+
 // Raise kernel Kern's dynamic shared-memory limit on the current device to
 // at least smem bytes, once per device (the attribute is per device; the
 // engine's eager warmup sets it before the same shapes are captured into a
@@ -631,7 +682,7 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_
   return cudaSuccess;
 }
 
-// The launch of w8a16_kernel<BM> over `grid` in clusters of `splits` blocks
+// The launch of w8a16_grouped_kernel<BM> over `grid` in clusters of `splits` blocks
 // along x (attr is the cluster attribute it points at).
 template <int BM>
 cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int splits, dim3 grid, cudaStream_t stream) {
@@ -650,43 +701,47 @@ cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int splits, dim3 gri
 }
 
 template <int BM>
-cudaError_t launch(const bf16* x, const int8_t* q, const bf16* scale, bf16* out, int M, int N, int K,
-                   int splits, cudaStream_t stream) {
-  cudaError_t err = raise_smem_limit<&w8a16_kernel<BM>>(smem_bytes<BM>());
+cudaError_t launch_grouped(const bf16* x, const int8_t* q, const bf16* scale, bf16* out, int E, int M,
+                           int N, int K, int x_per_expert, int splits, cudaStream_t stream) {
+  cudaError_t err = raise_smem_limit<&w8a16_grouped_kernel<BM>>(smem_bytes<BM>());
   if (err != cudaSuccess) return err;
+  const int m_tiles = (M + BM - 1) / BM;
+  if ((long long)E * m_tiles > 65535) return cudaErrorInvalidValue;  // gridDim.z
   CUtensorMap q_map, x_map;
-  err = tensor_map(&q_map, q, (uint64_t)K, (uint64_t)N, BK, 1);
+  err = tensor_map(&q_map, q, (uint64_t)E * K, (uint64_t)N, BK, 1);
   if (err != cudaSuccess) return err;
-  err = tensor_map(&x_map, x, (uint64_t)M, (uint64_t)K, BM, 2);
+  err = tensor_map(&x_map, x, (uint64_t)(x_per_expert ? E : 1) * M, (uint64_t)K, BM, 2);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const dim3 grid((unsigned)splits, (unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
+  const dim3 grid((unsigned)splits, (unsigned)((N + BN - 1) / BN), (unsigned)(E * m_tiles));
   const cudaLaunchConfig_t cfg = launch_config<BM>(&attr, splits, grid, stream);
-  err = cudaLaunchKernelEx(&cfg, w8a16_kernel<BM>, q_map, x_map, scale, out, M, N, K, splits);
+  err = cudaLaunchKernelEx(&cfg, w8a16_grouped_kernel<BM>, q_map, x_map, scale, out, M, N, K, splits, m_tiles,
+                           x_per_expert);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int BM>
 int max_clusters(int splits) {
-  if (raise_smem_limit<&w8a16_kernel<BM>>(smem_bytes<BM>()) != cudaSuccess) return -1;
+  if (raise_smem_limit<&w8a16_grouped_kernel<BM>>(smem_bytes<BM>()) != cudaSuccess) return -1;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config<BM>(&attr, splits, dim3((unsigned)splits), nullptr);
   int n = 0;
-  return cudaOccupancyMaxActiveClusters(&n, w8a16_kernel<BM>, &cfg) == cudaSuccess ? n : -1;
+  return cudaOccupancyMaxActiveClusters(&n, w8a16_grouped_kernel<BM>, &cfg) == cudaSuccess ? n : -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [M, K] bf16, q [K, N] int8, scale [N] bf16, out [M, N] bf16, all
-// contiguous and 16-byte aligned. block_m is 8, 24, 40, 72, 128 or 256;
-// K % 64 == 0, N % 16 == 0, 1 <= splits <= min(8, K / 64). One launch.
+// x [M, K] (x_per_expert 0) or [E, M, K] (1) bf16, q [E, K, N] int8, scale
+// [E, N] bf16, out [E, M, N] bf16, all contiguous and 16-byte aligned;
+// block_m and splits as above, E * ceil(M / block_m) <= 65535. One launch.
 // Returns a cudaError_t.
-int atpu_w8a16_matmul(const void* x, const void* q, const void* scale, void* out, int M, int N,
-                      int K, int block_m, int splits, void* stream) {
-  if (M < 0 || N <= 0 || K <= 0 || K % BK != 0 || N % 16 != 0) return (int)cudaErrorInvalidValue;
+int atpu_w8a16_grouped_matmul(const void* x, const void* q, const void* scale, void* out, int E, int M,
+                              int N, int K, int x_per_expert, int block_m, int splits, void* stream) {
+  if (E <= 0 || M < 0 || N <= 0 || K <= 0 || K % BK != 0 || N % 16 != 0) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > MAX_SPLITS || splits > K / BK) return (int)cudaErrorInvalidValue;
+  if (x_per_expert != 0 && x_per_expert != 1) return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
@@ -694,14 +749,23 @@ int atpu_w8a16_matmul(const void* x, const void* q, const void* scale, void* out
   const bf16* sb = static_cast<const bf16*>(scale);
   bf16* ob = static_cast<bf16*>(out);
   switch (block_m) {
-    case 8: return (int)launch<8>(xb, qb, sb, ob, M, N, K, splits, s);
-    case 24: return (int)launch<24>(xb, qb, sb, ob, M, N, K, splits, s);
-    case 40: return (int)launch<40>(xb, qb, sb, ob, M, N, K, splits, s);
-    case 72: return (int)launch<72>(xb, qb, sb, ob, M, N, K, splits, s);
-    case 128: return (int)launch<128>(xb, qb, sb, ob, M, N, K, splits, s);
-    case 256: return (int)launch<256>(xb, qb, sb, ob, M, N, K, splits, s);
+    case 8: return (int)launch_grouped<8>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
+    case 24: return (int)launch_grouped<24>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
+    case 40: return (int)launch_grouped<40>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
+    case 72: return (int)launch_grouped<72>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
+    case 128: return (int)launch_grouped<128>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
+    case 256: return (int)launch_grouped<256>(xb, qb, sb, ob, E, M, N, K, x_per_expert, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// x [M, K] bf16, q [K, N] int8, scale [N] bf16, out [M, N] bf16, all
+// contiguous and 16-byte aligned. block_m is 8, 24, 40, 72, 128 or 256;
+// K % 64 == 0, N % 16 == 0, 1 <= splits <= min(8, K / 64). One launch.
+// Returns a cudaError_t. The grouped product at E = 1 with a shared x.
+int atpu_w8a16_matmul(const void* x, const void* q, const void* scale, void* out, int M, int N,
+                      int K, int block_m, int splits, void* stream) {
+  return atpu_w8a16_grouped_matmul(x, q, scale, out, 1, M, N, K, 0, block_m, splits, stream);
 }
 
 // Clusters of `splits` blocks of the block_m body that the current device

@@ -56,10 +56,11 @@ from ..ops.cuda_attention import (
     fused_paged_flash_decode,
     fused_paged_flash_prefill,
 )
-from ..ops.cuda_quant import w8a16_matmul
+from ..ops.cuda_quant import w8a16_grouped_matmul, w8a16_matmul
 
 KERNEL_WRAPPERS = (
     flash_prefill, flash_decode, fused_paged_flash_prefill, fused_paged_flash_decode, w8a16_matmul,
+    w8a16_grouped_matmul,
 )
 
 

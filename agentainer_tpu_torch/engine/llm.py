@@ -57,6 +57,13 @@ on, ``paged_kv``, ``streaming``, ``approx_topk``, ``fused_decode`` and
   per-page scales there. ``park_session`` returns the exact SNAP_VERSION 3
   blob, packed before any quantization;
 - failpoints (``faults``) at the reference's engine seams;
+- MoE configs (Mixtral): each layer's MLP is the dense-einsum
+  ``_moe_mlp``, the reference's single-device default, or with ``routed``
+  the token-dispatch ``_moe_mlp_routed`` at capacity factor ``moe_cf``
+  (2.0 by default; decode-shaped steps always dropless); both run inside
+  the same step graphs, prefill graphs and fused loop; with ``quant:
+  int8`` every expert product runs the grouped int8 kernel
+  (``ops/cuda_quant.w8a16_grouped_matmul``);
 - idempotent by request id: completed results are memoized.
 
 What differs from the reference, and why:
@@ -131,9 +138,9 @@ What differs from the reference, and why:
   (``tier_quantize``, the reference's numpy quantizer); a promotion copies
   from pinned memory without waiting and keeps its source alive until the
   copy's event has landed;
-- ``create`` raises ``ValueError`` for the reference's ``routed`` MoE
-  option, ``tp``/``ep``/``sp``/``pp`` > 1 (with or without ``quant``) and
-  more than one chip.
+- ``create`` raises ``ValueError`` for ``tp``/``ep``/``sp``/``pp`` > 1
+  (with or without ``quant``; routed MoE over ``ep`` waits for the port's
+  ``parallel/``) and more than one chip.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
 stream of its own; the serve layer talks to it through a thread-safe queue
@@ -156,7 +163,7 @@ import torch
 
 from .. import faults
 from ..models.configs import ModelConfig, get_config
-from ..models.llama import KVCache, PagedKVCache, forward, init_params
+from ..models.llama import KVCache, PagedKVCache, _moe_mlp_routed, forward, init_params
 from ..ops import cuda_quant
 from ..ops.cuda_attention import kernel_supported
 from ..utils.hw import chip_spec
@@ -195,11 +202,6 @@ SPEC_LOOKUP_WINDOW = 1024
 FUSED_HIST_W = 64
 FUSED_SPEC_K = 4
 FUSED_RUNG_MULT = 4
-
-# the reference's routed-MoE option is not ported yet: asking for it raises
-# instead of being ignored
-UNSUPPORTED_OPTIONS = ("routed",)
-
 
 class SnapshotDeferred(Exception):
     """KV snapshot postponed: the engine is busy (or the global limiter is
@@ -313,7 +315,10 @@ def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "") -> torch
 
 
 def _weight_shapes(cfg: ModelConfig) -> list[tuple[int, int]]:
-    """(K, N) of every weight product of a forward."""
+    """(K, N) of every weight product of a forward that goes through the
+    int8 kernels: an MoE config's expert stacks have the dense FFN's (K, N)
+    per expert; its router goes its own route (``models/llama._router_logits``)
+    and is not listed."""
     d, q, kv = cfg.dim, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     return [(d, q), (d, kv), (q, d), (d, cfg.ffn_dim), (cfg.ffn_dim, d), (d, cfg.vocab_size)]
 
@@ -627,6 +632,8 @@ class LLMEngine:
         fused_decode: bool = False,
         kv_tiering: bool = False,
         tier_quantize: int = 1,
+        routed_moe: bool = False,
+        moe_capacity_factor: float = 2.0,
         device="cuda",
     ):
         self.cfg = cfg
@@ -680,6 +687,15 @@ class LLMEngine:
         # top-k sampler is a static choice of every sampled step
         self.streaming = bool(streaming)
         self.approx_topk = bool(approx_topk)
+        # routed (token-dispatch) MoE when asked; one device keeps the
+        # dense-einsum default otherwise (the reference defaults to routed
+        # only where experts shard over ep > 1)
+        self.routed_moe = cfg.is_moe and bool(routed_moe)
+        self.moe_capacity_factor = float(moe_capacity_factor)
+        self._moe_impl = (
+            functools.partial(_moe_mlp_routed, cfg=cfg, capacity_factor=self.moe_capacity_factor)
+            if self.routed_moe else None
+        )
         self.params = params
         dtype = params["final_norm"].dtype
         if self.paged:
@@ -990,9 +1006,6 @@ class LLMEngine:
         (``_engine_device``). dtype follows the reference: bf16 on the
         card, f32 on the CPU."""
         options = options or {}
-        asked = [f for f in UNSUPPORTED_OPTIONS if options.get(f)]
-        if asked:
-            raise ValueError(f"engine options not supported by the port yet: {', '.join(asked)}")
         quant = str(options.get("quant", "") or "").lower()
         if quant and quant not in QUANT_SCHEMES:
             raise ValueError(f"unknown quant scheme {quant!r} (supported: {', '.join(QUANT_SCHEMES)})")
@@ -1013,8 +1026,6 @@ class LLMEngine:
                 cfg = get_config(config_name)
         else:
             cfg = get_config(config_name or "tiny")
-        if cfg.is_moe:
-            raise ValueError(f"{cfg.name}: MoE configs are not ported yet")
         chips = [int(c) for c in options.get("chips", []) or []]
         device = _engine_device(options.get("device", "cuda"), cfg, chips, quant)
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
@@ -1061,6 +1072,8 @@ class LLMEngine:
             fused_decode=bool(options.get("fused_decode", False)),
             kv_tiering=bool(options.get("kv_tiering", False)),
             tier_quantize=int(options.get("tier_quantize", 1)),
+            routed_moe=bool(options.get("routed", False)),
+            moe_capacity_factor=float(options.get("moe_cf", 2.0)),
             device=device,
         )
         engine.checkpoint_load = load_stats
@@ -1708,6 +1721,12 @@ class LLMEngine:
             "chip_kind": self._chip.kind,
             "n_chips": 1,
             "param_hbm_bytes": self.param_hbm_bytes,
+            "moe_routed": self.routed_moe,
+            # decode-shaped routed calls (t == 1) run dropless whatever
+            # max_batch is (models/llama._moe_mlp_routed); only prefill can
+            # drop, bounded by the capacity factor
+            "moe_decode_dropless": self.routed_moe or None,
+            "moe_capacity_factor": self.moe_capacity_factor if self.routed_moe else None,
             "kv_arena_bytes": self.kv_arena_bytes,
             "checkpoint_bytes_read": self.checkpoint_load.get("bytes_read"),
             "checkpoint_load_s": self.checkpoint_load.get("seconds"),
@@ -2465,7 +2484,8 @@ class LLMEngine:
         else:
             cache, table = self.cache.at_rows(meta[2:3].to(torch.int32)), None
         logits = forward(
-            self.params, self.cfg, tokens, pos, cache, block_table=table, last_index=meta[1:2]
+            self.params, self.cfg, tokens, pos, cache, block_table=table, last_index=meta[1:2],
+            moe_impl=self._moe_impl,
         )
         return logits[0, 0]
 
@@ -2505,7 +2525,7 @@ class LLMEngine:
         for _ in range(chunk):
             logits = forward(
                 self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
-                block_table=self._dbt,
+                block_table=self._dbt, moe_impl=self._moe_impl,
             )
             nxt = sample_step(
                 logits[:, 0], self._gen, self._dtemps, self._dtopk, self._dtopp,
@@ -2746,7 +2766,7 @@ class LLMEngine:
         fl = self._fl
         logits = forward(
             self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
-            block_table=self._dbt,
+            block_table=self._dbt, moe_impl=self._moe_impl,
         )
         nxt = self._fused_sample(logits[:, 0], all_greedy)
         fl.cand.zero_()
@@ -2766,7 +2786,10 @@ class LLMEngine:
         toks = torch.cat([self._dtok[:, None], fl.drafts], dim=1)
         offs = torch.arange(k + 1, dtype=torch.int32, device=dev)[None]
         positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
-        logits = forward(self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt)
+        logits = forward(
+            self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt,
+            moe_impl=self._moe_impl,
+        )
         greedy = logits.argmax(dim=-1)
         valid = torch.arange(k, device=dev)[None] < fl.dlen[:, None]
         ok = (fl.drafts == greedy[:, :k]) & valid
@@ -3040,7 +3063,8 @@ class LLMEngine:
         # parked lanes, and rows past a lane's draft, clamp at scratch
         positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
         logits = forward(
-            self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt
+            self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt,
+            moe_impl=self._moe_impl,
         )
         greedy = logits.argmax(dim=-1)
         # draft_j (= toks[:, j+1]) is scored by logits row j: greedy lanes

@@ -1,10 +1,11 @@
 """Llama-3-family transformer in PyTorch.
 
 Reference: ``agentainer_tpu/models/llama.py`` — ``KVCache``,
-``PagedKVCache``, ``init_params``, ``_mlp``, ``_attention_block`` (the
-paged branch, the dense-cache branch and the no-cache causal branch),
-``forward`` and ``greedy_decode``. MoE and the sequence-parallel hooks wait
-for later slices.
+``PagedKVCache``, ``init_params``, ``_mlp``, ``_moe_mlp`` (the
+dense-einsum MoE), ``routed_capacity`` and ``_moe_mlp_routed`` (the GShard
+one-hot dispatch), ``_attention_block`` (the paged branch, the dense-cache
+branch and the no-cache causal branch), ``forward`` (with ``moe_impl``) and
+``greedy_decode``. The sequence-parallel hooks wait for a later slice.
 
 Parameters keep the reference's tree: a dict whose ``layers`` entries carry
 a leading ``[n_layers, ...]`` axis and whose matmul weights are stored
@@ -17,10 +18,24 @@ dense weight, the fused int8 kernel for a quantized one (the reference
 dequantizes and leaves the fusion to XLA).
 
 Rounding points follow the reference: norms and RoPE compute in f32 and
-cast back, attention softmax is f32, logits are f32.
+cast back, attention softmax is f32, logits are f32; the MoE router's
+softmax is f32 cast to x's dtype, and every MoE einsum is in x's dtype.
+
+MoE: an expert stack ``[E, K, N]`` is multiplied by ``ops/quant.qmatmul_experts``
+(every expert in one call: the grouped int8 kernel for a quantized stack).
+The router ``[D, E]`` takes its own route, ``x @ dequant(router)`` in x's
+dtype (``_router_logits``): E is below the int8 kernel's 16-byte rows, and
+the leaf is E·D values. Two JAX behaviours are spelt out, since torch's
+differ: ``lax.top_k`` puts the lower index first on ties (a stable
+descending sort here, ``_top_k``), and ``jax.nn.one_hot`` of an index out
+of range is an all-zero row (a comparison with an ``arange`` here,
+``_one_hot``; ``F.one_hot`` raises). Both MoE forms are capture-safe:
+static shapes, no host sync, no boolean indexing.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +49,7 @@ from ..ops.attention import (
     scatter_paged_kv,
 )
 from ..ops.norms import rms_norm
-from ..ops.quant import embed_lookup, layer_slice, qmatmul
+from ..ops.quant import QTensor, dequant, embed_lookup, layer_slice, qmatmul, qmatmul_experts
 from ..ops.rope import apply_rope
 from .configs import ModelConfig
 
@@ -129,17 +144,17 @@ def init_params(
     cfg: ModelConfig, generator: torch.Generator, dtype=torch.bfloat16, device=None
 ) -> dict:
     """Random init (normal, 0.02 scale) from an explicit generator, filled
-    one leading-axis slice at a time so the f32 staging stays one layer
-    big. Checkpoint loading maps onto the same tree."""
-    if cfg.is_moe:
-        raise ValueError("MoE configs are not ported yet")
+    one ``[K, N]`` slice at a time (a layer's, or a layer's expert's) so the
+    f32 staging stays one slice big. Checkpoint loading maps onto the same
+    tree. An MoE config has the reference's leaves: ``router [L, D, E]``
+    and the expert stacks ``w_gate``/``w_up [L, E, D, F]``, ``w_down [L,
+    E, F, D]``."""
     d, hd = cfg.dim, cfg.head_dim
     L = cfg.n_layers
 
     def w(*shape, scale=0.02):
         out = torch.empty(shape, dtype=dtype, device=device)
-        rows = out if len(shape) > 2 else out[None]
-        for sl in rows:
+        for sl in out.view(-1, *shape[-2:]):
             sl.copy_(
                 torch.randn(sl.shape, generator=generator, dtype=torch.float32, device=device)
                 * scale
@@ -153,10 +168,25 @@ def init_params(
         "wv": w(L, d, cfg.n_kv_heads * hd),
         "wo": w(L, cfg.n_heads * hd, d),
         "mlp_norm": torch.ones((L, d), dtype=dtype, device=device),
-        "w_gate": w(L, d, cfg.ffn_dim),
-        "w_up": w(L, d, cfg.ffn_dim),
-        "w_down": w(L, cfg.ffn_dim, d),
     }
+    if cfg.is_moe:
+        e = cfg.n_experts
+        layers.update(
+            {
+                "router": w(L, d, e),
+                "w_gate": w(L, e, d, cfg.ffn_dim),
+                "w_up": w(L, e, d, cfg.ffn_dim),
+                "w_down": w(L, e, cfg.ffn_dim, d),
+            }
+        )
+    else:
+        layers.update(
+            {
+                "w_gate": w(L, d, cfg.ffn_dim),
+                "w_up": w(L, d, cfg.ffn_dim),
+                "w_down": w(L, cfg.ffn_dim, d),
+            }
+        )
     return {
         "embed": w(cfg.vocab_size, d),
         "layers": layers,
@@ -169,6 +199,113 @@ def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
     """SwiGLU."""
     gate = F.silu(qmatmul(x, lp["w_gate"]))
     return qmatmul(gate * qmatmul(x, lp["w_up"]), lp["w_down"])
+
+
+def _router_logits(x: torch.Tensor, router) -> torch.Tensor:
+    """The router's product in x's dtype: ``x @ dequant(router)``, as XLA
+    computes it for the reference (which dequantizes the layer's leaves,
+    then multiplies). Its own route, not ``qmatmul``: the router's N is the
+    expert count (8 for Mixtral: 8-byte int8 rows, below the 16 bytes a TMA
+    row needs), and dequantizing it writes E·D values a layer."""
+    return x @ dequant(router).to(x.dtype)
+
+
+def _top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest, descending, and the lower index first
+    among equal values (``torch.topk`` promises no order among ties, which
+    synthetic int8 routers with one scale make common in bf16)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: ``[..., n]``, and an index outside [0, n) gives an
+    all-zero row (the routed path's drop rule relies on it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Dense-einsum MoE (the reference's single-chip default): top-k
+    routing, every expert computed for every token, masked combine. The
+    expert products run expert-major, ``[E, N, F]``, each stack in one
+    ``qmatmul_experts`` call (gate and up from the shared x, down from each
+    expert's own input)."""
+    b, t, d = x.shape
+    e = cfg.n_experts
+    logits = _router_logits(x, lp["router"])  # [B, T, E]
+    weights, chosen = _top_k(logits, cfg.experts_per_token)
+    weights = torch.softmax(weights.float(), dim=-1).to(x.dtype)
+    combine = (weights[..., None] * _one_hot(chosen, e, x.dtype)).sum(-2)  # [B, T, E]
+    xf = x.reshape(b * t, d)
+    gate = F.silu(qmatmul_experts(xf, lp["w_gate"]))  # [E, N, F]
+    up = qmatmul_experts(xf, lp["w_up"])
+    expert_out = qmatmul_experts(gate * up, lp["w_down"])  # [E, N, D]
+    out = torch.einsum("end,ne->nd", expert_out, combine.reshape(b * t, e))
+    return out.reshape(b, t, d)
+
+
+# token counts at or below this run routed MoE with cap = n (dropless) even
+# for prefill-shaped (t > 1) calls; decode calls (t == 1) are always
+# dropless, whatever max_batch is (the reference's gate)
+_DROPLESS_MAX_N = 64
+
+
+def routed_capacity(n_tokens: int, n_experts: int, k: int, capacity_factor: float) -> int:
+    """Static per-expert dispatch-buffer size: ``capacity_factor`` × the
+    balanced share (n·k/E), clamped to n (top-k choices are distinct, so a
+    token takes at most one slot per expert and C = n is dropless)."""
+    return max(1, min(n_tokens, math.ceil(n_tokens * k / n_experts * capacity_factor)))
+
+
+def _moe_mlp_routed(
+    x: torch.Tensor,
+    lp: dict,
+    cfg: ModelConfig,
+    *,
+    capacity_factor: float = 2.0,
+    base: int = 0,
+) -> torch.Tensor:
+    """Top-k token-dispatch MoE, the reference's GShard one-hot form:
+    static shapes, dispatch and combine as products, no gather, scatter or
+    host sync. Each expert computes only its dispatched tokens, up to its
+    capacity; a token past an expert's capacity loses that expert's
+    contribution. Decode-shaped calls (t == 1) and calls of at most
+    ``_DROPLESS_MAX_N`` tokens run dropless (cap = n), so a parked lane's
+    token never takes a real one's slot.
+
+    ``base``: ``lp`` holds the experts ``[base, base + E_loc)`` of the full
+    set the router scores, and choices outside it one-hot to zero rows —
+    the expert-parallel wrapper's contract (``parallel/expert.py`` of the
+    reference); 0 on one device."""
+    b, t, d = x.shape
+    w_gate = lp["w_gate"]
+    e_loc = (w_gate.q if isinstance(w_gate, QTensor) else w_gate).shape[0]
+    n, k = b * t, cfg.experts_per_token
+    if t == 1 or n <= _DROPLESS_MAX_N:
+        cap = n
+    else:
+        cap = routed_capacity(n, cfg.n_experts, k, capacity_factor)
+    xf = x.reshape(n, d)
+    logits = _router_logits(xf, lp["router"])  # [N, E], the full expert set
+    weights, chosen = _top_k(logits, k)
+    weights = torch.softmax(weights.float(), dim=-1).to(x.dtype)
+    local = (chosen - base).reshape(n * k)
+    oh = _one_hot(local, e_loc, torch.float32)  # [S, E_loc]
+    # an assignment's slot in its expert's buffer: how many earlier
+    # assignments chose that expert (f32 cumsum, exact here); a slot >= cap
+    # one-hots to zero and the token drops
+    slot = ((torch.cumsum(oh, dim=0) - 1.0) * oh).to(torch.int32)
+    disp = (oh[:, :, None] * _one_hot(slot, cap, torch.float32)).reshape(n, k, e_loc, cap)
+    # a token's k choices are distinct experts: at most one nonzero per
+    # (token, expert) after the sum over k
+    disp_tok = disp.sum(1).to(x.dtype)  # [N, E_loc, C]
+    combine_tok = (disp * weights[..., None, None]).sum(1).to(x.dtype)
+    xe = torch.einsum("nd,nec->ecd", xf, disp_tok)  # [E_loc, C, D]
+    gate = F.silu(qmatmul_experts(xe, w_gate))
+    up = qmatmul_experts(xe, lp["w_up"])
+    out_buf = qmatmul_experts(gate * up, lp["w_down"])  # [E_loc, C, D]
+    out = torch.einsum("ecd,nec->nd", out_buf, combine_tok)  # weighted scatter
+    return out.reshape(b, t, d)
 
 
 def _attention_block(
@@ -222,6 +359,7 @@ def forward(
     use_flash: bool = True,
     block_table: torch.Tensor | None = None,  # [B, n_blocks] int
     last_index: torch.Tensor | None = None,  # [B] int
+    moe_impl=None,
 ) -> torch.Tensor:
     """Returns logits [B, T, V] in f32; with ``last_index`` only row
     ``last_index[b]`` of each sequence goes through the final norm and
@@ -234,9 +372,8 @@ def forward(
     ``block_table`` the cache is a :class:`PagedKVCache` and every KV read
     and write goes through the table. Without a cache: pure causal
     self-attention. ``use_flash=False`` takes the plain attention path even
-    where the kernels would run."""
-    if cfg.is_moe:
-        raise ValueError("MoE configs are not ported yet")
+    where the kernels would run. An MoE config runs ``_moe_mlp`` in each
+    layer, or ``moe_impl(h, lp)`` when given (the engine's routed MoE)."""
     x = embed_lookup(params["embed"], tokens)
     mask = None
     if cache is None and not use_flash:
@@ -246,7 +383,10 @@ def forward(
         lp = {k: layer_slice(v, layer) for k, v in params["layers"].items()}
         x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash, block_table)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(h, lp)
+        if cfg.is_moe:
+            x = x + (moe_impl(h, lp) if moe_impl is not None else _moe_mlp(h, lp, cfg))
+        else:
+            x = x + _mlp(h, lp)
     if last_index is not None:
         x = x.gather(1, last_index.long()[:, None, None].expand(-1, 1, x.shape[-1]))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -9,7 +9,9 @@ The reference leaves ``x @ dequant(w)`` to XLA, which fuses the convert into
 the dot. Here every weight product goes through ``qmatmul``: a dense weight
 is a plain ``x @ w``; an int8 one runs ``ops/cuda_quant.w8a16_matmul``, the
 hand-written fused kernel on the card and its plain version on the CPU, so
-no dense weight is written out on the card.
+no dense weight is written out on the card. An MoE layer's expert stacks
+``[E, K, N]`` go through ``qmatmul_experts`` the same way, every expert in
+one call (``w8a16_grouped_matmul`` for an int8 stack).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .cuda_quant import w8a16_matmul
+from .cuda_quant import w8a16_grouped_matmul, w8a16_matmul
 
 
 class QTensor(NamedTuple):
@@ -96,3 +98,14 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     k = x.shape[-1]
     y = w8a16_matmul(x.reshape(-1, k).contiguous(), w.q, w.scale)
     return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def qmatmul_experts(x: torch.Tensor, w) -> torch.Tensor:
+    """Every expert's product at once: ``x [M, K]`` (the same input for
+    every expert) or ``[E, M, K]`` (one per expert) against the expert
+    stack ``w [E, K, N]`` → ``[E, M, N]``. A dense stack is a batched
+    ``x @ w``; a ``QTensor`` one runs ``w8a16_grouped_matmul``, which raises
+    on a shape its kernel does not take."""
+    if not isinstance(w, QTensor):
+        return torch.matmul(x, w)
+    return w8a16_grouped_matmul(x.contiguous(), w.q, w.scale)

@@ -176,6 +176,46 @@ exits non-zero):
                  quantizer's ms on a 2,048-token session. Every park's and
                  promotion's bytes, ms and GB/s beside the card.
 
+11. moe        — Mixtral-8x7B (E 8, top-2, D 4096, F 14336):
+   (a) grouped   ``w8a16_grouped_matmul`` (``csrc/w8a16_gemm.cu``, every
+                 expert of a stack in one launch) against its plain version
+                 at E = 8 and Mixtral's (K, N) — (4096, 14336) with one x
+                 shared by the experts, (14336, 4096) with one x per expert
+                 — for M = 1, 8, 9, 24, 72, 128, 255, 256, 300, within one
+                 bf16 rounding, two calls bit-equal; timed at M = 8, 72 and
+                 256 beside its bound, the plain version, the bf16 cuBLAS
+                 batched product over the dense expert stack (the product
+                 int8 replaces) and ``x @ dequant(w)`` over the stack, with
+                 one device launch per call.
+   (b) block     ``_moe_mlp`` and ``_moe_mlp_routed`` (dropless ``cf`` 4.0)
+                 of one Mixtral layer on the same ``h`` (a 256-token chunk
+                 and an 8-lane decode step): int8 weights, the grouped
+                 kernel against its plain version, bf16, within 3e-2 of the
+                 largest output; dense f32 weights on the card against the
+                 same function on the CPU, within 2e-4 (TF32 off), tokens
+                 routed differently by the two left out and counted.
+   (c) model     a 2-layer Mixtral-width model: logits with the attention
+                 kernels against the plain attention path in bf16 and f32
+                 (``F32_LOGIT_TOL`` / ``BF16_LOGIT_TOL``), then in int8 with
+                 the grouped kernel and ``w8a16_matmul`` against their plain
+                 versions; a token the two paths route to other experts in
+                 any layer is counted and printed, and its sequence is
+                 compared up to it (later tokens attend to its K/V).
+   (d) served    Mixtral-8x7B at full width and depth, int8, synthetic,
+                 seed 0, with the reference's defaults, after every earlier
+                 engine is gone: the feature phase's script and gates on the
+                 dense arena with the dense-einsum MoE, then on the paged
+                 arena (page size 64) with ``routed: true, moe_cf: 4.0``;
+                 per forward 129 ``w8a16_matmul`` calls (4 per layer +
+                 lm_head) and 96 ``w8a16_grouped_matmul`` calls (gate, up,
+                 down per layer); ``param_hbm_bytes`` 46,720,564,224;
+                 ``moe_routed`` as asked; every step and prefill graph equal
+                 to its eager step. The first index where the routed paged
+                 engine's text leaves the dense one's is printed, not gated.
+   (e) fused     the 2-layer Mixtral-width model in int8 as a fused engine:
+                 each loop graph bit-equal to its eager loop, the grouped
+                 kernel inside the conditional bodies.
+
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
 chunk is one prefill graph replay (``prefill_graph_replays`` =
@@ -262,7 +302,7 @@ W8_WEIGHTS = {
     "lm_head": (4096, 128256),
 }
 BENCH_1B_KN = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000))
-W8_MS = (1, 8, 9, 24, 40, 72, 255, 256, 300)
+W8_MS = (1, 8, 9, 24, 32, 40, 64, 72, 255, 256, 300)
 W8_TIMED_MS = (8, 72, 256)
 HOST_CALLS = 200  # calls per host-cost loop
 # kernel against plain: both sum in f32 and round once to bf16, so they may
@@ -274,6 +314,22 @@ W8_REPLACES = "agentainer_tpu/ops/quant.py:40"
 INT8 = {"quant": "int8", "synthetic": True}
 INT8_PARAM_BYTES = 8_033_544_704  # llama3-8b's int8 tree (the reference's, jax.eval_shape)
 W8_PER_LAYER = 7  # wq, wk, wv, wo, w_gate, w_up, w_down; + lm_head per forward
+
+# the MoE phase: Mixtral-8x7B; its expert stacks (K, N, one x per expert),
+# the rows the grouped kernel is checked and timed at, and what it replaces
+# (not a pallas_call: XLA's int8 convert fused into the expert einsums,
+# agentainer_tpu/models/llama.py:143-145 and :229-231)
+MIXTRAL = "mixtral-8x7b"
+MOE_E = 8
+MOE_STACKS = {"w_gate/w_up": (4096, 14336, False), "w_down": (14336, 4096, True)}
+MOE_MS = (1, 8, 9, 24, 32, 40, 64, 72, 128, 255, 256, 300)
+MOE_TIMED_MS = (8, 72, 256)
+MOE_REPLACES = "agentainer_tpu/models/llama.py:143"
+MOE_PARAM_BYTES = 46_720_564_224  # Mixtral-8x7B's int8 tree (the reference's, jax.eval_shape)
+W8_PER_LAYER_MOE = 4  # wq, wk, wv, wo; + lm_head per forward
+GROUPED_PER_LAYER = 3  # the w_gate, w_up and w_down stacks
+MOE_ROUTED = {"routed": True, "moe_cf": 4.0}  # cap = n for top-2 of 8: dropless
+MOE_BLOCK_SHAPES = ((1, 128), (8, 1))  # a prefill chunk and an 8-lane decode step
 
 
 def log(msg: str) -> None:
@@ -380,6 +436,11 @@ def _traced_calls(fns: dict, order: list[str], flush, samples: list) -> dict[str
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with _sampling(samples):
+            # a lead-in spin: the first kernel after the profiler comes up
+            # can lose its record (seen on an H100: a row's first spin
+            # missing in three traces running); if kept, it parts off an
+            # empty group, dropped below
+            torch.cuda._sleep(MARK_CYCLES)
             for name in order:
                 torch.cuda._sleep(MARK_CYCLES)
                 flush.zero_()
@@ -403,6 +464,8 @@ def _traced_calls(fns: dict, order: list[str], flush, samples: list) -> dict[str
             groups.append([])
         elif groups:
             groups[-1].append(e)
+    if len(groups) == 2 * len(order) + 3 and not groups[0]:
+        groups = groups[1:]  # the lead-in spin's record was kept
     flushes, calls = groups[0:2 * len(order):2], groups[1:2 * len(order):2]
     if len(groups) != 2 * len(order) + 2 or any(len(f) != 1 for f in flushes) or not all(calls):
         raise TraceIncomplete(f"{len(groups)} spin-parted groups for {len(order)} calls")
@@ -970,15 +1033,15 @@ def _http_any(port: int, method: str, path: str, body: dict | None = None,
 
 
 @contextlib.contextmanager
-def _serving(options: dict, checkpoint: str = "", env: dict | None = None):
-    """The port's ``llm_serve`` app for llama3-8b on a local port (from a
+def _serving(options: dict, checkpoint: str = "", env: dict | None = None, config: str = "llama3-8b"):
+    """The port's ``llm_serve`` app for ``config`` on a local port (from a
     checkpoint directory when one is named), loaded; yields (app, load
     seconds) and stops it on the way out."""
     from agentainer_tpu_torch.engine.llm_serve import LLMServeApp
 
     app = LLMServeApp(env={
         "AGENTAINER_AGENT_ID": "chip-smoke",
-        "AGENTAINER_MODEL_CONFIG": "llama3-8b",
+        "AGENTAINER_MODEL_CONFIG": config,
         "AGENTAINER_CHECKPOINT": checkpoint,
         "AGENTAINER_MODEL_OPTIONS": json.dumps(options),
         **(env or {}),
@@ -1306,7 +1369,7 @@ def _forwards(before: dict, after: dict) -> int:
 
 
 def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
-                         quant: bool = False, fused: bool = False) -> dict:
+                         quant: bool = False, fused: bool = False, moe: dict | None = None) -> dict:
     """The reference's default serving features (prefix cache, speculation,
     deadlines) with a persona: the sequential script (fresh sessions fork
     the persona, the one-byte runs speculate), then a deadline that passes
@@ -1325,15 +1388,23 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     loop graphs are held against their eager loop (``phase_fused_graphs``)
     and the script's text is compared with ``script_texts`` (the first index
     where it differs is reported, not gated: a bf16 verify may pick another
-    argmax on a near tie)."""
+    argmax on a near tie). With ``moe`` (the MoE engine options, ``{}`` for
+    the dense-einsum default) the model is Mixtral-8x7B in int8: per
+    forward ``W8_PER_LAYER_MOE`` ``w8a16_matmul`` calls per layer + 1 and
+    ``GROUPED_PER_LAYER`` ``w8a16_grouped_matmul`` calls per layer,
+    ``moe_routed`` as asked, and the script's text against
+    ``script_texts`` reported, not gated (a bf16 near tie may route a token
+    to other experts)."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
     from agentainer_tpu_torch.ops import cuda_quant as cq
 
+    # the engines of earlier phases are gone: release their memory first
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    model = MIXTRAL if moe is not None else "llama3-8b"
     options = {
         "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S,
         "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA, "streaming": True,
@@ -1344,9 +1415,11 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         options.update(INT8)
     if fused:
         options["fused_decode"] = True
+    if moe is not None:
+        options.update(moe)
     # the dense bf16 engine also samples through approx_topk, and serves
     # /profile and an assistant-flavor app attached to it
-    main = not paged and not quant and not fused
+    main = not paged and not quant and not fused and moe is None
     if main:
         options["approx_topk"] = True
     profile_dir = tempfile.mkdtemp(prefix="atpu-profile-") if main else ""
@@ -1356,14 +1429,18 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     )
     others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
                             ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
-    name = ("int8 " if quant else "") + ("fused " if fused else "") + ("paged" if paged else "dense")
+    name = (
+        ("mixtral " + ("routed " if (moe or {}).get("routed") else "") if moe is not None else "")
+        + ("int8 " if quant else "") + ("fused " if fused else "") + ("paged" if paged else "dense")
+    )
     counts = SPEC_COUNTS + (FUSED_COUNTS if fused else ())
+    products = (cq.w8a16_matmul, cq.w8a16_grouped_matmul)
     extra: dict = {}
-    with _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}) as (app, load_s):
+    with _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}, config=model) as (app, load_s):
         port = app.port
-        log(f"llama3-8b {name} engine with the default features loaded in {load_s:.1f}s")
+        log(f"{model} {name} engine with the default features loaded in {load_s:.1f}s")
         _, m0 = _http(port, "GET", "/metrics")
-        for fn in (prefill, decode, *others, cq.w8a16_matmul):
+        for fn in (prefill, decode, *others, *products):
             fn.launches = 0
         t1 = time.monotonic()
         replies, texts, per_request = [], [], []
@@ -1437,10 +1514,13 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         if codes.count(429) < 1 or codes.count(200) + codes.count(429) != 16:
             raise AssertionError(f"burst past the shed watermark answered {codes}")
         serve_s = time.monotonic() - t1
-        launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, cq.w8a16_matmul)}
+        launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, *products)}
         _, m2 = _http(port, "GET", "/metrics")
         pipeline = _pipeline(f"{name} features", m0, m2, load_s)
         graphs = phase_fused_graphs(app.engine, name) if fused else phase_graphs(app.engine, name)
+        if moe is not None:
+            extra["decode_step"] = _decode_step_ms(app.engine)
+            log(f"{name}: one decode step of the 8-step graph {extra['decode_step']}")
         if main:
             extra["profile"] = _profile_during_a_request(port, profile_dir)
             extra["assistant"] = _assistant_turns(app)
@@ -1448,13 +1528,19 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         shutil.rmtree(profile_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     forwards = _forwards(m0, m2)
-    w8 = launches["w8a16_matmul"]
-    want_w8 = (W8_PER_LAYER * n_layers + 1) * forwards if quant else 0
-    if w8 != want_w8:
-        raise AssertionError(f"{name}: w8a16_matmul launched {w8} times, want {want_w8} "
+    per_layer, per_layer_grouped = (W8_PER_LAYER_MOE, GROUPED_PER_LAYER) if moe is not None else (W8_PER_LAYER, 0)
+    want_products = {
+        "w8a16_matmul": (per_layer * n_layers + 1) * forwards if quant else 0,
+        "w8a16_grouped_matmul": per_layer_grouped * n_layers * forwards if quant else 0,
+    }
+    if {k: launches[k] for k in want_products} != want_products:
+        raise AssertionError(f"{name}: weight-product kernels launched {launches}, want {want_products} "
                              f"({forwards} forwards)")
-    if quant and m2["param_hbm_bytes"] != INT8_PARAM_BYTES:
-        raise AssertionError(f"{name}: param_hbm_bytes {m2['param_hbm_bytes']}, want {INT8_PARAM_BYTES}")
+    want_bytes = MOE_PARAM_BYTES if moe is not None else INT8_PARAM_BYTES
+    if quant and m2["param_hbm_bytes"] != want_bytes:
+        raise AssertionError(f"{name}: param_hbm_bytes {m2['param_hbm_bytes']}, want {want_bytes}")
+    if m2.get("moe_routed", False) != bool((moe or {}).get("routed")):
+        raise AssertionError(f"{name}: /metrics moe_routed {m2.get('moe_routed')} for options {moe}")
 
     if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
         raise AssertionError(f"prefix cache: prewarms {m0['prefix_prewarms']}, hits {m1['prefix_hits']}")
@@ -1478,7 +1564,11 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         raise AssertionError(f"{name} feature phase launches: {launches}")
     if m2["worker_errors"] or m2["expired_total"] < 1 or m2["cancelled_total"] < B or m2["shed_total"] < 1:
         raise AssertionError(f"{name} feature phase counters: {({k: m2[k] for k in FEATURE_KEYS})}")
-    if fused and script_texts is not None:
+    if moe is not None and script_texts is not None:
+        extra["first_divergence"] = _first_divergence(texts, script_texts)
+        log(f"{name}: first divergence from the dense-einsum dense phase's script text: "
+            f"{extra['first_divergence']}")
+    elif fused and script_texts is not None:
         extra["first_divergence"] = _first_divergence(texts, script_texts)
         extra["fused"] = {k: m2[k] - m0[k] if isinstance(m2[k], int) else m2[k] for k in FUSED_KEYS}
         log(f"{name}: first divergence from the unfused phase's script text: {extra['first_divergence']}; "
@@ -1495,6 +1585,7 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         "launches": launches,
         "forwards": forwards,
         "param_hbm_bytes": m2["param_hbm_bytes"],
+        "moe": {k: m2.get(k) for k in ("moe_routed", "moe_decode_dropless", "moe_capacity_factor")},
         "peak_memory_bytes": peak,
         "load_s": load_s,
         "script_s": script_s,
@@ -1536,7 +1627,7 @@ def _approx_sampled(port: int, name: str) -> dict:
 
 
 # the port's kernels by their device names in a profiler trace
-KERNEL_NAMES = {"prefill_kernel", "decode_kernel", "decode_combine_kernel", "w8a16_kernel"}
+KERNEL_NAMES = {"prefill_kernel", "decode_kernel", "decode_combine_kernel", "w8a16_grouped_kernel"}
 
 
 def _profile_during_a_request(port: int, trace_dir: str) -> dict:
@@ -1603,6 +1694,33 @@ def _assistant_turns(app) -> dict:
 # lanes 0-3 live in the graph phase (a 64-slot tile and a page crossed by
 # the verify rows), lanes 4-7 parked
 GRAPH_LIVE_POS = (40, 300, 777, 1500)
+
+
+def _decode_step_ms(engine, replays: int = 5) -> dict:
+    """Device ms of one decode step of the idle engine's 8-step greedy
+    graph, lanes 0-1 live at 300 / 312 and 2-7 parked: the median of
+    ``replays`` replays, each between two CUDA events, over its 8 steps."""
+    import statistics
+
+    import torch
+
+    from agentainer_tpu_torch.engine.graphs import live_lanes, park_lanes
+
+    key, device = ("decode", 8, True), []
+    try:
+        with torch.no_grad(), engine._on_stream():
+            for _ in range(replays):
+                live_lanes(engine, [300, 312], 0.0, seed=0)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                engine._graphs.replay(key)
+                end.record()
+                end.synchronize()
+                device.append(start.elapsed_time(end))
+    finally:
+        park_lanes(engine)
+    return {"device_ms": statistics.median(device) / key[1], "replay_ms": device,
+            "lanes": "0-1 live at 300 / 312, 2-7 parked"}
 
 
 def phase_graphs(engine, name: str) -> dict:
@@ -2055,7 +2173,6 @@ def phase_model_int8() -> dict:
     from agentainer_tpu_torch.models.configs import get_config
     from agentainer_tpu_torch.models.llama import KVCache, forward, init_params
     from agentainer_tpu_torch.ops import cuda_quant as cq
-    from agentainer_tpu_torch.ops import quant as tq
 
     cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
     dev = torch.device("cuda")
@@ -2069,14 +2186,10 @@ def phase_model_int8() -> dict:
         logits = {}
         for kernel in (True, False):
             before = cq.w8a16_matmul.launches
-            if not kernel:
-                tq.w8a16_matmul = cq.w8a16_matmul_plain
-            try:
+            with contextlib.nullcontext() if kernel else _plain_products():
                 cache = KVCache.create(cfg, b, s, dtype=torch.bfloat16, device=dev)
                 pre = forward(params, cfg, tokens, pos, cache)
                 dec = forward(params, cfg, tokens[:, -1:], pos[:, -1:] + 1, cache)
-            finally:
-                tq.w8a16_matmul = cq.w8a16_matmul
             launched = cq.w8a16_matmul.launches - before
             want = (W8_PER_LAYER * cfg.n_layers + 1) * 2 if kernel else 0
             if launched != want:
@@ -2366,11 +2479,12 @@ def phase_fused_dense(dense_texts: list[str], serve: dict) -> dict:
     return out
 
 
-def phase_fused_int8_graphs() -> dict:
-    """The 2-layer llama3-8b-width model in int8 (bf16 init from seed 1,
+def phase_fused_int8_graphs(model: str = "llama3-8b") -> dict:
+    """The 2-layer ``model``-width model in int8 (bf16 init from seed 1,
     quantized on the card) as a fused engine with in-loop spec: its loop
     graphs against their eager loop (``phase_fused_graphs``), with
-    ``w8a16_matmul`` launched inside the loop's conditional bodies."""
+    ``w8a16_matmul`` (and for Mixtral ``w8a16_grouped_matmul``) launched
+    inside the loop's conditional bodies."""
     import dataclasses
 
     import torch
@@ -2381,7 +2495,9 @@ def phase_fused_int8_graphs() -> dict:
     from agentainer_tpu_torch.models.configs import get_config
     from agentainer_tpu_torch.models.llama import init_params
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(model), name=f"{model}-2l", n_layers=2)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     with torch.no_grad():
@@ -2390,7 +2506,20 @@ def phase_fused_int8_graphs() -> dict:
                     fused_decode=True, device="cuda")
     try:
         eng.warmup()
-        return phase_fused_graphs(eng, "int8 2-layer fused")
+        out = phase_fused_graphs(eng, f"int8 2-layer {model} fused")
+        # the weight-product kernels each conditional body launches per iteration
+        branches = eng._graphs._loops[("fused", eng._fused_cap, True)][3]
+        out["body_launches"] = {
+            branch: {w.__name__: c for w, c in branches.get(branch, ())} for branch in ("plain", "verify")
+        }
+        want = {"w8a16_matmul": (W8_PER_LAYER_MOE if cfg.is_moe else W8_PER_LAYER) * cfg.n_layers + 1}
+        if cfg.is_moe:
+            want["w8a16_grouped_matmul"] = GROUPED_PER_LAYER * cfg.n_layers
+        for branch, got in out["body_launches"].items():
+            if any(got.get(name) != n for name, n in want.items()):
+                raise AssertionError(f"{model} fused loop: the {branch} body launches {got}, want {want}")
+        log(f"int8 2-layer {model} fused loop bodies launch {out['body_launches']}")
+        return out
     finally:
         eng.shutdown()
 
@@ -2580,6 +2709,316 @@ def phase_tiering_dense(card: str) -> dict:
     return out
 
 
+# -- Mixture-of-Experts: Mixtral-8x7B ----------------------------------------
+
+
+def phase_grouped() -> dict:
+    """``w8a16_grouped_matmul`` against its plain version at E = 8 and
+    Mixtral's expert stacks for every M of ``MOE_MS``, then timed at
+    ``MOE_TIMED_MS`` beside its bound, the plain version, the bf16 cuBLAS
+    batched product over the dense stack and ``x @ dequant(w)`` over the
+    stack (see the docstring)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops.quant import QTensor, dequant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    bf, e = torch.bfloat16, MOE_E
+
+    def stack(k, n):
+        q = torch.randint(-127, 128, (e, k, n), dtype=torch.int8, generator=g, device=dev)
+        scale = ((0.5 + torch.rand((e, 1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(bf)
+        return q, scale
+
+    def x_for(m, k, per_expert):
+        return torch.randn((e, m, k) if per_expert else (m, k), generator=g, device=dev).to(bf)
+
+    worst, checked = 0.0, 0
+    t0 = time.monotonic()
+    for name, (k, n, per_expert) in MOE_STACKS.items():
+        q, scale = stack(k, n)
+        for m in MOE_MS:
+            x = x_for(m, k, per_expert)
+            got = cq.w8a16_grouped_matmul(x, q, scale)
+            want = cq.w8a16_matmul_plain(x, q, scale).float()
+            torch.testing.assert_close(
+                got.float(), want, rtol=W8_RTOL, atol=W8_ATOL,
+                msg=lambda msg, m=m, k=k, n=n: f"w8a16_grouped_matmul E={e} M={m} K={k} N={n} "
+                f"{cq.plan(m, n, k, e)} disagrees with plain: {msg}",
+            )
+            if not torch.equal(got, cq.w8a16_grouped_matmul(x, q, scale)):
+                raise AssertionError(f"w8a16_grouped_matmul M={m} K={k} N={n}: two calls differ")
+            worst = max(worst, (got.float() - want).abs().max().item())
+            checked += 1
+        del q, scale
+    log(f"w8a16_grouped_matmul held its plain version at {checked} (stack, M), E = {e}, two calls "
+        f"bit-equal, in {time.monotonic() - t0:.1f}s; max abs err {worst:.3g}")
+
+    timed = []
+    for name, (k, n, per_expert) in MOE_STACKS.items():
+        q, scale = stack(k, n)
+        dense = dequant(QTensor(q, scale))  # [E, K, N] bf16, what int8 replaces
+        for m in MOE_TIMED_MS:
+            x = x_for(m, k, per_expert)
+            bm, splits = cq.plan(m, n, k, e)
+            fns = {
+                "kernel": lambda x=x: cq.w8a16_grouped_matmul(x, q, scale),
+                "plain": lambda x=x: cq.w8a16_matmul_plain(x, q, scale),
+                "cublas_bmm_bf16": lambda x=x: torch.matmul(x, dense),
+                "dequant_matmul": lambda x=x: torch.matmul(x, dequant(QTensor(q, scale))),
+            }
+            row = _timed("w8a16_grouped_matmul", fns, want_launches=1)
+            x_shape = f"[{e},{m},{k}]" if per_expert else f"[{m},{k}]"
+            timed.append({
+                "weights": name, "shape": f"x{x_shape} bf16, q[{e},{k},{n}] int8, scale[{e},1,{n}] bf16",
+                "M": m, "K": k, "N": n, "E": e, "x_per_expert": per_expert, "block_m": bm, "splits": splits,
+                **row, **_bound(e * k * n + 2 * e * n + 2 * m * k * (e if per_expert else 1) + 2 * e * m * n,
+                                2.0 * e * m * k * n),
+            })
+            r = timed[-1]
+            log(f"w8a16_grouped_matmul {name} M={m}: ms {r['ms']:.4f} [{r['ms_min']:.4f}, {r['ms_max']:.4f}] "
+                f"bound {r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} cublas bmm bf16 "
+                f"{r['cublas_bmm_bf16_ms']:.4f} x@dequant(w) {r['dequant_matmul_ms']:.4f} tile {bm} splits "
+                f"{splits} launches/call {r['launches_per_call']} card {r['card']}")
+            del x, fns
+        del q, scale, dense
+    main = next(r for r in timed if r["weights"] == "w_gate/w_up" and r["M"] == 8)
+    return {
+        "name": "w8a16_grouped_matmul", "route": "cuda", "source": W8_SOURCE, "replaces": MOE_REPLACES,
+        "timing": TIMING, "max_abs_err": worst,
+        "tolerance": f"|d| <= {W8_ATOL} + {W8_RTOL} * |plain|", "checked": checked,
+        # no single PyTorch call takes int8 expert stacks; the bf16 cuBLAS
+        # product over the dense stack is timed beside it
+        "library": None, "library_ms": None,
+        **{key: main[key] for key in (
+            "shape", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by", "cublas_bmm_bf16_ms",
+            "dequant_matmul_ms", "launches_per_call", "device_kernels", "card",
+        )},
+        "timed": timed,
+    }
+
+
+@contextlib.contextmanager
+def _routes():
+    """Record the experts every MoE layer chooses while the block runs: a
+    list of ``[..., k]`` index tensors, one per layer call, in call order."""
+    from agentainer_tpu_torch.models import llama as tl
+
+    chosen: list = []
+    top_k = tl._top_k
+
+    def recording(logits, k):
+        vals, idx = top_k(logits, k)
+        chosen.append(idx.detach().cpu())
+        return vals, idx
+
+    tl._top_k = recording
+    try:
+        yield chosen
+    finally:
+        tl._top_k = top_k
+
+
+@contextlib.contextmanager
+def _plain_products():
+    """Every int8 weight product through its kernel's plain version."""
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops import quant as tq
+
+    tq.w8a16_matmul = tq.w8a16_grouped_matmul = cq.w8a16_matmul_plain
+    try:
+        yield
+    finally:
+        tq.w8a16_matmul, tq.w8a16_grouped_matmul = cq.w8a16_matmul, cq.w8a16_grouped_matmul
+
+
+def _same_route(a: list, b: list):
+    """Per token (flattened [B * T]), whether two runs' recorded routes agree
+    in every layer."""
+    import torch
+
+    ok = None
+    for x, y in zip(a, b, strict=True):
+        eq = (x == y).all(dim=-1).reshape(-1)
+        ok = eq if ok is None else ok & eq
+    return ok if ok is not None else torch.ones(0, dtype=torch.bool)
+
+
+def phase_moe_block() -> dict:
+    """One Mixtral-8x7B layer's MoE block, ``_moe_mlp`` and
+    ``_moe_mlp_routed`` (``cf`` 4.0, dropless), on the same ``h`` for each of
+    ``MOE_BLOCK_SHAPES``: in bf16 with int8 weights, the grouped kernel
+    against its plain version (3 launches a call); in f32 with dense
+    weights, the card against the CPU (TF32 off), tokens routed
+    differently by the two left out and counted."""
+    import dataclasses
+
+    import torch
+
+    from agentainer_tpu_torch.engine.quant import quantize_params
+    from agentainer_tpu_torch.models import llama as tl
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops.quant import layer_slice
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MIXTRAL), name=f"{MIXTRAL}-1l", n_layers=1)
+    dev = torch.device("cuda")
+    impls = {
+        "dense_moe": lambda h, lp: tl._moe_mlp(h, lp, cfg),
+        "routed": lambda h, lp: tl._moe_mlp_routed(h, lp, cfg, capacity_factor=MOE_ROUTED["moe_cf"]),
+    }
+    keys = ("router", "w_gate", "w_up", "w_down")
+    out: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev)
+        g.manual_seed(2)
+        with torch.no_grad():
+            params = tl.init_params(cfg, g, dtype=dtype, device=dev)
+            if dtype == torch.bfloat16:
+                params = quantize_params(params, torch.bfloat16)
+            lp = {k: layer_slice(params["layers"][k], 0) for k in keys}
+            del params
+            host = {k: v.cpu() for k, v in lp.items()} if dtype == torch.float32 else None
+            for shape in MOE_BLOCK_SHAPES:
+                h = torch.randn((*shape, cfg.dim), generator=g, device=dev).to(dtype)
+                for impl, fn in impls.items():
+                    tag = f"{impl} {str(dtype).removeprefix('torch.')} h[{shape[0]},{shape[1]},{cfg.dim}]"
+                    if dtype == torch.bfloat16:  # the grouped kernel against its plain version
+                        before = cq.w8a16_grouped_matmul.launches
+                        with _routes() as r_kernel:
+                            got = fn(h, lp).float()
+                        launched = cq.w8a16_grouped_matmul.launches - before
+                        with _routes() as r_plain, _plain_products():
+                            want = fn(h, lp).float()
+                        if launched != GROUPED_PER_LAYER:
+                            raise AssertionError(f"MoE block {tag}: {launched} grouped launches")
+                        tol = BF16_LOGIT_TOL
+                    else:  # the card against the CPU
+                        with _routes() as r_kernel:
+                            got = fn(h, lp).float()
+                        with _routes() as r_plain:
+                            want = fn(h.cpu(), host).to(dev)
+                        tol = F32_LOGIT_TOL
+                    same = _same_route(r_kernel, r_plain).to(dev)
+                    flat_got, flat_want = got.reshape(-1, cfg.dim), want.reshape(-1, cfg.dim)
+                    if not torch.isfinite(flat_got).all() or tuple(got.shape) != (*shape, cfg.dim):
+                        raise AssertionError(f"MoE block {tag}: output {tuple(got.shape)} not finite")
+                    err = (flat_got[same] - flat_want[same]).abs().max().item()
+                    scale = max(1.0, flat_want.abs().max().item())
+                    if dtype == torch.bfloat16:
+                        limit = f"{tol} * max(1, |out|) = {tol * scale}"
+                        if err > tol * scale:
+                            raise AssertionError(f"MoE block {tag}: max abs err {err}, over {limit}")
+                    else:
+                        limit = f"rtol = atol = {tol}"
+                        torch.testing.assert_close(flat_got[same], flat_want[same], rtol=tol, atol=tol,
+                                                   msg=lambda m, tag=tag: f"MoE block {tag}: {m}")
+                    out[tag] = {"max_abs_err": err, "max_abs_out": scale, "tolerance": limit,
+                                "tokens": int(same.numel()), "routing_disagreements": int((~same).sum())}
+                    log(f"MoE block {tag}: {'kernel vs plain' if dtype == torch.bfloat16 else 'card vs cpu'} "
+                        f"{out[tag]}")
+            del lp, host
+    return out
+
+
+def phase_moe_model() -> dict:
+    """A 2-layer Mixtral-width model, a prefill chunk of 2 x 128 tokens then
+    one decode step: bf16 and f32 logits with the attention kernels against
+    the plain attention path, then the int8 model with the grouped kernel
+    and ``w8a16_matmul`` against their plain versions. A token the two runs
+    route to other experts in any layer is counted, and its sequence's
+    logits are compared up to it (later tokens attend to its K/V)."""
+    import dataclasses
+
+    import torch
+
+    from agentainer_tpu_torch.engine.quant import quantize_params
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import KVCache, forward, init_params
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MIXTRAL), name=f"{MIXTRAL}-2l", n_layers=2)
+    dev = torch.device("cuda")
+    b, t, s = 2, 128, 512
+    out: dict = {}
+
+    def run(params, dtype, tokens, pos, use_flash=True):
+        """Logits [b, t + 1, V] of the prefill then the decode step, and the
+        routes each forward recorded."""
+        cache = KVCache.create(cfg, b, s, dtype=dtype, device=dev)
+        with _routes() as pre_r:
+            pre = forward(params, cfg, tokens, pos, cache, use_flash=use_flash)
+        with _routes() as dec_r:
+            dec = forward(params, cfg, tokens[:, -1:], pos[:, -1:] + 1, cache, use_flash=use_flash)
+        return torch.cat([pre, dec], dim=1), (pre_r, dec_r)
+
+    def compare(tag, got, want, routes_a, routes_b, tol, relative):
+        # per token [b, t + 1] (the prefill's t, then the decode step's):
+        # whether both runs routed it alike in every layer; a later token
+        # of its sequence attends to its K/V, so the comparison keeps each
+        # sequence's tokens up to its first disagreement
+        own = torch.cat([
+            _same_route(routes_a[0], routes_b[0]).reshape(b, t),
+            _same_route(routes_a[1], routes_b[1]).reshape(b, 1),
+        ], dim=1)
+        same = own.int().cumprod(dim=1).bool().to(dev)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"2-layer Mixtral {tag}: non-finite logits")
+        if not same.any():
+            raise AssertionError(f"2-layer Mixtral {tag}: every sequence routed its first token apart")
+        err = (got[same] - want[same]).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        limit = tol * scale if relative else tol
+        res = {"max_abs_err": err, "max_abs_err_every_token": (got - want).abs().max().item(),
+               "max_abs_logit": scale, "tolerance": limit, "tokens": int(same.numel()),
+               "tokens_compared": int(same.sum()), "routing_disagreements": int((~own).sum())}
+        log(f"2-layer Mixtral {tag}: {res}")
+        if relative and err > limit:
+            raise AssertionError(f"2-layer Mixtral {tag}: max abs err {err} over {limit}")
+        if not relative:
+            torch.testing.assert_close(got[same], want[same], rtol=tol, atol=tol,
+                                       msg=lambda m: f"2-layer Mixtral {tag}: {m}")
+        return res
+
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev)
+            g.manual_seed(1)
+            params = init_params(cfg, g, dtype=dtype, device=dev)
+            tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+            pos = (torch.tensor([0, 200], device=dev)[:, None] + torch.arange(t, device=dev)[None]).to(torch.int32)
+            got, ra = run(params, dtype, tokens, pos, use_flash=True)
+            want, rb = run(params, dtype, tokens, pos, use_flash=False)
+            name = str(dtype).removeprefix("torch.")
+            if dtype == torch.float32:
+                out[name] = compare(f"{name} kernels vs plain attention", got, want, ra, rb, F32_LOGIT_TOL, False)
+            else:
+                out[name] = compare(f"{name} kernels vs plain attention", got, want, ra, rb, BF16_LOGIT_TOL, True)
+                qparams = quantize_params(params, torch.bfloat16)
+                del params
+                before = (cq.w8a16_matmul.launches, cq.w8a16_grouped_matmul.launches)
+                got, ra = run(qparams, dtype, tokens, pos)
+                launched = (cq.w8a16_matmul.launches - before[0], cq.w8a16_grouped_matmul.launches - before[1])
+                want_launches = ((W8_PER_LAYER_MOE * cfg.n_layers + 1) * 2, GROUPED_PER_LAYER * cfg.n_layers * 2)
+                if launched != want_launches:
+                    raise AssertionError(f"2-layer Mixtral int8: launches {launched}, want {want_launches}")
+                with _plain_products():
+                    want, rb = run(qparams, dtype, tokens, pos)
+                out["int8"] = compare("int8 kernels vs plain products", got, want, ra, rb, BF16_LOGIT_TOL, True)
+                params = qparams
+            del params, got, want
+    out["tolerance"] = {"bfloat16": f"{BF16_LOGIT_TOL} * max(1, |logit|)", "float32": F32_LOGIT_TOL,
+                        "int8": f"{BF16_LOGIT_TOL} * max(1, |logit|)"}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2602,6 +3041,7 @@ def main() -> int:
     card = phase_build()
     kernels = phase_kernels()
     w8_row = phase_w8a16()
+    grouped_row = phase_grouped()
     report = {"serve": phase_serve()}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = phase_serve_paged(dense_texts)
@@ -2643,12 +3083,25 @@ def main() -> int:
     report["model"] = phase_model()
     report["model_int8"] = phase_model_int8()
     report["fused_int8_graphs"] = phase_fused_int8_graphs()
+    # Mixture-of-Experts: Mixtral-8x7B, each engine after the last is gone
+    report["moe_block"] = phase_moe_block()
+    report["moe_model"] = phase_moe_model()
+    report["moe"] = phase_serve_features(False, n_layers, None, quant=True, moe={})
+    report["moe_paged"] = phase_serve_features(True, n_layers, report["moe"].pop("texts"), quant=True,
+                                               moe=MOE_ROUTED)
+    report["moe_paged"].pop("texts")
+    report["moe_fused_graphs"] = phase_fused_int8_graphs(MIXTRAL)
+    # the grouped kernel's main path: the Mixtral dense-einsum phase (the
+    # routed paged one beside)
+    grouped_row["launches"] = report["moe"]["launches"]["w8a16_grouped_matmul"]
+    grouped_row["launches_paged"] = report["moe_paged"]["launches"]["w8a16_grouped_matmul"]
+    kernels.append(grouped_row)
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {
         phase: report[phase]["pipeline"]
         for phase in ("serve", "serve_paged", "fused", "features", "features_paged", "fused_paged", "int8",
-                      "int8_paged", "checkpoint")
+                      "int8_paged", "checkpoint", "moe", "moe_paged")
     }}))
     print(json.dumps(report))
     print(card)

@@ -310,7 +310,7 @@ W8_SHAPES = [
     (2048, 5632), (5632, 2048), (2048, 32000), (256, 48),
 ]
 # decode, ragged rows, the verify buckets, prefill chunks, two token tiles
-W8_MS = [1, 8, 9, 13, 16, 24, 40, 64, 72, 100, 255, 256, 300]
+W8_MS = [1, 8, 9, 13, 16, 24, 32, 40, 64, 72, 100, 255, 256, 300]
 # one bf16 rounding of the output, plus the f32 sum-order error (far below
 # 1e-4 at these widths): within the repo's bf16 3e-2
 W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
@@ -475,6 +475,170 @@ def test_int8_decode_graph_counts_every_weight_product(dev):
                 park_lanes(eng)
             assert eager == (7 * 2 + 1) * forwards and replayed == 2 * eager, (kind, eager, replayed)
             assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+    finally:
+        eng.shutdown()
+
+
+# -- the grouped int8 expert GEMM -----------------------------------------------
+
+# (K, N, x): Mixtral-8x7B's expert stacks (gate/up from the shared x, down
+# from each expert's input), and narrow ones off the 128-column tile
+GROUPED_SHAPES = [
+    (4096, 14336, "shared"), (14336, 4096, "per_expert"), (256, 48, "shared"), (128, 80, "per_expert"),
+]
+GROUPED_MS = [1, 8, 9, 24, 32, 40, 64, 72, 128, 255, 256, 300]
+
+
+def _grouped_case(g, dev, e, m, k, n, per_expert):
+    """Random int8 experts and per-channel scales (around a 0.02-std
+    weight's), and bf16 x: ``[E, M, K]`` per expert or ``[M, K]`` shared."""
+    q = torch.randint(-127, 128, (e, k, n), generator=g, device=dev, dtype=torch.int8)
+    scale = ((torch.rand((e, 1, n), generator=g, device=dev) + 0.5) * (0.02 / 127)).to(torch.bfloat16)
+    x = _randn(g, dev, torch.bfloat16, *((e, m, k) if per_expert else (m, k)))
+    return x, q, scale
+
+
+@pytest.mark.parametrize("e", [1, 4, 8])
+@pytest.mark.parametrize("k,n,mode", GROUPED_SHAPES)
+def test_w8a16_grouped_kernel_matches_plain(dev, e, k, n, mode):
+    """Every expert's product in one launch, within one bf16 rounding of
+    the plain version, at ragged token counts on both sides of the tiles;
+    with E = 1 it equals ``w8a16_matmul`` of the one weight bit for bit
+    (same body, same plan)."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(e * 1000 + k + n)
+    for m in GROUPED_MS:
+        x, q, scale = _grouped_case(g, dev, e, m, k, n, mode == "per_expert")
+        before = cuda_quant.w8a16_grouped_matmul.launches
+        got = cuda_quant.w8a16_grouped_matmul(x, q, scale)
+        assert cuda_quant.w8a16_grouped_matmul.launches == before + 1
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (e, m, n)
+        want = cuda_quant.w8a16_matmul_plain(x, q, scale)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=W8_RTOL, atol=W8_ATOL,
+            msg=lambda msg, m=m: f"E={e} M={m} K={k} N={n} {mode} {cuda_quant.plan(m, n, k, e)}: {msg}",
+        )
+        if e == 1:
+            x1 = x[0] if x.dim() == 3 else x
+            assert torch.equal(got[0], cuda_quant.w8a16_matmul(x1, q[0], scale[0]))
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_w8a16_grouped_is_deterministic_and_replays_in_a_graph(dev, m):
+    """Two calls give the same bits, and a CUDA graph of the call gives the
+    eager bits at every replay, counting its calls in ``.captured``."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    cases = [
+        _grouped_case(g, dev, 8, m, 4096, 14336, False), _grouped_case(g, dev, 8, m, 14336, 4096, True),
+    ]
+    eager = [cuda_quant.w8a16_grouped_matmul(*c) for c in cases]
+    assert all(torch.equal(a, cuda_quant.w8a16_grouped_matmul(*c)) for a, c in zip(eager, cases))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_quant.w8a16_grouped_matmul.captured
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        outs = [cuda_quant.w8a16_grouped_matmul(*c) for c in cases]
+    assert cuda_quant.w8a16_grouped_matmul.captured == before + len(cases)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(got, want) for got, want in zip(outs, eager))
+
+
+def test_router_route_refuses_nothing_and_qmatmul_still_raises(dev):
+    """Mixtral's int8 router [4096, 8] (8-byte rows, below TMA's 16) goes
+    its own route, ``x @ dequant(router)`` in x's dtype, and equals the
+    plain product on the CPU within one bf16 rounding; ``qmatmul`` of the
+    same leaf raises instead of falling back, and so does the grouped
+    wrapper on a stack the kernel does not take."""
+    from agentainer_tpu_torch.models.llama import _router_logits
+    from agentainer_tpu_torch.ops import cuda_quant
+    from agentainer_tpu_torch.ops.quant import QTensor, qmatmul, qmatmul_experts, quantize_array
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    router = quantize_array(_randn(g, dev, torch.float32, 4096, 8) * 0.02, torch.bfloat16)
+    x = _randn(g, dev, torch.bfloat16, 24, 4096)
+    got = _router_logits(x, router)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (24, 8)
+    cpu = QTensor(router.q.cpu(), router.scale.cpu())
+    want = _router_logits(x.cpu().float(), QTensor(cpu.q, cpu.scale.float()))
+    torch.testing.assert_close(got.cpu().float(), want, rtol=3e-2, atol=3e-2)
+    with pytest.raises(ValueError, match="unsupported"):
+        qmatmul(x, router)
+    stack = QTensor(router.q[None].expand(4, -1, -1).contiguous(), router.scale[None].expand(4, -1, -1).contiguous())
+    with pytest.raises(ValueError, match="unsupported"):
+        qmatmul_experts(x, stack)
+    x3 = _randn(g, dev, torch.bfloat16, 2, 8, 4096)
+    q, scale = _grouped_case(g, dev, 4, 8, 4096, 64, False)[1:]
+    with pytest.raises(ValueError, match="do not chain"):
+        cuda_quant.w8a16_grouped_matmul(x3, q, scale)  # 2 inputs for 4 experts
+
+
+# an unregistered MoE config with a kernel-shaped head (head_dim 128)
+MOE_HD128 = dict(
+    name="test-moe-hd128", vocab_size=320, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+    ffn_dim=512, max_seq_len=512, rope_theta=10_000.0, n_experts=4, experts_per_token=2,
+)
+
+
+@pytest.mark.parametrize("routed", [False, True], ids=["dense_moe", "routed"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_int8_moe_engine_serves_on_the_card(dev, paged, routed):
+    """A head_dim-128 MoE config in int8 served on both arenas, dense-einsum
+    and routed: every request answers, every expert product runs the
+    grouped kernel (3 per layer per forward, through the graph replays)
+    and every other weight product ``w8a16_matmul``, and a decode graph
+    replays its eager step bit for bit."""
+    import asyncio
+
+    from agentainer_tpu_torch.engine.graphs import compare_replay, live_lanes, park_lanes
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.engine.quant import quantize_params
+    from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
+    from agentainer_tpu_torch.models.configs import ModelConfig
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    cfg = ModelConfig(**MOE_HD128)
+    params = quantize_params(
+        init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev), torch.bfloat16
+    )
+    eng = LLMEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), max_batch=4, max_seq=512, page_size=64,
+        paged_kv=paged, routed_moe=routed, moe_capacity_factor=4.0, device="cuda",
+    )
+    grouped, w8 = cuda_quant.w8a16_grouped_matmul, cuda_quant.w8a16_matmul
+    try:
+        eng.warmup()
+        assert eng.metrics()["moe_routed"] is routed
+
+        async def traffic():
+            return await asyncio.gather(
+                eng.generate("mixture of experts " * 12, max_tokens=20, ignore_eos=True),
+                eng.generate("a second request", max_tokens=12, ignore_eos=True),
+            )
+
+        before_g, before_w = grouped.launches, w8.launches
+        outs = asyncio.run(traffic())
+        assert [o["completion_tokens"] for o in outs] == [20, 12]
+        used_g, used_w = grouped.launches - before_g, w8.launches - before_w
+        assert used_g > 0 and used_g % (3 * cfg.n_layers) == 0, used_g
+        assert used_w == (used_g // (3 * cfg.n_layers)) * (4 * cfg.n_layers + 1), (used_g, used_w)
+        key = ("decode", 8, True)
+        live_lanes(eng, [40, 300], 0.0, seed=1)
+        try:
+            with torch.no_grad(), eng._on_stream():
+                got = compare_replay(eng._graphs, key, eng._step_fn(key), eng._device_state(), eng._gen)
+        finally:
+            park_lanes(eng)
+        assert got["tokens_equal"] and got["state_equal"] and got["replay_repeats"], got
+        assert eng.worker_errors == 0, eng.last_worker_error
     finally:
         eng.shutdown()
 

@@ -156,9 +156,15 @@ def test_moe_expert_stacking_equals_the_reference(tmp_path):
     assert tuple(got["layers"]["w_gate"].shape) == (cfg.n_layers, cfg.n_experts, cfg.dim, cfg.ffn_dim)
     for name, w in dict(_flat(want)).items():
         np.testing.assert_array_equal(dict(_flat(got))[name].numpy(), np.asarray(w), err_msg=name)
-    # the port's model does not take MoE yet: create refuses it up front
-    with pytest.raises(ValueError, match="MoE"):
-        TEngine.create("", checkpoint=str(tmp_path), options={"device": "cpu"})
+    # the engine serves the checkpoint's MoE model: its tree is the loaded one
+    eng = TEngine.create(
+        "", checkpoint=str(tmp_path), options={"device": "cpu", "max_batch": 1, "max_seq": 64, "skip_warmup": True}
+    )
+    try:
+        assert eng.cfg.is_moe and torch.equal(eng.params["layers"]["w_down"], got["layers"]["w_down"])
+        assert asyncio.run(eng.generate("moe", max_tokens=3, ignore_eos=True))["completion_tokens"] == 3
+    finally:
+        eng.shutdown()
 
 
 def test_reader_refuses_another_dtype_and_a_bad_header(tmp_path):

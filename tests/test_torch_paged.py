@@ -356,7 +356,7 @@ def test_paged_metrics_keys_match_the_reference(engines):
     assert got["kv_pages_quarantined"] == 0 and got["kv_pages_total"] == PAGED["kv_pages"]
     assert set(got["kernel_launches"]) == {
         "flash_prefill", "flash_decode", "fused_paged_flash_prefill", "fused_paged_flash_decode",
-        "w8a16_matmul",
+        "w8a16_matmul", "w8a16_grouped_matmul",
     }
 
 
@@ -521,7 +521,7 @@ def test_chat_maps_pool_exhaustion_to_429_and_metrics_carry_pages(engines):
         assert set(jeng._paged_metrics()) <= set(m)
         assert m["paged_kv"] is True and m["kv_pages_used"] >= 1 and m["page_exhausted_total"] == 1
         assert m["resident_sessions"] == 1  # session s survived its 429
-        assert len(m["kernel_launches"]) == 5
+        assert len(m["kernel_launches"]) == 6
     finally:
         app.stop()
         th.join(timeout=30)

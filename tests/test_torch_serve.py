@@ -82,7 +82,7 @@ def test_chat_twice_history_metrics_clear(server):
     assert m["tokens_generated"] >= 2 and m["requests_total"] >= 3
     assert set(m["kernel_launches"]) == {
         "flash_prefill", "flash_decode", "fused_paged_flash_prefill", "fused_paged_flash_decode",
-        "w8a16_matmul",
+        "w8a16_matmul", "w8a16_grouped_matmul",
     }
     assert m["paged_kv"] is False
 

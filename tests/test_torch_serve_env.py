@@ -81,8 +81,8 @@ def test_the_reference_fleet_flag_list_is_the_ports():
     "env,needle",
     [
         # the assistant flavor and the fleet flags are served now: beside a
-        # deployment that asks for the unported routed option, the load
-        # fails on that option alone
+        # deployment that asks for an unported axis (ep > 1), the load fails
+        # on that option alone
         pytest.param(
             {"AGENTAINER_ENGINE": "assistant", "ATPU_KV_TIERING": "1"}, "kv_tiering",
             id="env0-not ported yet",
@@ -92,16 +92,16 @@ def test_the_reference_fleet_flag_list_is_the_ports():
     ],
 )
 def test_unported_flavor_and_flags_fail_the_load(env, needle):
-    options = {"device": "cpu", "routed": True}
+    options = {"device": "cpu", "ep": 2}
     app = LLMServeApp(env={**ENV, "AGENTAINER_MODEL_OPTIONS": json.dumps(options), **env})
     assert app._engine_options()[needle] is True  # the flag reaches create()
     app._load_engine()
-    assert app.engine is None and app.engine_error.endswith("yet: routed")
+    assert app.engine is None and app.engine_error.endswith("ep=2: the port serves on a single device")
     assert needle not in app.engine_error
     health = asyncio.run(app.h_health(Request("GET", "/health", {}, b"")))
     assert health.doc["model_loaded"] is False
     chat = asyncio.run(app.h_chat(Request("POST", "/chat", {}, b'{"message": "hi"}')))
-    assert chat.status == 503 and "routed" in chat.doc["error"]
+    assert chat.status == 503 and "ep=2" in chat.doc["error"]
 
 
 def test_root_reports_the_assigned_chips(monkeypatch):

@@ -3,11 +3,11 @@
 ``csrc/w8a16_gemm.cu`` runs only on the card; what can be held here is what
 surrounds it, on inputs made with numpy from a seed:
 
-- ``plan`` and the grid the kernel derives from it (``w8a16_kernel``'s note:
-  grid ``(splits, ceil(N / 128), ceil(M / BM))``, split s over contraction
+- ``plan`` and the grid the kernel derives from it (``w8a16_grouped_kernel``
+  at E = 1: grid ``(splits, ceil(N / 128), ceil(M / BM))``, split s over contraction
   tiles ``[s * steps / splits, (s + 1) * steps / splits)``, a tile's splits
   summed in rank order), for every (K, N) of llama3-8b and bench-1b at
-  M in {1, 8, 9, 24, 40, 64, 72, 255, 256, 300}: every output element and
+  M in {1, 8, 9, 24, 32, 40, 64, 72, 255, 256, 300}: every output element and
   every contraction tile is covered exactly once, the splits stay within
   one cluster and one wave, the token tile fills the most of one wave, and
   nothing of it depends on the card;
@@ -18,7 +18,14 @@ surrounds it, on inputs made with numpy from a seed:
 - the split sum in rank order, emulated in f32, against the plain version
   within the card's tolerance (one bf16 rounding);
 - ``qmatmul``'s plain path against ``x @ dequant(w)`` in JAX at the verify
-  and prefill row counts (M = 24, 72, 256), f32 within 2e-5.
+  and prefill row counts (M = 24, 72, 256), f32 within 2e-5;
+- the grouped kernel's grid (``w8a16_grouped_kernel``: ``blockIdx.z = e *
+  ceil(M / BM) + i``, expert e's weight tiles at row ``e * K + k0`` of the
+  ``[E * K, N]`` map, a per-expert x tile at row ``e * M + m0`` of the
+  ``[E * M, K]`` map) at Mixtral-8x7B's expert stacks for E = 1, 4, 8:
+  every output of every expert once, no weight tile across experts, and the
+  x rows a tile reads past its expert's M feeding only rows never stored —
+  emulated block by block in numpy against the plain version.
 """
 
 import jax.numpy as jnp
@@ -37,14 +44,14 @@ TOL = 2e-5  # f32, the repo's kernel tolerance
 # the card's tolerance of the kernel against plain: one bf16 rounding plus
 # the f32 sum-order error
 W8_RTOL, W8_ATOL = 2.0**-7, 1e-4
-MS = (1, 8, 9, 24, 40, 64, 72, 255, 256, 300)
+MS = (1, 8, 9, 24, 32, 40, 64, 72, 255, 256, 300)
 KN = sorted({kn for name in ("llama3-8b", "bench-1b") for kn in _weight_shapes(tconfigs.get_config(name))})
 
 
 def _grid(m: int, n: int, k: int):
     """The kernel's blocks for ``plan(m, n, k)``: per block (split, column
     tile, token tile), its token rows, output channels and contraction tiles,
-    as ``w8a16_kernel`` derives them from its block index."""
+    as ``w8a16_grouped_kernel`` derives them from its block index at E = 1."""
     bm, splits = cuda_quant.plan(m, n, k)
     steps = k // cuda_quant.BK
     blocks = []
@@ -208,3 +215,84 @@ def test_qmatmul_plain_matches_jax_at_verify_and_prefill_rows(m):
     got = tq.qmatmul(torch.from_numpy(x), tq.quantize_array(w, torch.float32))
     assert tuple(got.shape) == (m, 48) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# -- the grouped expert GEMM ------------------------------------------------------
+
+MIXTRAL_KN = ((4096, 14336), (14336, 4096))  # gate/up and down of each expert
+
+
+def _grouped_grid(e: int, m: int, n: int, k: int, per_expert: bool):
+    """The grouped kernel's blocks for ``plan(m, n, k, e)``: per block its
+    expert, the rows it stores, its output channels, the q rows and the x
+    rows of its map that it reads, as ``w8a16_grouped_kernel`` derives them."""
+    bm, splits = cuda_quant.plan(m, n, k, e)
+    m_tiles, steps = -(-m // bm), k // cuda_quant.BK
+    blocks = []
+    for z in range(e * m_tiles):
+        ex, m0 = z // m_tiles, (z % m_tiles) * bm
+        x0 = ex * m + m0 if per_expert else m0
+        for y in range(-(-n // cuda_quant.BN)):
+            for sp in range(splits):
+                s0, s1 = steps * sp // splits, steps * (sp + 1) // splits
+                blocks.append(dict(
+                    expert=ex, rows=range(m0, min(m, m0 + bm)),
+                    cols=range(y * cuda_quant.BN, min(n, (y + 1) * cuda_quant.BN)),
+                    q_rows=range(ex * k + s0 * cuda_quant.BK, ex * k + s1 * cuda_quant.BK),
+                    x_rows=range(x0, x0 + bm), m0=m0,
+                ))
+    return bm, splits, blocks
+
+
+@pytest.mark.parametrize("per_expert", [False, True], ids=["shared_x", "per_expert_x"])
+@pytest.mark.parametrize("e", [1, 4, 8])
+@pytest.mark.parametrize("k,n", MIXTRAL_KN)
+def test_grouped_plan_covers_every_expert_output_once(k, n, e, per_expert):
+    for m in MS:
+        bm, splits, blocks = _grouped_grid(e, m, n, k, per_expert)
+        assert (bm, splits) == cuda_quant.plan(m, n, k, e)
+        if e == 1:
+            assert (bm, splits) == cuda_quant.plan(m, n, k)
+        assert e * -(-m // bm) <= 65535  # gridDim.z
+        seen = {}
+        for b in blocks:
+            # a weight tile never leaves its expert's K rows of the stack
+            assert b["expert"] * k <= b["q_rows"].start < b["q_rows"].stop <= (b["expert"] + 1) * k
+            for r in b["rows"]:
+                # a stored row's x is its expert's row r (shared x: row r)
+                assert b["x_rows"][r - b["m0"]] == (b["expert"] * m + r if per_expert else r)
+                key = (b["expert"], r, b["cols"].start)
+                seen[key] = seen.get(key, 0) + len(b["q_rows"])
+        # every (expert, row, column tile) once, over the whole contraction
+        assert len(seen) == e * m * -(-n // cuda_quant.BN)
+        assert set(seen.values()) == {k}
+
+
+@pytest.mark.parametrize("m", [1, 9, 13, 32, 64])
+def test_grouped_blocks_reading_past_m_store_the_plain_result(m):
+    """The kernel's blocks emulated in numpy on a small stack (E = 3, K =
+    128, N = 48, per-expert x): each block multiplies the x rows its map
+    gives it (past its expert's M, the next expert's rows or TMA's zeros)
+    and stores rows < M only; the stores equal the plain version."""
+    e, k, n = 3, 128, 48
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((e, m, k)).astype(np.float32)
+    q = rng.integers(-127, 128, (e, k, n)).astype(np.int8)
+    scale = (rng.random((e, 1, n)) * 1e-3).astype(np.float32)
+    flat_x, flat_q = x.reshape(e * m, k), q.reshape(e * k, n).astype(np.float32)
+    bm, splits, blocks = _grouped_grid(e, m, n, k, per_expert=True)
+    out = np.full((e, m, n), np.nan, np.float32)
+    for b in blocks:
+        rows = [r if r < e * m else None for r in b["x_rows"]]  # past the map: zeros
+        tile = np.stack([flat_x[r] if r is not None else np.zeros(k, np.float32) for r in rows])
+        part = tile[:, [c % k for c in range(b["q_rows"].start, b["q_rows"].stop)]] @ flat_q[b["q_rows"]]
+        for i, r in enumerate(b["rows"]):
+            cur = out[b["expert"], r, b["cols"]]
+            cur = np.where(np.isnan(cur), 0.0, cur)
+            out[b["expert"], r, b["cols"]] = cur + part[i, b["cols"]]
+    assert not np.isnan(out).any()
+    got = out * scale
+    want = cuda_quant.w8a16_matmul_plain(
+        torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(scale)
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
