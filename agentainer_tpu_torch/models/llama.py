@@ -5,7 +5,13 @@ Reference: ``agentainer_tpu/models/llama.py`` — ``KVCache``,
 dense-einsum MoE), ``routed_capacity`` and ``_moe_mlp_routed`` (the GShard
 one-hot dispatch), ``_attention_block`` (the paged branch, the dense-cache
 branch and the no-cache causal branch), ``forward`` (with ``moe_impl``) and
-``greedy_decode``. The sequence-parallel hooks wait for a later slice.
+``greedy_decode``. ``forward``'s ``attn_impl`` is the reference's hook for
+the no-cache path, which the training step (``train.py``) uses; the
+sequence-parallel attentions behind it wait for the ``parallel/`` slice.
+
+Every op of the no-cache path keeps autograd intact (``train.py`` takes
+gradients through it): the embedding gather, the layer views, the norms,
+RoPE, the products and the MoE's sort and masks write nothing in place.
 
 Parameters keep the reference's tree: a dict whose ``layers`` entries carry
 a leading ``[n_layers, ...]`` axis and whose matmul weights are stored
@@ -318,6 +324,7 @@ def _attention_block(
     layer: int,
     use_flash: bool,
     block_table: torch.Tensor | None = None,
+    attn_impl=None,
 ) -> torch.Tensor:
     b, t, d = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -342,6 +349,11 @@ def _attention_block(
         attn = cache_attention(
             q, cache.k[layer], cache.v[layer], positions, use_kernel=use_flash, rows=cache.rows
         )
+    elif attn_impl is not None:
+        # caller-supplied causal self-attention: the training step passes
+        # ops/attention.trainable_causal_attention (kernel forward, plain
+        # backward)
+        attn = attn_impl(q, k, v)
     elif use_flash:
         attn = flash_attention(q, k, v, causal=True)
     else:
@@ -360,6 +372,7 @@ def forward(
     block_table: torch.Tensor | None = None,  # [B, n_blocks] int
     last_index: torch.Tensor | None = None,  # [B] int
     moe_impl=None,
+    attn_impl=None,
 ) -> torch.Tensor:
     """Returns logits [B, T, V] in f32; with ``last_index`` only row
     ``last_index[b]`` of each sequence goes through the final norm and
@@ -371,17 +384,21 @@ def forward(
     reference returns an updated cache from donated buffers). With
     ``block_table`` the cache is a :class:`PagedKVCache` and every KV read
     and write goes through the table. Without a cache: pure causal
-    self-attention. ``use_flash=False`` takes the plain attention path even
-    where the kernels would run. An MoE config runs ``_moe_mlp`` in each
-    layer, or ``moe_impl(h, lp)`` when given (the engine's routed MoE)."""
+    self-attention, through ``attn_impl(q, k, v)`` when given (the training
+    step's differentiable attention). ``use_flash=False`` takes the plain
+    attention path even where the kernels would run. An MoE config runs
+    ``_moe_mlp`` in each layer, or ``moe_impl(h, lp)`` when given (the
+    engine's routed MoE)."""
     x = embed_lookup(params["embed"], tokens)
     mask = None
-    if cache is None and not use_flash:
+    if cache is None and not use_flash and attn_impl is None:
         t = tokens.shape[1]
         mask = causal_mask(t, device=x.device).expand(tokens.shape[0], t, t)
     for layer in range(cfg.n_layers):
         lp = {k: layer_slice(v, layer) for k, v in params["layers"].items()}
-        x = _attention_block(x, lp, cfg, positions, mask, cache, layer, use_flash, block_table)
+        x = _attention_block(
+            x, lp, cfg, positions, mask, cache, layer, use_flash, block_table, attn_impl
+        )
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if cfg.is_moe:
             x = x + (moe_impl(h, lp) if moe_impl is not None else _moe_mlp(h, lp, cfg))

@@ -4,7 +4,9 @@ dispatch.
 Reference: ``agentainer_tpu/ops/attention.py``: ``attention_reference``,
 ``causal_mask``, ``cache_mask``, ``flash_attention``, ``cache_attention``
 and the paged half, ``gather_pages``, ``scatter_paged_kv`` and
-``paged_cache_attention``.
+``paged_cache_attention``; ``trainable_causal_attention`` is the one-device
+body of ``agentainer_tpu/parallel/flash_mesh.py``'s
+``make_trainable_causal_attention``.
 
 Dispatch: tensors on the card go to the hand-written kernels
 (ops/cuda_attention.py), whose wrappers raise for a head shape the kernels do
@@ -88,6 +90,40 @@ def flash_attention(
     if causal and mask is None:
         mask = causal_mask(q.shape[1], device=q.device)
     return attention_reference(q, k, v, mask=mask)
+
+
+class _TrainableCausalAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``parallel/flash_mesh.py:81-122``):
+    the forward is the prefill kernel with positions ``arange(T)`` and
+    keeps only q/k/v; the backward recomputes ``attention_reference``
+    under the causal mask and takes its gradient. No ``[B, KV, G, T, T]``
+    score tensor is kept between the passes; the backward materializes
+    one layer's while it runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_causal(q.detach(), k.detach(), v.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            b, t = q.shape[0], q.shape[1]
+            mask = causal_mask(t, device=q.device).expand(b, t, t)
+            out = attention_reference(*leaves, mask=mask)
+            return torch.autograd.grad(out, leaves, g)
+
+
+def trainable_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA self-attention with a gradient: q ``[B, T, H, hd]``, k/v
+    ``[B, T, KV, hd]`` → ``[B, T, H, hd]``. The forward runs ``flash_prefill``
+    (on a CPU tensor its plain version, so the CPU runs the same autograd
+    seam as the card); on the card a head shape the kernel does not take
+    raises, with no fallback to plain attention. The backward is the plain
+    attention's autograd, recomputed from q/k/v, as in the reference."""
+    return _TrainableCausalAttention.apply(q, k, v)
 
 
 def cache_attention(

@@ -21,8 +21,12 @@ zeros; the output has q's dtype.
   the plain version; on a CUDA tensor they launch the hand-written kernel in
   ``csrc/flash_attention.cu`` (built by ``nvcc`` at first launch,
   ``ops/_build.py``) or raise — there is no fallback from the card to the
-  plain version. Each wrapper counts its kernel launches in ``.launches``;
-  a call made while its stream is being captured into a CUDA graph launches
+  plain version. The kernels have no backward: under grad mode a card call
+  with an input that requires grad raises (``refuse_grad``) rather than
+  return an output that autograd cannot see through; a training step goes
+  through ``ops/attention.trainable_causal_attention``, whose backward
+  recomputes the plain attention. Each wrapper counts its kernel launches
+  in ``.launches``; a call made while its stream is being captured into a CUDA graph launches
   nothing and counts in ``.captured`` instead, and the engine's graphs add
   what they captured to ``.launches`` at every replay
   (``engine/graphs.py``), so ``.launches`` counts kernel calls that ran.
@@ -224,6 +228,18 @@ def _check_cuda(name: str, q, k, v, positions, table=None, rows=None) -> None:
             raise ValueError(f"{name}: {key} must be 16-byte aligned in every stride")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel's output has no ``grad_fn``: raise, naming the wrapper,
+    when grad mode is on and an input requires grad, instead of silently
+    dropping every gradient that would flow through the call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the kernel has no backward; train "
+            "through ops.attention.trainable_causal_attention (forward on the kernel, "
+            "backward through the plain attention), or call it under torch.no_grad()"
+        )
+
+
 def _strides(*tensors_and_dims) -> ctypes.Array:
     vals = [t.stride(d) for t, dims in tensors_and_dims for d in dims]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -260,6 +276,7 @@ def flash_prefill(q, k, v, q_positions, rows=None) -> torch.Tensor:
     a CUDA graph of the call serves whichever slot the buffer names."""
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, q_positions, rows)
+    refuse_grad("flash_prefill", q, k, v)
     _check_cuda("flash_prefill", q, k, v, q_positions, rows=rows)
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
@@ -287,6 +304,7 @@ def flash_decode(q, k, v, q_positions) -> torch.Tensor:
     [B, S, KV, hd]; lane b sees slot j iff j <= q_positions[b]."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, q_positions)
+    refuse_grad("flash_decode", q, k, v)
     _check_cuda("flash_decode", q, k, v, q_positions)
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
@@ -313,6 +331,7 @@ def fused_paged_flash_prefill(q, pool_k, pool_v, block_table, q_positions) -> to
     gathered arena in between."""
     if q.device.type == "cpu":
         return paged_flash_prefill_plain(q, pool_k, pool_v, block_table, q_positions)
+    refuse_grad("fused_paged_flash_prefill", q, pool_k, pool_v)
     _check_cuda("fused_paged_flash_prefill", q, pool_k, pool_v, q_positions, block_table)
     b, t, h, hd = q.shape
     ps, kv = pool_k.shape[1], pool_k.shape[2]
@@ -341,6 +360,7 @@ def fused_paged_flash_decode(q, pool_k, pool_v, block_table, q_positions) -> tor
     lane's position are never loaded."""
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, pool_k, pool_v, block_table, q_positions)
+    refuse_grad("fused_paged_flash_decode", q, pool_k, pool_v)
     _check_cuda("fused_paged_flash_decode", q, pool_k, pool_v, q_positions, block_table)
     b, h, hd = q.shape
     ps, kv = pool_k.shape[1], pool_k.shape[2]

@@ -15,7 +15,9 @@ no dense weight is written to device memory.
   is no fallback from the card to the plain version. It counts its calls in
   ``.launches``, or in ``.captured`` while its stream is being captured into
   a CUDA graph (``engine/graphs.py`` adds a graph's captured calls to
-  ``.launches`` at every replay), as the attention wrappers do.
+  ``.launches`` at every replay), as the attention wrappers do; like them
+  it raises under grad mode for an input that requires grad (the kernel
+  has no backward).
 - ``w8a16_matmul_plain``: the same function in plain PyTorch, f32
   accumulation and one rounding at the end (an expert stack too).
 - ``w8a16_grouped_matmul(x, q, scale)``: every expert of a stack at once,
@@ -43,7 +45,7 @@ import functools
 import torch
 
 from . import _build
-from .cuda_attention import _count, _raise_on
+from .cuda_attention import _count, _raise_on, refuse_grad
 
 BN = 128  # output channels per block
 BK = 64  # contraction depth of one pipeline stage
@@ -151,6 +153,7 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     ``scale [1, N]``: ``[M, N]`` in x's dtype."""
     if x.device.type == "cpu":
         return w8a16_matmul_plain(x, q, scale)
+    refuse_grad("w8a16_matmul", x, scale)
     _check_cuda(x, q, scale)
     m = x.shape[0]
     k, n = q.shape
@@ -175,6 +178,7 @@ def w8a16_grouped_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) 
     per-channel ``scale [E, 1, N]``: ``[E, M, N]`` in x's dtype."""
     if x.device.type == "cpu":
         return w8a16_matmul_plain(x, q, scale)
+    refuse_grad("w8a16_grouped_matmul", x, scale)
     _check_cuda(x, q, scale, grouped=True)
     e, k, n = q.shape
     m = x.shape[-2]

@@ -216,6 +216,38 @@ exits non-zero):
                  each loop graph bit-equal to its eager loop, the grouped
                  kernel inside the conditional bodies.
 
+12. train      — the port's one-device training step (``train.py``), after
+                 every engine is gone; f32, AdamW at lr 3e-4, wd 0.01:
+   (a) seam      ``trainable_causal_attention`` at q [2, 2048, 32, 128], k/v
+                 [2, 2048, 8, 128], f32 and bf16: the forward (one prefill
+                 launch) against ``flash_prefill_plain`` at the kernel
+                 phase's tolerances (bf16: with the P-rounding bound 2**-9
+                 max|v| in place of ``BF16_P_ATOL``, since rows from
+                 position 0 see few slots), dq/dk/dv (no launch) against autograd
+                 through ``attention_reference`` (f32 within 1e-6); the f32
+                 kernel timed beside its bound (over the f32 peak: the
+                 CUDA-core body), its plain version and SDPA, in turns, by
+                 CUDA events (the profiler's trace of this row loses
+                 records).
+   (b) paths     a 2-layer llama3-8b-width model, one set of params: one
+                 ``step_fn`` step (the kernel forward) against the same
+                 AdamW step through ``attn_impl=None``: losses within 2e-4,
+                 gradients within 2e-4 of each leaf's largest, updated
+                 leaves within 1% of a step where the gradient is clear of
+                 zero and 2 lr where it is not.
+   (c) run       llama3-8b at full width, 8 of 32 layers (f32 AdamW keeps
+                 16 B a param: 128.5 GB at full depth), B 2 x T 2048, one
+                 repeated batch of random tokens (seed 0), 10 steps through
+                 ``make_train_step``: every loss finite, the last below the
+                 first, the prefill kernel launched exactly 8 x 10 times and
+                 no other kernel; step ms p50 (CUDA events), forward /
+                 backward / optimizer ms from 2 more steps built from the
+                 same pieces, tokens/s, peak memory beside the AdamW state.
+   (d) moe       Mixtral-8x7B at full width, 1 layer, B 1 x T 2048, 3 steps:
+                 losses finite and falling, 3 batched ``torch.matmul`` expert
+                 products per layer per step over the f32 stacks, no int8
+                 kernel; step ms and peak memory.
+
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
 chunk is one prefill graph replay (``prefill_graph_replays`` =
@@ -238,6 +270,7 @@ import contextlib
 import faulthandler
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -250,6 +283,7 @@ import urllib.request
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
 PEAK_HBM_BPS = 3.35e12
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (the f32 prefill body's)
 # Kernel against plain: both accumulate in f32 and round once to q's dtype,
 # so in bf16 they may differ by one rounding (<= 2**-7 * |plain|) and in f32
 # by summation order only (the repo's f32 kernel tolerance,
@@ -546,8 +580,8 @@ def phase_build() -> str:
     return smi("name,power.limit")
 
 
-def _bound(bytes_moved: float, flops: float) -> dict:
-    t_bytes, t_ops = bytes_moved / PEAK_HBM_BPS, flops / PEAK_BF16_FLOPS
+def _bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_bytes, t_ops = bytes_moved / PEAK_HBM_BPS, flops / peak_flops
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -3019,6 +3053,447 @@ def phase_moe_model() -> dict:
     return out
 
 
+# -- training (phase 12) -------------------------------------------------------
+
+# the training batch (T + 1 tokens a sequence: T inputs, T targets); llama3-8b
+# cut to 8 of 32 layers, since f32 AdamW keeps 16 B a param (param, grad and
+# two moments: 128.5 GB at full depth, 44.7 GB at 8 layers); the reference's
+# defaults
+TRAIN_B, TRAIN_T, TRAIN_LAYERS, TRAIN_STEPS = 2, 2048, 8, 10
+TRAIN_LR, TRAIN_WD = 3e-4, 0.01
+TRAIN_SPLIT_STEPS = 2  # steps after the counted run, timed forward / backward / optimizer
+MOE_TRAIN_T, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2048, 1, 3
+# the f32 gradients of the training attention against autograd through the
+# plain attention: the backward is the same recomputation on the same inputs
+TRAIN_GRAD_F32_TOL = 1e-6
+# (b) one step through the kernel path against one through the plain path:
+# a gradient element at least ``TRAIN_G_FLOOR`` (100 eps) and 1e-4 of its
+# leaf's largest gradient moves by lr x a ratio both paths agree on to the
+# gradients' error, so it is held to 1% of one step's update; an element
+# nearer zero moves by up to the update itself either way (AdamW's first
+# step is ~sign(g) lr), held to 2 lr
+TRAIN_G_FLOOR, TRAIN_G_REL = 1e-6, 1e-4
+TRAIN_PARAM_TOL = 0.01 * TRAIN_LR
+TRAIN_PARAM_TOL_NEAR_ZERO = 2 * TRAIN_LR
+TRAIN_REPLACES = "agentainer_tpu/parallel/flash_mesh.py:81"  # make_trainable_causal_attention
+
+
+def _train_tokens(cfg, b: int, t: int, seed: int = 0):
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, t + 1), generator=g, device="cuda")
+
+
+def _free_cuda() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+EVENT_TIMING = (
+    "CUDA events around single calls, each after a 256 MB rewrite (cold L2) and a spin that lets "
+    f"the host run ahead, in turns (a, b, c, c, b, a); median of {2 * ROUNDS}"
+)
+
+
+def _event_timed(fns: dict, rounds: int = ROUNDS) -> dict:
+    """``_timed``'s keys for a row of millisecond calls, by CUDA events:
+    the training shape's plain version makes the profiler's trace of the
+    row lose records on every attempt, and at these lengths an event pair
+    around a call, recorded while the device still spins, times it to a
+    microsecond."""
+    import statistics
+
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    order = [name for _ in range(rounds) for name in (*fns, *reversed(fns))]
+    events = {name: [] for name in fns}
+    samples: list[str] = []
+    with _sampling(samples):
+        for name in order:
+            flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            events[name].append((start, end))
+        torch.cuda._sleep(TAIL_CYCLES)
+        torch.cuda.synchronize()
+    out = {}
+    for name, pairs in events.items():
+        ms = [a.elapsed_time(b) for a, b in pairs]
+        key = "ms" if name == "kernel" else f"{name}_ms"
+        out.update({key: statistics.median(ms), f"{key}_min": min(ms), f"{key}_max": max(ms)})
+    return {**out, "card": _clock_summary(samples)}
+
+
+def phase_train_attention() -> dict:
+    """(a) ``trainable_causal_attention`` at the training shape, f32 and
+    bf16: its forward (one prefill launch) against ``flash_prefill_plain``
+    at the kernel phase's tolerances, its dq/dk/dv (no launch) against
+    autograd through ``attention_reference``; then the f32 kernel forward
+    timed beside its bound (f32 FLOPs over the CUDA cores' peak: the f32
+    body), its plain version and SDPA (causal, GQA, f32), in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops.attention import attention_reference, causal_mask, trainable_causal_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    b, t = TRAIN_B, TRAIN_T
+    base = [torch.randn(shape, generator=g, device=dev) for shape in
+            ((b, t, H, HD), (b, t, KV, HD), (b, t, KV, HD), (b, t, H, HD))]
+    pos = torch.arange(t, device=dev, dtype=torch.int32).expand(b, t)
+    mask = causal_mask(t, device=dev).expand(b, t, t)
+    out: dict = {"shape": f"q[{b},{t},{H},{HD}] kv[{b},{t},{KV},{HD}], positions 0..{t - 1}"}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v, go = (x.to(dtype) for x in base)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = ca.flash_prefill.launches
+        got = trainable_causal_attention(*leaves)
+        fwd_launches = ca.flash_prefill.launches - before
+        grads = torch.autograd.grad(got, leaves, go)
+        torch.cuda.synchronize()
+        bwd_launches = ca.flash_prefill.launches - before - fwd_launches
+        if (fwd_launches, bwd_launches) != (1, 0):
+            raise AssertionError(f"training attention {name}: launches forward {fwd_launches}, backward {bwd_launches}")
+        plain = ca.flash_prefill_plain(q, k, v, pos)
+        # bf16: P is rounded to bf16 (relative error <= 2**-9) before P.V,
+        # so a row's output moves by at most 2**-9 * max|v| (its weights sum
+        # to 1). BF16_P_ATOL is that error measured at the served chunk,
+        # whose rows see 300+ slots; here the first rows see a few, each
+        # with a large weight, and come near the bound
+        # (tests/test_torch_attention.py::test_bf16_p_rounding_error_from_position_zero)
+        p_atol = 2.0**-9 * v.float().abs().max().item()
+        rtol, atol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (BF16_RTOL, BF16_ATOL + p_atol)
+        torch.testing.assert_close(got.detach().float(), plain.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"training attention forward {name}: {m}")
+        fwd_err = (got.detach().float() - plain.float()).abs().max().item()
+        del plain, got
+        ref_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(attention_reference(*ref_leaves, mask=mask), ref_leaves, go)
+        grad_errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(grads, want)]
+        for key, a, w in zip("qkv", grads, want):
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, w, rtol=0.0, atol=TRAIN_GRAD_F32_TOL,
+                                           msg=lambda m, key=key: f"training attention d{key} f32: {m}")
+            else:  # both round the same f32 gradient once to bf16
+                torch.testing.assert_close(a.float(), w.float(), rtol=BF16_RTOL, atol=TRAIN_GRAD_F32_TOL,
+                                           msg=lambda m, key=key: f"training attention d{key} bf16: {m}")
+        out[name] = {"forward_max_abs_err": fwd_err, "forward_tolerance": f"rtol {rtol}, atol {atol}",
+                     "dq_dk_dv_max_abs_err": grad_errs,
+                     "grad_tolerance": TRAIN_GRAD_F32_TOL if dtype == torch.float32
+                     else f"rtol {BF16_RTOL}, atol {TRAIN_GRAD_F32_TOL}"}
+        log(f"training attention {name}: forward vs plain {fwd_err:.3g}, dq/dk/dv vs reference autograd {grad_errs}")
+        del q, k, v, go, leaves, ref_leaves, grads, want
+        _free_cuda()
+    q, k, v = (x.contiguous() for x in base[:3])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    visible = b * t * (t + 1) // 2
+    before = ca.flash_prefill.launches
+    out.update(
+        **_event_timed({
+            "kernel": lambda: ca.flash_prefill(q, k, v, pos),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            "plain": lambda: ca.flash_prefill_plain(q, k, v, pos),
+        }),
+        **_bound(4 * (2 * q.numel() + 2 * k.numel()), 4.0 * H * HD * visible, PEAK_F32_FLOPS),
+        library="scaled_dot_product_attention", timed="float32", timing=EVENT_TIMING,
+    )
+    if ca.flash_prefill.launches - before != 1 + 2 * ROUNDS:  # a first call, then the timed ones
+        raise AssertionError(f"training attention: {ca.flash_prefill.launches - before} kernel calls timed")
+    log(f"training attention f32 kernel: ms {out['ms']:.4f} [{out['ms_min']:.4f}, {out['ms_max']:.4f}] "
+        f"plain {out['plain_ms']:.4f} library {out['library_ms']:.4f} bound {out['bound_ms']:.4f} "
+        f"({out['bound_by']}, f32 peak) card {out['card']}")
+    del base, q, k, v, qt, kt, vt
+    _free_cuda()
+    return out
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """The paths of a param tree's leaves, in ``train.leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _updated_leaves_close(got: list, want: list, grads: list, names: list) -> dict:
+    """(b): every updated leaf of the kernel path against the plain path's,
+    at ``TRAIN_PARAM_TOL`` where the plain gradient is clear of zero and
+    ``TRAIN_PARAM_TOL_NEAR_ZERO`` elsewhere; the gradients within the
+    two-path tolerance ``F32_LOGIT_TOL`` of each leaf's largest."""
+    out = {"near_zero_elements": 0, "elements": 0, "max_abs_err": 0.0, "max_abs_err_near_zero": 0.0,
+           "grad_max_rel_err": 0.0}
+    for name, a, w, (gk, gp) in zip(names, got, want, grads):
+        scale = gp.abs().max().item()
+        g_err = (gk - gp).abs().max().item() / max(scale, 1e-30)
+        if g_err > F32_LOGIT_TOL:
+            raise AssertionError(f"train paths: {name} gradient differs by {g_err:.3g} of its largest")
+        # a gradient of exactly zero on both paths (an embedding row no
+        # token reads) moves by the decay alone: held to the tight bound
+        near = (gp.abs() < max(TRAIN_G_FLOOR, TRAIN_G_REL * scale)) & ((gp != 0) | (gk != 0))
+        diff = (a - w).abs()
+        far_err = diff[~near].max().item() if (~near).any() else 0.0
+        near_err = diff[near].max().item() if near.any() else 0.0
+        if far_err > TRAIN_PARAM_TOL or near_err > TRAIN_PARAM_TOL_NEAR_ZERO:
+            raise AssertionError(f"train paths: {name} updated leaf differs by {far_err:.3g} "
+                                 f"(near-zero gradients: {near_err:.3g})")
+        out["near_zero_elements"] += int(near.sum())
+        out["elements"] += near.numel()
+        out["max_abs_err"] = max(out["max_abs_err"], far_err)
+        out["max_abs_err_near_zero"] = max(out["max_abs_err_near_zero"], near_err)
+        out["grad_max_rel_err"] = max(out["grad_max_rel_err"], g_err)
+    return out
+
+
+def phase_train_paths() -> dict:
+    """(b) a 2-layer llama3-8b-width model, f32, one set of params: one
+    ``step_fn`` step (``trainable_causal_attention``: the kernel forward)
+    and one step of the same update through ``attn_impl=None`` (the plain
+    attention on both passes): losses within ``F32_LOGIT_TOL``, every
+    updated leaf as ``_updated_leaves_close`` says."""
+    import dataclasses
+
+    import torch
+
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.train import leaves, loss_fn, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    init_fn, step_fn, shard_batch = make_train_step(cfg, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    params0 = init_params(cfg, g, dtype=torch.float32, device="cuda")
+    tokens = shard_batch(_train_tokens(cfg, TRAIN_B, TRAIN_T, seed=2))
+    names = _leaf_names(params0)
+    state = init_fn(params=params0)
+    state, loss_k = step_fn(state, tokens)
+    kernel = [(p.detach(), p.grad) for p in leaves(state.params)]
+    del state
+    _free_cuda()
+    state = init_fn(params=params0)  # the same update, by hand, through the plain attention
+    del params0
+    opt = state.opt_state
+    opt.zero_grad(set_to_none=True)
+    loss_p = loss_fn(state.params, cfg, tokens, None)
+    loss_p.backward()
+    opt.step()
+    plain = [(p.detach(), p.grad) for p in leaves(state.params)]
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    if not abs(loss_k - loss_p) <= F32_LOGIT_TOL:
+        raise AssertionError(f"train paths: loss {loss_k} through the kernel, {loss_p} through plain attention")
+    out = {"loss_kernel_path": loss_k, "loss_plain_path": loss_p, "loss_tolerance": F32_LOGIT_TOL,
+           "param_tolerance": TRAIN_PARAM_TOL, "param_tolerance_near_zero_gradient": TRAIN_PARAM_TOL_NEAR_ZERO,
+           **_updated_leaves_close([a for a, _ in kernel], [a for a, _ in plain],
+                                   [(gk, gp) for (_, gk), (_, gp) in zip(kernel, plain)], names)}
+    log(f"2-layer llama3-8b one step, kernel path vs plain path: {out}")
+    del state, opt, kernel, plain
+    _free_cuda()
+    return out
+
+
+def _counted(kernels, fn):
+    """Runs ``fn()`` with every wrapper's count set to 0 just before; the
+    result and the counts read just after."""
+    for k in kernels:
+        k.launches = 0
+    res = fn()
+    return res, {k.__name__: k.launches for k in kernels}
+
+
+def phase_train(card: str) -> dict:
+    """(c) llama3-8b at full width, 8 of 32 layers, f32, ``TRAIN_STEPS``
+    AdamW steps through ``make_train_step`` on one repeated batch of random
+    tokens: every loss finite, the last below the first, the prefill kernel
+    launched n_layers x steps and no other kernel; step ms by CUDA events
+    (p50), then ``TRAIN_SPLIT_STEPS`` more steps from the same pieces timed
+    forward / backward / optimizer; tokens/s; peak memory beside the plan."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops.attention import trainable_causal_attention
+    from agentainer_tpu_torch.train import leaves, loss_fn, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-8l", n_layers=TRAIN_LAYERS)
+    kernels = (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode,
+               cq.w8a16_matmul, cq.w8a16_grouped_matmul)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    init_fn, step_fn, shard_batch = make_train_step(cfg, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    state = init_fn(g)
+    tokens = shard_batch(_train_tokens(cfg, TRAIN_B, TRAIN_T, seed=0))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(p.numel() for p in leaves(state.params))
+    plan = {"params": n_params, "adamw_state_bytes": 16 * n_params}
+
+    def run():
+        nonlocal state
+        losses, events = [], []
+        for _ in range(TRAIN_STEPS):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, loss = step_fn(state, tokens)
+            ev[1].record()
+            losses.append(loss)
+            events.append(ev)
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], [a.elapsed_time(b) for a, b in events]
+
+    (losses, step_ms), launches = _counted(kernels, run)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss after step {TRAIN_STEPS} is not below step 1's: {losses}")
+    want = {k.__name__: 0 for k in kernels} | {"flash_prefill": TRAIN_LAYERS * TRAIN_STEPS}
+    if launches != want or state.step != TRAIN_STEPS:
+        raise AssertionError(f"train: launches {launches}, want {want}; step {state.step}")
+    split = {"forward": [], "backward": [], "optimizer": []}
+    opt = state.opt_state
+    for _ in range(TRAIN_SPLIT_STEPS):  # the body of step_fn, with events between its parts
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(state.params, cfg, tokens, trainable_causal_attention)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, key in enumerate(split):
+            split[key].append(ev[i].elapsed_time(ev[i + 1]))
+    p50 = statistics.median(step_ms)
+    out = {
+        "config": f"llama3-8b width (D {cfg.dim}, H {cfg.n_heads}, KV {cfg.n_kv_heads}, F {cfg.ffn_dim}, "
+                  f"vocab {cfg.vocab_size}), {TRAIN_LAYERS} of 32 layers, f32, AdamW lr {TRAIN_LR} wd {TRAIN_WD}",
+        "batch": f"B {TRAIN_B} x T {TRAIN_T}, one repeated batch of random tokens (seed 0)",
+        "losses": losses, "launches": launches, "step_ms": step_ms, "step_ms_p50": p50,
+        "split_ms_p50": {k: statistics.median(v) for k, v in split.items()}, "split_ms": split,
+        "tokens_per_s": TRAIN_B * TRAIN_T / (p50 / 1e3), "init_s": init_s,
+        "peak_memory_bytes": peak, "plan": plan, "card": card,
+    }
+    log(f"train llama3-8b x{TRAIN_LAYERS} layers f32: losses {[round(x, 4) for x in losses]}; step p50 "
+        f"{p50:.1f} ms (forward {out['split_ms_p50']['forward']:.1f}, backward "
+        f"{out['split_ms_p50']['backward']:.1f}, optimizer {out['split_ms_p50']['optimizer']:.1f}); "
+        f"{out['tokens_per_s']:.0f} tokens/s; peak {peak} B against {plan['adamw_state_bytes']} B of "
+        f"AdamW state; launches {launches}; {card}")
+    del state, opt, loss, tokens
+    _free_cuda()
+    return out
+
+
+def _expert_matmuls(n_experts: int):
+    """A function mode that records every ``torch.matmul`` whose right
+    operand is an expert stack ``[E, K, N]`` (the dense-einsum MoE's
+    products) in its ``.calls`` while it is active."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class ExpertMatmuls(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.matmul and len(args) == 2 and args[1].dim() == 3 and args[1].shape[0] == n_experts:
+                self.calls.append((tuple(args[0].shape), tuple(args[1].shape), str(args[1].dtype)))
+            return func(*args, **(kwargs or {}))
+
+    return ExpertMatmuls()
+
+
+def phase_train_moe(card: str) -> dict:
+    """(d) Mixtral-8x7B at full width, depth 1, f32, B 1 x T 2048,
+    ``MOE_TRAIN_STEPS`` steps: losses finite and falling, the expert
+    products 3 batched ``torch.matmul`` calls per layer per step over the
+    f32 stacks (as the reference's XLA einsums), no int8 kernel launched,
+    the prefill kernel once per layer per step; step ms and peak memory."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.train import leaves, make_train_step
+
+    cfg = dataclasses.replace(get_config(MIXTRAL), name=f"{MIXTRAL}-1l", n_layers=MOE_TRAIN_LAYERS)
+    kernels = (ca.flash_prefill, ca.flash_decode, cq.w8a16_matmul, cq.w8a16_grouped_matmul)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, shard_batch = make_train_step(cfg, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    state = init_fn(g)
+    tokens = shard_batch(_train_tokens(cfg, 1, MOE_TRAIN_T, seed=0))
+    n_params = sum(p.numel() for p in leaves(state.params))
+    stacks = {k: state.params["layers"][k] for k in ("w_gate", "w_up", "w_down")}
+    if any(not isinstance(w, torch.Tensor) or w.dtype != torch.float32 or w.shape[1] != cfg.n_experts
+           for w in stacks.values()):
+        raise AssertionError(f"train MoE: expert stacks {[(type(w).__name__, w.shape) for w in stacks.values()]}")
+    probe = _expert_matmuls(cfg.n_experts)
+
+    def run():
+        nonlocal state
+        losses, ms = [], []
+        with probe:
+            for _ in range(MOE_TRAIN_STEPS):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                state, loss = step_fn(state, tokens)
+                ev[1].record()
+                torch.cuda.synchronize()
+                losses.append(loss.item())
+                ms.append(ev[0].elapsed_time(ev[1]))
+        return losses, ms
+
+    (losses, step_ms), launches = _counted(kernels, run)
+    peak = torch.cuda.max_memory_allocated()
+    want_calls = 3 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train MoE: losses {losses}")
+    want = {k.__name__: 0 for k in kernels} | {"flash_prefill": MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train MoE: launches {launches}, want {want}")
+    if len(probe.calls) != want_calls or any(dt != "torch.float32" for *_, dt in probe.calls):
+        raise AssertionError(f"train MoE: expert matmuls {probe.calls}, want {want_calls} in f32")
+    out = {"config": f"{MIXTRAL} width, {MOE_TRAIN_LAYERS} layer, f32, dense-einsum MoE",
+           "batch": f"B 1 x T {MOE_TRAIN_T}", "params": n_params, "adamw_state_bytes": 16 * n_params,
+           "losses": losses, "launches": launches, "expert_matmuls": len(probe.calls),
+           "expert_matmul_shapes": sorted(set(probe.calls)), "step_ms": step_ms,
+           "step_ms_p50": statistics.median(step_ms), "peak_memory_bytes": peak, "card": card}
+    log(f"train Mixtral-8x7B x{MOE_TRAIN_LAYERS} layer f32: losses {[round(x, 4) for x in losses]}; "
+        f"step p50 {out['step_ms_p50']:.1f} ms; {len(probe.calls)} expert matmuls; peak {peak} B; "
+        f"launches {launches}; {card}")
+    del state, tokens, stacks
+    _free_cuda()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3096,6 +3571,14 @@ def main() -> int:
     grouped_row["launches"] = report["moe"]["launches"]["w8a16_grouped_matmul"]
     grouped_row["launches_paged"] = report["moe_paged"]["launches"]["w8a16_grouped_matmul"]
     kernels.append(grouped_row)
+    # training, after every engine is gone: the prefill kernel's train path
+    prefill_row = next(row for row in kernels if row["name"] == "flash_prefill")
+    prefill_row["train"] = phase_train_attention()
+    report["train_paths"] = phase_train_paths()
+    report["train"] = phase_train(card)
+    report["train_moe"] = phase_train_moe(card)
+    prefill_row["launches_train"] = report["train"]["launches"]["flash_prefill"]
+    prefill_row["train"]["replaces"] = TRAIN_REPLACES
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {

@@ -256,6 +256,32 @@ def test_bf16_p_rounding_error_at_the_served_prefill_shape():
     assert 1e-4 < err <= _chip_smoke().BF16_P_ATOL, err
 
 
+def test_bf16_p_rounding_error_from_position_zero():
+    """At the training shape (positions 0..T-1; here 8 of the 32 heads of
+    q [1, 2048, 32, 128]) the first rows see a few slots, each with a large
+    weight, so rounding P to bf16 moves them by more than the served
+    chunk's ``BF16_P_ATOL``. It stays within the bound chip_smoke.py's
+    training check uses, 2**-9 * max|v|: P's relative rounding error is at
+    most 2**-9 and a row's weights sum to 1."""
+    b, t, heads, kv_heads, hd = 1, 2048, 8, 2, 128
+    rng = np.random.default_rng(13)
+    q, k, v = (
+        _t(_rand(rng, *shape)).to(torch.bfloat16).float()
+        for shape in ((b, t, heads, hd), (b, t, kv_heads, hd), (b, t, kv_heads, hd))
+    )
+    pos = torch.arange(t, dtype=torch.int32)[None]
+    qg = q.reshape(b, t, kv_heads, heads // kv_heads, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k) / hd**0.5
+    visible = (torch.arange(t)[None, None, :] <= pos[:, :, None])[:, None, None]
+    scores = torch.where(visible, scores, torch.full_like(scores, tca.NEG_INF))
+    p = torch.where(visible, torch.exp(scores - scores.amax(-1, keepdim=True)), torch.zeros(()))
+    l = p.sum(-1, keepdim=True)
+    rounded = torch.einsum("bkgts,bskd->btkgd", p.bfloat16().float(), v) / l.permute(0, 3, 1, 2, 4)
+    plain = tca.flash_prefill_plain(q, k, v, pos).reshape(rounded.shape)
+    err = (rounded - plain).abs().max().item()
+    assert _chip_smoke().BF16_P_ATOL < err <= 2.0**-9 * v.abs().max().item(), err
+
+
 def test_import_needs_no_nvcc():
     """Importing the kernel module builds nothing: a machine without the
     CUDA toolkit imports every module of the port."""

@@ -1382,3 +1382,171 @@ def test_pinned_park_and_promote_round_trip_bit_exact(dev, paged):
         finally:
             eng.shutdown()
     assert results[0] == results[1]
+
+
+# -- the training step -----------------------------------------------------------
+
+# an unregistered config with a kernel-shaped head (head_dim 128) to train
+TRAIN_HD128 = dict(
+    name="test-train-hd128", vocab_size=320, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+    ffn_dim=512, max_seq_len=512, rope_theta=10_000.0,
+)
+GRAD_WRAPPERS = [
+    "flash_prefill", "flash_decode", "fused_paged_flash_prefill", "fused_paged_flash_decode",
+    "w8a16_matmul", "w8a16_grouped_matmul",
+]
+
+
+def _wrapper_case(name, dev):
+    """A kernel wrapper, its first input (q, or x) and the rest of its
+    arguments, at shapes its kernel takes."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    if name.startswith("w8a16"):
+        e = 4 if "grouped" in name else 1
+        x, q, scale = _grouped_case(g, dev, e, 8, 256, 48, False)
+        return getattr(cuda_quant, name), x, ((q, scale) if e > 1 else (q[0], scale[0]))
+    decode = "decode" in name
+    q = _randn(g, dev, torch.float32, *((1, 4, 128) if decode else (1, 8, 4, 128)))
+    pos = torch.tensor([40] if decode else [list(range(8))], device=dev, dtype=torch.int32)
+    if "paged" in name:
+        pools = [_randn(g, dev, torch.float32, 4, 16, 2, 128) for _ in range(2)]
+        table = torch.tensor([[2, 0, 3, 1]], device=dev, dtype=torch.int32)
+        return getattr(ca, name), q, (*pools, table, pos)
+    kv = [_randn(g, dev, torch.float32, 1, 64, 2, 128) for _ in range(2)]
+    return getattr(ca, name), q, (*kv, pos)
+
+
+@pytest.mark.parametrize("name", GRAD_WRAPPERS)
+def test_train_kernel_wrappers_refuse_a_gradient_they_cannot_give(dev, name):
+    """Under grad mode a card call with an input that requires grad raises,
+    naming the wrapper and the differentiable path, and launches nothing;
+    under ``no_grad`` the same call launches and returns a plain tensor."""
+    fn, x, rest = _wrapper_case(name, dev)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"{name}: .*trainable_causal_attention"):
+        fn(x.requires_grad_(), *rest)
+    assert fn.launches == before
+    with torch.no_grad():
+        out = fn(x, *rest)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and out.grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (32, 8)])
+def test_train_attention_forward_is_the_kernel_and_backward_the_plain(dev, dtype, heads, kv_heads):
+    """``trainable_causal_attention``: one prefill kernel launch forward,
+    within the kernel tolerance of ``flash_prefill_plain``; none backward,
+    whose dq/dk/dv are autograd through ``attention_reference`` on the same
+    inputs (the same recomputation: f32 within 1e-6, bf16 within one bf16
+    rounding of the gradients)."""
+    from agentainer_tpu_torch.ops.attention import (
+        attention_reference,
+        causal_mask,
+        trainable_causal_attention,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, t = 2, 200
+    q = _randn(g, dev, dtype, b, t, heads, 128).requires_grad_()
+    k, v = (_randn(g, dev, dtype, b, t, kv_heads, 128).requires_grad_() for _ in range(2))
+    go = _randn(g, dev, dtype, b, t, heads, 128)
+    before = ca.flash_prefill.launches
+    out = trainable_causal_attention(q, k, v)
+    assert ca.flash_prefill.launches == before + 1 and out.grad_fn is not None
+    pos = torch.arange(t, device=dev, dtype=torch.int32).expand(b, t)
+    plain = ca.flash_prefill_plain(q.detach(), k.detach(), v.detach(), pos)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert ca.flash_prefill.launches == before + 1
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref = attention_reference(*leaves, mask=causal_mask(t, device=dev).expand(b, t, t))
+    want = torch.autograd.grad(ref, leaves, go)
+    rtol = 0.0 if dtype == torch.float32 else 2.0**-7
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol, atol=1e-6)
+
+
+def test_train_attention_refuses_a_head_the_kernel_does_not_take(dev):
+    from agentainer_tpu_torch.ops.attention import trainable_causal_attention
+
+    q = torch.zeros((1, 8, 4, 64), device=dev, requires_grad=True)
+    k = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        trainable_causal_attention(q, k, k)
+
+
+def test_train_forward_with_grad_raises_or_gives_the_plain_gradients(dev):
+    """``forward`` with grad-requiring params on the card: the default
+    kernel path raises; with ``attn_impl=trainable_causal_attention`` every
+    leaf's gradient is the plain path's (``attn_impl=None``) within the
+    repo's two-path f32 tolerance, 2e-4 of the leaf's largest gradient, and
+    wq/wk/wv's are not zero."""
+    from agentainer_tpu_torch.models.configs import ModelConfig
+    from agentainer_tpu_torch.models.llama import forward, init_params
+    from agentainer_tpu_torch.ops.attention import trainable_causal_attention
+    from agentainer_tpu_torch.train import leaves
+
+    cfg = ModelConfig(**TRAIN_HD128)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), generator=g, device=dev)
+    pos = torch.arange(96, device=dev).expand(2, 96)
+    w = torch.randn((2, 96, cfg.vocab_size), generator=g, device=dev)
+    with pytest.raises(RuntimeError, match="flash_prefill"):
+        forward(params, cfg, toks, pos)
+    grads = []
+    for impl in (trainable_causal_attention, None):
+        logits = forward(params, cfg, toks, pos, use_flash=False, attn_impl=impl)
+        grads.append(dict(zip(params["layers"], torch.autograd.grad(
+            (logits * w).sum(), list(params["layers"].values())))))
+    for name, want in grads[1].items():
+        torch.testing.assert_close(grads[0][name], want, rtol=2e-4, atol=2e-4 * want.abs().max().item())
+    assert all(grads[0][n].abs().max() > 0 for n in ("wq", "wk", "wv"))
+
+
+def test_train_step_on_the_card_follows_the_cpu(dev):
+    """``make_train_step`` on the card (its default device) and on the CPU
+    from one param tree and batch: 3 losses within the two-path f32
+    tolerance 2e-4, falling; n_layers prefill launches a step, no other
+    kernel; the step count advanced."""
+    import numpy as np
+
+    from agentainer_tpu_torch.models.configs import ModelConfig
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.ops import cuda_quant
+    from agentainer_tpu_torch.train import make_train_step
+
+    cfg = ModelConfig(**TRAIN_HD128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 129))
+    others = (ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode,
+              cuda_quant.w8a16_matmul, cuda_quant.w8a16_grouped_matmul)
+    runs = {}
+    for device in ("cpu", None):
+        init_fn, step_fn, shard_batch = make_train_step(cfg, device=device)
+        state = init_fn(params=params)  # a copy of the tree on each device
+        batch = shard_batch(tokens)
+        before = [ca.flash_prefill.launches] + [fn.launches for fn in others]
+        losses = []
+        for _ in range(3):
+            state, loss = step_fn(state, batch)
+            losses.append(loss.item())
+        used = [ca.flash_prefill.launches - before[0]] + [fn.launches - n for fn, n in zip(others, before[1:])]
+        runs[device] = losses
+        assert state.step == 3 and batch.device.type == ("cpu" if device else "cuda")
+        assert used == ([0] * 6 if device else [3 * cfg.n_layers] + [0] * 5), used
+    np.testing.assert_allclose(runs[None], runs["cpu"], rtol=2e-4, atol=2e-4)
+    assert runs[None][-1] < runs[None][0]
+
+
+def test_train_step_refuses_a_head_the_kernel_does_not_take(dev):
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.train import make_train_step
+
+    with pytest.raises(ValueError, match="no attention kernel"):
+        make_train_step(get_config("tiny"))

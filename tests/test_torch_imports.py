@@ -55,5 +55,6 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.core.protocol",
         "agentainer_tpu_torch.utils.hw",
         "agentainer_tpu_torch.faults",
+        "agentainer_tpu_torch.train",
     ):
         assert mod in doc["imported"]
