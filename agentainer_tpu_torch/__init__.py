@@ -5,15 +5,17 @@ behavioural reference; this package mirrors its layout module for module
 (``agentainer_tpu_torch/ops/attention.py`` replaces
 ``agentainer_tpu/ops/attention.py``, and so on) and runs on one NVIDIA H100.
 
-What is ported so far is the dense, single-device main path of the ``llm``
-engine: model config registry, the Llama forward pass, sampling, the
-continuous-batching engine and its HTTP serve layer. The two Pallas
-flash-attention kernels on that path are hand-written CUDA C++ for Hopper
-(``csrc/flash_attention.cu``), each with a plain PyTorch version beside it.
+Ported so far: the single-device ``llm`` engine (model configs, the Llama
+and MoE forward, sampling, the continuous-batching engine, its HTTP serve
+layer, the training step), whose four Pallas flash-attention kernels and
+int8 products are hand-written CUDA C++ for Hopper (``csrc/``), each with a
+plain PyTorch version beside it; and the control plane (``daemon.py``,
+``server/``, ``manager/``, ``runtime/``, ``store/``, the ``echo`` engine).
 
 The port imports ``torch``, ``numpy`` and the standard library only — never
 ``jax`` and never ``agentainer_tpu``; where it needs code that lives in the
-JAX package it keeps its own copy.
+JAX package it keeps its own copy. The control plane imports the standard
+library only, so the daemon never creates a CUDA context.
 """
 
 __version__ = "0.1.0"

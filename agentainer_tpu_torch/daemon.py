@@ -1,0 +1,262 @@
+"""Daemon wiring — the composition root.
+
+Reference: ``agentainer_tpu/daemon.py`` (the reference's ``runServer``):
+construct the store, backend and scheduler, the services (manager,
+journal, health, metrics, reconciler, log plane), the API server and the
+background loops (state sync at 10 s, replay at 5 s, metrics at 10 s,
+health per agent), then serve until stopped. What differs:
+
+- the server is the port's standard-library one (``server/app.py`` over
+  ``utils/http``), always the front door: the reference's C++ data plane,
+  native store and replica fleet come with later slices, and so do its
+  artifacts and backups (their routes answer 501);
+- ``store_url`` ``auto`` resolves to ``mem://`` — the reference's own path
+  when its native library is unavailable — and the start line says so;
+- nothing here imports torch: the daemon never creates a CUDA context; only
+  the llm engine processes it spawns touch the card.
+
+Run: ``python -m agentainer_tpu_torch.daemon`` (``ATPU_SERVER_PORT``,
+``ATPU_AUTH_TOKEN``, ``ATPU_DATA_DIR`` and the rest of ``config.py``'s
+environment), until SIGTERM/SIGINT.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+import signal
+from dataclasses import dataclass, field
+from typing import Awaitable, Callable
+
+from .config import Config, load_config
+from .manager.agents import AgentManager
+from .manager.audit import LogPlane
+from .manager.health import HealthMonitor
+from .manager.journal import RequestJournal
+from .manager.metrics import MetricsPlane
+from .manager.reconcile import QuickSync, StateSynchronizer
+from .manager.replay import ReplayWorker
+from .runtime.backend import Backend
+from .runtime.scheduler import SliceScheduler, SliceTopology
+from .store import Store, open_store
+
+
+@dataclass
+class Services:
+    config: Config
+    store: Store
+    backend: Backend
+    scheduler: SliceScheduler
+    manager: AgentManager
+    journal: RequestJournal
+    logs: LogPlane
+    metrics: MetricsPlane
+    data_dir: str = ""
+    store_url: str = ""  # the store the daemon opened (auto resolved)
+    health: HealthMonitor = None  # type: ignore[assignment]
+    quick_sync: QuickSync = None  # type: ignore[assignment]
+    state_sync: StateSynchronizer = None  # type: ignore[assignment]
+    replay: ReplayWorker = None  # type: ignore[assignment]
+    app: object = None  # the ControlPlaneApp
+    dispatch: Callable[..., Awaitable[tuple[int, dict, bytes]]] = None  # type: ignore[assignment]
+    public_port: int = 0  # actual bound public port once run_daemon is up
+    _background_started: bool = field(default=False, repr=False)
+
+
+def _export_fleet_defaults(config: Config) -> None:
+    """Engines inherit the daemon's environment: write back the resolved
+    engine-option defaults (``features.*`` → ``ATPU_*``), so a config that
+    turns a feature off pins every spawned engine without touching each
+    deployment's options — both ways, so a second ``build_services`` does
+    not inherit a stale latch. Same for the fault plane and the store
+    client's retry policy."""
+    f = config.features
+    for flag, env_name in (
+        (f.speculative, "ATPU_SPECULATIVE"),
+        (f.paged_kv, "ATPU_PAGED_KV"),
+        (f.adaptive_decode, "ATPU_ADAPTIVE_DECODE"),
+        (f.prefix_cache, "ATPU_PREFIX_CACHE"),
+        (f.fused_decode, "ATPU_FUSED_DECODE"),
+        (f.inloop_spec, "ATPU_INLOOP_SPEC"),
+        (f.approx_topk, "ATPU_APPROX_TOPK"),
+        (f.kv_tiering, "ATPU_KV_TIERING"),
+        (f.streaming, "ATPU_STREAMING"),
+        (config.deadlines.enabled, "ATPU_DEADLINES"),
+    ):
+        os.environ[env_name] = "1" if flag else "0"
+    from . import faults
+
+    faults.disarm_all()
+    if config.resilience.faults:
+        faults.arm_spec(config.resilience.faults)
+    os.environ["ATPU_FAULTS"] = config.resilience.faults
+    os.environ["ATPU_STORE_RETRIES"] = str(config.resilience.store_retries)
+    os.environ["ATPU_STORE_RETRY_BASE_S"] = str(config.resilience.store_retry_base_s)
+
+
+def build_services(
+    config: Config | None = None,
+    store: Store | None = None,
+    backend: Backend | None = None,
+    console_logs: bool = True,
+    data_dir: str | None = None,
+) -> Services:
+    config = config or load_config()
+    if config.fleet.replicas > 1:
+        from .manager.agents import FLEET_LATER
+
+        raise ValueError(f"fleet.replicas = {config.fleet.replicas}: {FLEET_LATER}")
+    _export_fleet_defaults(config)
+    ddir = data_dir if data_dir is not None else config.data_path
+    store_url = "(given)"
+    if store is None:
+        # auto: the in-memory store, as the reference when its native
+        # library is unavailable (the native store is a later slice)
+        store_url = "mem://" if config.store_url == "auto" else config.store_url
+        store = open_store(store_url)
+    if backend is None:
+        from .runtime.local import LocalBackend
+
+        backend = LocalBackend(
+            store=store,
+            data_dir=os.path.join(str(ddir), "runtime"),
+            restart_backoff_base_s=config.resilience.restart_backoff_base_s,
+            restart_backoff_max_s=config.resilience.restart_backoff_max_s,
+            restart_window_s=config.resilience.restart_window_s,
+            restart_max_rapid=config.resilience.restart_max_rapid,
+        )
+    elif getattr(backend, "store", "absent") is None:
+        backend.store = store  # LocalBackend built without a store: inject ours
+    topo = SliceTopology(
+        total_chips=config.slice.total_chips,
+        hbm_per_chip=config.slice.hbm_per_chip,
+        name=config.slice.name,
+        hosts=config.slice.hosts,
+    )
+    scheduler = SliceScheduler(store, topo)
+    manager = AgentManager(store, backend, scheduler)
+    journal = RequestJournal(store)
+    logs = LogPlane(store, data_dir=ddir, console=console_logs)
+    metrics = MetricsPlane(
+        manager, store, interval_s=config.cadences.metrics_interval_s, logs=logs
+    )
+    services = Services(
+        config=config,
+        store=store,
+        backend=backend,
+        scheduler=scheduler,
+        manager=manager,
+        journal=journal,
+        logs=logs,
+        metrics=metrics,
+        data_dir=str(ddir),
+        store_url=store_url,
+    )
+    quick_sync = QuickSync(manager, backend)
+    manager.set_quick_sync(quick_sync)
+    services.quick_sync = quick_sync
+    services.state_sync = StateSynchronizer(
+        quick_sync, backend, interval_s=config.cadences.state_sync_s
+    )
+    # the app's dispatch is the single choke point for traffic into
+    # engines; replay and health reuse it
+    from .server.app import ControlPlaneApp
+
+    app_obj = ControlPlaneApp(services)
+    services.app = app_obj
+    services.dispatch = app_obj.dispatch_to_agent
+    services.health = HealthMonitor(manager, store, services.dispatch, logs=logs)
+    services.replay = ReplayWorker(
+        journal,
+        manager,
+        services.dispatch,
+        interval_s=config.cadences.replay_scan_s,
+        backend=backend,
+    )
+    return services
+
+
+async def start_background(services: Services) -> None:
+    """Start the reconciler, replay worker, metrics collector and health
+    monitor."""
+    if services._background_started:
+        return
+    services._background_started = True
+    await services.state_sync.start()
+    if services.config.features.request_persistence:
+        await services.replay.start()
+    await services.metrics.start()
+    await services.health.start()
+
+
+async def stop_background(services: Services) -> None:
+    if not services._background_started:
+        return
+    services._background_started = False
+    await services.replay.stop()
+    await services.state_sync.stop()
+    await services.metrics.stop()
+    await services.health.stop()
+
+
+async def start_daemon(services: Services, host: str | None = None, port: int | None = None):
+    """Bind the API server (port 0 = any free port) and point the backend's
+    engines at it; returns the server. The background loops start apart
+    (``start_background``), so a caller may drive the reconciler and the
+    replay worker itself, as the tests do."""
+    from .utils import http
+
+    cfg = services.config
+    host = cfg.server.host if host is None else host
+    port = cfg.server.port if port is None else port
+    server = await http.start_server(services.app.handle, host, port, max_body=services.app.max_body)
+    services.public_port = server.sockets[0].getsockname()[1]
+    if hasattr(services.backend, "set_control"):
+        services.backend.set_control(f"http://127.0.0.1:{services.public_port}", cfg.auth_token)
+    services.logs.info(
+        "daemon",
+        f"control plane listening on {host}:{services.public_port} "
+        f"(slice {services.scheduler.topology.name}, {services.scheduler.topology.total_chips} GPUs; "
+        f"store {services.store_url}; data plane python)",
+    )
+    return server
+
+
+async def stop_daemon(services: Services, server) -> None:
+    try:
+        await stop_background(services)
+    except asyncio.CancelledError:
+        pass
+    await asyncio.to_thread(services.backend.close)
+    server.close()
+
+
+async def run_daemon(services: Services) -> None:
+    """Serve until cancelled."""
+    server = await start_daemon(services)
+    await start_background(services)
+    try:
+        while True:
+            await asyncio.sleep(3600)
+    finally:
+        await stop_daemon(services, server)
+
+
+def main() -> None:
+    services = build_services()
+
+    async def go() -> None:
+        task = asyncio.current_task()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, task.cancel)
+        try:
+            await run_daemon(services)
+        except asyncio.CancelledError:
+            pass
+
+    asyncio.run(go())
+
+
+if __name__ == "__main__":
+    main()

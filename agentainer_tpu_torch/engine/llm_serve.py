@@ -9,20 +9,9 @@ the assigned chips (``AGENTAINER_CHIPS``, passed as ``options["chips"]``)
 and the fleet defaults in the ``ATPU_*`` variables (``_engine_options``).
 What differs:
 
-- the HTTP server is the standard library's (``asyncio.start_server`` and a
-  minimal HTTP/1.1 reader, one request per connection): the machine with the
-  card has no aiohttp;
-- conversation turns live in the process-local store that the reference's
-  ``StoreClient`` falls back to with no control plane configured. The
-  reference snapshots a session's KV to the store after its turns, restores
-  an unknown session from the store before admitting it and snapshots the
-  resident sessions in the drain, all only with a connected store; so they
-  wait for the store client, which calls the engine's
-  ``snapshot_session``/``restore_session`` (ported). ``/park`` and
-  ``/prewarm`` (with ``kv_tiering``) demote a session into the engine's
-  host tier and promote it back; with no store connected the park's blob
-  is written nowhere and a prewarm has no cold tier to fall back to, as in
-  the reference without a store. Tenants come with a later slice;
+- the HTTP server is the port's one standard-library reader and writer
+  (``utils/http``, one request per connection): the machine with the card
+  has no aiohttp;
 - SSE streaming (``stream=true`` on ``/chat`` with the engine's
   ``streaming`` option; a body asking for it with the option off is
   answered buffered, as in the reference): the standard-library server
@@ -30,8 +19,8 @@ What differs:
   each, with no Content-Length and ``Connection: close``; the status line
   goes out with the first frame, so a failure before it still answers
   with its plain status (the poisoned-prefill 500 included). A client that
-  hangs up is seen as end of file on the connection (``SSEStream``) and
-  cancels its engine request;
+  hangs up is seen as end of file on the connection (``Stream.hangup``)
+  and cancels its engine request;
 - ``/profile`` records a ``torch.profiler`` trace (the card's kernels and
   the CPU's operators) as a Chrome trace file, where the reference records
   a ``jax.profiler`` trace; the engine's worker starts and stops it between
@@ -54,6 +43,27 @@ of the reference are served: ``llm`` keeps each session's KV resident;
 the session's last exchanges into one prompt per turn and generates it
 statelessly (``_flattened_prompt``), with a default persona of its own.
 
+Under a control plane (``AGENTAINER_CONTROL_URL`` + the engine's token)
+conversation turns and KV snapshots go to the daemon's store through
+``runtime/store_client.py``, as in the reference: a debounced snapshot of a
+session's KV after each turn (``kv_snapshot_interval_s``, 10 s), the
+restore of an unknown session from the store before its turn is admitted
+(``kv_restores``), final snapshots of every resident session in the drain,
+``/park`` writing its blob to the store (the cold tier) and ``/prewarm``
+restoring from it when the host tier no longer holds the session, and a
+ready callback to ``/internal/engines/ready`` once the model is loaded;
+a model that cannot load makes the process exit with code 3 (the backend
+lands the agent FAILED with the error from this log). With no control
+plane the store client keeps turns in process memory, nothing is
+snapshotted, and a model that cannot load leaves ``/chat`` answering 503
+with the error.
+
+The multi-tenant host (``AGENTAINER_HOST_TOKEN`` set by the backend) owns
+the one engine; ``POST /-/tenants`` attaches an agent as a tenant — its
+own localhost port, store identity, persona and counters over the shared
+engine — and ``DELETE /-/tenants/{agent_id}`` detaches it. Engine sessions
+are namespaced ``{agent_id}::{session}``.
+
 Engine options ride ``AGENTAINER_MODEL_OPTIONS`` (JSON), including
 ``device`` (default ``"cuda"``). Run: ``python -m
 agentainer_tpu_torch.engine.llm_serve`` with ``AGENTAINER_PORT`` and
@@ -63,16 +73,13 @@ agentainer_tpu_torch.engine.llm_serve`` with ``AGENTAINER_PORT`` and
 from __future__ import annotations
 
 import asyncio
-import contextlib
-import fnmatch
+import hmac
 import json
 import os
 import signal
 import threading
 import time
 import traceback
-from dataclasses import dataclass
-from urllib.parse import urlsplit
 
 from .. import faults
 from ..core.protocol import (
@@ -87,6 +94,9 @@ from ..core.protocol import (
     STREAM_EVENT_DONE,
     STREAM_EVENT_TOKEN,
 )
+from ..runtime.store_client import StoreClient
+from ..utils import http
+from ..utils.http import Request, Response
 
 # engine option ← its fleet-default variable (the reference's list); a
 # per-deployment option wins, and 1/true/yes are true
@@ -104,12 +114,10 @@ FLEET_FLAGS = (
 )
 MAX_TURNS = 50
 SESSION_CONVO_TTL_S = 7 * 24 * 3600
-_REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    413: "Payload Too Large", 429: "Too Many Requests", 499: "Client Closed Request",
-    500: "Internal Server Error", 503: "Service Unavailable", 504: "Gateway Timeout",
-}
-_MAX_BODY = 16 << 20
+KV_SNAPSHOT_TTL_S = 24 * 3600
+# the process exits with this code when its model cannot load under a
+# control plane (runtime/local.py's LOAD_FAILED_EXIT)
+LOAD_FAILED_EXIT = 3
 # the assistant flavor's persona when the deployment names none
 ASSISTANT_PERSONA = "You are a helpful, concise assistant."
 
@@ -124,100 +132,19 @@ def _sse_frame(event: str, event_id: int | None, data: dict) -> bytes:
     return ("\n".join(lines) + "\n\n").encode()
 
 
-class LocalStore:
-    """Process-local key/value + list store: the semantics of the reference
-    ``StoreClient``'s fallback when no control plane is configured
-    (``runtime/store_client.py``). State dies with the process."""
-
-    def __init__(self) -> None:
-        self._d: dict[str, list[str]] = {}
-
-    async def rpush(self, key: str, *values: str) -> int:
-        self._d.setdefault(key, []).extend(values)
-        return len(self._d[key])
-
-    async def lrange(self, key: str, start: int = 0, stop: int = -1) -> list[str]:
-        return self._d.get(key, [])[start : (stop + 1 if stop != -1 else None)]
-
-    async def ltrim(self, key: str, start: int, stop: int) -> None:
-        self._d[key] = self._d.get(key, [])[start : (stop + 1 if stop != -1 else None)]
-
-    async def expire(self, key: str, ttl: float) -> bool:
-        return key in self._d  # no sweeper: state dies with the process
-
-    async def delete(self, key: str) -> int:
-        return 1 if self._d.pop(key, None) is not None else 0
-
-    async def keys(self, pattern: str) -> list[str]:
-        return [k for k in self._d if fnmatch.fnmatchcase(k, pattern)]
-
-
-class SSEStream:
-    """One connection's streamed response. The status line and headers go
-    out with the first frame, so a handler that fails before it still
-    answers with a plain ``Response``; every frame is drained before the
-    next. ``hangup()`` completes when the client closes its side (end of
-    file on the connection, or a read error)."""
-
-    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
-        self._reader = reader
-        self._writer = writer
-        self.started = False
-
-    async def write(self, data: bytes) -> None:
-        if not self.started:
-            self.started = True
-            head = [
-                "HTTP/1.1 200 OK",
-                f"Content-Type: {STREAM_CONTENT_TYPE}",
-                "Cache-Control: no-cache",
-                "X-Accel-Buffering: no",
-                "Connection: close",
-            ]
-            self._writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1"))
-        self._writer.write(data)
-        await self._writer.drain()
-
-    def hangup(self) -> asyncio.Task:
-        async def until_eof() -> None:
-            with contextlib.suppress(ConnectionError):
-                while await self._reader.read(4096):
-                    pass
-
-        return asyncio.ensure_future(until_eof())
-
-
-@dataclass
-class Request:
-    method: str
-    path: str
-    headers: dict[str, str]  # lower-cased names
-    body: bytes
-    # the connection, for a handler that streams its response
-    stream: SSEStream | None = None
-
-    def json(self):
-        """The body as JSON; raises ValueError when malformed."""
-        return json.loads(self.body or b"null")
-
-
-@dataclass
-class Response:
-    status: int
-    doc: dict | None
-    headers: dict[str, str] | None = None
-    # the handler wrote the response itself (an SSE stream)
-    streamed: bool = False
-
-
 class LLMServeApp:
-    """One agent's serving surface (one per process, env-configured)."""
+    """One agent's serving surface: one per process (env-configured), or
+    several sharing one process and one engine under the multi-tenant host.
+    The host instance owns the engine; tenants delegate ``engine`` and
+    readiness to it while keeping their own identity (store credentials,
+    conversation keys, KV snapshots, counters, persona)."""
 
-    def __init__(self, env: dict | None = None) -> None:
+    def __init__(self, env: dict | None = None, host: "LLMServeApp | None" = None) -> None:
         E = os.environ if env is None else env
         self._env = E
-        self.engine = None
-        self.engine_error = ""
+        self._host = host
+        self._engine = None
+        self._engine_error = ""
         self.agent_id = E.get("AGENTAINER_AGENT_ID", "standalone")
         self.agent_name = E.get("AGENTAINER_AGENT_NAME", self.agent_id)
         self.config_name = E.get("AGENTAINER_MODEL_CONFIG", "tiny")
@@ -246,8 +173,36 @@ class LLMServeApp:
             self.replica = int(E.get("AGENTAINER_REPLICA", "0") or 0)
         except ValueError:
             self.replica = 0
-        self.store = LocalStore()
-        # drain on the way out: budget, outcome
+        self.store = StoreClient(
+            control_url=E.get("AGENTAINER_CONTROL_URL", ""),
+            token=E.get("AGENTAINER_INTERNAL_TOKEN", ""),
+            agent_id=E.get("AGENTAINER_AGENT_ID", ""),
+            store_sock=E.get("AGENTAINER_STORE_SOCK", ""),
+        )
+        # multi-tenant host state (host instance only): agent id → (app,
+        # server, port)
+        self._tenants: dict[str, tuple[LLMServeApp, asyncio.AbstractServer, int]] = {}
+        self._host_token = E.get("AGENTAINER_HOST_TOKEN", "")
+        # KV snapshots to the store: at most one per session per interval,
+        # with a trailing capture so the end of a burst of turns is kept
+        try:
+            self.kv_snapshot_interval_s = float(self.model_options.get("kv_snapshot_interval_s", 10.0))
+        except (TypeError, ValueError):
+            self.kv_snapshot_interval_s = 10.0
+        self._kv_last_snap: dict[str, float] = {}
+        self._kv_deferred: set[str] = set()
+        self._bg_tasks: set[asyncio.Task] = set()  # keep snapshot tasks alive
+        self._snap_tasks: set[asyncio.Task] = set()
+        self.kv_snapshots = 0
+        self.kv_snapshots_deferred = 0
+        self.kv_snapshot_errors = 0
+        self.last_kv_snapshot_error = ""
+        # the last landed snapshot: blob bytes, the engine call's ms (the
+        # staging limiter's waits included) and its stage / pack ms, and the
+        # store's ms (base64 + the store op)
+        self.last_kv_snapshot: dict | None = None
+        self.kv_restores = 0
+        # drain on the way out: budget, outcome, final snapshots
         try:
             self.drain_budget_s = float(
                 self.model_options.get("drain_budget_s", E.get("AGENTAINER_DRAIN_BUDGET_S", 10.0))
@@ -256,6 +211,7 @@ class LLMServeApp:
             self.drain_budget_s = 10.0
         self.draining = False
         self.drained_clean: bool | None = None
+        self.drain_snapshots = 0
         self.prefix_prewarms = 0
         # the tiered KV hierarchy's park and prewarm hints
         self.kv_parks = 0
@@ -296,9 +252,36 @@ class LLMServeApp:
             ("POST", "/park"): self.h_park,
             ("POST", "/prewarm"): self.h_prewarm,
         }
+        if self._host_token:
+            # the multi-tenant host's admin surface (the backend holds the
+            # host token it minted at spawn)
+            self._routes[("POST", "/-/tenants")] = self.h_tenant_attach
+
+    # engine and load state delegate to the host when this app is a tenant:
+    # one LLMEngine (one weight copy) serves every attached agent
+    @property
+    def engine(self):
+        return self._host.engine if self._host is not None else self._engine
+
+    @engine.setter
+    def engine(self, value) -> None:
+        self._engine = value
+
+    @property
+    def engine_error(self) -> str:
+        return self._host.engine_error if self._host is not None else self._engine_error
+
+    @engine_error.setter
+    def engine_error(self, value: str) -> None:
+        self._engine_error = value
+
+    @property
+    def ready_event(self) -> threading.Event:
+        return self._host.ready_event if self._host is not None else self._ready
 
     def _sess(self, session: str) -> str:
-        """Engine-side session namespace (matches the reference's)."""
+        """Engine-side session namespace: tenants sharing one engine never
+        collide on KV slots."""
         return f"{self.agent_id}::{session}"
 
     @property
@@ -307,6 +290,9 @@ class LLMServeApp:
 
     def _convo_session_key(self, session: str) -> str:
         return f"{self.convo_key}:{session}"
+
+    def _kv_key(self, session: str) -> str:
+        return f"agent:{self.agent_id}:kvcache:{session}"
 
     def _engine_options(self) -> dict:
         """The engine's options: the deployment's own
@@ -321,10 +307,26 @@ class LLMServeApp:
             opts["chips"] = list(self.chips)
         return opts
 
+    def _background(self, coro) -> asyncio.Task:
+        task = asyncio.ensure_future(coro)
+        self._bg_tasks.add(task)  # an unreferenced task can be collected mid-flight
+        task.add_done_callback(self._bg_tasks.discard)
+        return task
+
+    def _schedule_snapshot(self, session: str) -> None:
+        """The turn's snapshot, off the request's path; counted in flight
+        until it has landed, bounced or failed (``kv_snapshots_in_flight``)."""
+        task = self._background(self._snapshot_session(session))
+        self._snap_tasks.add(task)
+        task.add_done_callback(self._snap_tasks.discard)
+
     # -- lifecycle ----------------------------------------------------------
     def _load_engine(self) -> None:
-        """Build the engine (weights + warmup: slow). Runs on a daemon
-        thread so /health answers while loading."""
+        """Build the engine (weights + warmup: slow), prefill every persona
+        of the host and its tenants into the prefix cache, then tell each
+        control plane the model is ready. Runs on a daemon thread so
+        /health answers while loading. Under a control plane a model that
+        cannot load ends the process (``LOAD_FAILED_EXIT``)."""
         try:
             from .llm import LLMEngine
 
@@ -333,13 +335,24 @@ class LLMServeApp:
                 checkpoint=self.checkpoint,
                 options=self._engine_options(),
             )
-            asyncio.run(self._prewarm_prefix(engine))
+
+            async def prewarm_all() -> None:
+                await self._prewarm_prefix(engine)
+                for tenant, _, _ in list(self._tenants.values()):
+                    await tenant._prewarm_prefix(engine)
+
+            asyncio.run(prewarm_all())
             self.engine = engine
         except Exception as e:  # engine stays None; /chat reports 503
             self.engine_error = f"{type(e).__name__}: {e}"
             traceback.print_exc()
+            if self._env.get("AGENTAINER_CONTROL_URL"):
+                print(f"[llm-serve] model failed to load: {self.engine_error}", flush=True)
+                os._exit(LOAD_FAILED_EXIT)
         finally:
             self._ready.set()
+        if self.engine is not None:
+            self._fan_out_ready()
 
     async def _prewarm_prefix(self, engine) -> None:
         """Register the persona header in the engine's prefix cache before
@@ -354,26 +367,64 @@ class LLMServeApp:
         except Exception as e:  # logged; serving goes on without the prewarm
             print(f"[llm-serve] persona prefix prewarm failed: {type(e).__name__}: {e}", flush=True)
 
+    def _notify_ready(self) -> None:
+        """Tell the control plane the model is servable, so queued requests
+        replay now rather than on the next scan tick (best effort, never
+        fatal: the replay scan stays the safety net)."""
+        url, token = self.store.control_url, self.store.token
+        if not url or not token:
+            return  # standalone runs and the identity-less host skip it
+        try:
+            from http.client import HTTPConnection
+            from urllib.parse import urlsplit
+
+            u = urlsplit(url)
+            conn = HTTPConnection(u.hostname, u.port or 80, timeout=5.0)
+            conn.request(
+                "POST",
+                "/internal/engines/ready",
+                body=b"{}",
+                headers={
+                    "X-Agentainer-Agent-ID": self.agent_id,
+                    "Authorization": f"Bearer {token}",
+                    "Content-Type": "application/json",
+                },
+            )
+            conn.getresponse().read()
+            conn.close()
+        except Exception as e:
+            print(f"[llm-serve] ready callback failed for {self.agent_id}: {type(e).__name__}: {e}", flush=True)
+
+    def _fan_out_ready(self) -> None:
+        """The ready callback for this app and every attached tenant; one
+        tenant's failure does not skip the rest."""
+        self._notify_ready()
+        for tenant, _, _ in list(self._tenants.values()):
+            tenant._notify_ready()
+
     async def run(self, host: str = "127.0.0.1", port: int = 8000) -> None:
         """Serve until ``stop()``; loads the engine in the background unless
         one was injected before. On the way out the engine drains (no new
         admissions, 503 + draining; in-flight work finishes within
-        ``drain_budget_s``), then the server closes and the engine shuts
-        down."""
+        ``drain_budget_s``), every resident session of the host and its
+        tenants gets a final snapshot in the store, the tenants detach, the
+        server closes and the engine shuts down."""
         self._loop = asyncio.get_running_loop()
         self._stop = asyncio.Event()
         if self.engine is None:
             threading.Thread(target=self._load_engine, daemon=True, name="model-loader").start()
         else:
             self._ready.set()
-        server = await asyncio.start_server(self._handle_conn, host, port)
+            threading.Thread(target=self._fan_out_ready, daemon=True).start()
+        server = await http.start_server(self._dispatch, host, port)
         self.port = server.sockets[0].getsockname()[1]
         try:
             await self._stop.wait()
             if self.engine is not None:
-                self.draining = True
-                self.drained_clean = await asyncio.to_thread(self.engine.drain, self.drain_budget_s)
+                await self._graceful_drain()
         finally:
+            for aid in list(self._tenants):
+                await self._detach_tenant(aid)
             server.close()
             await server.wait_closed()
             if self.engine is not None:
@@ -384,61 +435,158 @@ class LLMServeApp:
         if self._loop is not None and self._stop is not None:
             self._loop.call_soon_threadsafe(self._stop.set)
 
-    # -- HTTP ---------------------------------------------------------------
-    async def _handle_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
-        try:
-            req = await self._read_request(reader)
-            if req is None:
-                return
-            if isinstance(req, Request):
-                req.stream = SSEStream(reader, writer)
-            resp = req if isinstance(req, Response) else await self._dispatch(req)
-            if resp.streamed:
-                return
-            body = json.dumps(resp.doc).encode()
-            head = [
-                f"HTTP/1.1 {resp.status} {_REASONS.get(resp.status, 'Unknown')}",
-                "Content-Type: application/json; charset=utf-8",
-                f"Content-Length: {len(body)}",
-                "Connection: close",
-            ]
-            head += [f"{k}: {v}" for k, v in (resp.headers or {}).items()]
-            writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
-            await writer.drain()
-        except (ConnectionError, asyncio.IncompleteReadError, ValueError):
-            pass  # client went away, or sent a line past the reader's limit
-        finally:
-            writer.close()
+    async def _graceful_drain(self) -> None:
+        """The SIGTERM half of a rolling restart: stop admitting, let
+        in-flight lanes finish inside the drain budget, then snapshot every
+        resident session (the host's and each tenant's) so the respawned
+        engine restores them token-identical."""
+        eng = self.engine
+        self.draining = True
+        self.drained_clean = await asyncio.to_thread(eng.drain, self.drain_budget_s)
+        # the engine is idle now: the snapshot limiter has nothing to protect
+        eng.snapshot_min_gap_s = 0.0
+        eng.snapshot_busy_gap_s = 0.0
+        for app in [self] + [t for t, _, _ in self._tenants.values()]:
+            if not app.store.connected:
+                continue
+            prefix = f"{app.agent_id}::"
+            for name in [s for s in list(eng.sessions) if s.startswith(prefix)]:
+                before = app.kv_snapshots
+                await app._snapshot_now(name[len(prefix):])
+                if app.kv_snapshots > before:
+                    self.drain_snapshots += 1
 
-    async def _read_request(self, reader: asyncio.StreamReader) -> Request | Response | None:
-        """One request off the connection; None for an empty or garbled
-        request line, a 413 Response for a bad Content-Length."""
-        line = await reader.readline()
-        if not line.strip():
-            return None
-        parts = line.decode("latin-1").split()
-        if len(parts) != 3:
-            return None
-        method, target, _ = parts
-        headers: dict[str, str] = {}
-        while True:
-            h = await reader.readline()
-            if h in (b"\r\n", b"\n", b""):
-                break
-            name, _, value = h.decode("latin-1").partition(":")
-            headers[name.strip().lower()] = value.strip()
+    # -- KV snapshots in the store -------------------------------------------
+    async def _snapshot_session(self, session: str) -> None:
+        """Snapshot after a turn settles, off the request's path. Debounced
+        per session: a burst of turns costs one leading snapshot plus one
+        trailing capture, not one per turn."""
+        now = time.monotonic()
+        last = self._kv_last_snap.get(session)
+        if last is not None and now - last < self.kv_snapshot_interval_s:
+            if session in self._kv_deferred:
+                return  # a deferred capture is pending; it will see this turn
+            self._kv_deferred.add(session)
+            try:
+                await asyncio.sleep(last + self.kv_snapshot_interval_s - now)
+            finally:
+                self._kv_deferred.discard(session)
+        await self._snapshot_now(session)
+
+    async def _snapshot_now(self, session: str) -> None:
+        from .llm import SnapshotDeferred
+
         try:
-            n = int(headers.get("content-length", "0") or 0)
+            t0 = time.monotonic()
+            blob = await self.engine.snapshot_session(self._sess(session))
+            if blob:
+                self._kv_last_snap[session] = time.monotonic()
+                t1 = time.monotonic()
+                await self.store.set_bytes(self._kv_key(session), blob, ttl=KV_SNAPSHOT_TTL_S)
+                self.kv_snapshots += 1
+                self.last_kv_snapshot = {
+                    "session": session,
+                    "bytes": len(blob),
+                    "snapshot_ms": 1000 * (t1 - t0),  # the limiter's waits included
+                    "store_ms": 1000 * (time.monotonic() - t1),
+                }
+                timings = getattr(self.engine, "snapshot_timings", None)
+                if timings and timings[-1].get("blob_bytes") == len(blob):
+                    # the engine's own staging copy and npz pack
+                    self.last_kv_snapshot.update(
+                        stage_ms=timings[-1]["stage_ms"], pack_ms=timings[-1]["pack_ms"]
+                    )
+        except SnapshotDeferred:
+            # busy engine / limiter: the next turn retries; counted
+            self.kv_snapshots_deferred += 1
+        except Exception as e:
+            self.kv_snapshot_errors += 1
+            self.last_kv_snapshot_error = f"{type(e).__name__}: {e}"
+            print(f"[llm-serve] kv snapshot failed: {self.last_kv_snapshot_error}", flush=True)
+
+    async def _restore_from_store(self, session: str) -> bool:
+        """Crash-resume: load a session's snapshot from the store into the
+        engine (best effort); True when it was restored."""
+        try:
+            blob = await self.store.get_bytes(self._kv_key(session))
+            if blob and await self.engine.restore_session(self._sess(session), blob):
+                self.kv_restores += 1
+                return True
+        except Exception as e:
+            print(f"[llm-serve] kv restore failed: {type(e).__name__}: {e}", flush=True)
+        return False
+
+    # -- multi-tenant host admin ---------------------------------------------
+    def _check_host_auth(self, req: Request) -> bool:
+        presented = req.headers.get("Authorization", "").removeprefix("Bearer ").strip()
+        return bool(self._host_token) and hmac.compare_digest(
+            presented.encode(), self._host_token.encode()
+        )
+
+    async def h_tenant_attach(self, req: Request) -> Response:
+        """Attach an agent to this host: a serving surface on its own
+        localhost port over this process's engine (one weight copy)."""
+        if not self._check_host_auth(req):
+            return Response(401, {"error": "bad host token"})
+        try:
+            body = req.json()
         except ValueError:
-            n = -1
-        if n < 0 or n > _MAX_BODY:
-            return Response(413, {"error": "bad or oversized Content-Length"})
-        body = await reader.readexactly(n) if n else b""
-        return Request(method, urlsplit(target).path or "/", headers, body)
+            return Response(400, {"error": "invalid JSON"})
+        aid = str((body or {}).get("agent_id", ""))
+        if not aid:
+            return Response(400, {"error": "agent_id required"})
+        if aid in self._tenants:  # idempotent re-attach (respawn race)
+            return Response(200, {"port": self._tenants[aid][2], "existing": True})
+        tenant_env = {
+            "AGENTAINER_AGENT_ID": aid,
+            "AGENTAINER_AGENT_NAME": str(body.get("name", aid)),
+            "AGENTAINER_ENGINE": str(body.get("flavor", "llm")),
+            "AGENTAINER_MODEL_CONFIG": self.config_name,
+            "AGENTAINER_CHECKPOINT": self.checkpoint,
+            "AGENTAINER_MODEL_OPTIONS": json.dumps(body.get("options", {}) or {}),
+            "AGENTAINER_SYSTEM_PROMPT": str(body.get("system_prompt", "")),
+            "AGENTAINER_CONTROL_URL": self.store.control_url,
+            "AGENTAINER_INTERNAL_TOKEN": str(body.get("token", "")),
+            "AGENTAINER_CHIPS": ",".join(map(str, self.chips)),
+        }
+        tenant = LLMServeApp(env=tenant_env, host=self)
+        server = await http.start_server(tenant._dispatch, "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        tenant.port = port
+        self._tenants[aid] = (tenant, server, port)
+        if self.engine is not None:
+            # the tenant's persona into the shared prefix cache now, and the
+            # ready callback off the loop (blocking HTTP)
+            self._background(tenant._prewarm_prefix(self.engine))
+            asyncio.get_running_loop().run_in_executor(None, tenant._notify_ready)
+        print(f"[llm-serve] tenant {aid} attached on :{port}", flush=True)
+        return Response(200, {"port": port})
 
+    async def _detach_tenant(self, aid: str) -> bool:
+        entry = self._tenants.pop(aid, None)
+        if entry is None:
+            return False
+        tenant, server, _ = entry
+        if self.engine is not None:
+            await asyncio.to_thread(self.engine.clear_sessions, f"{aid}::")
+        server.close()
+        await tenant.store.close()
+        print(f"[llm-serve] tenant {aid} detached", flush=True)
+        return True
+
+    async def h_tenant_detach(self, req: Request, aid: str) -> Response:
+        if not self._check_host_auth(req):
+            return Response(401, {"error": "bad host token"})
+        if not await self._detach_tenant(aid):
+            return Response(404, {"error": f"no tenant {aid}"})
+        return Response(200, {"detached": aid, "remaining": len(self._tenants)})
+
+    # -- HTTP ---------------------------------------------------------------
     async def _dispatch(self, req: Request) -> Response:
         handler = self._routes.get((req.method, req.path))
         if handler is None:
+            if self._host_token and req.method == "DELETE" and req.path.startswith("/-/tenants/"):
+                return await self.h_tenant_detach(req, req.path[len("/-/tenants/"):])
             if any(path == req.path for _, path in self._routes):
                 return Response(405, {"error": f"method {req.method} not allowed"})
             return Response(404, {"error": f"no route {req.path}"})
@@ -506,7 +654,7 @@ class LLMServeApp:
         """While the model loads, answer fast with a "loading" marker (after
         a short bounded wait) instead of stalling the handler."""
         if self.engine is None and not self.engine_error:
-            await asyncio.to_thread(self._ready.wait, 2.0)
+            await asyncio.to_thread(self.ready_event.wait, 2.0)
         if self.engine is not None:
             return None
         if self.engine_error:
@@ -528,10 +676,11 @@ class LLMServeApp:
 
     async def h_health(self, req: Request) -> Response:
         self.requests_total += 1
+        host = self._host if self._host is not None else self
         return Response(
             200,
             {
-                "status": "draining" if self.draining else "healthy",
+                "status": "draining" if host.draining else "healthy",
                 "agent_id": self.agent_id,
                 "model_loaded": self.engine is not None,
                 "uptime_s": time.time() - self.started_at,
@@ -588,6 +737,12 @@ class LLMServeApp:
                     "ttft_ms": result.get("ttft_ms"),
                 },
             )
+        # crash-resume: an unknown session may have a KV snapshot in the
+        # store from an earlier engine life — restore it before generating,
+        # so the conversation continues from its exact context (a session
+        # parked in the host tier is known: it promotes at admission)
+        if self.store.connected and not self.engine.has_session(self._sess(session)):
+            await self._restore_from_store(session)
         # persona parity: a brand-new session's context opens with the
         # system prompt; later turns inherit it through the KV cache
         prompt = message
@@ -604,6 +759,8 @@ class LLMServeApp:
             request_id=request_id,
             **kw,
         )
+        if self.store.connected:
+            self._schedule_snapshot(session)
         await self._record_turn(session, message, result["text"])
         return Response(200, self._chat_payload(result))
 
@@ -646,6 +803,11 @@ class LLMServeApp:
         request."""
         self.streams_started += 1
         out = req.stream
+        out.headers = {
+            "Content-Type": STREAM_CONTENT_TYPE,
+            "Cache-Control": "no-cache",
+            "X-Accel-Buffering": "no",
+        }
         # the engine's cancel needs an id; a direct client may send none
         rid = request_id or f"stream-{time.monotonic_ns()}"
         try:
@@ -736,6 +898,8 @@ class LLMServeApp:
                     await send_tokens(*item)
             # a memoized replay (or a lost tail): catch up from the result
             await send_tokens(len(tokens), list(result.get("tokens") or [])[len(tokens):])
+            if self.store.connected and not flatten:
+                self._schedule_snapshot(session)
             await self._record_turn(session, message, result["text"])
             payload = self._chat_payload(result)
             if flatten:
@@ -761,17 +925,34 @@ class LLMServeApp:
             hangup.cancel()
 
     async def _session_turns(self, session: str, window: int) -> list[dict]:
-        """The last ``window`` turns of one session, from its own list. (The
-        reference also reads turns recorded on the shared conversation key
-        before the per-session lists; this process-local store never holds
-        any.)"""
+        """The last ``window`` turns of one session, from its own list,
+        filled up from the legacy shared conversation key (turns recorded
+        before the per-session lists) when the list holds fewer."""
+        try:
+            raw = await self.store.lrange(self._convo_session_key(session), -window, -1)
+        except Exception:
+            raw = []
         turns = []
-        for item in await self.store.lrange(self._convo_session_key(session), -window, -1):
+        for item in raw:
             try:
                 turns.append(json.loads(item))
             except json.JSONDecodeError:
                 continue
-        return turns
+        if len(turns) >= window:
+            return turns
+        try:
+            legacy = await self.store.lrange(self.convo_key, 0, -1)
+        except Exception:
+            legacy = []
+        legacy_turns = []
+        for item in legacy:
+            try:
+                t = json.loads(item)
+            except json.JSONDecodeError:
+                continue
+            if t.get("session", "default") == session:
+                legacy_turns.append(t)
+        return (legacy_turns + turns)[-window:]
 
     async def _flattened_prompt(self, session: str, message: str) -> str:
         """Persona + the session's last ``history_turns`` exchanges as one
@@ -790,13 +971,16 @@ class LLMServeApp:
     async def _record_turn(self, session: str, message: str, reply: str) -> None:
         now = time.time()
         key = self._convo_session_key(session)
-        await self.store.rpush(
-            key,
-            json.dumps({"role": "user", "content": message, "ts": now, "session": session}),
-            json.dumps({"role": "assistant", "content": reply, "ts": now, "session": session}),
-        )
-        await self.store.ltrim(key, -2 * MAX_TURNS, -1)
-        await self.store.expire(key, SESSION_CONVO_TTL_S)
+        try:
+            await self.store.rpush(
+                key,
+                json.dumps({"role": "user", "content": message, "ts": now, "session": session}),
+                json.dumps({"role": "assistant", "content": reply, "ts": now, "session": session}),
+            )
+            await self.store.ltrim(key, -2 * MAX_TURNS, -1)
+            await self.store.expire(key, SESSION_CONVO_TTL_S)
+        except Exception as e:  # the reply stands; the turn's record is lost
+            print(f"[llm-serve] recording a turn failed: {type(e).__name__}: {e}", flush=True)
 
     async def h_generate(self, req: Request) -> Response:
         """Raw completion endpoint (no conversation memory)."""
@@ -824,9 +1008,16 @@ class LLMServeApp:
     async def h_history(self, req: Request) -> Response:
         self.requests_total += 1
         turns = []
-        keys = [self.convo_key] + sorted(await self.store.keys(f"{self.convo_key}:*"))
+        try:
+            keys = [self.convo_key] + sorted(await self.store.keys(f"{self.convo_key}:*"))
+        except Exception:
+            keys = [self.convo_key]
         for key in keys:
-            for item in await self.store.lrange(key, 0, -1):
+            try:
+                raw = await self.store.lrange(key, 0, -1)
+            except Exception:
+                continue
+            for item in raw:
                 try:
                     turns.append(json.loads(item))
                 except json.JSONDecodeError:
@@ -836,9 +1027,16 @@ class LLMServeApp:
 
     async def h_clear(self, req: Request) -> Response:
         self.requests_total += 1
-        await self.store.delete(self.convo_key)
-        for key in await self.store.keys(f"{self.convo_key}:*"):
-            await self.store.delete(key)
+        try:
+            await self.store.delete(self.convo_key)
+            for key in await self.store.keys(f"{self.convo_key}:*"):
+                await self.store.delete(key)
+            # the KV snapshots go too, or a crash-resume would bring back
+            # the conversation the user asked to forget
+            for key in await self.store.keys(f"agent:{self.agent_id}:kvcache:*"):
+                await self.store.delete(key)
+        except Exception:
+            pass
         if self.engine is not None:
             await asyncio.to_thread(self.engine.clear_sessions, f"{self.agent_id}::")
         return Response(200, {"status": "cleared"})
@@ -884,7 +1082,9 @@ class LLMServeApp:
             return Response(400, {"error": 'duration_s must be a number, e.g. {"duration_s": 2.0}'})
         if self._profiling:
             return Response(409, {"error": "profile already running"})
-        trace_dir = self._env.get("AGENTAINER_PROFILE_DIR", "") or os.path.join(
+        trace_dir = self._env.get("AGENTAINER_PROFILE_DIR", "") or (
+            self._host._env.get("AGENTAINER_PROFILE_DIR", "") if self._host is not None else ""
+        ) or os.path.join(
             "/tmp", f"atpu-profile-{self.agent_id}"
         )
         os.makedirs(trace_dir, exist_ok=True)
@@ -918,8 +1118,8 @@ class LLMServeApp:
 
     async def h_park(self, req: Request) -> Response:
         """Tiering hint: demote an idle session off the device into the
-        engine's host tier. The answer carries the exact blob's size; with
-        no store connected the blob is written nowhere."""
+        engine's host tier; with a store connected the exact blob is also
+        written there (the cold tier). The answer carries its size."""
         session, err = await self._hint_session(req)
         if err is not None:
             return err
@@ -933,11 +1133,21 @@ class LLMServeApp:
         if blob is None:
             return Response(200, {"parked": False, "reason": "unknown or busy"})
         self.kv_parks += 1
+        if self.store.connected:
+            # the cold tier: the exact staged blob survives both the host
+            # tier's budget and the process
+            try:
+                await self.store.set_bytes(self._kv_key(session), blob, ttl=KV_SNAPSHOT_TTL_S)
+                self._kv_last_snap[session] = time.monotonic()
+            except Exception as e:  # the host tier still holds it
+                self.kv_park_errors += 1
+                print(f"[llm-serve] park store write failed: {type(e).__name__}: {e}", flush=True)
         return Response(200, {"parked": True, "bytes": len(blob)})
 
     async def h_prewarm(self, req: Request) -> Response:
         """Tiering hint: promote a parked session onto the device ahead of
-        its next turn (best effort: a turn promotes it anyway)."""
+        its next turn, from the host tier, else from the store's blob (best
+        effort: a turn promotes it anyway)."""
         session, err = await self._hint_session(req)
         if err is not None:
             return err
@@ -948,6 +1158,10 @@ class LLMServeApp:
             ok = bool(await self.engine.prewarm_session(self._sess(session)))
         except Exception:
             self.kv_prewarm_errors += 1
+        if not ok and self.store.connected:
+            # the host tier dropped it (or never held it): the store's blob
+            # restores the exact context instead
+            ok = await self._restore_from_store(session)
         if ok:
             self.kv_prewarms += 1
         return Response(200, {"prewarmed": ok})
@@ -963,6 +1177,13 @@ class LLMServeApp:
             "engine_error": self.engine_error or None,
             "unhandled_errors": self.unhandled_errors,
             "last_unhandled_error": self.last_unhandled_error or None,
+            "kv_snapshots": self.kv_snapshots,
+            "kv_snapshots_deferred": self.kv_snapshots_deferred,
+            "kv_snapshot_errors": self.kv_snapshot_errors,
+            "last_kv_snapshot_error": self.last_kv_snapshot_error or None,
+            "last_kv_snapshot": self.last_kv_snapshot,
+            "kv_snapshots_in_flight": len(self._snap_tasks),
+            "kv_restores": self.kv_restores,
             "prefix_prewarms": self.prefix_prewarms,
             "kv_parks": self.kv_parks,
             "kv_park_errors": self.kv_park_errors,
@@ -970,12 +1191,18 @@ class LLMServeApp:
             "kv_prewarm_errors": self.kv_prewarm_errors,
             "drain_budget_s": self.drain_budget_s,
             "drained_clean": self.drained_clean,
+            "drain_snapshots": self.drain_snapshots,
             "flatten_history": self.flatten_history,
             "streams_started": self.streams_started,
             "stream_tokens_emitted": self.stream_tokens_emitted,
             "stream_heartbeats": self.stream_heartbeats,
             "stream_client_disconnects": self.stream_client_disconnects,
         }
+        if self._host is not None or self._tenants:
+            # one weight copy serves every attached agent: the engine's
+            # byte counts below are that one copy
+            doc["weights_shared"] = True
+            doc["tenants"] = len(self._host._tenants if self._host is not None else self._tenants)
         if self.engine is not None:
             doc.update(self.engine.metrics())
         return Response(200, doc)

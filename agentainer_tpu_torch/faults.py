@@ -11,7 +11,9 @@ Named failpoints cut the engine at the reference's seams (``engine.submit``,
 ``engine.snapshot``, ``engine.prefill``, ``engine.decode_step``,
 ``engine.fused_decode``, ``engine.page_alloc``, ``engine.kv_demote``,
 ``engine.kv_promote`` in ``engine/llm.py``, ``engine.stream`` in
-``engine/llm_serve.py``). Each is armed with an error type, an injected
+``engine/llm_serve.py``) and the control plane at its own (``proxy.dispatch``,
+``store.*``, ``store_client.rpc``, ``journal.*``, ``replay.dispatch``,
+``health.probe``, ``watcher.respawn``). Each is armed with an error type, an injected
 delay, a *seeded* probability and a fire budget, so a fault schedule
 replays identically run to run.
 
@@ -97,9 +99,9 @@ class Failpoint:
         }
 
 
-# The reference's failpoint catalog, one name per cut (the port fires the
-# engine.* names; the others belong to the control plane, which comes with
-# later slices). arm() does NOT enforce membership — tests arm synthetic
+# The reference's failpoint catalog, one name per cut (the native store's
+# store.aof_flush and the fleet's router.pick, replica.lease,
+# replica.handoff and proxy.stream_emit fire once those slices are ported). arm() does NOT enforce membership — tests arm synthetic
 # names — but anything wired into product code must be listed here.
 CATALOG: frozenset[str] = frozenset(
     {

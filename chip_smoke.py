@@ -121,6 +121,32 @@ exits non-zero):
                  payloads are bit-equal, the restore binds no lane, all four
                  kernels launch. Blob bytes, stage, pack and restore ms
                  printed. The directory is removed at the end.
+7b. daemon     — the control plane on the card: the port's daemon
+                 (``python -m agentainer_tpu_torch.daemon``, standard
+                 library only) as a child process with ``mem://``; a deploy
+                 asking for more GPUs than the card's count fails with the
+                 scheduler's 409; two ``llm:llama3-8b`` agents with
+                 different personas (full width and depth, random bf16
+                 weights from seed 0, the reference's default features)
+                 become tenants of one engine host on GPU 0 (the daemon's
+                 only child with a CUDA context; the daemon has none;
+                 nvidia-smi's compute apps agree where they show this pid
+                 namespace); the host's card memory under twice the 16.06
+                 GB of weights. Through the journaled proxy, sessions A and
+                 B of the first agent run the same two greedy turns
+                 (max_tokens 32) and A its third; once B's snapshot has
+                 landed in the store, one-token /generate probes time the
+                 proxy against the tenant's own port; the host is SIGKILLed; B's
+                 third turn answers 202; resume; the replay drains. Gates:
+                 B's replayed turn equal to A's undisturbed one,
+                 ``kv_restores`` >= 1, no 5xx, no request run twice (no
+                 retry, pending 0, three user turns in B's history), the
+                 dense kernels launched in the respawned host and the
+                 paged ones not. Printed beside the card: start → ready
+                 seconds (first boot and respawn), crash → replayed
+                 seconds, the proxy's overhead, the snapshot's bytes and
+                 ms, store writes per journaled request (counted in this
+                 process), the host's card memory.
 8. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
@@ -265,6 +291,7 @@ when no CUDA device is visible or the port's package is missing.
 from __future__ import annotations
 
 import asyncio
+import base64
 import concurrent.futures
 import contextlib
 import faulthandler
@@ -273,6 +300,8 @@ import json
 import math
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -3494,6 +3523,381 @@ def phase_train_moe(card: str) -> dict:
     return out
 
 
+# the control-plane phase: the port's daemon as a child process, two
+# llama3-8b agents as tenants of one engine host, a journaled crash replay
+DAEMON_TOKEN = "chip-smoke-daemon"
+DAEMON_PERSONAS = ("You are Ada, a terse lighthouse keeper.", "You are Bob, a cheerful baker.")
+# the first turn keeps persona + message under 64 tokens (bos + 39 + 2 +
+# 19 = 61): the prefix cache then holds only the persona's 32-token level,
+# so session B's first turn forks the same prefix A's did and takes the
+# same bf16 path, instead of forking A's 64-token level (with random
+# weights near-tied logits make any other path another token stream)
+DAEMON_TURNS = (
+    "Hello! Who are you?",
+    "Tell me about the sea at night.",
+    "And what do you eat for breakfast?",
+)
+DAEMON_MAX_TOKENS = 32
+PROXY_PROBES = 10  # /generate probes through the proxy and straight to the host, in turns
+WEIGHT_BYTES_8B = 16_060_522_496  # llama3-8b's bf16 weights
+
+
+def _daemon_call(port: int, method: str, path: str, body: dict | None = None,
+                 auth: bool = False, timeout: float = 300) -> tuple[int, dict]:
+    headers = {"Authorization": f"Bearer {DAEMON_TOKEN}"} if auth else None
+    status, _, doc = _http_any(port, method, path, body, headers=headers, timeout=timeout)
+    return status, doc
+
+
+def _gpu_used_mib() -> int:
+    return int(smi("memory.used").split()[0])
+
+
+def _compute_apps() -> dict[int, int]:
+    """pid → used MiB of the card's compute processes, as nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(","))
+        apps[int(pid)] = int(mem)
+    return apps
+
+
+def _maps_cuda(pid: int) -> bool:
+    """Whether the process has libcuda.so mapped (a CUDA context)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def _children(pid: int) -> list[int]:
+    kids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    if int(f.read().rsplit(") ", 1)[1].split()[1]) == pid:
+                        kids.append(int(entry))
+            except (OSError, IndexError, ValueError):
+                continue
+    return kids
+
+
+def _journal_writes_per_request(requests: int = 20) -> dict:
+    """Store mutations the proxy makes for one journaled /chat, counted on
+    the port's control plane in this process (an in-process engine: the
+    count is the journal's, whatever the engine)."""
+    from agentainer_tpu_torch.config import Config
+    from agentainer_tpu_torch.daemon import build_services
+    from agentainer_tpu_torch.runtime.backend import FakeBackend
+    from agentainer_tpu_torch.store import MemoryStore
+    from agentainer_tpu_torch.utils.http import Request
+
+    writes = {"n": 0}
+
+    class Counting(MemoryStore):
+        pass
+
+    for op in ("set", "delete", "expire", "rpush", "lpush", "lrem", "ltrim", "sadd", "srem",
+               "zadd", "zremrangebyscore", "hset", "hincrby", "cas", "publish"):
+        def counted(self, *a, _op=getattr(MemoryStore, op), **kw):
+            writes["n"] += 1
+            return _op(self, *a, **kw)
+        setattr(Counting, op, counted)
+
+    cfg = Config()
+    cfg.auth_token = DAEMON_TOKEN
+    cfg.slice.total_chips = 1
+    s = build_services(config=cfg, store=Counting(), backend=FakeBackend(), console_logs=False,
+                       data_dir=tempfile.mkdtemp(prefix="atpu-journal-"))
+    agent = s.manager.deploy(name="count", model="echo")
+    s.manager.start(agent.id)
+
+    async def go():
+        before = writes["n"]
+        for i in range(requests):
+            resp = await s.app.handle(Request("POST", f"/agent/{agent.id}/chat", {},
+                                              json.dumps({"message": f"m{i}"}).encode()))
+            assert resp.status == 200, resp
+        return (writes["n"] - before) / requests
+
+    per = asyncio.run(go())
+    s.backend.close()
+    return {"store_writes_per_request": per, "requests": requests}
+
+
+def phase_daemon(card: str) -> dict:
+    """The control plane on the card: the port's daemon as a child process
+    (standard library only: it must create no CUDA context), two llama3-8b
+    agents with different personas (full width and depth, random bf16
+    weights from seed 0, the reference's default features) as tenants of
+    one engine host on GPU 0. Sessions A and B of the first agent run the
+    same two greedy turns through the journaled proxy, A its third too; B's
+    snapshot lands in the store; the host is SIGKILLed; B's third turn
+    answers 202; resume; the replay drains. Gates: one host on the card and
+    none in the daemon, the host's memory under twice the weights, B's
+    replayed turn equal to A's undisturbed one, ``kv_restores`` >= 1, no 5xx,
+    no request run twice, the dense kernels launched in the host and the
+    paged ones not; a deploy asking for more GPUs than the card's count
+    fails with the scheduler's 409."""
+    _free_cuda()
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = tempfile.mkdtemp(prefix="atpu-daemon-")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "ATPU_SERVER_HOST": "127.0.0.1", "ATPU_SERVER_PORT": str(port),
+           "ATPU_AUTH_TOKEN": DAEMON_TOKEN, "ATPU_DATA_DIR": data,
+           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH", "")) if p)}
+    used0 = _gpu_used_mib()
+    log_path = os.path.join(data, "daemon.log")
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "agentainer_tpu_torch.daemon"], cwd=root, env=env,
+        stdout=open(log_path, "wb"), stderr=subprocess.STDOUT, start_new_session=True,
+    )
+    statuses: list[int] = []
+
+    def call(method, path, body=None, auth=False, timeout=300):
+        status, doc = _daemon_call(port, method, path, body, auth, timeout)
+        statuses.append(status)
+        return status, doc
+
+    def wait(pred, what: str, timeout: float):
+        t0 = time.monotonic()
+        while True:
+            try:
+                got = pred()
+            except OSError:  # not listening yet
+                got = None
+            if got:
+                return got
+            if daemon.poll() is not None:
+                raise RuntimeError(f"daemon exited while waiting for {what}: {_tail(log_path)}")
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"{what} not within {timeout} s: {_tail(log_path)}")
+            time.sleep(0.1)
+
+    def loaded(aid):
+        status, doc = call("GET", f"/agent/{aid}/health")
+        return status == 200 and doc.get("model_loaded")
+
+    def chat(aid, session, msg) -> list[int]:
+        """One turn through the proxy; its token ids, off the engine's SSE
+        frames (random weights: most of llama3-8b's ids decode to no text)."""
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/agent/{aid}/chat", method="POST",
+            data=json.dumps(_daemon_body(session, msg)).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            statuses.append(resp.status)
+            return _sse_token_ids(resp.read())
+
+    out: dict = {"card": card}
+    try:
+        wait(lambda: _daemon_call(port, "GET", "/health")[0] == 200, "the daemon", 60)
+        if _maps_cuda(daemon.pid):
+            raise AssertionError("the daemon created a CUDA context")
+        # the scheduler refuses more GPUs than the card's count
+        status, doc = call("POST", "/agents", {"name": "too-big", "model": "echo",
+                                               "resources": {"chips": 2}}, auth=True)
+        status, doc = call("POST", f"/agents/{doc['data']['id']}/start", auth=True)
+        statuses.pop()  # the expected 409 is not a 5xx
+        if status != 409 or "GPUs" not in doc["message"]:
+            raise AssertionError(f"2-GPU deploy: {status} {doc}")
+        out["resource_exhausted"] = doc["message"]
+        ids = []
+        for name, persona in zip(("ada", "bob"), DAEMON_PERSONAS):
+            # streaming only changes a body that asks for a stream: the
+            # turns' token ids then come back in the engine's SSE frames
+            model = {"engine": "llm", "config": "llama3-8b",
+                     "options": {"system_prompt": persona, "streaming": True}}
+            status, doc = call("POST", "/agents", {"name": name, "model": model}, auth=True)
+            assert status == 200, doc
+            ids.append(doc["data"]["id"])
+        t0 = time.monotonic()
+        for aid in ids:
+            status, doc = call("POST", f"/agents/{aid}/start", auth=True)
+            assert status == 200, doc
+        a, b = ids
+        wait(lambda: loaded(a) and loaded(b), "the model", 480)
+        out["boot_s"] = time.monotonic() - t0
+        hosts = [p for p in _children(daemon.pid) if _maps_cuda(p)]
+        if len(hosts) != 1:
+            raise AssertionError(f"CUDA processes under the daemon: {hosts}")
+        host = hosts[0]
+        apps = _compute_apps()
+        out["compute_apps"] = apps
+        if os.getpid() in apps:  # nvidia-smi sees this pid namespace
+            if host not in apps or daemon.pid in apps:
+                raise AssertionError(f"compute apps {apps}: host {host}, daemon {daemon.pid}")
+        out["host_gpu_mib"] = _gpu_used_mib() - used0
+        if out["host_gpu_mib"] * 2**20 >= 2 * WEIGHT_BYTES_8B:
+            raise AssertionError(f"host memory {out['host_gpu_mib']} MiB >= twice the weights")
+        _, m = call("GET", f"/agent/{a}/metrics")
+        if not (m.get("weights_shared") and m.get("tenants") == 2):
+            raise AssertionError(f"one host for both agents: {m.get('weights_shared')} {m.get('tenants')}")
+        bob = chat(b, "bob", DAEMON_TURNS[0])
+
+        def settled():
+            doc = call("GET", f"/agent/{a}/metrics")[1]
+            return doc if doc["kv_snapshots_in_flight"] == 0 else None
+
+        # A's undisturbed conversation, then B's two turns. Each turn's
+        # snapshot task is scheduled before the turn answers (a session's
+        # second one is a trailing capture kv_snapshot_interval_s after
+        # its first); the script lets each settle before the next turn, so
+        # no two snapshots compete for the engine's staging limiter and
+        # B's second one, settled with no bounce-out, holds its two turns
+        want = [chat(a, "A", msg) for msg in DAEMON_TURNS]
+        wait(settled, "A's snapshots", 90)
+        got = []
+        for msg in DAEMON_TURNS[:2]:
+            before = call("GET", f"/agent/{a}/metrics")[1]
+            got.append(chat(a, "B", msg))
+            m = wait(settled, "B's snapshot", 90)
+        if got != want[:2]:
+            raise AssertionError(f"sessions A and B differ before the crash: {got} {want[:2]}")
+        if ((m["last_kv_snapshot"] or {}).get("session") != "B" or m["kv_snapshot_errors"]
+                or m["kv_snapshots"] != before["kv_snapshots"] + 1
+                or m["kv_snapshots_deferred"] != before["kv_snapshots_deferred"]):
+            raise AssertionError(f"B's second snapshot did not land: {m['last_kv_snapshot']}, "
+                                 f"errors {m['kv_snapshot_errors']}, deferred {m['kv_snapshots_deferred']}")
+        out["snapshot"] = m["last_kv_snapshot"]
+        out["kv_snapshots_deferred"] = m["kv_snapshots_deferred"]
+        out["proxy_overhead"] = _proxy_overhead(port, a, data)
+        # the crash
+        os.kill(host, signal.SIGKILL)
+        t_kill = time.monotonic()
+        wait(lambda: call("GET", f"/agents/{a}", auth=True)[1]["data"]["status"] != "running",
+             "the reconciler", 30)
+        status, doc = call("POST", f"/agent/{a}/chat", _daemon_body("B", DAEMON_TURNS[2]))
+        if status != 202:
+            raise AssertionError(f"turn 3 while down: {status} {doc}")
+        rid = doc["data"]["request_id"]
+        t_resume = time.monotonic()
+        status, doc = call("POST", f"/agents/{a}/resume", auth=True)
+        assert status == 200, doc
+        wait(lambda: loaded(a), "the respawned model", 480)
+        out["respawn_boot_s"] = time.monotonic() - t_resume
+
+        def replayed():
+            _, doc = call("GET", f"/agents/{a}/requests?status=completed", auth=True)
+            return next((r for r in doc["data"]["requests"] if r["id"] == rid), None)
+
+        entry = wait(replayed, "the replay", 120)
+        out["crash_to_replayed_s"] = time.monotonic() - t_kill
+        _, stats = call("GET", f"/agents/{a}/requests", auth=True)
+        stats = stats["data"]["stats"]
+        third = _sse_token_ids(base64.b64decode(entry["response"]["body_b64"]))
+        _, m = call("GET", f"/agent/{a}/metrics")
+        _, hist = call("GET", f"/agent/{a}/history")
+        b_turns = [t for t in hist["history"] if t.get("session") == "B" and t["role"] == "user"]
+        launches = m["kernel_launches"]
+        out.update({
+            "replayed_equal": third == want[2],
+            "turn3_tokens": len(third),
+            "kv_restores": m["kv_restores"],
+            "journal": stats,
+            "retry_count": entry["retry_count"],
+            "b_user_turns": len(b_turns),
+            "launches": launches,
+            "bob_tokens": len(bob),
+            "journal_writes": _journal_writes_per_request(),
+        })
+        five = [s for s in statuses if s >= 500]
+        if five:
+            raise AssertionError(f"5xx answers: {five}")
+        if not out["replayed_equal"]:
+            raise AssertionError(f"B's replayed turn 3 {third} != A's {want[2]} "
+                                 f"(kv_restores {m['kv_restores']}, snapshot {out['snapshot']})")
+        if m["kv_restores"] < 1:
+            raise AssertionError(f"kv_restores {m['kv_restores']}: the restore did not come from the store")
+        if stats["pending"] or stats["failed"] or entry["retry_count"] or len(b_turns) != 3:
+            raise AssertionError(f"a request ran twice or failed: {stats}, retries "
+                                 f"{entry['retry_count']}, B's user turns {len(b_turns)}")
+        if not (launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+                and launches["fused_paged_flash_prefill"] == 0
+                and launches["fused_paged_flash_decode"] == 0):
+            raise AssertionError(f"kernel launches in the host: {launches}")
+        log(f"daemon: boot {out['boot_s']:.1f} s, respawn {out['respawn_boot_s']:.1f} s, "
+            f"crash->replayed {out['crash_to_replayed_s']:.1f} s, snapshot {out['snapshot']}, "
+            f"proxy {out['proxy_overhead']}, host {out['host_gpu_mib']} MiB, "
+            f"journal writes/request {out['journal_writes']['store_writes_per_request']}; {card}")
+        return out
+    finally:
+        # the engine hosts run in process groups of their own: note them
+        # before the daemon goes, since its children are reparented then
+        hosts = _children(daemon.pid)
+        daemon.terminate()  # SIGTERM: the daemon stops its engines
+        try:
+            daemon.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(daemon.pid, signal.SIGKILL)
+            daemon.wait(timeout=30)
+        for pid in hosts:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(pid, signal.SIGKILL)
+        shutil.rmtree(data, ignore_errors=True)
+
+
+def _daemon_body(session: str, msg: str) -> dict:
+    return {"message": msg, "session": session, "max_tokens": DAEMON_MAX_TOKENS,
+            "ignore_eos": True, "stream": True}
+
+
+def _sse_token_ids(raw: bytes) -> list[int]:
+    """The token ids of a streamed /chat answer, in offset order; raises
+    unless it ends with its ``done`` frame."""
+    frames = _parse_sse(raw)
+    if not frames or frames[-1].get("event") != "done":
+        raise AssertionError(f"a stream without its done frame: {raw[-200:]!r}")
+    return [f["data"]["token"] for f in frames if f.get("event") == "token"]
+
+
+def _tail(path: str, n: int = 20) -> str:
+    try:
+        with open(path, "rb") as f:
+            return b"".join(f.readlines()[-n:]).decode("utf-8", "replace")
+    except OSError:
+        return ""
+
+
+def _proxy_overhead(port: int, agent_id: str, data: str) -> dict:
+    """The same one-token ``/generate`` (no session, so no snapshot traffic
+    beside it) through the journaled proxy and straight to the tenant's
+    port on the host, in turns: wall ms medians and their difference,
+    beside the engine's own TTFT of each."""
+    import glob
+    import statistics
+
+    tenant_port = None
+    for path in glob.glob(os.path.join(data, "runtime", "engines", "host-*.log")):
+        with open(path, errors="replace") as f:
+            for line in f:
+                if f"tenant {agent_id} attached on :" in line:
+                    tenant_port = int(line.rsplit(":", 1)[1])
+    if tenant_port is None:
+        raise AssertionError("the tenant's port is not in the host log")
+    walls = {"proxy": [], "direct": []}
+    ttft = {"proxy": [], "direct": []}
+    body = {"prompt": DAEMON_PERSONAS[0] + "\n\n" + DAEMON_TURNS[0], "max_tokens": 1}
+    for i in range(PROXY_PROBES):
+        for kind in ("proxy", "direct") if i % 2 == 0 else ("direct", "proxy"):
+            target, path = (port, f"/agent/{agent_id}/generate") if kind == "proxy" else (tenant_port, "/generate")
+            t0 = time.perf_counter()
+            _, doc = _http(target, "POST", path, body)
+            walls[kind].append(1000 * (time.perf_counter() - t0))
+            ttft[kind].append(doc["ttft_ms"])
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    return {"proxy_ms": med["proxy"], "direct_ms": med["direct"],
+            "overhead_ms": med["proxy"] - med["direct"],
+            "engine_ttft_ms": {k: statistics.median(v) for k, v in ttft.items()},
+            "probes": PROXY_PROBES}
+
+
 def main() -> int:
     import torch
 
@@ -3540,11 +3944,15 @@ def main() -> int:
         report["resume"] = phase_resume(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    # the control plane: the daemon spawns its own engine host on the card
+    report["daemon"] = phase_daemon(card)
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
         row["launches"] = report["features_paged" if paged else "features"]["launches"][row["name"]]
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
+        # the daemon's engine host (the respawned one, after the replay)
+        row["launches_daemon"] = report["daemon"]["launches"][row["name"]]
         # the fused path: the fused dense phase (features off) and the fused
         # paged feature phase (in-loop spec)
         row["launches_fused"] = (

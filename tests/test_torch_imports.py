@@ -56,5 +56,62 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.utils.hw",
         "agentainer_tpu_torch.faults",
         "agentainer_tpu_torch.train",
+        *CONTROL_PLANE,
+        "agentainer_tpu_torch.engine",
+        "agentainer_tpu_torch.runtime.engine_main",
     ):
         assert mod in doc["imported"]
+
+
+# the control plane and the echo engine: standard library only
+CONTROL_PLANE = (
+    "agentainer_tpu_torch.daemon",
+    "agentainer_tpu_torch.config",
+    "agentainer_tpu_torch.server.app",
+    "agentainer_tpu_torch.runtime.backend",
+    "agentainer_tpu_torch.runtime.scheduler",
+    "agentainer_tpu_torch.runtime.store_client",
+    "agentainer_tpu_torch.runtime.local",
+    "agentainer_tpu_torch.manager.agents",
+    "agentainer_tpu_torch.manager.audit",
+    "agentainer_tpu_torch.manager.health",
+    "agentainer_tpu_torch.manager.journal",
+    "agentainer_tpu_torch.manager.metrics",
+    "agentainer_tpu_torch.manager.reconcile",
+    "agentainer_tpu_torch.manager.replay",
+    "agentainer_tpu_torch.store",
+    "agentainer_tpu_torch.store.base",
+    "agentainer_tpu_torch.store.memory",
+    "agentainer_tpu_torch.store.schema",
+    "agentainer_tpu_torch.core.errors",
+    "agentainer_tpu_torch.core.spec",
+    "agentainer_tpu_torch.core.resilience",
+    "agentainer_tpu_torch.utils.http",
+    "agentainer_tpu_torch.engine.echo",
+)
+
+_STDLIB_PROBE = """
+import importlib, json, sys
+for name in {names!r}:
+    importlib.import_module(name)
+leaked = sorted(
+    n for n in sys.modules
+    if n.split(".")[0] in ("torch", "numpy", "aiohttp", "yaml", "jax", "jaxlib", "triton")
+    or n == "agentainer_tpu" or n.startswith("agentainer_tpu.")
+)
+print(json.dumps(leaked))
+"""
+
+
+def test_control_plane_imports_no_torch_aiohttp_or_yaml():
+    """The daemon never creates a CUDA context and runs where aiohttp and
+    yaml are missing: its modules and the echo engine load, in a fresh
+    interpreter, with none of torch, numpy, aiohttp, yaml or the JAX
+    package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _STDLIB_PROBE.format(names=CONTROL_PLANE)],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": ":".join(p for p in sys.path if p), "PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
