@@ -13,8 +13,8 @@ searched in ``.``, ``~/.agentainer_tpu_torch``, ``/etc/agentainer_tpu_torch``;
 - ``yaml`` is imported only when a config file is found (the machine with
   the card may lack it);
 - ``store_url`` ``auto`` resolves to ``mem://`` in the daemon; the native
-  store, its C++ data plane (``features.native_dataplane``) and the replica
-  fleet's knobs beyond ``fleet.replicas`` come with later slices.
+  store and its C++ data plane (``features.native_dataplane``) come with
+  later slices.
 """
 
 from __future__ import annotations
@@ -157,12 +157,34 @@ class DeadlineConfig:
 
 @dataclass
 class FleetConfig:
-    """Replica fleet: ``replicas`` engine replicas per agent. The fleet
-    (routing tier, leases, repair) comes with a later slice of the port:
-    the daemon refuses a value above 1, and the reference's lease, retry
-    and per-replica breaker knobs have no counterpart yet."""
+    """Replica fleet: N engine replicas per agent behind the routing tier.
+
+    ``replicas: 1`` (the default) is the single-engine behavior exactly —
+    one engine per agent, no routing tier, no lease monitor traffic. With
+    N > 1 each replica is its own failure domain (own engine host process,
+    own port, own crash-loop watcher); sessions are routed with KV-residency
+    affinity, fresh sessions by power-of-two-choices on the engine-reported
+    load, and a dead replica's sessions fail over to a survivor via the
+    store-durable KV snapshot (token-identical resume). Per-deploy
+    ``replicas`` in the agent body overrides the fleet default."""
 
     replicas: int = 1
+    # replica heartbeat lease: the monitor probes each replica every
+    # lease_interval_s and refreshes a store lease with lease_ttl_s; a
+    # replica whose lease is older than suspect_after_s is SUSPECT
+    # (excluded from routing), older than dead_after_s is DEAD (repaired)
+    lease_ttl_s: float = 6.0
+    lease_interval_s: float = 1.0
+    suspect_after_s: float = 3.0
+    dead_after_s: float = 6.0
+    # bounded cross-replica retry for connection-level dispatch failures
+    # (nothing executed on the dead replica, and the journal CAS admits
+    # exactly one dispatcher, so the retry cannot double-execute)
+    retry_next_replica: int = 2
+    # per-replica circuit breaker (one bad replica must not open a breaker
+    # for the whole agent)
+    breaker_failures: int = 3
+    breaker_cooldown_s: float = 2.0
 
 
 @dataclass
@@ -290,7 +312,13 @@ def load_config(path: str | None = None) -> Config:
         res.get("breaker_cooldown_s", cfg.resilience.breaker_cooldown_s)
     )
     cfg.resilience.faults = str(res.get("faults", cfg.resilience.faults))
-    cfg.fleet.replicas = int(doc.get("fleet", {}).get("replicas", cfg.fleet.replicas))
+    fl = doc.get("fleet", {})
+    cfg.fleet.replicas = int(fl.get("replicas", cfg.fleet.replicas))
+    for knob in ("lease_ttl_s", "lease_interval_s", "suspect_after_s", "dead_after_s",
+                 "breaker_cooldown_s"):
+        setattr(cfg.fleet, knob, float(fl.get(knob, getattr(cfg.fleet, knob))))
+    for knob in ("retry_next_replica", "breaker_failures"):
+        setattr(cfg.fleet, knob, int(fl.get(knob, getattr(cfg.fleet, knob))))
     sec = doc.get("security", {})
     cfg.auth_token = sec.get("auth_token", cfg.auth_token)
     cfg.store_url = doc.get("store", {}).get("url", cfg.store_url)

@@ -2,14 +2,17 @@
 
 Reference: ``agentainer_tpu/daemon.py`` (the reference's ``runServer``):
 construct the store, backend and scheduler, the services (manager,
-journal, health, metrics, reconciler, log plane), the API server and the
-background loops (state sync at 10 s, replay at 5 s, metrics at 10 s,
-health per agent), then serve until stopped. What differs:
+journal, health, metrics, reconciler, log plane, the fleet's router,
+replica monitor and repair), the API server and the background loops
+(state sync at 10 s, replay at 5 s, metrics at 10 s, health per agent,
+replica leases at ``fleet.lease_interval_s``), then serve until stopped.
+What differs:
 
 - the server is the port's standard-library one (``server/app.py`` over
-  ``utils/http``), always the front door: the reference's C++ data plane,
-  native store and replica fleet come with later slices, and so do its
-  artifacts and backups (their routes answer 501);
+  ``utils/http``), always the front door, and owns every agent's dispatch,
+  a replica fleet's included: the reference's C++ data plane and native
+  store come with later slices, and so do its artifacts and backups (their
+  routes answer 501);
 - ``store_url`` ``auto`` resolves to ``mem://`` — the reference's own path
   when its native library is unavailable — and the start line says so;
 - nothing here imports torch: the daemon never creates a CUDA context; only
@@ -58,6 +61,11 @@ class Services:
     state_sync: StateSynchronizer = None  # type: ignore[assignment]
     replay: ReplayWorker = None  # type: ignore[assignment]
     app: object = None  # the ControlPlaneApp
+    # fleet plane (multi-replica agents): the proxy's routing tier, the
+    # lease-driven replica monitor, and the dead-replica repair path
+    router: object = None
+    replica_monitor: object = None
+    fleet_repair: object = None
     dispatch: Callable[..., Awaitable[tuple[int, dict, bytes]]] = None  # type: ignore[assignment]
     public_port: int = 0  # actual bound public port once run_daemon is up
     _background_started: bool = field(default=False, repr=False)
@@ -102,10 +110,6 @@ def build_services(
     data_dir: str | None = None,
 ) -> Services:
     config = config or load_config()
-    if config.fleet.replicas > 1:
-        from .manager.agents import FLEET_LATER
-
-        raise ValueError(f"fleet.replicas = {config.fleet.replicas}: {FLEET_LATER}")
     _export_fleet_defaults(config)
     ddir = data_dir if data_dir is not None else config.data_path
     store_url = "(given)"
@@ -173,6 +177,29 @@ def build_services(
         interval_s=config.cadences.replay_scan_s,
         backend=backend,
     )
+
+    # fleet plane: replica leases + fleet-wide repair. The monitor only
+    # probes agents with >1 replica, so a fleet.replicas=1 deployment runs
+    # zero extra traffic.
+    from .manager.health import ReplicaMonitor
+    from .manager.reconcile import FleetRepair
+
+    manager.set_fleet(config.fleet.replicas, config.fleet.lease_ttl_s)
+    services.router = app_obj.router
+    services.fleet_repair = FleetRepair(
+        manager, journal, router=app_obj.router, replay=services.replay, logs=logs
+    )
+    services.replica_monitor = ReplicaMonitor(
+        manager,
+        store,
+        router=app_obj.router,
+        repair=services.fleet_repair,
+        lease_ttl_s=config.fleet.lease_ttl_s,
+        lease_interval_s=config.fleet.lease_interval_s,
+        suspect_after_s=config.fleet.suspect_after_s,
+        dead_after_s=config.fleet.dead_after_s,
+        logs=logs,
+    )
     return services
 
 
@@ -187,6 +214,8 @@ async def start_background(services: Services) -> None:
         await services.replay.start()
     await services.metrics.start()
     await services.health.start()
+    if services.replica_monitor is not None:
+        await services.replica_monitor.start()
 
 
 async def stop_background(services: Services) -> None:
@@ -197,6 +226,8 @@ async def stop_background(services: Services) -> None:
     await services.state_sync.stop()
     await services.metrics.stop()
     await services.health.stop()
+    if services.replica_monitor is not None:
+        await services.replica_monitor.stop()
 
 
 async def start_daemon(services: Services, host: str | None = None, port: int | None = None):

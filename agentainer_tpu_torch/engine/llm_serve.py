@@ -202,6 +202,9 @@ class LLMServeApp:
         # store's ms (base64 + the store op)
         self.last_kv_snapshot: dict | None = None
         self.kv_restores = 0
+        # the last store restore: blob bytes, the store read and the
+        # engine's restore, in ms
+        self.last_kv_restore: dict | None = None
         # drain on the way out: budget, outcome, final snapshots
         try:
             self.drain_budget_s = float(
@@ -508,9 +511,17 @@ class LLMServeApp:
         """Crash-resume: load a session's snapshot from the store into the
         engine (best effort); True when it was restored."""
         try:
+            t0 = time.monotonic()
             blob = await self.store.get_bytes(self._kv_key(session))
+            t1 = time.monotonic()
             if blob and await self.engine.restore_session(self._sess(session), blob):
                 self.kv_restores += 1
+                self.last_kv_restore = {
+                    "session": session,
+                    "bytes": len(blob),
+                    "store_ms": 1000 * (t1 - t0),
+                    "restore_ms": 1000 * (time.monotonic() - t1),
+                }
                 return True
         except Exception as e:
             print(f"[llm-serve] kv restore failed: {type(e).__name__}: {e}", flush=True)
@@ -548,6 +559,8 @@ class LLMServeApp:
             "AGENTAINER_CONTROL_URL": self.store.control_url,
             "AGENTAINER_INTERNAL_TOKEN": str(body.get("token", "")),
             "AGENTAINER_CHIPS": ",".join(map(str, self.chips)),
+            # a host serves one replica ordinal of each of its agents
+            "AGENTAINER_REPLICA": str(self.replica),
         }
         tenant = LLMServeApp(env=tenant_env, host=self)
         server = await http.start_server(tenant._dispatch, "127.0.0.1", 0)
@@ -1184,6 +1197,7 @@ class LLMServeApp:
             "last_kv_snapshot": self.last_kv_snapshot,
             "kv_snapshots_in_flight": len(self._snap_tasks),
             "kv_restores": self.kv_restores,
+            "last_kv_restore": self.last_kv_restore,
             "prefix_prewarms": self.prefix_prewarms,
             "kv_parks": self.kv_parks,
             "kv_park_errors": self.kv_park_errors,

@@ -100,9 +100,9 @@ class Failpoint:
 
 
 # The reference's failpoint catalog, one name per cut (the native store's
-# store.aof_flush and the fleet's router.pick, replica.lease,
-# replica.handoff and proxy.stream_emit fire once those slices are ported). arm() does NOT enforce membership — tests arm synthetic
-# names — but anything wired into product code must be listed here.
+# store.aof_flush fires once that slice is ported). arm() does NOT enforce
+# membership — tests arm synthetic names — but anything wired into product
+# code must be listed here.
 CATALOG: frozenset[str] = frozenset(
     {
         "store.get",

@@ -1,10 +1,10 @@
 """Agent lifecycle manager.
 
-Reference: ``agentainer_tpu/manager/agents.py``: its single-replica path.
-Until the fleet slice of the port, a deploy asking for more than one
-replica is refused (400, naming that slice), and the replica count, its
-leases and the native data plane's routing hook have no counterpart. Model validation reads ``models/configs.py`` (standard
-library), so the daemon never imports torch.
+Reference: ``agentainer_tpu/manager/agents.py``, replica fleet included
+(N engine replicas per agent, their initial leases, scale-down); the
+native data plane's routing hook comes with that slice. Model validation
+reads ``models/configs.py`` (standard library), so the daemon never
+imports torch.
 
 Re-implements the reference's ``agent.Manager`` (internal/agent/agent.go:80-429)
 against the Backend/SliceScheduler pair instead of the Docker socket:
@@ -41,12 +41,6 @@ from ..store.base import Store
 from ..store.schema import Keys
 
 
-FLEET_LATER = (
-    "replicas > 1 is not ported yet: the replica fleet (routing tier, "
-    "replica monitor, fleet repair) comes with the fleet slice of the port"
-)
-
-
 class AgentManager:
     def __init__(self, store: Store, backend: Backend, scheduler: SliceScheduler):
         self.store = store
@@ -54,6 +48,23 @@ class AgentManager:
         self.scheduler = scheduler
         self._lock = threading.RLock()
         self._quick_sync = None  # wired by the daemon to avoid an import cycle
+        # fleet defaults (config fleet.*, set by build_services): how many
+        # engine replicas a start spawns when the agent record doesn't pin
+        # its own count, and the TTL of the initial replica lease
+        self.fleet_replicas = 1
+        self.lease_ttl_s = 6.0
+        # fleet bookkeeping failures are best-effort but never silent
+        self.lease_register_errors_total = 0
+        self.replica_scaledown_errors_total = 0
+
+    def set_fleet(self, replicas: int, lease_ttl_s: float) -> None:
+        self.fleet_replicas = max(1, int(replicas))
+        self.lease_ttl_s = float(lease_ttl_s)
+
+    def replica_count(self, agent: Agent) -> int:
+        """Desired replicas for this agent: the record's own pin wins,
+        else the fleet default."""
+        return max(1, int(agent.replicas or self.fleet_replicas))
 
     def set_quick_sync(self, quick_sync) -> None:
         self._quick_sync = quick_sync
@@ -115,8 +126,6 @@ class AgentManager:
             raise InvalidInput("agent name must be 1-64 characters")
         if replicas < 0 or replicas > 64:
             raise InvalidInput("replicas must be 0 (fleet default) to 64")
-        if replicas > 1:
-            raise InvalidInput(FLEET_LATER)
         ref = model if isinstance(model, ModelRef) else ModelRef.from_dict(model)
         self._validate_model(ref)
         agent = Agent(
@@ -175,10 +184,20 @@ class AgentManager:
         return agent
 
     def _start_engine(self, agent: Agent) -> None:
-        """Create-or-start the engine, parity with agent.go:154-164: an
+        """Create-or-start every replica, parity with agent.go:154-164: an
         engine record that still exists is started again, else one is
-        created on the agent's placement (allocated on first start)."""
-        if not (agent.engine_id and self.backend.engine_info(agent.engine_id)):
+        created on the agent's placement (allocated on first start).
+
+        The single-replica path is one engine with ``replica_ids`` empty.
+        With N > 1 each replica is created with its own ordinal (its own
+        process and failure domain in the backend) over the agent's one
+        placement, and a fresh lease is registered so the replica monitor starts from an
+        ALIVE view instead of a cold SUSPECT window."""
+        n = self.replica_count(agent)
+        live = [
+            eid for eid in agent.all_engine_ids() if self.backend.engine_info(eid)
+        ]
+        if len(live) < n:
             from ..engine import is_gpu_engine
 
             # model-backed flavors sharing a model config share weight memory
@@ -186,9 +205,49 @@ class AgentManager:
             placement = self.scheduler.placement(agent.id) or self.scheduler.allocate(
                 agent, share_group=share_group
             )
-            agent.engine_id = self.backend.create_engine(agent, placement.chips)
-        agent.replica_ids = []
-        self.backend.start_engine(agent.engine_id)
+            for i in range(len(live), n):
+                live.append(
+                    self.backend.create_engine(
+                        agent, placement.chips, replica_index=i
+                    )
+                )
+        # scale-down (operator lowered the count): surplus replicas stop
+        for eid in live[n:]:
+            try:
+                self.backend.stop_engine(eid, timeout_s=5.0)
+                self.backend.remove_engine(eid)
+            except Exception as e:
+                # a stuck surplus replica must not block the start; counted
+                # so a leak is visible, and the reconciler's orphan sweep
+                # remains the net
+                self.replica_scaledown_errors_total += 1
+                print(
+                    f"[manager] scale-down of replica {eid} failed: {e!r}",
+                    flush=True,
+                )
+        live = live[:n]
+        agent.engine_id = live[0]
+        agent.replica_ids = list(live) if n > 1 else []
+        for eid in live:
+            self.backend.start_engine(eid)
+        if n > 1:
+            self._register_leases(agent)
+
+    def _register_leases(self, agent: Agent) -> None:
+        """Initial heartbeat leases for a multi-replica agent (refreshed by
+        the replica monitor). Best-effort: a store blip here must not fail
+        the start — the monitor writes the same keys on its next tick."""
+        import time as _time
+
+        for eid in agent.all_engine_ids():
+            try:
+                self.store.set_json(
+                    Keys.replica_lease(agent.id, eid),
+                    {"engine_id": eid, "agent_id": agent.id, "at": _time.time()},
+                    ttl=self.lease_ttl_s,
+                )
+            except Exception:
+                self.lease_register_errors_total += 1
 
     def stop(self, agent_id: str, timeout_s: float = 10.0) -> Agent:
         with self._lock:
@@ -235,12 +294,18 @@ class AgentManager:
                 # beat (exit not reapable yet) while its socket already
                 # refuses — trusting engine_info alone would no-op resume on
                 # a mid-crash agent and return success for a dead engine.
-                info = agent.engine_id and self.backend.engine_info(agent.engine_id)
-                if (
-                    not info
-                    or info.state != EngineState.RUNNING
-                    or not self.backend.probe_engine(agent.engine_id)
-                ):
+                # Fleet: ANY dead replica triggers repair (_start_engine
+                # reuses live replicas and recreates only the missing ones).
+                def _dead(eid: str) -> bool:
+                    info = self.backend.engine_info(eid)
+                    return (
+                        not info
+                        or info.state != EngineState.RUNNING
+                        or not self.backend.probe_engine(eid)
+                    )
+
+                ids = agent.all_engine_ids()
+                if not ids or any(_dead(eid) for eid in ids):
                     self._start_engine(agent)  # crashed-but-not-yet-reconciled
                 else:
                     return agent
@@ -277,6 +342,7 @@ class AgentManager:
             doomed += self.store.keys(f"agent:{agent_id}:requests:*")
             doomed += self.store.keys(Keys.conversations_pattern(agent_id))
             doomed += self.store.keys(Keys.kvcache_pattern(agent_id))
+            doomed += self.store.keys(Keys.replica_lease_pattern(agent_id))
             self.store.delete(*doomed)
 
     def logs(self, agent_id: str, tail: int = 100) -> list[str]:
@@ -307,6 +373,17 @@ class AgentManager:
             return None
         info = self.backend.engine_info(agent.engine_id)
         return info.endpoint if info else None
+
+    def replica_endpoints(self, agent: Agent) -> list[tuple[str, str]]:
+        """(engine_id, endpoint) for every replica whose engine record still
+        exists — the routing tier's candidate set. Order is stable (primary
+        first) so single-replica behavior degenerates to ``endpoint``."""
+        out = []
+        for eid in agent.all_engine_ids():
+            info = self.backend.engine_info(eid)
+            if info is not None and info.endpoint:
+                out.append((eid, info.endpoint))
+        return out
 
     def summary(self, agent: Agent) -> dict[str, Any]:
         placement = self.scheduler.placement(agent.id)

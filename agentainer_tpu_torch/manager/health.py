@@ -20,13 +20,14 @@ status cache keeps answering during a store outage), and the exported
 status folds in the restart watcher's crash-loop accounting so a FAILED
 agent's reason is visible from ``agentainer health``.
 
-Reference: ``agentainer_tpu/manager/health.py`` — ``HealthMonitor``;
-``ReplicaMonitor`` comes with the fleet slice.
+Reference: ``agentainer_tpu/manager/health.py`` — ``HealthMonitor`` and the
+fleet's ``ReplicaMonitor`` (heartbeat leases, ALIVE → SUSPECT → DEAD).
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 import time
 from typing import Awaitable, Callable
 
@@ -234,3 +235,272 @@ class HealthMonitor:
                 f"{type(e).__name__}: {e}",
                 agent_id=agent_id,
             )
+
+
+# per-replica lease states (mirrored into server/router.py's exclusion set)
+REPLICA_ALIVE = "alive"
+REPLICA_SUSPECT = "suspect"
+REPLICA_DEAD = "dead"
+
+
+class ReplicaMonitor:
+    """Heartbeat-lease plane for multi-replica agents.
+
+    Every ``lease_interval_s`` the monitor probes each replica of each
+    RUNNING multi-replica agent directly (``Backend.probe_engine`` — the
+    process-level truth, not the routed proxy path, which would mask a
+    dead replica behind its healthy peers). A successful probe refreshes
+    the replica's store lease (TTL ``lease_ttl_s``); probe failures leave
+    the lease to age out. The per-replica state machine runs on observed
+    lease age:
+
+        ALIVE    probe ok, or lease younger than suspect_after_s
+        SUSPECT  lease age in [suspect_after_s, dead_after_s) — excluded
+                 from routing but not yet repaired (a GC pause or network
+                 blip must not trigger a respawn storm)
+        DEAD     lease age >= dead_after_s (or the engine record is gone)
+                 — routing excludes it AND fleet repair runs: respawn +
+                 journaled in-flight reassignment + session-affinity drop
+
+    Single-replica agents are skipped entirely: their liveness remains
+    the restart watcher + health monitor's job, and ``fleet.replicas=1``
+    deployments see zero new probe traffic (the A/B baseline).
+
+    The ``replica.lease`` failpoint cuts the lease REFRESH: firing it
+    models a replica whose heartbeats stop while the process still serves
+    (lease-expiry flapping).
+    """
+
+    def __init__(
+        self,
+        manager: AgentManager,
+        store: Store,
+        router=None,
+        repair=None,
+        lease_ttl_s: float = 6.0,
+        lease_interval_s: float = 1.0,
+        suspect_after_s: float = 3.0,
+        dead_after_s: float = 6.0,
+        logs=None,
+    ):
+        self.manager = manager
+        self.store = store
+        self.router = router  # ReplicaRouter (exclusion feed); optional
+        self.repair = repair  # FleetRepair (DEAD escalation); optional
+        self.lease_ttl_s = lease_ttl_s
+        self.lease_interval_s = lease_interval_s
+        self.suspect_after_s = suspect_after_s
+        self.dead_after_s = dead_after_s
+        self.logs = logs
+        self._task: asyncio.Task | None = None
+        # engine_id -> (state, last-observed lease timestamp). Mutated on
+        # the monitor's worker thread, read from the event loop (metrics)
+        # — every access goes through _state_lock because a
+        # concurrent del during iteration/copy raises at the read site.
+        self._state_lock = threading.Lock()
+        self._states: dict[str, tuple[str, float]] = {}
+        self.lease_refreshes_total = 0
+        self.lease_errors_total = 0
+        self.suspects_total = 0
+        self.deaths_total = 0
+        self.probe_errors_total = 0
+        self.log_errors_total = 0
+        self.repair_errors_total = 0
+
+    def _warn(self, msg: str, agent_id: str = "") -> None:
+        from .audit import warn_fallback
+
+        if not warn_fallback(self.logs, "fleet", msg, agent_id=agent_id):
+            self.log_errors_total += 1
+
+    def states(self, agent_id: str | None = None) -> dict[str, str]:
+        with self._state_lock:
+            snap = dict(self._states)
+        if agent_id is None:
+            return {eid: s for eid, (s, _) in snap.items()}
+        agent = self.manager.try_get(agent_id)
+        if agent is None:
+            return {}
+        return {
+            eid: snap.get(eid, (REPLICA_ALIVE, 0.0))[0]
+            for eid in agent.all_engine_ids()
+        }
+
+    async def start(self) -> None:
+        self._task = asyncio.create_task(self._loop(), name="replica-monitor")
+
+    async def stop(self) -> None:
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+
+    async def _loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.lease_interval_s)
+            try:
+                await asyncio.to_thread(self.tick)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                # a store blip degrades one tick, never the monitor; the
+                # lease keys simply age until the next successful pass
+                self.lease_errors_total += 1
+                self._warn(f"replica monitor tick errored: {e!r}")
+
+    def tick(self) -> None:
+        """One probe/lease/classify pass over every multi-replica agent."""
+        seen: set[str] = set()
+        for agent in self.manager.list_agents(sync_first=False):
+            ids = agent.all_engine_ids()
+            if len(ids) <= 1 or agent.status != AgentStatus.RUNNING:
+                continue
+            for eid in ids:
+                seen.add(eid)
+                self._check_replica(agent, eid)
+        # replicas that no longer belong to any agent (replaced, scaled
+        # down, or their agent removed): drop tracked state AND tell the
+        # router to forget them — dead-pinned health entries, per-replica
+        # breakers, and session affinities for retired engine ids would
+        # otherwise accumulate for the daemon's whole lifetime
+        with self._state_lock:
+            stale = [e for e in self._states if e not in seen]
+            for eid in stale:
+                del self._states[eid]
+        for eid in stale:
+            if self.router is not None:
+                self.router.forget(eid)
+
+    def _check_replica(self, agent, engine_id: str) -> None:
+        now = time.time()
+        info = self.manager.backend.engine_info(engine_id)
+        probed = False
+        if info is not None:
+            try:
+                probed = self.manager.backend.probe_engine(engine_id)
+            except Exception:
+                # a raising probe is a failed probe, but count it: a
+                # backend bug here would silently SUSPECT healthy replicas
+                self.probe_errors_total += 1
+                probed = False
+        if probed:
+            try:
+                faults.fire("replica.lease")
+                self.store.set_json(
+                    Keys.replica_lease(agent.id, engine_id),
+                    {"engine_id": engine_id, "agent_id": agent.id, "at": now},
+                    ttl=self.lease_ttl_s,
+                )
+                self.lease_refreshes_total += 1
+                self._transition(agent, engine_id, REPLICA_ALIVE, now)
+                self._feed_router_load(engine_id)
+                return
+            except Exception:
+                # refresh failed (store blip or injected lease fault): the
+                # replica SERVES but its lease ages — classify by lease age
+                # below, exactly like a replica whose heartbeats stopped
+                self.lease_errors_total += 1
+        if info is None:
+            # engine record vanished: no process to come back — straight to
+            # DEAD (the repair path re-creates from the agent record)
+            self._transition(agent, engine_id, REPLICA_DEAD, now)
+            return
+        ok, lease_at = self._lease_at(agent.id, engine_id)
+        if not ok:
+            # the STORE is unreadable, not the replica: classifying a
+            # failed read as an expired lease would mass-DEAD healthy
+            # replicas during a store blip and fire a repair storm — keep
+            # the prior state for this tick (counted; the next successful
+            # pass re-classifies honestly)
+            return
+        age = now - lease_at if lease_at is not None else float("inf")
+        if age >= self.dead_after_s:
+            self._transition(agent, engine_id, REPLICA_DEAD, now)
+        elif age >= self.suspect_after_s:
+            self._transition(agent, engine_id, REPLICA_SUSPECT, now)
+        # else: lease still fresh — keep the current state (a single missed
+        # probe inside the suspect window is not an event)
+
+    def _feed_router_load(self, engine_id: str) -> None:
+        """Push the replica's ENGINE-reported occupancy to the router's
+        p2c signal: queue depth + waiting lanes + active lanes from the
+        engine's own /metrics. The proxy-side in-flight count only sees
+        this proxy's dispatches; the engine's admission picture also
+        counts journal replays and lanes still decoding after their HTTP
+        response settled. Best-effort: a failed sample keeps the router
+        on its previous value (or the in-flight fallback)."""
+        if self.router is None:
+            return
+        try:
+            stats = self.manager.backend.stats(engine_id)
+            if not stats:
+                return
+            depth = (
+                int(stats.get("queue_depth", 0) or 0)
+                + int(stats.get("waiting_depth", 0) or 0)
+                + int(stats.get("active_requests", 0) or 0)
+            )
+            self.router.set_load(engine_id, depth)
+        except Exception:
+            # a malformed sample must not fail the probe pass (counted)
+            self.probe_errors_total += 1
+
+    def _lease_at(self, agent_id: str, engine_id: str) -> tuple[bool, float | None]:
+        """(read_ok, lease timestamp | None). ok=False means the store
+        itself errored — indistinguishable from a fine lease, so callers
+        must not treat it as expiry; None with ok=True means the lease
+        genuinely aged out (TTL) or was never written."""
+        try:
+            doc = self.store.get_json(Keys.replica_lease(agent_id, engine_id))
+        except Exception:
+            self.lease_errors_total += 1
+            return False, None
+        if doc is None:
+            return True, None
+        try:
+            return True, float(doc.get("at", 0.0))
+        except (TypeError, ValueError):
+            return True, None
+
+    def _transition(self, agent, engine_id: str, state: str, now: float) -> None:
+        with self._state_lock:
+            prev = self._states.get(engine_id, (REPLICA_ALIVE, 0.0))[0]
+            self._states[engine_id] = (state, now)
+        if self.router is not None:
+            self.router.set_health(engine_id, state)
+        if state == prev:
+            return
+        if state == REPLICA_SUSPECT:
+            self.suspects_total += 1
+        self._warn(
+            f"replica {engine_id} of {agent.id}: {prev} -> {state}",
+            agent_id=agent.id,
+        )
+        if state == REPLICA_DEAD:
+            self.deaths_total += 1
+            if self.router is not None:
+                self.router.on_replica_dead(agent.id, engine_id)
+            if self.repair is not None:
+                try:
+                    self.repair.repair_replica(agent.id, engine_id)
+                except Exception as e:
+                    # repair failure leaves the replica DEAD (excluded) —
+                    # the next DEAD observation retries; counted + logged
+                    self.repair_errors_total += 1
+                    self._warn(
+                        f"repair of {engine_id} failed: {e!r}",
+                        agent_id=agent.id,
+                    )
+
+    def stats(self) -> dict:
+        with self._state_lock:
+            snap = dict(self._states)
+        return {
+            "lease_refreshes_total": self.lease_refreshes_total,
+            "lease_errors_total": self.lease_errors_total,
+            "suspects_total": self.suspects_total,
+            "deaths_total": self.deaths_total,
+            "replicas": {eid: s for eid, (s, _) in snap.items()},
+        }

@@ -12,11 +12,9 @@ scheduler, so a replay that races an in-flight original cannot run twice —
 the reference only dedupes at the proxy via the X-Agentainer-Replay header
 (server.go:506-522).
 
-Reference: ``agentainer_tpu/manager/journal.py``, the single-replica
-journal: the fleet's re-attribution of claims (``set_replica``,
-``reassign_replica``) and the streaming cursor (``advance_stream``) come
-with the fleet slice; the records keep their ``replica_id`` and
-``stream_offset`` fields (-1: the port's proxy passes SSE through).
+Reference: ``agentainer_tpu/manager/journal.py``, with the fleet's
+re-attribution of claims (``set_replica``, ``reassign_replica``) and the
+streaming cursor (``advance_stream``, ``StreamGapError``).
 """
 
 from __future__ import annotations
@@ -38,6 +36,13 @@ MAX_RETRIES = 3  # requests.go:95
 # engine is the input's fault, not the engine's — riding the full retry
 # ladder just re-burns prefill compute and stretches MTTR
 POISON_RETRIES = 2
+
+
+class StreamGapError(RuntimeError):
+    """The stream cursor was asked to advance past a hole. A gap can only
+    mean tokens were emitted upstream but never acked through the journal
+    — silently skipping it would hand the client a token sequence with a
+    hole while claiming gaplessness, so this is a hard error."""
 
 
 class RequestStatus:
@@ -221,6 +226,83 @@ class RequestJournal:
                 return False
             req.status = RequestStatus.PROCESSING
             req.replica_id = replica_id
+            req.updated_at = time.time()
+            new = json.dumps(req.to_dict(), separators=(",", ":"))
+            if self.store.cas(key, raw, new):
+                return True
+        return False
+
+    def set_replica(self, agent_id: str, request_id: str, replica_id: str) -> bool:
+        """Re-attribute an in-flight claim to the replica ACTUALLY serving
+        it (the proxy's cross-replica retry). Without this, an entry
+        claimed against replica A but retried onto B stays attributed to
+        A — A's later death would reassign (and re-dispatch) work B is
+        still executing, and B's death would NOT reassign work that died
+        with it. CAS-guarded and PROCESSING-only: a concurrent settle or
+        repair reassignment wins, and this becomes a no-op."""
+        key = Keys.request(agent_id, request_id)
+        for _ in range(4):
+            raw = self.store.get(key)
+            if raw is None:
+                return False
+            req = JournaledRequest.from_dict(json.loads(raw))
+            if req.status != RequestStatus.PROCESSING:
+                return False
+            if req.replica_id == replica_id:
+                return True
+            req.replica_id = replica_id
+            req.updated_at = time.time()
+            new = json.dumps(req.to_dict(), separators=(",", ":"))
+            if self.store.cas(key, raw, new):
+                return True
+        return False
+
+    def reassign_replica(self, agent_id: str, engine_id: str) -> int:
+        """Fleet repair: a replica died — every PROCESSING entry attributed
+        to it goes back to PENDING immediately (the winning dispatcher's
+        forward can never settle; its HTTP call got connection-reset). The
+        replay worker's staleness reclaim remains the safety net for
+        entries with no/stale attribution. Returns how many were reassigned.
+        Idempotent and double-execution-safe: re-dispatch re-enters the
+        acquire_processing CAS, and the engine memoizes by request id."""
+        n = 0
+        for rid in self.pending_ids(agent_id):
+            req = self.get(agent_id, rid)
+            if (
+                req is not None
+                and req.status == RequestStatus.PROCESSING
+                and req.replica_id == engine_id
+            ):
+                self.mark_pending(agent_id, rid)
+                n += 1
+        return n
+
+    def advance_stream(self, agent_id: str, request_id: str, offset: int) -> bool:
+        """Ack one streamed token offset against the entry's stream cursor.
+
+        CAS semantics mirror acquire_processing: of any two emitters racing
+        the same offset (live dispatch vs replay-after-crash, or two
+        failover legs overlapping), exactly one advance wins — the loser
+        gets False and must NOT forward the event. Contract:
+
+          offset == cursor + 1  → advance, True  (the only legal step)
+          offset <= cursor      → False          (duplicate; drop the event)
+          offset >  cursor + 1  → StreamGapError (hard error, never skipped)
+        """
+        key = Keys.request(agent_id, request_id)
+        for _ in range(4):
+            raw = self.store.get(key)
+            if raw is None:
+                return False
+            req = JournaledRequest.from_dict(json.loads(raw))
+            if offset <= req.stream_offset:
+                return False
+            if offset > req.stream_offset + 1:
+                raise StreamGapError(
+                    f"stream cursor gap for {agent_id}/{request_id}: "
+                    f"acked={req.stream_offset}, offered={offset}"
+                )
+            req.stream_offset = offset
             req.updated_at = time.time()
             new = json.dumps(req.to_dict(), separators=(",", ":"))
             if self.store.cas(key, raw, new):

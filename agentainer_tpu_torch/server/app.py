@@ -25,12 +25,19 @@ machine with the card has no aiohttp):
   Replay: true`` and are not re-journaled; the proxy strips both headers
   from the network.
 
-What waits for later slices of the port: the replica fleet (routing tier,
-per-replica breakers, cross-replica retry, the journaled SSE cursor) — a
-``stream: true`` chat passes the engine's SSE through, as the reference's
-single-replica native path does (``stream_offset`` stays -1), and the done
-event's payload is archived as the entry's response; the C++ data plane;
-artifacts and backups, whose routes answer 501 with the error envelope.
+The replica fleet: an agent with more than one replica is dispatched
+through the routing tier (``server/router.py``: health exclusion, per-
+replica breakers, session affinity, power-of-two choices), and a
+connection-level failure is retried on the next replica, bounded by
+``fleet.retry_next_replica``. A ``stream: true`` chat (``features.
+streaming``) rides the journaled SSE cursor (``_proxy_stream``): every
+token offset is checkpointed in the journal before its frame is written,
+and a leg whose upstream dies mid-stream is followed by another — on a
+survivor, or on the respawned single replica — that carries the cursor as
+``Last-Event-ID``, so the client sees one gapless stream on one connection.
+
+What waits for later slices of the port: the C++ data plane; artifacts and
+backups, whose routes answer 501 with the error envelope.
 """
 
 from __future__ import annotations
@@ -49,10 +56,11 @@ from .. import faults
 from ..core.errors import AgentainerError, AgentNotFound
 from ..core.resilience import CircuitBreaker, retry_after_jitter
 from ..core.spec import AgentStatus, HealthCheckConfig, Resources
-from ..manager.journal import RequestStatus
+from ..manager.journal import RequestStatus, StreamGapError
 from ..store.schema import Keys
 from ..utils import http
 from ..utils.http import Headers, Request, Response
+from .router import ReplicaChoice, ReplicaRouter
 
 if TYPE_CHECKING:
     from ..daemon import Services
@@ -65,12 +73,15 @@ from ..core.protocol import (
     DISPATCH_IN_FLIGHT,
     DRAINING_HEADER,
     EXPIRED_HEADER,
+    LAST_EVENT_ID_HEADER,
     LOADING_HEADER,
     PREFILL_POISON_HEADER,
     REPLAY_HEADER,
     REQUEST_ID_HEADER,
     STREAM_CONTENT_TYPE,
     STREAM_EVENT_DONE,
+    STREAM_EVENT_ERROR,
+    STREAM_EVENT_TOKEN,
 )
 
 _STORE_OPS = {
@@ -94,6 +105,10 @@ BACKUPS_LATER = (
 )
 
 Handler = Callable[[Request], Awaitable[Response]]
+
+# a streamed leg with no upstream bytes this long (engines send keep-alive
+# heartbeats) is lost: the reference's sock_read
+STREAM_READ_S = 90.0
 
 
 def envelope(data=None, message: str = "", success: bool = True) -> dict:
@@ -128,6 +143,33 @@ def _relay(status: int, headers: dict, body: bytes, request_id: str = "") -> Res
         out[REQUEST_ID_HEADER] = request_id
     ctype = Headers(headers).get("Content-Type", "application/octet-stream").split(";")[0]
     return Response(status, headers=out, body=body, content_type=ctype)
+
+
+class _StreamClientGone(Exception):
+    """The SSE consumer went away mid-stream. Its own type on purpose: a
+    connection error on the client's side aborts the request, one on the
+    engine's side fails over to another leg."""
+
+
+def _parse_sse_frame(raw: bytes) -> tuple[str, int | None, bytes]:
+    """One ``\\n\\n``-delimited SSE block → (event, id, data). A pure
+    comment block (keep-alive heartbeat) parses as event ``""``."""
+    event, eid, data = "", None, b""
+    comment = True
+    for ln in raw.split(b"\n"):
+        if ln.startswith(b":") or not ln.strip():
+            continue
+        comment = False
+        if ln.startswith(b"event:"):
+            event = ln[6:].strip().decode("utf-8", "replace")
+        elif ln.startswith(b"id:"):
+            try:
+                eid = int(ln[3:].strip())
+            except (TypeError, ValueError):
+                eid = None
+        elif ln.startswith(b"data:"):
+            data = ln[5:].strip()
+    return ("" if comment else (event or "message")), eid, data
 
 
 def _tail_snapshot(path: str, tail: int) -> tuple[list[bytes], int]:
@@ -172,14 +214,28 @@ class ControlPlaneApp:
         self._store_breaker = CircuitBreaker(
             failure_threshold=res.breaker_failures, cooldown_s=res.breaker_cooldown_s
         )
-        # seeded Retry-After jitter (ATPU_JITTER_SEED pins it; unset = entropy)
+        # fleet routing tier: engages only for agents with more than one
+        # replica. ATPU_JITTER_SEED pins BOTH the p2c sample sequence and
+        # the Retry-After jitter; unset = entropy.
         seed_raw = os.environ.get("ATPU_JITTER_SEED", "")
+        self.router = ReplicaRouter(
+            services.manager,
+            services.config.fleet,
+            seed=int(seed_raw) if seed_raw else random.randrange(1 << 30),
+        )
         self._retry_rng = random.Random(int(seed_raw)) if seed_raw else random.Random()
         self.journal_errors_total = 0
         self.journal_skipped_total = 0
         self.abort_cancel_errors_total = 0
+        # SSE streaming data path (features.streaming): per-event forwards,
+        # mid-stream failovers (upstream died → another leg spliced), CAS-
+        # suppressed duplicate emissions, and dropped consumers
         self.stream_requests_total = 0
+        self.stream_events_total = 0
+        self.stream_failovers_total = 0
+        self.stream_dup_suppressed_total = 0
         self.stream_client_disconnects_total = 0
+        self.stream_write_errors_total = 0
         # tiered-KV proxy policy (features.kv_tiering): park a session after
         # its response settles plus a linger window, prewarm on the next
         # arrival so the engine's swap-in overlaps the queue wait
@@ -516,10 +572,22 @@ class ControlPlaneApp:
         self.s.manager.get_agent(agent_id)
         return ok(self.s.health.get_status(agent_id))
 
+    def _fleet_stats(self, agent) -> dict | None:
+        """Routing and per-replica breaker view for a multi-replica agent;
+        None for a single-replica agent (its metrics keep their shape)."""
+        if len(agent.all_engine_ids()) <= 1:
+            return None
+        return self.router.stats(agent)
+
     async def h_agent_metrics(self, request: Request) -> Response:
         agent_id = request.match_info["agent_id"]
-        self.s.manager.get_agent(agent_id)
-        return ok(self.s.metrics.current(agent_id) or {})
+        agent = self.s.manager.get_agent(agent_id)
+        doc = self.s.metrics.current(agent_id) or {}
+        fleet = self._fleet_stats(agent)
+        if fleet is not None:
+            doc = dict(doc)
+            doc["fleet"] = fleet
+        return ok(doc)
 
     async def h_agent_metrics_history(self, request: Request) -> Response:
         agent_id = request.match_info["agent_id"]
@@ -529,7 +597,16 @@ class ControlPlaneApp:
         return ok(self.s.metrics.history(agent_id, since, until))
 
     async def h_all_metrics(self, request: Request) -> Response:
-        return ok({aid: self.s.metrics.current(aid) for aid in self.s.manager.agent_ids()})
+        out = {}
+        for agent_id in self.s.manager.agent_ids():
+            doc = self.s.metrics.current(agent_id)
+            agent = self.s.manager.try_get(agent_id)
+            fleet = self._fleet_stats(agent) if agent is not None else None
+            if fleet is not None:
+                doc = dict(doc or {})
+                doc["fleet"] = fleet
+            out[agent_id] = doc
+        return ok(out)
 
     async def h_get_logs(self, request: Request) -> Response:
         q = request.query
@@ -651,6 +728,7 @@ class ControlPlaneApp:
 
     # -- fault-injection plane ---------------------------------------------
     async def h_faults_get(self, request: Request) -> Response:
+        monitor, repair = self.s.replica_monitor, self.s.fleet_repair
         return ok(
             {
                 "active": faults.active(),
@@ -663,7 +741,19 @@ class ControlPlaneApp:
                 "tier_prewarms_total": self.tier_prewarms_total,
                 "tier_parked_sessions": len(self._tier_parked),
                 "stream_requests_total": self.stream_requests_total,
+                "stream_events_total": self.stream_events_total,
+                "stream_failovers_total": self.stream_failovers_total,
+                "stream_dup_suppressed_total": self.stream_dup_suppressed_total,
                 "stream_client_disconnects_total": self.stream_client_disconnects_total,
+                "stream_write_errors_total": self.stream_write_errors_total,
+                # the fleet plane: lease refreshes, SUSPECT and DEAD
+                # transitions, repairs and the work they reassigned
+                "replica_monitor": monitor.stats() if monitor is not None else None,
+                "fleet_repair": None if repair is None else {
+                    "repairs_total": repair.repairs_total,
+                    "reassigned_total": repair.reassigned_total,
+                    "respawn_errors_total": repair.respawn_errors_total,
+                },
             }
         )
 
@@ -801,7 +891,16 @@ class ControlPlaneApp:
         headers = Headers(headers)
         headers.pop(REPLAY_HEADER, None)
         headers.pop(REQUEST_ID_HEADER, None)
+        # a client RECONNECT after a dropped stream carries Last-Event-ID
+        # (the highest offset it holds) plus the request id it was issued:
+        # the pair re-attaches to the SAME journal entry — no new journal
+        # write, no new generation (the engine memo re-emits the sequence;
+        # the proxy skips offsets <= the floor). The echoed id only ever
+        # splices a stream, never settles an entry or skips journaling.
         stream = self._wants_stream(path, body)
+        resume_rid = ""
+        if stream and request.headers.get(LAST_EVENT_ID_HEADER, ""):
+            resume_rid = request.headers.get(REQUEST_ID_HEADER, "").strip()
 
         # Per-request deadline: an explicit header always sticks; the config
         # default applies only when the agent is up to serve now (a 202
@@ -844,6 +943,10 @@ class ControlPlaneApp:
             # that is down answers 503 instead of a 202 it cannot honor
             if not self._store_breaker.allow():
                 self.journal_skipped_total += 1
+            elif resume_rid:
+                # stream resume: the entry is journaled under the id the
+                # client echoed back — re-journaling would fork it
+                request_id = resume_rid
             else:
                 try:
                     journaled = self.s.journal.store_request(
@@ -1021,10 +1124,28 @@ class ControlPlaneApp:
         skips the claim). A deadline already passed → DISPATCH_EXPIRED;
         success → COMPLETED with the archived response; connection-level
         failure, loading or draining → back to PENDING, DISPATCH_ENGINE_GONE;
-        timeout or protocol error → retry-counted, DISPATCH_FAILED."""
+        timeout or protocol error → retry-counted, DISPATCH_FAILED.
+
+        Fleet (the agent has more than one replica): the routing tier picks
+        the replica, and a connection-level failure retries on the NEXT
+        replica, bounded by ``fleet.retry_next_replica``. The retry forwards
+        the SAME claim: nothing executed on the replica that refused, the
+        CAS admitted exactly this dispatcher, and the engine memoizes by
+        request id — so the retry cannot double-execute. Single-replica
+        agents never enter the router."""
         agent = self.s.manager.get_agent(agent_id)
-        endpoint = self.s.manager.endpoint(agent)
-        if endpoint is None:
+        multi = len(agent.all_engine_ids()) > 1
+        session_hint = ""
+        if multi:
+            # parsed here, not in h_proxy, so every dispatcher (live proxy,
+            # replay, manual replay) pins the session to the replica that
+            # actually serves it
+            session_hint = self._session_hint(body)
+            choice = self.router.pick(agent, session=session_hint)
+        else:
+            endpoint = self.s.manager.endpoint(agent)
+            choice = None if endpoint is None else ReplicaChoice(agent.engine_id, endpoint)
+        if choice is None:
             return DISPATCH_ENGINE_GONE, {}, b""
         if deadline_at is not None and time.time() > deadline_at:
             if request_id:
@@ -1038,7 +1159,7 @@ class ControlPlaneApp:
             else:
                 try:
                     claimed = self.s.journal.acquire_processing(
-                        agent_id, request_id, replica_id=agent.engine_id
+                        agent_id, request_id, replica_id=choice.engine_id
                     )
                 except Exception:
                     # can't verify the claim with the store dark: do NOT
@@ -1048,28 +1169,71 @@ class ControlPlaneApp:
                     claimed = False
                 if not claimed:
                     return DISPATCH_IN_FLIGHT, {}, b""
-        if endpoint.startswith("fake://"):
-            result = self._dispatch_fake(agent, method, path, headers, body, request_id)
-        else:
-            result = await self._dispatch_http(
-                agent_id, endpoint, method, path, headers, body, request_id, deadline_at
+        tried: set[str] = set()
+        attempts = 0
+        # bound by ATTEMPTS, not distinct replicas: a stale routing table
+        # (router.pick failpoint) can hand the same dead replica back twice
+        max_attempts = 1 + (self.router.retry_next_replica if multi else 0)
+        while True:
+            attempts += 1
+            result = await self._dispatch_once(
+                agent, choice, multi, method, path, headers, body, request_id, deadline_at
             )
-        if result is None:
-            # connection-level failure (or loading/draining): nothing ran —
-            # the crash heuristic leaves the request pending for replay
-            if request_id:
-                self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
-            return DISPATCH_ENGINE_GONE, {}, b""
-        return result
+            if result is not None:
+                return result
+            # connection-level failure (or loading/draining): nothing ran on
+            # that replica — eligible for the bounded next-replica retry
+            tried.add(choice.engine_id)
+            choice = None
+            if multi and attempts < max_attempts:
+                choice = self.router.pick(agent, session=session_hint, exclude=frozenset(tried))
+            if choice is None:
+                # every allowed replica refused: the crash heuristic leaves
+                # the request pending for the replay worker
+                if request_id:
+                    self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
+                return DISPATCH_ENGINE_GONE, {}, b""
+            if request_id and not force:
+                # re-attribute the claim to the replica this retry forwards
+                # to: fleet repair reassigns by attribution
+                self._journal_op(self.s.journal.set_replica, agent_id, request_id, choice.engine_id)
 
-    def _dispatch_fake(self, agent, method, path, headers, body, request_id):
-        """In-process dispatch for the unit-test backend."""
+    async def _dispatch_once(
+        self, agent, choice: ReplicaChoice, multi: bool, method: str, path: str,
+        headers: dict[str, str], body: bytes, request_id: str, deadline_at: float | None,
+    ) -> tuple[int, dict[str, str], bytes] | None:
+        """One forwarding attempt against one replica: the settled outcome,
+        or None for a connection-level failure or a not-admitting 503
+        (loading, draining) — nothing executed, nothing settled (the caller
+        owns pending versus next replica)."""
+        if multi:
+            self.router.begin(choice.engine_id)
+        answered = False
+        try:
+            if choice.endpoint.startswith("fake://"):
+                result = self._dispatch_fake(agent, choice, method, path, headers, body, request_id)
+                answered = result is not None
+                return result
+            result, answered = await self._dispatch_http(
+                agent.id, choice.endpoint, method, path, headers, body, request_id, deadline_at
+            )
+            return result
+        finally:
+            if multi:
+                # per-replica breaker feed: anything that answered over the
+                # socket is proof of life; connection-level failures and
+                # timeouts count against THIS replica's breaker only
+                self.router.end(choice.engine_id, answered)
+
+    def _dispatch_fake(self, agent, choice, method, path, headers, body, request_id):
+        """In-process dispatch for the unit-test backend (the routed
+        replica receives the request)."""
         handler = getattr(self.s.backend, "handle_request", None)
         if handler is None:
             return None
         try:
             faults.fire("proxy.dispatch")
-            status, resp_headers, resp_body = handler(agent.engine_id, method, path, headers, body)
+            status, resp_headers, resp_body = handler(choice.engine_id, method, path, headers, body)
         except ConnectionError:
             return None
         if request_id:
@@ -1150,7 +1314,9 @@ class ControlPlaneApp:
         body: bytes,
         request_id: str,
         deadline_at: float | None,
-    ) -> tuple[int, dict[str, str], bytes] | None:
+    ) -> tuple[tuple[int, dict[str, str], bytes] | None, bool]:
+        """The HTTP leg of ``_dispatch_once``: (outcome or None, whether
+        the replica answered over the socket)."""
         url = endpoint.rstrip("/") + path
         fwd = self._forward_headers(headers, request_id, deadline_at)
         timeout = 30.0
@@ -1171,21 +1337,22 @@ class ControlPlaneApp:
                         self.s.journal.mark_expired, agent_id, request_id, reason="deadline exceeded"
                     )
                     await self._cancel_on_engine(endpoint, request_id)
-                return DISPATCH_EXPIRED, {}, b""
+                return (DISPATCH_EXPIRED, {}, b""), False
             if request_id:
                 self._journal_op(
                     self.s.journal.mark_failed, agent_id, request_id, f"{type(e).__name__}: {e}"
                 )
-            return DISPATCH_FAILED, {}, b""
+            return (DISPATCH_FAILED, {}, b""), False
         except OSError:
             # the connection was refused or could not be made: nothing ran
-            return None
+            # here — retryable on another replica, settled by the caller
+            return None, False
         result, archived = self._classify(agent_id, request_id, status, rheaders, rbody)
         if archived:
             self.s.metrics.count_request(agent_id, latency_s=time.monotonic() - t0)
-        return result
+        return result, True
 
-    # -- SSE pass-through (features.streaming) ------------------------------
+    # -- SSE streaming data path (features.streaming) ------------------------
     def _wants_stream(self, path: str, body: bytes) -> bool:
         """Streams only with the feature flag on AND the chat body opting
         in; the buffered path is the default."""
@@ -1207,23 +1374,61 @@ class ControlPlaneApp:
         request_id: str,
         deadline_at: float | None,
     ) -> Response:
-        """Pass the engine's SSE stream through to the client, event by
-        event, as the reference's single-replica native path does: the
-        entry is claimed like a buffered dispatch, the done event's payload
-        is archived as its response, an engine answer that is not a stream
-        settles as a buffered one, a stream that ends without done goes
-        back to pending (replayed buffered), and a client that hangs up
-        expires the entry and cancels the engine request."""
+        """Streamed dispatch: forward the engine's SSE token stream to the
+        client, journaling every offset as a streaming checkpoint BEFORE its
+        frame goes on the wire (checkpoint-then-emit).
+
+        - **mid-stream upstream death** (the replica's host SIGKILLed, a
+          reset, an injected ``proxy.stream_emit`` fault): the cursor names
+          the last acked offset; the next leg — on a survivor, or on the
+          respawned single replica — carries it as ``Last-Event-ID``; the
+          engine restores the session, re-emits its deterministic sequence
+          and skips every offset <= the cursor. The client sees ONE gapless,
+          duplicate-free sequence on ONE connection;
+        - **duplicate emission**: ``journal.advance_stream`` CAS-rejects the
+          second advance and the local cursor drops the event;
+        - **offset gap**: ``StreamGapError`` — a hard error that truncates
+          the stream; a silent skip would corrupt the splice;
+        - **client hang-up**: the entry settles EXPIRED at the last acked
+          offset and the engine's lane is cancelled;
+        - **non-stream upstream outcomes** (loading or draining 503, poisoned
+          prefill 500, 429 shed) classify exactly like the buffered path.
+        """
         agent_id = agent.id
         self.stream_requests_total += 1
+        multi = len(agent.all_engine_ids()) > 1
+        session_hint = self._session_hint(body)
         rid_headers = {REQUEST_ID_HEADER: request_id} if request_id else None
-        endpoint = self.s.manager.endpoint(agent)
-        if endpoint is None or not endpoint.startswith("http"):
+        # the client's splice floor: the highest offset it already holds (a
+        # reconnect sends its Last-Event-ID; a fresh stream starts at -1)
+        floor = -1
+        raw_floor = request.headers.get(LAST_EVENT_ID_HEADER, "")
+        if raw_floor:
+            try:
+                floor = int(raw_floor)
+            except (TypeError, ValueError):
+                floor = -1
+        resume = bool(raw_floor)
+        if multi:
+            choice = self.router.pick(agent, session=session_hint)
+        else:
+            endpoint = self.s.manager.endpoint(agent)
+            choice = None if endpoint is None else ReplicaChoice(agent.engine_id, endpoint)
+        if choice is None or not choice.endpoint.startswith("http"):
             return fail("agent unreachable; request left pending for replay", status=502, headers=rid_headers)
-        if request_id:
+        if deadline_at is not None and time.time() > deadline_at:
+            if request_id:
+                self._journal_op(
+                    self.s.journal.mark_expired, agent_id, request_id, reason="deadline exceeded"
+                )
+            return fail("deadline exceeded; request dead-lettered", status=504, headers=rid_headers)
+        if request_id and not resume:
+            # the buffered path's CAS claim; a resume re-attaches to an
+            # entry that is already PROCESSING or COMPLETED (the engine memo
+            # re-emits it), so it skips the claim
             try:
                 claimed = self.s.journal.acquire_processing(
-                    agent_id, request_id, replica_id=agent.engine_id
+                    agent_id, request_id, replica_id=choice.engine_id
                 )
             except Exception:
                 self._store_breaker.fail()
@@ -1232,88 +1437,226 @@ class ControlPlaneApp:
             if not claimed:
                 archived = await self._await_archived(agent_id, request_id, deadline_at)
                 return archived or fail("request already being dispatched", status=409)
-        fwd = self._forward_headers(headers, request_id, deadline_at)
-        t0 = time.monotonic()
-        try:
-            status, rheaders, reader, writer = await http.open_stream(
-                request.method, endpoint.rstrip("/") + path, fwd, body
-            )
-        except (asyncio.TimeoutError, http.ServerDisconnected) as e:
-            if request_id:
-                self._journal_op(self.s.journal.mark_failed, agent_id, request_id, f"{type(e).__name__}: {e}")
-            return fail("agent request failed; retry recorded", status=504, headers=rid_headers)
-        except OSError:
-            if request_id:
-                self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
-            return fail("agent unreachable; request left pending for replay", status=502, headers=rid_headers)
+
         out = request.stream
+        out.headers = {
+            "Content-Type": STREAM_CONTENT_TYPE,
+            "Cache-Control": "no-cache",
+            "X-Accel-Buffering": "no",
+        }
+        if request_id:
+            # the resume credential: a reconnect echoes this id and its
+            # Last-Event-ID to re-splice the same entry
+            out.headers[REQUEST_ID_HEADER] = request_id
+        cursor = floor
         gone = request.hangup()
-        try:
-            if status != 200 or not rheaders.get("Content-Type", "").startswith(STREAM_CONTENT_TYPE):
-                try:
-                    rbody = await http.read_body(reader, rheaders)
-                except (ConnectionError, asyncio.IncompleteReadError):
-                    rbody = b""
-                result, _ = self._classify(agent_id, request_id, status, rheaders, rbody)
-                if result is None:
-                    if request_id:
-                        self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
-                    return fail("agent unreachable; request left pending for replay", status=502, headers=rid_headers)
-                if result[0] == DISPATCH_EXPIRED:
-                    return fail("deadline exceeded; request dead-lettered", status=504, headers=rid_headers)
-                return _relay(*result, request_id)
-            out.headers = {
-                "Content-Type": STREAM_CONTENT_TYPE,
-                "Cache-Control": "no-cache",
-                "X-Accel-Buffering": "no",
-            }
-            if request_id:
-                out.headers[REQUEST_ID_HEADER] = request_id
-            buf = b""
-            done_data = None
-            while True:
-                chunk = asyncio.ensure_future(reader.read(65536))
-                finished, _ = await asyncio.wait({chunk, gone}, return_when=asyncio.FIRST_COMPLETED)
-                if chunk not in finished:
-                    chunk.cancel()
-                    raise ConnectionResetError("the client closed the stream")
-                data = chunk.result()
-                if not data:
-                    break
-                await out.write(data)
-                buf += data
-                while b"\n\n" in buf:
-                    frame, buf = buf.split(b"\n\n", 1)
-                    if f"event: {STREAM_EVENT_DONE}".encode() in frame.split(b"\n"):
-                        done_data = next(
-                            ln[5:].strip() for ln in frame.split(b"\n") if ln.startswith(b"data:")
-                        )
-            if request_id:
-                if done_data is not None:
-                    self._journal_op(
-                        self.s.journal.store_response, agent_id, request_id, 200,
-                        {"Content-Type": "application/json"}, done_data,
+        t0 = time.monotonic()
+
+        async def client_write(payload: bytes) -> None:
+            try:
+                await out.write(payload)
+            except ConnectionError as e:
+                raise _StreamClientGone() from e
+
+        async def forward_frame(raw: bytes) -> bool:
+            """Forward one upstream SSE block; True on the terminal done."""
+            nonlocal cursor
+            event, eid, data = _parse_sse_frame(raw)
+            if event == STREAM_EVENT_TOKEN:
+                off = eid if eid is not None else cursor + 1
+                if off <= cursor:
+                    # duplicate emission (overlapping legs, a memo re-emit
+                    # racing the splice): dropped before the wire
+                    self.stream_dup_suppressed_total += 1
+                    return False
+                if off != cursor + 1:
+                    raise StreamGapError(
+                        f"stream splice gap for {agent_id}/{request_id or '<unjournaled>'}: "
+                        f"acked={cursor}, offered={off}"
                     )
-                else:
-                    # the upstream died mid-stream: replayed buffered later
-                    self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
-            if done_data is not None:
-                self.s.metrics.count_request(agent_id, latency_s=time.monotonic() - t0)
-            return http.STREAMED
-        except (ConnectionError, asyncio.CancelledError) as e:
-            self.stream_client_disconnects_total += 1
-            if request_id:
+                # firing here models a dispatch failure mid-stream: the
+                # cursor is NOT advanced, so the next leg re-offers this offset
+                await faults.fire_async("proxy.stream_emit")
+                if request_id:
+                    # checkpoint-then-emit. False = already journaled (a
+                    # reconnect re-serving acked events): still owed to THIS
+                    # client, whose own floor admitted it
+                    try:
+                        self.s.journal.advance_stream(agent_id, request_id, off)
+                    except StreamGapError:
+                        raise
+                    except Exception:
+                        # a store blip must not kill a live stream
+                        self._store_breaker.fail()
+                        self.journal_errors_total += 1
+                await client_write(raw + b"\n\n")
+                cursor = off
+                self.stream_events_total += 1
+                return False
+            if event == STREAM_EVENT_DONE and request_id:
+                # the done payload is the entry's completed response, byte
+                # for byte what the buffered path would have archived
                 self._journal_op(
-                    self.s.journal.mark_expired, agent_id, request_id,
-                    reason="client disconnected mid-stream",
+                    self.s.journal.store_response, agent_id, request_id, 200,
+                    {"Content-Type": "application/json"}, bytes(data),
                 )
-                await self._cancel_on_engine(endpoint, request_id)
-            if isinstance(e, asyncio.CancelledError):
-                raise
+            # keep-alive comments never advance the offset; unknown events
+            # are forwarded verbatim
+            await client_write(raw + b"\n\n")
+            return event == STREAM_EVENT_DONE
+
+        async def one_leg() -> tuple[str, Response | None]:
+            fwd = self._forward_headers(headers, request_id, deadline_at)
+            fwd.pop(LAST_EVENT_ID_HEADER, None)
+            if cursor >= 0:
+                # the splice cursor: the engine skips offsets <= this value
+                fwd[LAST_EVENT_ID_HEADER] = str(cursor)
+            status, rheaders, reader, writer = await http.open_stream(
+                request.method, choice.endpoint.rstrip("/") + path, fwd, body
+            )
+            try:
+                if status != 200 or not rheaders.get("Content-Type", "").startswith(STREAM_CONTENT_TYPE):
+                    rbody = await asyncio.wait_for(http.read_body(reader, rheaders), STREAM_READ_S)
+                    result, _ = self._classify(agent_id, request_id, status, rheaders, rbody)
+                    if result is None:
+                        return "retry", None
+                    if result[0] == DISPATCH_EXPIRED:
+                        return "plain", fail("deadline exceeded; request dead-lettered", status=504,
+                                             headers=rid_headers)
+                    return "plain", _relay(*result, request_id)
+                buf = b""
+                while True:
+                    chunk = asyncio.ensure_future(reader.read(65536))
+                    finished, _ = await asyncio.wait(
+                        {chunk, gone}, timeout=STREAM_READ_S, return_when=asyncio.FIRST_COMPLETED
+                    )
+                    if chunk not in finished:
+                        chunk.cancel()
+                        if gone in finished:
+                            raise _StreamClientGone()
+                        raise asyncio.TimeoutError("no upstream bytes (not even a heartbeat)")
+                    data = chunk.result()  # a reset raises: the upstream is lost
+                    if not data:
+                        # the upstream closed without its done event: a
+                        # mid-stream death, never a clean end
+                        return "retry", None
+                    buf += data
+                    while b"\n\n" in buf:
+                        frame, buf = buf.split(b"\n\n", 1)
+                        if await forward_frame(frame):
+                            return "done", None
+            finally:
+                writer.close()
+
+        tried: set[str] = set()
+        attempts = 0
+        max_attempts = 1 + (self.router.retry_next_replica if multi else 2)
+        try:
+            while True:
+                attempts += 1
+                if multi:
+                    self.router.begin(choice.engine_id)
+                answered = False
+                try:
+                    kind, terminal = await one_leg()
+                    answered = True
+                except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError,
+                        http.ServerDisconnected, faults.FaultInjected):
+                    kind, terminal = "retry", None
+                finally:
+                    if multi:
+                        self.router.end(choice.engine_id, answered)
+                if kind == "done":
+                    self.s.metrics.count_request(agent_id, latency_s=time.monotonic() - t0)
+                    if self._tier_enabled():
+                        self._tier_schedule_park(agent_id, session_hint or "default")
+                    return http.STREAMED
+                if kind == "plain":
+                    if not out.started:
+                        return terminal
+                    # already streaming and a later leg settled plain:
+                    # nothing splice-able is coming — truncate with an error
+                    await self._stream_error_frame(
+                        out, f"upstream settled non-stream (HTTP {terminal.status})"
+                    )
+                    return http.STREAMED
+                # the leg died with the cursor intact: fail over and
+                # re-splice at last_acked_offset + 1
+                tried.add(choice.engine_id)
+                nxt = None
+                if attempts < max_attempts:
+                    if multi:
+                        nxt = self.router.pick(agent, session=session_hint, exclude=frozenset(tried))
+                        if nxt is None:
+                            # every survivor already tried: re-open the full
+                            # set (a respawned replica may be back)
+                            nxt = self.router.pick(agent, session=session_hint)
+                    else:
+                        await asyncio.sleep(0.5)
+                        endpoint = self.s.manager.endpoint(agent)
+                        nxt = None if endpoint is None else ReplicaChoice(agent.engine_id, endpoint)
+                if nxt is None:
+                    break
+                choice = nxt
+                if out.started or cursor > floor:
+                    self.stream_failovers_total += 1
+                if request_id:
+                    self._journal_op(self.s.journal.set_replica, agent_id, request_id, choice.engine_id)
+        except asyncio.CancelledError:
+            self.stream_client_disconnects_total += 1
+            await self._abort_stream(agent_id, request_id, choice)
+            raise
+        except _StreamClientGone:
+            self.stream_client_disconnects_total += 1
+            await self._abort_stream(agent_id, request_id, choice)
             return http.STREAMED if out.started else Response(499, {"error": "client disconnected"})
+        except StreamGapError as e:
+            # a hard invariant break, never skipped: the entry stays
+            # unsettled (PROCESSING) and the replay reclaim re-serves it
+            # buffered, where the archived response is whole or nothing
+            try:
+                self.s.logs.error("proxy", f"stream gap on {agent_id}: {e}")
+            except Exception:
+                pass
+            if not out.started:
+                raise
+            await self._stream_error_frame(out, str(e))
+            return http.STREAMED
         finally:
             gone.cancel()
-            writer.close()
+
+        # every leg exhausted: back to pending (the replay settles it
+        # buffered); the client may reconnect with Last-Event-ID and the
+        # request id to re-splice what it is owed
+        if request_id:
+            self._journal_op(self.s.journal.mark_pending, agent_id, request_id)
+        if out.started:
+            await self._stream_error_frame(
+                out, "upstream lost mid-stream; reconnect with Last-Event-ID to resume"
+            )
+            return http.STREAMED
+        return fail("agent unreachable; request left pending for replay", status=502, headers=rid_headers)
+
+    async def _stream_error_frame(self, out, message: str) -> None:
+        """Best-effort terminal error frame on a started stream (a stream
+        with no ``done`` IS the failure signal; the frame names the reason)."""
+        try:
+            payload = json.dumps({"error": message}, separators=(",", ":"))
+            await out.write(f"event: {STREAM_EVENT_ERROR}\ndata: {payload}\n\n".encode())
+        except Exception:
+            # the consumer is already gone
+            self.stream_write_errors_total += 1
+
+    async def _abort_stream(self, agent_id: str, request_id: str, choice) -> None:
+        """Streamed client hang-up: settle the entry EXPIRED at the last
+        acked offset and cancel the lane on the replica serving the stream."""
+        if request_id:
+            self._journal_op(
+                self.s.journal.mark_expired, agent_id, request_id,
+                reason="client disconnected mid-stream",
+            )
+        if choice is not None and request_id:
+            await self._cancel_on_engine(choice.endpoint, request_id)
 
     # -- tiered-KV proxy policy (park on settle, prewarm on arrival) ------
     def _tier_enabled(self) -> bool:

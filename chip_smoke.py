@@ -147,6 +147,33 @@ exits non-zero):
                  seconds, the proxy's overhead, the snapshot's bytes and
                  ms, store writes per journaled request (counted in this
                  process), the host's card memory.
+7c. fleet      — the replica fleet on the card, after 7b's daemon and host
+                 are gone: the daemon with ``ATPU_STREAMING=1``, one
+                 ``llm:llama3-8b`` agent deployed with ``"replicas": 2``
+                 (full width and depth, random bf16 weights from seed 0,
+                 the reference's default features): two engine hosts on GPU
+                 0, one per replica, the daemon with no CUDA context, each
+                 host under twice the weights (nvidia-smi per pid where it
+                 sees this pid namespace, else the card's new memory less
+                 one host's weights). At least 8 fresh sessions reach both
+                 replicas (power of two choices); both hosts launched the
+                 dense kernels and no paged one; a session's second turn
+                 stays on its replica. Sessions T and S run the same first
+                 turn (under 64 tokens, as 7b), T its 96-token second turn;
+                 once S's snapshot has landed, S's second turn streams and
+                 its replica's host is SIGKILLed after 8 token frames. On
+                 its one connection the client sees ids 0..n-1, one done,
+                 and T's token ids (on a difference the logit gap is
+                 printed); ``stream_failovers_total`` >= 1, the survivor's
+                 ``kv_restores`` >= 1, S's entry completed at offset n-1 on
+                 the survivor with no retry, no 5xx; a buffered /chat right
+                 after the kill on a session pinned to the dead replica
+                 answers 200 from the survivor; the monitor counts the
+                 death and the fleet is back at two loaded replicas.
+                 Printed beside the card: boot seconds, host memory, the
+                 failover gap, frame gaps and the engines' ITL p50 before
+                 and after the splice, the survivor's restore ms, kill →
+                 SUSPECT and kill → DEAD seconds, respawn seconds.
 8. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
@@ -3549,6 +3576,64 @@ def _daemon_call(port: int, method: str, path: str, body: dict | None = None,
     return status, doc
 
 
+class _Daemon:
+    """The port's daemon as a child process (``mem://``, a data directory
+    and a port of its own), and the calls a phase makes through it: every
+    status answered is kept, for the no-5xx gates."""
+
+    def __init__(self, env: dict | None = None):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.data = tempfile.mkdtemp(prefix="atpu-daemon-")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        full = {**os.environ, "ATPU_SERVER_HOST": "127.0.0.1", "ATPU_SERVER_PORT": str(self.port),
+                "ATPU_AUTH_TOKEN": DAEMON_TOKEN, "ATPU_DATA_DIR": self.data,
+                "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH", "")) if p),
+                **(env or {})}
+        self.log_path = os.path.join(self.data, "daemon.log")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "agentainer_tpu_torch.daemon"], cwd=root, env=full,
+            stdout=open(self.log_path, "wb"), stderr=subprocess.STDOUT, start_new_session=True,
+        )
+        self.statuses: list[int] = []
+
+    def call(self, method, path, body=None, auth=False, timeout=300):
+        status, doc = _daemon_call(self.port, method, path, body, auth, timeout)
+        self.statuses.append(status)
+        return status, doc
+
+    def wait(self, pred, what: str, timeout: float):
+        t0 = time.monotonic()
+        while True:
+            try:
+                got = pred()
+            except OSError:  # not listening yet
+                got = None
+            if got:
+                return got
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"daemon exited while waiting for {what}: {_tail(self.log_path)}")
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"{what} not within {timeout} s: {_tail(self.log_path)}")
+            time.sleep(0.1)
+
+    def close(self) -> None:
+        # the engine hosts run in process groups of their own: note them
+        # before the daemon goes, since its children are reparented then
+        hosts = _children(self.proc.pid)
+        self.proc.terminate()  # SIGTERM: the daemon stops its engines
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+        for pid in hosts:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(pid, signal.SIGKILL)
+        shutil.rmtree(self.data, ignore_errors=True)
+
+
 def _gpu_used_mib() -> int:
     return int(smi("memory.used").split()[0])
 
@@ -3643,41 +3728,10 @@ def phase_daemon(card: str) -> dict:
     paged ones not; a deploy asking for more GPUs than the card's count
     fails with the scheduler's 409."""
     _free_cuda()
-    root = os.path.dirname(os.path.abspath(__file__))
-    data = tempfile.mkdtemp(prefix="atpu-daemon-")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = {**os.environ, "ATPU_SERVER_HOST": "127.0.0.1", "ATPU_SERVER_PORT": str(port),
-           "ATPU_AUTH_TOKEN": DAEMON_TOKEN, "ATPU_DATA_DIR": data,
-           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH", "")) if p)}
     used0 = _gpu_used_mib()
-    log_path = os.path.join(data, "daemon.log")
-    daemon = subprocess.Popen(
-        [sys.executable, "-m", "agentainer_tpu_torch.daemon"], cwd=root, env=env,
-        stdout=open(log_path, "wb"), stderr=subprocess.STDOUT, start_new_session=True,
-    )
-    statuses: list[int] = []
-
-    def call(method, path, body=None, auth=False, timeout=300):
-        status, doc = _daemon_call(port, method, path, body, auth, timeout)
-        statuses.append(status)
-        return status, doc
-
-    def wait(pred, what: str, timeout: float):
-        t0 = time.monotonic()
-        while True:
-            try:
-                got = pred()
-            except OSError:  # not listening yet
-                got = None
-            if got:
-                return got
-            if daemon.poll() is not None:
-                raise RuntimeError(f"daemon exited while waiting for {what}: {_tail(log_path)}")
-            if time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"{what} not within {timeout} s: {_tail(log_path)}")
-            time.sleep(0.1)
+    d = _Daemon()
+    daemon, port, data, log_path = d.proc, d.port, d.data, d.log_path
+    statuses, call, wait = d.statuses, d.call, d.wait
 
     def loaded(aid):
         status, doc = call("GET", f"/agent/{aid}/health")
@@ -3828,19 +3882,7 @@ def phase_daemon(card: str) -> dict:
             f"journal writes/request {out['journal_writes']['store_writes_per_request']}; {card}")
         return out
     finally:
-        # the engine hosts run in process groups of their own: note them
-        # before the daemon goes, since its children are reparented then
-        hosts = _children(daemon.pid)
-        daemon.terminate()  # SIGTERM: the daemon stops its engines
-        try:
-            daemon.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            os.killpg(daemon.pid, signal.SIGKILL)
-            daemon.wait(timeout=30)
-        for pid in hosts:
-            with contextlib.suppress(ProcessLookupError):
-                os.killpg(pid, signal.SIGKILL)
-        shutil.rmtree(data, ignore_errors=True)
+        d.close()
 
 
 def _daemon_body(session: str, msg: str) -> dict:
@@ -3898,6 +3940,390 @@ def _proxy_overhead(port: int, agent_id: str, data: str) -> dict:
             "probes": PROXY_PROBES}
 
 
+# the fleet phase: one llama3-8b agent with two replicas (two engine hosts
+# on GPU 0), routed through the proxy; the replica serving a stream is
+# SIGKILLed mid-stream and the stream is spliced onto the survivor
+FLEET_SESSIONS = 8  # fresh one-turn sessions for the spread gate (at least)
+FLEET_SESSIONS_MAX = 24  # sent before the spread gate gives up
+FLEET_SPREAD_TOKENS = 8
+FLEET_TURN2_TOKENS = 96
+FLEET_KILL_AFTER = 8  # token frames the client has read before the kill
+FLEET_PERSONA = DAEMON_PERSONAS[0]
+FLEET_MODEL = {"engine": "llm", "config": "llama3-8b",
+               "options": {"system_prompt": FLEET_PERSONA, "streaming": True}}
+
+
+def _fleet_tenants(data: str, agent_id: str) -> dict[int, dict]:
+    """replica ordinal → the latest tenant port of ``agent_id`` in each
+    engine host's log and that tenant's /metrics (a respawned host logs a
+    new port under the same file)."""
+    import glob
+
+    out = {}
+    for path in glob.glob(os.path.join(data, "runtime", "engines", "host-*.log")):
+        port = None
+        with open(path, errors="replace") as f:
+            for line in f:
+                if f"tenant {agent_id} attached on :" in line:
+                    port = int(line.rsplit(":", 1)[1])
+        if port is None:
+            continue
+        try:
+            _, m = _http(port, "GET", "/metrics", timeout=10)
+        except (OSError, AssertionError):
+            continue  # a host that died since its last attach
+        out[m["replica"]] = {"port": port, "metrics": m}
+    return out
+
+
+def _host_pids(daemon_pid: int) -> dict[int, int]:
+    """replica ordinal → pid of each engine host under the daemon (its
+    children with a CUDA context; the ordinal from their environment)."""
+    out = {}
+    for pid in _children(daemon_pid):
+        if not _maps_cuda(pid):
+            continue
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+        out[int(env.get(b"AGENTAINER_REPLICA", b"0"))] = pid
+    return out
+
+
+def _stream_frames(port: int, path: str, body: dict, on_token=None) -> tuple[int, dict, list]:
+    """One streamed request read frame by frame: (status, headers, [(arrival
+    s, frame)]); ``on_token(n)`` runs after the n-th token frame arrives."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        headers = dict(resp.getheaders())
+        if resp.status != 200:
+            return resp.status, headers, [(time.monotonic(), {"body": resp.read().decode()})]
+        frames, block, tokens = [], b"", 0
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                block += line
+                continue
+            if block:
+                frame = _parse_sse(block)[0]
+                frames.append((time.monotonic(), frame))
+                block = b""
+                if frame.get("event") == "token":
+                    tokens += 1
+                    if on_token is not None:
+                        on_token(tokens)
+        return resp.status, headers, frames
+    finally:
+        conn.close()
+
+
+def _gaps_ms(times: list[float]) -> dict:
+    import statistics
+
+    gaps = [1000 * (b - a) for a, b in zip(times, times[1:])]
+    return {"p50": statistics.median(gaps) if gaps else None,
+            "mean": (1000 * (times[-1] - times[0]) / (len(times) - 1)) if len(times) > 1 else None,
+            "tokens": len(times)}
+
+
+def phase_fleet(card: str) -> dict:
+    """The replica fleet on the card: the port's daemon as a child process
+    with ``features.streaming`` on, one llama3-8b agent deployed with
+    ``replicas: 2`` (full width and depth, random bf16 weights from seed 0,
+    the reference's default features): two engine hosts on GPU 0. Gates:
+    both replicas loaded, each in its own process, two CUDA processes under
+    the daemon and none in it, each host under twice the weights; at least
+    8 fresh sessions reach both replicas (power of two choices), both
+    hosts launched the dense kernels and no paged one, a session's second
+    turn goes to its first turn's replica; sessions T and S run the same
+    first turn, T its 96-token second turn undisturbed; once S's snapshot
+    has landed, S's second turn streams and its replica's host is
+    SIGKILLed after 8 token frames: on its one connection the client sees
+    ids 0..n-1 and one done, with T's token ids; ``stream_failovers_total``
+    >= 1, the survivor's ``kv_restores`` >= 1, S's entry completed at
+    offset n-1 with no retry, no 5xx; a buffered /chat sent right after the
+    stream answers 200 from the survivor; the monitor counts the death and
+    the fleet is back at two loaded replicas."""
+    _free_cuda()
+    used0 = _gpu_used_mib()
+    d = _Daemon({"ATPU_STREAMING": "1", "ATPU_JITTER_SEED": "0"})
+    call, wait, port = d.call, d.wait, d.port
+    out: dict = {"card": card}
+
+    def stream(session: str, msg: str, max_tokens: int, on_token=None):
+        body = {"message": msg, "session": session, "max_tokens": max_tokens, "ignore_eos": True,
+                "stream": True}
+        status, headers, frames = _stream_frames(port, f"/agent/{aid}/chat", body, on_token)
+        d.statuses.append(status)
+        if status != 200:
+            raise AssertionError(f"streamed turn of {session}: {status} {frames}")
+        return headers.get("X-Agentainer-Request-ID", ""), frames
+
+    def tokens_of(frames) -> list[int]:
+        evs = [f for _, f in frames if f.get("event") in ("token", "done", "error")]
+        if not evs or evs[-1]["event"] != "done" or any(f["event"] == "error" for f in evs):
+            raise AssertionError(f"a stream without its done frame: {evs[-3:]}")
+        return [f["data"]["token"] for f in evs if f["event"] == "token"]
+
+    def entry(rid: str) -> dict:
+        _, doc = call("GET", f"/agents/{aid}/requests?status=completed", auth=True)
+        found = next((r for r in doc["data"]["requests"] if r["id"] == rid), None)
+        if found is None:
+            raise AssertionError(f"request {rid} is not completed")
+        return found
+
+    def both_loaded() -> bool:
+        t = _fleet_tenants(d.data, aid)
+        return len(t) == 2 and all(v["metrics"]["model_loaded"] for v in t.values())
+
+    def settle() -> None:
+        """Every host's snapshots landed: none competes with the next
+        turn's for an engine's staging limiter."""
+        wait(lambda: all(t["metrics"]["kv_snapshots_in_flight"] == 0
+                         for t in _fleet_tenants(d.data, aid).values()), "the hosts' snapshots", 120)
+
+    try:
+        wait(lambda: _daemon_call(port, "GET", "/health")[0] == 200, "the daemon", 60)
+        if _maps_cuda(d.proc.pid):
+            raise AssertionError("the daemon created a CUDA context")
+        status, doc = call("POST", "/agents", {"name": "fleet", "model": FLEET_MODEL, "replicas": 2},
+                           auth=True)
+        assert status == 200, doc
+        aid = doc["data"]["id"]
+        t0 = time.monotonic()
+        status, doc = call("POST", f"/agents/{aid}/start", auth=True)
+        assert status == 200, doc
+        replica_ids = doc["data"]["replica_ids"]
+        ordinal = {eid: i for i, eid in enumerate(replica_ids)}
+        wait(both_loaded, "both replicas' models", 480)
+        out["boot_s"] = time.monotonic() - t0
+        pids = _host_pids(d.proc.pid)
+        if sorted(pids) != [0, 1] or len(set(pids.values())) != 2:
+            raise AssertionError(f"engine hosts under the daemon: {pids}")
+        apps = _compute_apps()
+        used = _gpu_used_mib() - used0
+        if set(pids.values()) <= set(apps):
+            host_mib = {i: apps[pid] for i, pid in pids.items()}
+            source = "nvidia-smi compute apps by pid"
+        else:
+            # nvidia-smi sees another pid namespace: each host holds at
+            # most the card's new memory less the other's weights
+            host_mib = {i: used - WEIGHT_BYTES_8B / 2**20 for i in pids}
+            source = f"bound: {used} MiB used less one host's weights"
+        out.update(host_mib=host_mib, host_mib_source=source, card_used_mib=used, compute_apps=apps)
+        if any(v * 2**20 >= 2 * WEIGHT_BYTES_8B for v in host_mib.values()):
+            raise AssertionError(f"host memory {host_mib} MiB ({source}): a host at or above twice the weights")
+
+        # spread: fresh one-turn sessions until both replicas served one
+        served: dict[int, list[str]] = {0: [], 1: []}
+        first_rid = {}
+        n = 0
+        while n < FLEET_SESSIONS or not all(served.values()):
+            if n >= FLEET_SESSIONS_MAX:
+                raise AssertionError(f"{n} fresh sessions all went to one replica: {served}")
+            session = f"f{n}"
+            rid, frames = stream(session, DAEMON_TURNS[0], FLEET_SPREAD_TOKENS)
+            tokens_of(frames)
+            first_rid[session] = rid
+            served[ordinal[entry(rid)["replica_id"]]].append(session)
+            n += 1
+        out["spread"] = {i: len(v) for i, v in served.items()}
+        _, doc = call("GET", f"/agents/{aid}/metrics", auth=True)
+        out["router"] = {k: v for k, v in doc["data"]["fleet"].items() if k != "replicas"}
+        # affinity: a session's second turn goes where its first went
+        sticky = served[0][0]
+        rid, frames = stream(sticky, DAEMON_TURNS[1], FLEET_SPREAD_TOKENS)
+        tokens_of(frames)
+        if entry(rid)["replica_id"] != entry(first_rid[sticky])["replica_id"]:
+            raise AssertionError(f"session {sticky}'s second turn left its replica")
+        tenants = _fleet_tenants(d.data, aid)
+        launches0 = {i: t["metrics"]["kernel_launches"] for i, t in tenants.items()}
+        for i, launches in launches0.items():
+            if not (launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+                    and launches["fused_paged_flash_prefill"] == 0
+                    and launches["fused_paged_flash_decode"] == 0):
+                raise AssertionError(f"replica {i}'s kernel launches: {launches}")
+        settle()
+
+        # T undisturbed; S's first turn and its snapshot
+        _, t1 = stream("T", DAEMON_TURNS[0], DAEMON_MAX_TOKENS)
+        settle()
+        _, t2 = stream("T", DAEMON_TURNS[1], FLEET_TURN2_TOKENS)
+        settle()
+        want1, want2 = tokens_of(t1), tokens_of(t2)
+        rid, s1 = stream("S", DAEMON_TURNS[0], DAEMON_MAX_TOKENS)
+        if tokens_of(s1) != want1:
+            raise AssertionError(f"sessions T and S differ on turn one: {tokens_of(s1)} {want1}")
+        victim_id = entry(rid)["replica_id"]
+        victim = ordinal[victim_id]
+        survivor = 1 - victim
+        settle()
+        m = _fleet_tenants(d.data, aid)[victim]["metrics"]
+        if (m["last_kv_snapshot"] or {}).get("session") != "S" or m["kv_snapshot_errors"]:
+            raise AssertionError(f"S's snapshot did not land: {m['last_kv_snapshot']}, errors "
+                                 f"{m['kv_snapshot_errors']}, deferred {m['kv_snapshots_deferred']}")
+        out["snapshot"] = m["last_kv_snapshot"]
+        pre_kill = _fleet_tenants(d.data, aid)
+        restores0 = pre_kill[survivor]["metrics"]["kv_restores"]
+        out["engine_itl_p50_ms"] = {"victim_before": pre_kill[victim]["metrics"]["itl_ms_p50"]}
+        victim_pid = _host_pids(d.proc.pid)[victim]
+
+        # S's second turn: its host is SIGKILLed after FLEET_KILL_AFTER frames
+        kill: dict = {}
+        health: dict = {}
+
+        def watch_health():
+            t_end = time.monotonic() + 120
+            while time.monotonic() < t_end and "alive_again" not in health:
+                try:
+                    _, doc = _daemon_call(port, "GET", f"/agents/{aid}/metrics", auth=True, timeout=10)
+                    state = doc["data"]["fleet"]["replicas"][victim_id]["health"]
+                except (OSError, ValueError, KeyError, TypeError):
+                    state = None
+                now = time.monotonic()
+                if state in ("suspect", "dead") and state not in health:
+                    health[state] = now
+                if state == "alive" and "dead" in health:
+                    health["alive_again"] = now
+                time.sleep(0.1)
+
+        watcher = threading.Thread(target=watch_health, name="fleet-health", daemon=True)
+
+        def on_token(count: int):
+            if count == FLEET_KILL_AFTER and not kill:
+                os.kill(victim_pid, signal.SIGKILL)
+                kill["t"] = time.monotonic()
+                kill["after_tokens"] = count
+                watcher.start()
+
+        s_rid, s2 = stream("S", DAEMON_TURNS[1], FLEET_TURN2_TOKENS, on_token)
+        if not kill:
+            raise AssertionError("S's stream ended before the kill")
+        out["kill_to_done_s"] = time.monotonic() - kill["t"]
+        log(f"fleet: S's stream done {out['kill_to_done_s']:.2f} s after the kill")
+        surv_m = _fleet_tenants(d.data, aid)[survivor]["metrics"]
+        out["engine_itl_p50_ms"]["survivor_after"] = surv_m["itl_ms_p50"]
+        # a buffered turn right after the kill, on a session pinned to the
+        # dead replica: the bounded next-replica retry answers it
+        pinned = served[victim][0] if served[victim][0] != sticky else served[victim][-1]
+        t_buf = time.monotonic()
+        status, doc = call("POST", f"/agent/{aid}/chat", {
+            "message": DAEMON_TURNS[1], "session": pinned, "max_tokens": FLEET_SPREAD_TOKENS,
+            "ignore_eos": True})
+        out["buffered"] = {"status": status, "s_after_kill": t_buf - kill["t"], "session": pinned}
+        if status != 200:
+            raise AssertionError(f"buffered /chat after the kill: {status} {doc}")
+        _, rq = call("GET", f"/agents/{aid}/requests?status=completed", auth=True)
+        buf_entry = max((r for r in rq["data"]["requests"] if r["replica_id"]), key=lambda r: r["created_at"])
+        out["buffered"]["replica"] = ordinal.get(buf_entry["replica_id"])
+
+        evs = [(t, f) for t, f in s2 if f.get("event") in ("token", "done", "error")]
+        ids = [f["id"] for _, f in evs if f["event"] == "token"]
+        got2 = tokens_of(s2)
+        times = [t for t, f in evs if f["event"] == "token"]
+        k_before = sum(1 for t in times if t < kill["t"])
+        # frames the dead host sent may still sit in the client's buffer at
+        # the kill: the splice is the longest gap from the kill on
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        g = max(range(k_before - 1, len(gaps)), key=gaps.__getitem__) if k_before < len(times) else None
+        _, faults_doc = call("GET", "/internal/faults", auth=True)
+        fd = faults_doc["data"]
+        s_entry = entry(s_rid)
+        out.update({
+            "ids_contiguous": ids == [str(i) for i in range(len(ids))],
+            "tokens": len(got2),
+            "equal_to_T": got2 == want2,
+            "kill_after_tokens": k_before,
+            "failover_gap_ms": None if g is None else 1000 * gaps[g],
+            "splice_at_offset": None if g is None else g + 1,
+            "itl_before_ms": _gaps_ms(times[:k_before] if g is None else times[:g + 1]),
+            "itl_after_ms": _gaps_ms([] if g is None else times[g + 1:]),
+            "stream_failovers_total": fd["stream_failovers_total"],
+            "survivor_kv_restores": surv_m["kv_restores"] - restores0,
+            "restore": surv_m.get("last_kv_restore"),
+            "s_entry": {k: s_entry[k] for k in ("status", "stream_offset", "retry_count")},
+            "s_entry_replica": ordinal.get(s_entry["replica_id"]),
+        })
+        if not out["equal_to_T"]:
+            j = next((i for i, (x, y) in enumerate(zip(got2, want2)) if x != y), min(len(got2), len(want2)))
+            out["divergence"] = {"at": j, "T": want2[j:j + 4], "S": got2[j:j + 4]}
+        # repair: the monitor's death, then the fleet back at two replicas
+        wait(lambda: "dead" in health, "the monitor's DEAD", 60)
+        wait(both_loaded, "the respawned replica", 480)
+        out["respawn_s"] = time.monotonic() - kill["t"]
+        watcher.join(timeout=130)
+        _, faults_doc = call("GET", "/internal/faults", auth=True)
+        out["monitor"] = faults_doc["data"]["replica_monitor"]
+        out["repair"] = faults_doc["data"]["fleet_repair"]
+        out["kill_to_suspect_s"] = health["suspect"] - kill["t"] if "suspect" in health else None
+        out["kill_to_dead_s"] = health["dead"] - kill["t"]
+        out["alive_again_s"] = health["alive_again"] - kill["t"] if "alive_again" in health else None
+        _, doc = call("GET", f"/agents/{aid}", auth=True)
+        out["agent"] = {"status": doc["data"]["status"], "replicas": len(doc["data"]["replica_ids"])}
+        end = _fleet_tenants(d.data, aid)
+        names = ("flash_prefill", "flash_decode", "fused_paged_flash_prefill", "fused_paged_flash_decode")
+        # both hosts' calls: each one's count before the kill, the
+        # survivor's since, and the respawned host's
+        out["launches"] = {
+            fn: launches0[victim][fn] + end[survivor]["metrics"]["kernel_launches"][fn]
+            + end[victim]["metrics"]["kernel_launches"][fn] for fn in names
+        }
+        out["launches_by_host"] = {"before_kill": launches0,
+                                   "end": {i: end[i]["metrics"]["kernel_launches"] for i in end}}
+        five = [s for s in d.statuses if s >= 500]
+        if five:
+            raise AssertionError(f"5xx answers: {five}")
+        if not out["ids_contiguous"] or out["tokens"] != FLEET_TURN2_TOKENS:
+            raise AssertionError(f"S's spliced ids: {ids}")
+        if out["kill_after_tokens"] >= len(times):
+            raise AssertionError("the kill did not land mid-stream")
+        if out["stream_failovers_total"] < 1 or out["survivor_kv_restores"] < 1:
+            raise AssertionError(f"failovers {out['stream_failovers_total']}, "
+                                 f"survivor restores {out['survivor_kv_restores']}")
+        if (out["s_entry"] != {"status": "completed", "stream_offset": len(ids) - 1, "retry_count": 0}
+                or out["s_entry_replica"] != survivor):
+            raise AssertionError(f"S's journal entry: {s_entry}")
+        if health.get("alive_again", t_buf) < t_buf:
+            raise AssertionError(f"the buffered turn left after the respawn: the retry went untested "
+                                 f"{out['buffered']}")
+        if out["buffered"]["replica"] != survivor:
+            raise AssertionError(f"the buffered turn after the kill: {out['buffered']}")
+        if out["monitor"]["deaths_total"] < 1 or out["agent"] != {"status": "running", "replicas": 2}:
+            raise AssertionError(f"repair: monitor {out['monitor']}, agent {out['agent']}")
+        log(f"fleet: boot {out['boot_s']:.1f} s, hosts {host_mib} MiB ({source}), spread {out['spread']}, "
+            f"failover gap {out['failover_gap_ms']:.1f} ms, frame gaps before {out['itl_before_ms']} after "
+            f"{out['itl_after_ms']}, engine ITL p50 {out['engine_itl_p50_ms']}, restore {out['restore']}, "
+            f"kill->suspect {out['kill_to_suspect_s']} s, "
+            f"kill->dead {out['kill_to_dead_s']:.2f} s, respawn {out['respawn_s']:.1f} s, "
+            f"buffered {out['buffered']}, launches {out['launches']}; {card}")
+    finally:
+        d.close()
+    if not out["equal_to_T"]:
+        out["logit_gap"] = _fleet_logit_gap(want1, want2, out["divergence"]["at"], got2)
+        raise AssertionError(f"S's spliced turn two differs from T's: {out['divergence']}, "
+                             f"logit gap {out['logit_gap']}")
+    return out
+
+
+def _fleet_logit_gap(turn1: list[int], turn2: list[int], j: int, got: list[int]) -> float | None:
+    """After a failed splice (the daemon gone): the logit of T's token minus
+    S's at the first differing position, after T's stream, through a
+    llama3-8b engine with the hosts' weights (seed 0)."""
+    if j >= min(len(turn2), len(got)):
+        return None
+    with _serving({"streaming": True}) as (app, _):
+        enc = app.engine.tokenizer.encode
+        stream = enc(f"{FLEET_PERSONA}\n\n{DAEMON_TURNS[0]}") + turn1 + enc(DAEMON_TURNS[1]) + turn2[:j]
+        gap = _logit_gap(app.engine, stream, turn2[j], got[j])
+    log(f"fleet: S diverges from T at token {j}: {turn2[j]} vs {got[j]}; logit gap {gap:.4g}")
+    return gap
+
+
 def main() -> int:
     import torch
 
@@ -3946,6 +4372,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     # the control plane: the daemon spawns its own engine host on the card
     report["daemon"] = phase_daemon(card)
+    # the replica fleet: two engine hosts, one killed mid-stream
+    report["fleet"] = phase_fleet(card)
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
@@ -3953,6 +4381,9 @@ def main() -> int:
         row["launches_features_off"] = report["serve_paged" if paged else "serve"]["launches"][row["name"]]
         # the daemon's engine host (the respawned one, after the replay)
         row["launches_daemon"] = report["daemon"]["launches"][row["name"]]
+        # the fleet's two engine hosts (the killed one's calls before the
+        # kill, the survivor's, the respawned one's)
+        row["launches_fleet"] = report["fleet"]["launches"][row["name"]]
         # the fused path: the fused dense phase (features off) and the fused
         # paged feature phase (in-loop spec)
         row["launches_fused"] = (

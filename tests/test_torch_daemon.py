@@ -14,8 +14,9 @@
 - **Store**: seeded random sequences of store ops (strings, TTLs, sets,
   lists, sorted sets, hashes, ``cas``, pattern pub/sub) through both
   ``MemoryStore``s give equal results.
-- The slices' refusals: ``native://``, ``replicas > 1``, the artifacts and
-  backups routes (501), a store socket with no control URL.
+- The slices' refusals: ``native://``, the artifacts and backups routes
+  (501), a store socket with no control URL; a ``replicas: 2`` deploy is
+  served by two engines.
 """
 
 from __future__ import annotations
@@ -79,13 +80,16 @@ def _configure(cfg):
 
 
 @contextlib.asynccontextmanager
-async def port_stack(tmp_path, background: bool = False, ready_timeout_s: float = 60.0):
+async def port_stack(tmp_path, background: bool = False, ready_timeout_s: float = 60.0,
+                     streaming: bool = False):
     """The port's daemon on a free port with a real process backend; like
     the reference's test stack, with no background loops unless asked (the
     test drives the reconciler and the replay worker itself)."""
     backend = LocalBackend(data_dir=str(tmp_path / "port"), ready_timeout_s=ready_timeout_s)
+    config = _configure(Config())
+    config.features.streaming = streaming
     services = build_services(
-        config=_configure(Config()), store=MemoryStore(), backend=backend,
+        config=config, store=MemoryStore(), backend=backend,
         console_logs=False, data_dir=str(tmp_path / "port"),
     )
     server = await start_daemon(services, "127.0.0.1", 0)
@@ -331,9 +335,6 @@ def test_later_slices_are_refused_by_name(tmp_path):
             for method, path in (("POST", "/backups"), ("GET", "/backups"), ("GET", "/artifacts"),
                                  ("POST", "/backups/b1/restore"), ("DELETE", "/artifacts/a")):
                 res[(method, path)] = await st.call(method, path, {}, AUTH)
-            res["replicas"] = await st.call(
-                "POST", "/agents", {"name": "f", "model": "echo", "replicas": 2}, AUTH
-            )
             res["artifact"] = await st.call(
                 "POST", "/agents", {"name": "a", "model": {"artifact": "m"}}, AUTH
             )
@@ -343,8 +344,32 @@ def test_later_slices_are_refused_by_name(tmp_path):
     for key in [k for k in res if isinstance(k, tuple)] + ["artifact"]:
         status, doc = res[key]
         assert status == 501 and doc["success"] is False and "slice of the port" in doc["message"], key
-    status, doc = res["replicas"]
-    assert status == 400 and "fleet slice" in doc["message"]
+
+
+def test_replicas_deploy_starts_one_engine_per_replica(tmp_path):
+    """The fleet is ported: a ``replicas: 2`` deploy answers 200 and its
+    start makes two engine processes, each with its own port."""
+
+    async def body():
+        async with port_stack(tmp_path) as st:
+            status, doc = await st.call(
+                "POST", "/agents", {"name": "f", "model": "echo", "replicas": 2}, AUTH
+            )
+            assert status == 200, doc
+            aid = doc["data"]["id"]
+            status, doc = await st.call("POST", f"/agents/{aid}/start", headers=AUTH)
+            assert status == 200, doc
+            rec = st.services.manager.get_agent(aid)
+            backend = st.services.backend
+            procs = {backend._recs[e].proc.pid for e in rec.replica_ids}
+            endpoints = {backend.engine_info(e).endpoint for e in rec.replica_ids}
+            status, reply = await st.call("POST", f"/agent/{aid}/chat", {"message": "hi"})
+            return rec, procs, endpoints, status, reply
+
+    rec, procs, endpoints, status, reply = asyncio.run(body())
+    assert len(rec.replica_ids) == 2 and rec.engine_id == rec.replica_ids[0]
+    assert len(procs) == 2 and len(endpoints) == 2
+    assert status == 200 and reply["response"] == "Echo: hi"
 
 
 def test_slice_defaults_come_from_the_card(monkeypatch):

@@ -68,6 +68,7 @@ CONTROL_PLANE = (
     "agentainer_tpu_torch.daemon",
     "agentainer_tpu_torch.config",
     "agentainer_tpu_torch.server.app",
+    "agentainer_tpu_torch.server.router",
     "agentainer_tpu_torch.runtime.backend",
     "agentainer_tpu_torch.runtime.scheduler",
     "agentainer_tpu_torch.runtime.store_client",
