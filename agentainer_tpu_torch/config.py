@@ -12,9 +12,11 @@ searched in ``.``, ``~/.agentainer_tpu_torch``, ``/etc/agentainer_tpu_torch``;
   ``ATPU_SLICE_CHIPS`` or the config file sets it; both still override;
 - ``yaml`` is imported only when a config file is found (the machine with
   the card may lack it);
-- ``store_url`` ``auto`` resolves to ``mem://`` in the daemon; the native
-  store and its C++ data plane (``features.native_dataplane``) come with
-  later slices.
+- ``store_url`` ``auto`` resolves in the daemon as the reference's does:
+  ``native://<data_dir>/store.aof`` (the C++ store, append-only-file
+  durability) when the native library builds, ``mem://`` otherwise; with
+  the native store, ``features.native_dataplane`` (``ATPU_NATIVE_DATAPLANE``)
+  puts the C++ front door on the public port.
 """
 
 from __future__ import annotations
@@ -79,6 +81,9 @@ class SliceConfig:
 @dataclass
 class FeatureFlags:
     request_persistence: bool = True  # config.go:70
+    # Serve /agent/* + the engine store socket from the C++ data plane when
+    # the store is native (falls back to the standard-library proxy).
+    native_dataplane: bool = True
     # Default for engines' self-speculative decoding (prompt-lookup drafts
     # + batched verify). Per-deployment model options override; false here
     # pins the whole fleet to the plain decode path (the A/B baseline).
@@ -234,8 +239,8 @@ class Config:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     auth_token: str = DEFAULT_TOKEN
-    # "auto": the in-memory store (the native store is a later slice).
-    # Explicit: mem://
+    # "auto": native C++ store with AOF durability when the library builds,
+    # in-memory store otherwise. Explicit: mem:// | native://[aof-path]
     store_url: str = "auto"
     data_dir: str = "~/.agentainer_tpu_torch"
 
@@ -348,6 +353,15 @@ def load_config(path: str | None = None) -> Config:
         cfg.deadlines.shed_pending_global = int(env["ATPU_SHED_GLOBAL"])
     if "ATPU_REQUEST_PERSISTENCE" in env:
         cfg.features.request_persistence = env["ATPU_REQUEST_PERSISTENCE"].lower() in (
+            "1",
+            "true",
+            "yes",
+        )
+    cfg.features.native_dataplane = bool(
+        feats.get("native_dataplane", cfg.features.native_dataplane)
+    )
+    if "ATPU_NATIVE_DATAPLANE" in env:
+        cfg.features.native_dataplane = env["ATPU_NATIVE_DATAPLANE"].lower() in (
             "1",
             "true",
             "yes",

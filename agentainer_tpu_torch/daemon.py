@@ -6,17 +6,27 @@ journal, health, metrics, reconciler, log plane, the fleet's router,
 replica monitor and repair), the API server and the background loops
 (state sync at 10 s, replay at 5 s, metrics at 10 s, health per agent,
 replica leases at ``fleet.lease_interval_s``), then serve until stopped.
-What differs:
+As in the reference:
 
-- the server is the port's standard-library one (``server/app.py`` over
-  ``utils/http``), always the front door, and owns every agent's dispatch,
-  a replica fleet's included: the reference's C++ data plane and native
-  store come with later slices, and so do its artifacts and backups (their
-  routes answer 501);
-- ``store_url`` ``auto`` resolves to ``mem://`` — the reference's own path
-  when its native library is unavailable — and the start line says so;
-- nothing here imports torch: the daemon never creates a CUDA context; only
-  the llm engine processes it spawns touch the card.
+- ``store_url`` ``auto`` resolves to ``native://<data_dir>/store.aof``
+  (the C++ store; every mutation in an append-only file replayed on the
+  next start) when the native library builds (``native.py``), else
+  ``mem://``;
+- with a native store and ``features.native_dataplane``, the C++ listener
+  (``runtime/dataplane.py``) takes the public port: ``/agent/{id}/*`` is
+  journaled, dispatched and settled on native threads, the engines reach
+  the store over its unix socket (``<data_dir>/store.sock``), and
+  everything else — a replica fleet's ``/agent/*`` included, whose route
+  the hook leaves to Python so the routing tier keeps its dispatch — is
+  forwarded to the port's standard-library server (``server/app.py`` over
+  ``utils/http``) on a loopback port; otherwise that server is the front
+  door. The start line names the store and the data plane that run; the
+  data plane stops before the store can be freed.
+
+What differs: the reference's artifacts and backups come with later
+slices (their routes answer 501); nothing here imports torch, so the
+daemon never creates a CUDA context — only the llm engine processes it
+spawns touch the card.
 
 Run: ``python -m agentainer_tpu_torch.daemon`` (``ATPU_SERVER_PORT``,
 ``ATPU_AUTH_TOKEN``, ``ATPU_DATA_DIR`` and the rest of ``config.py``'s
@@ -26,6 +36,7 @@ environment), until SIGTERM/SIGINT.
 from __future__ import annotations
 
 import asyncio
+import functools
 import os
 import signal
 from dataclasses import dataclass, field
@@ -56,6 +67,7 @@ class Services:
     metrics: MetricsPlane
     data_dir: str = ""
     store_url: str = ""  # the store the daemon opened (auto resolved)
+    dataplane: object = None  # NativeDataPlane when the C++ listener is up
     health: HealthMonitor = None  # type: ignore[assignment]
     quick_sync: QuickSync = None  # type: ignore[assignment]
     state_sync: StateSynchronizer = None  # type: ignore[assignment]
@@ -114,9 +126,17 @@ def build_services(
     ddir = data_dir if data_dir is not None else config.data_path
     store_url = "(given)"
     if store is None:
-        # auto: the in-memory store, as the reference when its native
-        # library is unavailable (the native store is a later slice)
-        store_url = "mem://" if config.store_url == "auto" else config.store_url
+        store_url = config.store_url
+        if store_url == "auto":
+            # native store + AOF durability when the library builds — the
+            # Redis-persistence role; the memory store otherwise
+            from .native import available as native_available
+
+            if native_available():
+                os.makedirs(str(ddir), exist_ok=True)
+                store_url = f"native://{ddir}/store.aof"
+            else:
+                store_url = "mem://"
         store = open_store(store_url)
     if backend is None:
         from .runtime.local import LocalBackend
@@ -230,25 +250,74 @@ async def stop_background(services: Services) -> None:
         await services.replica_monitor.stop()
 
 
+def _try_start_dataplane(services: Services, host: str, port: int, mgmt_port: int):
+    """Start the C++ front door on ``host:port``: /agent/* and the engine
+    store socket served natively, the rest forwarded to the standard-library
+    server on ``mgmt_port``. Returns the NativeDataPlane, or None (the
+    Python server is the front door)."""
+    uds_path = os.path.join(os.path.abspath(services.data_dir), "store.sock")
+    try:
+        from .runtime.dataplane import NativeDataPlane
+
+        os.makedirs(services.data_dir, exist_ok=True)
+        dp = NativeDataPlane(services.store, host, port, "127.0.0.1", mgmt_port, uds_path)
+    except Exception as e:
+        services.logs.warn("daemon", f"native data plane unavailable: {e}")
+        return None
+    persist = services.config.features.request_persistence
+
+    def route_hook(agent, agent_id: str) -> None:
+        if agent is None:
+            dp.route_del(agent_id)
+            return
+        endpoint = services.manager.endpoint(agent)
+        if len(agent.all_engine_ids()) > 1:
+            # replica fleet: no single endpoint is right — a Python-owned
+            # route (port 0 on a running agent) sends its /agent/* to the
+            # standard-library proxy, whose routing tier owns the dispatch
+            endpoint = None
+        dp.route_set(agent_id, endpoint, agent.status.value, persist)
+
+    services.manager.set_route_hook(route_hook)
+    services.metrics.set_native_drain(dp.counters_drain)
+    if hasattr(services.backend, "set_store_sock"):
+        services.backend.set_store_sock(uds_path)
+    services.dataplane = dp
+    return dp
+
+
 async def start_daemon(services: Services, host: str | None = None, port: int | None = None):
-    """Bind the API server (port 0 = any free port) and point the backend's
-    engines at it; returns the server. The background loops start apart
-    (``start_background``), so a caller may drive the reconciler and the
-    replay worker itself, as the tests do."""
+    """Bind the front door (port 0 = any free port) and point the backend's
+    engines at it; returns the standard-library server. With the C++ data
+    plane that server listens on a loopback port behind it. The background
+    loops start apart (``start_background``), so a caller may drive the
+    reconciler and the replay worker itself, as the tests do."""
     from .utils import http
 
     cfg = services.config
     host = cfg.server.host if host is None else host
     port = cfg.server.port if port is None else port
-    server = await http.start_server(services.app.handle, host, port, max_body=services.app.max_body)
-    services.public_port = server.sockets[0].getsockname()[1]
+    serve = functools.partial(http.start_server, services.app.handle, max_body=services.app.max_body)
+    dp = None
+    from .store.native import NativeStore
+
+    if cfg.features.native_dataplane and isinstance(services.store, NativeStore):
+        server = await serve("127.0.0.1", 0)
+        dp = _try_start_dataplane(services, host, port, server.sockets[0].getsockname()[1])
+        if dp is None:
+            server.close()
+    if dp is None:
+        server = await serve(host, port)
+        services.public_port = server.sockets[0].getsockname()[1]
+    else:
+        services.public_port = dp.port
     if hasattr(services.backend, "set_control"):
         services.backend.set_control(f"http://127.0.0.1:{services.public_port}", cfg.auth_token)
     services.logs.info(
         "daemon",
         f"control plane listening on {host}:{services.public_port} "
         f"(slice {services.scheduler.topology.name}, {services.scheduler.topology.total_chips} GPUs; "
-        f"store {services.store_url}; data plane python)",
+        f"store {services.store_url}; data plane {'native' if dp else 'python'})",
     )
     return server
 
@@ -258,6 +327,12 @@ async def stop_daemon(services: Services, server) -> None:
         await stop_background(services)
     except asyncio.CancelledError:
         pass
+    finally:
+        # the data plane's threads use the store: stop them before anyone
+        # may free it, even when a cancellation lands in the awaits above
+        if services.dataplane is not None:
+            services.dataplane.stop()
+            services.dataplane = None
     await asyncio.to_thread(services.backend.close)
     server.close()
 
@@ -286,7 +361,10 @@ def main() -> None:
         except asyncio.CancelledError:
             pass
 
-    asyncio.run(go())
+    try:
+        asyncio.run(go())
+    finally:
+        services.store.close()  # after the data plane stopped
 
 
 if __name__ == "__main__":

@@ -16,8 +16,10 @@ What differs:
   ``streaming`` option; a body asking for it with the option off is
   answered buffered, as in the reference): the standard-library server
   writes the reference's frames (``_sse_frame``) one at a time, draining
-  each, with no Content-Length and ``Connection: close``; the status line
-  goes out with the first frame, so a failure before it still answers
+  each, with ``Connection: close``, each frame one chunk of a
+  ``Transfer-Encoding: chunked`` body to an HTTP/1.1 request (aiohttp's
+  framing, which the C++ front door needs to read a stream whole); the
+  status line goes out with the first frame, so a failure before it still answers
   with its plain status (the poisoned-prefill 500 included). A client that
   hangs up is seen as end of file on the connection (``Stream.hangup``)
   and cancels its engine request;
@@ -45,7 +47,9 @@ statelessly (``_flattened_prompt``), with a default persona of its own.
 
 Under a control plane (``AGENTAINER_CONTROL_URL`` + the engine's token)
 conversation turns and KV snapshots go to the daemon's store through
-``runtime/store_client.py``, as in the reference: a debounced snapshot of a
+``runtime/store_client.py`` (over the native store's unix socket,
+``AGENTAINER_STORE_SOCK``, when the daemon runs the C++ data plane; a
+tenant inherits its host's), as in the reference: a debounced snapshot of a
 session's KV after each turn (``kv_snapshot_interval_s``, 10 s), the
 restore of an unknown session from the store before its turn is admitted
 (``kv_restores``), final snapshots of every resident session in the drain,
@@ -557,6 +561,7 @@ class LLMServeApp:
             "AGENTAINER_MODEL_OPTIONS": json.dumps(body.get("options", {}) or {}),
             "AGENTAINER_SYSTEM_PROMPT": str(body.get("system_prompt", "")),
             "AGENTAINER_CONTROL_URL": self.store.control_url,
+            "AGENTAINER_STORE_SOCK": self.store.store_sock,
             "AGENTAINER_INTERNAL_TOKEN": str(body.get("token", "")),
             "AGENTAINER_CHIPS": ",".join(map(str, self.chips)),
             # a host serves one replica ordinal of each of its agents

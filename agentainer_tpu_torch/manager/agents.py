@@ -1,8 +1,10 @@
 """Agent lifecycle manager.
 
 Reference: ``agentainer_tpu/manager/agents.py``, replica fleet included
-(N engine replicas per agent, their initial leases, scale-down); the
-native data plane's routing hook comes with that slice. Model validation
+(N engine replicas per agent, their initial leases, scale-down), and the
+native data plane's routing hook (``set_route_hook``: every save and
+removal of an agent record, the fleet's included, feeds the C++ routing
+table). Model validation
 reads ``models/configs.py`` (standard library), so the daemon never
 imports torch.
 
@@ -48,6 +50,7 @@ class AgentManager:
         self.scheduler = scheduler
         self._lock = threading.RLock()
         self._quick_sync = None  # wired by the daemon to avoid an import cycle
+        self._route_hook = None  # native data plane routing-table feed
         # fleet defaults (config fleet.*, set by build_services): how many
         # engine replicas a start spawns when the agent record doesn't pin
         # its own count, and the TTL of the initial replica lease
@@ -69,6 +72,21 @@ class AgentManager:
     def set_quick_sync(self, quick_sync) -> None:
         self._quick_sync = quick_sync
 
+    def set_route_hook(self, hook) -> None:
+        """``hook(agent | None, agent_id)`` — called after every persisted
+        mutation (agent=None means removed) so the native data plane's routing
+        table tracks the store. Existing agents are pushed immediately."""
+        self._route_hook = hook
+        for agent in self.list_agents(sync_first=False):
+            hook(agent, agent.id)
+
+    def _fire_route_hook(self, agent: Agent | None, agent_id: str) -> None:
+        if self._route_hook is not None:
+            try:
+                self._route_hook(agent, agent_id)
+            except Exception:
+                pass  # routing must never break a lifecycle op
+
     def _fire_quick_sync(self, agent_id: str) -> None:
         if self._quick_sync is not None:
             # async-after-mutation, parity with `go quickSync.SyncAgent(...)`
@@ -86,6 +104,7 @@ class AgentManager:
         self.store.set(Keys.agent_status(agent.id), agent.status.value)
         if publish_status:
             self.store.publish(Keys.status_channel(agent.id), agent.status.value)
+        self._fire_route_hook(agent, agent.id)
 
     def get_agent(self, agent_id: str) -> Agent:
         raw = self.store.get_json(Keys.agent(agent_id))
@@ -344,6 +363,7 @@ class AgentManager:
             doomed += self.store.keys(Keys.kvcache_pattern(agent_id))
             doomed += self.store.keys(Keys.replica_lease_pattern(agent_id))
             self.store.delete(*doomed)
+        self._fire_route_hook(None, agent_id)
 
     def logs(self, agent_id: str, tail: int = 100) -> list[str]:
         agent = self.get_agent(agent_id)

@@ -10,8 +10,9 @@ cannot go dormant, and the sample unit is what matters on a TPU: request
 throughput and latency from the proxy, plus engine counters (tokens/s, TTFT,
 batch occupancy, KV/HBM usage) pulled from ``Backend.stats``.
 
-Reference: ``agentainer_tpu/manager/metrics.py``, copied (the native data
-plane's counter drain stays unset until that slice).
+Reference: ``agentainer_tpu/manager/metrics.py``, copied; behind the C++
+front door the daemon sets the native data plane's counter drain, so the
+requests the C++ served count in each sample's ``proxy``.
 """
 
 from __future__ import annotations

@@ -30,8 +30,10 @@ for one tenant holds none of its co-tenants: they read as exited until
 they attach again. ``ready_timeout_s`` (180 s)
 covers an engine process's start up to its first ``/health`` answer; the
 model loads behind it and reports ready to ``/internal/engines/ready``.
-The reference's warm-boot marker, compile cache and native store socket
-have no counterpart here.
+Engines and hosts get the native store's unix socket
+(``AGENTAINER_STORE_SOCK``, ``set_store_sock``) beside the control URL when
+the daemon runs the C++ data plane. The reference's warm-boot marker and
+compile cache have no counterpart here.
 """
 
 from __future__ import annotations
@@ -175,6 +177,7 @@ class LocalBackend(Backend):
             else _envf("ATPU_RESTART_MAX_RAPID", 5)
         )
         self.control_url = ""
+        self.store_sock = ""
         self.internal_token = ""
         self._dir = Path(data_dir or tempfile.mkdtemp(prefix="atpu-engines-")).expanduser()
         (self._dir / "engines").mkdir(parents=True, exist_ok=True)
@@ -196,6 +199,12 @@ class LocalBackend(Backend):
         the admin bearer token.
         """
         self.control_url = url
+
+    def set_store_sock(self, uds_path: str) -> None:
+        """Point engines at the native store's unix socket (binary protocol,
+        bypasses HTTP for state ops); engines use the HTTP store API when
+        it is unset."""
+        self.store_sock = uds_path
 
     # -- backend interface ----------------------------------------------
     def create_engine(
@@ -393,6 +402,7 @@ class LocalBackend(Backend):
                 pass
         host.log_file = open(host.log_path, "ab")
         host.env["AGENTAINER_CONTROL_URL"] = self.control_url
+        host.env["AGENTAINER_STORE_SOCK"] = self.store_sock
         host.proc = subprocess.Popen(
             [self.python, "-m", ENGINE_MAIN],
             env=host.env,
@@ -504,6 +514,7 @@ class LocalBackend(Backend):
                 pass
         rec.log_file = open(rec.log_path, "ab")
         rec.env["AGENTAINER_CONTROL_URL"] = self.control_url
+        rec.env["AGENTAINER_STORE_SOCK"] = self.store_sock
         rec.proc = subprocess.Popen(
             rec.cmd,
             env=rec.env,

@@ -1,18 +1,24 @@
 """Async store client for engine processes.
 
 Reference: ``agentainer_tpu/runtime/store_client.py``. Engines reach the
-daemon's store over HTTP (``AGENTAINER_CONTROL_URL`` + ``/internal/store``):
-JSON ops namespaced to the agent's ``agent:{id}:*`` keys, authenticated
-with the per-engine token, with bounded retry and jittered backoff for
-transport errors and the ``store_client.rpc`` failpoint inside the retry
-loop — on the standard library (``utils/http``). With no control plane
-configured (standalone engine runs, unit tests) it falls back to
-process-local memory, whose state dies with the process.
+daemon's store two ways, the faster first:
 
-The reference's faster path, the native store's binary protocol over a
-unix socket (``AGENTAINER_STORE_SOCK``), comes with the native-store slice
-of the port: a socket named with no control URL raises, and beside one the
-HTTP path is used.
+- **unix socket, binary protocol** (``AGENTAINER_STORE_SOCK``, served by
+  the C++ data plane beside the native store): frames of the native wire
+  encoding (``store/native.py``'s codec, ``native/common.h``) straight into
+  the C++ store, through a small pool of connections (``_UDSPool``), each
+  authenticated once with the per-engine token and namespaced by the C++
+  to the agent's ``agent:{id}:*`` keys, one frame in flight per
+  connection; a KV snapshot travels as raw bytes. A frame above 64 MiB
+  closes the connection (the reference's cap, ``native/dataplane.cc``);
+- **HTTP** (``AGENTAINER_CONTROL_URL`` + ``/internal/store``): JSON ops
+  (a snapshot as base64) on the standard library (``utils/http``).
+
+Both carry single ops and pipelines with bounded retry and jittered
+backoff for transport errors, and the ``store_client.rpc`` failpoint inside
+the retry loop. With neither configured (standalone engine runs, unit
+tests) the client falls back to process-local memory, whose state dies
+with the process.
 """
 
 from __future__ import annotations
@@ -23,11 +29,17 @@ import fnmatch
 import json
 import os
 import random
+import struct
 from typing import Any
 
 from .. import faults
 from ..core.resilience import backoff_delays
+from ..store import native as _wire
 from ..utils import http
+from .dataplane import socket_address
+
+_enc = _wire.encode_request
+_dec = _wire.decode_response
 
 # Transport-shaped failures a retry can reasonably fix: the connection died,
 # the peer vanished mid-response, or the wait timed out. Everything else —
@@ -40,12 +52,142 @@ TRANSIENT_ERRORS = (
     http.ServerDisconnected,
 )
 
-# a KV snapshot rides one op as base64: tens of MB at llama3-8b width
+# a KV snapshot rides one op: tens of MB at llama3-8b width
 STORE_TIMEOUT_S = 60.0
-STORE_SOCK_LATER = (
-    "AGENTAINER_STORE_SOCK names the native store's unix socket, which is "
-    "not ported yet (the native-store slice); set AGENTAINER_CONTROL_URL"
-)
+
+
+class _UDSPool:
+    """Small pool of authenticated unix-socket connections to the native
+    store; one frame in flight per connection."""
+
+    def __init__(self, path: str, agent_id: str, token: str, size: int = 4):
+        self.path = path
+        self.agent_id = agent_id
+        self.token = token
+        self.size = size
+        self._free: asyncio.Queue | None = None
+        self._made = 0
+        self._lock: asyncio.Lock | None = None
+
+    async def _connect(self):
+        with socket_address(self.path) as address:
+            reader, writer = await asyncio.open_unix_connection(address)
+        frame = _enc(_wire.OP_AUTH, [self.agent_id.encode(), self.token.encode()])
+        writer.write(struct.pack("<I", len(frame)) + frame)
+        await writer.drain()
+        status, vals = await self._read_resp(reader)
+        if status != _wire.RESP_OK:
+            writer.close()
+            raise RuntimeError(f"store auth failed: {vals[0].decode() if vals else 'unknown'}")
+        return reader, writer
+
+    @staticmethod
+    async def _read_resp(reader) -> tuple[int, list[bytes]]:
+        (n,) = struct.unpack("<I", await reader.readexactly(4))
+        return _dec(await reader.readexactly(n))
+
+    async def roundtrip(self, frame: bytes) -> tuple[int, list[bytes]]:
+        if self._free is None:
+            self._free, self._lock = asyncio.Queue(), asyncio.Lock()
+        conn = None
+        if self._free.empty() and self._made < self.size:
+            async with self._lock:
+                if self._made < self.size:
+                    self._made += 1
+                    try:
+                        conn = await self._connect()
+                    except BaseException:
+                        # any failure gives the slot back (leaking it would
+                        # shrink the pool for good); the error propagates
+                        self._made -= 1
+                        raise
+        if conn is None:
+            conn = await self._free.get()
+        reader, writer = conn
+        try:
+            writer.write(struct.pack("<I", len(frame)) + frame)
+            await writer.drain()
+            resp = await self._read_resp(reader)
+        except BaseException as e:
+            # the connection may be dead or mid-frame: drop it (the next
+            # call dials afresh); a transport error is the caller's retry's
+            # to judge, anything else surfaces as what it is
+            self._made -= 1
+            writer.close()
+            if not isinstance(e, (asyncio.CancelledError, *TRANSIENT_ERRORS)):
+                print(f"[store-client] non-transport error on store socket: {type(e).__name__}: {e}", flush=True)
+            raise
+        self._free.put_nowait(conn)
+        return resp
+
+    def close(self) -> None:
+        while self._free is not None and not self._free.empty():
+            _, writer = self._free.get_nowait()
+            writer.close()
+        self._made = 0
+
+
+# op name → opcode for the socket path ("delete" is OP_DEL; the raw-bytes
+# ops carry a snapshot without base64)
+_OP_NUM = {
+    "get": _wire.OP_GET, "get_b64": _wire.OP_GET, "get_raw": _wire.OP_GET,
+    "set": _wire.OP_SET, "set_b64": _wire.OP_SET, "set_raw": _wire.OP_SET,
+    "delete": _wire.OP_DEL, "expire": _wire.OP_EXPIRE, "rpush": _wire.OP_RPUSH,
+    "lrange": _wire.OP_LRANGE, "ltrim": _wire.OP_LTRIM, "llen": _wire.OP_LLEN,
+    "hincrby": _wire.OP_HINCRBY, "hgetall": _wire.OP_HGETALL, "keys": _wire.OP_KEYS,
+}
+
+
+def _encode_sub(op: str, key: str, kw: dict) -> bytes:
+    """One op of the HTTP store API's shape as a native frame."""
+    if op not in _OP_NUM:
+        raise ValueError(f"op {op!r} not supported over the store socket")
+    k, num = key.encode(), _OP_NUM[op]
+
+    def ttl_arg() -> bytes:
+        return b"" if kw.get("ttl") is None else repr(float(kw["ttl"])).encode()
+
+    if op == "set":
+        return _enc(num, [k, str(kw.get("value", "")).encode(), ttl_arg()])
+    if op == "set_b64":
+        return _enc(num, [k, base64.b64decode(kw.get("value_b64", "")), ttl_arg()])
+    if op == "set_raw":
+        return _enc(num, [k, kw["value"], ttl_arg()])
+    if op == "expire":
+        return _enc(num, [k, repr(float(kw.get("ttl", 0))).encode()])
+    if op == "rpush":
+        return _enc(num, [k] + [str(v).encode() for v in kw.get("values", [])])
+    if op in ("lrange", "ltrim"):
+        return _enc(num, [k, str(kw.get("start", 0)).encode(), str(kw.get("stop", -1)).encode()])
+    if op == "hincrby":
+        return _enc(num, [k, str(kw.get("field", "")).encode(), str(kw.get("amount", 1)).encode()])
+    if op == "keys":
+        return _enc(num, [str(kw.get("pattern", key + "*")).encode()])
+    return _enc(num, [k])  # get, get_b64, get_raw, delete, llen, hgetall
+
+
+def _decode_result(op: str, status: int, vals: list[bytes]) -> Any:
+    """A native response in the HTTP store API's result shape."""
+    if status == _wire.RESP_ERR:
+        raise RuntimeError(vals[0].decode("utf-8", "replace") if vals else "store error")
+    if status == _wire.RESP_NIL:
+        return None
+    if op == "get":
+        return vals[0].decode("utf-8", "replace") if vals else None
+    if op == "get_b64":
+        return base64.b64encode(vals[0]).decode() if vals else None
+    if op == "get_raw":
+        return vals[0] if vals else None
+    if op in ("delete", "rpush", "llen", "hincrby", "expire"):
+        return int(vals[0]) if vals else 0
+    if op in ("lrange", "keys"):
+        return [v.decode("utf-8", "replace") for v in vals]
+    if op == "hgetall":
+        return {
+            vals[i].decode("utf-8", "replace"): vals[i + 1].decode("utf-8", "replace")
+            for i in range(0, len(vals), 2)
+        }
+    return None  # set, set_b64, set_raw, ltrim
 
 
 class StoreClient:
@@ -58,12 +200,12 @@ class StoreClient:
         retries: int | None = None,
         retry_base_s: float | None = None,
     ):
-        if store_sock and not control_url:
-            raise ValueError(STORE_SOCK_LATER)
         self.control_url = control_url.rstrip("/")
         self.token = token
         self.agent_id = agent_id
+        self.store_sock = store_sock
         self._local: dict[str, Any] = {}  # fallback when no control plane
+        self._uds = _UDSPool(store_sock, agent_id, token) if store_sock and agent_id and token else None
         # Bounded retry + jittered exponential backoff for TRANSIENT
         # transport errors only. An ack lost in flight can double-apply an
         # rpush on retry: at worst a duplicated conversation turn, which the
@@ -95,10 +237,13 @@ class StoreClient:
 
     @property
     def connected(self) -> bool:
-        return bool(self.control_url)
+        return bool(self.control_url) or self._uds is not None
 
     async def close(self) -> None:
-        """Nothing to release: every op opens its own connection."""
+        """Close the socket pool's idle connections (an HTTP op opens and
+        closes its own)."""
+        if self._uds is not None:
+            self._uds.close()
 
     async def _post(self, payload: dict[str, Any], label: str) -> Any:
         status, _, raw = await http.request(
@@ -150,6 +295,8 @@ class StoreClient:
             # failpoint cut INSIDE the retry loop: an injected transient
             # error exercises the recovery path, not just the failure path
             await faults.fire_async("store_client.rpc")
+            if self._uds is not None:
+                return _decode_result(op, *await self._uds.roundtrip(_encode_sub(op, key, kw)))
             return await self._post({"op": op, "key": key, **kw}, f"op {op}")
 
         return await self._with_retry(attempt)
@@ -166,6 +313,15 @@ class StoreClient:
 
         async def attempt():
             await faults.fire_async("store_client.rpc")
+            if self._uds is not None:
+                subs = [
+                    _encode_sub(o["op"], o["key"], {k: v for k, v in o.items() if k not in ("op", "key")})
+                    for o in ops
+                ]
+                status, vals = await self._uds.roundtrip(_enc(_wire.OP_PIPELINE, subs))
+                if status != _wire.RESP_OK:
+                    raise RuntimeError(vals[0].decode("utf-8", "replace") if vals else "pipeline failed")
+                return [_decode_result(o["op"], *_dec(raw)) for o, raw in zip(ops, vals)]
             return await self._post({"op": "pipeline", "ops": ops}, "pipeline") or []
 
         return await self._with_retry(attempt)
@@ -219,9 +375,14 @@ class StoreClient:
         await self._op("set", key, value=value, ttl=ttl)
 
     async def set_bytes(self, key: str, blob: bytes, ttl: float | None = None) -> None:
-        await self._op("set_b64", key, value_b64=base64.b64encode(blob).decode(), ttl=ttl)
+        if self._uds is not None:
+            await self._op("set_raw", key, value=bytes(blob), ttl=ttl)
+        else:
+            await self._op("set_b64", key, value_b64=base64.b64encode(blob).decode(), ttl=ttl)
 
     async def get_bytes(self, key: str) -> bytes | None:
+        if self._uds is not None:
+            return await self._op("get_raw", key)
         raw = await self._op("get_b64", key)
         return None if raw is None else base64.b64decode(raw)
 

@@ -36,8 +36,18 @@ and a leg whose upstream dies mid-stream is followed by another — on a
 survivor, or on the respawned single replica — that carries the cursor as
 ``Last-Event-ID``, so the client sees one gapless stream on one connection.
 
-What waits for later slices of the port: the C++ data plane; artifacts and
-backups, whose routes answer 501 with the error envelope.
+Behind the C++ front door (``runtime/dataplane.py``, the daemon's default
+over the native store) this server listens on a loopback port: the C++
+journals, dispatches and settles a single-replica agent's ``/agent/*``
+itself, so no request it journaled reaches the proxy here; what it
+forwards — the management API, and the untouched ``/agent/*`` of a
+replica fleet, whose route the daemon leaves to Python — is served and
+journaled here as from any client. The C++ reads every answer whole
+before it relays it (a log follow excepted), so through it a stream
+arrives buffered.
+
+What waits for later slices of the port: artifacts and backups, whose
+routes answer 501 with the error envelope.
 """
 
 from __future__ import annotations
@@ -1525,8 +1535,9 @@ class ControlPlaneApp:
                                              headers=rid_headers)
                     return "plain", _relay(*result, request_id)
                 buf = b""
+                upstream = http.BodyReader(reader, rheaders)
                 while True:
-                    chunk = asyncio.ensure_future(reader.read(65536))
+                    chunk = asyncio.ensure_future(upstream.read())
                     finished, _ = await asyncio.wait(
                         {chunk, gone}, timeout=STREAM_READ_S, return_when=asyncio.FIRST_COMPLETED
                     )

@@ -1,11 +1,12 @@
-"""In-memory Store — the default backing for a single control-plane daemon.
+"""In-memory Store — the non-durable backing for a control-plane daemon.
 
 The reference externalizes all state to a Redis 7 sidecar so the Go server can
 restart without losing agent records (reference scripts/start-server.sh:12-19,
-docker-compose.yml). Here the control plane and engines share one host, so
-the default store is in-process (the reference's durability across daemon
-restarts, its snapshot/backup plane and native store, are later slices of
-the port).
+docker-compose.yml). Here the control plane and engines share one host; the
+daemon's durable default is the native store with its append-only file
+(``store/native.py``), and this one serves ``mem://``, the fallback where
+the native library cannot be built (the reference's snapshot/backup plane
+is a later slice of the port).
 
 Semantics follow Redis where it matters: lazy TTL expiry, ``lrem`` counted
 removal (reference requests.go:171 uses LREM pending 1 id), sorted-set

@@ -6,13 +6,18 @@ layers ``engine/llm_serve.py`` and ``engine/echo.py``, the engines' store
 client) speaks through this module, on the standard library:
 
 - the server reads one request per connection (request line, headers, a
-  ``Content-Length`` body; chunked request bodies are refused with 411) and
-  answers it with ``Connection: close``: a JSON document, raw bytes, or a
-  stream (``Stream``: the status line goes out with the first write, and
-  the body runs until the connection closes, as SSE and log-follow need);
+  ``Content-Length`` or chunked body) and answers it with ``Connection:
+  close``: a JSON document, raw bytes, or a stream (``Stream``: the status
+  line goes out with the first write; to an HTTP/1.1 request the body is
+  framed ``Transfer-Encoding: chunked``, one chunk per write and a last
+  chunk when the handler returns, as aiohttp's ``StreamResponse`` frames
+  it, so a reader that takes a body only by length or chunks — the C++
+  front door, ``native/dataplane.cc`` — reads it whole; to HTTP/1.0 it
+  runs until the connection closes);
 - the client sends one request per connection and reads a
-  ``Content-Length`` or read-to-close body; ``open_stream`` hands back the
-  reader of a streamed response instead.
+  ``Content-Length``, chunked or read-to-close body; ``open_stream``
+  hands back the reader of a streamed response instead, and ``BodyReader``
+  takes its body piece by piece, chunk by chunk when it is chunked.
 
 Header names keep their case and match without it (``Headers``). A client
 that hangs up is seen as end of file on the connection (``hangup``); one
@@ -100,6 +105,7 @@ class Request:
     # the client hanging up (None for a request built in process)
     reader: asyncio.StreamReader | None = None
     stream: "Stream | None" = None
+    version: str = "HTTP/1.1"
 
     def __post_init__(self) -> None:
         if not isinstance(self.headers, Headers):
@@ -152,12 +158,16 @@ class Stream:
     """One connection's streamed answer. The status line and headers go out
     with the first write (so a handler that fails before it can still
     answer with a plain ``Response``); every write is drained before the
-    next; the body ends when the connection closes."""
+    next. ``chunked``: each write is one chunk (an empty write sends the
+    head alone) and ``finish`` sends the last chunk; otherwise the body
+    ends when the connection closes."""
 
-    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, chunked: bool = False):
         self._reader = reader
         self._writer = writer
+        self.chunked = chunked
         self.started = False
+        self.finished = False
         self.status = 200
         self.headers: dict[str, str] = {}
 
@@ -165,9 +175,22 @@ class Stream:
         if not self.started:
             self.started = True
             head = {**self.headers, "Connection": "close"}
+            if self.chunked:
+                head["Transfer-Encoding"] = "chunked"
             self._writer.write(_head(self.status, head))
-        self._writer.write(data)
+        if self.chunked:
+            if data:  # an empty chunk would end the body
+                self._writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+        else:
+            self._writer.write(data)
         await self._writer.drain()
+
+    async def finish(self) -> None:
+        """End a started chunked body (the last chunk); nothing otherwise."""
+        if self.started and self.chunked and not self.finished:
+            self.finished = True
+            self._writer.write(b"0\r\n\r\n")
+            await self._writer.drain()
 
     def hangup(self) -> asyncio.Task:
         return hangup(self._reader)
@@ -195,27 +218,65 @@ async def read_head(reader: asyncio.StreamReader) -> tuple[str, Headers]:
     return line.decode("latin-1").strip(), headers
 
 
+def _is_chunked(headers: Headers) -> bool:
+    return "chunked" in headers.get("Transfer-Encoding", "").lower()
+
+
+async def read_chunk(reader: asyncio.StreamReader) -> bytes:
+    """The next chunk of a chunked body; b"" after the last chunk (its
+    trailers read). Raises ``ValueError`` on a malformed size line and
+    ``asyncio.IncompleteReadError`` when the connection ends mid-body."""
+    line = await reader.readline()
+    if not line.endswith(b"\n"):
+        raise asyncio.IncompleteReadError(line, None)
+    size = line.split(b";", 1)[0].strip()
+    if not size or any(c not in b"0123456789abcdefABCDEF" for c in size):
+        raise ValueError(f"bad chunk size line {line[:40]!r}")
+    n = int(size, 16)
+    if n == 0:
+        while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+            pass  # trailers
+        return b""
+    data = await reader.readexactly(n)
+    await reader.readexactly(2)  # the chunk's CRLF
+    return data
+
+
+async def _read_chunked(reader: asyncio.StreamReader, limit: int) -> bytes:
+    out = bytearray()
+    while chunk := await read_chunk(reader):
+        out += chunk
+        if len(out) > limit:
+            raise ValueError(f"chunked body past {limit} bytes")
+    return bytes(out)
+
+
 async def read_request(
     reader: asyncio.StreamReader, max_body: int = MAX_BODY
 ) -> Request | Response | None:
     """One request off the connection; None for an empty or garbled request
-    line, a 413/411 ``Response`` for a body it will not read."""
+    line, a 413 ``Response`` for a body it will not read (a malformed or
+    oversized chunked body included)."""
     first, headers = await read_head(reader)
     parts = first.split()
     if len(parts) != 3:
         return None
-    method, target, _ = parts
-    if "chunked" in headers.get("Transfer-Encoding", "").lower():
-        return Response(411, {"error": "chunked request bodies are not accepted"})
-    try:
-        n = int(headers.get("Content-Length", "0") or 0)
-    except ValueError:
-        n = -1
-    if n < 0 or n > max_body:
-        return Response(413, {"error": "bad or oversized Content-Length"})
-    body = await reader.readexactly(n) if n else b""
+    method, target, version = parts
+    if _is_chunked(headers):
+        try:
+            body = await _read_chunked(reader, max_body)
+        except ValueError:
+            return Response(413, {"error": "bad or oversized chunked body"})
+    else:
+        try:
+            n = int(headers.get("Content-Length", "0") or 0)
+        except ValueError:
+            n = -1
+        if n < 0 or n > max_body:
+            return Response(413, {"error": "bad or oversized Content-Length"})
+        body = await reader.readexactly(n) if n else b""
     u = urlsplit(target)
-    return Request(method.upper(), u.path or "/", headers, body, query_string=u.query)
+    return Request(method.upper(), u.path or "/", headers, body, query_string=u.query, version=version)
 
 
 async def start_server(
@@ -236,13 +297,16 @@ async def start_server(
             if req is None:
                 return
             if isinstance(req, Request):
-                req.reader, req.stream = reader, Stream(reader, writer)
+                req.reader = reader
+                req.stream = Stream(reader, writer, chunked=req.version == "HTTP/1.1")
                 peer = writer.get_extra_info("peername")
                 req.remote = peer[0] if isinstance(peer, tuple) else ""
                 resp = await handler(req)
             else:
                 resp = req
-            if not resp.streamed:
+            if resp.streamed:
+                await req.stream.finish()
+            else:
                 writer.write(encode_response(resp))
                 await writer.drain()
         except (ConnectionError, asyncio.IncompleteReadError):
@@ -269,12 +333,32 @@ def _request_bytes(method: str, url: str, headers: dict | None, body: bytes) -> 
 
 
 async def read_body(reader: asyncio.StreamReader, headers: Headers) -> bytes:
-    """A ``Content-Length`` body, else the bytes up to the close (the port's
-    servers send no chunked bodies)."""
+    """A chunked body, a ``Content-Length`` body, else the bytes up to the
+    close."""
+    if _is_chunked(headers):
+        return await _read_chunked(reader, 1 << 62)
     n = headers.get("Content-Length")
     if n is not None:
         return await reader.readexactly(int(n))
     return await reader.read()
+
+
+class BodyReader:
+    """A streamed response's body, piece by piece: ``read()`` returns the
+    next chunk of a chunked body, else whatever bytes have arrived, and
+    b"" at its end."""
+
+    def __init__(self, reader: asyncio.StreamReader, headers: Headers):
+        self._reader = reader
+        self._chunked = _is_chunked(headers)
+        self._done = False
+
+    async def read(self) -> bytes:
+        if self._done:
+            return b""
+        data = await read_chunk(self._reader) if self._chunked else await self._reader.read(65536)
+        self._done = not data
+        return data
 
 
 async def open_stream(

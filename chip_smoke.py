@@ -6,8 +6,10 @@ Phases, all of them on every run, in order (any failure raises; the script then
 exits non-zero):
 
 1. build       — compile the kernels of ``agentainer_tpu_torch/csrc`` with
-                 nvcc and load them; print the card's name and power limit
-                 as nvidia-smi reports them.
+                 nvcc and load them, and build the native store and data
+                 plane (``native/*.cc``, g++) into ``_build/``, all at once;
+                 print the card's name and power limit as nvidia-smi
+                 reports them.
 2. kernels     — each hand-written kernel against its plain PyTorch version
                  at the llama3-8b attention shapes of the serving path (H 32,
                  KV 8, head_dim 128; the paged ones on the served pool
@@ -92,10 +94,11 @@ exits non-zero):
                  the port's kernels), and an ``assistant``-flavor app
                  attached to it (no second load) serves two turns.
    int8        — the feature phases again with ``quant: int8, synthetic:
-   (dense,       true`` (int8 weights drawn on the card), dense then paged:
-   then paged)   the same gates, plus ``param_hbm_bytes`` = 8,033,544,704,
-                 ``w8a16_matmul`` launched 7 per layer + 1 per forward (225
-                 at 32 layers) through the graph replays and no other weight
+   (dense,       true`` (int8 weights drawn on the card), dense then paged,
+   then paged)   at 8 of llama3-8b's 32 layers: the same gates, plus
+                 ``param_hbm_bytes`` = 2,796,595,712 (8,033,544,704 at 32),
+                 ``w8a16_matmul`` launched 7 per layer + 1 per forward (57
+                 at 8 layers) through the graph replays and no other weight
                  product, the same greedy text for one prompt in two fresh
                  sessions; peak device memory beside the bf16 phases'.
 6. checkpoint  — the dense phase's weights (seed 0, bf16) transposed back
@@ -123,7 +126,8 @@ exits non-zero):
                  printed. The directory is removed at the end.
 7b. daemon     — the control plane on the card: the port's daemon
                  (``python -m agentainer_tpu_torch.daemon``, standard
-                 library only) as a child process with ``mem://``; a deploy
+                 library only) as a child process with ``mem://`` (so the
+                 Python front door); a deploy
                  asking for more GPUs than the card's count fails with the
                  scheduler's 409; two ``llm:llama3-8b`` agents with
                  different personas (full width and depth, random bf16
@@ -148,7 +152,7 @@ exits non-zero):
                  ms, store writes per journaled request (counted in this
                  process), the host's card memory.
 7c. fleet      — the replica fleet on the card, after 7b's daemon and host
-                 are gone: the daemon with ``ATPU_STREAMING=1``, one
+                 are gone: the daemon (``mem://``) with ``ATPU_STREAMING=1``, one
                  ``llm:llama3-8b`` agent deployed with ``"replicas": 2``
                  (full width and depth, random bf16 weights from seed 0,
                  the reference's default features): two engine hosts on GPU
@@ -174,6 +178,35 @@ exits non-zero):
                  failover gap, frame gaps and the engines' ITL p50 before
                  and after the splice, the survivor's restore ms, kill →
                  SUSPECT and kill → DEAD seconds, respawn seconds.
+7d. native     — the daemon's default deployment, after 7c's are gone:
+                 ``store_url`` auto in a fresh data directory, so the C++
+                 store with its append-only file and the C++ front door on
+                 the public port (the start line must say ``store
+                 native://…/store.aof; data plane native``), one
+                 ``llm:llama3-8b`` agent (full width and depth, random bf16
+                 weights from seed 0, the reference's default features,
+                 ``ATPU_STREAMING=1``, one replica) whose host reaches the
+                 store over the unix socket. Through the C++, A's three and
+                 B's two greedy turns (7b's, as ``stream: true`` bodies the
+                 C++ answers buffered: whole, with a length and the
+                 journal's request id); the journal's completed count equals
+                 the calls sent and the C++ counters count them; a streamed
+                 turn (C) arrives whole with A's first ids and a ``done``
+                 equal to a buffered /chat's (D); /generate probes time the
+                 front door. The host SIGKILLed, B's third turn journaled by
+                 the C++ (202), resume, the replay equal to A's third turn
+                 (``kv_restores`` ≥ 1, no retry). A's fourth turn; the
+                 daemon SIGKILLed (its host too, if it outlives it); a new
+                 daemon on the same directory lists the agent, with the
+                 journal's stats as before; after resume B's history holds
+                 three user turns and B's fourth turn, restored from the
+                 AOF's snapshot, equals A's; the host launched the dense
+                 kernels and no paged one; no 5xx. Printed beside the card:
+                 boot seconds (first, respawn, after the restart), crash →
+                 replayed seconds, the front door's overhead beside 7b's
+                 through Python in the same run, the snapshot's bytes and
+                 store ms over the socket beside 7b's over HTTP, the AOF's
+                 bytes, restart → listed seconds.
 8. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
@@ -214,8 +247,9 @@ exits non-zero):
                  history, loop state and KV bytes equal bit for bit
                  (greedy), two replays equal (sampled); capture seconds and
                  pool bytes printed.
-10. tiering    — the reference's defaults plus ``kv_tiering``:
-   paged         ``tier_quantize`` 0, a 64-page pool (512 MiB): a control
+10. tiering    — the reference's defaults plus ``kv_tiering``, llama3-8b
+                 at 8 of 32 layers:
+   paged         ``tier_quantize`` 0, a 64-page pool (128 MiB): a control
                  session's two turns; another session parked (``/park``:
                  its own pages leave the pool, it stays known), prewarmed
                  (``/prewarm``) and its turn two equal to the control's;
@@ -254,14 +288,15 @@ exits non-zero):
                  versions; a token the two paths route to other experts in
                  any layer is counted and printed, and its sequence is
                  compared up to it (later tokens attend to its K/V).
-   (d) served    Mixtral-8x7B at full width and depth, int8, synthetic,
-                 seed 0, with the reference's defaults, after every earlier
-                 engine is gone: the feature phase's script and gates on the
-                 dense arena with the dense-einsum MoE, then on the paged
-                 arena (page size 64) with ``routed: true, moe_cf: 4.0``;
-                 per forward 129 ``w8a16_matmul`` calls (4 per layer +
-                 lm_head) and 96 ``w8a16_grouped_matmul`` calls (gate, up,
-                 down per layer); ``param_hbm_bytes`` 46,720,564,224;
+   (d) served    Mixtral-8x7B at full width and 8 of 32 layers, int8,
+                 synthetic, seed 0, with the reference's defaults, after
+                 every earlier engine is gone: the feature phase's script
+                 and gates on the dense arena with the dense-einsum MoE,
+                 then on the paged arena (page size 64) with ``routed:
+                 true, moe_cf: 4.0``; per forward 33 ``w8a16_matmul`` calls
+                 (4 per layer + lm_head) and 24 ``w8a16_grouped_matmul``
+                 calls (gate, up, down per layer); ``param_hbm_bytes``
+                 11,876,809,344 (46,720,564,224 at 32 layers);
                  ``moe_routed`` as asked; every step and prefill graph equal
                  to its eager step. The first index where the routed paged
                  engine's text leaves the dense one's is printed, not gated.
@@ -300,6 +335,12 @@ exits non-zero):
                  losses finite and falling, 3 batched ``torch.matmul`` expert
                  products per layer per step over the f32 stacks, no int8
                  kernel; step ms and peak memory.
+
+The int8 feature phases (5's int8 pair), the tiering phases (10) and
+Mixtral's served phases (11d) are off the native slice's path and run at
+``CUT_LAYERS`` (8) of 32 layers, widths kept; their gates count per layer
+(launches, and ``param_hbm_bytes`` from ``CUT_PARAM_BYTES``) or in pages. Each phase's seconds are
+in ``report["phase_s"]``.
 
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
@@ -416,6 +457,12 @@ MOE_MS = (1, 8, 9, 24, 32, 40, 64, 72, 128, 255, 256, 300)
 MOE_TIMED_MS = (8, 72, 256)
 MOE_REPLACES = "agentainer_tpu/models/llama.py:143"
 MOE_PARAM_BYTES = 46_720_564_224  # Mixtral-8x7B's int8 tree (the reference's, jax.eval_shape)
+# The int8 served phases, off the native slice's path, run at 8 of 32 layers
+# (widths kept): the port's synthetic int8 tree at 8 layers, by
+# param_bytes_actual(synthetic_quantized_params(cfg, device="meta")) on the
+# CPU, which gives the two full-depth numbers above at 32
+CUT_LAYERS = 8
+CUT_PARAM_BYTES = {"llama3-8b": 2_796_595_712, "mixtral-8x7b": 11_876_809_344}
 W8_PER_LAYER_MOE = 4  # wq, wk, wv, wo; + lm_head per forward
 GROUPED_PER_LAYER = 3  # the w_gate, w_up and w_down stacks
 MOE_ROUTED = {"routed": True, "moe_cf": 4.0}  # cap = n for top-2 of 8: dropless
@@ -628,11 +675,15 @@ def phase_build() -> str:
     from agentainer_tpu_torch.ops import cuda_attention as ca
     from agentainer_tpu_torch.ops import cuda_quant as cq
 
+    from agentainer_tpu_torch import native
+
     t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        list(pool.map(lambda build: build(), (ca._lib, cq._lib)))
-    log(f"built and loaded csrc/flash_attention.cu and csrc/w8a16_gemm.cu in "
-        f"{time.monotonic() - t0:.1f}s (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    # one nvcc per source and the native store's g++, together
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda build: build(), (ca._lib, cq._lib, native.build)))
+    log(f"built and loaded csrc/flash_attention.cu and csrc/w8a16_gemm.cu, and built native/ "
+        f"({os.path.basename(native.library_path())}), in {time.monotonic() - t0:.1f}s "
+        f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     return smi("name,power.limit")
 
 
@@ -1458,6 +1509,19 @@ def _forwards(before: dict, after: dict) -> int:
     )
 
 
+def _cut_config(model: str) -> str:
+    """``model`` at ``CUT_LAYERS`` layers, its widths kept, registered in the
+    port's config registry (the served phases run in this process); its
+    name."""
+    import dataclasses
+
+    from agentainer_tpu_torch.models import configs
+
+    name = f"{model}-{CUT_LAYERS}l"
+    configs.register(dataclasses.replace(configs.get_config(model), name=name, n_layers=CUT_LAYERS))
+    return name
+
+
 def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
                          quant: bool = False, fused: bool = False, moe: dict | None = None) -> dict:
     """The reference's default serving features (prefix cache, speculation,
@@ -1495,6 +1559,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = MIXTRAL if moe is not None else "llama3-8b"
+    if n_layers != 32:
+        model = _cut_config(model)
     options = {
         "device": "cuda", "seed": 0, "max_batch": B, "max_seq": S,
         "shed_watermark": SHED_WATERMARK, "system_prompt": PERSONA, "streaming": True,
@@ -1627,6 +1693,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         raise AssertionError(f"{name}: weight-product kernels launched {launches}, want {want_products} "
                              f"({forwards} forwards)")
     want_bytes = MOE_PARAM_BYTES if moe is not None else INT8_PARAM_BYTES
+    if n_layers != 32:
+        want_bytes = CUT_PARAM_BYTES[MIXTRAL if moe is not None else "llama3-8b"]
     if quant and m2["param_hbm_bytes"] != want_bytes:
         raise AssertionError(f"{name}: param_hbm_bytes {m2['param_hbm_bytes']}, want {want_bytes}")
     if m2.get("moe_routed", False) != bool((moe or {}).get("routed")):
@@ -2641,8 +2709,9 @@ def _tier_timings(engine, card: str) -> list[dict]:
 
 def phase_tiering_paged(card: str) -> dict:
     """The reference's defaults plus ``kv_tiering`` with ``tier_quantize``
-    0 on a 64-page pool (a llama3-8b page is 64 x 8 x 128 x 2 B x 2 x 32 =
-    8,388,608 B: 512 MiB). A control session c serves turns one and two;
+    0 on a 64-page pool, llama3-8b at ``CUT_LAYERS`` (8) of 32 layers (a
+    page is 64 x 8 x 128 x 2 B x 2 x 8 = 2,097,152 B: 128 MiB; 512 MiB at
+    32 layers). A control session c serves turns one and two;
     session s serves turn one, is parked (``kv_pages_used`` falls by its
     pages, ``has_session`` holds), prewarmed, and its turn two must equal
     c's token for token. Then 16 sessions serve turn one in sequence (about
@@ -2656,9 +2725,9 @@ def phase_tiering_paged(card: str) -> dict:
     options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "paged_kv": True,
                "page_size": PS, "kv_pages": 64, "kv_tiering": True, "tier_quantize": 0}
     turn2 = "Now list the three checks as bullet points."
-    with _serving(options) as (app, load_s):
+    with _serving(options, config=_cut_config("llama3-8b")) as (app, load_s):
         port, eng = app.port, app.engine
-        log(f"llama3-8b tiering (paged) engine loaded in {load_s:.1f}s")
+        log(f"llama3-8b ({CUT_LAYERS} layers) tiering (paged) engine loaded in {load_s:.1f}s")
         replies: list = []
         c1 = _chat(port, replies, "c", _tier_prompt(0), 16)
         c2 = _chat(port, replies, "c", turn2, 16)
@@ -2740,7 +2809,8 @@ def _quantizer_cost(card: str) -> dict:
 
 def phase_tiering_dense(card: str) -> dict:
     """The reference's defaults plus ``kv_tiering`` with ``tier_quantize``
-    1 (its default): a control session c serves two turns; session s serves
+    1 (its default), llama3-8b at ``CUT_LAYERS`` (8) of 32 layers: a
+    control session c serves two turns; session s serves
     turn one, is parked (``tier_quantized_pages`` > 0) and promoted by
     ``/prewarm``; the promoted KV in s's arena row must lie within half a
     quantization step of each page's scale (plus the bf16 rounding of the
@@ -2757,7 +2827,7 @@ def phase_tiering_dense(card: str) -> dict:
     options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, "kv_tiering": True,
                "tier_quantize": 1}
     turn2 = "Now list the three checks as bullet points."
-    with _serving(options) as (app, load_s):
+    with _serving(options, config=_cut_config("llama3-8b")) as (app, load_s):
         port, eng = app.port, app.engine
         replies: list = []
         _chat(port, replies, "c", _tier_prompt(0), 16)
@@ -3577,21 +3647,23 @@ def _daemon_call(port: int, method: str, path: str, body: dict | None = None,
 
 
 class _Daemon:
-    """The port's daemon as a child process (``mem://``, a data directory
+    """The port's daemon as a child process (``mem://`` unless ``env`` says
+    otherwise, a data directory — its own, or ``data`` kept across daemons —
     and a port of its own), and the calls a phase makes through it: every
     status answered is kept, for the no-5xx gates."""
 
-    def __init__(self, env: dict | None = None):
+    def __init__(self, env: dict | None = None, data: str | None = None):
         root = os.path.dirname(os.path.abspath(__file__))
-        self.data = tempfile.mkdtemp(prefix="atpu-daemon-")
+        self.keep_data = data is not None
+        self.data = data or tempfile.mkdtemp(prefix="atpu-daemon-")
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             self.port = sock.getsockname()[1]
         full = {**os.environ, "ATPU_SERVER_HOST": "127.0.0.1", "ATPU_SERVER_PORT": str(self.port),
-                "ATPU_AUTH_TOKEN": DAEMON_TOKEN, "ATPU_DATA_DIR": self.data,
+                "ATPU_AUTH_TOKEN": DAEMON_TOKEN, "ATPU_DATA_DIR": self.data, "ATPU_STORE_URL": "mem://",
                 "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH", "")) if p),
                 **(env or {})}
-        self.log_path = os.path.join(self.data, "daemon.log")
+        self.log_path = os.path.join(self.data, f"daemon-{self.port}.log")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "agentainer_tpu_torch.daemon"], cwd=root, env=full,
             stdout=open(self.log_path, "wb"), stderr=subprocess.STDOUT, start_new_session=True,
@@ -3622,16 +3694,18 @@ class _Daemon:
         # the engine hosts run in process groups of their own: note them
         # before the daemon goes, since its children are reparented then
         hosts = _children(self.proc.pid)
-        self.proc.terminate()  # SIGTERM: the daemon stops its engines
-        try:
-            self.proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            os.killpg(self.proc.pid, signal.SIGKILL)
-            self.proc.wait(timeout=30)
+        if self.proc.poll() is None:
+            self.proc.terminate()  # SIGTERM: the daemon stops its engines
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+                self.proc.wait(timeout=30)
         for pid in hosts:
             with contextlib.suppress(ProcessLookupError):
                 os.killpg(pid, signal.SIGKILL)
-        shutil.rmtree(self.data, ignore_errors=True)
+        if not self.keep_data:
+            shutil.rmtree(self.data, ignore_errors=True)
 
 
 def _gpu_used_mib() -> int:
@@ -3938,6 +4012,283 @@ def _proxy_overhead(port: int, agent_id: str, data: str) -> dict:
             "overhead_ms": med["proxy"] - med["direct"],
             "engine_ttft_ms": {k: statistics.median(v) for k, v in ttft.items()},
             "probes": PROXY_PROBES}
+
+
+# the native phase: the daemon's default deployment (``store_url`` auto →
+# the C++ store with its AOF, the C++ front door, the engines' store socket)
+NATIVE_TURN4 = "What will you do tomorrow?"
+NATIVE_MODEL = {"engine": "llm", "config": "llama3-8b",
+                "options": {"system_prompt": DAEMON_PERSONAS[0], "streaming": True}}
+
+
+def _wait_pid_gone(pid: int, timeout: float = 30) -> None:
+    """Until ``pid`` has exited (a zombie no one reaps counts as gone)."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(") ", 1)[1].split()[0] in ("Z", "X"):
+                    return
+        except (OSError, IndexError):
+            return
+        time.sleep(0.05)
+    raise TimeoutError(f"pid {pid} still alive after {timeout} s")
+
+
+def phase_native(card: str, python_door: dict) -> dict:
+    """The daemon's default deployment on the card: ``store_url`` auto in a
+    fresh data directory gives the C++ store with AOF durability and the
+    C++ front door on the public port (its start line must say so; a
+    fallback to ``mem://`` or the Python data plane fails the phase); one
+    ``llm:llama3-8b`` agent (full width and depth, random bf16 weights from
+    seed 0, the reference's default features, ``ATPU_STREAMING=1``, one
+    replica) in a host on GPU 0, whose store calls go over the unix socket.
+    Through the C++: sessions A and B run the same greedy turns as 7b, as
+    ``stream: true`` bodies that the C++ answers buffered (whole, with a
+    length and a request id); the journal's completed count equals the
+    calls sent and the C++ counters count them; a streamed turn in session
+    C arrives whole with A's first ids, its ``done`` payload equal to a
+    buffered /chat's in session D; one-token /generate probes time the
+    front door against the tenant's port. B's snapshot over the socket; the
+    host SIGKILLed; B's third turn journaled by the C++ (202); resume; the
+    replay equal to A's third turn. A's fourth turn; the daemon SIGKILLed
+    (and its host, if it outlives it); a new daemon on the same directory:
+    the agent listed, the journal's stats as before, B's history three
+    user turns, and after resume B's fourth turn restored from the AOF's
+    snapshot equal to A's; dense kernels only; no 5xx. ``python_door`` is
+    phase 7b's result in this run: its proxy overhead and snapshot store ms
+    (the Python front door, the store over HTTP) are printed beside these."""
+    _free_cuda()
+    data = tempfile.mkdtemp(prefix="atpu-7d-")
+    env = {"ATPU_STORE_URL": "auto", "ATPU_STREAMING": "1"}
+    d = _Daemon(env, data=data)
+    daemons = [d]
+    out: dict = {"card": card}
+    agent_calls = 0  # requests sent to /agent/{a}/*: each is journaled by the C++
+
+    def agent_call(method, path, body=None, headers=None, daemon=None):
+        """(status, headers, raw body) of one /agent/{a}/* request."""
+        nonlocal agent_calls
+        agent_calls += 1
+        daemon = daemon or d
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{daemon.port}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json", **(headers or {})},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                got = resp.status, resp.headers, resp.read()
+        except urllib.error.HTTPError as e:
+            got = e.code, e.headers, e.read()
+        daemon.statuses.append(got[0])
+        return got
+
+    def loaded(aid, daemon=None):
+        status, _, raw = agent_call("GET", f"/agent/{aid}/health", daemon=daemon)
+        return status == 200 and json.loads(raw).get("model_loaded")
+
+    def metrics(aid, daemon=None):
+        return json.loads(agent_call("GET", f"/agent/{aid}/metrics", daemon=daemon)[2])
+
+    def turn(aid, session, msg, daemon=None) -> list[int]:
+        """One turn through the C++ front door as a ``stream: true`` body:
+        the C++ reads the engine's chunked stream whole and answers it with
+        a length and the journal's request id; its token ids."""
+        status, headers, raw = agent_call("POST", f"/agent/{aid}/chat", _daemon_body(session, msg), daemon=daemon)
+        if status != 200 or not headers.get("X-Agentainer-Request-ID"):
+            raise AssertionError(f"turn {session}: {status} {dict(headers)} {raw[:200]!r}")
+        if int(headers.get("Content-Length", -1)) != len(raw) or "chunked" in headers.get("Transfer-Encoding", ""):
+            raise AssertionError(f"turn {session}: not answered buffered: {dict(headers)}")
+        return _sse_token_ids(raw)
+
+    def settled(aid, daemon=None):
+        m = metrics(aid, daemon)
+        return m if m["kv_snapshots_in_flight"] == 0 else None
+
+    try:
+        d.wait(lambda: _daemon_call(d.port, "GET", "/health")[0] == 200, "the daemon", 60)
+        start_line = next((ln for ln in open(d.log_path, errors="replace") if "control plane listening" in ln), "")
+        out["start_line"] = start_line.strip()
+        if not ("store native://" in start_line and "/store.aof" in start_line
+                and "data plane native" in start_line):
+            raise AssertionError(f"the daemon did not start on the native store and data plane: {start_line!r}")
+        if _maps_cuda(d.proc.pid):
+            raise AssertionError("the daemon created a CUDA context")
+        status, doc = d.call("POST", "/agents", {"name": "ada", "model": NATIVE_MODEL}, auth=True)
+        assert status == 200, doc
+        a = doc["data"]["id"]
+        t0 = time.monotonic()
+        status, doc = d.call("POST", f"/agents/{a}/start", auth=True)
+        assert status == 200, doc
+        d.wait(lambda: loaded(a), "the model", 480)
+        out["boot_s"] = time.monotonic() - t0
+        host = next(p for p in _children(d.proc.pid) if _maps_cuda(p))
+        with open(f"/proc/{host}/environ", "rb") as f:
+            host_env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv)
+        sock = host_env.get(b"AGENTAINER_STORE_SOCK", b"").decode()
+        if sock != os.path.join(data, "store.sock") or not os.path.exists(sock):
+            raise AssertionError(f"the host's store socket: {sock!r}")
+        # buffered turns: A's three (undisturbed), B's two
+        want = [turn(a, "A", msg) for msg in DAEMON_TURNS]
+        d.wait(lambda: settled(a), "A's snapshots", 90)
+        got = []
+        for msg in DAEMON_TURNS[:2]:
+            before = metrics(a)
+            got.append(turn(a, "B", msg))
+            m = d.wait(lambda: settled(a), "B's snapshot", 90)
+        if got != want[:2]:
+            raise AssertionError(f"sessions A and B differ: {got} {want[:2]}")
+        if (m["last_kv_snapshot"] or {}).get("session") != "B" or m["kv_snapshots"] != before["kv_snapshots"] + 1:
+            raise AssertionError(f"B's second snapshot did not land: {m['last_kv_snapshot']}")
+        out["snapshot"] = m["last_kv_snapshot"]  # over the socket: bytes, engine ms, store ms
+        # a streamed turn (C) and a buffered one (D) of A's first prompt
+        status, headers, raw = agent_call("POST", f"/agent/{a}/chat", _daemon_body("C", DAEMON_TURNS[0]))
+        frames = _parse_sse(raw) if status == 200 else []
+        ids = [f["id"] for f in frames if f.get("event") == "token"]
+        done = [f for f in frames if f.get("event") == "done"]
+        out["stream"] = {"status": status, "bytes": len(raw), "content_length": headers.get("Content-Length"),
+                         "content_type": headers.get("Content-Type"), "tokens": len(ids)}
+        if (status != 200 or not headers.get("Content-Type", "").startswith("text/event-stream")
+                or ids != [str(i) for i in range(DAEMON_MAX_TOKENS)] or len(done) != 1):
+            raise AssertionError(f"the streamed turn through the C++: {out['stream']} {raw[-200:]!r}")
+        if _sse_token_ids(raw) != want[0]:
+            raise AssertionError(f"C's streamed ids differ from A's first turn: {_sse_token_ids(raw)} {want[0]}")
+        status, _, raw_d = agent_call("POST", f"/agent/{a}/chat", {**_daemon_body("D", DAEMON_TURNS[0]), "stream": False})
+        buffered = json.loads(raw_d)
+        out["stream"]["done_equal_buffered"] = all(done[0]["data"][k] == buffered[k]
+                                                   for k in ("response", "usage", "agent", "model"))
+        if status != 200 or not out["stream"]["done_equal_buffered"]:
+            raise AssertionError(f"C's done {done[0]['data']} != D's buffered {buffered}")
+        d.wait(lambda: settled(a), "C's and D's snapshots", 90)
+        out["proxy_overhead"] = _proxy_overhead(d.port, a, data)
+        agent_calls += PROXY_PROBES  # the probes through the front door
+        # the journal and the C++ counters against the calls sent so far
+        sent = agent_calls
+
+        def journal_caught_up():
+            _, doc = d.call("GET", f"/agents/{a}/requests", auth=True)
+            stats = doc["data"]["stats"]
+            return stats if stats["completed"] >= sent else None
+
+        stats = d.wait(journal_caught_up, "the journal's settles", 30)
+
+        def counted():
+            _, doc = d.call("GET", f"/agents/{a}/metrics/history", auth=True)
+            n = sum((smp.get("proxy") or {}).get("requests", 0) for smp in doc["data"])
+            return n if n >= sent else None
+
+        out["journal_before_crash"] = stats
+        out["cxx_counted"] = d.wait(counted, "the C++ counters in the metrics", 30)
+        out["agent_calls_before_crash"] = sent
+        if stats["completed"] != sent or stats["pending"] or stats["failed"]:
+            raise AssertionError(f"journal {stats} against {sent} calls through the C++")
+        # the crash: B's third turn journaled by the C++ while the host is down
+        os.kill(host, signal.SIGKILL)
+        t_kill = time.monotonic()
+        d.wait(lambda: d.call("GET", f"/agents/{a}", auth=True)[1]["data"]["status"] != "running",
+               "the reconciler", 30)
+        status, headers, raw = agent_call("POST", f"/agent/{a}/chat", _daemon_body("B", DAEMON_TURNS[2]))
+        if status != 202:
+            raise AssertionError(f"turn 3 while down: {status} {raw[:300]!r}")
+        rid = json.loads(raw)["data"]["request_id"]
+        t_resume = time.monotonic()
+        status, doc = d.call("POST", f"/agents/{a}/resume", auth=True)
+        assert status == 200, doc
+        d.wait(lambda: loaded(a), "the respawned model", 480)
+        out["respawn_boot_s"] = time.monotonic() - t_resume
+
+        def replayed(daemon=d):
+            _, doc = daemon.call("GET", f"/agents/{a}/requests?status=completed", auth=True)
+            return next((r for r in doc["data"]["requests"] if r["id"] == rid), None)
+
+        entry = d.wait(replayed, "the replay", 120)
+        out["crash_to_replayed_s"] = time.monotonic() - t_kill
+        third = _sse_token_ids(base64.b64decode(entry["response"]["body_b64"]))
+        m = d.wait(lambda: settled(a), "B's third snapshot", 90)
+        if (m["last_kv_snapshot"] or {}).get("session") != "B":
+            raise AssertionError(f"B's snapshot after the replay did not land: {m['last_kv_snapshot']}")
+        out["replay"] = {"equal": third == want[2], "retry_count": entry["retry_count"],
+                         "kv_restores": m["kv_restores"]}
+        if third != want[2] or entry["retry_count"] or m["kv_restores"] < 1:
+            raise AssertionError(f"B's replayed turn 3: {out['replay']} {third} {want[2]}")
+        # A's fourth turn, then the daemon's SIGKILL
+        want4 = turn(a, "A", NATIVE_TURN4)
+        m = d.wait(lambda: settled(a), "A's fourth snapshot", 90)
+        snaps = m["kv_snapshots"]
+        _, doc = d.call("GET", f"/agents/{a}/requests", auth=True)
+        stats_before = doc["data"]["stats"]
+        host = next(p for p in _children(d.proc.pid) if _maps_cuda(p))
+        os.kill(d.proc.pid, signal.SIGKILL)
+        d.proc.wait(timeout=30)
+        t_dead = time.monotonic()
+        try:
+            os.kill(host, 0)
+            out["host_outlived_daemon"] = True
+            os.killpg(host, signal.SIGKILL)
+        except ProcessLookupError:
+            out["host_outlived_daemon"] = False
+        _wait_pid_gone(host)
+        out["aof_bytes"] = os.path.getsize(os.path.join(data, "store.aof"))
+        five_before = [s for s in d.statuses if s >= 500]
+        # a new daemon on the same data directory
+        d2 = _Daemon(env, data=data)
+        daemons.append(d2)
+        listed = d2.wait(lambda: next((x for x in _daemon_call(d2.port, "GET", "/agents", auth=True)[1]["data"]
+                                       if x["id"] == a), None), "the agent after the restart", 60)
+        out["restart_to_listed_s"] = time.monotonic() - t_dead
+        _, doc = d2.call("GET", f"/agents/{a}/requests", auth=True)
+        out["journal_after_restart"] = doc["data"]["stats"]
+        start_line = next((ln for ln in open(d2.log_path, errors="replace") if "control plane listening" in ln), "")
+        if "data plane native" not in start_line or "store native://" not in start_line:
+            raise AssertionError(f"the restarted daemon's start line: {start_line!r}")
+        if out["journal_after_restart"] != stats_before:
+            raise AssertionError(f"journal stats {stats_before} before the kill, "
+                                 f"{out['journal_after_restart']} after the restart")
+        t_resume = time.monotonic()
+        status, doc = d2.call("POST", f"/agents/{a}/resume", auth=True)
+        assert status == 200, doc
+        d2.wait(lambda: loaded(a, d2), "the model after the restart", 480)
+        out["restart_boot_s"] = time.monotonic() - t_resume
+        out["status_after_restart"] = listed["status"]
+        _, _, raw = agent_call("GET", f"/agent/{a}/history", daemon=d2)
+        b_turns = [t for t in json.loads(raw)["history"] if t.get("session") == "B" and t["role"] == "user"]
+        fourth = turn(a, "B", NATIVE_TURN4, daemon=d2)
+        m = metrics(a, d2)
+        launches = m["kernel_launches"]
+        out.update({
+            "b_user_turns_after_restart": len(b_turns),
+            "restored_equal": fourth == want4,
+            "kv_restores_after_restart": m["kv_restores"],
+            "kv_snapshots_before_kill": snaps,
+            "launches": launches,
+        })
+        five = five_before + [s for s in d2.statuses if s >= 500]
+        if five:
+            raise AssertionError(f"5xx answers: {five}")
+        if len(b_turns) != 3:
+            raise AssertionError(f"B's user turns after the restart: {len(b_turns)}")
+        if fourth != want4 or m["kv_restores"] < 1:
+            raise AssertionError(f"B's fourth turn after the restart: {fourth} vs A's {want4}, "
+                                 f"kv_restores {m['kv_restores']}")
+        if not (launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+                and launches["fused_paged_flash_prefill"] == 0 and launches["fused_paged_flash_decode"] == 0):
+            raise AssertionError(f"kernel launches in the restarted host: {launches}")
+        out["python_door"] = {"overhead_ms": python_door["proxy_overhead"]["overhead_ms"],
+                              "snapshot_store_ms": python_door["snapshot"]["store_ms"],
+                              "snapshot_bytes": python_door["snapshot"]["bytes"]}
+        log(f"native: {out['start_line']}; boot {out['boot_s']:.1f} s, respawn {out['respawn_boot_s']:.1f} s, "
+            f"after the restart {out['restart_boot_s']:.1f} s; crash->replayed {out['crash_to_replayed_s']:.1f} s; "
+            f"front door {out['proxy_overhead']}; snapshot over the socket {out['snapshot']}; beside 7b's "
+            f"Python front door and store over HTTP in this run {out['python_door']}; AOF {out['aof_bytes']} B; "
+            f"restart->listed {out['restart_to_listed_s']:.2f} s; host outlived the daemon: "
+            f"{out['host_outlived_daemon']}; C++ counted {out['cxx_counted']} of {sent} calls; "
+            f"launches {launches}; {card}")
+        return out
+    finally:
+        for daemon in daemons:
+            daemon.close()
+        shutil.rmtree(data, ignore_errors=True)
 
 
 # the fleet phase: one llama3-8b agent with two replicas (two engine hosts
@@ -4343,37 +4694,53 @@ def main() -> int:
     # a hang prints every thread's stack before the caller's time limit
     faulthandler.dump_traceback_later(HANG_DUMP_S, exit=True)
     t_start = time.monotonic()
-    card = phase_build()
-    kernels = phase_kernels()
-    w8_row = phase_w8a16()
-    grouped_row = phase_grouped()
-    report = {"serve": phase_serve()}
+    phase_s: dict[str, float] = {}
+
+    def run(name: str, fn, *args, **kw):
+        """One phase, its seconds kept in ``report["phase_s"]``."""
+        t0 = time.monotonic()
+        try:
+            return fn(*args, **kw)
+        finally:
+            phase_s[name] = round(time.monotonic() - t0, 1)
+            log(f"phase {name}: {phase_s[name]} s")
+
+    card = run("build", phase_build)
+    kernels = run("kernels", phase_kernels)
+    w8_row = run("w8a16", phase_w8a16)
+    grouped_row = run("grouped", phase_grouped)
+    report = {"serve": run("serve", phase_serve), "phase_s": phase_s}
     dense_texts = report["serve"].pop("texts")
-    report["serve_paged"] = phase_serve_paged(dense_texts)
-    report["fused"] = phase_fused_dense(dense_texts, report["serve"])
-    n_layers = 32  # llama3-8b at full depth in the feature phases
-    report["features"] = phase_serve_features(False, n_layers, None)
-    report["features_paged"] = phase_serve_features(True, n_layers, report["features"].pop("texts"))
+    report["serve_paged"] = run("serve_paged", phase_serve_paged, dense_texts)
+    report["fused"] = run("fused", phase_fused_dense, dense_texts, report["serve"])
+    n_layers = 32  # llama3-8b at full depth in the bf16 feature phases
+    report["features"] = run("features", phase_serve_features, False, n_layers, None)
+    report["features_paged"] = run("features_paged", phase_serve_features, True, n_layers,
+                                   report["features"].pop("texts"))
     paged_texts = report["features_paged"].pop("texts")
-    report["fused_paged"] = phase_serve_features(True, n_layers, paged_texts, fused=True)
+    report["fused_paged"] = run("fused_paged", phase_serve_features, True, n_layers, paged_texts, fused=True)
     report["fused_paged"].pop("texts")
-    report["tiering_paged"] = phase_tiering_paged(card)
-    report["tiering_dense"] = phase_tiering_dense(card)
-    report["int8"] = phase_serve_features(False, n_layers, None, quant=True)
-    report["int8_paged"] = phase_serve_features(True, n_layers, report["int8"].pop("texts"), quant=True)
+    report["tiering_paged"] = run("tiering_paged", phase_tiering_paged, card)
+    report["tiering_dense"] = run("tiering_dense", phase_tiering_dense, card)
+    # the int8 feature phases are off this slice's path: CUT_LAYERS deep
+    report["int8"] = run("int8", phase_serve_features, False, CUT_LAYERS, None, quant=True)
+    report["int8_paged"] = run("int8_paged", phase_serve_features, True, CUT_LAYERS,
+                               report["int8"].pop("texts"), quant=True)
     report["int8_paged"].pop("texts")
     root = tempfile.mkdtemp(prefix="atpu-hf-llama3-8b-")
     try:
-        report["checkpoint_write"] = phase_write_checkpoint(root)
-        report["checkpoint"] = phase_checkpoint(root, dense_texts, card)
-        report["checkpoint_int8"] = phase_checkpoint_int8(root, card)
-        report["resume"] = phase_resume(root, card)
+        report["checkpoint_write"] = run("checkpoint_write", phase_write_checkpoint, root)
+        report["checkpoint"] = run("checkpoint", phase_checkpoint, root, dense_texts, card)
+        report["checkpoint_int8"] = run("checkpoint_int8", phase_checkpoint_int8, root, card)
+        report["resume"] = run("resume", phase_resume, root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # the control plane: the daemon spawns its own engine host on the card
-    report["daemon"] = phase_daemon(card)
+    report["daemon"] = run("daemon", phase_daemon, card)
     # the replica fleet: two engine hosts, one killed mid-stream
-    report["fleet"] = phase_fleet(card)
+    report["fleet"] = run("fleet", phase_fleet, card)
+    # the daemon's default deployment: native store + AOF, the C++ front door
+    report["native"] = run("native", phase_native, card, report["daemon"])
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
@@ -4384,6 +4751,8 @@ def main() -> int:
         # the fleet's two engine hosts (the killed one's calls before the
         # kill, the survivor's, the respawned one's)
         row["launches_fleet"] = report["fleet"]["launches"][row["name"]]
+        # the native deployment's host after the daemon's restart
+        row["launches_native"] = report["native"]["launches"][row["name"]]
         # the fused path: the fused dense phase (features off) and the fused
         # paged feature phase (in-loop spec)
         row["launches_fused"] = (
@@ -4394,17 +4763,18 @@ def main() -> int:
     w8_row["launches"] = report["int8"]["launches"]["w8a16_matmul"]
     w8_row["launches_paged"] = report["int8_paged"]["launches"]["w8a16_matmul"]
     kernels.append(w8_row)
-    report["model"] = phase_model()
-    report["model_int8"] = phase_model_int8()
-    report["fused_int8_graphs"] = phase_fused_int8_graphs()
-    # Mixture-of-Experts: Mixtral-8x7B, each engine after the last is gone
-    report["moe_block"] = phase_moe_block()
-    report["moe_model"] = phase_moe_model()
-    report["moe"] = phase_serve_features(False, n_layers, None, quant=True, moe={})
-    report["moe_paged"] = phase_serve_features(True, n_layers, report["moe"].pop("texts"), quant=True,
-                                               moe=MOE_ROUTED)
+    report["model"] = run("model", phase_model)
+    report["model_int8"] = run("model_int8", phase_model_int8)
+    report["fused_int8_graphs"] = run("fused_int8_graphs", phase_fused_int8_graphs)
+    # Mixture-of-Experts: Mixtral-8x7B, each engine after the last is gone;
+    # the served phases are off this slice's path: CUT_LAYERS deep
+    report["moe_block"] = run("moe_block", phase_moe_block)
+    report["moe_model"] = run("moe_model", phase_moe_model)
+    report["moe"] = run("moe", phase_serve_features, False, CUT_LAYERS, None, quant=True, moe={})
+    report["moe_paged"] = run("moe_paged", phase_serve_features, True, CUT_LAYERS, report["moe"].pop("texts"),
+                              quant=True, moe=MOE_ROUTED)
     report["moe_paged"].pop("texts")
-    report["moe_fused_graphs"] = phase_fused_int8_graphs(MIXTRAL)
+    report["moe_fused_graphs"] = run("moe_fused_graphs", phase_fused_int8_graphs, MIXTRAL)
     # the grouped kernel's main path: the Mixtral dense-einsum phase (the
     # routed paged one beside)
     grouped_row["launches"] = report["moe"]["launches"]["w8a16_grouped_matmul"]
@@ -4412,10 +4782,10 @@ def main() -> int:
     kernels.append(grouped_row)
     # training, after every engine is gone: the prefill kernel's train path
     prefill_row = next(row for row in kernels if row["name"] == "flash_prefill")
-    prefill_row["train"] = phase_train_attention()
-    report["train_paths"] = phase_train_paths()
-    report["train"] = phase_train(card)
-    report["train_moe"] = phase_train_moe(card)
+    prefill_row["train"] = run("train_attention", phase_train_attention)
+    report["train_paths"] = run("train_paths", phase_train_paths)
+    report["train"] = run("train", phase_train, card)
+    report["train_moe"] = run("train_moe", phase_train_moe, card)
     prefill_row["launches_train"] = report["train"]["launches"]["flash_prefill"]
     prefill_row["train"]["replaces"] = TRAIN_REPLACES
     report["elapsed_s"] = time.monotonic() - t_start

@@ -14,9 +14,10 @@
 - **Store**: seeded random sequences of store ops (strings, TTLs, sets,
   lists, sorted sets, hashes, ``cas``, pattern pub/sub) through both
   ``MemoryStore``s give equal results.
-- The slices' refusals: ``native://``, the artifacts and backups routes
-  (501), a store socket with no control URL; a ``replicas: 2`` deploy is
-  served by two engines.
+- The slices' refusals: the artifacts and backups routes (501); a
+  ``replicas: 2`` deploy is served by two engines; ``native://`` opens the
+  C++ store and ``native:///x.aof`` reopens its data; an engine's store
+  client round-trips over the native store's unix socket.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import asyncio
 import base64
 import contextlib
 import json
+import os
 import random
 import re
 import time
@@ -323,11 +325,7 @@ def test_memory_store_op_sequences_match_reference(seed):
 
 
 def test_later_slices_are_refused_by_name(tmp_path):
-    with pytest.raises(ValueError, match="native-store"):
-        open_store("native:///tmp/x.aof")
     assert isinstance(open_store("mem://"), MemoryStore)
-    with pytest.raises(ValueError, match="native-store"):
-        StoreClient(store_sock="/tmp/store.sock", agent_id="a", token="t")
 
     async def body():
         async with port_stack(tmp_path) as st:
@@ -344,6 +342,81 @@ def test_later_slices_are_refused_by_name(tmp_path):
     for key in [k for k in res if isinstance(k, tuple)] + ["artifact"]:
         status, doc = res[key]
         assert status == 501 and doc["success"] is False and "slice of the port" in doc["message"], key
+
+
+def test_native_store_opens_and_its_aof_reopens(tmp_path):
+    """``native://`` is the C++ store (no AOF); ``native:///x.aof`` keeps its
+    data across a close and a reopen, TTLs included."""
+    from agentainer_tpu_torch.store.native import NativeStore
+
+    s = open_store("native://")
+    assert isinstance(s, NativeStore)
+    s.set("k", "v")
+    assert s.get("k") == b"v"
+    s.close()
+    aof = tmp_path / "x.aof"
+    s = open_store(f"native://{aof}")
+    s.set("agent:a", json.dumps({"id": "a"}))
+    s.rpush("agent:a:requests:pending", "r1", "r2")
+    s.set("ttl", "x", ttl=600)
+    s.close()
+    s = open_store(f"native://{aof}")
+    try:
+        assert json.loads(s.get("agent:a")) == {"id": "a"}
+        assert s.lrange("agent:a:requests:pending", 0, -1) == [b"r1", b"r2"]
+        assert 590 < s.ttl("ttl") <= 600
+    finally:
+        s.close()
+
+
+@pytest.mark.parametrize("long_path", [False, True])
+def test_store_client_round_trips_over_the_store_socket(tmp_path, long_path):
+    """An engine's ``StoreClient`` given ``AGENTAINER_STORE_SOCK`` and no
+    control URL: ops, raw snapshot bytes and a pipeline go over the C++
+    data plane's unix socket into the native store, inside the agent's
+    namespace; a wrong token is refused. A socket path past ``sun_path``'s
+    108 bytes works the same (through its directory's descriptor)."""
+    from agentainer_tpu_torch.runtime.dataplane import UDS_PATH_MAX, NativeDataPlane
+
+    if long_path:
+        tmp_path = tmp_path / ("d" * 100)
+        tmp_path.mkdir()
+    store = open_store(f"native://{tmp_path}/store.aof")
+    sock = str(tmp_path / "store.sock")
+    assert (len(sock) > UDS_PATH_MAX) == long_path
+    dp = NativeDataPlane(store, "127.0.0.1", 0, "127.0.0.1", 1, sock)
+    store.set(Keys.internal_token("a1"), "tok")
+    blob = bytes(range(256)) * 4096  # a 1 MiB binary snapshot
+
+    async def body():
+        client = StoreClient(store_sock=sock, agent_id="a1", token="tok")
+        assert client.connected
+        try:
+            await client.set("agent:a1:k", "v", ttl=60)
+            await client.set_bytes("agent:a1:kvcache:s", blob)
+            res = await client.pipeline([
+                {"op": "rpush", "key": "agent:a1:conversations", "values": ["x", "y"]},
+                {"op": "get", "key": "agent:a1:k"},
+                {"op": "llen", "key": "agent:a1:conversations"},
+            ])
+            got = await client.get_bytes("agent:a1:kvcache:s")
+        finally:
+            await client.close()
+        bad = StoreClient(store_sock=sock, agent_id="a1", token="wrong", retries=0)
+        with pytest.raises(RuntimeError, match="credentials"):
+            await bad.get("agent:a1:k")
+        return res, got
+
+    try:
+        res, got = asyncio.run(body())
+        assert res == [2, "v", 2] and got == blob
+        assert store.get("agent:a1:kvcache:s") == blob
+        assert store.lrange("agent:a1:conversations", 0, -1) == [b"x", b"y"]
+        assert os.path.exists(sock)
+    finally:
+        dp.stop()
+        store.close()
+    assert not os.path.exists(sock)  # unlinked at stop
 
 
 def test_replicas_deploy_starts_one_engine_per_replica(tmp_path):

@@ -84,6 +84,9 @@ CONTROL_PLANE = (
     "agentainer_tpu_torch.store.base",
     "agentainer_tpu_torch.store.memory",
     "agentainer_tpu_torch.store.schema",
+    "agentainer_tpu_torch.store.native",
+    "agentainer_tpu_torch.native",
+    "agentainer_tpu_torch.runtime.dataplane",
     "agentainer_tpu_torch.core.errors",
     "agentainer_tpu_torch.core.spec",
     "agentainer_tpu_torch.core.resilience",
@@ -116,3 +119,25 @@ def test_control_plane_imports_no_torch_aiohttp_or_yaml():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_NO_BUILD_PROBE = """
+import importlib, json
+for name in {names!r}:
+    importlib.import_module(name)
+from agentainer_tpu_torch import native
+print(json.dumps([native._lib is None, native._load_error is None]))
+"""
+
+
+def test_native_layer_builds_nothing_at_import():
+    """Importing the daemon's graph (the native loader, the native store,
+    the data plane and the store client among it) neither builds nor loads
+    the C++ library: that happens at first use."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_BUILD_PROBE.format(names=CONTROL_PLANE)],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": ":".join(p for p in sys.path if p), "PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, True]
