@@ -23,10 +23,11 @@ As in the reference:
   door. The start line names the store and the data plane that run; the
   data plane stops before the store can be freed.
 
-What differs: the reference's artifacts and backups come with later
-slices (their routes answer 501); nothing here imports torch, so the
-daemon never creates a CUDA context — only the llm engine processes it
-spawns touch the card.
+The backups (``manager/backup.py``, manifests under ``<data_dir>/
+backups``) and the model-artifact registry (``manager/artifacts.py``,
+validated from safetensors headers) are built as in the reference. What
+differs: nothing here imports torch, so the daemon never creates a CUDA
+context — only the llm engine processes it spawns touch the card.
 
 Run: ``python -m agentainer_tpu_torch.daemon`` (``ATPU_SERVER_PORT``,
 ``ATPU_AUTH_TOKEN``, ``ATPU_DATA_DIR`` and the rest of ``config.py``'s
@@ -44,7 +45,9 @@ from typing import Awaitable, Callable
 
 from .config import Config, load_config
 from .manager.agents import AgentManager
+from .manager.artifacts import ArtifactRegistry
 from .manager.audit import LogPlane
+from .manager.backup import BackupManager
 from .manager.health import HealthMonitor
 from .manager.journal import RequestJournal
 from .manager.metrics import MetricsPlane
@@ -65,6 +68,8 @@ class Services:
     journal: RequestJournal
     logs: LogPlane
     metrics: MetricsPlane
+    backups: BackupManager
+    artifacts: ArtifactRegistry
     data_dir: str = ""
     store_url: str = ""  # the store the daemon opened (auto resolved)
     dataplane: object = None  # NativeDataPlane when the C++ listener is up
@@ -173,6 +178,8 @@ def build_services(
         journal=journal,
         logs=logs,
         metrics=metrics,
+        backups=BackupManager(manager, store, ddir),
+        artifacts=ArtifactRegistry(store),
         data_dir=str(ddir),
         store_url=store_url,
     )
@@ -348,8 +355,9 @@ async def run_daemon(services: Services) -> None:
         await stop_daemon(services, server)
 
 
-def main() -> None:
-    services = build_services()
+def main(config: Config | None = None) -> None:
+    """Serve ``config`` (else ``load_config()``'s) until SIGTERM/SIGINT."""
+    services = build_services(config=config)
 
     async def go() -> None:
         task = asyncio.current_task()

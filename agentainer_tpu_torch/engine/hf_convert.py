@@ -26,10 +26,11 @@ What differs from the reference, and why:
 
 - the safetensors format is read with the standard library and numpy
   (``SafetensorsFile``): the machine with the card has no ``safetensors``
-  package. A file is an 8-byte little-endian header length, a JSON header
-  of ``dtype``, ``shape`` and ``data_offsets`` per tensor, then the raw
-  little-endian data; ``BF16`` (viewed through uint16), ``F16`` and ``F32``
-  are read, any other dtype raises naming it;
+  package. Its header, the shard index and ``config_from_hf`` live in
+  ``engine/safetensors_meta.py``, which imports neither torch nor numpy,
+  so the daemon's artifact registry validates a directory with the same
+  parser; ``BF16`` (viewed through uint16), ``F16`` and ``F32`` data are
+  read, any other dtype raises naming it;
 - the load streams: the tree is allocated once on the target device and
   each tensor goes from a ``np.memmap`` of its file, in row blocks of at
   most ``_STREAM_BYTES``, through a staging buffer (pinned on the card) to
@@ -48,7 +49,6 @@ What differs from the reference, and why:
 from __future__ import annotations
 
 import contextlib
-import json
 import time
 from pathlib import Path
 
@@ -58,6 +58,12 @@ import torch
 from ..models.configs import ModelConfig
 from ..ops.quant import QTensor, quantize_array, quantize_into
 from .quant import QUANT_SCHEMES
+from .safetensors_meta import (  # noqa: F401  (config_from_hf, is_hf_checkpoint: this module's API)
+    SafetensorsHeader,
+    config_from_hf,
+    is_hf_checkpoint,
+    open_shards,
+)
 
 # safetensors dtype → (raw little-endian numpy dtype, torch dtype)
 _DTYPES = {
@@ -69,32 +75,9 @@ _DTYPES = {
 _STREAM_BYTES = 64 << 20
 
 
-def is_hf_checkpoint(path: str | Path) -> bool:
-    p = Path(path).expanduser()
-    return p.is_dir() and any(p.glob("*.safetensors"))
-
-
-class SafetensorsFile:
-    """One ``.safetensors`` file: its header parsed, its tensors mapped
-    read-only from disk on demand (``array``)."""
-
-    def __init__(self, path: str | Path):
-        self.path = Path(path)
-        with open(self.path, "rb") as f:
-            head = f.read(8)
-            if len(head) != 8:
-                raise ValueError(f"{self.path}: not a safetensors file (no header length)")
-            n = int.from_bytes(head, "little")
-            raw = f.read(n)
-        if len(raw) != n:
-            raise ValueError(f"{self.path}: header of {n} bytes is cut short")
-        header = json.loads(raw)
-        header.pop("__metadata__", None)
-        self.header: dict = header
-        self._data_start = 8 + n
-
-    def names(self) -> list[str]:
-        return list(self.header)
+class SafetensorsFile(SafetensorsHeader):
+    """One ``.safetensors`` file: its header parsed (``safetensors_meta``),
+    its tensors mapped read-only from disk on demand (``array``)."""
 
     def dtype(self, name: str) -> torch.dtype:
         return _dtype(self.path, name, self.header[name]["dtype"])[1]
@@ -124,39 +107,7 @@ def _dtype(path: Path, name: str, tag: str):
 
 def _open_shards(path: Path) -> dict[str, SafetensorsFile]:
     """name → its file. Handles single-file and index-sharded layouts."""
-    index = path / "model.safetensors.index.json"
-    files: dict[str, SafetensorsFile] = {}
-    if index.exists():
-        weight_map = json.loads(index.read_text())["weight_map"]
-        for shard in sorted(set(weight_map.values())):
-            files[shard] = SafetensorsFile(path / shard)
-        return {name: files[shard] for name, shard in weight_map.items()}
-    out: dict[str, SafetensorsFile] = {}
-    for shard in sorted(path.glob("*.safetensors")):
-        f = SafetensorsFile(shard)
-        for name in f.names():
-            out[name] = f
-    return out
-
-
-def config_from_hf(path: str | Path) -> ModelConfig:
-    """Derive a ModelConfig from the checkpoint's own config.json."""
-    doc = json.loads((Path(path).expanduser() / "config.json").read_text())
-    n_experts = int(doc.get("num_local_experts", 0) or 0)
-    return ModelConfig(
-        name=doc.get("model_type", "hf") + "-import",
-        vocab_size=int(doc["vocab_size"]),
-        dim=int(doc["hidden_size"]),
-        n_layers=int(doc["num_hidden_layers"]),
-        n_heads=int(doc["num_attention_heads"]),
-        n_kv_heads=int(doc.get("num_key_value_heads", doc["num_attention_heads"])),
-        ffn_dim=int(doc["intermediate_size"]),
-        max_seq_len=int(doc.get("max_position_embeddings", 8192)),
-        rope_theta=float(doc.get("rope_theta", 500_000.0)),
-        norm_eps=float(doc.get("rms_norm_eps", 1e-5)),
-        n_experts=n_experts,
-        experts_per_token=int(doc.get("num_experts_per_tok", 2)),
-    )
+    return open_shards(path, SafetensorsFile)
 
 
 class _Streamer:

@@ -489,13 +489,14 @@ class LLMServeApp:
             if blob:
                 self._kv_last_snap[session] = time.monotonic()
                 t1 = time.monotonic()
-                await self.store.set_bytes(self._kv_key(session), blob, ttl=KV_SNAPSHOT_TTL_S)
+                path = await self.store.set_bytes(self._kv_key(session), blob, ttl=KV_SNAPSHOT_TTL_S)
                 self.kv_snapshots += 1
                 self.last_kv_snapshot = {
                     "session": session,
                     "bytes": len(blob),
                     "snapshot_ms": 1000 * (t1 - t0),  # the limiter's waits included
                     "store_ms": 1000 * (time.monotonic() - t1),
+                    "path": path,  # socket, http or local
                 }
                 timings = getattr(self.engine, "snapshot_timings", None)
                 if timings and timings[-1].get("blob_bytes") == len(blob):

@@ -9,10 +9,17 @@ daemon's store two ways, the faster first:
   the C++ store, through a small pool of connections (``_UDSPool``), each
   authenticated once with the per-engine token and namespaced by the C++
   to the agent's ``agent:{id}:*`` keys, one frame in flight per
-  connection; a KV snapshot travels as raw bytes. A frame above 64 MiB
-  closes the connection (the reference's cap, ``native/dataplane.cc``);
+  connection; a KV snapshot travels as raw bytes;
 - **HTTP** (``AGENTAINER_CONTROL_URL`` + ``/internal/store``): JSON ops
   (a snapshot as base64) on the standard library (``utils/http``).
+
+The C++ closes a socket connection whose frame is above
+``SOCKET_FRAME_MAX`` (64 MiB, ``native/dataplane.cc``). Such a frame is
+never written: ``set_bytes`` sends a snapshot whose frame would pass the
+cap over HTTP (a llama3-8b session past ~512 tokens, up to the API's 512
+MiB body), and any other frame past it raises ``FrameTooLarge``, which no
+retry repeats. The C++'s replies have no cap, so ``get_bytes`` reads every
+snapshot back over the socket.
 
 Both carry single ops and pipelines with bounded retry and jittered
 backoff for transport errors, and the ``store_client.rpc`` failpoint inside
@@ -52,8 +59,17 @@ TRANSIENT_ERRORS = (
     http.ServerDisconnected,
 )
 
-# a KV snapshot rides one op: tens of MB at llama3-8b width
+# a KV snapshot rides one op: tens to hundreds of MB at llama3-8b width
 STORE_TIMEOUT_S = 60.0
+
+# the largest frame the C++ data plane reads off the store socket; a longer
+# one closes the connection (native/dataplane.cc, handle_uds_conn)
+SOCKET_FRAME_MAX = 64 << 20
+
+
+class FrameTooLarge(ValueError):
+    """A frame past ``SOCKET_FRAME_MAX``: never written to the socket, and
+    not a transport error, so never retried."""
 
 
 class _UDSPool:
@@ -87,6 +103,8 @@ class _UDSPool:
         return _dec(await reader.readexactly(n))
 
     async def roundtrip(self, frame: bytes) -> tuple[int, list[bytes]]:
+        if len(frame) > SOCKET_FRAME_MAX:
+            raise FrameTooLarge(f"a {len(frame)}-byte frame is past the store socket's {SOCKET_FRAME_MAX}")
         if self._free is None:
             self._free, self._lock = asyncio.Queue(), asyncio.Lock()
         conn = None
@@ -288,6 +306,10 @@ class StoreClient:
                 n += 1
 
     async def _op(self, op: str, key: str, **kw: Any) -> Any:
+        return await self._run(op, key, kw, _encode_sub(op, key, kw) if self._uds is not None else None)
+
+    async def _run(self, op: str, key: str, kw: dict, frame: bytes | None) -> Any:
+        """One op over the socket (``frame``), else over HTTP, else local."""
         if not self.connected:
             return self._local_op(op, key, **kw)
 
@@ -295,8 +317,8 @@ class StoreClient:
             # failpoint cut INSIDE the retry loop: an injected transient
             # error exercises the recovery path, not just the failure path
             await faults.fire_async("store_client.rpc")
-            if self._uds is not None:
-                return _decode_result(op, *await self._uds.roundtrip(_encode_sub(op, key, kw)))
+            if frame is not None:
+                return _decode_result(op, *await self._uds.roundtrip(frame))
             return await self._post({"op": op, "key": key, **kw}, f"op {op}")
 
         return await self._with_retry(attempt)
@@ -374,11 +396,18 @@ class StoreClient:
     async def set(self, key: str, value: str, ttl: float | None = None) -> None:
         await self._op("set", key, value=value, ttl=ttl)
 
-    async def set_bytes(self, key: str, blob: bytes, ttl: float | None = None) -> None:
+    async def set_bytes(self, key: str, blob: bytes, ttl: float | None = None) -> str:
+        """Store raw bytes (a KV snapshot); returns the path that carried
+        them: ``"socket"``, ``"http"`` (no socket, or a frame past
+        ``SOCKET_FRAME_MAX`` with a control URL beside it) or ``"local"``."""
         if self._uds is not None:
-            await self._op("set_raw", key, value=bytes(blob), ttl=ttl)
-        else:
-            await self._op("set_b64", key, value_b64=base64.b64encode(blob).decode(), ttl=ttl)
+            kw = {"value": bytes(blob), "ttl": ttl}
+            frame = _encode_sub("set_raw", key, kw)
+            if len(frame) <= SOCKET_FRAME_MAX or not self.control_url:
+                await self._run("set_raw", key, kw, frame)
+                return "socket"
+        await self._run("set_b64", key, {"value_b64": base64.b64encode(blob).decode(), "ttl": ttl}, None)
+        return "http" if self.control_url else "local"
 
     async def get_bytes(self, key: str) -> bytes | None:
         if self._uds is not None:

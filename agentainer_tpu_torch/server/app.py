@@ -6,7 +6,9 @@ machine with the card has no aiohttp):
 
 - one port serves a public ``/health``, the **unauthenticated** proxy under
   ``/agent/{id}/...``, and a bearer-token-authed management surface under
-  ``/agents/*`` plus metrics/logs/audit/slice/faults; ``/internal/store``
+  ``/agents/*`` plus metrics/logs/audit/slice/faults, the model artifacts
+  (``/artifacts``, ``manager/artifacts.py``) and the backups
+  (``/backups``, ``manager/backup.py``); ``/internal/store``
   and ``/internal/engines/ready`` authenticate each engine's own token;
 - every response uses the ``{success, message, data}`` envelope; a typed
   ``AgentainerError`` answers its status, an unknown route aiohttp's plain
@@ -46,8 +48,12 @@ journaled here as from any client. The C++ reads every answer whole
 before it relays it (a log follow excepted), so through it a stream
 arrives buffered.
 
-What waits for later slices of the port: artifacts and backups, whose
-routes answer 501 with the error envelope.
+A deploy may name a registered artifact (``{"artifact": name}`` or
+``checkpoint: "artifact://name"``): its directory becomes the model's
+checkpoint and the engine defaults to ``llm``; an unknown name answers
+404. Artifact builds, backups and restores run off the event loop; a
+backup export streams its tar.gz with a length and deletes the file after
+sending.
 """
 
 from __future__ import annotations
@@ -104,15 +110,6 @@ _HOP_BY_HOP = {
     "te", "trailers", "transfer-encoding", "upgrade", "host", "content-length",
     "content-encoding",
 }
-
-ARTIFACTS_LATER = (
-    "model artifacts are not ported yet: they come with the artifacts, "
-    "backups and YAML-deploy slice of the port"
-)
-BACKUPS_LATER = (
-    "backups are not ported yet: they come with the artifacts, backups and "
-    "YAML-deploy slice of the port"
-)
 
 Handler = Callable[[Request], Awaitable[Response]]
 
@@ -290,23 +287,14 @@ class ControlPlaneApp:
         # fault-injection plane: guarded by the admin bearer token
         add("GET", "/internal/faults", self.h_faults_get)
         add("POST", "/internal/faults", self.h_faults_post)
-        for method, pattern in (
-            ("POST", "/artifacts"), ("GET", "/artifacts"), ("DELETE", "/artifacts/{name}"),
-        ):
-            add(method, pattern, self._later(ARTIFACTS_LATER))
-        for method, pattern in (
-            ("POST", "/backups"), ("GET", "/backups"),
-            ("POST", "/backups/{backup_id}/restore"), ("POST", "/backups/{backup_id}/export"),
-            ("DELETE", "/backups/{backup_id}"),
-        ):
-            add(method, pattern, self._later(BACKUPS_LATER))
-
-    @staticmethod
-    def _later(message: str) -> Handler:
-        async def handler(request: Request) -> Response:
-            return fail(message, status=501)
-
-        return handler
+        add("POST", "/artifacts", self.h_artifact_build)
+        add("GET", "/artifacts", self.h_artifact_list)
+        add("DELETE", "/artifacts/{name}", self.h_artifact_remove)
+        add("POST", "/backups", self.h_backup_create)
+        add("GET", "/backups", self.h_backup_list)
+        add("POST", "/backups/{backup_id}/restore", self.h_backup_restore)
+        add("POST", "/backups/{backup_id}/export", self.h_backup_export)
+        add("DELETE", "/backups/{backup_id}", self.h_backup_delete)
 
     def _route(self, request: Request) -> Handler | Response:
         allowed = False
@@ -397,10 +385,22 @@ class ControlPlaneApp:
         except ValueError:
             return fail("invalid JSON body", status=400)
         model = body.get("model", body.get("image", "echo"))
-        if isinstance(model, dict) and (
-            model.get("artifact") or str(model.get("checkpoint", "")).startswith("artifact://")
-        ):
-            return fail(ARTIFACTS_LATER, status=501)
+        # artifact reference: {"artifact": "name"} or checkpoint
+        # "artifact://name" resolves through the registry (manager/artifacts)
+        if isinstance(model, dict):
+            art_name = model.get("artifact", "") or (
+                model.get("checkpoint", "").removeprefix("artifact://")
+                if str(model.get("checkpoint", "")).startswith("artifact://")
+                else ""
+            )
+            if art_name:
+                doc = self.s.artifacts.get(art_name)
+                if doc is None:
+                    return fail(f"unknown artifact: {art_name}", status=404)
+                model = dict(model)
+                model.pop("artifact", None)
+                model["checkpoint"] = doc["path"]
+                model.setdefault("engine", "llm")
         try:
             replicas = int(body.get("replicas", 0) or 0)
         except (TypeError, ValueError):
@@ -712,6 +712,79 @@ class ControlPlaneApp:
                 "free_hbm": self.s.scheduler.free_hbm(),
             }
         )
+
+    # -- model artifacts ---------------------------------------------------
+    async def h_artifact_build(self, request: Request) -> Response:
+        try:
+            body = json.loads(request.body)
+        except ValueError:
+            return fail("invalid JSON body", status=400)
+        path = str(body.get("path", ""))
+        if not path:
+            return fail("'path' is required", status=400)
+        doc = await asyncio.to_thread(self.s.artifacts.build, path, str(body.get("name", "")))
+        self._audit(request, "artifact-build", doc["name"], "success")
+        return ok(doc, message="Artifact registered")
+
+    async def h_artifact_list(self, request: Request) -> Response:
+        return ok(await asyncio.to_thread(self.s.artifacts.list))
+
+    async def h_artifact_remove(self, request: Request) -> Response:
+        name = request.match_info["name"]
+        removed = await asyncio.to_thread(self.s.artifacts.remove, name)
+        if not removed:
+            return fail(f"unknown artifact: {name}", status=404)
+        self._audit(request, "artifact-remove", name, "success")
+        return ok(message="Artifact removed")
+
+    # -- backups -----------------------------------------------------------
+    async def h_backup_create(self, request: Request) -> Response:
+        try:
+            body = json.loads(request.body)
+        except ValueError:
+            body = {}
+        backup = await self._mgr(self.s.backups.create, body.get("name", ""), body.get("description", ""))
+        self._audit(request, "backup-create", backup["id"], "success")
+        return ok(backup, message="Backup created")
+
+    async def h_backup_list(self, request: Request) -> Response:
+        return ok(await self._mgr(self.s.backups.list))
+
+    async def h_backup_restore(self, request: Request) -> Response:
+        backup_id = request.match_info["backup_id"]
+        restored = await self._mgr(self.s.backups.restore, backup_id)
+        self._audit(request, "backup-restore", backup_id, "success")
+        return ok(restored, message="Backup restored")
+
+    async def h_backup_export(self, request: Request) -> Response:
+        """Bundle one backup into a portable tar.gz and stream its bytes to
+        the caller: the archive lands on the client's machine, and the
+        daemon never writes a path the client chose. The one-shot file is
+        deleted after sending (ones a lost client left are swept by
+        ``BackupManager.export``)."""
+        backup_id = request.match_info["backup_id"]
+        exported = await self._mgr(self.s.backups.export, backup_id)
+        try:
+            self._audit(request, "backup-export", backup_id, "success")
+            out = request.stream
+            out.chunked = False  # a length instead: the body ends with the file
+            out.headers = {
+                "Content-Type": "application/gzip",
+                "Content-Disposition": f'attachment; filename="{backup_id}.tar.gz"',
+                "Content-Length": str(exported.stat().st_size),
+            }
+            with exported.open("rb") as f:
+                while chunk := await asyncio.to_thread(f.read, 1 << 20):
+                    await out.write(chunk)
+        finally:
+            exported.unlink(missing_ok=True)
+        return http.STREAMED
+
+    async def h_backup_delete(self, request: Request) -> Response:
+        backup_id = request.match_info["backup_id"]
+        await self._mgr(self.s.backups.delete, backup_id)
+        self._audit(request, "backup-delete", backup_id, "success")
+        return ok(message="Backup deleted")
 
     def _check_engine_auth(self, request: Request) -> str | None:
         """Validate a per-engine credential; returns the agent id or None."""

@@ -5,8 +5,8 @@ restart without losing agent records (reference scripts/start-server.sh:12-19,
 docker-compose.yml). Here the control plane and engines share one host; the
 daemon's durable default is the native store with its append-only file
 (``store/native.py``), and this one serves ``mem://``, the fallback where
-the native library cannot be built (the reference's snapshot/backup plane
-is a later slice of the port).
+the native library cannot be built (backups of either store are
+``manager/backup.py``'s manifests).
 
 Semantics follow Redis where it matters: lazy TTL expiry, ``lrem`` counted
 removal (reference requests.go:171 uses LREM pending 1 id), sorted-set

@@ -123,7 +123,7 @@ exits non-zero):
                  gap at the diverging token is printed), the two blobs'
                  payloads are bit-equal, the restore binds no lane, all four
                  kernels launch. Blob bytes, stage, pack and restore ms
-                 printed. The directory is removed at the end.
+                 printed. The directory stays until 7e has deployed it.
 7b. daemon     — the control plane on the card: the port's daemon
                  (``python -m agentainer_tpu_torch.daemon``, standard
                  library only) as a child process with ``mem://`` (so the
@@ -207,6 +207,36 @@ exits non-zero):
                  through Python in the same run, the snapshot's bytes and
                  store ms over the socket beside 7b's over HTTP, the AOF's
                  bytes, restart → listed seconds.
+7e. operator   — the operator's tooling, after 7d's daemon is gone, in
+                 the same native deployment (``ATPU_STREAMING=1``), driven
+                 through the port's CLI as a subprocess: ``deploy
+                 --model-dir`` of phase 6's checkpoint (features off)
+                 prints the build log and ``built artifact 'op'``, ``models``
+                 lists it as ``hf`` with its parameters, and after ``start``
+                 the first of phase 6's requests through the C++ gives phase
+                 6's greedy text. A session of two 48-token turns past 600
+                 tokens: its snapshot, above the store socket's 64 MiB
+                 frame cap, lands over HTTP with no snapshot error. ``backup
+                 create`` after it, ``backup list``, a third turn T3 on the
+                 original, ``backup export -o`` (the tar.gz holds the
+                 manifest), ``stop``, ``backup restore``, ``start
+                 op-restored``: T3 on the restored agent equals the
+                 original's token for token, restored from the copied KV
+                 (``kv_restores`` ≥ 1, the snapshot's bytes, the same
+                 prompt tokens). ``deploy -f`` of a JSON deployment (no
+                 PyYAML on the card) with a ``${VAR}`` starts two echo agents
+                 in dependency order, both answering 200; ``audit`` shows
+                 ``artifact-build``, ``backup-create`` and
+                 ``backup-restore``; ``faults``, ``slice``, ``health``,
+                 ``metrics`` and ``logs`` exit 0. No 5xx, no CUDA context in
+                 the daemon, the dense kernels launched in both hosts and no
+                 paged one. Printed beside the card: the artifact build ms
+                 (``POST /artifacts``, headers only), deploy → ready seconds,
+                 the snapshot's bytes, path and store ms, backup create /
+                 export / restore seconds, the manifest's bytes, restore →
+                 first restored token ms (store read + restore + TTFT), the
+                 CLI's overhead per call beside the API's. Phase 6's
+                 directory is removed after it.
 8. model       — ``forward`` logits with the kernels against ``forward``
                  with the plain attention path, and the paged ``forward``
                  (kernels, scrambled block table) against the dense one,
@@ -4675,6 +4705,274 @@ def _fleet_logit_gap(turn1: list[int], turn2: list[int], j: int, got: list[int])
     return gap
 
 
+# -- phase 7e: the operator's tooling ----------------------------------------
+
+# a session whose snapshot passes the store socket's 64 MiB frame cap:
+# llama3-8b keeps 131,072 B of bf16 KV a token, and the snapshot's npz packs
+# random weights' KV to ~96 kB a position (63,967,227 B for 665 positions on
+# the card), so past ~700 positions. The byte tokenizer makes a character one
+# token: bos + 720 + 48 + 79 + 48 = 896 positions after turn two (~86 MB as
+# a blob), 769 after turn one (~74 MB).
+OP_LOG = ("The lighthouse log, night watch: wind from the north-east, sea state rough, one ship "
+          "passing at a safe distance, the lamp trimmed twice, the fog horn silent, the keeper "
+          "awake and writing by the stove. ")
+OP_TURNS = ((OP_LOG * 4)[:672] + " Read the log back to me and add one line to it.",
+            "Now add the next hour of the watch, with the weather and the ships you can see.",
+            "And what does the keeper eat at dawn?")
+OP_MAX_TOKENS = 48
+OP_SOCKET_CAP = 64 << 20  # the C++'s frame cap on the store socket
+CLI_PROBES = 5  # `health` through the CLI and straight to the API, in turns
+OP_DEPLOY_FILE = {
+    "apiVersion": "agentainer/v1",
+    "kind": "AgentDeployment",
+    "metadata": {"name": "op-fleet"},
+    "spec": {"agents": [
+        {"name": "op-front", "model": "echo", "dependsOn": ["op-back"], "env": {"ROLE": "${OP_ROLE}"}},
+        {"name": "op-back", "model": "echo"},
+    ]},
+}
+
+
+def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
+    """The operator's tooling on the card, in the daemon's default native
+    deployment (``store_url`` auto: the C++ store and front door; with
+    ``ATPU_STREAMING=1``), driven through the port's CLI as a subprocess
+    (``python -m agentainer_tpu_torch.cli --server … --token …``):
+
+    ``deploy --model-dir`` of phase 6's llama3-8b checkpoint (``root``:
+    full width and depth, seed-0 bf16 weights) with the features off
+    prints the build log and ``built artifact 'op'``; ``models`` lists it
+    as ``hf`` with its parameters; ``start``; the first of phase 6's
+    requests through the C++ gives phase 6's greedy text. A session of two
+    turns past 600 tokens: its snapshot above 64 MiB lands over HTTP
+    (``kv_snapshot_errors`` 0). ``backup create`` once that snapshot has
+    landed, ``backup list``, a third turn T3 recorded, ``backup export``
+    (the tar.gz holds the manifest), ``stop``, ``backup restore``, ``start
+    op-restored``: the restored agent's T3 equals the original's token for
+    token, restored from the copied KV (``kv_restores`` >= 1, the same
+    prompt tokens). ``deploy -f`` of a JSON deployment (the card has no
+    PyYAML) starts two echo agents in dependency order with a ``${VAR}``
+    expanded, both answering 200. ``audit`` shows the artifact build, the
+    backup and the restore; ``faults``, ``slice``, ``health``, ``metrics``
+    and ``logs`` exit 0. Gates throughout: no 5xx, no CUDA context in the
+    daemon, the dense kernels launched in both hosts and no paged one.
+    Printed beside the card: artifact build ms, deploy → ready seconds,
+    the snapshot's bytes, path and store ms, backup create / export /
+    restore seconds, the manifest's bytes, restore → first restored token
+    ms, the CLI's overhead per call."""
+    import statistics
+    import tarfile
+
+    _free_cuda()
+    data = tempfile.mkdtemp(prefix="atpu-7e-")
+    out: dict = {"card": card}
+    d = _Daemon({"ATPU_STORE_URL": "auto", "ATPU_STREAMING": "1"}, data=data)
+    cli_root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*argv, env: dict | None = None) -> tuple[str, float]:
+        """One CLI call: its stdout and wall seconds; fails unless it exits 0."""
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "agentainer_tpu_torch.cli", "--server", f"http://127.0.0.1:{d.port}",
+             "--token", DAEMON_TOKEN, *argv],
+            cwd=cli_root, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": cli_root, **(env or {})},
+        )
+        if res.returncode != 0:
+            raise AssertionError(f"cli {' '.join(argv)}: exit {res.returncode}: {res.stderr[-2000:]}")
+        return res.stdout, time.monotonic() - t0
+
+    def agent_call(method, path, body=None):
+        """(status, headers, raw body) through the C++ front door."""
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{d.port}{path}", method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                got = resp.status, resp.headers, resp.read()
+        except urllib.error.HTTPError as e:
+            got = e.code, e.headers, e.read()
+        d.statuses.append(got[0])
+        return got
+
+    def metrics(aid) -> dict:
+        return json.loads(agent_call("GET", f"/agent/{aid}/metrics")[2])
+
+    def loaded(aid) -> bool:
+        status, _, raw = agent_call("GET", f"/agent/{aid}/health")
+        return status == 200 and bool(json.loads(raw).get("model_loaded"))
+
+    def turn(aid, msg) -> tuple[list[int], dict]:
+        """A turn of session ``long`` as a ``stream: true`` body, answered
+        buffered by the C++: its token ids and its ``done`` payload."""
+        body = {"message": msg, "session": "long", "max_tokens": OP_MAX_TOKENS, "ignore_eos": True, "stream": True}
+        status, _, raw = agent_call("POST", f"/agent/{aid}/chat", body)
+        if status != 200:
+            raise AssertionError(f"turn on {aid}: {status} {raw[:300]!r}")
+        frames = _parse_sse(raw)
+        return _sse_token_ids(raw), frames[-1]["data"]
+
+    def settled(aid):
+        m = metrics(aid)
+        return m if m["kv_snapshots_in_flight"] == 0 else None
+
+    def listed(name: str) -> dict:
+        rows = json.loads(cli("list", "--json")[0])
+        return next(r for r in rows if r["name"] == name)
+
+    try:
+        d.wait(lambda: _daemon_call(d.port, "GET", "/health")[0] == 200, "the daemon", 60)
+        start_line = next((ln for ln in open(d.log_path, errors="replace") if "control plane listening" in ln), "")
+        if "store native://" not in start_line or "data plane native" not in start_line:
+            raise AssertionError(f"the daemon did not start on the native store and data plane: {start_line!r}")
+        if _maps_cuda(d.proc.pid):
+            raise AssertionError("the daemon created a CUDA context")
+        # deploy from the directory: the build log, then the agent
+        t_deploy = time.monotonic()
+        text, out["cli_deploy_s"] = cli("deploy", "--name", "op", "--model-dir", root,
+                                        "--no-speculative", "--no-prefix-cache", "--no-deadlines")
+        if "built artifact 'op'" not in text or "validated" not in text:
+            raise AssertionError(f"deploy --model-dir printed: {text}")
+        out["build_log"] = [ln.strip() for ln in text.splitlines() if ln.startswith("  ")]
+        a = next(ln.split(": ")[1] for ln in text.splitlines() if ln.startswith("deployed op: "))
+        models, _ = cli("models")
+        row = next((ln.split() for ln in models.splitlines() if ln.startswith("op ")), None)
+        if row is None or row[1] != "hf" or not row[2].endswith("M"):
+            raise AssertionError(f"models: {models}")
+        out["models_row"] = " ".join(row[:3])
+        # the same directory registered again, timed through the API alone
+        # (headers only: no weight byte read), then removed
+        t0 = time.perf_counter()
+        status, doc = d.call("POST", "/artifacts", {"path": root, "name": "op-probe"}, auth=True)
+        out["artifact_build_ms"] = 1e3 * (time.perf_counter() - t0)
+        if status != 200 or doc["data"]["n_params"] != WEIGHT_BYTES_8B // 2:
+            raise AssertionError(f"POST /artifacts: {status} {doc}")
+        assert d.call("DELETE", "/artifacts/op-probe", auth=True)[0] == 200
+        cli("start", a)
+        d.wait(lambda: loaded(a), "the artifact's model", 480)
+        out["deploy_to_ready_s"] = time.monotonic() - t_deploy
+        # phase 6's first request through the C++: phase 6's greedy text
+        session, message = REQUESTS[0]
+        status, _, raw = agent_call("POST", f"/agent/{a}/chat", {"session": session, "message": message,
+                                                                  "max_tokens": 16, "ignore_eos": True})
+        first = json.loads(raw)
+        if status != 200 or first["response"] != dense_texts[0]:
+            raise AssertionError(f"the artifact agent's first reply {status} {first} != {dense_texts[0]!r}")
+        d.wait(lambda: settled(a), "the first session's snapshot", 120)
+        # a session past the socket's frame cap
+        before = metrics(a)
+        want = [turn(a, msg) for msg in OP_TURNS[:2]]
+        m = d.wait(lambda: settled(a), "the long session's snapshots", 180)
+        snap = m["last_kv_snapshot"] or {}
+        out["snapshot"] = snap
+        out["kv_snapshots"] = m["kv_snapshots"] - before["kv_snapshots"]
+        if (snap.get("session") != "long" or snap["bytes"] <= OP_SOCKET_CAP or snap["path"] != "http"
+                or m["kv_snapshot_errors"] or out["kv_snapshots"] < 1):
+            raise AssertionError(f"the long session's snapshot: {snap}, {out['kv_snapshots']} landed, "
+                                 f"errors {m['kv_snapshot_errors']} ({m.get('last_kv_snapshot_error')})")
+        # the backup, then T3 on the original
+        text, out["backup_create_s"] = cli("backup", "create", "--name", "before-t3")
+        bid = text.split()[1]
+        t3, t3_done = turn(a, OP_TURNS[2])
+        backups = json.loads(cli("backup", "list")[0])
+        if [b["id"] for b in backups] != [bid] or backups[0]["agents"] != 1:
+            raise AssertionError(f"backup list: {backups}")
+        tar_path = os.path.join(data, "op-backup.tar.gz")
+        _, out["backup_export_s"] = cli("backup", "export", bid, "-o", tar_path)
+        with tarfile.open(tar_path) as tar:
+            members = {mb.name: mb.size for mb in tar.getmembers()}
+        if list(members) != [f"{bid}.json"]:
+            raise AssertionError(f"the export holds {members}")
+        out["manifest_bytes"] = members[f"{bid}.json"]
+        out["export_bytes"] = os.path.getsize(tar_path)
+        launches = metrics(a)["kernel_launches"]
+        cli("stop", a)
+        t_restore = time.monotonic()
+        text, out["backup_restore_s"] = cli("backup", "restore", bid)
+        if text.strip() != "restored 1 agents":
+            raise AssertionError(f"backup restore: {text}")
+        r = listed("op-restored")["id"]
+        cli("start", r)
+        d.wait(lambda: loaded(r), "the restored agent's model", 480)
+        out["restored_ready_s"] = time.monotonic() - t_restore
+        got3, got3_done = turn(r, OP_TURNS[2])
+        out["restore_to_t3_s"] = time.monotonic() - t_restore
+        m = metrics(r)
+        restore = m["last_kv_restore"] or {}
+        out.update({
+            "t3_equal": got3 == t3, "t3_tokens": len(t3), "kv_restores": m["kv_restores"],
+            "restore": restore, "t3_usage": got3_done["usage"], "original_t3_usage": t3_done["usage"],
+            # the restored turn's first token: the store read and the
+            # engine's restore before the turn, then its TTFT
+            "restore_to_first_token_ms": restore.get("store_ms", 0) + restore.get("restore_ms", 0)
+            + (got3_done.get("ttft_ms") or 0),
+        })
+        if got3 != t3 or m["kv_restores"] < 1 or restore.get("session") != "long":
+            raise AssertionError(f"the restored T3 {got3} vs {t3}, kv_restores {m['kv_restores']}, {restore}")
+        if got3_done["usage"] != t3_done["usage"] or restore.get("bytes") != snap["bytes"]:
+            raise AssertionError(f"the restored T3 prefilled otherwise: {got3_done['usage']} vs "
+                                 f"{t3_done['usage']}; restored {restore.get('bytes')} B of {snap['bytes']}")
+        launches2 = m["kernel_launches"]
+        for name, counts in (("original", launches), ("restored", launches2)):
+            if not (counts["flash_prefill"] > 0 and counts["flash_decode"] > 0
+                    and counts["fused_paged_flash_prefill"] == 0 and counts["fused_paged_flash_decode"] == 0):
+                raise AssertionError(f"kernel launches in the {name} host: {counts}")
+        out["launches"] = {k: launches[k] + launches2[k] for k in launches}
+        # a deployment file in JSON: two echo agents, one after the other
+        spec = os.path.join(data, "op-fleet.json")
+        with open(spec, "w") as f:
+            json.dump(OP_DEPLOY_FILE, f)
+        text, out["deploy_file_s"] = cli("deploy", "-f", spec, "--start", env={"OP_ROLE": "relay"})
+        order = [ln.split(":")[0].split()[1] for ln in text.splitlines() if ln.startswith("deployed ")]
+        if order != ["op-back", "op-front"] or text.count("started ") != 2:
+            raise AssertionError(f"deploy -f: {text}")
+        for name in order:
+            row = listed(name)
+            status, _, raw = agent_call("POST", f"/agent/{row['id']}/chat", {"message": f"hi {name}"})
+            if status != 200 or row["status"] != "running":
+                raise AssertionError(f"{name}: {row['status']}, chat {status} {raw[:200]!r}")
+        _, doc = d.call("GET", f"/agents/{listed('op-front')['id']}", auth=True)
+        if doc["data"]["env"] != {"ROLE": "relay"}:
+            raise AssertionError(f"op-front's env: {doc['data']['env']}")
+        # the other verbs
+        audit, _ = cli("audit", "--limit", "200")
+        for action in ("artifact-build", "backup-create", "backup-restore"):
+            if action not in audit:
+                raise AssertionError(f"audit lacks {action}: {audit}")
+        for argv in (("faults",), ("slice",), ("health",), ("metrics",), ("logs", r, "--tail", "20")):
+            cli(*argv)
+        walls: dict[str, list[float]] = {"cli": [], "api": []}
+        for i in range(CLI_PROBES):
+            for kind in ("cli", "api") if i % 2 == 0 else ("api", "cli"):
+                if kind == "cli":
+                    walls["cli"].append(1e3 * cli("health")[1])
+                else:
+                    t0 = time.perf_counter()
+                    assert d.call("GET", "/health", auth=True)[0] == 200
+                    walls["api"].append(1e3 * (time.perf_counter() - t0))
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        out["cli_overhead_ms"] = {"cli_ms": med["cli"], "api_ms": med["api"],
+                                  "overhead_ms": med["cli"] - med["api"], "probes": CLI_PROBES}
+        five = [s for s in d.statuses if s >= 500]
+        if five:
+            raise AssertionError(f"5xx answers: {five}")
+        if _maps_cuda(d.proc.pid):
+            raise AssertionError("the daemon created a CUDA context")
+        log(f"operator: artifact build {out['artifact_build_ms']:.1f} ms ({out['models_row']}), deploy -> ready "
+            f"{out['deploy_to_ready_s']:.1f} s; snapshot {snap['bytes']} B over {snap['path']} in "
+            f"{snap['store_ms']:.1f} ms; backup create {out['backup_create_s']:.2f} s, export "
+            f"{out['backup_export_s']:.2f} s ({out['export_bytes']} B, manifest {out['manifest_bytes']} B), restore "
+            f"{out['backup_restore_s']:.2f} s; restored ready {out['restored_ready_s']:.1f} s, restore -> first "
+            f"token {out['restore_to_first_token_ms']:.1f} ms ({restore}); T3 equal over {len(t3)} tokens; "
+            f"deploy -f {out['deploy_file_s']:.2f} s; CLI {out['cli_overhead_ms']}; launches {out['launches']}; {card}")
+        return out
+    finally:
+        d.close()
+        shutil.rmtree(data, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4733,14 +5031,17 @@ def main() -> int:
         report["checkpoint"] = run("checkpoint", phase_checkpoint, root, dense_texts, card)
         report["checkpoint_int8"] = run("checkpoint_int8", phase_checkpoint_int8, root, card)
         report["resume"] = run("resume", phase_resume, root, card)
+        # the control plane: the daemon spawns its own engine host on the card
+        report["daemon"] = run("daemon", phase_daemon, card)
+        # the replica fleet: two engine hosts, one killed mid-stream
+        report["fleet"] = run("fleet", phase_fleet, card)
+        # the daemon's default deployment: native store + AOF, the C++ front door
+        report["native"] = run("native", phase_native, card, report["daemon"])
+        # the operator's tooling through the CLI: phase 6's checkpoint
+        # deployed, backed up, exported and restored
+        report["operator"] = run("operator", phase_operator, root, dense_texts, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    # the control plane: the daemon spawns its own engine host on the card
-    report["daemon"] = run("daemon", phase_daemon, card)
-    # the replica fleet: two engine hosts, one killed mid-stream
-    report["fleet"] = run("fleet", phase_fleet, card)
-    # the daemon's default deployment: native store + AOF, the C++ front door
-    report["native"] = run("native", phase_native, card, report["daemon"])
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
@@ -4753,6 +5054,8 @@ def main() -> int:
         row["launches_fleet"] = report["fleet"]["launches"][row["name"]]
         # the native deployment's host after the daemon's restart
         row["launches_native"] = report["native"]["launches"][row["name"]]
+        # the artifact agent's host and the restored agent's host
+        row["launches_operator"] = report["operator"]["launches"][row["name"]]
         # the fused path: the fused dense phase (features off) and the fused
         # paged feature phase (in-loop spec)
         row["launches_fused"] = (

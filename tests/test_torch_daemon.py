@@ -14,8 +14,9 @@
 - **Store**: seeded random sequences of store ops (strings, TTLs, sets,
   lists, sorted sets, hashes, ``cas``, pattern pub/sub) through both
   ``MemoryStore``s give equal results.
-- The slices' refusals: the artifacts and backups routes (501); a
-  ``replicas: 2`` deploy is served by two engines; ``native://`` opens the
+- The artifacts and backups routes answer as the reference's (they
+  answered 501 before their slice); a ``replicas: 2`` deploy is served by
+  two engines; ``native://`` opens the
   C++ store and ``native:///x.aof`` reopens its data; an engine's store
   client round-trips over the native store's unix socket.
 """
@@ -325,23 +326,33 @@ def test_memory_store_op_sequences_match_reference(seed):
 
 
 def test_later_slices_are_refused_by_name(tmp_path):
+    """The routes answer: every artifact and backup route that answered
+    501 while they were not ported now gives the reference daemon's
+    status and document (up to ids and times), and none answers 501."""
     assert isinstance(open_store("mem://"), MemoryStore)
+    probes = (("POST", "/backups"), ("GET", "/backups"), ("GET", "/artifacts"),
+              ("POST", "/backups/b1/restore"), ("DELETE", "/artifacts/a"))
 
     async def body():
-        async with port_stack(tmp_path) as st:
-            res = {}
-            for method, path in (("POST", "/backups"), ("GET", "/backups"), ("GET", "/artifacts"),
-                                 ("POST", "/backups/b1/restore"), ("DELETE", "/artifacts/a")):
-                res[(method, path)] = await st.call(method, path, {}, AUTH)
-            res["artifact"] = await st.call(
-                "POST", "/agents", {"name": "a", "model": {"artifact": "m"}}, AUTH
-            )
-            return res
+        out = {}
+        for name, stack in (("ref", reference_stack), ("port", port_stack)):
+            async with stack(tmp_path / name) as st:
+                res = {}
+                for method, path in probes:
+                    res[(method, path)] = await st.call(method, path, {}, AUTH)
+                res["artifact"] = await st.call(
+                    "POST", "/agents", {"name": "a", "model": {"artifact": "m"}}, AUTH
+                )
+                out[name] = {k: (status, json.loads(re.sub(r"backup-\d+", "backup-ID", json.dumps(_norm(doc)))))
+                             for k, (status, doc) in res.items()}
+        return out
 
     res = asyncio.run(body())
-    for key in [k for k in res if isinstance(k, tuple)] + ["artifact"]:
-        status, doc = res[key]
-        assert status == 501 and doc["success"] is False and "slice of the port" in doc["message"], key
+    assert res["port"] == res["ref"]
+    statuses = {k: status for k, (status, _) in res["port"].items()}
+    assert statuses == {("POST", "/backups"): 200, ("GET", "/backups"): 200, ("GET", "/artifacts"): 200,
+                        ("POST", "/backups/b1/restore"): 400, ("DELETE", "/artifacts/a"): 404, "artifact": 404}
+    assert res["port"]["artifact"][1]["message"] == "unknown artifact: m"
 
 
 def test_native_store_opens_and_its_aof_reopens(tmp_path):

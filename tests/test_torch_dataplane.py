@@ -220,6 +220,80 @@ def test_store_socket_pipeline_namespace_is_atomic(tmp_path):
     asyncio.run(body())
 
 
+class _SnapshotEngine:
+    """An engine whose session snapshot is a given blob; it keeps what a
+    restore hands it."""
+
+    def __init__(self, blob: bytes):
+        self.blob = blob
+        self.restored: bytes | None = None
+
+    async def snapshot_session(self, session: str) -> bytes:
+        return self.blob
+
+    async def restore_session(self, session: str, blob: bytes) -> bool:
+        self.restored = blob
+        return True
+
+
+@pytest.mark.parametrize("mib,path", [(60, "socket"), (70, "http")])
+def test_a_snapshot_past_the_socket_frame_cap_lands(tmp_path, mib, path):
+    """An engine's serve layer configured as the daemon configures it on
+    ``native://`` (store socket and control URL) snapshots a session of
+    ``mib`` MiB and restores it: a frame that fits the C++'s 64 MiB cap goes
+    over the socket, a larger blob over HTTP through the front door, and
+    no frame past the cap is ever written to the socket. Both land with no
+    error, retry or transient error, and read back over the socket equal.
+    A client with no control URL refuses the large frame without a retry."""
+    import numpy as np
+
+    from agentainer_tpu_torch.engine.llm_serve import LLMServeApp
+    from agentainer_tpu_torch.runtime.store_client import SOCKET_FRAME_MAX, FrameTooLarge
+
+    blob = np.random.default_rng(mib).integers(0, 256, mib << 20, dtype=np.uint8).tobytes()
+
+    async def body():
+        async with native_stack(tmp_path) as st:
+            s = st.services
+            s.store.set(Keys.internal_token("snap"), "tok")
+            app = LLMServeApp(env={
+                "AGENTAINER_AGENT_ID": "snap", "AGENTAINER_INTERNAL_TOKEN": "tok",
+                "AGENTAINER_CONTROL_URL": st.url,
+                "AGENTAINER_STORE_SOCK": os.path.join(s.data_dir, "store.sock"),
+            })
+            app.engine = _SnapshotEngine(blob)
+            frames = []
+            roundtrip = app.store._uds.roundtrip
+
+            async def spy(frame):
+                frames.append(len(frame))
+                return await roundtrip(frame)
+
+            app.store._uds.roundtrip = spy
+            try:
+                await app._snapshot_now("s")
+                restored = await app._restore_from_store("s")
+            finally:
+                await app.store.close()
+            stored = s.store.get("agent:snap:kvcache:s")
+            bare = StoreClient(store_sock=app.store.store_sock, agent_id="snap", token="tok")
+            try:
+                with pytest.raises(FrameTooLarge):
+                    await bare.set_bytes("agent:snap:kvcache:t", blob + bytes(6 << 20))
+            finally:
+                await bare.close()
+            return app, restored, stored, frames, bare
+
+    app, restored, stored, frames, bare = asyncio.run(body())
+    assert app.kv_snapshot_errors == 0 and app.kv_snapshots == 1, app.last_kv_snapshot_error
+    assert app.last_kv_snapshot["path"] == path and app.last_kv_snapshot["bytes"] == len(blob)
+    assert restored and app.kv_restores == 1 and app.engine.restored == blob and stored == blob
+    assert (app.store.retries_total, app.store.transient_errors_total) == (0, 0)
+    assert max(frames) <= SOCKET_FRAME_MAX
+    assert (max(frames) > len(blob)) == (path == "socket")  # the set went over the socket
+    assert (bare.retries_total, bare.transient_errors_total) == (0, 0)
+
+
 def test_records_and_journal_survive_a_daemon_restart(tmp_path):
     async def body():
         async with native_stack(tmp_path) as st:

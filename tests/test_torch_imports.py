@@ -92,6 +92,11 @@ CONTROL_PLANE = (
     "agentainer_tpu_torch.core.resilience",
     "agentainer_tpu_torch.utils.http",
     "agentainer_tpu_torch.engine.echo",
+    "agentainer_tpu_torch.cli",
+    "agentainer_tpu_torch.manager.artifacts",
+    "agentainer_tpu_torch.manager.backup",
+    "agentainer_tpu_torch.manager.deployconfig",
+    "agentainer_tpu_torch.engine.safetensors_meta",
 )
 
 _STDLIB_PROBE = """
@@ -100,7 +105,7 @@ for name in {names!r}:
     importlib.import_module(name)
 leaked = sorted(
     n for n in sys.modules
-    if n.split(".")[0] in ("torch", "numpy", "aiohttp", "yaml", "jax", "jaxlib", "triton")
+    if n.split(".")[0] in ("torch", "numpy", "aiohttp", "yaml", "requests", "jax", "jaxlib", "triton")
     or n == "agentainer_tpu" or n.startswith("agentainer_tpu.")
 )
 print(json.dumps(leaked))
@@ -108,10 +113,11 @@ print(json.dumps(leaked))
 
 
 def test_control_plane_imports_no_torch_aiohttp_or_yaml():
-    """The daemon never creates a CUDA context and runs where aiohttp and
-    yaml are missing: its modules and the echo engine load, in a fresh
-    interpreter, with none of torch, numpy, aiohttp, yaml or the JAX
-    package."""
+    """The daemon never creates a CUDA context and runs where aiohttp,
+    yaml and requests are missing: its modules, the CLI, the artifact,
+    backup and deployment modules, the safetensors header reader and the
+    echo engine load, in a fresh interpreter, with none of torch, numpy,
+    aiohttp, yaml, requests or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _STDLIB_PROBE.format(names=CONTROL_PLANE)],
         capture_output=True, text=True, timeout=120,
