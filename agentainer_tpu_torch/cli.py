@@ -412,11 +412,12 @@ def cmd_atlogs(args) -> None:
         print(_log_line(e))
 
 
-def _pair(s, flag: str, on: str, off: str) -> None:
-    """``--flag`` and ``--no-flag``, mutually exclusive."""
+def _pair(s, flag: str, no_flag: str, on: str, off: str) -> None:
+    """``--flag`` and ``--no-flag``, mutually exclusive. Both are spelled
+    out at the call, where the feature-flag rule (ATP006) reads them."""
     group = s.add_mutually_exclusive_group()
-    group.add_argument(f"--{flag}", action="store_true", help=on)
-    group.add_argument(f"--no-{flag}", action="store_true", help=off)
+    group.add_argument(flag, action="store_true", help=on)
+    group.add_argument(no_flag, action="store_true", help=off)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -464,7 +465,7 @@ def build_parser() -> argparse.ArgumentParser:
         "(options.speculative: false in a deployment file)",
     )
     _pair(
-        s, "paged-kv",
+        s, "--paged-kv", "--no-paged-kv",
         "serve this agent's engine from the paged KV arena (options.paged_kv: true)",
         "pin this agent's engine to the dense KV arena even when the fleet "
         "default features.paged_kv is on",
@@ -488,34 +489,34 @@ def build_parser() -> argparse.ArgumentParser:
         "(options.deadlines: false)",
     )
     _pair(
-        s, "fused-decode",
+        s, "--fused-decode", "--no-fused-decode",
         "run this agent's engine with the fused on-device decode loop (one "
         "CUDA graph with a WHILE node; options.fused_decode: true)",
         "pin this agent's engine to the per-chunk decode dispatch even when "
         "the fleet default features.fused_decode is on",
     )
     _pair(
-        s, "inloop-spec",
+        s, "--inloop-spec", "--no-inloop-spec",
         "draft and verify inside the fused decode loop (options.inloop_spec: true)",
         "pin this agent's engine to the host-side prompt-lookup drafter even "
         "when the fleet default features.inloop_spec is on",
     )
     _pair(
-        s, "approx-topk",
+        s, "--approx-topk", "--no-approx-topk",
         "sample through a top-k segment instead of the full-vocab sort (not "
         "bit-exact for sampled lanes; options.approx_topk: true)",
         "pin this agent's engine to the exact sampler even when the fleet "
         "default features.approx_topk is on",
     )
     _pair(
-        s, "kv-tiering",
+        s, "--kv-tiering", "--no-kv-tiering",
         "park idle sessions' KV in pinned host memory and the store, promote "
         "them on their next turn (options.kv_tiering: true)",
         "pin this agent's engine to the resident-only KV arena even when the "
         "fleet default features.kv_tiering is on",
     )
     _pair(
-        s, "streaming",
+        s, "--streaming", "--no-streaming",
         "answer stream=true chat bodies with SSE token events "
         "(options.streaming: true)",
         "pin this agent's engine to buffered responses even when the fleet "

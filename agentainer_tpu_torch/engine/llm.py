@@ -4035,13 +4035,20 @@ class LLMEngine:
 
     def _reap_quarantine(self, need: int) -> None:
         """Return quarantined pages whose staging copy has landed; when the
-        free list still cannot cover ``need``, wait for the copies."""
-        with self._page_lock:
-            while self._page_quarantine and (
-                self._page_quarantine[0][0].query() or len(self._page_free) < need
-            ):
-                event, ids = self._page_quarantine.popleft()
-                event.synchronize()
+        free list still cannot cover ``need``, wait for the copies. The wait
+        runs outside ``_page_lock``, which API threads take too (the
+        reference's ``_reap_quarantine_if_short``). Only the worker reaps,
+        so the entry it took is its own until its pages are freed."""
+        while True:
+            with self._page_lock:
+                if not self._page_quarantine:
+                    return
+                event, ids = self._page_quarantine[0]
+                if not (event.query() or len(self._page_free) < need):
+                    return
+                self._page_quarantine.popleft()
+            event.synchronize()
+            with self._page_lock:
                 self._page_free.extend(ids)
 
     def _bind_lane_bt(self, slot: Slot, sess: PagedSession) -> None:

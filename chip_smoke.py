@@ -10,6 +10,16 @@ exits non-zero):
                  plane (``native/*.cc``, g++) into ``_build/``, all at once;
                  print the card's name and power limit as nvidia-smi
                  reports them.
+1c. tokenizer  — the Llama-3-style fixture
+                 (``tests/fixtures/llama3_style_tokenizer.json``) through
+                 the port's ``load_tokenizer`` on this machine's Python, in
+                 a fresh interpreter where ``tokenizers`` and ``regex``
+                 cannot be imported: its ids on
+                 the committed strings equal those ``tokenizers`` 0.22.2
+                 gave (committed beside it), and decode ∘ encode gives each
+                 string back (less the specials and a lone "!", pad id 0,
+                 which the reference's decode drops); prints this Python's
+                 ``unicodedata`` version.
 2. kernels     — each hand-written kernel against its plain PyTorch version
                  at the llama3-8b attention shapes of the serving path (H 32,
                  KV 8, head_dim 128; the paged ones on the served pool
@@ -88,6 +98,16 @@ exits non-zero):
                  tables and KV arena or pool bytes equal bit for bit;
                  sampled, two replays from one generator state give the
                  same tokens.
+   contracts   — inside the two bf16 feature phases, after ``graphs``, on
+                 the same engine: the script's second pass (fresh sessions)
+                 under ``capture_budget(engine, 0)``, ``buffers_in_place``
+                 and ``no_implicit_sync`` (``analysis/contracts.py``); then
+                 every captured step's device launches in one traced
+                 replay (``launches_per_replay``): the arena's attention
+                 wrapper 32 layers × its launches per call (decode 2,
+                 prefill 1) × the step's forwards (a decode rung's steps; 1
+                 for a prefill bucket or a verify round), no other kernel
+                 of the table; printed per step key.
    main extras — on the dense bf16 feature engine only: it samples through
                  ``approx_topk`` (three sampled /generate requests), serves
                  ``/profile`` while a long /chat decodes (the trace names
@@ -110,6 +130,9 @@ exits non-zero):
                  through ``AGENTAINER_CHECKPOINT`` with the features off:
                  the four requests must give the dense phase's greedy text;
                  load seconds, bytes read and GB/s printed beside the card.
+                 Then the first request once more on the same engine, in a
+                 fresh session, through the fixture's tokenizer (swapped in
+                 for that turn): the ids 7e's agent must give.
    int8 ckpt   — that checkpoint served with ``quant: int8`` (quantized as
                  it streams) and, after it, a ``quant: int8`` engine from the
                  seed-0 random init: the two int8 trees bit-equal leaf by
@@ -210,12 +233,18 @@ exits non-zero):
 7e. operator   — the operator's tooling, after 7d's daemon is gone, in
                  the same native deployment (``ATPU_STREAMING=1``), driven
                  through the port's CLI as a subprocess: ``deploy
-                 --model-dir`` of phase 6's checkpoint (features off)
-                 prints the build log and ``built artifact 'op'``, ``models``
-                 lists it as ``hf`` with its parameters, and after ``start``
-                 the first of phase 6's requests through the C++ gives phase
-                 6's greedy text. A session of two 48-token turns past 600
-                 tokens: its snapshot, above the store socket's 64 MiB
+                 --model-dir`` of a sibling of phase 6's checkpoint
+                 directory (symlinks to its files plus the fixture's
+                 ``tokenizer.json``; features off) prints the build log and
+                 ``built artifact 'op'``, ``models`` lists it as ``hf`` with
+                 its parameters, and after ``start`` (the host reads the
+                 tokenizer.json with the port's reader) the first of phase
+                 6's requests through the C++ gives the ids phase 6's engine
+                 gave through the same tokenizer, its prompt tokens the
+                 reader's count plus bos. A session of two 48-token turns
+                 past 700 positions (turn one sized in the fixture's tokens,
+                 its prompt tokens the reader's count plus bos): its
+                 snapshot, above the store socket's 64 MiB
                  frame cap, lands over HTTP with no snapshot error. ``backup
                  create`` after it, ``backup list``, a third turn T3 on the
                  original, ``backup export -o`` (the tar.gz holds the
@@ -715,6 +744,98 @@ def phase_build() -> str:
         f"({os.path.basename(native.library_path())}), in {time.monotonic() - t0:.1f}s "
         f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     return smi("name,power.limit")
+
+
+# the Llama-3-style tokenizer.json the tests hold against tokenizers, and
+# the ids tokenizers gave on its strings (scripts/make_tokenizer_fixture.py)
+TOKENIZER_FIXTURE = os.path.join("tests", "fixtures", "llama3_style_tokenizer.json")
+TOKENIZER_EXPECTED = os.path.join("tests", "fixtures", "llama3_style_tokenizer.expected.json")
+
+
+def _fixture_dir(prefix: str) -> str:
+    """A fresh directory holding the fixture as ``tokenizer.json``."""
+    d = tempfile.mkdtemp(prefix=prefix)
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)), TOKENIZER_FIXTURE),
+                os.path.join(d, "tokenizer.json"))
+    return d
+
+
+# 1c's check, in a fresh interpreter where ``tokenizers`` and ``regex``
+# cannot be imported: the reader must need neither
+_TOKENIZER_PROBE = """
+import json, sys, time, unicodedata
+sys.modules["tokenizers"] = None
+sys.modules["regex"] = None
+from agentainer_tpu_torch.engine.tokenizer import HFTokenizer, load_tokenizer
+directory, expected = sys.argv[1:3]
+doc = json.load(open(expected, encoding="utf-8"))
+t0 = time.perf_counter()
+tok = load_tokenizer(128256, directory)
+load_ms = 1e3 * (time.perf_counter() - t0)
+t0 = time.perf_counter()
+cases = [(tok.encode(c["text"], add_bos=False), tok.decode(tok.encode(c["text"]))) for c in doc["cases"]]
+ms = 1e3 * (time.perf_counter() - t0)
+print(json.dumps({
+    "reader": type(tok).__name__, "vocab_size": tok.vocab_size,
+    "specials": {"<|begin_of_text|>": tok.bos_id, "<|end_of_text|>": tok.eos_id},
+    "cases": cases, "load_ms": load_ms, "encode_decode_ms": ms,
+    "unidata_version": unicodedata.unidata_version,
+}))
+"""
+
+
+def phase_tokenizer(card: str) -> dict:
+    """1c: the fixture's ``tokenizer.json`` through the port's
+    ``load_tokenizer`` on this machine's Python, in a fresh interpreter
+    where ``tokenizers`` and ``regex`` cannot be imported: on each
+    committed string its ids equal the ids ``tokenizers`` gave (committed
+    beside the fixture), and ``decode ∘ encode`` gives the committed text:
+    the string back, less what the reference's decode drops (the specials,
+    and pad id 0, a lone "!" in a byte-level vocabulary). Prints this
+    Python's ``unicodedata`` version and whether the two packages are
+    installed here."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    expected = os.path.join(root, TOKENIZER_EXPECTED)
+    with open(expected, encoding="utf-8") as f:
+        doc = json.load(f)
+    d = _fixture_dir("atpu-tok-")
+    try:
+        res = subprocess.run(
+            [sys.executable, "-c", _TOKENIZER_PROBE, d, expected], cwd=root, capture_output=True, text=True,
+            timeout=120, env={**os.environ, "PYTHONPATH": root},
+        )
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if res.returncode != 0:
+        raise AssertionError(f"tokenizer probe: exit {res.returncode}: {res.stderr[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    if got["reader"] != "HFTokenizer" or (got["vocab_size"], got["specials"]) != (doc["vocab_size"], doc["specials"]):
+        raise AssertionError(f"tokenizer: {got['reader']}, vocab {got['vocab_size']}, specials {got['specials']}; "
+                             f"want {doc['vocab_size']} {doc['specials']}")
+    chars = 0
+    for case, (ids, back) in zip(doc["cases"], got["cases"]):
+        chars += len(case["text"])
+        if ids != case["ids"]:
+            raise AssertionError(f"tokenizer ids for {case['text']!r}: {ids}, tokenizers gave {case['ids']}")
+        want = case["text"]
+        for special in doc["specials"]:
+            want = want.replace(special, "")
+        if back != case["decoded"] or (0 not in ids and back != want):
+            raise AssertionError(f"tokenizer decode of {case['text']!r}: {back!r}, want {case['decoded']!r}")
+    installed = {m: importlib.util.find_spec(m) is not None for m in ("tokenizers", "regex")}
+    out = {
+        "cases": len(doc["cases"]), "vocab_size": got["vocab_size"], "specials": got["specials"],
+        "unidata_version": got["unidata_version"], "fixture_unidata_version": doc["unidata_version"],
+        "fixture_tokenizers": doc["tokenizers"], "installed_here": installed,
+        "load_ms": got["load_ms"], "encode_decode_ms": got["encode_decode_ms"], "chars": chars, "card": card,
+    }
+    log(f"tokenizer: with tokenizers and regex unimportable, the fixture's ids equal tokenizers "
+        f"{doc['tokenizers']}'s on {len(doc['cases'])} strings; unicodedata {got['unidata_version']} (fixture "
+        f"made under {doc['unidata_version']}); installed on this machine: {installed}; load "
+        f"{got['load_ms']:.1f} ms, encode+decode {got['encode_decode_ms']:.1f} ms for {chars} chars (host)")
+    return out
 
 
 def _bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -1553,7 +1674,8 @@ def _cut_config(model: str) -> str:
 
 
 def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
-                         quant: bool = False, fused: bool = False, moe: dict | None = None) -> dict:
+                         quant: bool = False, fused: bool = False, moe: dict | None = None,
+                         contracts: bool = False) -> dict:
     """The reference's default serving features (prefix cache, speculation,
     deadlines) with a persona: the sequential script (fresh sessions fork
     the persona, the one-byte runs speculate), then a deadline that passes
@@ -1578,7 +1700,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     ``GROUPED_PER_LAYER`` ``w8a16_grouped_matmul`` calls per layer,
     ``moe_routed`` as asked, and the script's text against
     ``script_texts`` reported, not gated (a bf16 near tie may route a token
-    to other experts)."""
+    to other experts). With ``contracts`` the runtime contracts run on the
+    engine after its graphs check (``phase_contracts``)."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
@@ -1704,6 +1827,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         _, m2 = _http(port, "GET", "/metrics")
         pipeline = _pipeline(f"{name} features", m0, m2, load_s)
         graphs = phase_fused_graphs(app.engine, name) if fused else phase_graphs(app.engine, name)
+        if contracts:
+            extra["contracts"] = phase_contracts(app, name)
         if moe is not None:
             extra["decode_step"] = _decode_step_ms(app.engine)
             log(f"{name}: one decode step of the 8-step graph {extra['decode_step']}")
@@ -1911,6 +2036,69 @@ def _decode_step_ms(engine, replays: int = 5) -> dict:
             "lanes": "0-1 live at 300 / 312, 2-7 parked"}
 
 
+def phase_contracts(app, name: str) -> dict:
+    """The runtime contracts (``analysis/contracts.py``) on a served feature
+    engine, after its graphs check: the feature script's second pass (fresh
+    sessions) through the serve layer under ``capture_budget(engine, 0)``
+    (no step key outside the warmed set, no capture, every dispatch a
+    replay), ``buffers_in_place(engine)`` and ``no_implicit_sync()`` (a
+    process-wide mode: the worker too); then one replay of every captured
+    step key traced (``launches_per_replay``), gated on
+    ``AttentionLaunches``: the arena's attention wrapper launches n_layers ×
+    its device launches per call × the step's forwards, and no other kernel
+    of the table. A trace that lost device records is taken again, up to
+    TRACE_ATTEMPTS times."""
+    import torch
+
+    from agentainer_tpu_torch.analysis.contracts import (
+        AttentionLaunches,
+        buffers_in_place,
+        capture_budget,
+        check,
+        launches_per_replay,
+        no_implicit_sync,
+    )
+    from agentainer_tpu_torch.engine.graphs import park_lanes
+
+    engine, port = app.engine, app.port
+    t0 = time.monotonic()
+    replies: list = []
+    with capture_budget(engine, 0) as seen, buffers_in_place(engine) as kinds, no_implicit_sync():
+        for s, msg, n in SCRIPT:
+            if s is None:
+                status, doc = _http(port, "POST", "/generate", {"prompt": msg, "max_tokens": n})
+                if status != 200:
+                    raise AssertionError(f"{name} contracts: /generate {status} {doc}")
+            else:
+                _chat(port, replies, f"{s}-c", msg, n)
+    script_s = time.monotonic() - t0
+    if not {"prefill", "decode", "verify"} <= set(kinds):
+        raise AssertionError(f"{name} contracts: the second pass dispatched {dict(seen)}")
+    park_lanes(engine)
+    want = AttentionLaunches(n_layers=engine.cfg.n_layers, paged=engine.paged)
+    per_key = {}
+    t1 = time.monotonic()
+    for key in engine._step_keys():
+        for attempt in range(TRACE_ATTEMPTS):
+            with torch.no_grad(), engine._on_stream():
+                got = launches_per_replay(engine._graphs, key)
+            if not want.failures(got):
+                break
+        check(got, want)
+        per_key[f"{key[0]}{key[1]}_{'greedy' if key[2] else 'sampled'}"] = {
+            "all": got["all"], "attempts": attempt + 1,
+            "wrappers": {w: v["device"] for w, v in got["wrappers"].items() if v["device"]},
+        }
+    out = {
+        "dispatched": {f"{k[0]}{k[1]}_{'greedy' if k[2] else 'sampled'}": n for k, n in sorted(seen.items())},
+        "steps_by_kind": dict(kinds), "script_s": script_s, "trace_s": time.monotonic() - t1,
+        "launches_per_replay": per_key,
+    }
+    log(f"{name} contracts: the script's second pass in {script_s:.1f}s under capture_budget(0), "
+        f"buffers_in_place and no_implicit_sync; steps {dict(kinds)}; launches per replay {per_key}")
+    return out
+
+
 def phase_graphs(engine, name: str) -> dict:
     """Every captured step graph of a served engine against its eager step
     function, from one saved state (``compare_replay``): greedy steps must
@@ -2051,6 +2239,28 @@ def phase_write_checkpoint(root: str) -> dict:
     return {"bytes": written, "write_s": write_s, "free_before": free, "shards": CKPT_SHARDS}
 
 
+def _bpe_turn(engine) -> dict:
+    """Phase 6's first request through the fixture's tokenizer on phase 6's
+    engine (the tokenizer swapped in for one greedy turn of a fresh
+    session, then put back): what 7e's agent, served from the same weights
+    with the fixture's ``tokenizer.json``, must answer."""
+    from agentainer_tpu_torch.engine.tokenizer import load_tokenizer
+
+    d = _fixture_dir("atpu-tok-")
+    try:
+        tok = load_tokenizer(engine.cfg.vocab_size, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    byte_tok, engine.tokenizer = engine.tokenizer, tok
+    try:
+        res = asyncio.run(engine.chat("bpe", REQUESTS[0][1], max_tokens=16, ignore_eos=True))
+    finally:
+        engine.tokenizer = byte_tok
+    if res["prompt_tokens"] != len(tok.encode(REQUESTS[0][1], add_bos=False)) + 1:
+        raise AssertionError(f"the BPE turn's prompt tokens {res['prompt_tokens']} are not the reader's + bos")
+    return {"tokens": res["tokens"], "prompt_tokens": res["prompt_tokens"], "text": res["text"]}
+
+
 def phase_checkpoint(root: str, dense_texts: list[str], card: str) -> dict:
     """``/chat`` served from the checkpoint through ``AGENTAINER_CHECKPOINT``
     (its config.json gives the model), the features off as in the dense
@@ -2072,6 +2282,7 @@ def phase_checkpoint(root: str, dense_texts: list[str], card: str) -> dict:
         texts = _four_requests(app.port, replies)
         launches = {fn.__name__: fn.launches for fn in kernels}
         _, metrics = _http(app.port, "GET", "/metrics")
+        bpe_turn = _bpe_turn(app.engine)
     if texts != dense_texts:
         raise AssertionError(f"greedy text served from the checkpoint differs from the dense phase's: "
                              f"{texts} {dense_texts}")
@@ -2085,7 +2296,7 @@ def phase_checkpoint(root: str, dense_texts: list[str], card: str) -> dict:
         "pipeline": _pipeline("checkpoint", m0, metrics),
         "bytes_read": read, "load_s": secs, "gb_per_s": read / secs / 1e9, "engine_up_s": load_s,
         "launches": launches, "same_text_as_dense": True, "card": card,
-        "metrics": {k: metrics.get(k) for k in METRIC_KEYS},
+        "metrics": {k: metrics.get(k) for k in METRIC_KEYS}, "bpe_turn": bpe_turn,
     }
 
 
@@ -4710,14 +4921,16 @@ def _fleet_logit_gap(turn1: list[int], turn2: list[int], j: int, got: list[int])
 # a session whose snapshot passes the store socket's 64 MiB frame cap:
 # llama3-8b keeps 131,072 B of bf16 KV a token, and the snapshot's npz packs
 # random weights' KV to ~96 kB a position (63,967,227 B for 665 positions on
-# the card), so past ~700 positions. The byte tokenizer makes a character one
-# token: bos + 720 + 48 + 79 + 48 = 896 positions after turn two (~86 MB as
-# a blob), 769 after turn one (~74 MB).
+# the card), so past ~700 positions. The agent reads the fixture's
+# tokenizer.json (BPE: about a third of a token a character), so turn one's
+# message is the log repeated until the reader counts OP_LONG_TOKENS tokens
+# (``_op_turns``): two bos + 720 + 48 + ~20 + 48 positions after turn two.
 OP_LOG = ("The lighthouse log, night watch: wind from the north-east, sea state rough, one ship "
           "passing at a safe distance, the lamp trimmed twice, the fog horn silent, the keeper "
           "awake and writing by the stove. ")
-OP_TURNS = ((OP_LOG * 4)[:672] + " Read the log back to me and add one line to it.",
-            "Now add the next hour of the watch, with the weather and the ships you can see.",
+OP_ASK = " Read the log back to me and add one line to it."
+OP_LONG_TOKENS = 720
+OP_TURNS = ("Now add the next hour of the watch, with the weather and the ships you can see.",
             "And what does the keeper eat at dawn?")
 OP_MAX_TOKENS = 48
 OP_SOCKET_CAP = 64 << 20  # the C++'s frame cap on the store socket
@@ -4733,19 +4946,51 @@ OP_DEPLOY_FILE = {
 }
 
 
-def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
+def _op_turns(tok) -> tuple[str, str, str]:
+    """The long session's three turns: turn one's log cut to the shortest
+    prefix of whole words the reader counts OP_LONG_TOKENS tokens in, then
+    OP_TURNS."""
+    words = (OP_LOG * 40).split(" ")
+    lo, hi = 1, len(words)
+    while lo < hi:  # the fewest words that reach the count
+        mid = (lo + hi) // 2
+        if len(tok.encode(" ".join(words[:mid]) + OP_ASK, add_bos=False)) >= OP_LONG_TOKENS:
+            hi = mid
+        else:
+            lo = mid + 1
+    return (" ".join(words[:lo]) + OP_ASK, *OP_TURNS)
+
+
+def _tokenizer_sibling(root: str) -> str:
+    """A sibling of phase 6's checkpoint directory: symlinks to its files
+    (config.json, the index, the shards) and the fixture as
+    ``tokenizer.json``."""
+    sib = root.rstrip("/") + "-bpe"
+    os.makedirs(sib)
+    for name in os.listdir(root):
+        os.symlink(os.path.join(root, name), os.path.join(sib, name))
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)), TOKENIZER_FIXTURE),
+                os.path.join(sib, "tokenizer.json"))
+    return sib
+
+
+def phase_operator(root: str, bpe_turn: dict, card: str) -> dict:
     """The operator's tooling on the card, in the daemon's default native
     deployment (``store_url`` auto: the C++ store and front door; with
     ``ATPU_STREAMING=1``), driven through the port's CLI as a subprocess
     (``python -m agentainer_tpu_torch.cli --server … --token …``):
 
-    ``deploy --model-dir`` of phase 6's llama3-8b checkpoint (``root``:
-    full width and depth, seed-0 bf16 weights) with the features off
-    prints the build log and ``built artifact 'op'``; ``models`` lists it
-    as ``hf`` with its parameters; ``start``; the first of phase 6's
-    requests through the C++ gives phase 6's greedy text. A session of two
-    turns past 600 tokens: its snapshot above 64 MiB lands over HTTP
-    (``kv_snapshot_errors`` 0). ``backup create`` once that snapshot has
+    ``deploy --model-dir`` of a sibling of phase 6's llama3-8b checkpoint
+    directory (``root``: full width and depth, seed-0 bf16 weights),
+    symlinks to its files plus the fixture's ``tokenizer.json``, with the
+    features off, prints the build log and ``built artifact 'op'``;
+    ``models`` lists it as ``hf`` with its parameters; ``start``: the agent
+    reads the tokenizer.json with the port's reader. The first of phase 6's
+    requests through the C++ gives the token ids phase 6's engine gave
+    through the same tokenizer (``bpe_turn``), and its prompt tokens are
+    the reader's count plus bos. A session of two turns past 700
+    positions (turn one's prompt the reader's count plus bos): its
+    snapshot above 64 MiB lands over HTTP (``kv_snapshot_errors`` 0). ``backup create`` once that snapshot has
     landed, ``backup list``, a third turn T3 recorded, ``backup export``
     (the tar.gz holds the manifest), ``stop``, ``backup restore``, ``start
     op-restored``: the restored agent's T3 equals the original's token for
@@ -4763,9 +5008,14 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
     import statistics
     import tarfile
 
+    from agentainer_tpu_torch.engine.tokenizer import load_tokenizer
+
     _free_cuda()
     data = tempfile.mkdtemp(prefix="atpu-7e-")
-    out: dict = {"card": card}
+    model_dir = _tokenizer_sibling(root)
+    reader = load_tokenizer(128256, model_dir)
+    turns = _op_turns(reader)
+    out: dict = {"card": card, "model_dir_files": sorted(os.listdir(model_dir))}
     d = _Daemon({"ATPU_STORE_URL": "auto", "ATPU_STREAMING": "1"}, data=data)
     cli_root = os.path.dirname(os.path.abspath(__file__))
 
@@ -4804,10 +5054,10 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
         status, _, raw = agent_call("GET", f"/agent/{aid}/health")
         return status == 200 and bool(json.loads(raw).get("model_loaded"))
 
-    def turn(aid, msg) -> tuple[list[int], dict]:
-        """A turn of session ``long`` as a ``stream: true`` body, answered
+    def turn(aid, msg, session="long", max_tokens=OP_MAX_TOKENS) -> tuple[list[int], dict]:
+        """A turn of ``session`` as a ``stream: true`` body, answered
         buffered by the C++: its token ids and its ``done`` payload."""
-        body = {"message": msg, "session": "long", "max_tokens": OP_MAX_TOKENS, "ignore_eos": True, "stream": True}
+        body = {"message": msg, "session": session, "max_tokens": max_tokens, "ignore_eos": True, "stream": True}
         status, _, raw = agent_call("POST", f"/agent/{aid}/chat", body)
         if status != 200:
             raise AssertionError(f"turn on {aid}: {status} {raw[:300]!r}")
@@ -4831,7 +5081,7 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
             raise AssertionError("the daemon created a CUDA context")
         # deploy from the directory: the build log, then the agent
         t_deploy = time.monotonic()
-        text, out["cli_deploy_s"] = cli("deploy", "--name", "op", "--model-dir", root,
+        text, out["cli_deploy_s"] = cli("deploy", "--name", "op", "--model-dir", model_dir,
                                         "--no-speculative", "--no-prefix-cache", "--no-deadlines")
         if "built artifact 'op'" not in text or "validated" not in text:
             raise AssertionError(f"deploy --model-dir printed: {text}")
@@ -4845,7 +5095,7 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
         # the same directory registered again, timed through the API alone
         # (headers only: no weight byte read), then removed
         t0 = time.perf_counter()
-        status, doc = d.call("POST", "/artifacts", {"path": root, "name": "op-probe"}, auth=True)
+        status, doc = d.call("POST", "/artifacts", {"path": model_dir, "name": "op-probe"}, auth=True)
         out["artifact_build_ms"] = 1e3 * (time.perf_counter() - t0)
         if status != 200 or doc["data"]["n_params"] != WEIGHT_BYTES_8B // 2:
             raise AssertionError(f"POST /artifacts: {status} {doc}")
@@ -4853,17 +5103,25 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
         cli("start", a)
         d.wait(lambda: loaded(a), "the artifact's model", 480)
         out["deploy_to_ready_s"] = time.monotonic() - t_deploy
-        # phase 6's first request through the C++: phase 6's greedy text
+        # phase 6's first request through the C++ and the fixture's
+        # tokenizer: phase 6's engine's ids through the same tokenizer
         session, message = REQUESTS[0]
-        status, _, raw = agent_call("POST", f"/agent/{a}/chat", {"session": session, "message": message,
-                                                                  "max_tokens": 16, "ignore_eos": True})
-        first = json.loads(raw)
-        if status != 200 or first["response"] != dense_texts[0]:
-            raise AssertionError(f"the artifact agent's first reply {status} {first} != {dense_texts[0]!r}")
+        first, first_done = turn(a, message, session=session, max_tokens=16)
+        reader_count = len(reader.encode(message, add_bos=False))
+        out["bpe_first"] = {"tokens": len(first), "prompt_tokens": first_done["usage"]["prompt_tokens"],
+                            "reader_tokens": reader_count, "chars": len(message)}
+        if first != bpe_turn["tokens"] or first_done["usage"]["prompt_tokens"] != reader_count + 1:
+            raise AssertionError(f"the artifact agent's first reply through tokenizer.json: {first} "
+                                 f"{first_done['usage']}; phase 6's engine gave {bpe_turn}, the reader counts "
+                                 f"{reader_count} + bos")
         d.wait(lambda: settled(a), "the first session's snapshot", 120)
         # a session past the socket's frame cap
         before = metrics(a)
-        want = [turn(a, msg) for msg in OP_TURNS[:2]]
+        want = [turn(a, msg) for msg in turns[:2]]
+        out["long_turn1"] = {"prompt_tokens": want[0][1]["usage"]["prompt_tokens"], "chars": len(turns[0]),
+                             "reader_tokens": len(reader.encode(turns[0], add_bos=False))}
+        if out["long_turn1"]["prompt_tokens"] != out["long_turn1"]["reader_tokens"] + 1:
+            raise AssertionError(f"the long turn's prompt tokens are not the reader's + bos: {out['long_turn1']}")
         m = d.wait(lambda: settled(a), "the long session's snapshots", 180)
         snap = m["last_kv_snapshot"] or {}
         out["snapshot"] = snap
@@ -4875,7 +5133,7 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
         # the backup, then T3 on the original
         text, out["backup_create_s"] = cli("backup", "create", "--name", "before-t3")
         bid = text.split()[1]
-        t3, t3_done = turn(a, OP_TURNS[2])
+        t3, t3_done = turn(a, turns[2])
         backups = json.loads(cli("backup", "list")[0])
         if [b["id"] for b in backups] != [bid] or backups[0]["agents"] != 1:
             raise AssertionError(f"backup list: {backups}")
@@ -4897,7 +5155,7 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
         cli("start", r)
         d.wait(lambda: loaded(r), "the restored agent's model", 480)
         out["restored_ready_s"] = time.monotonic() - t_restore
-        got3, got3_done = turn(r, OP_TURNS[2])
+        got3, got3_done = turn(r, turns[2])
         out["restore_to_t3_s"] = time.monotonic() - t_restore
         m = metrics(r)
         restore = m["last_kv_restore"] or {}
@@ -4971,6 +5229,7 @@ def phase_operator(root: str, dense_texts: list[str], card: str) -> dict:
     finally:
         d.close()
         shutil.rmtree(data, ignore_errors=True)
+        shutil.rmtree(model_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -5004,17 +5263,18 @@ def main() -> int:
             log(f"phase {name}: {phase_s[name]} s")
 
     card = run("build", phase_build)
+    report_tokenizer = run("tokenizer", phase_tokenizer, card)
     kernels = run("kernels", phase_kernels)
     w8_row = run("w8a16", phase_w8a16)
     grouped_row = run("grouped", phase_grouped)
-    report = {"serve": run("serve", phase_serve), "phase_s": phase_s}
+    report = {"tokenizer": report_tokenizer, "serve": run("serve", phase_serve), "phase_s": phase_s}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = run("serve_paged", phase_serve_paged, dense_texts)
     report["fused"] = run("fused", phase_fused_dense, dense_texts, report["serve"])
     n_layers = 32  # llama3-8b at full depth in the bf16 feature phases
-    report["features"] = run("features", phase_serve_features, False, n_layers, None)
+    report["features"] = run("features", phase_serve_features, False, n_layers, None, contracts=True)
     report["features_paged"] = run("features_paged", phase_serve_features, True, n_layers,
-                                   report["features"].pop("texts"))
+                                   report["features"].pop("texts"), contracts=True)
     paged_texts = report["features_paged"].pop("texts")
     report["fused_paged"] = run("fused_paged", phase_serve_features, True, n_layers, paged_texts, fused=True)
     report["fused_paged"].pop("texts")
@@ -5039,7 +5299,7 @@ def main() -> int:
         report["native"] = run("native", phase_native, card, report["daemon"])
         # the operator's tooling through the CLI: phase 6's checkpoint
         # deployed, backed up, exported and restored
-        report["operator"] = run("operator", phase_operator, root, dense_texts, card)
+        report["operator"] = run("operator", phase_operator, root, report["checkpoint"]["bpe_turn"], card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row in kernels:

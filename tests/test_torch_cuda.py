@@ -14,6 +14,7 @@ import time
 import pytest
 import torch
 
+from agentainer_tpu_torch.analysis.contracts import no_implicit_sync
 from agentainer_tpu_torch.ops import cuda_attention as ca
 
 pytestmark = pytest.mark.cuda
@@ -736,6 +737,51 @@ def test_graph_replays_count_the_eager_calls_launches(graph_engine, kind, n):
     assert replayed == [3 * e for e in eager]
 
 
+def test_runtime_contracts_hold_on_the_card(graph_engine):
+    """The card half of ``analysis/contracts.py`` on a warmed 2-layer
+    engine: served traffic (prefill, decode rungs, verify rounds, a sampled
+    lane) under ``capture_budget(engine, 0)`` (no new key, no capture,
+    every dispatch a replay), ``buffers_in_place`` and
+    ``no_implicit_sync``; then one replay of every captured step traced:
+    the arena's attention wrapper launches 2 layers x its device launches
+    per call x the step's forwards, and no other kernel of the table."""
+    import asyncio
+
+    from agentainer_tpu_torch.analysis.contracts import (
+        AttentionLaunches,
+        buffers_in_place,
+        capture_budget,
+        check,
+        launches_per_replay,
+    )
+    from agentainer_tpu_torch.engine.graphs import park_lanes
+
+    eng = graph_engine
+
+    async def traffic():
+        return await asyncio.gather(
+            eng.generate("a" * 200, max_tokens=40),
+            eng.generate("a plain request", max_tokens=21, ignore_eos=True),
+            eng.generate("sampled " * 3, max_tokens=13, temperature=1.0, ignore_eos=True),
+        )
+
+    with capture_budget(eng, 0) as seen, buffers_in_place(eng) as kinds, no_implicit_sync():
+        out = asyncio.run(traffic())
+    assert eng.worker_errors == 0, eng.last_worker_error
+    assert [r["completion_tokens"] for r in out[1:]] == [21, 13]
+    assert {"prefill", "decode", "verify"} <= set(kinds), (seen, kinds)
+    park_lanes(eng)
+    want = AttentionLaunches(n_layers=eng.cfg.n_layers, paged=eng.paged)
+    for key in eng._step_keys():
+        for _ in range(3):  # a trace that lost device records is taken again
+            with torch.no_grad(), eng._on_stream():
+                got = launches_per_replay(eng._graphs, key)
+            if not want.failures(got):
+                break
+        check(got, want)
+        assert got["all"] > got["wrappers"]["flash_prefill"]["device"], got
+
+
 @pytest.mark.parametrize("kind,n", [("decode", 4), ("verify", 8)])
 def test_sampled_graph_replays_a_seeded_stream(graph_engine, kind, n):
     """The sampled step's graph draws from the engine's generator: from the
@@ -868,13 +914,11 @@ def _serve_without_host_sync(dev, eng) -> None:
                 ),
             )
 
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_implicit_sync():
             with pytest.raises(RuntimeError, match="synchroniz"):
                 torch.ones(1, device=dev).item()  # the mode is on
             out = asyncio.run(traffic())
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        assert torch.cuda.get_sync_debug_mode() == 0  # restored
         assert eng.worker_errors == 0, eng.last_worker_error
         assert [r["completion_tokens"] for r in out[1:]] == [21, 13, 17]
         assert streamed == out[3]["tokens"]
@@ -1069,11 +1113,8 @@ def test_snapshot_and_restore_make_no_implicit_host_sync(dev, paged):
                 eng.restore_session("r", blob),
             )
 
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_implicit_sync():
             out = asyncio.run(traffic())
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
         assert eng.worker_errors == 0, eng.last_worker_error
         assert out[1]["completion_tokens"] == 21
         assert out[2] is not None and out[3] is True
@@ -1321,11 +1362,8 @@ def test_fused_engine_serves_the_unfused_greedy_text(dev, paged):
         want_eng.shutdown()
     eng = _graph_engine(fused_decode=True, speculative=False, paged_kv=paged)
     try:
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_implicit_sync():
             got = [r["tokens"] for r in asyncio.run(traffic(eng))]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
         m = eng.metrics()
         assert eng.worker_errors == 0, eng.last_worker_error
         assert got == want

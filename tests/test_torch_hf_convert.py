@@ -211,10 +211,14 @@ def test_a_checkpoint_without_config_json_raises_naming_it(tmp_path):
 
 
 def test_tokenizer_json_without_the_package_raises(tmp_path, monkeypatch):
+    """Without the ``tokenizers`` package the port reads a tokenizer.json
+    itself; a file outside the family it reads (here one with no
+    pre-tokenizer) raises naming the file and the component, and never
+    falls back to the byte tokenizer."""
     (tmp_path / "tokenizer.json").write_text("{}")
     monkeypatch.setitem(sys.modules, "tokenizers", None)
-    with pytest.raises(ImportError) as e:
+    with pytest.raises(NotImplementedError) as e:
         load_tokenizer(512, str(tmp_path))
-    assert "tokenizers" in str(e.value) and "tokenizer.json" in str(e.value)
+    assert "tokenizer.json" in str(e.value) and "pre_tokenizer" in str(e.value)
     # without a checkpoint the byte tokenizer serves, as before
     assert load_tokenizer(512).eos_id == 2

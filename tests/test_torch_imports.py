@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package, nor the packages the
-machine with the card lacks (``ml_dtypes``, ``safetensors``, ``orbax``).
+machine with the card lacks (``ml_dtypes``, ``safetensors``, ``orbax``,
+``tokenizers``, ``regex``).
 
 Runs in a fresh interpreter (this test process has JAX loaded by
 conftest): import every module of ``agentainer_tpu_torch``, then list the
@@ -22,7 +23,7 @@ leaked = sorted(
     n for n in sys.modules
     if n == "jax" or n.startswith(("jax.", "jaxlib"))
     or n == "agentainer_tpu" or n.startswith("agentainer_tpu.")
-    or n.split(".")[0] in ("ml_dtypes", "safetensors", "orbax")
+    or n.split(".")[0] in ("ml_dtypes", "safetensors", "orbax", "tokenizers", "regex")
 )
 print(json.dumps({"imported": names, "leaked": leaked}))
 """
@@ -56,6 +57,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.utils.hw",
         "agentainer_tpu_torch.faults",
         "agentainer_tpu_torch.train",
+        "agentainer_tpu_torch.analysis",
+        "agentainer_tpu_torch.analysis.framework",
+        "agentainer_tpu_torch.analysis.rules",
+        "agentainer_tpu_torch.analysis.contracts",
+        "agentainer_tpu_torch.analysis.__main__",
         *CONTROL_PLANE,
         "agentainer_tpu_torch.engine",
         "agentainer_tpu_torch.runtime.engine_main",
