@@ -16,15 +16,19 @@ does:
 - ``no_implicit_sync``: the block makes no implicit host sync on the card.
 - ``launches_per_replay``: the device kernels one replay of a captured step
   launches, per kernel wrapper and in all (card only).
+- ``NoLargeAllGather`` and ``HasCrossReduction`` (the reference's HLO
+  checks of GSPMD's collectives): over the log of the collectives a meshed
+  step called (``parallel/collectives.record``), no all-gather as large as
+  one shard's KV layer, and at least one cross-shard reduction.
 
 Usage::
 
     with capture_budget(engine, 0), buffers_in_place(engine), no_implicit_sync():
         ...scripted mixed workload...
 
-The reference's HLO-text contracts (``compile_hlo``, ``op_result_elems``,
-``NoLargeAllGather``, ``HasCrossReduction``, ``donated_params``) check
-GSPMD's collectives; they wait for the port's ``parallel/``.
+The reference's other HLO-text contracts (``compile_hlo``,
+``op_result_elems``, ``donated_params``) read compiler output the port does
+not have.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ __all__ = [
     "no_implicit_sync",
     "launches_per_replay",
     "AttentionLaunches",
+    "NoLargeAllGather",
+    "HasCrossReduction",
 ]
 
 
@@ -129,11 +135,12 @@ def capture_budget(engine, budget: int):
 
 def _arena(engine) -> dict[str, torch.Tensor]:
     """The KV tensors every step writes: the paged pools or the dense
-    arena's storage."""
-    c = engine.cache
-    if engine.paged:
-        return {"cache.k": c.k, "cache.v": c.v}
-    return {"cache.k_store": c.k_store, "cache.v_store": c.v_store}
+    arena's storage (every shard's on a mesh)."""
+    names = ("k", "v") if engine.paged else ("k_store", "v_store")
+    tensors = engine.cache.tensors()
+    if len(tensors) == 2:
+        return {f"cache.{n}": t for n, t in zip(names, tensors)}
+    return {f"cache[{i // 2}].{names[i % 2]}": t for i, t in enumerate(tensors)}
 
 
 @contextmanager
@@ -297,6 +304,7 @@ class AttentionLaunches:
 
     n_layers: int
     paged: bool
+    shards: int = 1  # a mesh's: every shard attends in every layer
 
     def failures(self, got: dict) -> list[str]:
         kind, n = got["key"][0], got["key"][1]
@@ -304,7 +312,7 @@ class AttentionLaunches:
             return []
         prefix = "fused_paged_" if self.paged else ""
         name = f"{prefix}flash_decode" if kind == "decode" else f"{prefix}flash_prefill"
-        calls = self.n_layers * (n if kind == "decode" else 1)
+        calls = self.n_layers * self.shards * (n if kind == "decode" else 1)
         problems = []
         for wrapper in (*_ATTENTION, "w8a16"):
             w = got["wrappers"][wrapper]
@@ -315,3 +323,35 @@ class AttentionLaunches:
                     f"{w['device']} device kernels, want {want_calls} and {want_calls * w['per_call']}"
                 )
         return problems
+
+
+@dataclass
+class NoLargeAllGather:
+    """No all-gather of ``min_elems`` elements or more per shard in a
+    collective log (``parallel/collectives.record``; the reference's
+    ``hlo_contracts.NoLargeAllGather``). The never-all-gather invariant:
+    under a tp mesh the KV arena (or page pool) stays shard-local, so an
+    all-gather the size of one shard's KV means the cache was put back
+    together and the sharding is decorative. Small gathers (the
+    vocab-sharded logits) pass."""
+
+    min_elems: int
+    what: str = "the KV shard"
+
+    def failures(self, log: list[dict]) -> list[str]:
+        big = [e for e in log if e["kind"] == "all_gather" and e["elements"] >= self.min_elems]
+        if big:
+            return [f"all-gather of {self.what} (>= {self.min_elems} elements per shard): {big}"]
+        return []
+
+
+@dataclass
+class HasCrossReduction:
+    """At least one cross-shard reduction in a collective log: the sharded
+    computation communicates. None means each shard computed the whole
+    answer or the partial sums were dropped."""
+
+    def failures(self, log: list[dict]) -> list[str]:
+        if not any(e["kind"] == "all_reduce" for e in log):
+            return ["no cross-shard reduction in the collective log: sharding dropped?"]
+        return []

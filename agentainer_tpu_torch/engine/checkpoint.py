@@ -113,8 +113,6 @@ def restore_kv_slot(cache: KVCache, slot: int, k: torch.Tensor, v: torch.Tensor)
     """Write a snapshot into arena row ``slot``'s prefix, in place; the rest
     of the arena is unchanged. ``k``/``v`` must already be in the arena's
     dtype; on the card they are pinned host tensors and the copy does not
-    wait for the stream."""
-    position = k.shape[1]
-    nb = k.device.type == "cpu" and k.is_pinned()
-    cache.k_store[:, slot, :position].copy_(k, non_blocking=nb)
-    cache.v_store[:, slot, :position].copy_(v, non_blocking=nb)
+    wait for the stream. A mesh's ``MeshCache`` takes the unsharded layout
+    and writes each shard its kv heads."""
+    cache.write_prefix(slot, k, v)

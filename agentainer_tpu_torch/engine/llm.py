@@ -1,5 +1,5 @@
-"""Continuous-batching inference engine in PyTorch — the single-device
-main path, over the dense KV arena or the paged one.
+"""Continuous-batching inference engine in PyTorch — on one device or over
+a tp×ep mesh, over the dense KV arena or the paged one.
 
 Reference: ``agentainer_tpu/engine/llm.py`` with its defaults —
 ``prefix_cache``, ``speculative`` and ``deadlines`` on, ``adaptive_decode``
@@ -118,7 +118,7 @@ What differs from the reference, and why:
 - ``create(checkpoint=)`` loads a HuggingFace directory (with its own
   ``config.json``) onto the engine's device; ``options["chips"]`` places
   the engine on ``cuda:{chip}`` (one chip; an id past the visible devices
-  falls back to the first, as in the reference);
+  falls back to the first, as in the reference) or spans a mesh;
 - ``quant: int8`` (``create``) serves int8 weights as the reference does:
   from a checkpoint quantized as it streams, on the device from a seeded
   synthetic draw (``synthetic: true``), or quantized from the seeded random
@@ -138,9 +138,22 @@ What differs from the reference, and why:
   (``tier_quantize``, the reference's numpy quantizer); a promotion copies
   from pinned memory without waiting and keeps its source alive until the
   copy's event has landed;
-- ``create`` raises ``ValueError`` for ``tp``/``ep``/``sp``/``pp`` > 1
-  (with or without ``quant``; routed MoE over ``ep`` waits for the port's
-  ``parallel/``) and more than one chip.
+- serve-time model parallelism (``mesh=``; ``create`` places it as the
+  reference does: a ``chips`` budget an assignment narrows and never
+  spills, EP-first for MoE, a dense agent's chips spanned by tp) runs in
+  this one process: the params are cut per shard at build
+  (``parallel/sharding.shard_params``), each shard's dense arena or paged
+  pool holds its kv heads (``models/llama.MeshCache``; one page id and one
+  block table for every shard), and ``forward`` runs each layer per shard
+  with the shards meeting in ``parallel/collectives``. Routed MoE is the
+  default under ep > 1 (``parallel/expert.make_routed_moe``), and
+  ``inloop_spec`` is off on a mesh, as in the reference. Snapshots and
+  tier parks stage each tp slice and keep the unsharded layout, so a blob
+  crosses between meshes and one device. On one card every shard's work
+  goes on the engine's stream and the step graphs capture the whole mesh;
+  a mesh over several cards serves its steps eagerly (no capture across
+  devices). ``sp`` and ``pp`` > 1 raise ``ValueError``: they wait for a
+  later slice.
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
 stream of its own; the serve layer talks to it through a thread-safe queue
@@ -163,11 +176,14 @@ import torch
 
 from .. import faults
 from ..models.configs import ModelConfig, get_config
-from ..models.llama import KVCache, PagedKVCache, _moe_mlp_routed, forward, init_params
+from ..models.llama import KVCache, MeshCache, PagedKVCache, _moe_mlp_routed, forward, init_params
 from ..ops import cuda_quant
-from ..ops.cuda_attention import kernel_supported
+from ..parallel.expert import make_routed_moe, moe_expert_parallel
+from ..parallel.flash_mesh import supported
+from ..parallel.mesh import make_mesh, pick_ep, pick_tp
+from ..parallel.sharding import shard_params, unshard_kv, unsharded_bytes
 from ..utils.hw import chip_spec
-from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot, restore_kv_slot
+from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot
 from .graphs import KERNEL_WRAPPERS, LANDED, HostTransfers, StepGraphs, run_loop_eager
 from .hf_convert import config_from_hf, is_hf_checkpoint
 from .quant import (
@@ -278,15 +294,16 @@ def _as_prefill_failure(e: Exception) -> Exception:
     return PrefillFailed(f"{type(e).__name__}: {e}")
 
 
-def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "") -> torch.device:
-    """The engine's device: the card unless the caller asks for the CPU.
-    Asking for CUDA where there is no card, or for a model whose attention
-    head the kernels do not take (or, with ``quant``, whose weight shapes
-    the int8 kernel does not take), raises instead of carrying on on the
-    CPU or in plain attention. On the card ``chips`` (the control plane's
-    assignment) places the engine: one chip ``i`` is ``cuda:i`` when that
-    device is visible and the first device otherwise (the reference's
-    fallback); more than one raises, since the port serves on one device.
+def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "", tp: int = 1) -> torch.device:
+    """The engine's device (a mesh's first shard's): the card unless the
+    caller asks for the CPU. Asking for CUDA where there is no card, or for
+    a model whose attention head the kernels do not take (or, with
+    ``quant``, whose weight shapes the int8 kernel does not take) on a tp
+    shard, raises instead of carrying on on the CPU or in plain attention.
+    On the card ``chips`` places a one-device engine: one chip ``i`` is
+    ``cuda:i`` when that device is visible and the first device otherwise
+    (the reference's fallback); more than one raises here, since a single
+    device is asked for (``LLMEngine.create`` spans several with a mesh).
     The CPU ignores them."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -296,16 +313,20 @@ def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "") -> torch
         )
     if device.type == "cuda" and chips:
         if len(chips) > 1:
-            raise ValueError(f"chips={list(chips)}: the port serves on a single device")
+            raise ValueError(
+                f"chips={list(chips)}: a single device is asked for here "
+                "(LLMEngine.create spans several with a mesh)"
+            )
         chip = int(chips[0])
         device = torch.device("cuda", chip if 0 <= chip < torch.cuda.device_count() else 0)
-    if device.type == "cuda" and not kernel_supported(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
+    if device.type == "cuda" and not supported(cfg, tp):
         raise ValueError(
-            f"{cfg.name}: no attention kernel for {cfg.n_heads} heads over "
-            f"{cfg.n_kv_heads} kv heads of head_dim {cfg.head_dim}; pass device='cpu'"
+            f"{cfg.name}: no attention kernel for {cfg.n_heads // tp} heads over "
+            f"{cfg.n_kv_heads // tp} kv heads of head_dim {cfg.head_dim}"
+            + (f" (tp={tp})" if tp > 1 else "") + "; pass device='cpu'"
         )
     if device.type == "cuda" and quant:
-        bad = [kn for kn in _weight_shapes(cfg) if not cuda_quant.supported(*kn)]
+        bad = [kn for kn in _weight_shapes(cfg, tp) if not cuda_quant.supported(*kn)]
         if bad:
             raise ValueError(
                 f"{cfg.name}: no int8 kernel for weights (K, N) {bad} "
@@ -314,13 +335,69 @@ def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "") -> torch
     return device
 
 
-def _weight_shapes(cfg: ModelConfig) -> list[tuple[int, int]]:
+def _placement(cfg: ModelConfig, options: dict, chips: list[int]) -> tuple[int, int, list]:
+    """``(tp, ep, devices)`` as the reference's ``create`` places an agent:
+    the chip budget is the assignment (``chips``), which tp×ep may narrow
+    and never spill past, or what the options ask for; an MoE model splits
+    it EP-first (explicit ``tp``/``ep`` override), a dense one spans an
+    assignment with tp; each axis is a divisor of the model's head or
+    expert count (``pick_tp``/``pick_ep``). On the card the budget is
+    clamped to the visible devices and the mesh takes the assigned ones
+    (the first ones when an id is not visible); on the CPU every shard is
+    ``cpu``."""
+    on_card = torch.device(options.get("device", "cuda")).type == "cuda"
+    visible = torch.cuda.device_count() if on_card and torch.cuda.is_available() else None
+    tp_asked = int(options.get("tp", 0) or 0)
+    ep_asked = int(options.get("ep", 0) or 0)
+    if chips:
+        budget = len(chips)
+    else:
+        budget = max(1, tp_asked) * max(1, ep_asked)
+    if visible is not None:
+        budget = max(1, min(budget, visible))
+    if cfg.is_moe:
+        # EP-first: experts dominate a MoE model's memory
+        if ep_asked:
+            ep = pick_ep(cfg, min(ep_asked, budget))
+            tp = pick_tp(cfg, min(max(1, tp_asked), budget // ep))
+        elif tp_asked:
+            tp = pick_tp(cfg, min(tp_asked, budget))
+            ep = pick_ep(cfg, budget // tp)
+        else:
+            ep = pick_ep(cfg, budget)
+            tp = pick_tp(cfg, budget // ep)
+    else:
+        ep = 1
+        # a dense agent spans its whole assignment unless tp is asked
+        dense_tp = tp_asked if tp_asked else (budget if chips else 1)
+        tp = pick_tp(cfg, min(max(1, dense_tp), budget))
+    n_use = tp * ep
+    asked = max(1, tp_asked) * max(1, ep_asked)
+    if n_use < min(asked, budget) or (chips and n_use < len(chips)):
+        print(
+            f"[llm-engine] parallelism narrowed to tp={tp} ep={ep} (asked tp={tp_asked or 'auto'} "
+            f"ep={ep_asked or 'auto'}, assigned chips={len(chips) or 'none'}, visible devices="
+            f"{visible if visible is not None else 'cpu'}, model kv_heads={cfg.n_kv_heads}, "
+            f"heads={cfg.n_heads}, experts={cfg.n_experts}); extra chips idle",
+            flush=True,
+        )
+    if not on_card:
+        return tp, ep, [torch.device("cpu")] * n_use
+    if visible is None:
+        return tp, ep, [torch.device("cuda")] * n_use  # _engine_device raises: no card
+    if chips and len(chips) >= n_use and all(0 <= c < visible for c in chips):
+        return tp, ep, [torch.device("cuda", c) for c in chips[:n_use]]
+    return tp, ep, [torch.device("cuda", i) for i in range(n_use)]
+
+
+def _weight_shapes(cfg: ModelConfig, tp: int = 1) -> list[tuple[int, int]]:
     """(K, N) of every weight product of a forward that goes through the
-    int8 kernels: an MoE config's expert stacks have the dense FFN's (K, N)
-    per expert; its router goes its own route (``models/llama._router_logits``)
-    and is not listed."""
-    d, q, kv = cfg.dim, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    return [(d, q), (d, kv), (q, d), (d, cfg.ffn_dim), (cfg.ffn_dim, d), (d, cfg.vocab_size)]
+    int8 kernels, on one tp shard: an MoE config's expert stacks have the
+    dense FFN's (K, N) per expert; its router goes its own route
+    (``models/llama._router_logits``) and is not listed."""
+    d, q, kv = cfg.dim, cfg.n_heads * cfg.head_dim // tp, cfg.n_kv_heads * cfg.head_dim // tp
+    f, v = cfg.ffn_dim // tp, cfg.vocab_size // tp
+    return [(d, q), (d, kv), (q, d), (d, f), (f, d), (d, v)]
 
 
 @dataclass
@@ -380,16 +457,25 @@ class SnapshotCmd:
 @dataclass
 class StagedKV:
     """A staged snapshot: host ``k``/``v`` ``[L, n >= position, KV, hd]``
-    that hold the session's KV once ``event`` has landed; when the staging
-    began and how long its pinned allocation took."""
+    that hold the session's KV once ``event`` has landed (staged per tp
+    slice, ``k_parts``/``v_parts``, and read whole); when the staging began
+    and how long its pinned allocation took."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k_parts: list
+    v_parts: list
     event: object
     position: int
     pending_token: int | None
     staged_at: float
     alloc_ms: float
+
+    @property
+    def k(self) -> torch.Tensor:
+        return unshard_kv(self.k_parts)
+
+    @property
+    def v(self) -> torch.Tensor:
+        return unshard_kv(self.v_parts)
 
 
 @dataclass
@@ -498,15 +584,15 @@ class FusedState:
 @dataclass
 class PrefixEntry:
     """One cached token prefix: the KV a prefill wrote for ``tokens`` (exact
-    bucket length). Dense: private copies ``k``/``v`` [L, bucket, KV, hd] in
-    the cache dtype (bit-exact, no cast). Paged: the entry pins the owner's
+    bucket length). Dense: private copies ``kv`` of k/v [L, bucket, KV, hd]
+    (each shard's heads on a mesh) in the cache dtype (bit-exact, no
+    cast). Paged: the entry pins the owner's
     full ``pages`` by refcount, plus one copied ``tail_page`` holding the
     partial last page (``tail_len`` tokens) of a level that is not
     page-aligned. ``tokens`` is kept so a hash collision degrades to a
     miss."""
 
-    k: torch.Tensor | None
-    v: torch.Tensor | None
+    kv: object  # dense: the arena's clone_prefix copies (per shard on a mesh)
     tokens: tuple
     nbytes: int
     created: float
@@ -632,14 +718,24 @@ class LLMEngine:
         fused_decode: bool = False,
         kv_tiering: bool = False,
         tier_quantize: int = 1,
-        routed_moe: bool = False,
+        routed_moe: bool | None = None,
         moe_capacity_factor: float = 2.0,
         device="cuda",
+        mesh=None,
     ):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_batch = max_batch
-        self.device = _engine_device(device, cfg)
+        # serve-time model parallelism: a tp×ep mesh of shards (module
+        # docstring); its first shard's device is the engine's
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.tp = self.mesh.shape["tp"] if self.mesh else 1
+        self.ep = self.mesh.shape["ep"] if self.mesh else 1
+        if self.mesh is not None:
+            if any(self.mesh.shape[a] > 1 for a in ("dp", "sp", "pp")):
+                raise ValueError(f"{self.mesh}: only tp and ep meshes serve in this slice")
+            device = self.mesh.device_list[0]
+        self.device = _engine_device(device, cfg, tp=self.tp)
         # Paged KV arena: sessions hold lists of fixed-size pages from one
         # pool instead of dense [max_seq] rows. paged_kv=False keeps the
         # dense arena.
@@ -687,23 +783,46 @@ class LLMEngine:
         # top-k sampler is a static choice of every sampled step
         self.streaming = bool(streaming)
         self.approx_topk = bool(approx_topk)
-        # routed (token-dispatch) MoE when asked; one device keeps the
-        # dense-einsum default otherwise (the reference defaults to routed
-        # only where experts shard over ep > 1)
-        self.routed_moe = cfg.is_moe and bool(routed_moe)
+        # routed (token-dispatch) MoE is the default where experts shard
+        # over ep > 1, the dense-einsum one elsewhere; ``routed_moe`` asks
+        # for either (the reference's rule)
+        self.routed_moe = cfg.is_moe and (self.ep > 1 if routed_moe is None else bool(routed_moe))
         self.moe_capacity_factor = float(moe_capacity_factor)
-        self._moe_impl = (
-            functools.partial(_moe_mlp_routed, cfg=cfg, capacity_factor=self.moe_capacity_factor)
-            if self.routed_moe else None
-        )
-        self.params = params
-        dtype = params["final_norm"].dtype
-        if self.paged:
-            self.cache = PagedKVCache.create(
-                cfg, self._total_pages, self.page_size, dtype=dtype, device=self.device
+        cf = self.moe_capacity_factor
+        if self.mesh is not None and cfg.is_moe:
+            self._moe_impl = (
+                make_routed_moe(self.mesh, cfg, capacity_factor=cf)
+                if self.routed_moe
+                else functools.partial(moe_expert_parallel, cfg=cfg, mesh=self.mesh)
             )
         else:
-            self.cache = KVCache.create(cfg, max_batch, max_seq, dtype=dtype, device=self.device)
+            self._moe_impl = (
+                functools.partial(_moe_mlp_routed, cfg=cfg, capacity_factor=cf)
+                if self.routed_moe else None
+            )
+        # params: the unsharded tree, cut here on a mesh, or a mesh's shards
+        # already cut (parallel/sharding.shard_params)
+        if isinstance(params, list):
+            if self.mesh is None or len(params) != self.mesh.size:
+                raise ValueError("per-shard params need the mesh they were cut for")
+            self.param_hbm_bytes = unsharded_bytes(params, self.mesh)
+        else:
+            self.param_hbm_bytes = param_bytes_actual(params)
+            if self.mesh is not None:
+                params = shard_params(params, self.mesh, cfg.is_moe)
+        dtype = params[0]["final_norm"].dtype if isinstance(params, list) else params["final_norm"].dtype
+        self.params = params
+        kv_heads = cfg.n_kv_heads // self.tp
+        if self.paged:
+            def make(dev):
+                return PagedKVCache.create(
+                    cfg, self._total_pages, self.page_size, dtype=dtype, device=dev, n_kv_heads=kv_heads
+                )
+        else:
+            def make(dev):
+                return KVCache.create(cfg, max_batch, max_seq, dtype=dtype, device=dev, n_kv_heads=kv_heads)
+        self.cache = MeshCache.create(self.mesh, make) if self.mesh is not None else make(self.device)
+        self._kv_dtype = dtype
         self.slots = [Slot(i) for i in range(max_batch)]
         # session name → owning slot index. Paged: the bound lane while a
         # request is in flight, -1 while resident between turns (the KV
@@ -764,7 +883,9 @@ class LLMEngine:
         self._pushing: Readback | None = None
         # step graphs (the card; captured by warmup) and the warmup flag
         # under which the card's steps run eagerly before capture
-        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
+        # a mesh over several cards serves eagerly: no capture spans devices
+        one_card = self.mesh is None or len(self.mesh.distinct_devices) == 1
+        self._graphs = StepGraphs(dev) if dev.type == "cuda" and one_card else None
         self._warming = False
 
         self._queue: queue.Queue[GenRequest | None] = queue.Queue()
@@ -798,11 +919,12 @@ class LLMEngine:
         # prefix; prefill streams the weights once per chunk.
         self.flops_done = 0.0
         self.hbm_bytes_read = 0.0
-        self._kv_bytes_per_pos = (
-            2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * self.cache.k.element_size()
-        )
-        self.param_hbm_bytes = param_bytes_actual(params)
-        self.kv_arena_bytes = 2 * self.cache.k.numel() * self.cache.k.element_size()
+        esize = torch.empty((), dtype=dtype).element_size()
+        self._kv_bytes_per_pos = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * esize
+        # the unsharded arena's (or pool's) bytes, as the reference reports
+        # a sharded array's
+        slots = self._total_pages * self.page_size if self.paged else max_batch * max_seq
+        self.kv_arena_bytes = slots * self._kv_bytes_per_pos
         self.prefill_chunks = 0  # prefill forwards (one per chunk)
 
         # -- request lifecycle policy (deadlines=False: no expiry checks and
@@ -880,8 +1002,11 @@ class LLMEngine:
         self.spec_gamma_max = self._spec_buckets[-1]
         # -- the fused decode loop ----------------------------------------
         self.fused_decode = bool(fused_decode)
-        # the in-loop drafter needs the loop and speculation (reference)
-        self.inloop_spec = bool(inloop_spec) and self.fused_decode and self.speculative
+        # the in-loop drafter needs the loop and speculation, and is off on
+        # a mesh (reference)
+        self.inloop_spec = (
+            bool(inloop_spec) and self.fused_decode and self.speculative and self.mesh is None
+        )
         self.inloop_spec_drafted = 0
         self.inloop_spec_accepted = 0
         # the loop's static bound: its buffers are sized by it, and a
@@ -995,6 +1120,7 @@ class LLMEngine:
         config_name: str,
         checkpoint: str = "",
         options: dict | None = None,
+        mesh=None,
     ) -> "LLMEngine":
         """Build an engine with the weights of ``checkpoint`` (a HuggingFace
         directory, whose ``config.json`` gives the model config), or with
@@ -1002,16 +1128,22 @@ class LLMEngine:
 
         ``options["device"]`` defaults to ``"cuda"``; with no card this
         raises rather than carrying on on the CPU — pass ``"cpu"`` to ask
-        for it. ``options["chips"]`` places a card engine
-        (``_engine_device``). dtype follows the reference: bf16 on the
-        card, f32 on the CPU."""
+        for it. ``options["chips"]``, ``"tp"`` and ``"ep"`` place the engine
+        on one device or over a mesh (``_placement``); ``"sp"`` and ``"pp"``
+        above 1 raise. ``mesh`` (``parallel/mesh.make_mesh``) serves on that
+        mesh instead of placing one, e.g. a logical mesh whose shards share
+        one card. dtype follows the reference: bf16 on the card, f32 on the
+        CPU."""
         options = options or {}
         quant = str(options.get("quant", "") or "").lower()
         if quant and quant not in QUANT_SCHEMES:
             raise ValueError(f"unknown quant scheme {quant!r} (supported: {', '.join(QUANT_SCHEMES)})")
-        for axis in ("tp", "ep", "sp", "pp"):
+        for axis in ("sp", "pp"):
             if int(options.get(axis, 0) or 0) > 1:
-                raise ValueError(f"{axis}={options[axis]}: the port serves on a single device")
+                raise ValueError(
+                    f"{axis}={options[axis]}: serve-time {axis} waits for a later slice of the "
+                    "port's parallel/ (tp and ep serve)"
+                )
         if checkpoint and is_hf_checkpoint(checkpoint):
             # the checkpoint's own config.json; an explicit config name
             # stands in for a missing or unusable one
@@ -1027,7 +1159,14 @@ class LLMEngine:
         else:
             cfg = get_config(config_name or "tiny")
         chips = [int(c) for c in options.get("chips", []) or []]
-        device = _engine_device(options.get("device", "cuda"), cfg, chips, quant)
+        if mesh is None:
+            tp, ep, devices = _placement(cfg, options, chips)
+            if len(devices) > 1:
+                mesh = make_mesh(len(devices), tp=tp, ep=ep, devices=devices)
+        if mesh is not None:
+            device = _engine_device(mesh.device_list[0], cfg, quant=quant, tp=mesh.shape["tp"])
+        else:
+            device = _engine_device(options.get("device", "cuda"), cfg, chips[:1], quant)
         tokenizer = load_tokenizer(cfg.vocab_size, checkpoint)
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         load_stats: dict = {}
@@ -1041,13 +1180,13 @@ class LLMEngine:
             gen.manual_seed(int(options.get("seed", 0)))
             if quant and options.get("synthetic"):
                 # benchmark-grade int8 weights drawn in device memory
-                params = synthetic_quantized_params(cfg, dtype, device, gen)
+                params = synthetic_quantized_params(cfg, dtype, device, gen, mesh=mesh)
             else:
                 # ``synthetic`` without ``quant`` is a plain random init, as
                 # in the reference
                 params = init_params(cfg, gen, dtype=dtype, device=device)
                 if quant:
-                    params = quantize_params(params, dtype)
+                    params = quantize_params(params, dtype, mesh=mesh)
         engine = cls(
             cfg,
             params,
@@ -1072,9 +1211,10 @@ class LLMEngine:
             fused_decode=bool(options.get("fused_decode", False)),
             kv_tiering=bool(options.get("kv_tiering", False)),
             tier_quantize=int(options.get("tier_quantize", 1)),
-            routed_moe=bool(options.get("routed", False)),
+            routed_moe=options.get("routed"),
             moe_capacity_factor=float(options.get("moe_cf", 2.0)),
             device=device,
+            mesh=mesh,
         )
         engine.checkpoint_load = load_stats
         if not options.get("skip_warmup"):
@@ -1158,8 +1298,7 @@ class LLMEngine:
                     self._copy_page(scr, scr)
                 elif self.prefix_cache:
                     for b in self._prefix_levels:
-                        k, v = self._prefix_slice(0, b)
-                        self._prefix_fork(0, k, v)
+                        self.cache.fork_prefix(0, self.cache.clone_prefix(0, b))
             self.capture_step_graphs()
         finally:
             self._prefix_active = self.prefix_cache
@@ -1307,10 +1446,8 @@ class LLMEngine:
             state += [self._shist, self._shlen, self._finput]
             state += [getattr(self._fl, f) for f in self._fl.__dataclass_fields__]
         if self.paged:
-            state += [self._dbt, self._pbt, self.cache.k, self.cache.v]
-        else:
-            state += [self.cache.k_store, self.cache.v_store]
-        return state
+            state += [self._dbt, self._pbt]
+        return state + self.cache.tensors()
 
     # -- public API (called from the serve layer's event loop) -------------
     def load_depth(self) -> int:
@@ -1550,7 +1687,7 @@ class LLMEngine:
         worker. False when it does not fit (at or past ``max_seq - 1``, a
         model of other shapes, no free pages) or the session is busy;
         raises ``ValueError`` for a malformed blob."""
-        dtype = self.cache.k.dtype
+        dtype = self._kv_dtype
         pin = self.device.type == "cuda"
 
         def host_copy():
@@ -1719,7 +1856,9 @@ class LLMEngine:
             "hbm_gbps_peak": round(self._peak_hbm_bps / 1e9, 1),
             "peak_tflops": round(self._peak_flops / 1e12, 1),
             "chip_kind": self._chip.kind,
-            "n_chips": 1,
+            "n_chips": len(self.mesh.distinct_devices) if self.mesh is not None else 1,
+            "tp": self.tp,
+            "ep": self.ep,
             "param_hbm_bytes": self.param_hbm_bytes,
             "moe_routed": self.routed_moe,
             # decode-shaped routed calls (t == 1) run dropless whatever
@@ -2172,7 +2311,7 @@ class LLMEngine:
             if hit is not None:
                 key, entry = hit
                 forked = key[0]
-                self._prefix_fork(slot.idx, entry.k, entry.v)
+                self.cache.fork_prefix(slot.idx, entry.kv)
                 slot.position = forked
                 self._record_prefix_hit(key, entry)
                 # the fork streams the entry's KV once (a copy, no FLOPs)
@@ -2485,7 +2624,7 @@ class LLMEngine:
             cache, table = self.cache.at_rows(meta[2:3].to(torch.int32)), None
         logits = forward(
             self.params, self.cfg, tokens, pos, cache, block_table=table, last_index=meta[1:2],
-            moe_impl=self._moe_impl,
+            moe_impl=self._moe_impl, mesh=self.mesh,
         )
         return logits[0, 0]
 
@@ -2525,7 +2664,7 @@ class LLMEngine:
         for _ in range(chunk):
             logits = forward(
                 self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
-                block_table=self._dbt, moe_impl=self._moe_impl,
+                block_table=self._dbt, moe_impl=self._moe_impl, mesh=self.mesh,
             )
             nxt = sample_step(
                 logits[:, 0], self._gen, self._dtemps, self._dtopk, self._dtopp,
@@ -2766,7 +2905,7 @@ class LLMEngine:
         fl = self._fl
         logits = forward(
             self.params, self.cfg, self._dtok[:, None], self._dpos[:, None], self.cache,
-            block_table=self._dbt, moe_impl=self._moe_impl,
+            block_table=self._dbt, moe_impl=self._moe_impl, mesh=self.mesh,
         )
         nxt = self._fused_sample(logits[:, 0], all_greedy)
         fl.cand.zero_()
@@ -2788,7 +2927,7 @@ class LLMEngine:
         positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
         logits = forward(
             self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt,
-            moe_impl=self._moe_impl,
+            moe_impl=self._moe_impl, mesh=self.mesh,
         )
         greedy = logits.argmax(dim=-1)
         valid = torch.arange(k, device=dev)[None] < fl.dlen[:, None]
@@ -3064,7 +3203,7 @@ class LLMEngine:
         positions = torch.clamp(self._dpos[:, None] + offs, max=self.scratch_pos)
         logits = forward(
             self.params, self.cfg, toks, positions, self.cache, block_table=self._dbt,
-            moe_impl=self._moe_impl,
+            moe_impl=self._moe_impl, mesh=self.mesh,
         )
         greedy = logits.argmax(dim=-1)
         # draft_j (= toks[:, j+1]) is scored by logits row j: greedy lanes
@@ -3500,8 +3639,7 @@ class LLMEngine:
         elif slot.position > 0:
             staged = self._stage_kv(
                 cmd.session,
-                self.cache.k_store[:, slot.idx, : slot.position],
-                self.cache.v_store[:, slot.idx, : slot.position],
+                self.cache.read_prefix(slot.idx, slot.position),
                 slot.position,
                 slot.pending_token,
             )
@@ -3516,41 +3654,46 @@ class LLMEngine:
             staged = "rate-limited"
         elif sess.position > 0 and sess.pages:
             count = min(len(sess.pages), (sess.position - 1) // self.page_size + 1)
-            ids = torch.empty((count,), dtype=torch.long, device=self.device)
-            self._xfer.upload(ids, np.asarray(sess.pages[:count], dtype=np.int64))
-            n_layers, _, ps, kv, hd = self.cache.k.shape
             staged = self._stage_kv(
                 cmd.session,
-                self.cache.k.index_select(1, ids).reshape(n_layers, count * ps, kv, hd),
-                self.cache.v.index_select(1, ids).reshape(n_layers, count * ps, kv, hd),
+                self.cache.read_pages(self._page_ids(sess.pages[:count])),
                 sess.position,
                 sess.pending_token,
             )
         cmd.loop.call_soon_threadsafe(_resolve, cmd.future, staged)
 
     def _stage_kv(
-        self, session: str, k, v, position: int, pending: int | None, count_snapshot: bool = True
+        self, session: str, parts: list, position: int, pending: int | None,
+        count_snapshot: bool = True,
     ) -> StagedKV:
-        """Copy device ``k``/``v`` to the host without waiting: into pinned
-        memory with an event recorded after the copies (the card; the
-        host allocator caches pinned blocks, so only a new size class
-        allocates), or a plain copy (the CPU). A snapshot counts for the
-        limiter (``count_snapshot``); a tier demotion does not."""
+        """Copy the device (k, v) ``parts`` (one pair per tp slice) to the
+        host without waiting: into pinned memory with an event recorded
+        after the copies (the card; the host allocator caches pinned
+        blocks, so only a new size class allocates), or a plain copy (the
+        CPU). A snapshot counts for the limiter (``count_snapshot``); a
+        tier demotion does not."""
         now = time.monotonic()
         if count_snapshot:
             self._last_snapshot_at = now
             self._snap_last_by_session[session] = now
             self.kv_snapshots_total += 1
         if self._stream is None:
-            return StagedKV(k.clone(), v.clone(), LANDED, position, pending, now, 0.0)
-        hk = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
-        hv = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            return StagedKV(
+                [k.clone() for k, _ in parts], [v.clone() for _, v in parts],
+                LANDED, position, pending, now, 0.0,
+            )
+        host = [
+            [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in pair] for pair in parts
+        ]
         alloc_ms = 1000 * (time.monotonic() - now)
-        hk.copy_(k, non_blocking=True)
-        hv.copy_(v, non_blocking=True)
+        for (hk, hv), (k, v) in zip(host, parts):
+            hk.copy_(k, non_blocking=True)
+            hv.copy_(v, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return StagedKV(hk, hv, event, position, pending, now, alloc_ms)
+        return StagedKV(
+            [hk for hk, _ in host], [hv for _, hv in host], event, position, pending, now, alloc_ms
+        )
 
     def _service_parked_snapshot(self, slot: Slot) -> None:
         """At a request's finish: stage a snapshot parked on its session
@@ -3582,12 +3725,12 @@ class LLMEngine:
         write raises."""
         ok = False
         try:
-            n_layers, kv, hd = self.cache.k.shape[0], *self.cache.k.shape[3:]
+            cfg = self.cfg
             fits = (
                 bool(cmd.session)
                 and 0 < cmd.position < self.max_seq - 1
-                and cmd.k.shape[0] == n_layers
-                and tuple(cmd.k.shape[2:]) == (kv, hd)
+                and cmd.k.shape[0] == cfg.n_layers
+                and tuple(cmd.k.shape[2:]) == (cfg.n_kv_heads, cfg.head_dim)
             )
             if not fits:
                 return
@@ -3597,7 +3740,7 @@ class LLMEngine:
             slot = self._find_slot(cmd.session)
             if slot is None:
                 return  # the session is busy
-            restore_kv_slot(self.cache, slot.idx, cmd.k, cmd.v)
+            self.cache.write_prefix(slot.idx, cmd.k, cmd.v)
             self._hold_host_source(cmd.k, cmd.v)
             slot.position = cmd.position
             slot.pending_token = cmd.pending_token
@@ -3641,19 +3784,17 @@ class LLMEngine:
             self.sessions[cmd.session] = -1
         return True
 
+    def _page_ids(self, pages: list[int]) -> torch.Tensor:
+        """Page ids as a device long tensor (one upload)."""
+        ids = torch.empty((len(pages),), dtype=torch.long, device=self.device)
+        self._xfer.upload(ids, np.asarray(pages, dtype=np.int64))
+        return ids
+
     def _write_pages(self, pages: list[int], k, v, position: int) -> None:
         """Write a host prefix ``[L, position, KV, hd]`` (the cache's dtype;
-        pinned on the card, copied without waiting) into ``pages``."""
-        count = len(pages)
-        ids = torch.empty((count,), dtype=torch.long, device=self.device)
-        self._xfer.upload(ids, np.asarray(pages, dtype=np.int64))
-        n_layers, _, ps, kv, hd = self.cache.k.shape
-        for pool, src in ((self.cache.k, k), (self.cache.v, v)):
-            # the tail of the last page past position is never read before
-            # it is written
-            tmp = torch.zeros((n_layers, count * ps, kv, hd), dtype=pool.dtype, device=self.device)
-            tmp[:, :position].copy_(src, non_blocking=True)
-            pool.index_copy_(1, ids, tmp.view(n_layers, count, ps, kv, hd))
+        pinned on the card, copied without waiting) into ``pages`` (every
+        shard's pool, each its kv heads)."""
+        self.cache.write_pages(self._page_ids(pages), k, v, position)
 
     def _hold_host_source(self, k, v) -> None:
         """Keep pinned host tensors (a restore's, a promotion's) alive until
@@ -3704,11 +3845,7 @@ class LLMEngine:
             if sess is None or sess.lane is not None or not sess.pages or sess.position <= 0:
                 return None
             count = min(len(sess.pages), (sess.position - 1) // self.page_size + 1)
-            ids = torch.empty((count,), dtype=torch.long, device=self.device)
-            self._xfer.upload(ids, np.asarray(sess.pages[:count], dtype=np.int64))
-            n_layers, _, ps, kv, hd = self.cache.k.shape
-            k_src = self.cache.k.index_select(1, ids).reshape(n_layers, count * ps, kv, hd)
-            v_src = self.cache.v.index_select(1, ids).reshape(n_layers, count * ps, kv, hd)
+            parts = self.cache.read_pages(self._page_ids(sess.pages[:count]))
             position, pending = sess.position, sess.pending_token
             spec = (list(sess.spec_hist), sess.spec_ema, sess.spec_miss)
         else:
@@ -3719,10 +3856,9 @@ class LLMEngine:
             if slot.request is not None or slot.position <= 0:
                 return None
             position, pending = slot.position, slot.pending_token
-            k_src = self.cache.k_store[:, idx, :position]
-            v_src = self.cache.v_store[:, idx, :position]
+            parts = self.cache.read_prefix(idx, position)
             spec = (list(slot.spec_hist), slot.spec_ema, slot.spec_miss)
-        staged = self._stage_kv(session, k_src, v_src, position, pending, count_snapshot=False)
+        staged = self._stage_kv(session, parts, position, pending, count_snapshot=False)
         # the device residency goes now: later writes to its pages or row
         # are ordered after the staging copy on the engine's stream, and
         # freed pages wait in quarantine until the copy has landed
@@ -3806,7 +3942,7 @@ class LLMEngine:
         except Exception:
             self.tier_promote_failures_total += 1
             return False
-        dtype = self.cache.k.dtype
+        dtype = self._kv_dtype
         if entry.quantized:
             k = torch.from_numpy(dequantize_kv_pages(entry.k, entry.k_scale, entry.position)).to(dtype)
             v = torch.from_numpy(dequantize_kv_pages(entry.v, entry.v_scale, entry.position)).to(dtype)
@@ -3865,7 +4001,7 @@ class LLMEngine:
         slot = self._find_slot(session)
         if slot is None:
             return False
-        restore_kv_slot(self.cache, slot.idx, k, v)
+        self.cache.write_prefix(slot.idx, k, v)
         slot.position = entry.position
         slot.pending_token = entry.pending_token
         slot.last_used = time.monotonic()
@@ -4168,8 +4304,7 @@ class LLMEngine:
         """One pool page copied, every layer (the partial-tail
         copy-on-write of a prefix level that is not page-aligned). Full
         pages are never copied: they are mapped."""
-        self.cache.k[:, dst].copy_(self.cache.k[:, src])
-        self.cache.v[:, dst].copy_(self.cache.v[:, src])
+        self.cache.copy_page(src, dst)
 
     # -- prefix cache (cross-session KV reuse; worker thread) -------------
 
@@ -4186,19 +4321,6 @@ class LLMEngine:
                 out[PREFILL_BUCKETS[bi]] = h
                 bi += 1
         return out
-
-    def _prefix_slice(self, row: int, bucket: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Copies of a dense arena row's first ``bucket`` positions, every
-        layer, in the cache dtype (a forked prefix is bit-exact)."""
-        return (
-            self.cache.k_store[:, row, :bucket].clone(),
-            self.cache.v_store[:, row, :bucket].clone(),
-        )
-
-    def _prefix_fork(self, row: int, k: torch.Tensor, v: torch.Tensor) -> None:
-        """Write a cached prefix into a dense arena row at position 0."""
-        self.cache.k_store[:, row, : k.shape[1]].copy_(k)
-        self.cache.v_store[:, row, : v.shape[1]].copy_(v)
 
     def _prefix_lookup(self, prompt: list[int]):
         """The longest cached prefix at bucket granularity, as (key, entry),
@@ -4253,9 +4375,9 @@ class LLMEngine:
                     break  # larger levels only grow
                 while self._prefix_bytes + nbytes > self._prefix_budget and self._prefix_entries:
                     self._prefix_evict_lru(now)
-                k, v = self._prefix_slice(slot.idx, b)
                 self._prefix_entries[key] = PrefixEntry(
-                    k=k, v=v, tokens=tuple(ctx[:b]), nbytes=nbytes, created=now, last_used=now
+                    kv=self.cache.clone_prefix(slot.idx, b), tokens=tuple(ctx[:b]), nbytes=nbytes,
+                    created=now, last_used=now,
                 )
                 self._prefix_bytes += nbytes
         except Exception as e:  # recorded: /metrics last_worker_error
@@ -4301,7 +4423,7 @@ class LLMEngine:
             for pid in pages:
                 self._page_refs[pid] += 1
         self._prefix_entries[key] = PrefixEntry(
-            k=None, v=None, tokens=tuple(ctx[:b]), nbytes=nbytes, created=now, last_used=now,
+            kv=None, tokens=tuple(ctx[:b]), nbytes=nbytes, created=now, last_used=now,
             pages=pages, tail_page=tail_page, tail_len=tail_len,
         )
         self._recount_prefix_pinned()

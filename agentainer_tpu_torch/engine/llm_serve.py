@@ -5,7 +5,10 @@ contract: ``/`` ``/health`` ``/chat`` ``/generate`` ``/history`` ``/clear``
 Reference: ``agentainer_tpu/engine/llm_serve.py``. Same routes, same request
 and response JSON, same ``AGENTAINER_*`` environment contract: the model
 config, ``AGENTAINER_CHECKPOINT`` (a HuggingFace directory), the persona,
-the assigned chips (``AGENTAINER_CHIPS``, passed as ``options["chips"]``)
+the assigned chips (``AGENTAINER_CHIPS``, passed as ``options["chips"]`` in
+the host's own numbering: an engine host sees its chips as
+``CUDA_VISIBLE_DEVICES``, so chip ``c`` is the device at ``c``'s place
+in that list, and a multi-chip assignment spans a tp/ep mesh over them)
 and the fleet defaults in the ``ATPU_*`` variables (``_engine_options``).
 What differs:
 
@@ -134,6 +137,20 @@ def _sse_frame(event: str, event_id: int | None, data: dict) -> bytes:
         lines.append(f"id: {event_id}")
     lines.append(f"data: {json.dumps(data, separators=(',', ':'))}")
     return ("\n".join(lines) + "\n\n").encode()
+
+
+def _host_numbering(chips, visible: str | None) -> list[int]:
+    """The assigned chip ids as this process numbers its devices: where
+    ``CUDA_VISIBLE_DEVICES`` lists every one of them (the runtime pins an
+    engine host to its chips so), each id's place in that list; the ids as
+    they are otherwise."""
+    try:
+        order = [int(c) for c in (visible or "").split(",") if c.strip() != ""]
+    except ValueError:
+        return list(chips)
+    if order and all(c in order for c in chips):
+        return [order.index(c) for c in chips]
+    return list(chips)
 
 
 class LLMServeApp:
@@ -311,7 +328,7 @@ class LLMServeApp:
             if raw is not None and flag not in opts:
                 opts[flag] = raw.lower() in ("1", "true", "yes")
         if self.chips:
-            opts["chips"] = list(self.chips)
+            opts["chips"] = _host_numbering(self.chips, self._env.get("CUDA_VISIBLE_DEVICES"))
         return opts
 
     def _background(self, coro) -> asyncio.Task:

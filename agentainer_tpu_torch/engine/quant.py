@@ -22,8 +22,12 @@ What differs from the reference:
 - ``synthetic_quantized_params`` draws its int8 weights with
   ``torch.randint`` from a ``torch.Generator`` straight into device memory:
   the reference's tree, shapes, dtypes, range and scale constant, not its
-  values (threefry's bits are JAX's own). The meshed variant (``mesh=``)
-  waits for the port's ``parallel/``.
+  values (threefry's bits are JAX's own);
+- with ``mesh=`` (``quantize_params`` and ``synthetic_quantized_params``)
+  the tree comes back as per-shard int8 leaves
+  (``parallel/sharding.shard_params``: ``q`` on the dense weight's spec,
+  ``scale`` with its contraction axis whole), quantized whole first, so
+  every shard's bits are the unsharded quantization's.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ _QUANT_KEYS = {
 SYNTHETIC_SCALE = 0.02 / 127.0
 
 
-def quantize_params(params: dict, dtype=torch.bfloat16) -> dict:
+def quantize_params(params: dict, dtype=torch.bfloat16, mesh=None):
     """Quantize the matmul weights of a ``models/llama.py`` tree where they
-    lie, one layer slice at a time; norms come into ``dtype``."""
+    lie, one layer slice at a time; norms come into ``dtype``. With
+    ``mesh``, the per-shard trees."""
     out: dict = {}
     for key, val in params.items():
         if isinstance(val, dict):
@@ -55,7 +60,15 @@ def quantize_params(params: dict, dtype=torch.bfloat16) -> dict:
             out[key] = quantize_array(val, dtype)
         else:
             out[key] = val.to(dtype)
-    return out
+    return _sharded(out, mesh)
+
+
+def _sharded(params: dict, mesh):
+    if mesh is None:
+        return params
+    from ..parallel.sharding import shard_params
+
+    return shard_params(params, mesh)
 
 
 def _tensors(params):
@@ -76,13 +89,14 @@ def param_bytes_actual(params: dict) -> int:
 
 
 def synthetic_quantized_params(
-    cfg, dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None
-) -> dict:
+    cfg, dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None, mesh=None
+):
     """Benchmark-grade random int8 tree generated ON the device: perf work
     needs int8-shaped, non-degenerate weights, not trained ones, and an 8B
     model then loads in seconds with no host init and no host-to-device
     copy. Deploy with ``model.options: {quant: int8, synthetic: true}``.
-    ``generator`` (on ``device``) seeds the draw."""
+    ``generator`` (on ``device``) seeds the draw. With ``mesh``, the
+    per-shard trees, cut from the one draw."""
     from ..models.configs import ModelConfig
 
     assert isinstance(cfg, ModelConfig)
@@ -122,12 +136,12 @@ def synthetic_quantized_params(
     layers: dict = {"attn_norm": ones((L, d)), "mlp_norm": ones((L, d))}
     for name, shape in shapes.items():
         layers[name] = qleaf(shape)
-    return {
+    return _sharded({
         "embed": qleaf((cfg.vocab_size, d)),
         "layers": layers,
         "final_norm": ones((d,)),
         "lm_head": qleaf((d, cfg.vocab_size)),
-    }
+    }, mesh)
 
 
 # -- KV page quantization (tiered KV hierarchy's host tier) --------------

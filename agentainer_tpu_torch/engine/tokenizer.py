@@ -7,7 +7,7 @@ across engine restarts). When a checkpoint directory carries a HuggingFace
 ``tokenizer.json`` the real BPE is used instead: the reference reads it
 with the ``tokenizers`` package, which the machine with the card does not
 have, so ``HFTokenizer`` here reads the file itself, on the standard
-library, for the family Llama-3 publishes:
+library, for two families: the byte-level BPE that Llama-3 publishes,
 
 - ``normalizer`` null;
 - ``pre_tokenizer`` ``Sequence[Split(LLAMA3_SPLIT, "Isolated"),
@@ -18,7 +18,26 @@ library, for the family Llama-3 publishes:
   the text before pre-tokenizing;
 - ``post_processor`` null, ``TemplateProcessing``, ``ByteLevel`` or a
   ``Sequence`` of those two;
-- ``decoder`` ``ByteLevel``.
+- ``decoder`` ``ByteLevel``;
+
+and the SentencePiece-style BPE that Mistral and Mixtral publish, in its
+two forms:
+
+- older: ``normalizer`` ``Sequence[Prepend("▁"), Replace(" ", "▁")]`` and
+  no pre-tokenizer; newer: no normalizer and ``pre_tokenizer``
+  ``Metaspace(replacement "▁", split false)`` with any ``prepend_scheme``
+  ("first" prepends "▁" only to text at offset 0 of the input, never to a
+  segment after an added token);
+- ``model`` ``BPE`` with ``byte_fallback`` (a character outside the
+  vocabulary becomes its utf-8 bytes' ``<0xNN>`` tokens, or ``unk_token``
+  where one of those is missing) and ``fuse_unk`` either way;
+- ``added_tokens`` as above, none of them ``normalized``: every segment
+  between two added tokens is normalized (or pre-tokenized) on its own, so
+  under the older form each non-empty one gets its own "▁";
+- ``post_processor`` as above;
+- ``decoder`` ``Sequence[Replace("▁", " "), ByteFallback, Fuse, Strip(" ",
+  1, 0)]``: byte tokens are joined and decoded as utf-8 (a run that is not
+  valid utf-8 gives one U+FFFD per byte), then one leading space goes.
 
 Its ids, text and special ids equal the reference's ``HFTokenizer`` over
 ``tokenizers`` (``tests/test_torch_tokenizer.py``). Any other component
@@ -171,9 +190,30 @@ def _char_bytes() -> dict[str, int]:
     return {c: b for b, c in enumerate(_byte_chars())}
 
 
+# the SentencePiece-style family's components, as tokenizer.json spells them
+_SP = "\u2581"
+_SP_NORMALIZER = {
+    "type": "Sequence",
+    "normalizers": [
+        {"type": "Prepend", "prepend": _SP},
+        {"type": "Replace", "pattern": {"String": " "}, "content": _SP},
+    ],
+}
+_SP_DECODER = {
+    "type": "Sequence",
+    "decoders": [
+        {"type": "Replace", "pattern": {"String": _SP}, "content": " "},
+        {"type": "ByteFallback"},
+        {"type": "Fuse"},
+        {"type": "Strip", "content": " ", "start": 1, "stop": 0},
+    ],
+}
+_BYTE_TOKEN = re.compile(r"<0x([0-9A-Fa-f]{2})>")
+
+
 class HFTokenizer:
-    """A ``tokenizer.json`` of Llama-3's family, read on the standard
-    library (module docstring). ``encode``, ``decode``, ``vocab_size``,
+    """A ``tokenizer.json`` of Llama-3's family or of Mixtral's, read on the
+    standard library (module docstring). ``encode``, ``decode``, ``vocab_size``,
     ``bos_id``, ``eos_id`` and ``pad_id`` are the reference's: ``encode``
     applies the file's post-processor (as ``tokenizers``' ``encode`` does
     by default) and then puts ``bos_id`` in front; ``decode`` leaves out
@@ -185,15 +225,28 @@ class HFTokenizer:
             doc = json.load(f)
         if not isinstance(doc, dict):
             self._unsupported("the document", type(doc).__name__)
-        for key in ("truncation", "padding", "normalizer"):
+        for key in ("truncation", "padding"):
             if doc.get(key) is not None:
                 self._unsupported(key, doc[key])
-        self._read_pre_tokenizer(doc.get("pre_tokenizer"))
+        norm, pre = doc.get("normalizer"), doc.get("pre_tokenizer")
+        # the family: SentencePiece-style when either of its two forms'
+        # front ends is there, byte-level otherwise
+        self._metaspace = norm == _SP_NORMALIZER or (
+            isinstance(pre, dict) and pre.get("type") == "Metaspace"
+        )
+        if self._metaspace:
+            self._read_metaspace(norm, pre)
+        else:
+            if norm is not None:
+                self._unsupported("normalizer", norm)
+            self._read_pre_tokenizer(pre)
         self._read_model(doc.get("model"))
         self._read_added(doc.get("added_tokens") or [])
         self._read_post_processor(doc.get("post_processor"))
         dec = doc.get("decoder")
-        if not isinstance(dec, dict) or dec.get("type") != "ByteLevel":
+        if self._metaspace and dec != _SP_DECODER:
+            self._unsupported("decoder", dec)
+        if not self._metaspace and (not isinstance(dec, dict) or dec.get("type") != "ByteLevel"):
             self._unsupported("decoder", dec)
         self.vocab_size = len(set(self._vocab) | set(self._added))
         self.pad_id = 0
@@ -206,7 +259,8 @@ class HFTokenizer:
             text = text[:200] + "..."
         raise NotImplementedError(
             f"{self.path}: {what} {text} is not supported (this reader takes Llama-3's "
-            "tokenizer.json family: byte-level BPE)"
+            "tokenizer.json family, byte-level BPE, and Mixtral's, SentencePiece-style BPE "
+            "with byte fallback)"
         )
 
     # -- reading the file ---------------------------------------------------
@@ -229,14 +283,36 @@ class HFTokenizer:
         ):
             self._unsupported("pre_tokenizer", byte_level)
 
+    def _read_metaspace(self, norm, pre) -> None:
+        """The SentencePiece-style front end: the older form's normalizer
+        with no pre-tokenizer, or the newer form's ``Metaspace``
+        pre-tokenizer with no normalizer."""
+        if norm is not None:
+            if pre is not None:
+                self._unsupported("pre_tokenizer beside the Prepend/Replace normalizer", pre)
+            self._prepend = "normalizer"
+            return
+        if pre.get("replacement") != _SP or pre.get("split", True):
+            self._unsupported("pre_tokenizer", pre)
+        self._prepend = pre.get("prepend_scheme", "always")
+        if self._prepend not in ("always", "first", "never"):
+            self._unsupported("pre_tokenizer", pre)
+
     def _read_model(self, model) -> None:
         if not isinstance(model, dict) or model.get("type") != "BPE":
             self._unsupported("model", {k: v for k, v in (model or {}).items() if k not in ("vocab", "merges")})
-        for key in ("dropout", "unk_token", "continuing_subword_prefix", "end_of_word_suffix"):
+        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key) is not None:
                 self._unsupported(f"model.{key}", model[key])
-        if model.get("byte_fallback", False):
-            self._unsupported("model.byte_fallback", True)
+        # byte fallback and an unknown token belong to the SentencePiece
+        # style, and it has both
+        if bool(model.get("byte_fallback", False)) != self._metaspace:
+            self._unsupported("model.byte_fallback", model.get("byte_fallback", False))
+        unk = model.get("unk_token")
+        if (unk is None) == self._metaspace or (unk is not None and unk not in model["vocab"]):
+            self._unsupported("model.unk_token", unk)
+        self._unk = model["vocab"][unk] if unk is not None else None
+        self._fuse_unk = bool(model.get("fuse_unk", False))
         self._ignore_merges = bool(model.get("ignore_merges", False))
         self._vocab: dict[str, int] = model["vocab"]
         self._id_to_token = {i: t for t, i in self._vocab.items()}
@@ -262,6 +338,9 @@ class HFTokenizer:
             for opt in ("single_word", "lstrip", "rstrip"):
                 if tok.get(opt, False):
                     self._unsupported(f"added token {tok.get('content')!r} option {opt}", True)
+            if self._metaspace and tok.get("normalized", not tok.get("special", False)):
+                # it would be matched in the normalized text
+                self._unsupported(f"added token {tok.get('content')!r} option normalized", True)
             content = tok["content"]
             tid = self._token_to_id(content)
             if tid is None:
@@ -328,12 +407,43 @@ class HFTokenizer:
             pieces = out
         return pieces
 
+    def _symbols(self, word: str) -> list[int]:
+        """A word's ids before any merge, as ``tokenizers``' ``merge_word``
+        makes them: each character's token; under byte fallback a missing
+        character's ``<0xNN>`` tokens, or else the unknown token (a missing
+        character is dropped without byte fallback). The unknown token is
+        held back until the next character found in the vocabulary or the
+        word's end, so byte tokens in between come before it, and a run of
+        unknowns held back together is one token with ``fuse_unk``."""
+        if not self._metaspace:
+            return [self._vocab[c] for c in word if c in self._vocab]
+        ids: list[int] = []
+        held = False
+        for c in word:
+            tid = self._vocab.get(c)
+            if tid is not None:
+                if held:
+                    ids.append(self._unk)
+                    held = False
+                ids.append(tid)
+                continue
+            fallback = [self._vocab.get(f"<0x{b:02X}>") for b in c.encode("utf-8")]
+            if None not in fallback:
+                ids.extend(fallback)
+            elif held and not self._fuse_unk:
+                ids.append(self._unk)
+            else:
+                held = True
+        if held:
+            ids.append(self._unk)
+        return ids
+
     def _bpe(self, word: str) -> list[int]:
         """One pre-tokenized word's ids: merges applied lowest rank first
         (leftmost on a tie), as ``tokenizers``' ``Word::merge_all``."""
         if self._ignore_merges and word in self._vocab:
             return [self._vocab[word]]
-        ids = [self._vocab[c] for c in word if c in self._vocab]
+        ids = self._symbols(word)
         prev = list(range(-1, len(ids) - 1))
         nxt = list(range(1, len(ids) + 1))
         alive = [True] * len(ids)
@@ -369,13 +479,26 @@ class HFTokenizer:
     def _encode_text(self, text: str) -> list[int]:
         chars = _byte_chars()
         ids: list[int] = []
-        for piece, is_added in self._split_added(text):
+        for n, (piece, is_added) in enumerate(self._split_added(text)):
             if is_added:
                 ids.append(self._added[piece])
-                continue
-            for word in _llama3_split(piece):
-                ids.extend(self._bpe("".join(chars[b] for b in word.encode("utf-8"))))
+            elif self._metaspace:
+                # the whole segment is one word: spaces become "▁", and "▁"
+                # goes in front: always under the older form's Prepend;
+                # under Metaspace unless the word starts with one, and for
+                # "first" only at the input's offset 0
+                word = piece.replace(" ", _SP)
+                if self._prepend == "normalizer" or (
+                    not word.startswith(_SP)
+                    and (self._prepend == "always" or (self._prepend == "first" and n == 0))
+                ):
+                    word = _SP + word
+                ids.extend(self._bpe(word))
+            else:
+                for word in _llama3_split(piece):
+                    ids.extend(self._bpe("".join(chars[b] for b in word.encode("utf-8"))))
         return ids
+
 
     def encode(self, text: str, add_bos: bool = True) -> list[int]:
         ids = self._prefix + self._encode_text(text) + self._suffix
@@ -385,6 +508,7 @@ class HFTokenizer:
     def decode(self, ids: list[int]) -> str:
         table = _char_bytes()
         out = bytearray()
+        tokens = []
         for i in ids:
             if i in (self.pad_id, self.bos_id, self.eos_id):
                 continue
@@ -393,11 +517,47 @@ class HFTokenizer:
                 token = self._id_to_token.get(i)
             if token is None or token in self._special:
                 continue
+            tokens.append(token)
+        if self._metaspace:
+            return self._decode_metaspace(tokens)
+        for token in tokens:
             if all(c in table for c in token):
                 out.extend(table[c] for c in token)
             else:
                 out.extend(token.encode("utf-8"))
         return out.decode("utf-8", "replace")
+
+    @staticmethod
+    def _decode_metaspace(tokens: list[str]) -> str:
+        """The SentencePiece-style decoder chain: "▁" to " ", runs of byte
+        tokens decoded as utf-8 (one U+FFFD per byte of a run that is not
+        valid), everything joined, one leading space stripped."""
+        parts: list[str] = []
+        run = bytearray()
+        n_run = 0
+
+        def flush() -> None:
+            nonlocal n_run
+            if n_run:
+                try:
+                    parts.append(run.decode("utf-8"))
+                except UnicodeDecodeError:
+                    parts.append("\ufffd" * n_run)
+                run.clear()
+                n_run = 0
+
+        for token in tokens:
+            token = token.replace(_SP, " ")
+            m = _BYTE_TOKEN.fullmatch(token)
+            if m:
+                run.append(int(m.group(1), 16))
+                n_run += 1
+                continue
+            flush()
+            parts.append(token)
+        flush()
+        text = "".join(parts)
+        return text[1:] if text.startswith(" ") else text
 
 
 def load_tokenizer(vocab_size: int, checkpoint: str = ""):

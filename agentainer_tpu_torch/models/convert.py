@@ -35,10 +35,15 @@ def _tensor(arr, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C", copy=True)).to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32):
+def params_from_numpy(tree, device="cpu", dtype=torch.float32, mesh=None):
     """Nested dict/list/tuple of numpy arrays → the same structure of torch
     tensors on ``device`` in ``dtype``; a ``(q, scale)`` leaf → ``QTensor``
-    with int8 ``q``."""
+    with int8 ``q``. With ``mesh`` (a params tree), the per-shard trees of
+    ``parallel/sharding.shard_params``, each on its shard's device."""
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        return shard_params(params_from_numpy(tree, device, dtype), mesh)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if _is_qtensor(tree):

@@ -3,11 +3,25 @@
 Reference: ``agentainer_tpu/models/llama.py`` — ``KVCache``,
 ``PagedKVCache``, ``init_params``, ``_mlp``, ``_moe_mlp`` (the
 dense-einsum MoE), ``routed_capacity`` and ``_moe_mlp_routed`` (the GShard
-one-hot dispatch), ``_attention_block`` (the paged branch, the dense-cache
-branch and the no-cache causal branch), ``forward`` (with ``moe_impl``) and
+one-hot dispatch), ``_attention_block`` (``_qkv``, the cache branches in
+``parallel/flash_mesh`` and the no-cache causal branch ``_causal``, summed
+into the residual in ``forward``), ``forward`` (with ``moe_impl``) and
 ``greedy_decode``. ``forward``'s ``attn_impl`` is the reference's hook for
 the no-cache path, which the training step (``train.py``) uses; the
-sequence-parallel attentions behind it wait for the ``parallel/`` slice.
+sequence-parallel attentions behind it wait for a later slice of
+``parallel/``.
+
+``forward`` runs each layer per shard, one device being one shard (its
+collectives no-ops). Over a mesh (``forward(..., mesh=)``, ``parallel/``)
+each shard holds its slice of the weights and of the KV arena: column-
+parallel wq/wk/wv, attention over the shard's own heads
+(``parallel/flash_mesh.make_meshed_cache_attention``, the serving
+attention on one device too), a row-parallel wo partial, then an
+``all_reduce`` over tp; the MLP likewise (an MoE layer through the
+engine's ``moe_impl``, ``parallel/expert.py``); a vocab-sharded embedding
+as a masked lookup plus an ``all_reduce``; a vocab-sharded ``lm_head``
+whose logits are ``all_gather``ed. ``MeshCache`` holds the shards' arenas
+or pools.
 
 Every op of the no-cache path keeps autograd intact (``train.py`` takes
 gradients through it): the embedding gather, the layer views, the norms,
@@ -46,17 +60,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import (
-    attention_reference,
-    cache_attention,
-    causal_mask,
-    flash_attention,
-    paged_cache_attention,
-    scatter_paged_kv,
-)
+from ..ops.attention import attention_reference, causal_mask, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import QTensor, dequant, embed_lookup, layer_slice, qmatmul, qmatmul_experts
 from ..ops.rope import apply_rope
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.flash_mesh import make_meshed_cache_attention
 from .configs import ModelConfig
 
 
@@ -82,9 +91,12 @@ class KVCache:
 
     @staticmethod
     def create(
-        cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None
+        cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
+        n_kv_heads: int | None = None,
     ) -> "KVCache":
-        shape = (cfg.n_layers, batch, max_seq + 1, cfg.n_kv_heads, cfg.head_dim)
+        """``n_kv_heads``: a tp shard's (default: the model's)."""
+        kv = n_kv_heads or cfg.n_kv_heads
+        shape = (cfg.n_layers, batch, max_seq + 1, kv, cfg.head_dim)
         return KVCache(
             torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device),
@@ -112,6 +124,33 @@ class KVCache:
         arena's device): batch row b of a forward is arena row rows[b]."""
         return KVCache(self.k_store, self.v_store, rows)
 
+    # -- what the engine reads and writes outside a forward ---------------
+    def tensors(self) -> list[torch.Tensor]:
+        return [self.k_store, self.v_store]
+
+    def read_prefix(self, row: int, n: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Arena row ``row``'s first ``n`` positions, every layer, as views
+        ``[L, n, KV, hd]``: one (k, v) pair (a mesh gives one per tp slice)."""
+        return [(self.k_store[:, row, :n], self.v_store[:, row, :n])]
+
+    def write_prefix(self, row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write ``[L, n, KV, hd]`` into arena row ``row``'s prefix, in
+        place; a pinned host source is copied without waiting."""
+        n = k.shape[1]
+        nb = k.device.type == "cpu" and k.is_pinned()
+        self.k_store[:, row, :n].copy_(k, non_blocking=nb)
+        self.v_store[:, row, :n].copy_(v, non_blocking=nb)
+
+    def clone_prefix(self, row: int, n: int):
+        """Copies of row ``row``'s first ``n`` positions (a prefix-cache
+        entry); ``fork_prefix`` writes them into a row."""
+        return self.k_store[:, row, :n].clone(), self.v_store[:, row, :n].clone()
+
+    def fork_prefix(self, row: int, saved) -> None:
+        k, v = saved
+        self.k_store[:, row, : k.shape[1]].copy_(k)
+        self.v_store[:, row, : v.shape[1]].copy_(v)
+
     def write(self, layer: int, positions: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         """In-place scatter of this step's k/v [B, T, KV, hd] at per-row
         ``positions`` [B, T] (the reference's donated ``.at[].set``), into
@@ -137,13 +176,114 @@ class PagedKVCache:
 
     @staticmethod
     def create(
-        cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16, device=None
+        cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16, device=None,
+        n_kv_heads: int | None = None,
     ) -> "PagedKVCache":
-        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        """``n_kv_heads``: a tp shard's (default: the model's)."""
+        kv = n_kv_heads or cfg.n_kv_heads
+        shape = (cfg.n_layers, n_pages, page_size, kv, cfg.head_dim)
         return PagedKVCache(
             torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device),
         )
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [self.k, self.v]
+
+    def read_pages(self, ids: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Pages ``ids`` (a device long tensor) gathered into one contiguous
+        ``[L, count * page, KV, hd]`` each for k and v: one pair (a mesh
+        gives one per tp slice)."""
+        n_layers, _, ps, kv, hd = self.k.shape
+        ids = ids.to(self.k.device)
+        count = ids.shape[0]
+        return [
+            tuple(p.index_select(1, ids).reshape(n_layers, count * ps, kv, hd) for p in (self.k, self.v))
+        ]
+
+    def write_pages(self, ids: torch.Tensor, k: torch.Tensor, v: torch.Tensor, position: int) -> None:
+        """Write a prefix ``[L, position, KV, hd]`` (the pools' dtype; a
+        pinned host source is copied without waiting) into pages ``ids``.
+        The tail of the last page past ``position`` is never read before
+        it is written."""
+        n_layers, _, ps, kv, hd = self.k.shape
+        ids = ids.to(self.k.device)
+        count = ids.shape[0]
+        for pool, src in ((self.k, k), (self.v, v)):
+            tmp = torch.zeros((n_layers, count * ps, kv, hd), dtype=pool.dtype, device=pool.device)
+            tmp[:, :position].copy_(src, non_blocking=True)
+            pool.index_copy_(1, ids, tmp.view(n_layers, count, ps, kv, hd))
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """One page copied, every layer."""
+        self.k[:, dst].copy_(self.k[:, src])
+        self.v[:, dst].copy_(self.v[:, src])
+
+
+class MeshCache:
+    """The KV arenas (``KVCache``) or pools (``PagedKVCache``) of a mesh's
+    shards, shard ``s``'s on its device holding the kv heads of its tp
+    slice (``parallel/sharding.cache_spec``/``pool_spec``; the shards of an
+    ep group hold the same heads, as the reference's replicated arena).
+    The engine's reads come from one shard per tp slice, in the unsharded
+    layout's order; its writes go to every shard, each taking its slice
+    of the unsharded ``[..., KV, hd]`` source."""
+
+    def __init__(self, shards: list, mesh):
+        self.shards = shards
+        self.mesh = mesh
+        self._readers = mesh.first_of(("tp",))
+
+    @staticmethod
+    def create(mesh, make) -> "MeshCache":
+        """``make(device)`` builds one shard's cache, with the kv heads of a
+        tp slice."""
+        return MeshCache([make(d) for d in mesh.device_list], mesh)
+
+    def at_rows(self, rows: torch.Tensor) -> "MeshCache":
+        return MeshCache(
+            [c.at_rows(rows.to(c.k_store.device)) for c in self.shards], self.mesh
+        )
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [t for c in self.shards for t in c.tensors()]
+
+    def _part(self, x: torch.Tensor, shard: int) -> torch.Tensor:
+        """Shard ``shard``'s tp slice of an unsharded ``[..., KV, hd]``
+        source, contiguous (a pinned host source stays pinned)."""
+        tp = self.mesh.shape["tp"]
+        if tp == 1:
+            return x
+        n = x.shape[-2] // tp
+        part = x.narrow(-2, self.mesh.index("tp", shard) * n, n)
+        if x.device.type == "cpu" and x.is_pinned():
+            return torch.empty(part.shape, dtype=part.dtype, pin_memory=True).copy_(part)
+        return part.contiguous()
+
+    def read_prefix(self, row: int, n: int):
+        return [p for s in self._readers for p in self.shards[s].read_prefix(row, n)]
+
+    def write_prefix(self, row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        for s, c in enumerate(self.shards):
+            c.write_prefix(row, self._part(k, s), self._part(v, s))
+
+    def clone_prefix(self, row: int, n: int):
+        return [c.clone_prefix(row, n) for c in self.shards]
+
+    def fork_prefix(self, row: int, saved) -> None:
+        for c, part in zip(self.shards, saved):
+            c.fork_prefix(row, part)
+
+    def read_pages(self, ids: torch.Tensor):
+        return [p for s in self._readers for p in self.shards[s].read_pages(ids)]
+
+    def write_pages(self, ids: torch.Tensor, k: torch.Tensor, v: torch.Tensor, position: int) -> None:
+        for s, c in enumerate(self.shards):
+            c.write_pages(ids, self._part(k, s), self._part(v, s), position)
+
+    def copy_page(self, src: int, dst: int) -> None:
+        for c in self.shards:
+            c.copy_page(src, dst)
 
 
 def init_params(
@@ -230,18 +370,22 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig, base: int = 0) -> torch.Tensor:
     """Dense-einsum MoE (the reference's single-chip default): top-k
     routing, every expert computed for every token, masked combine. The
     expert products run expert-major, ``[E, N, F]``, each stack in one
     ``qmatmul_experts`` call (gate and up from the shared x, down from each
-    expert's own input)."""
+    expert's own input). ``base``: ``lp`` holds the experts ``[base, base +
+    E_loc)`` of the full set the router scores, and only their share of the
+    combine is kept (the reference's ``parallel/expert._moe_local``); 0 on
+    one device."""
     b, t, d = x.shape
-    e = cfg.n_experts
+    w_gate = lp["w_gate"]
+    e = (w_gate.q if isinstance(w_gate, QTensor) else w_gate).shape[0]
     logits = _router_logits(x, lp["router"])  # [B, T, E]
     weights, chosen = _top_k(logits, cfg.experts_per_token)
     weights = torch.softmax(weights.float(), dim=-1).to(x.dtype)
-    combine = (weights[..., None] * _one_hot(chosen, e, x.dtype)).sum(-2)  # [B, T, E]
+    combine = (weights[..., None] * _one_hot(chosen - base, e, x.dtype)).sum(-2)  # [B, T, E_loc]
     xf = x.reshape(b * t, d)
     gate = F.silu(qmatmul_experts(xf, lp["w_gate"]))  # [E, N, F]
     up = qmatmul_experts(xf, lp["w_up"])
@@ -314,65 +458,53 @@ def _moe_mlp_routed(
     return out.reshape(b, t, d)
 
 
-def _attention_block(
-    x: torch.Tensor,
-    lp: dict,
-    cfg: ModelConfig,
-    positions: torch.Tensor,
-    mask: torch.Tensor | None,
-    cache: KVCache | PagedKVCache | None,
-    layer: int,
-    use_flash: bool,
-    block_table: torch.Tensor | None = None,
-    attn_impl=None,
-) -> torch.Tensor:
-    b, t, d = x.shape
+def _qkv(x, lp, cfg, positions, n_heads, n_kv_heads):
+    """The attention sublayer's queries, keys and values after RoPE, over
+    ``n_heads`` query heads and ``n_kv_heads`` kv heads: the model's, or one
+    tp shard's (its wq/wk/wv columns)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = qmatmul(h, lp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = qmatmul(h, lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = qmatmul(h, lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = qmatmul(h, lp["wq"]).reshape(b, t, n_heads, hd)
+    k = qmatmul(h, lp["wk"]).reshape(b, t, n_kv_heads, hd)
+    v = qmatmul(h, lp["wv"]).reshape(b, t, n_kv_heads, hd)
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
-    if cache is not None and block_table is not None:
-        # paged arena: write through the block table into pool pages, then
-        # attend over the lanes' pages (same masking rule, same numbers as
-        # the dense branch below)
-        scatter_paged_kv(cache.k[layer], cache.v[layer], k, v, block_table, positions)
-        attn = paged_cache_attention(
-            q, cache.k[layer], cache.v[layer], block_table, positions, use_kernel=use_flash
-        )
-    elif cache is not None:
-        # scatter this step's K/V into the arena at per-sequence positions,
-        # then attend over this layer's arena view
-        cache.write(layer, positions, k, v)
-        attn = cache_attention(
-            q, cache.k[layer], cache.v[layer], positions, use_kernel=use_flash, rows=cache.rows
-        )
-    elif attn_impl is not None:
-        # caller-supplied causal self-attention: the training step passes
-        # ops/attention.trainable_causal_attention (kernel forward, plain
-        # backward)
-        attn = attn_impl(q, k, v)
-    elif use_flash:
-        attn = flash_attention(q, k, v, causal=True)
-    else:
-        attn = attention_reference(q, k, v, mask=mask)
-    out = qmatmul(attn.reshape(b, t, cfg.n_heads * cfg.head_dim), lp["wo"])
-    return x + out
+
+def _causal(q, k, v, mask, use_flash, attn_impl) -> torch.Tensor:
+    """Causal self-attention without a cache: ``attn_impl(q, k, v)`` when
+    given (the training step passes ops/attention.trainable_causal_attention:
+    kernel forward, plain backward), else the kernel or the plain version."""
+    if attn_impl is not None:
+        return attn_impl(q, k, v)
+    if use_flash:
+        return flash_attention(q, k, v, causal=True)
+    return attention_reference(q, k, v, mask=mask)
+
+
+def _embed_shard(embed, tokens: torch.Tensor, lo: int) -> torch.Tensor:
+    """A vocab shard's part of the embedding: the rows it holds, zeros for
+    tokens outside ``[lo, lo + rows)`` (summed over tp, every token's row
+    comes from exactly one shard)."""
+    rows = (embed.q if isinstance(embed, QTensor) else embed).shape[0]
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < rows)
+    e = embed_lookup(embed, torch.where(mine, local, torch.zeros_like(local)))
+    return torch.where(mine[..., None], e, torch.zeros_like(e))
 
 
 def forward(
-    params: dict,
+    params: dict | list[dict],
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, T] int
     positions: torch.Tensor,  # [B, T] int
-    cache: KVCache | PagedKVCache | None = None,
+    cache: KVCache | PagedKVCache | MeshCache | None = None,
     use_flash: bool = True,
     block_table: torch.Tensor | None = None,  # [B, n_blocks] int
     last_index: torch.Tensor | None = None,  # [B] int
     moe_impl=None,
     attn_impl=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Returns logits [B, T, V] in f32; with ``last_index`` only row
     ``last_index[b]`` of each sequence goes through the final norm and
@@ -388,26 +520,76 @@ def forward(
     step's differentiable attention). ``use_flash=False`` takes the plain
     attention path even where the kernels would run. An MoE config runs
     ``_moe_mlp`` in each layer, or ``moe_impl(h, lp)`` when given (the
-    engine's routed MoE)."""
-    x = embed_lookup(params["embed"], tokens)
-    mask = None
+    engine's routed MoE).
+
+    With ``mesh``: ``params`` is ``parallel/sharding.shard_params``' list,
+    ``cache`` a ``MeshCache``, ``moe_impl(hs, lps)`` is required for an MoE
+    config (``parallel/expert.py``), and the logits land on the first
+    shard's device. One device runs the same loop as one shard, its
+    collectives no-ops."""
+    if mesh is None:
+        shards, caches, devs, tp = [params], [cache], [tokens.device], 1
+
+        def reduce(parts):
+            return parts
+
+        def moe(hs, lps):
+            return [moe_impl(hs[0], lps[0]) if moe_impl is not None else _moe_mlp(hs[0], lps[0], cfg)]
+
+        def gather(parts):
+            return parts
+    else:
+        if cfg.is_moe and moe_impl is None:
+            raise ValueError("a meshed MoE forward needs moe_impl (parallel/expert.py)")
+        shards, caches, devs, tp = params, cache.shards if cache is not None else [None] * mesh.size, \
+            mesh.device_list, mesh.shape["tp"]
+
+        def reduce(parts):
+            return all_reduce(parts, mesh, "tp")
+
+        moe = moe_impl
+
+        def gather(parts):
+            return all_gather(parts, mesh, "tp", dim=-1)
+    n = len(shards)
+    heads, kv_heads = cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+    def each(x):
+        return [None if x is None else x.to(d, non_blocking=True) for d in devs]
+
+    toks, pos, tables = each(tokens), each(positions), each(block_table)
+    b, t = tokens.shape
+    attend = make_meshed_cache_attention(paged=block_table is not None)
+    masks = [None] * n
     if cache is None and not use_flash and attn_impl is None:
-        t = tokens.shape[1]
-        mask = causal_mask(t, device=x.device).expand(tokens.shape[0], t, t)
+        masks = [causal_mask(t, device=d).expand(b, t, t) for d in devs]
+    vocab = cfg.vocab_size // tp
+    xs = reduce([
+        embed_lookup(shards[s]["embed"], toks[s]) if tp == 1
+        else _embed_shard(shards[s]["embed"], toks[s], mesh.index("tp", s) * vocab)
+        for s in range(n)
+    ])
     for layer in range(cfg.n_layers):
-        lp = {k: layer_slice(v, layer) for k, v in params["layers"].items()}
-        x = _attention_block(
-            x, lp, cfg, positions, mask, cache, layer, use_flash, block_table, attn_impl
-        )
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        if cfg.is_moe:
-            x = x + (moe_impl(h, lp) if moe_impl is not None else _moe_mlp(h, lp, cfg))
+        lps = [{k: layer_slice(v, layer) for k, v in sh["layers"].items()} for sh in shards]
+        qkv = [_qkv(xs[s], lps[s], cfg, pos[s], heads, kv_heads) for s in range(n)]
+        if cache is not None:
+            attn = attend([q for q, _, _ in qkv], [(k, v) for _, k, v in qkv], caches, layer, pos, tables,
+                          use_kernel=use_flash)
         else:
-            x = x + _mlp(h, lp)
+            attn = [_causal(*qkv[s], masks[s], use_flash, attn_impl) for s in range(n)]
+        outs = reduce([qmatmul(attn[s].reshape(b, t, heads * cfg.head_dim), lps[s]["wo"]) for s in range(n)])
+        xs = [xs[s] + outs[s] for s in range(n)]
+        hs = [rms_norm(xs[s], lps[s]["mlp_norm"], cfg.norm_eps) for s in range(n)]
+        outs = moe(hs, lps) if cfg.is_moe else reduce([_mlp(hs[s], lps[s]) for s in range(n)])
+        xs = [xs[s] + outs[s] for s in range(n)]
     if last_index is not None:
-        x = x.gather(1, last_index.long()[:, None, None].expand(-1, 1, x.shape[-1]))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return qmatmul(x, params["lm_head"]).float()
+        last = each(last_index)
+        xs = [xs[s].gather(1, last[s].long()[:, None, None].expand(-1, 1, xs[s].shape[-1])) for s in range(n)]
+    logits = [
+        qmatmul(rms_norm(xs[s], shards[s]["final_norm"], cfg.norm_eps), shards[s]["lm_head"]).float()
+        for s in range(n)
+    ]
+    return gather(logits)[0]
 
 
 @torch.inference_mode()

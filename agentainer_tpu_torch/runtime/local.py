@@ -20,9 +20,10 @@ GPU pinning: an engine sees only the GPUs of its placement through
 ``CUDA_VISIBLE_DEVICES`` (where the reference carves its slice for JAX), and
 every other engine is spawned with ``CUDA_VISIBLE_DEVICES=""`` (the
 reference's ``JAX_PLATFORMS=cpu``), so it cannot create a CUDA context.
-``AGENTAINER_CHIPS`` keeps the placement's GPU ids; the engine resolves a
-single id that is not visible to its one visible device
-(``engine/llm.py::_engine_device``). An llm engine whose model cannot
+``AGENTAINER_CHIPS`` keeps the placement's GPU ids; the serve layer hands
+them to the engine in the host's own numbering (their places in
+``CUDA_VISIBLE_DEVICES``), where several span a tp/ep mesh
+(``engine/llm.py::_placement``). An llm engine whose model cannot
 load exits with ``LOAD_FAILED_EXIT``, and the watcher lands the agent
 FAILED at once with the error line of its log (the crash-loop policy's
 terminal state); it never comes back on another device. A host respawned

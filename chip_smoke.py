@@ -11,15 +11,19 @@ exits non-zero):
                  print the card's name and power limit as nvidia-smi
                  reports them.
 1c. tokenizer  — the Llama-3-style fixture
-                 (``tests/fixtures/llama3_style_tokenizer.json``) through
-                 the port's ``load_tokenizer`` on this machine's Python, in
-                 a fresh interpreter where ``tokenizers`` and ``regex``
-                 cannot be imported: its ids on
-                 the committed strings equal those ``tokenizers`` 0.22.2
-                 gave (committed beside it), and decode ∘ encode gives each
-                 string back (less the specials and a lone "!", pad id 0,
-                 which the reference's decode drops); prints this Python's
-                 ``unicodedata`` version.
+                 (``tests/fixtures/llama3_style_tokenizer.json``) and
+                 Mixtral's family in its two forms
+                 (``mixtral_style_tokenizer.json``: Prepend/Replace
+                 normalizer; ``mixtral_style_metaspace_tokenizer.json``:
+                 Metaspace pre-tokenizer) through the port's
+                 ``load_tokenizer`` on this machine's Python, in a fresh
+                 interpreter where ``tokenizers`` and ``regex`` cannot be
+                 imported: their ids on the committed strings equal those
+                 ``tokenizers`` 0.22.2 gave (committed beside each), decode
+                 gives the committed text, and for Llama-3's family decode
+                 ∘ encode gives each string back (less the specials and a
+                 lone "!", pad id 0, which the reference's decode drops);
+                 prints this Python's ``unicodedata`` version.
 2. kernels     — each hand-written kernel against its plain PyTorch version
                  at the llama3-8b attention shapes of the serving path (H 32,
                  KV 8, head_dim 128; the paged ones on the served pool
@@ -79,16 +83,19 @@ exits non-zero):
                  lanes are busy (504, no prefill), ``POST /cancel`` of an
                  in-flight request (499, its lane free for a newcomer), a
                  burst past the shed watermark (429s, the rest 200). The
-                 prefill kernel's launches equal 32 layers × (prefill chunks
-                 + verify rounds); the dense and paged scripts give the same
-                 text.
+                 prefill kernel's launches equal the layers × (prefill
+                 chunks + verify rounds). The paged one runs at
+                 ``CUT_LAYERS`` and its text is not compared with the dense
+                 one's (13b holds a meshed dense and paged pair equal at full
+                 depth).
    stream      — inside each feature phase (the engines run with the
                  ``streaming`` option): one streamed /chat whose ids run
                  0..n-1 and whose joined deltas and ``done`` equal the
                  buffered /chat of the same prompt in another session,
                  with the buffered request's host syncs.
    graphs      — inside each feature phase, after its served gates, on
-                 the same engine (llama3-8b, full width and depth, bf16):
+                 the same engine (llama3-8b, full width, bf16; full depth
+                 dense, 8 layers paged):
                  from one saved state with lanes 0-3 live at 40 / 300 / 777
                  / 1500 and lanes 4-7 parked and the prefill inputs set for
                  lane 1 from 300, every captured step graph (prefill
@@ -104,7 +111,7 @@ exits non-zero):
                  and ``no_implicit_sync`` (``analysis/contracts.py``); then
                  every captured step's device launches in one traced
                  replay (``launches_per_replay``): the arena's attention
-                 wrapper 32 layers × its launches per call (decode 2,
+                 wrapper the layers × its launches per call (decode 2,
                  prefill 1) × the step's forwards (a decode rung's steps; 1
                  for a prefill bucket or a verify round), no other kernel
                  of the table; printed per step key.
@@ -291,12 +298,11 @@ exits non-zero):
                  iterations launches the decode kernel and its combine
                  32 × 3 times in a profiler trace).
    paged         the feature phase's options (paged) plus ``fused_decode``
-                 with in-loop spec: the feature gates, in-loop drafts
-                 accepted on the one-byte runs, a lane absorbed into a loop
-                 in flight (``fused_injections_total``), the prefill kernel
-                 at 32 × (chunks + verify iterations); the first index where
-                 the script's text leaves the unfused paged phase's is
-                 reported, not gated.
+                 with in-loop spec, at ``CUT_LAYERS``: the
+                 feature gates, in-loop drafts accepted on the one-byte
+                 runs, a lane absorbed into a loop in flight
+                 (``fused_injections_total``), the prefill kernel at 8 ×
+                 (chunks + verify iterations).
    graphs        inside both, and on the 2-layer int8 model as a fused
                  engine (``w8a16_matmul`` inside the conditional bodies):
                  each loop graph (greedy, sampled) against the eager loop
@@ -395,9 +401,51 @@ exits non-zero):
                  products per layer per step over the f32 stacks, no int8
                  kernel; step ms and peak memory.
 
-The int8 feature phases (5's int8 pair), the tiering phases (10) and
-Mixtral's served phases (11d) are off the native slice's path and run at
-``CUT_LAYERS`` (8) of 32 layers, widths kept; their gates count per layer
+13. mesh       — serve-time model parallelism (``parallel/``), after every
+                 other engine is gone, on logical meshes whose shards all
+                 sit on this card (``_one_card_mesh``: ``LLMEngine.create``
+                 with ``mesh=``), straight from seeded weights (no
+                 checkpoint, no daemon):
+   (a) kernels   the four attention kernels at one tp=2 shard of llama3-8b
+                 (H 16, KV 4; paged on the pool [264, 64, 4, 128]),
+                 ``w8a16_matmul`` at every (K, N) of a tp=2 shard and the
+                 grouped kernel at E = 4 (an ep=2 shard of Mixtral), for M
+                 = 8, 72 and 256: each against its plain version at the
+                 existing tolerances, timed beside its bound and library
+                 call (``MESH_ROUNDS`` rounds).
+   (b) tp=2      llama3-8b bf16: the feature phase's script and gates,
+                 dense at full width and depth, then paged at
+                 ``CUT_LAYERS``, with the runtime contracts (launches per
+                 replay twice the unsharded ones) and the collective
+                 contracts (an eager decode, prefill and verify step under
+                 ``parallel/collectives.record``: ``NoLargeAllGather`` at
+                 one shard's KV layer, ``HasCrossReduction``); on the dense
+                 engine every step graph equals its eager step, and
+                 ``_mesh_logits``: one prefill chunk plus one decode step
+                 of the meshed forward within ``MESH_FLOOR_FACTOR`` × the
+                 noise floor (the unsharded model's kernels against its
+                 plain attention) of the unsharded forward's logits, with
+                 the same argmax; 48 served greedy ids teacher-forced
+                 through both forwards, the meshed logits within that
+                 limit at every position, and the ids equal to the
+                 unsharded argmax wherever its top-2 margin clears it (the
+                 rest counted).
+   (c) int8 tp=2 llama3-8b int8 (synthetic) at ``CUT_LAYERS``, dense then
+                 paged: the feature gates, 2 × 57 ``w8a16_matmul`` calls a
+                 forward, and the dense and paged scripts give the same
+                 text.
+   (d) ep=2      Mixtral-8x7B int8 (synthetic) at ``CUT_LAYERS``, paged,
+                 routed by default as in the reference: the feature gates,
+                 2 × 33 ``w8a16_matmul`` and 2 × 24 grouped calls (E = 4) a
+                 forward, logits within ``MESH_FLOOR_FACTOR`` × the noise
+                 floor of the unsharded model's, with the same argmax.
+
+The int8 feature phases (5's int8 pair), the tiering phases (10),
+Mixtral's served phases (11d), the paged feature phase (5),
+the fused paged phase (9), the paged tp=2 phase (13b) and the mesh's int8
+phases (13c-d) run at
+``CUT_LAYERS`` (8) of 32 layers,
+widths kept; their gates count per layer
 (launches, and ``param_hbm_bytes`` from ``CUT_PARAM_BYTES``) or in pages. Each phase's seconds are
 in ``report["phase_s"]``.
 
@@ -707,13 +755,13 @@ def _clock_summary(samples: list[str]) -> dict:
     return out
 
 
-def _timed(name: str, fns: dict, want_launches: int | None = None) -> dict:
+def _timed(name: str, fns: dict, want_launches: int | None = None, rounds: int = ROUNDS) -> dict:
     """``time_in_turns`` of a row's functions, as the row's keys: ``ms``
     with its spread, ``launches_per_call`` and ``device_kernels`` for the
     kernel ``name`` (raises unless it launched ``LAUNCHES_PER_CALL[name]``
     per call), ``<fn>_ms`` with its spread for the others, and ``card``,
     the clock samples."""
-    times, card = time_in_turns(fns)
+    times, card = time_in_turns(fns, rounds)
     out = {}
     for fn, t in times.items():
         key = "ms" if fn == "kernel" else f"{fn}_ms"
@@ -749,7 +797,13 @@ def phase_build() -> str:
 # the Llama-3-style tokenizer.json the tests hold against tokenizers, and
 # the ids tokenizers gave on its strings (scripts/make_tokenizer_fixture.py)
 TOKENIZER_FIXTURE = os.path.join("tests", "fixtures", "llama3_style_tokenizer.json")
-TOKENIZER_EXPECTED = os.path.join("tests", "fixtures", "llama3_style_tokenizer.expected.json")
+# 1c's fixtures: Llama-3's family, then Mixtral's in its two forms
+# (scripts/make_tokenizer_fixture.py), each with its bos and eos tokens
+TOKENIZER_FIXTURES = (
+    ("llama3_style", "<|begin_of_text|>", "<|end_of_text|>"),
+    ("mixtral_style", "<s>", "</s>"),
+    ("mixtral_style_metaspace", "<s>", "</s>"),
+)
 
 
 def _fixture_dir(prefix: str) -> str:
@@ -776,8 +830,7 @@ t0 = time.perf_counter()
 cases = [(tok.encode(c["text"], add_bos=False), tok.decode(tok.encode(c["text"]))) for c in doc["cases"]]
 ms = 1e3 * (time.perf_counter() - t0)
 print(json.dumps({
-    "reader": type(tok).__name__, "vocab_size": tok.vocab_size,
-    "specials": {"<|begin_of_text|>": tok.bos_id, "<|end_of_text|>": tok.eos_id},
+    "reader": type(tok).__name__, "vocab_size": tok.vocab_size, "bos_eos": [tok.bos_id, tok.eos_id],
     "cases": cases, "load_ms": load_ms, "encode_decode_ms": ms,
     "unidata_version": unicodedata.unidata_version,
 }))
@@ -785,56 +838,66 @@ print(json.dumps({
 
 
 def phase_tokenizer(card: str) -> dict:
-    """1c: the fixture's ``tokenizer.json`` through the port's
-    ``load_tokenizer`` on this machine's Python, in a fresh interpreter
-    where ``tokenizers`` and ``regex`` cannot be imported: on each
-    committed string its ids equal the ids ``tokenizers`` gave (committed
-    beside the fixture), and ``decode ∘ encode`` gives the committed text:
-    the string back, less what the reference's decode drops (the specials,
-    and pad id 0, a lone "!" in a byte-level vocabulary). Prints this
-    Python's ``unicodedata`` version and whether the two packages are
-    installed here."""
+    """1c: each fixture's ``tokenizer.json`` (Llama-3's family, then
+    Mixtral's older and newer forms) through the port's ``load_tokenizer``
+    on this machine's Python, in a fresh interpreter where ``tokenizers``
+    and ``regex`` cannot be imported: on each committed string its ids equal
+    the ids ``tokenizers`` gave (committed beside the fixture), ``decode``
+    gives the committed text, and for Llama-3's family that is the string
+    back, less what the reference's decode drops (the specials, and pad id
+    0, a lone "!" in a byte-level vocabulary). Prints this Python's
+    ``unicodedata`` version and whether the two packages are installed
+    here."""
     import importlib.util
 
     root = os.path.dirname(os.path.abspath(__file__))
-    expected = os.path.join(root, TOKENIZER_EXPECTED)
-    with open(expected, encoding="utf-8") as f:
-        doc = json.load(f)
-    d = _fixture_dir("atpu-tok-")
-    try:
-        res = subprocess.run(
-            [sys.executable, "-c", _TOKENIZER_PROBE, d, expected], cwd=root, capture_output=True, text=True,
-            timeout=120, env={**os.environ, "PYTHONPATH": root},
-        )
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-    if res.returncode != 0:
-        raise AssertionError(f"tokenizer probe: exit {res.returncode}: {res.stderr[-2000:]}")
-    got = json.loads(res.stdout.strip().splitlines()[-1])
-    if got["reader"] != "HFTokenizer" or (got["vocab_size"], got["specials"]) != (doc["vocab_size"], doc["specials"]):
-        raise AssertionError(f"tokenizer: {got['reader']}, vocab {got['vocab_size']}, specials {got['specials']}; "
-                             f"want {doc['vocab_size']} {doc['specials']}")
-    chars = 0
-    for case, (ids, back) in zip(doc["cases"], got["cases"]):
-        chars += len(case["text"])
-        if ids != case["ids"]:
-            raise AssertionError(f"tokenizer ids for {case['text']!r}: {ids}, tokenizers gave {case['ids']}")
-        want = case["text"]
-        for special in doc["specials"]:
-            want = want.replace(special, "")
-        if back != case["decoded"] or (0 not in ids and back != want):
-            raise AssertionError(f"tokenizer decode of {case['text']!r}: {back!r}, want {case['decoded']!r}")
-    installed = {m: importlib.util.find_spec(m) is not None for m in ("tokenizers", "regex")}
-    out = {
-        "cases": len(doc["cases"]), "vocab_size": got["vocab_size"], "specials": got["specials"],
-        "unidata_version": got["unidata_version"], "fixture_unidata_version": doc["unidata_version"],
-        "fixture_tokenizers": doc["tokenizers"], "installed_here": installed,
-        "load_ms": got["load_ms"], "encode_decode_ms": got["encode_decode_ms"], "chars": chars, "card": card,
-    }
-    log(f"tokenizer: with tokenizers and regex unimportable, the fixture's ids equal tokenizers "
-        f"{doc['tokenizers']}'s on {len(doc['cases'])} strings; unicodedata {got['unidata_version']} (fixture "
-        f"made under {doc['unidata_version']}); installed on this machine: {installed}; load "
-        f"{got['load_ms']:.1f} ms, encode+decode {got['encode_decode_ms']:.1f} ms for {chars} chars (host)")
+    out = {"card": card, "installed_here": {
+        m: importlib.util.find_spec(m) is not None for m in ("tokenizers", "regex")
+    }}
+    for form, bos, eos in TOKENIZER_FIXTURES:
+        fixture = os.path.join(root, "tests", "fixtures", f"{form}_tokenizer.json")
+        expected = os.path.join(root, "tests", "fixtures", f"{form}_tokenizer.expected.json")
+        with open(expected, encoding="utf-8") as f:
+            doc = json.load(f)
+        d = tempfile.mkdtemp(prefix="atpu-tok-")
+        try:
+            shutil.copy(fixture, os.path.join(d, "tokenizer.json"))
+            res = subprocess.run(
+                [sys.executable, "-c", _TOKENIZER_PROBE, d, expected], cwd=root, capture_output=True,
+                text=True, timeout=120, env={**os.environ, "PYTHONPATH": root},
+            )
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        if res.returncode != 0:
+            raise AssertionError(f"tokenizer probe ({form}): exit {res.returncode}: {res.stderr[-2000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        want_specials = [doc["specials"][bos], doc["specials"][eos]]
+        if got["reader"] != "HFTokenizer" or (got["vocab_size"], got["bos_eos"]) != (doc["vocab_size"], want_specials):
+            raise AssertionError(f"tokenizer ({form}): {got['reader']}, vocab {got['vocab_size']}, bos/eos "
+                                 f"{got['bos_eos']}; want {doc['vocab_size']} {want_specials}")
+        chars = 0
+        for case, (ids, back) in zip(doc["cases"], got["cases"]):
+            chars += len(case["text"])
+            if ids != case["ids"]:
+                raise AssertionError(f"tokenizer ({form}) ids for {case['text']!r}: {ids}, tokenizers gave "
+                                     f"{case['ids']}")
+            want = case["text"]
+            for special in doc["specials"]:
+                want = want.replace(special, "")
+            if back != case["decoded"] or (form == "llama3_style" and 0 not in ids and back != want):
+                raise AssertionError(f"tokenizer ({form}) decode of {case['text']!r}: {back!r}, want "
+                                     f"{case['decoded']!r}")
+        out[form] = {
+            "cases": len(doc["cases"]), "vocab_size": got["vocab_size"], "bos_eos": got["bos_eos"],
+            "unidata_version": got["unidata_version"], "fixture_unidata_version": doc["unidata_version"],
+            "fixture_tokenizers": doc["tokenizers"], "load_ms": got["load_ms"],
+            "encode_decode_ms": got["encode_decode_ms"], "chars": chars,
+        }
+        log(f"tokenizer {form}: with tokenizers and regex unimportable, the fixture's ids equal tokenizers "
+            f"{doc['tokenizers']}'s on {len(doc['cases'])} strings; unicodedata {got['unidata_version']} "
+            f"(fixture made under {doc['unidata_version']}); installed on this machine: "
+            f"{out['installed_here']}; load {got['load_ms']:.1f} ms, encode+decode "
+            f"{got['encode_decode_ms']:.1f} ms for {chars} chars (host)")
     return out
 
 
@@ -879,7 +942,29 @@ def _decode_mask(pos):
     return (torch.arange(S, device=pos.device)[None, :] <= pos[:, None])[:, None, None]
 
 
-def phase_kernels() -> list[dict]:
+def _slot_row(ca, randn, q, pos, kv) -> dict:
+    """The served prefill call: the engine's prefill graphs pass the whole
+    arena [B, S] and the slot's row in device memory; bit-equal to the call
+    on the row's view."""
+    import torch
+
+    b, t, h = q.shape[0], q.shape[1], q.shape[2]
+    ka, va = randn(B, S, kv, HD), randn(B, S, kv, HD)
+    rows = torch.tensor([5], device=q.device, dtype=torch.int32)
+    slot_row = _compare(
+        ca.flash_prefill, ca.flash_prefill_plain, (q, ka, va), (pos, rows), BF16_ATOL + BF16_P_ATOL
+    )
+    if not torch.equal(ca.flash_prefill(q, ka, va, pos, rows), ca.flash_prefill(q, ka[5:6], va[5:6], pos)):
+        raise AssertionError("flash_prefill through a row map differs from the same call on the row's view")
+    slot_row.update(equal_to_row_view=True, shape=f"q[{b},{t},{h},{HD}] kv[{B},{S},{kv},{HD}] bf16, rows [5]")
+    del ka, va
+    return slot_row
+
+
+def phase_kernels(h: int = H, kv: int = KV, rounds: int = ROUNDS, full: bool = True) -> list[dict]:
+    """Phase 2 at ``h`` query heads over ``kv`` kv heads (llama3-8b's, or
+    one tp shard's); ``full`` adds the served-call, verify and served-mix
+    rows and logs each row."""
     import torch
     import torch.nn.functional as F
 
@@ -897,42 +982,37 @@ def phase_kernels() -> list[dict]:
 
     # prefill: one 256-token chunk of one slot (B = 1) at a ragged offset
     b, t, off = 1, 256, 300
-    q, k, v = randn(b, t, H, HD), randn(b, S, KV, HD), randn(b, S, KV, HD)
+    q, k, v = randn(b, t, h, HD), randn(b, S, kv, HD), randn(b, S, kv, HD)
     pos = (off + torch.arange(t, device=dev, dtype=torch.int32))[None]
     errs = _compare(ca.flash_prefill, ca.flash_prefill_plain, (q, k, v), (pos,), BF16_ATOL + BF16_P_ATOL)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(S, device=dev)[None, :] <= pos[0, :, None])[None, None]
     visible = (pos.clamp(max=S - 1) + 1).sum().item()  # visible slots summed over rows
     live = pos.max().item() + 1
-    bytes_moved = 2 * (2 * q.numel() + 2 * b * live * KV * HD)  # q, out, live K and V
+    bytes_moved = 2 * (2 * q.numel() + 2 * b * live * kv * HD)  # q, out, live K and V
     # the served call: the engine's prefill graphs pass the whole arena
     # [B, S] and the slot's row in device memory
-    ka, va = randn(B, S, KV, HD), randn(B, S, KV, HD)
-    rows = torch.tensor([5], device=dev, dtype=torch.int32)
-    slot_row = _compare(
-        ca.flash_prefill, ca.flash_prefill_plain, (q, ka, va), (pos, rows), BF16_ATOL + BF16_P_ATOL
-    )
-    if not torch.equal(ca.flash_prefill(q, ka, va, pos, rows), ca.flash_prefill(q, ka[5:6], va[5:6], pos)):
-        raise AssertionError("flash_prefill through a row map differs from the same call on the row's view")
-    slot_row.update(equal_to_row_view=True, shape=f"q[{b},{t},{H},{HD}] kv[{B},{S},{KV},{HD}] bf16, rows [5]")
-    del ka, va
+    slot_row = None
+    if full:
+        slot_row = _slot_row(ca, randn, q, pos, kv)
     out.append(_row(
         "flash_prefill", 157, **errs, slot_row=slot_row,
-        **_timed("flash_prefill", {
+        **_timed("flash_prefill", rounds=rounds, fns={
             "kernel": lambda: ca.flash_prefill(q, k, v, pos),
             "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
             "plain": lambda: ca.flash_prefill_plain(q, k, v, pos),
         }),
-        **_bound(bytes_moved, 4.0 * H * HD * visible), library="scaled_dot_product_attention",
-        shape=f"q[{b},{t},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {off}..{off + t - 1}",
+        **_bound(bytes_moved, 4.0 * h * HD * visible), library="scaled_dot_product_attention",
+        shape=f"q[{b},{t},{h},{HD}] kv[{b},{S},{kv},{HD}] bf16, positions {off}..{off + t - 1}",
     ))
 
     # verify rounds: B = 8, T = K + 1, at the served mix
-    k, v = randn(B, S, KV, HD), randn(B, S, KV, HD)
+    k, v = randn(B, S, kv, HD), randn(B, S, kv, HD)
+    verify_ks = VERIFY_KS if full else ()
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     verify = {}
-    for kk in VERIFY_KS:
-        q = randn(B, kk + 1, H, HD)
+    for kk in verify_ks:
+        q = randn(B, kk + 1, h, HD)
         pos = _verify_pos(kk, dev)
         mask = (torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
         live = (pos.max(dim=1).values.clamp(max=S - 1) + 1).sum().item()
@@ -944,19 +1024,20 @@ def phase_kernels() -> list[dict]:
                 "library": lambda q=q, mask=mask: F.scaled_dot_product_attention(
                     q.transpose(1, 2), kt, vt, attn_mask=mask, enable_gqa=True),
             }),
-            **_bound(2 * (2 * q.numel() + 2 * live * KV * HD), 4.0 * H * HD * visible),
-            "shape": f"q[{B},{kk + 1},{H},{HD}] kv[{B},{S},{KV},{HD}] bf16, {_VERIFY_MIX}",
+            **_bound(2 * (2 * q.numel() + 2 * live * kv * HD), 4.0 * h * HD * visible),
+            "shape": f"q[{B},{kk + 1},{h},{HD}] kv[{B},{S},{kv},{HD}] bf16, {_VERIFY_MIX}",
         }
-    out[-1]["verify"] = verify
+    if full:
+        out[-1]["verify"] = verify
     del k, v, kt, vt
 
     # decode: the engine's 8 lanes at mixed positions, one parked at S - 1;
     # then the served mix: 2 live lanes near 300, 6 parked at S - 1
     b = B
-    q, k, v = randn(b, H, HD), randn(b, S, KV, HD), randn(b, S, KV, HD)
+    q, k, v = randn(b, h, HD), randn(b, S, kv, HD), randn(b, S, kv, HD)
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     shapes = {}
-    for key, pos in (("mixed", MIXED_POS), ("served_mix", SERVED_MIX_POS)):
+    for key, pos in (("mixed", MIXED_POS), ("served_mix", SERVED_MIX_POS))[: 2 if full else 1]:
         pos = torch.tensor(pos, device=dev, dtype=torch.int32)
         mask = _decode_mask(pos)
         live = (pos.clamp(max=S - 1) + 1).sum().item()
@@ -967,16 +1048,18 @@ def phase_kernels() -> list[dict]:
         if key == "mixed":
             fns["plain"] = lambda pos=pos: ca.flash_decode_plain(q, k, v, pos)
         shapes[key] = {
-            **_timed("flash_decode", fns), **_bound(2 * (2 * q.numel() + 2 * live * KV * HD), 4.0 * H * HD * live),
-            "shape": f"q[{b},{H},{HD}] kv[{b},{S},{KV},{HD}] bf16, positions {pos.tolist()}",
+            **_timed("flash_decode", fns, rounds=rounds), **_bound(2 * (2 * q.numel() + 2 * live * kv * HD), 4.0 * h * HD * live),
+            "shape": f"q[{b},{h},{HD}] kv[{b},{S},{kv},{HD}] bf16, positions {pos.tolist()}",
         }
         if key == "mixed":
             errs = _compare(ca.flash_decode, ca.flash_decode_plain, (q, k, v), (pos,))
     out.append(_row(
         "flash_decode", 268, **errs, **shapes.pop("mixed"), library="scaled_dot_product_attention",
-        served_mix=shapes["served_mix"],
+        **({"served_mix": shapes["served_mix"]} if full else {}),
     ))
-    out += _paged_kernel_rows(randn, g)
+    out += _paged_kernel_rows(randn, g, h, kv, rounds, full)
+    if not full:
+        return out
     for row in out:
         ref = "library" if row["library_ms"] is not None else "yardstick"
         log(f"{row['name']}: max_abs_err bf16 {row['max_abs_err']:.3g} f32 {row['max_abs_err_f32']:.3g} "
@@ -1185,11 +1268,12 @@ def _live_slots(table, pos) -> int:
     return torch.unique(torch.cat(rows)).numel()
 
 
-def _paged_kernel_rows(randn, g) -> list[dict]:
-    """The two paged kernels on the served pool [264, 64, 8, 128]. No single
-    PyTorch call computes paged attention, so ``library_ms`` is null and the
-    rows carry ``yardstick_ms``: gather_pages, then
-    scaled_dot_product_attention."""
+def _paged_kernel_rows(randn, g, h: int = H, kv: int = KV, rounds: int = ROUNDS,
+                       full: bool = True) -> list[dict]:
+    """The two paged kernels on the served pool [264, 64, kv, 128] (kv 8,
+    or one tp shard's). No single PyTorch call computes paged attention, so
+    ``library_ms`` is null and the rows carry ``yardstick_ms``:
+    gather_pages, then scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
 
@@ -1197,8 +1281,8 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
     from agentainer_tpu_torch.ops.attention import gather_pages
 
     dev = torch.device("cuda")
-    pool_k, pool_v = randn(B * S // PS + B, PS, KV, HD), randn(B * S // PS + B, PS, KV, HD)
-    pool = f"pool[{pool_k.shape[0]},{PS},{KV},{HD}] bf16"
+    pool_k, pool_v = randn(B * S // PS + B, PS, kv, HD), randn(B * S // PS + B, PS, kv, HD)
+    pool = f"pool[{pool_k.shape[0]},{PS},{kv},{HD}] bf16"
     rows = []
     tables = _paged_table(g, dev)
 
@@ -1206,7 +1290,7 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
     # ragged offset
     t, off = 256, 300
     table = tables[:1]
-    q = randn(1, t, H, HD)
+    q = randn(1, t, h, HD)
     pos = (off + torch.arange(t, device=dev, dtype=torch.int32))[None]
     errs = _compare(
         ca.fused_paged_flash_prefill, ca.paged_flash_prefill_plain, (q, pool_k, pool_v), (table, pos),
@@ -1221,26 +1305,26 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
         )
 
     visible = (pos.clamp(max=S - 1) + 1).sum().item()
-    bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos[:, -1]) * KV * HD + 4 * table.numel()
+    bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos[:, -1]) * kv * HD + 4 * table.numel()
     rows.append(_row(
         "fused_paged_flash_prefill", 454, **errs,
-        **_timed("fused_paged_flash_prefill", {
+        **_timed("fused_paged_flash_prefill", rounds=rounds, fns={
             "kernel": lambda: ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos),
             "yardstick": gather_sdpa,
             "plain": lambda: ca.paged_flash_prefill_plain(q, pool_k, pool_v, table, pos),
         }),
-        **_bound(bytes_moved, 4.0 * H * HD * visible), library_ms=None, yardstick=YARDSTICK,
-        shape=f"q[1,{t},{H},{HD}] {pool} table[1,{S // PS}], positions {off}..{off + t - 1}",
+        **_bound(bytes_moved, 4.0 * h * HD * visible), library_ms=None, yardstick=YARDSTICK,
+        shape=f"q[1,{t},{h},{HD}] {pool} table[1,{S // PS}], positions {off}..{off + t - 1}",
     ))
 
     # decode: the engine's 8 lanes at mixed positions, lane 7 parked at S - 1;
     # then the served mix: lanes 0 and 1 live near 300, lanes 2-7 parked, each
     # on its own scratch page as the engine parks them
-    q = randn(B, H, HD)
+    q = randn(B, h, HD)
     parked = tables.clone()
     parked[2:] = (B * (S // PS) + torch.arange(2, B, device=dev, dtype=torch.int32))[:, None]
     shapes = {}
-    for key, table, pos in (("mixed", tables, MIXED_POS), ("served_mix", parked, SERVED_MIX_POS)):
+    for key, table, pos in (("mixed", tables, MIXED_POS), ("served_mix", parked, SERVED_MIX_POS))[: 2 if full else 1]:
         pos = torch.tensor(pos, device=dev, dtype=torch.int32)
         mask = _decode_mask(pos)
 
@@ -1260,21 +1344,23 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
                 ca.fused_paged_flash_decode, ca.paged_flash_decode_plain, (q, pool_k, pool_v), (table, pos)
             )
         visible = (pos.clamp(max=S - 1) + 1).sum().item()
-        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos) * KV * HD + 4 * table.numel()
+        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(table, pos) * kv * HD + 4 * table.numel()
         shapes[key] = {
-            **_timed("fused_paged_flash_decode", fns), **_bound(bytes_moved, 4.0 * H * HD * visible),
-            "shape": f"q[{B},{H},{HD}] {pool} table[{B},{S // PS}], positions {pos.tolist()}",
+            **_timed("fused_paged_flash_decode", fns, rounds=rounds), **_bound(bytes_moved, 4.0 * h * HD * visible),
+            "shape": f"q[{B},{h},{HD}] {pool} table[{B},{S // PS}], positions {pos.tolist()}",
         }
     rows.append(_row(
         "fused_paged_flash_decode", 577, **errs, **shapes.pop("mixed"), library_ms=None,
-        yardstick=YARDSTICK, served_mix=shapes["served_mix"],
+        yardstick=YARDSTICK, **({"served_mix": shapes["served_mix"]} if full else {}),
     ))
+    if not full:
+        return rows
 
     # verify rounds through the served table (lanes 2-7 parked on their
     # scratch pages), B = 8, T = K + 1
     verify = {}
     for kk in VERIFY_KS:
-        q = randn(B, kk + 1, H, HD)
+        q = randn(B, kk + 1, h, HD)
         pos = _verify_pos(kk, dev)
         mask = (torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None])[:, None]
 
@@ -1285,7 +1371,7 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
             )
 
         visible = (pos.clamp(max=S - 1) + 1).sum().item()
-        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(parked, pos[:, -1]) * KV * HD + 4 * parked.numel()
+        bytes_moved = 2 * 2 * q.numel() + 2 * 2 * _live_slots(parked, pos[:, -1]) * kv * HD + 4 * parked.numel()
         verify[f"K={kk}"] = {
             **_compare(
                 ca.fused_paged_flash_prefill, ca.paged_flash_prefill_plain, (q, pool_k, pool_v),
@@ -1295,8 +1381,8 @@ def _paged_kernel_rows(randn, g) -> list[dict]:
                 "kernel": lambda q=q, pos=pos: ca.fused_paged_flash_prefill(q, pool_k, pool_v, parked, pos),
                 "yardstick": gather_sdpa_verify,
             }),
-            **_bound(bytes_moved, 4.0 * H * HD * visible),
-            "shape": f"q[{B},{kk + 1},{H},{HD}] {pool} table[{B},{S // PS}], {_VERIFY_MIX}",
+            **_bound(bytes_moved, 4.0 * h * HD * visible),
+            "shape": f"q[{B},{kk + 1},{h},{HD}] {pool} table[{B},{S // PS}], {_VERIFY_MIX}",
         }
     rows[0]["verify"] = verify
     return rows
@@ -1675,7 +1761,8 @@ def _cut_config(model: str) -> str:
 
 def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | None,
                          quant: bool = False, fused: bool = False, moe: dict | None = None,
-                         contracts: bool = False) -> dict:
+                         contracts: bool = False, mesh: tuple[int, int] | None = None,
+                         graphs: bool = True, logits: bool = False) -> dict:
     """The reference's default serving features (prefix cache, speculation,
     deadlines) with a persona: the sequential script (fresh sessions fork
     the persona, the one-byte runs speculate), then a deadline that passes
@@ -1701,7 +1788,11 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     ``moe_routed`` as asked, and the script's text against
     ``script_texts`` reported, not gated (a bf16 near tie may route a token
     to other experts). With ``contracts`` the runtime contracts run on the
-    engine after its graphs check (``phase_contracts``)."""
+    engine after its graphs check (``phase_contracts``). With ``mesh`` =
+    (tp, ep) the engine serves on a logical mesh of tp × ep shards on this
+    card (``_one_card_mesh``): every per-forward kernel count is per shard
+    (× tp·ep), the contracts add the collective ones, ``graphs`` False skips
+    the graphs check, and ``logits`` runs ``_mesh_logits`` on the engine."""
     import torch
 
     from agentainer_tpu_torch.ops import cuda_attention as ca
@@ -1728,7 +1819,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         options.update(moe)
     # the dense bf16 engine also samples through approx_topk, and serves
     # /profile and an assistant-flavor app attached to it
-    main = not paged and not quant and not fused and moe is None
+    main = not paged and not quant and not fused and moe is None and mesh is None
+    shards = mesh[0] * mesh[1] if mesh is not None else 1
     if main:
         options["approx_topk"] = True
     profile_dir = tempfile.mkdtemp(prefix="atpu-profile-") if main else ""
@@ -1739,13 +1831,15 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     others = [fn for fn in (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill,
                             ca.fused_paged_flash_decode) if fn not in (prefill, decode)]
     name = (
-        ("mixtral " + ("routed " if (moe or {}).get("routed") else "") if moe is not None else "")
+        (f"tp{mesh[0]}xep{mesh[1]} " if mesh is not None else "")
+        + ("mixtral " + ("routed " if (moe or {}).get("routed") else "") if moe is not None else "")
         + ("int8 " if quant else "") + ("fused " if fused else "") + ("paged" if paged else "dense")
     )
     counts = SPEC_COUNTS + (FUSED_COUNTS if fused else ())
     products = (cq.w8a16_matmul, cq.w8a16_grouped_matmul)
     extra: dict = {}
-    with _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}, config=model) as (app, load_s):
+    placed = _one_card_mesh(*mesh) if mesh is not None else contextlib.nullcontext()
+    with placed, _serving(options, env={"AGENTAINER_PROFILE_DIR": profile_dir}, config=model) as (app, load_s):
         port = app.port
         log(f"{model} {name} engine with the default features loaded in {load_s:.1f}s")
         _, m0 = _http(port, "GET", "/metrics")
@@ -1826,9 +1920,23 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         launches = {fn.__name__: fn.launches for fn in (prefill, decode, *others, *products)}
         _, m2 = _http(port, "GET", "/metrics")
         pipeline = _pipeline(f"{name} features", m0, m2, load_s)
-        graphs = phase_fused_graphs(app.engine, name) if fused else phase_graphs(app.engine, name)
+        if not graphs:
+            graphs = None
+        elif fused:
+            graphs = phase_fused_graphs(app.engine, name)
+        else:
+            graphs = phase_graphs(app.engine, name)
         if contracts:
-            extra["contracts"] = phase_contracts(app, name)
+            # the meshes trace their greedy keys; the paged mesh one key of
+            # each kind (the dense mesh traces every rung and bucket)
+            keys = None
+            if mesh is not None:
+                keys = {k for k in app.engine._step_keys() if k[2]}
+                if paged:
+                    keys = {("prefill", 32, True), ("decode", 1, True), ("verify", 2, True)}
+            extra["contracts"] = phase_contracts(app, name, keys=keys)
+        if logits:
+            extra["logits"] = _mesh_logits(app.engine, name, quant=quant)
         if moe is not None:
             extra["decode_step"] = _decode_step_ms(app.engine)
             log(f"{name}: one decode step of the 8-step graph {extra['decode_step']}")
@@ -1841,8 +1949,8 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     forwards = _forwards(m0, m2)
     per_layer, per_layer_grouped = (W8_PER_LAYER_MOE, GROUPED_PER_LAYER) if moe is not None else (W8_PER_LAYER, 0)
     want_products = {
-        "w8a16_matmul": (per_layer * n_layers + 1) * forwards if quant else 0,
-        "w8a16_grouped_matmul": per_layer_grouped * n_layers * forwards if quant else 0,
+        "w8a16_matmul": (per_layer * n_layers + 1) * shards * forwards if quant else 0,
+        "w8a16_grouped_matmul": per_layer_grouped * n_layers * shards * forwards if quant else 0,
     }
     if {k: launches[k] for k in want_products} != want_products:
         raise AssertionError(f"{name}: weight-product kernels launched {launches}, want {want_products} "
@@ -1852,7 +1960,9 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         want_bytes = CUT_PARAM_BYTES[MIXTRAL if moe is not None else "llama3-8b"]
     if quant and m2["param_hbm_bytes"] != want_bytes:
         raise AssertionError(f"{name}: param_hbm_bytes {m2['param_hbm_bytes']}, want {want_bytes}")
-    if m2.get("moe_routed", False) != bool((moe or {}).get("routed")):
+    if mesh is not None and (m2["tp"], m2["ep"]) != mesh:
+        raise AssertionError(f"{name}: /metrics tp {m2['tp']} ep {m2['ep']}, want {mesh}")
+    if m2.get("moe_routed", False) != bool((moe or {}).get("routed", mesh is not None and mesh[1] > 1)):
         raise AssertionError(f"{name}: /metrics moe_routed {m2.get('moe_routed')} for options {moe}")
 
     if m0["prefix_prewarms"] < 1 or m1["prefix_hits"] - m0["prefix_hits"] < 2:
@@ -1867,11 +1977,11 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
     elif m1["spec_rounds"] <= 0 or m1["spec_accepted"] <= 0:
         raise AssertionError(f"no speculation in the script: {per_request}")
     verify_steps = m2.get("fused_verify_steps_total", 0) - m0.get("fused_verify_steps_total", 0)
-    want = n_layers * (m2["prefill_chunks"] - m0["prefill_chunks"] + m2["spec_rounds"] - m0["spec_rounds"]
-                       + verify_steps)
+    want = n_layers * shards * (m2["prefill_chunks"] - m0["prefill_chunks"] + m2["spec_rounds"]
+                                - m0["spec_rounds"] + verify_steps)
     if launches[prefill.__name__] != want:
-        raise AssertionError(f"{prefill.__name__}: {launches[prefill.__name__]} launches, "
-                             f"{n_layers} x (prefill chunks + verify rounds + loop verify iterations) "
+        raise AssertionError(f"{prefill.__name__}: {launches[prefill.__name__]} launches, {n_layers} x "
+                             f"{shards} shards x (prefill chunks + verify rounds + loop verify iterations) "
                              f"= {want}")
     if launches[decode.__name__] <= 0 or any(launches[fn.__name__] for fn in others):
         raise AssertionError(f"{name} feature phase launches: {launches}")
@@ -1887,7 +1997,7 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         log(f"{name}: first divergence from the unfused phase's script text: {extra['first_divergence']}; "
             f"fused counters {extra['fused']}")
     elif script_texts is not None and texts != script_texts:
-        raise AssertionError(f"paged feature text differs from the dense feature phase's: {texts} {script_texts}")
+        raise AssertionError(f"{name} feature text differs from the dense feature phase's: {texts} {script_texts}")
     log(f"{name} features: script in {script_s:.2f}s, served {serve_s:.2f}s; launches {launches}; "
         f"after the script {({k: m1[k] for k in FEATURE_KEYS})}; per request {per_request}; burst {codes}")
     return {
@@ -1897,6 +2007,7 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         **extra,
         "launches": launches,
         "forwards": forwards,
+        "shards": shards,
         "param_hbm_bytes": m2["param_hbm_bytes"],
         "moe": {k: m2.get(k) for k in ("moe_routed", "moe_decode_dropless", "moe_capacity_factor")},
         "peak_memory_bytes": peak,
@@ -2036,7 +2147,7 @@ def _decode_step_ms(engine, replays: int = 5) -> dict:
             "lanes": "0-1 live at 300 / 312, 2-7 parked"}
 
 
-def phase_contracts(app, name: str) -> dict:
+def phase_contracts(app, name: str, keys: set | None = None) -> dict:
     """The runtime contracts (``analysis/contracts.py``) on a served feature
     engine, after its graphs check: the feature script's second pass (fresh
     sessions) through the serve layer under ``capture_budget(engine, 0)``
@@ -2045,9 +2156,13 @@ def phase_contracts(app, name: str) -> dict:
     process-wide mode: the worker too); then one replay of every captured
     step key traced (``launches_per_replay``), gated on
     ``AttentionLaunches``: the arena's attention wrapper launches n_layers ×
-    its device launches per call × the step's forwards, and no other kernel
-    of the table. A trace that lost device records is taken again, up to
-    TRACE_ATTEMPTS times."""
+    the mesh's shards × its device launches per call × the step's forwards,
+    and no other kernel of the table. A trace that lost device records is
+    taken again, up to TRACE_ATTEMPTS times; ``keys`` limits the traced
+    step keys (the meshes' phases, for time). On a mesh, one eager decode,
+    prefill and verify step each, from a saved state restored after, under
+    ``parallel/collectives.record``: ``NoLargeAllGather`` at one shard's KV
+    layer and ``HasCrossReduction``."""
     import torch
 
     from agentainer_tpu_torch.analysis.contracts import (
@@ -2075,10 +2190,13 @@ def phase_contracts(app, name: str) -> dict:
     if not {"prefill", "decode", "verify"} <= set(kinds):
         raise AssertionError(f"{name} contracts: the second pass dispatched {dict(seen)}")
     park_lanes(engine)
-    want = AttentionLaunches(n_layers=engine.cfg.n_layers, paged=engine.paged)
+    shards = engine.mesh.size if engine.mesh is not None else 1
+    want = AttentionLaunches(n_layers=engine.cfg.n_layers, paged=engine.paged, shards=shards)
     per_key = {}
     t1 = time.monotonic()
     for key in engine._step_keys():
+        if keys is not None and key not in keys:
+            continue
         for attempt in range(TRACE_ATTEMPTS):
             with torch.no_grad(), engine._on_stream():
                 got = launches_per_replay(engine._graphs, key)
@@ -2094,6 +2212,8 @@ def phase_contracts(app, name: str) -> dict:
         "steps_by_kind": dict(kinds), "script_s": script_s, "trace_s": time.monotonic() - t1,
         "launches_per_replay": per_key,
     }
+    if engine.mesh is not None:
+        out["collectives"] = _collective_contracts(engine, name)
     log(f"{name} contracts: the script's second pass in {script_s:.1f}s under capture_budget(0), "
         f"buffers_in_place and no_implicit_sync; steps {dict(kinds)}; launches per replay {per_key}")
     return out
@@ -5232,6 +5352,291 @@ def phase_operator(root: str, bpe_turn: dict, card: str) -> dict:
         shutil.rmtree(model_dir, ignore_errors=True)
 
 
+# -- 13: serve-time model parallelism on the one card ---------------------------
+#
+# The meshes are logical: every shard on cuda:0 (``LLMEngine.create`` never
+# repeats a card, so the phase hands it the mesh, ``_one_card_mesh``).
+
+# one tp=2 shard of llama3-8b: its attention heads and its weight products
+MESH_H, MESH_KV = H // 2, KV // 2
+W8_TP2_WEIGHTS = {
+    "wq": (4096, 2048), "wk": (4096, 512), "wv": (4096, 512), "wo": (2048, 4096),
+    "w_gate": (4096, 7168), "w_up": (4096, 7168), "w_down": (7168, 4096), "lm_head": (4096, 64128),
+}
+MESH_E = MOE_E // 2  # Mixtral's experts per ep=2 shard
+MESH_ROUNDS = 3  # timing rounds of 13a's rows (phase 2 runs ROUNDS)
+# the meshed forward's logits against the unsharded forward's (13b, 13d):
+# within this multiple of the noise floor, the largest difference between
+# the unsharded model's kernels and its plain attention on the same inputs
+# (each tp shard's partial is rounded to bf16 before the f32 sum, once per
+# sublayer, where the unsharded product rounds once: on one chunk that
+# moved the logits as far as the plain attention does; PERF.md states it)
+MESH_FLOOR_FACTOR = 1.5
+MESH_SERVED_TOKENS = 48
+
+
+@contextlib.contextmanager
+def _one_card_mesh(tp: int, ep: int):
+    """Inside the block ``LLMEngine.create`` serves on a mesh of tp × ep
+    shards all on cuda:0 (its ``mesh=``)."""
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    original = LLMEngine.__dict__["create"]
+    mesh = make_mesh(tp * ep, tp=tp, ep=ep, devices=["cuda:0"] * (tp * ep))
+
+    def create(cls, config_name, checkpoint="", options=None):
+        return original.__func__(cls, config_name, checkpoint, options, mesh=mesh)
+
+    LLMEngine.create = classmethod(create)
+    try:
+        yield mesh
+    finally:
+        LLMEngine.create = original
+
+
+def phase_mesh_kernels() -> dict:
+    """13a: the kernels at the per-shard shapes of the meshed engines: the
+    four attention kernels at one tp=2 shard of llama3-8b (H 16, KV 4; the
+    paged ones on the pool [264, 64, 4, 128]), ``w8a16_matmul`` at every
+    (K, N) of a tp=2 shard for M = 8, 72 and 256 and the grouped kernel at
+    E = 4 (one ep=2 shard of Mixtral) for the same M: each against its
+    plain version at the existing tolerances, timed as phase 2 / 2b / 11a
+    time theirs (``MESH_ROUNDS`` rounds) beside its bound and library call
+    (cuBLAS bf16 for the products)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.ops.quant import QTensor, dequant
+
+    t0 = time.monotonic()
+    attention = {row["name"]: row for row in phase_kernels(MESH_H, MESH_KV, MESH_ROUNDS, full=False)}
+    for name, row in attention.items():
+        ref = "library" if row["library_ms"] is not None else "yardstick"
+        log(f"13a {name} at H {MESH_H} / KV {MESH_KV}: max_abs_err bf16 {row['max_abs_err']:.3g} f32 "
+            f"{row['max_abs_err_f32']:.3g} ms {row['ms']:.4f} [{row['ms_min']:.4f}, {row['ms_max']:.4f}] "
+            f"plain {row['plain_ms']:.4f} {ref} {row[ref + '_ms']:.4f} bound {row['bound_ms']:.4f} "
+            f"launches/call {row['launches_per_call']} card {row['card']}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    bf = torch.bfloat16
+    products, worst = [], 0.0
+    names: dict = {}
+    for weight, kn in W8_TP2_WEIGHTS.items():
+        names.setdefault(kn, []).append(weight)
+    for (k, n), weights in names.items():
+        for m in W8_TIMED_MS:
+            x = torch.randn((m, k), generator=g, device=dev).to(bf)
+            q = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g, device=dev)
+            scale = ((0.5 + torch.rand((1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(bf)
+            got, want = cq.w8a16_matmul(x, q, scale).float(), cq.w8a16_matmul_plain(x, q, scale).float()
+            torch.testing.assert_close(got, want, rtol=W8_RTOL, atol=W8_ATOL, msg=lambda msg, m=m, k=k, n=n: (
+                f"13a w8a16_matmul M={m} K={k} N={n} {cq.plan(m, n, k)} disagrees with plain: {msg}"))
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            dense = dequant(QTensor(q, scale))
+            row = _timed("w8a16_matmul", {
+                "kernel": lambda x=x, q=q, scale=scale: cq.w8a16_matmul(x, q, scale),
+                "plain": lambda x=x, q=q, scale=scale: cq.w8a16_matmul_plain(x, q, scale),
+                "library": lambda x=x, dense=dense: x @ dense,
+            }, want_launches=1, rounds=MESH_ROUNDS)
+            products.append({
+                "weights": weights, "M": m, "K": k, "N": n, "plan": list(cq.plan(m, n, k)), "max_abs_err": err,
+                **row, **_bound(k * n + 2 * n + 2 * m * k + 2 * m * n, 2.0 * m * k * n),
+            })
+            r = products[-1]
+            log(f"13a w8a16_matmul {'/'.join(weights)} tp=2 shard M={m} K={k} N={n}: err {err:.3g} ms "
+                f"{r['ms']:.4f} [{r['ms_min']:.4f}, {r['ms_max']:.4f}] bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}) plain {r['plain_ms']:.4f} cublas bf16 {r['library_ms']:.4f} plan {r['plan']}")
+            del x, q, scale, dense
+    grouped, worst_grouped = [], 0.0
+    e = MESH_E
+    for stack, (k, n, per_expert) in MOE_STACKS.items():
+        q = torch.randint(-127, 128, (e, k, n), dtype=torch.int8, generator=g, device=dev)
+        scale = ((0.5 + torch.rand((e, 1, n), generator=g, device=dev)) * (0.02 / 127.0)).to(bf)
+        dense = dequant(QTensor(q, scale))
+        for m in MOE_TIMED_MS:
+            x = torch.randn((e, m, k) if per_expert else (m, k), generator=g, device=dev).to(bf)
+            got = cq.w8a16_grouped_matmul(x, q, scale).float()
+            want = cq.w8a16_matmul_plain(x, q, scale).float()
+            torch.testing.assert_close(got, want, rtol=W8_RTOL, atol=W8_ATOL, msg=lambda msg, m=m: (
+                f"13a w8a16_grouped_matmul E={e} M={m} K={k} N={n} disagrees with plain: {msg}"))
+            err = (got - want).abs().max().item()
+            worst_grouped = max(worst_grouped, err)
+            row = _timed("w8a16_grouped_matmul", {
+                "kernel": lambda x=x: cq.w8a16_grouped_matmul(x, q, scale),
+                "plain": lambda x=x: cq.w8a16_matmul_plain(x, q, scale),
+                "library": lambda x=x: torch.matmul(x, dense),
+            }, want_launches=1, rounds=MESH_ROUNDS)
+            grouped.append({
+                "weights": stack, "E": e, "M": m, "K": k, "N": n, "plan": list(cq.plan(m, n, k, e)),
+                "max_abs_err": err, **row,
+                **_bound(e * k * n + 2 * e * n + 2 * m * k * (e if per_expert else 1) + 2 * e * m * n,
+                         2.0 * e * m * k * n),
+            })
+            r = grouped[-1]
+            log(f"13a w8a16_grouped_matmul {stack} E={e} M={m}: err {err:.3g} ms {r['ms']:.4f} "
+                f"[{r['ms_min']:.4f}, {r['ms_max']:.4f}] bound {r['bound_ms']:.4f} ({r['bound_by']}) plain "
+                f"{r['plain_ms']:.4f} cublas bmm bf16 {r['library_ms']:.4f} plan {r['plan']}")
+            del x
+        del q, scale, dense
+    log(f"13a: every kernel held its plain version at the per-shard shapes in {time.monotonic() - t0:.1f}s")
+    return {"attention": attention, "w8a16_matmul": {"max_abs_err": worst, "timed": products},
+            "w8a16_grouped_matmul": {"max_abs_err": worst_grouped, "timed": grouped}}
+
+
+def _collective_contracts(engine, name: str) -> dict:
+    """One eager decode, prefill and verify step of an idle meshed engine,
+    from a saved state restored after (``compare_replay``'s discipline),
+    under ``parallel/collectives.record``: no all-gather as large as one
+    shard's KV layer, and at least one cross-shard reduction."""
+    import torch
+
+    from agentainer_tpu_torch.analysis.contracts import HasCrossReduction, NoLargeAllGather, check
+    from agentainer_tpu_torch.parallel.collectives import record
+
+    shard = engine.cache.shards[0]
+    kv_layer = shard.tensors()[0][0].numel()  # one layer of one shard's arena or pool
+    keys = [k for k in engine._step_keys() if k[2] and k[1] == min(
+        kk[1] for kk in engine._step_keys() if kk[0] == k[0])]
+    out = {}
+    state = engine._device_state()
+    for key in keys:
+        with torch.no_grad(), engine._on_stream():
+            saved = [t.clone() for t in state]
+            rng = engine._gen.get_state()
+            with record() as log_:
+                engine._step_fn(key)()
+            for t, v in zip(state, saved):
+                t.copy_(v)
+            engine._gen.set_state(rng)
+        check(log_, NoLargeAllGather(kv_layer, what=f"{name} {key} KV shard"), HasCrossReduction())
+        out[f"{key[0]}{key[1]}"] = {
+            "all_reduce": sum(e["kind"] == "all_reduce" for e in log_),
+            "all_gather": sum(e["kind"] == "all_gather" for e in log_),
+            "largest_gather_elements": max((e["elements"] for e in log_ if e["kind"] == "all_gather"), default=0),
+            "kv_layer_elements": kv_layer,
+        }
+    log(f"{name} collective contracts (NoLargeAllGather at {kv_layer} elements, HasCrossReduction): {out}")
+    return out
+
+
+def _unsharded_like(engine, quant: bool):
+    """The unsharded params of the meshed engine's draw: create's seed 0,
+    drawn again on the card (bf16 random init, or the int8 synthetic
+    draw)."""
+    import torch
+
+    from agentainer_tpu_torch.engine.quant import synthetic_quantized_params
+    from agentainer_tpu_torch.models.llama import init_params
+
+    gen = torch.Generator(device=engine.device)
+    gen.manual_seed(0)
+    if quant:
+        return synthetic_quantized_params(engine.cfg, engine._kv_dtype, engine.device, gen)
+    return init_params(engine.cfg, gen, dtype=engine._kv_dtype, device=engine.device)
+
+
+def _mesh_logits(engine, name: str, quant: bool = False) -> dict:
+    """The meshed forward against the unsharded forward of the same weights
+    (``_unsharded_like``), held to ``MESH_FLOOR_FACTOR`` × the noise floor:
+    the largest difference between the unsharded model's kernels and its
+    plain attention on the same inputs. On one 256-token prefill chunk plus
+    one decode step from it: logits within the limit and the same argmax.
+    In bf16 (not ``quant``) also the served ids: the meshed engine's greedy
+    ``MESH_SERVED_TOKENS`` tokens of one prompt, teacher-forced through the
+    meshed and the unsharded forward, the meshed logits within the limit at
+    every position, and the served ids equal to the unsharded argmax
+    wherever its top-2 margin clears the limit (the positions below it are
+    counted)."""
+    import functools
+
+    import torch
+
+    from agentainer_tpu_torch.models.llama import KVCache, MeshCache, _moe_mlp_routed, forward
+
+    cfg, dev, mesh, dt = engine.cfg, engine.device, engine.mesh, engine._kv_dtype
+    t0 = time.monotonic()
+    params = _unsharded_like(engine, quant)
+    moe = (functools.partial(_moe_mlp_routed, cfg=cfg, capacity_factor=engine.moe_capacity_factor)
+           if engine.routed_moe else None)
+    kv_heads = cfg.n_kv_heads // mesh.shape["tp"]
+
+    def run(toks, steps=0):
+        """The unsharded forward with the kernels and with plain attention,
+        and the meshed forward, over ``toks`` and then ``steps`` greedy
+        decode steps (each the unsharded kernels' argmax, fed to all
+        three): the logits of every position of each."""
+        n = toks.shape[1] + steps
+        caches = (KVCache.create(cfg, 1, n, dt, dev), KVCache.create(cfg, 1, n, dt, dev),
+                  MeshCache.create(mesh, lambda d: KVCache.create(cfg, 1, n, dt, d, n_kv_heads=kv_heads)))
+        out, chunk = [], toks
+        with torch.no_grad():
+            for i in range(1 + steps):
+                p = (torch.arange(chunk.shape[1], device=dev) + (0 if i == 0 else toks.shape[1] + i - 1))[None]
+                out.append((
+                    forward(params, cfg, chunk, p, caches[0], moe_impl=moe)[0],
+                    forward(params, cfg, chunk, p, caches[1], use_flash=False, moe_impl=moe)[0],
+                    forward(engine.params, cfg, chunk, p, caches[2], moe_impl=engine._moe_impl, mesh=mesh)[0],
+                ))
+                chunk = out[-1][0][-1:].argmax(-1)[None]
+        return out
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    toks = torch.randint(3, cfg.vocab_size, (1, 256), generator=g, device=dev)
+    (a, pa, ma), (a2, pa2, ma2) = run(toks, steps=1)
+    rows = {"prefill": (a[-1], pa[-1], ma[-1]), "decode": (a2[-1], pa2[-1], ma2[-1])}
+    floor = max((x - y).abs().max().item() for x, y, _ in rows.values())
+    served = None
+    if not quant:
+        prompt = "Summarize the plot of a heist movie in one line."
+        got = asyncio.run(engine.generate(prompt, max_tokens=MESH_SERVED_TOKENS, ignore_eos=True))["tokens"]
+        prompt_ids = engine.tokenizer.encode(prompt)
+        (ref, plain, meshed), = run(torch.tensor([prompt_ids + got[:-1]], device=dev))
+        # the logits each served token was drawn from
+        ref, plain, meshed = (x[len(prompt_ids) - 1:] for x in (ref, plain, meshed))
+        floor = max(floor, (ref - plain).abs().max().item())
+        served = (got, ref, meshed)
+    limit = MESH_FLOOR_FACTOR * floor
+    out = {"noise_floor": floor, "limit": limit, "logits": {}}
+    for key, (x, _, y) in rows.items():
+        top2 = x.topk(2).values
+        err = (x - y).abs().max().item()
+        out["logits"][key] = {"max_abs_err": err, "max_abs_logit": x.abs().max().item(),
+                              "top2_margin": (top2[0] - top2[1]).item(),
+                              "argmax_equal": bool(torch.equal(x.argmax(-1), y.argmax(-1)))}
+        if err > limit or not out["logits"][key]["argmax_equal"]:
+            raise AssertionError(f"{name}: meshed {key} logits off the unsharded by {err:.4g} (limit {limit:.4g}"
+                                 f" = {MESH_FLOOR_FACTOR} x the noise floor {floor:.4g}) or another argmax: "
+                                 f"{out['logits'][key]}")
+    if served is not None:
+        got, ref, meshed = served
+        err = (ref - meshed).abs().amax(dim=-1)
+        top2 = ref.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        want = ref.argmax(-1).tolist()
+        clear = [i for i in range(len(got)) if margin[i] > limit]
+        wrong = [i for i in clear if got[i] != want[i]]
+        out["served"] = {"tokens": len(got), "teacher_forced_max_abs_err": err.max().item(),
+                         "positions_over_limit": int((err > limit).sum().item()),
+                         "below_limit": len(got) - len(clear), "clear_and_equal": len(clear) - len(wrong),
+                         "equal_anywhere": sum(got[i] == want[i] for i in range(len(got)))}
+        if out["served"]["positions_over_limit"]:
+            raise AssertionError(f"{name}: teacher-forced meshed logits off the unsharded past {limit:.4g} "
+                                 f"at {out['served']['positions_over_limit']} of {len(got)} positions")
+        if wrong:
+            raise AssertionError(f"{name}: served ids differ from the unsharded argmax at positions {wrong} "
+                                 f"whose top-2 margin clears the limit")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    log(f"{name}: meshed against unsharded {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5267,16 +5672,24 @@ def main() -> int:
     kernels = run("kernels", phase_kernels)
     w8_row = run("w8a16", phase_w8a16)
     grouped_row = run("grouped", phase_grouped)
+    # 13a beside the other timed kernel phases (a profiler trace late in the
+    # run lost device records)
+    mesh_kernels = run("mesh_kernels", phase_mesh_kernels)
     report = {"tokenizer": report_tokenizer, "serve": run("serve", phase_serve), "phase_s": phase_s}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = run("serve_paged", phase_serve_paged, dense_texts)
     report["fused"] = run("fused", phase_fused_dense, dense_texts, report["serve"])
     n_layers = 32  # llama3-8b at full depth in the bf16 feature phases
     report["features"] = run("features", phase_serve_features, False, n_layers, None, contracts=True)
-    report["features_paged"] = run("features_paged", phase_serve_features, True, n_layers,
-                                   report["features"].pop("texts"), contracts=True)
-    paged_texts = report["features_paged"].pop("texts")
-    report["fused_paged"] = run("fused_paged", phase_serve_features, True, n_layers, paged_texts, fused=True)
+    # the paged feature phase and the fused paged one run at CUT_LAYERS
+    # (the mesh phases need their seconds): neither text is
+    # compared with a 32-layer phase's (serve_paged holds the dense and
+    # paged texts equal at full depth)
+    report["features"].pop("texts")
+    report["features_paged"] = run("features_paged", phase_serve_features, True, CUT_LAYERS, None,
+                                   contracts=True)
+    report["features_paged"].pop("texts")
+    report["fused_paged"] = run("fused_paged", phase_serve_features, True, CUT_LAYERS, None, fused=True)
     report["fused_paged"].pop("texts")
     report["tiering_paged"] = run("tiering_paged", phase_tiering_paged, card)
     report["tiering_dense"] = run("tiering_dense", phase_tiering_dense, card)
@@ -5351,12 +5764,45 @@ def main() -> int:
     report["train_moe"] = run("train_moe", phase_train_moe, card)
     prefill_row["launches_train"] = report["train"]["launches"]["flash_prefill"]
     prefill_row["train"]["replaces"] = TRAIN_REPLACES
+    # 13b-d: serve-time model parallelism, every shard of a logical mesh
+    # on this card, after every other engine is gone
+    report["mesh_tp2"] = run("mesh_tp2", phase_serve_features, False, 32, None, contracts=True,
+                             mesh=(2, 1), logits=True)
+    report["mesh_tp2"].pop("texts")
+    # the paged mesh at CUT_LAYERS (for time); the dense and paged meshed
+    # texts are held equal in the int8 pair, at one depth
+    report["mesh_tp2_paged"] = run("mesh_tp2_paged", phase_serve_features, True, CUT_LAYERS, None,
+                                   contracts=True, mesh=(2, 1), graphs=False)
+    report["mesh_tp2_paged"].pop("texts")
+    report["mesh_tp2_int8"] = run("mesh_tp2_int8", phase_serve_features, False, CUT_LAYERS, None,
+                                  quant=True, mesh=(2, 1), graphs=False)
+    report["mesh_tp2_int8_paged"] = run("mesh_tp2_int8_paged", phase_serve_features, True, CUT_LAYERS,
+                                        report["mesh_tp2_int8"].pop("texts"), quant=True, mesh=(2, 1),
+                                        graphs=False)
+    report["mesh_tp2_int8_paged"].pop("texts")
+    report["mesh_ep2_moe"] = run("mesh_ep2_moe", phase_serve_features, True, CUT_LAYERS, None, quant=True,
+                                 moe={}, mesh=(1, 2), graphs=False, logits=True)
+    report["mesh_ep2_moe"].pop("texts")
+    for row in kernels:
+        if row["name"] in mesh_kernels["attention"]:
+            shard = mesh_kernels["attention"][row["name"]]
+            row["tp2_shard"] = {k: shard.get(k) for k in (
+                "shape", "ms", "ms_min", "ms_max", "plain_ms", "library_ms", "yardstick_ms", "bound_ms",
+                "bound_by", "max_abs_err", "max_abs_err_f32", "launches_per_call", "card")}
+            paged = "paged" in row["name"]
+            row["launches_mesh"] = report["mesh_tp2_paged" if paged else "mesh_tp2"]["launches"][row["name"]]
+    w8_row["tp2_shard"] = mesh_kernels["w8a16_matmul"]
+    w8_row["launches_mesh"] = report["mesh_tp2_int8"]["launches"]["w8a16_matmul"]
+    w8_row["launches_mesh_paged"] = report["mesh_tp2_int8_paged"]["launches"]["w8a16_matmul"]
+    grouped_row["ep2_shard"] = mesh_kernels["w8a16_grouped_matmul"]
+    grouped_row["launches_mesh"] = report["mesh_ep2_moe"]["launches"]["w8a16_grouped_matmul"]
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {
         phase: report[phase]["pipeline"]
         for phase in ("serve", "serve_paged", "fused", "features", "features_paged", "fused_paged", "int8",
-                      "int8_paged", "checkpoint", "moe", "moe_paged")
+                      "int8_paged", "checkpoint", "moe", "moe_paged", "mesh_tp2", "mesh_tp2_paged",
+                      "mesh_tp2_int8", "mesh_tp2_int8_paged", "mesh_ep2_moe")
     }}))
     print(json.dumps(report))
     print(card)

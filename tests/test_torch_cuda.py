@@ -1588,3 +1588,164 @@ def test_train_step_refuses_a_head_the_kernel_does_not_take(dev):
 
     with pytest.raises(ValueError, match="no attention kernel"):
         make_train_step(get_config("tiny"))
+
+
+# -- serve-time model parallelism: per-shard shapes, meshes on one card ----------
+
+# llama3-8b's attention per tp shard: tp=2 (H 16, KV 4) and tp=8 (H 4, KV 1)
+SHARD_HEADS = [(16, 4), (4, 1)]
+# llama3-8b's weight products per tp=2 shard: wq, wk/wv, wo, w_gate/w_up,
+# w_down, lm_head
+W8_TP2_SHAPES = [(4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096), (4096, 64128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", SHARD_HEADS)
+def test_attention_kernels_at_shard_shapes(dev, dtype, heads, kv_heads):
+    """All four attention kernels at one tp shard's heads, dense arena and
+    paged pool ([264, 64, KV, 128] through a scrambled table), against
+    their plain versions; the decode split's scratch at KV 4 and 1."""
+    g = torch.Generator(device=dev).manual_seed(heads)
+    b, s, ps = 8, 2048, 64
+    q1 = _randn(g, dev, dtype, b, heads, 128)
+    qp = _randn(g, dev, dtype, 1, 256, heads, 128)
+    k, v = (_randn(g, dev, dtype, b, s, kv_heads, 128) for _ in range(2))
+    pos = torch.tensor([0, 17, 130, 511, 777, 1024, 1500, s - 1], device=dev, dtype=torch.int32)
+    ppos = (300 + torch.arange(256, device=dev, dtype=torch.int32))[None]
+    pool_k, pool_v = (_randn(g, dev, dtype, 264, ps, kv_heads, 128) for _ in range(2))
+    table = torch.randperm(264, generator=g, device=dev)[: b * (s // ps)].reshape(b, s // ps).int()
+    tol = dict(rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(ca.flash_decode(q1, k, v, pos).float(),
+                               ca.flash_decode_plain(q1, k, v, pos).float(), **tol)
+    torch.testing.assert_close(ca.flash_prefill(qp, k[:1], v[:1], ppos).float(),
+                               ca.flash_prefill_plain(qp, k[:1], v[:1], ppos).float(), **tol)
+    torch.testing.assert_close(ca.fused_paged_flash_decode(q1, pool_k, pool_v, table, pos).float(),
+                               ca.paged_flash_decode_plain(q1, pool_k, pool_v, table, pos).float(), **tol)
+    torch.testing.assert_close(
+        ca.fused_paged_flash_prefill(qp, pool_k, pool_v, table[:1], ppos).float(),
+        ca.paged_flash_prefill_plain(qp, pool_k, pool_v, table[:1], ppos).float(), **tol)
+
+
+@pytest.mark.parametrize("k,n", W8_TP2_SHAPES)
+def test_w8a16_kernel_at_tp2_shard_shapes(dev, k, n):
+    """``w8a16_matmul`` at every (K, N) a tp=2 shard of llama3-8b runs, for
+    decode, verify and prefill rows, within one bf16 rounding."""
+    from agentainer_tpu_torch.ops import cuda_quant
+
+    g = torch.Generator(device=dev).manual_seed(k * 7 + n)
+    for m in (1, 8, 9, 72, 255, 256):
+        x, q, scale = _w8_case(g, dev, m, k, n)
+        got = cuda_quant.w8a16_matmul(x, q, scale)
+        torch.testing.assert_close(
+            got.float(), cuda_quant.w8a16_matmul_plain(x, q, scale).float(), rtol=W8_RTOL, atol=W8_ATOL,
+            msg=lambda msg, m=m: f"M={m} K={k} N={n} {cuda_quant.plan(m, n, k)}: {msg}",
+        )
+
+
+def _mesh_engine(cfg, params, dev, mesh, **opts):
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    eng = LLMEngine(cfg, params, ByteTokenizer(cfg.vocab_size), max_batch=4, max_seq=512,
+                    device=dev, mesh=mesh, **opts)
+    eng.warmup()
+    return eng
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_tp2_engine_on_one_card_serves_through_graphs(dev, paged):
+    """A 2-layer llama3-8b-width engine at tp=2 with both shards on this
+    card: every step a graph replay, the attention kernels launched by
+    both shards (2 × the unsharded launches per replay), and the runtime
+    contracts."""
+    import asyncio
+    import dataclasses
+
+    from agentainer_tpu_torch.analysis.contracts import (
+        AttentionLaunches,
+        buffers_in_place,
+        capture_budget,
+        check,
+        launches_per_replay,
+    )
+    from agentainer_tpu_torch.engine.graphs import park_lanes
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opts = {"paged_kv": True, "page_size": 64} if paged else {}
+    mesh = make_mesh(2, tp=2, devices=[dev, dev])
+    eng = _mesh_engine(cfg, params, dev, mesh, **opts)
+    try:
+        with capture_budget(eng, 0), buffers_in_place(eng), no_implicit_sync():
+            got = asyncio.run(eng.generate("a" * 200, max_tokens=24, ignore_eos=True))
+        assert eng.worker_errors == 0, eng.last_worker_error
+        assert got["completion_tokens"] == 24 and eng.metrics()["graph_replays"] > 0
+        park_lanes(eng)
+        want = AttentionLaunches(n_layers=cfg.n_layers, paged=paged, shards=2)
+        for key in eng._step_keys():
+            for _ in range(3):
+                with torch.no_grad(), eng._on_stream():
+                    res = launches_per_replay(eng._graphs, key)
+                if not want.failures(res):
+                    break
+            check(res, want)
+    finally:
+        eng.shutdown()
+
+
+def test_int8_moe_engine_at_ep2_on_one_card(dev):
+    """A 2-layer Mixtral-width int8 engine at ep=2 on this card: routed MoE
+    by default, the grouped kernel at E = 4 on both shards, tokens from
+    graph replays."""
+    import asyncio
+    import dataclasses
+
+    from agentainer_tpu_torch.engine.quant import synthetic_quantized_params
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.ops import cuda_quant
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), name="mixtral-2l", n_layers=2)
+    params = synthetic_quantized_params(cfg, torch.bfloat16, dev, torch.Generator(device=dev).manual_seed(0))
+    eng = _mesh_engine(cfg, params, dev, make_mesh(2, ep=2, devices=[dev, dev]))
+    try:
+        assert (eng.ep, eng.routed_moe) == (2, True)
+        assert [p["layers"]["w_gate"].q.shape[1] for p in eng.params] == [4, 4]
+        before = cuda_quant.w8a16_grouped_matmul.launches
+        out = asyncio.run(eng.generate("mixture " * 8, max_tokens=12, ignore_eos=True))
+        assert out["completion_tokens"] == 12 and eng.worker_errors == 0
+        assert eng.metrics()["graph_replays"] > 0
+        # every forward: 3 stacks a layer on each of the 2 shards
+        used = cuda_quant.w8a16_grouped_matmul.launches - before
+        assert used > 0 and used % (3 * cfg.n_layers * 2) == 0, used
+    finally:
+        eng.shutdown()
+
+
+def test_tp_over_two_cards_matches_one_card(dev):
+    """``options["tp"] = 2`` over two cards (the shards on cuda:0 and
+    cuda:1, peer copies in the collectives, steps served eagerly) decodes
+    the tokens a one-card tp=2 mesh decodes from the same weights."""
+    import asyncio
+    import dataclasses
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("this machine has one GPU: a mesh over two cards needs two")
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = []
+    for devices in ([torch.device("cuda", 0)] * 2, [torch.device("cuda", 0), torch.device("cuda", 1)]):
+        eng = _mesh_engine(cfg, params, devices[0], make_mesh(2, tp=2, devices=devices))
+        try:
+            assert [c.k_store.device for c in eng.cache.shards] == devices
+            out.append(asyncio.run(eng.generate("two cards", max_tokens=16, ignore_eos=True))["tokens"])
+        finally:
+            eng.shutdown()
+    assert out[0] == out[1]

@@ -62,6 +62,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.analysis.rules",
         "agentainer_tpu_torch.analysis.contracts",
         "agentainer_tpu_torch.analysis.__main__",
+        "agentainer_tpu_torch.parallel",
+        "agentainer_tpu_torch.parallel.mesh",
+        "agentainer_tpu_torch.parallel.sharding",
+        "agentainer_tpu_torch.parallel.collectives",
+        "agentainer_tpu_torch.parallel.flash_mesh",
+        "agentainer_tpu_torch.parallel.expert",
         *CONTROL_PLANE,
         "agentainer_tpu_torch.engine",
         "agentainer_tpu_torch.runtime.engine_main",

@@ -92,16 +92,18 @@ def test_the_reference_fleet_flag_list_is_the_ports():
     ],
 )
 def test_unported_flavor_and_flags_fail_the_load(env, needle):
-    options = {"device": "cpu", "ep": 2}
+    options = {"device": "cpu", "sp": 2}
     app = LLMServeApp(env={**ENV, "AGENTAINER_MODEL_OPTIONS": json.dumps(options), **env})
     assert app._engine_options()[needle] is True  # the flag reaches create()
     app._load_engine()
-    assert app.engine is None and app.engine_error.endswith("ep=2: the port serves on a single device")
+    assert app.engine is None and app.engine_error.endswith(
+        "sp=2: serve-time sp waits for a later slice of the port's parallel/ (tp and ep serve)"
+    )
     assert needle not in app.engine_error
     health = asyncio.run(app.h_health(Request("GET", "/health", {}, b"")))
     assert health.doc["model_loaded"] is False
     chat = asyncio.run(app.h_chat(Request("POST", "/chat", {}, b'{"message": "hi"}')))
-    assert chat.status == 503 and "ep=2" in chat.doc["error"]
+    assert chat.status == 503 and "sp=2" in chat.doc["error"]
 
 
 def test_root_reports_the_assigned_chips(monkeypatch):

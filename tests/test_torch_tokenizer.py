@@ -2,6 +2,13 @@
 (``agentainer_tpu_torch/engine/tokenizer.py::HFTokenizer``) against the
 reference's ``HFTokenizer`` over ``tokenizers``.
 
+Mixtral's family (SentencePiece-style BPE with byte fallback), both
+forms: the committed fixtures (``tests/fixtures/mixtral_style*``, by the
+same script) against their committed ids and ``tokenizers``, on fixed
+strings and hypothesis text with the specials between segments; and
+tokenizers trained here with ``fuse_unk`` either way, each
+``prepend_scheme`` and a non-special added token.
+
 Two tokenizers of Llama-3's pipeline (its split pattern, byte-level
 pre-tokenizer, BPE, ``ByteLevel`` decoder): the committed fixture
 (``tests/fixtures/llama3_style_tokenizer.json``, written by
@@ -29,7 +36,7 @@ import unicodedata
 import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
-from tokenizers import Regex, Tokenizer, decoders, models, normalizers, pre_tokenizers, trainers
+from tokenizers import AddedToken, Regex, Tokenizer, decoders, models, normalizers, pre_tokenizers, trainers
 
 from agentainer_tpu.engine.tokenizer import HFTokenizer as RefTokenizer
 from agentainer_tpu.engine.tokenizer import load_tokenizer as ref_load
@@ -288,14 +295,29 @@ def _mixtral_style():
     return json.loads(tok.to_str())
 
 
+def _wordpiece_style():
+    """A family neither form covers: BERT's normalizer and WordPiece."""
+    tok = Tokenizer(models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer()
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.decoder = decoders.WordPiece()
+    tok.train_from_iterator(_CORPUS, trainers.WordPieceTrainer(
+        vocab_size=300, show_progress=False, special_tokens=["[UNK]"],
+    ))
+    return json.loads(tok.to_str())
+
+
 @pytest.mark.parametrize("component", ["whole", "normalizer", "model", "decoder", "pre_tokenizer"])
 def test_other_families_raise_naming_the_component_and_file(tmp_path, component):
+    """Mixtral's family is read now (its own tests below); a whole document
+    of another family, and either family with a component of the other or
+    of neither, raise naming that component and the file."""
     mixtral = _mixtral_style()
     doc = json.load(open(FIXTURE, encoding="utf-8"))
     if component == "whole":
-        doc, want = mixtral, "normalizer"
+        doc, want = _wordpiece_style(), "normalizer"
     elif component == "pre_tokenizer":
-        doc["pre_tokenizer"] = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first", "split": False}
+        doc["pre_tokenizer"] = {"type": "Whitespace"}
         want = "pre_tokenizer"
     elif component == "model":
         doc["model"]["byte_fallback"] = True
@@ -310,6 +332,158 @@ def test_other_families_raise_naming_the_component_and_file(tmp_path, component)
     assert str(path) in str(e.value) and want in str(e.value)
 
 
+@pytest.mark.parametrize("component,value,want", [
+    ("decoder", {"type": "ByteLevel"}, "decoder"),
+    ("model.byte_fallback", False, "model.byte_fallback"),
+    ("model.unk_token", None, "model.unk_token"),
+    ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first", "split": True},
+     "pre_tokenizer"),
+    ("added", {"id": 5, "content": "<x>", "normalized": True, "special": False}, "normalized"),
+])
+def test_mixtral_family_with_a_foreign_component_raises(tmp_path, component, value, want):
+    doc = _mixtral_style()
+    if component.startswith("model."):
+        doc["model"][component.split(".")[1]] = value
+    elif component == "added":
+        doc["added_tokens"].append(value)
+    elif component == "pre_tokenizer":
+        doc["normalizer"], doc["pre_tokenizer"] = None, value
+    else:
+        doc[component] = value
+    path = tmp_path / "tokenizer.json"
+    path.write_text(json.dumps(doc, ensure_ascii=False))
+    with pytest.raises(NotImplementedError) as e:
+        HFTokenizer(str(path))
+    assert str(path) in str(e.value) and want in str(e.value)
+
+
+# ---------------------------------------------------------------------------
+# Mixtral's family: the committed fixtures of both forms
+
+SP_FORMS = ("mixtral_style", "mixtral_style_metaspace")
+SP_SPECIALS = ("<s>", "</s>", "<unk>")
+
+
+def _sp_paths(form):
+    base = os.path.join(ROOT, "tests", "fixtures", f"{form}_tokenizer")
+    return base + ".json", base + ".expected.json"
+
+
+@pytest.fixture(scope="module", params=SP_FORMS)
+def sp_pair(request):
+    return _pair(_sp_paths(request.param)[0])
+
+
+@pytest.mark.parametrize("form", SP_FORMS)
+def test_mixtral_fixture_matches_the_reference_and_its_committed_ids(form):
+    path, expected = _sp_paths(form)
+    port, ref = _pair(path)
+    doc = json.load(open(expected, encoding="utf-8"))
+    # bos and eos through the reference's `or 1` / `or 2`: <s> and </s>
+    assert (port.vocab_size, port.bos_id, port.eos_id, port.pad_id) == (
+        ref.vocab_size, ref.bos_id, ref.eos_id, ref.pad_id,
+    ) == (doc["vocab_size"], doc["specials"]["<s>"], doc["specials"]["</s>"], 0) == (doc["vocab_size"], 1, 2, 0)
+    for case in doc["cases"]:
+        ids = port.encode(case["text"], add_bos=False)
+        assert ids == case["ids"], case["text"]
+        assert ids[0] == port.bos_id  # the file's TemplateProcessing
+        assert port.decode(ids) == case["decoded"] == ref.decode(ids)
+        assert port.encode(case["text"]) == [port.bos_id] + ids == ref.encode(case["text"])
+
+
+def test_mixtral_fixture_exercises_fallback_unk_and_both_prepends():
+    """The committed cases reach byte fallback, a fused ``<unk>`` held back
+    behind byte tokens, and the forms' different "▁" after a special."""
+    for form in SP_FORMS:
+        port, _ = _pair(_sp_paths(form)[0])
+        doc = json.load(open(_sp_paths(form)[1], encoding="utf-8"))
+        flat = [i for c in doc["cases"] for i in c["ids"]]
+        byte_ids = {port._vocab[f"<0x{b:02X}>"] for b in range(0xF0)}
+        assert byte_ids & set(flat) and 0 in flat
+    old, new = (_pair(_sp_paths(f)[0])[0] for f in SP_FORMS)
+    sp = old._vocab["▁"]
+    assert old.encode("<s>x", add_bos=False)[2] == sp != new.encode("<s>x", add_bos=False)[2]
+    zwj = "\U0001F468\u200d\U0001F469"  # unk, ZWJ's three bytes, unk: one <unk> after the bytes
+    ids = old.encode(zwj, add_bos=False)
+    assert ids[-4:] == [old._vocab["<0xE2>"], old._vocab["<0x80>"], old._vocab["<0x8D>"], 0]
+
+
+@pytest.mark.parametrize("text", FIXED + (
+    " leading", "  two", "<s>", "a</s>b<s> c<unk>d", "▁pre ▁marked", "tail </s>", "</s></s>x", "x<s>",
+))
+def test_mixtral_fixture_fixed_strings(sp_pair, text):
+    _same(*sp_pair, text)
+
+
+_SP_TEXT_WITH_SPECIALS = st.lists(
+    st.one_of(st.text(st.one_of(_PATTERN_CHARS, _ASSIGNED, st.just("▁")), max_size=12),
+              st.sampled_from(list(SP_SPECIALS))),
+    max_size=8,
+).map("".join)
+
+
+@settings(max_examples=300, deadline=None, suppress_health_check=[HealthCheck.too_slow,
+                                                                  HealthCheck.function_scoped_fixture])
+@given(text=_SP_TEXT_WITH_SPECIALS)
+def test_mixtral_fixture_hypothesis_text_with_specials(sp_pair, text):
+    _same(*sp_pair, text)
+
+
+@settings(max_examples=200, deadline=None, suppress_health_check=[HealthCheck.too_slow,
+                                                                  HealthCheck.function_scoped_fixture])
+@given(ids=st.lists(st.integers(min_value=0, max_value=3100), max_size=40))
+def test_mixtral_decode_of_any_ids_matches(sp_pair, ids):
+    port, ref = sp_pair
+    assert port.decode(ids) == ref.decode(ids)
+
+
+def _train_sp(front: str, fuse_unk: bool) -> Tokenizer:
+    tok = Tokenizer(models.BPE(byte_fallback=True, unk_token="<unk>", fuse_unk=fuse_unk))
+    if front == "normalizer":
+        tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"), normalizers.Replace(" ", "▁")])
+    else:
+        tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme=front, split=False)
+    tok.decoder = decoders.Sequence([
+        decoders.Replace("▁", " "), decoders.ByteFallback(), decoders.Fuse(), decoders.Strip(" ", 1, 0),
+    ])
+    tok.train_from_iterator(_CORPUS, trainers.BpeTrainer(
+        vocab_size=500, show_progress=False, special_tokens=["<unk>", "<s>", "</s>"],
+    ))
+    doc = json.loads(tok.to_str())
+    # byte tokens for the ASCII and two-byte range only: the rest is <unk>
+    n = len(doc["model"]["vocab"])
+    for b in range(0xE0):
+        doc["model"]["vocab"].setdefault(f"<0x{b:02X}>", n + b)
+    tok = Tokenizer.from_str(json.dumps(doc))
+    tok.add_tokens([AddedToken("<tool>", normalized=False)])  # not special: through the decoder
+    return tok
+
+
+@pytest.fixture(scope="module", params=[(f, u) for f in ("normalizer", "first", "always", "never")
+                                        for u in (True, False)],
+                ids=lambda p: f"{p[0]}-fuse_unk={p[1]}")
+def trained_sp_pair(request, tmp_path_factory):
+    path = tmp_path_factory.mktemp("sp") / "tokenizer.json"
+    path.write_text(_train_sp(*request.param).to_str())
+    return _pair(path)
+
+
+def test_trained_mixtral_family_fixed_strings(trained_sp_pair):
+    port, ref = trained_sp_pair
+    assert (port.vocab_size, port.bos_id, port.eos_id) == (ref.vocab_size, ref.bos_id, ref.eos_id)
+    for text in FIXED + ("a<tool>b <tool> c", "<s> x</s>", "😀😀 中 ü 😀a😀", " ▁ ▁▁x"):
+        _same(port, ref, text)
+    ids = list(range(port.vocab_size + 3))
+    assert port.decode(ids) == ref.decode(ids)
+
+
+@settings(max_examples=100, deadline=None, suppress_health_check=[HealthCheck.too_slow,
+                                                                  HealthCheck.function_scoped_fixture])
+@given(text=_SP_TEXT_WITH_SPECIALS)
+def test_trained_mixtral_family_hypothesis_text(trained_sp_pair, text):
+    _same(*trained_sp_pair, text)
+
+
 def test_reader_loads_no_tokenizers_and_no_regex():
     """In a fresh interpreter where ``tokenizers`` and ``regex`` cannot be
     imported (the machine with the card has neither), the reader loads the
@@ -320,13 +494,15 @@ sys.modules["tokenizers"] = None
 sys.modules["regex"] = None
 from agentainer_tpu_torch.engine.tokenizer import HFTokenizer, load_tokenizer
 d = tempfile.mkdtemp()
-shutil.copy({FIXTURE!r}, os.path.join(d, "tokenizer.json"))
-tok = load_tokenizer(128256, d)
-doc = json.load(open({EXPECTED!r}, encoding="utf-8"))
-ok = isinstance(tok, HFTokenizer) and all(
-    tok.encode(c["text"], add_bos=False) == c["ids"] and tok.decode(c["ids"]) == c["decoded"]
-    for c in doc["cases"]
-)
+ok = True
+for fixture, expected in {[(FIXTURE, EXPECTED)] + [_sp_paths(f) for f in SP_FORMS]!r}:
+    shutil.copy(fixture, os.path.join(d, "tokenizer.json"))
+    tok = load_tokenizer(128256, d)
+    doc = json.load(open(expected, encoding="utf-8"))
+    ok = ok and isinstance(tok, HFTokenizer) and all(
+        tok.encode(c["text"], add_bos=False) == c["ids"] and tok.decode(c["ids"]) == c["decoded"]
+        for c in doc["cases"]
+    )
 shutil.rmtree(d)
 print(json.dumps([ok, sorted(m for m in sys.modules if m.split(".")[0] in ("tokenizers", "regex")
                              and sys.modules[m] is not None)]))
