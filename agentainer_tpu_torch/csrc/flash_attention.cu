@@ -88,6 +88,17 @@
 //     parity the tests hold): 64x64 score tile per block from shared
 //     memory, 4x8 register micro-tile per thread.
 //
+// Row log-sum-exp (the sequence-parallel entry): the dense prefill and
+// decode entry points optionally write each query row's natural-log
+// log-sum-exp of its scaled scores over the slots it sees, f32, lse =
+// m + log(l) in natural units (the kernels keep m in log2 units and
+// convert), to a contiguous [B, T, H] (prefill) or [B, H] (decode); a row
+// that sees no slot writes NEG_INF. A shard of a sequence-sharded arena
+// returns its normalized rows and this statistic, and the shards' rows are
+// joined as sum_j exp(lse_j - LSE) o_j. The decode combine already merges
+// the splits' (m, l) and writes it from there; a null lse writes nothing,
+// and the rows are the same bits either way.
+//
 // Plain C interface, loaded with ctypes. Every function launches on the
 // caller's stream, allocates nothing (the decode partials go to scratch the
 // caller passes in) and returns cudaGetLastError().
@@ -324,6 +335,7 @@ __device__ __forceinline__ void stage_kv(const Lane& lane, int k0, int S, T* k_s
 constexpr int PF_BM = 64;
 constexpr int PF_BK = 64;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // bf16 body (tensor cores), 256 threads: two warp groups of 4 warps; group
 // i computes tiles i, i + 2, i + 4, ... with its own online softmax, so two
@@ -345,9 +357,9 @@ static_assert(sizeof(float) * PF_MERGE * 128 <= sizeof(bf16) * 2 * PF_STAGES * P
 template <typename Arena>
 __device__ __forceinline__ void prefill_mma(
     unsigned char* smem, const bf16* __restrict__ q, const Arena& arena,
-    const int* __restrict__ pos, bf16* __restrict__ out, int T_len, int S, int G, long long q_sb,
-    long long q_st, long long q_sh, long long p_sb, long long p_st, long long o_sb, long long o_st,
-    long long o_sh, float scale) {
+    const int* __restrict__ pos, bf16* __restrict__ out, float* __restrict__ lse, int T_len,
+    int S, int G, long long q_sb, long long q_st, long long q_sh, long long p_sb, long long p_st,
+    long long o_sb, long long o_st, long long o_sh, float scale) {
   constexpr int NT = PF_MMA_THREADS;
   bf16* q_s = reinterpret_cast<bf16*>(smem);          // [BM][RS]
   bf16* k_s = q_s + PF_BM * PF_RS;                    // [STAGES][BK][RS]
@@ -535,6 +547,7 @@ __device__ __forceinline__ void prefill_mma(
     const float mm = fmaxf(m[r], m1);
     const float f0 = exp2f(m[r] - mm), f1 = exp2f(m1 - mm);
     l[r] = l[r] * f0 + l1 * f1;
+    m[r] = mm;  // the merged rows' max: the lse below reads it
 #pragma unroll
     for (int dn = 0; dn < HD / 8; ++dn)
 #pragma unroll
@@ -550,6 +563,9 @@ __device__ __forceinline__ void prefill_mma(
     const int t = t0 + row / G, h = kvh * G + row % G;
     if (t >= T_len) continue;
     const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * T_len + t) * gridDim.y * G + h] =
+          lr == 0.f ? NEG_INF : (m[r] + log2f(lr)) * LN2;
     bf16* orow = out + b * o_sb + t * o_st + h * o_sh + 2 * t4;
 #pragma unroll
     for (int dn = 0; dn < HD / 8; ++dn)
@@ -571,9 +587,9 @@ constexpr size_t PF_SMEM =
 template <typename T, typename Arena>
 __device__ __forceinline__ void prefill_simt(
     unsigned char* smem_raw, const T* __restrict__ q, const Arena& arena,
-    const int* __restrict__ pos, T* __restrict__ out, int T_len, int S, int G, long long q_sb,
-    long long q_st, long long q_sh, long long p_sb, long long p_st, long long o_sb, long long o_st,
-    long long o_sh, float scale) {
+    const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ lse, int T_len, int S,
+    int G, long long q_sb, long long q_st, long long q_sh, long long p_sb, long long p_st,
+    long long o_sb, long long o_st, long long o_sh, float scale) {
   float* smem = reinterpret_cast<float*>(smem_raw);
   float* q_s = smem;                  // [BM][KS]
   float* k_s = q_s + PF_BM * KS;      // [BK][KS]
@@ -730,6 +746,8 @@ __device__ __forceinline__ void prefill_simt(
     const int t = t0 + r / G, h = kvh * G + r % G;
     if (t >= T_len) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    if (lse != nullptr && cb == 0)  // m in natural units here (scores scaled by scale)
+      lse[((long long)b * T_len + t) * gridDim.y * G + h] = l[i] == 0.f ? NEG_INF : m[i] + logf(l[i]);
     T* o = out + b * o_sb + t * o_st + h * o_sh;
 #pragma unroll
     for (int qd = 0; qd < 4; ++qd) {
@@ -753,16 +771,16 @@ constexpr int prefill_threads() {
 template <typename T, typename Arena>
 __global__ void __launch_bounds__(prefill_threads<T>()) prefill_kernel(
     const T* __restrict__ q, const Arena arena, const int* __restrict__ pos,
-    T* __restrict__ out, int T_len, int S, int G, long long q_sb, long long q_st,
-    long long q_sh, long long p_sb, long long p_st, long long o_sb, long long o_st,
-    long long o_sh, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int T_len, int S, int G, long long q_sb,
+    long long q_st, long long q_sh, long long p_sb, long long p_st, long long o_sb,
+    long long o_st, long long o_sh, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (std::is_same<T, bf16>::value)
-    prefill_mma(smem, q, arena, pos, out, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb, o_st,
-                o_sh, scale);
+    prefill_mma(smem, q, arena, pos, out, lse, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb,
+                o_st, o_sh, scale);
   else
-    prefill_simt(smem, q, arena, pos, out, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb, o_st,
-                 o_sh, scale);
+    prefill_simt(smem, q, arena, pos, out, lse, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb,
+                 o_st, o_sh, scale);
 }
 
 // ---- decode ---------------------------------------------------------------
@@ -779,7 +797,8 @@ __global__ void __launch_bounds__(prefill_threads<T>()) prefill_kernel(
 // each head to part[b, h, s, :].
 //
 // Combine kernel: grid (H, B), 128 threads (one per head_dim column):
-// merges splits 0 .. n_live - 1 of (b, h) in that order and writes q's dtype.
+// merges splits 0 .. n_live - 1 of (b, h) in that order and writes q's dtype
+// (and, given lse, the row's log-sum-exp from the merged (m, l)).
 
 constexpr int DC_THREADS = 256;
 constexpr int DC_WARPS = DC_THREADS / 32;
@@ -986,8 +1005,9 @@ __global__ void __launch_bounds__(DC_THREADS) decode_kernel(
 
 template <typename T>
 __global__ void __launch_bounds__(HD) decode_combine_kernel(
-    const float* __restrict__ part, const int* __restrict__ pos, T* __restrict__ out, int S,
-    int split_len, int n_split, long long p_sb, long long o_sb, long long o_sh) {
+    const float* __restrict__ part, const int* __restrict__ pos, T* __restrict__ out,
+    float* __restrict__ lse, int S, int split_len, int n_split, long long p_sb, long long o_sb,
+    long long o_sh) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int last = min(pos[b * p_sb], S - 1);
   const int n_live = last < 0 ? 0 : last / split_len + 1;
@@ -1005,6 +1025,8 @@ __global__ void __launch_bounds__(HD) decode_combine_kernel(
     a += pp[s * PART + d] * f;
   }
   out[b * o_sb + h * o_sh + d] = Vec<T>::cvt(a / (ll == 0.f ? 1.f : ll));
+  if (lse != nullptr && d == 0)  // mm in log2 units: the split kernel scores with scale * log2 e
+    lse[(long long)b * gridDim.x + h] = ll == 0.f ? NEG_INF : (mm + log2f(ll)) * LN2;
 }
 
 // ---- launchers ----------------------------------------------------------
@@ -1056,8 +1078,8 @@ cudaError_t raise_smem_limit(size_t smem) {
 
 template <typename T, typename Arena>
 cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, void* out,
-                           int B, int T_len, int H, int KV, int S, const long long* st,
-                           float scale, cudaStream_t stream) {
+                           float* lse, int B, int T_len, int H, int KV, int S,
+                           const long long* st, float scale, cudaStream_t stream) {
   const int G = H / KV;
   auto kern = prefill_kernel<T, Arena>;
   const size_t smem = prefill_smem<T>() + sizeof(int) * (size_t)arena.table_len();
@@ -1067,8 +1089,8 @@ cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, vo
   const int tok_per_block = PF_BM / G;
   dim3 grid((T_len + tok_per_block - 1) / tok_per_block, KV, B);
   kern<<<grid, prefill_threads<T>(), smem, stream>>>(
-      static_cast<const T*>(q), arena, pos, static_cast<T*>(out), T_len, S, G, st[0], st[1],
-      st[2], st[9], st[10], st[11], st[12], st[13], scale);
+      static_cast<const T*>(q), arena, pos, static_cast<T*>(out), lse, T_len, S, G, st[0],
+      st[1], st[2], st[9], st[10], st[11], st[12], st[13], scale);
   return cudaGetLastError();
 }
 
@@ -1091,7 +1113,7 @@ cudaError_t launch_decode_g(const void* q, const Arena& arena, const int* pos, f
 // B * H * ceil(S / split_len) * (hd + 2) floats.
 template <typename T, typename Arena>
 cudaError_t launch_decode(const void* q, const Arena& arena, const int* pos, void* out,
-                          void* scratch, int B, int H, int KV, int S, int split_len,
+                          float* lse, void* scratch, int B, int H, int KV, int S, int split_len,
                           const long long* st, float scale, cudaStream_t stream) {
   const int n_split = (S + split_len - 1) / split_len;
   float* part = static_cast<float*>(scratch);
@@ -1118,7 +1140,7 @@ cudaError_t launch_decode(const void* q, const Arena& arena, const int* pos, voi
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_combine_kernel<T>, static_cast<const float*>(part), pos, static_cast<T*>(out),
-      S, split_len, n_split, st[8], st[9], st[10]);
+      lse, S, split_len, n_split, st[8], st[9], st[10]);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1135,36 +1157,38 @@ extern "C" {
 int atpu_decode_part_floats() { return PART; }
 
 // Dense arena k/v [R, S, KV, hd]; rows (nullable) is a device int32 [B]:
-// query row b attends over arena row rows[b] (row b when null).
+// query row b attends over arena row rows[b] (row b when null). lse
+// (nullable): f32 [B, T, H] contiguous, each row's log-sum-exp (note above).
 int atpu_flash_prefill(const void* q, const void* k, const void* v, const void* pos,
-                       const void* rows, void* out, int dtype, int B, int T_len, int H, int KV,
-                       int S, const long long* strides, float scale, void* stream) {
+                       const void* rows, void* out, void* lse, int dtype, int B, int T_len, int H,
+                       int KV, int S, const long long* strides, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   if (H % KV != 0 || PF_BM % (H / KV) != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return (int)cudaSuccess;
   const long long* a = strides + 3;
   cudaError_t err = dtype == 1
-      ? launch_prefill<bf16>(q, dense_arena<bf16>(k, v, a, rows), p, out, B, T_len, H, KV, S,
-                             strides, scale, s)
-      : launch_prefill<float>(q, dense_arena<float>(k, v, a, rows), p, out, B, T_len, H, KV, S,
-                              strides, scale, s);
+      ? launch_prefill<bf16>(q, dense_arena<bf16>(k, v, a, rows), p, out,
+                             static_cast<float*>(lse), B, T_len, H, KV, S, strides, scale, s)
+      : launch_prefill<float>(q, dense_arena<float>(k, v, a, rows), p, out,
+                              static_cast<float*>(lse), B, T_len, H, KV, S, strides, scale, s);
   return (int)err;
 }
 
+// lse (nullable): f32 [B, H] contiguous, each row's log-sum-exp.
 int atpu_flash_decode(const void* q, const void* k, const void* v, const void* pos, void* out,
-                      void* scratch, int dtype, int B, int H, int KV, int S, int split_len,
-                      const long long* strides, float scale, void* stream) {
+                      void* lse, void* scratch, int dtype, int B, int H, int KV, int S,
+                      int split_len, const long long* strides, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   if (H % KV != 0 || bad_split(split_len)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const long long* a = strides + 2;
   cudaError_t err = dtype == 1
-      ? launch_decode<bf16>(q, dense_arena<bf16>(k, v, a), p, out, scratch, B, H, KV, S,
-                            split_len, strides, scale, s)
-      : launch_decode<float>(q, dense_arena<float>(k, v, a), p, out, scratch, B, H, KV, S,
-                             split_len, strides, scale, s);
+      ? launch_decode<bf16>(q, dense_arena<bf16>(k, v, a), p, out, static_cast<float*>(lse),
+                            scratch, B, H, KV, S, split_len, strides, scale, s)
+      : launch_decode<float>(q, dense_arena<float>(k, v, a), p, out, static_cast<float*>(lse),
+                             scratch, B, H, KV, S, split_len, strides, scale, s);
   return (int)err;
 }
 
@@ -1184,10 +1208,10 @@ int atpu_paged_flash_prefill(const void* q, const void* k_pool, const void* v_po
   cudaError_t err = dtype == 1
       ? launch_prefill<bf16>(
             q, paged_arena<bf16>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
-            B, T_len, H, KV, S, strides, scale, s)
+            nullptr, B, T_len, H, KV, S, strides, scale, s)
       : launch_prefill<float>(
             q, paged_arena<float>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
-            B, T_len, H, KV, S, strides, scale, s);
+            nullptr, B, T_len, H, KV, S, strides, scale, s);
   return (int)err;
 }
 
@@ -1206,10 +1230,10 @@ int atpu_paged_flash_decode(const void* q, const void* k_pool, const void* v_poo
   cudaError_t err = dtype == 1
       ? launch_decode<bf16>(
             q, paged_arena<bf16>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
-            scratch, B, H, KV, S, split_len, strides, scale, s)
+            nullptr, scratch, B, H, KV, S, split_len, strides, scale, s)
       : launch_decode<float>(
             q, paged_arena<float>(k_pool, v_pool, table, t_sb, page_size, n_blocks, a), p, out,
-            scratch, B, H, KV, S, split_len, strides, scale, s);
+            nullptr, scratch, B, H, KV, S, split_len, strides, scale, s);
   return (int)err;
 }
 

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine in PyTorch — on one device or over
-a tp×ep mesh, over the dense KV arena or the paged one.
+a mesh (tp × ep × sp, or a pp pipeline), over the dense KV arena or the
+paged one.
 
 Reference: ``agentainer_tpu/engine/llm.py`` with its defaults —
 ``prefix_cache``, ``speculative`` and ``deadlines`` on, ``adaptive_decode``
@@ -140,20 +141,24 @@ What differs from the reference, and why:
   copy's event has landed;
 - serve-time model parallelism (``mesh=``; ``create`` places it as the
   reference does: a ``chips`` budget an assignment narrows and never
-  spills, EP-first for MoE, a dense agent's chips spanned by tp) runs in
-  this one process: the params are cut per shard at build
-  (``parallel/sharding.shard_params``), each shard's dense arena or paged
-  pool holds its kv heads (``models/llama.MeshCache``; one page id and one
-  block table for every shard), and ``forward`` runs each layer per shard
-  with the shards meeting in ``parallel/collectives``. Routed MoE is the
-  default under ep > 1 (``parallel/expert.make_routed_moe``), and
-  ``inloop_spec`` is off on a mesh, as in the reference. Snapshots and
-  tier parks stage each tp slice and keep the unsharded layout, so a blob
-  crosses between meshes and one device. On one card every shard's work
-  goes on the engine's stream and the step graphs capture the whole mesh;
-  a mesh over several cards serves its steps eagerly (no capture across
-  devices). ``sp`` and ``pp`` > 1 raise ``ValueError``: they wait for a
-  later slice.
+  spills, sp's chips reserved first, EP-first for MoE, a dense agent's
+  chips spanned by tp; pp on its own) runs in this one process: the params
+  are cut per shard at build (``parallel/sharding.shard_params``), each
+  shard's dense arena or paged pool holds its kv heads, its slots (sp) or
+  its layers (pp) (``models/llama.MeshCache``; one page id and one block
+  table for every shard), and ``forward`` runs each layer per shard with
+  the shards meeting in ``parallel/collectives`` (sp: the shards'
+  attention rows joined by their log-sum-exp, ``parallel/flash_mesh.py``;
+  pp: each layer on its stage's shard, the stages in turn,
+  ``parallel/pipeline.py``). Routed MoE is the
+  default under ep > 1 (``parallel/expert.make_routed_moe``);
+  ``inloop_spec`` is off on a mesh, ``paged_kv`` under sp or pp and
+  ``fused_decode`` under pp, as in the reference. Snapshots and tier parks
+  stage each tp slice and keep the unsharded layout, so a blob crosses
+  between meshes and one device. On one card every shard's work goes on
+  the engine's stream and the step graphs capture the whole mesh; a mesh
+  over several cards serves its steps eagerly (no capture across
+  devices).
 
 The engine runs its device work on a dedicated worker thread, on one CUDA
 stream of its own; the serve layer talks to it through a thread-safe queue
@@ -181,6 +186,7 @@ from ..ops import cuda_quant
 from ..parallel.expert import make_routed_moe, moe_expert_parallel
 from ..parallel.flash_mesh import supported
 from ..parallel.mesh import make_mesh, pick_ep, pick_tp
+from ..parallel.pipeline import check_stages
 from ..parallel.sharding import shard_params, unshard_kv, unsharded_bytes
 from ..utils.hw import chip_spec
 from .checkpoint import deserialize_kv_slot, load_params, pack_kv_snapshot
@@ -335,59 +341,71 @@ def _engine_device(device, cfg: ModelConfig, chips=(), quant: str = "", tp: int 
     return device
 
 
-def _placement(cfg: ModelConfig, options: dict, chips: list[int]) -> tuple[int, int, list]:
-    """``(tp, ep, devices)`` as the reference's ``create`` places an agent:
-    the chip budget is the assignment (``chips``), which tp×ep may narrow
-    and never spill past, or what the options ask for; an MoE model splits
-    it EP-first (explicit ``tp``/``ep`` override), a dense one spans an
-    assignment with tp; each axis is a divisor of the model's head or
-    expert count (``pick_tp``/``pick_ep``). On the card the budget is
-    clamped to the visible devices and the mesh takes the assigned ones
+def _placement(cfg: ModelConfig, options: dict, chips: list[int]) -> tuple[int, int, int, int, list]:
+    """``(tp, ep, sp, pp, devices)`` as the reference's ``create`` places an
+    agent: the chip budget is the assignment (``chips``), which the mesh may
+    narrow and never spill past, or what the options ask for. A pipeline
+    (``pp`` > 1) takes ``pp`` of it alone; otherwise ``sp`` reserves its
+    chips first, an MoE model splits the rest EP-first (explicit
+    ``tp``/``ep`` override), a dense one spans an assignment with tp, and
+    ``sp`` takes what tp × ep leaves; tp and ep are divisors of the model's
+    head or expert count (``pick_tp``/``pick_ep``). On the card the budget
+    is clamped to the visible devices and the mesh takes the assigned ones
     (the first ones when an id is not visible); on the CPU every shard is
     ``cpu``."""
     on_card = torch.device(options.get("device", "cuda")).type == "cuda"
     visible = torch.cuda.device_count() if on_card and torch.cuda.is_available() else None
     tp_asked = int(options.get("tp", 0) or 0)
     ep_asked = int(options.get("ep", 0) or 0)
+    sp_asked = int(options.get("sp", 0) or 0)
+    pp_asked = int(options.get("pp", 0) or 0)
     if chips:
         budget = len(chips)
     else:
-        budget = max(1, tp_asked) * max(1, ep_asked)
+        budget = max(1, tp_asked) * max(1, ep_asked) * max(1, sp_asked) * max(1, pp_asked)
     if visible is not None:
         budget = max(1, min(budget, visible))
-    if cfg.is_moe:
-        # EP-first: experts dominate a MoE model's memory
-        if ep_asked:
-            ep = pick_ep(cfg, min(ep_asked, budget))
-            tp = pick_tp(cfg, min(max(1, tp_asked), budget // ep))
-        elif tp_asked:
-            tp = pick_tp(cfg, min(tp_asked, budget))
-            ep = pick_ep(cfg, budget // tp)
-        else:
-            ep = pick_ep(cfg, budget)
-            tp = pick_tp(cfg, budget // ep)
+    tp = ep = sp = pp = 1
+    if pp_asked > 1:
+        pp = min(pp_asked, budget)
+        check_stages(cfg, pp)
     else:
-        ep = 1
-        # a dense agent spans its whole assignment unless tp is asked
-        dense_tp = tp_asked if tp_asked else (budget if chips else 1)
-        tp = pick_tp(cfg, min(max(1, dense_tp), budget))
-    n_use = tp * ep
-    asked = max(1, tp_asked) * max(1, ep_asked)
-    if n_use < min(asked, budget) or (chips and n_use < len(chips)):
-        print(
-            f"[llm-engine] parallelism narrowed to tp={tp} ep={ep} (asked tp={tp_asked or 'auto'} "
-            f"ep={ep_asked or 'auto'}, assigned chips={len(chips) or 'none'}, visible devices="
-            f"{visible if visible is not None else 'cpu'}, model kv_heads={cfg.n_kv_heads}, "
-            f"heads={cfg.n_heads}, experts={cfg.n_experts}); extra chips idle",
-            flush=True,
-        )
+        # sequence parallelism reserves its chips before the tp/ep split
+        model_budget = max(1, budget // max(1, sp_asked))
+        if cfg.is_moe:
+            # EP-first: experts dominate a MoE model's memory
+            if ep_asked:
+                ep = pick_ep(cfg, min(ep_asked, model_budget))
+                tp = pick_tp(cfg, min(max(1, tp_asked), model_budget // ep))
+            elif tp_asked:
+                tp = pick_tp(cfg, min(tp_asked, model_budget))
+                ep = pick_ep(cfg, model_budget // tp)
+            else:
+                ep = pick_ep(cfg, model_budget)
+                tp = pick_tp(cfg, model_budget // ep)
+        else:
+            # a dense agent spans its whole assignment unless tp is asked
+            dense_tp = tp_asked if tp_asked else (model_budget if chips else 1)
+            tp = pick_tp(cfg, min(max(1, dense_tp), model_budget))
+        sp = max(1, min(sp_asked, budget // (tp * ep))) if sp_asked else 1
+        asked = max(1, tp_asked) * max(1, ep_asked) * max(1, sp_asked)
+        if tp * ep * sp < min(asked, budget) or (chips and tp * ep * sp < len(chips)):
+            print(
+                f"[llm-engine] parallelism narrowed to tp={tp} ep={ep} sp={sp} (asked "
+                f"tp={tp_asked or 'auto'} ep={ep_asked or 'auto'} sp={sp_asked or 'auto'}, "
+                f"assigned chips={len(chips) or 'none'}, visible devices="
+                f"{visible if visible is not None else 'cpu'}, model kv_heads={cfg.n_kv_heads}, "
+                f"heads={cfg.n_heads}, experts={cfg.n_experts}); extra chips idle",
+                flush=True,
+            )
+    n_use = tp * ep * sp * pp
     if not on_card:
-        return tp, ep, [torch.device("cpu")] * n_use
+        return tp, ep, sp, pp, [torch.device("cpu")] * n_use
     if visible is None:
-        return tp, ep, [torch.device("cuda")] * n_use  # _engine_device raises: no card
+        return tp, ep, sp, pp, [torch.device("cuda")] * n_use  # _engine_device raises: no card
     if chips and len(chips) >= n_use and all(0 <= c < visible for c in chips):
-        return tp, ep, [torch.device("cuda", c) for c in chips[:n_use]]
-    return tp, ep, [torch.device("cuda", i) for i in range(n_use)]
+        return tp, ep, sp, pp, [torch.device("cuda", c) for c in chips[:n_use]]
+    return tp, ep, sp, pp, [torch.device("cuda", i) for i in range(n_use)]
 
 
 def _weight_shapes(cfg: ModelConfig, tp: int = 1) -> list[tuple[int, int]]:
@@ -726,20 +744,34 @@ class LLMEngine:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_batch = max_batch
-        # serve-time model parallelism: a tp×ep mesh of shards (module
-        # docstring); its first shard's device is the engine's
+        # serve-time model parallelism: a mesh of shards (module docstring);
+        # its first shard's device is the engine's
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        self.tp = self.mesh.shape["tp"] if self.mesh else 1
-        self.ep = self.mesh.shape["ep"] if self.mesh else 1
+        self.tp, self.ep, self.sp, self.pp = (
+            self.mesh.shape[a] if self.mesh else 1 for a in ("tp", "ep", "sp", "pp")
+        )
         if self.mesh is not None:
-            if any(self.mesh.shape[a] > 1 for a in ("dp", "sp", "pp")):
-                raise ValueError(f"{self.mesh}: only tp and ep meshes serve in this slice")
+            if self.mesh.shape["dp"] > 1:
+                raise ValueError(f"{self.mesh}: dp is the control plane's replicas, not an engine axis")
+            if self.pp > 1:
+                if self.mesh.size != self.pp:
+                    raise ValueError("serve-time pp does not compose with tp/ep/sp yet")
+                check_stages(cfg, self.pp)
             device = self.mesh.device_list[0]
         self.device = _engine_device(device, cfg, tp=self.tp)
+        # the sequence axis splits evenly over sp
+        max_seq = -(-max_seq // self.sp) * self.sp
         # Paged KV arena: sessions hold lists of fixed-size pages from one
         # pool instead of dense [max_seq] rows. paged_kv=False keeps the
-        # dense arena.
-        self.paged = bool(paged_kv)
+        # dense arena. sp splits the slots and pp the layers of the dense
+        # arena: neither composes with the page pool (the reference's rule)
+        self.paged = bool(paged_kv) and self.sp == 1 and self.pp == 1
+        if bool(paged_kv) and not self.paged:
+            print(
+                "[llm-engine] paged_kv disabled: not composable with "
+                f"sp={self.sp}/pp={self.pp} yet (dense arena retained)",
+                flush=True,
+            )
         self.page_size = max(8, int(page_size or PAGE_SIZE_DEFAULT))
         if self.paged:
             # the logical arena tiles exactly into pages
@@ -789,7 +821,11 @@ class LLMEngine:
         self.routed_moe = cfg.is_moe and (self.ep > 1 if routed_moe is None else bool(routed_moe))
         self.moe_capacity_factor = float(moe_capacity_factor)
         cf = self.moe_capacity_factor
-        if self.mesh is not None and cfg.is_moe:
+        if self.pp > 1:
+            if self.routed_moe:
+                raise ValueError("serve-time pp does not support routed MoE yet")
+            self._moe_impl = None  # each stage runs the dense-einsum MoE of its layers
+        elif self.mesh is not None and cfg.is_moe:
             self._moe_impl = (
                 make_routed_moe(self.mesh, cfg, capacity_factor=cf)
                 if self.routed_moe
@@ -819,8 +855,12 @@ class LLMEngine:
                     cfg, self._total_pages, self.page_size, dtype=dtype, device=dev, n_kv_heads=kv_heads
                 )
         else:
+            # a shard holds its sp slice of the slots and its stage's layers
             def make(dev):
-                return KVCache.create(cfg, max_batch, max_seq, dtype=dtype, device=dev, n_kv_heads=kv_heads)
+                return KVCache.create(
+                    cfg, max_batch, max_seq // self.sp, dtype=dtype, device=dev, n_kv_heads=kv_heads,
+                    n_layers=cfg.n_layers // self.pp,
+                )
         self.cache = MeshCache.create(self.mesh, make) if self.mesh is not None else make(self.device)
         self._kv_dtype = dtype
         self.slots = [Slot(i) for i in range(max_batch)]
@@ -1001,7 +1041,15 @@ class LLMEngine:
         # snap down to the largest verify bucket
         self.spec_gamma_max = self._spec_buckets[-1]
         # -- the fused decode loop ----------------------------------------
-        self.fused_decode = bool(fused_decode)
+        # pp stages the forward across devices, step by step: pp pins the
+        # unfused dispatch (the reference's rule)
+        self.fused_decode = bool(fused_decode) and self.pp == 1
+        if bool(fused_decode) and not self.fused_decode:
+            print(
+                f"[llm-engine] fused_decode disabled: not composable with pp={self.pp} "
+                "(per-chunk dispatch retained)",
+                flush=True,
+            )
         # the in-loop drafter needs the loop and speculation, and is off on
         # a mesh (reference)
         self.inloop_spec = (
@@ -1128,22 +1176,30 @@ class LLMEngine:
 
         ``options["device"]`` defaults to ``"cuda"``; with no card this
         raises rather than carrying on on the CPU — pass ``"cpu"`` to ask
-        for it. ``options["chips"]``, ``"tp"`` and ``"ep"`` place the engine
-        on one device or over a mesh (``_placement``); ``"sp"`` and ``"pp"``
-        above 1 raise. ``mesh`` (``parallel/mesh.make_mesh``) serves on that
-        mesh instead of placing one, e.g. a logical mesh whose shards share
-        one card. dtype follows the reference: bf16 on the card, f32 on the
+        for it. ``options["chips"]``, ``"tp"``, ``"ep"``, ``"sp"`` and
+        ``"pp"`` place the engine on one device or over a mesh
+        (``_placement``); pp with another axis, with int8 weights or with
+        routed MoE raises, as in the reference. ``mesh``
+        (``parallel/mesh.make_mesh``) serves on that mesh instead of placing
+        one, e.g. a logical mesh whose shards share one card. dtype follows the reference: bf16 on the card, f32 on the
         CPU."""
         options = options or {}
         quant = str(options.get("quant", "") or "").lower()
         if quant and quant not in QUANT_SCHEMES:
             raise ValueError(f"unknown quant scheme {quant!r} (supported: {', '.join(QUANT_SCHEMES)})")
-        for axis in ("sp", "pp"):
-            if int(options.get(axis, 0) or 0) > 1:
-                raise ValueError(
-                    f"{axis}={options[axis]}: serve-time {axis} waits for a later slice of the "
-                    "port's parallel/ (tp and ep serve)"
-                )
+        pp_asked = mesh.shape["pp"] if mesh is not None else int(options.get("pp", 0) or 0)
+        if pp_asked > 1:
+            # serve-time pp composes with nothing else yet (the reference's
+            # refusals, in its order)
+            others = (mesh.size > mesh.shape["pp"]) if mesh is not None else any(
+                int(options.get(a, 0) or 0) for a in ("tp", "ep", "sp")
+            )
+            if others:
+                raise ValueError("serve-time pp does not compose with tp/ep/sp yet")
+            if quant:
+                raise ValueError("serve-time pp does not support quantized weights yet")
+            if options.get("routed"):
+                raise ValueError("serve-time pp does not support routed MoE yet")
         if checkpoint and is_hf_checkpoint(checkpoint):
             # the checkpoint's own config.json; an explicit config name
             # stands in for a missing or unusable one
@@ -1160,9 +1216,10 @@ class LLMEngine:
             cfg = get_config(config_name or "tiny")
         chips = [int(c) for c in options.get("chips", []) or []]
         if mesh is None:
-            tp, ep, devices = _placement(cfg, options, chips)
+            tp, ep, sp, pp, devices = _placement(cfg, options, chips)
             if len(devices) > 1:
-                mesh = make_mesh(len(devices), tp=tp, ep=ep, devices=devices)
+                mesh = make_mesh(len(devices), tp=tp, ep=ep, sp=sp, pp=pp, devices=devices)
+        sp = mesh.shape["sp"] if mesh is not None else 1
         if mesh is not None:
             device = _engine_device(mesh.device_list[0], cfg, quant=quant, tp=mesh.shape["tp"])
         else:
@@ -1192,7 +1249,9 @@ class LLMEngine:
             params,
             tokenizer,
             max_batch=int(options.get("max_batch", 8)),
-            max_seq=int(options.get("max_seq", min(cfg.max_seq_len, 2048))),
+            # the sequence-sharded arena holds sp x one device's context
+            # budget by default (the reference's)
+            max_seq=int(options.get("max_seq", min(cfg.max_seq_len, 2048 * sp))),
             decode_chunk=int(options.get("decode_chunk", 8)),
             prefill_chunk=int(options.get("prefill_chunk", 256)),
             adaptive_decode=bool(options.get("adaptive_decode", True)),
@@ -1859,6 +1918,8 @@ class LLMEngine:
             "n_chips": len(self.mesh.distinct_devices) if self.mesh is not None else 1,
             "tp": self.tp,
             "ep": self.ep,
+            "sp": self.sp,
+            "pp": self.pp,
             "param_hbm_bytes": self.param_hbm_bytes,
             "moe_routed": self.routed_moe,
             # decode-shaped routed calls (t == 1) run dropless whatever

@@ -8,8 +8,8 @@ one-hot dispatch), ``_attention_block`` (``_qkv``, the cache branches in
 into the residual in ``forward``), ``forward`` (with ``moe_impl``) and
 ``greedy_decode``. ``forward``'s ``attn_impl`` is the reference's hook for
 the no-cache path, which the training step (``train.py``) uses; the
-sequence-parallel attentions behind it wait for a later slice of
-``parallel/``.
+training-time sequence-parallel attentions behind it (``ring_attention``,
+``ulysses``) wait for the training slice of ``parallel/``.
 
 ``forward`` runs each layer per shard, one device being one shard (its
 collectives no-ops). Over a mesh (``forward(..., mesh=)``, ``parallel/``)
@@ -20,8 +20,10 @@ attention on one device too), a row-parallel wo partial, then an
 ``all_reduce`` over tp; the MLP likewise (an MoE layer through the
 engine's ``moe_impl``, ``parallel/expert.py``); a vocab-sharded embedding
 as a masked lookup plus an ``all_reduce``; a vocab-sharded ``lm_head``
-whose logits are ``all_gather``ed. ``MeshCache`` holds the shards' arenas
-or pools.
+whose logits are ``all_gather``ed. Over sp each shard holds a slice of
+every row's slots and the shards' attention rows are joined over sp; over
+pp each layer runs on its stage's shard, the stages in turn.
+``MeshCache`` holds the shards' arenas or pools.
 
 Every op of the no-cache path keeps autograd intact (``train.py`` takes
 gradients through it): the embedding gather, the layer views, the norms,
@@ -64,8 +66,10 @@ from ..ops.attention import attention_reference, causal_mask, flash_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import QTensor, dequant, embed_lookup, layer_slice, qmatmul, qmatmul_experts
 from ..ops.rope import apply_rope
-from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.collectives import all_gather, all_reduce, broadcast, handoff
 from ..parallel.flash_mesh import make_meshed_cache_attention
+from ..parallel.pipeline import check_stages
+from ..parallel.sharding import unshard_layers, unshard_slots
 from .configs import ModelConfig
 
 
@@ -92,11 +96,12 @@ class KVCache:
     @staticmethod
     def create(
         cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
-        n_kv_heads: int | None = None,
+        n_kv_heads: int | None = None, n_layers: int | None = None,
     ) -> "KVCache":
-        """``n_kv_heads``: a tp shard's (default: the model's)."""
+        """``n_kv_heads``: a tp shard's, ``n_layers``: a pipeline stage's
+        (default: the model's); ``max_seq``: an sp shard's slots."""
         kv = n_kv_heads or cfg.n_kv_heads
-        shape = (cfg.n_layers, batch, max_seq + 1, kv, cfg.head_dim)
+        shape = (n_layers or cfg.n_layers, batch, max_seq + 1, kv, cfg.head_dim)
         return KVCache(
             torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device),
@@ -222,22 +227,28 @@ class PagedKVCache:
 
 class MeshCache:
     """The KV arenas (``KVCache``) or pools (``PagedKVCache``) of a mesh's
-    shards, shard ``s``'s on its device holding the kv heads of its tp
-    slice (``parallel/sharding.cache_spec``/``pool_spec``; the shards of an
-    ep group hold the same heads, as the reference's replicated arena).
-    The engine's reads come from one shard per tp slice, in the unsharded
-    layout's order; its writes go to every shard, each taking its slice
-    of the unsharded ``[..., KV, hd]`` source."""
+    shards, shard ``s``'s on its device holding its slice of the unsharded
+    ``[L, B, S, KV, hd]``: the kv heads of its tp slice, the slots of its sp
+    slice (``parallel/sharding.cache_spec``) and the layers of its pipeline
+    stage (``pipeline_cache_spec``); the shards of an ep group hold the
+    same slice, as the reference's replicated arena (``pool_spec``: a pool
+    splits over tp only). The engine's reads come from one shard per
+    (tp, sp, pp) slice, joined into the unsharded layout's order, one
+    ``[L, n, KV/tp, hd]`` pair per tp slice; its writes go to every shard,
+    each taking its slice of the unsharded ``[L, n, KV, hd]`` source."""
 
     def __init__(self, shards: list, mesh):
         self.shards = shards
         self.mesh = mesh
-        self._readers = mesh.first_of(("tp",))
+        tp, sp, pp = self._tp, self._sp, self._pp = mesh.shape["tp"], mesh.shape["sp"], mesh.shape["pp"]
+        # the readers, [tp][pp][sp] → shard (first_of orders them by tp, sp, pp)
+        firsts = mesh.first_of(("tp", "sp", "pp"))
+        self._grid = [[[firsts[(t * sp + j) * pp + p] for j in range(sp)] for p in range(pp)] for t in range(tp)]
 
     @staticmethod
     def create(mesh, make) -> "MeshCache":
         """``make(device)`` builds one shard's cache, with the kv heads of a
-        tp slice."""
+        tp slice, the slots of an sp slice and the layers of a stage."""
         return MeshCache([make(d) for d in mesh.device_list], mesh)
 
     def at_rows(self, rows: torch.Tensor) -> "MeshCache":
@@ -248,34 +259,71 @@ class MeshCache:
     def tensors(self) -> list[torch.Tensor]:
         return [t for c in self.shards for t in c.tensors()]
 
-    def _part(self, x: torch.Tensor, shard: int) -> torch.Tensor:
-        """Shard ``shard``'s tp slice of an unsharded ``[..., KV, hd]``
-        source, contiguous (a pinned host source stays pinned)."""
-        tp = self.mesh.shape["tp"]
-        if tp == 1:
-            return x
-        n = x.shape[-2] // tp
-        part = x.narrow(-2, self.mesh.index("tp", shard) * n, n)
+    def _slots(self, shard: int, n: int) -> tuple[int, int]:
+        """Of the first ``n`` slots, the range ``[lo, hi)`` shard ``shard``
+        holds (its own slots ``[0, hi - lo)``)."""
+        if self._sp == 1:
+            return 0, n
+        s_loc = self.shards[shard].max_seq
+        lo = self.mesh.index("sp", shard) * s_loc
+        return lo, max(lo, min(n, lo + s_loc))
+
+    def _count(self, shard: int, n: int) -> int:
+        lo, hi = self._slots(shard, n)
+        return hi - lo
+
+    def _part(self, x: torch.Tensor, shard: int, n: int | None = None) -> torch.Tensor:
+        """Shard ``shard``'s slice of an unsharded ``[L, n, KV, hd]`` source:
+        its tp slice of the kv heads, its stage's layers and (with ``n``)
+        its sp slice of the first ``n`` slots; contiguous where it cuts (a
+        pinned host source stays pinned)."""
+        part = x
+        if self._tp > 1:
+            k = x.shape[-2] // self._tp
+            part = part.narrow(-2, self.mesh.index("tp", shard) * k, k)
+        if self._pp > 1:
+            per = x.shape[0] // self._pp
+            part = part.narrow(0, self.mesh.index("pp", shard) * per, per)
+        if n is not None and self._sp > 1:
+            lo, hi = self._slots(shard, n)
+            part = part.narrow(1, lo, hi - lo)
+        if part is x or part.is_contiguous():
+            return part
         if x.device.type == "cpu" and x.is_pinned():
             return torch.empty(part.shape, dtype=part.dtype, pin_memory=True).copy_(part)
         return part.contiguous()
 
+    @staticmethod
+    def _join(pieces: list) -> tuple[torch.Tensor, torch.Tensor]:
+        """(k, v) pieces ``[pp][sp]`` of one tp slice as one pair: slots
+        joined along axis 1, layers along axis 0 (views where one piece)."""
+        return tuple(
+            unshard_layers([unshard_slots([kv[i] for kv in stage]) for stage in pieces]) for i in (0, 1)
+        )
+
     def read_prefix(self, row: int, n: int):
-        return [p for s in self._readers for p in self.shards[s].read_prefix(row, n)]
+        return [
+            self._join([[self.shards[s].read_prefix(row, self._count(s, n))[0] for s in stage]
+                        for stage in by_pp])
+            for by_pp in self._grid
+        ]
 
     def write_prefix(self, row: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        n = k.shape[1]
         for s, c in enumerate(self.shards):
-            c.write_prefix(row, self._part(k, s), self._part(v, s))
+            kp = self._part(k, s, n)
+            if kp.shape[1]:
+                c.write_prefix(row, kp, self._part(v, s, n))
 
     def clone_prefix(self, row: int, n: int):
-        return [c.clone_prefix(row, n) for c in self.shards]
+        return [c.clone_prefix(row, self._count(s, n)) for s, c in enumerate(self.shards)]
 
     def fork_prefix(self, row: int, saved) -> None:
         for c, part in zip(self.shards, saved):
             c.fork_prefix(row, part)
 
     def read_pages(self, ids: torch.Tensor):
-        return [p for s in self._readers for p in self.shards[s].read_pages(ids)]
+        return [p for by_pp in self._grid for p in self.shards[by_pp[0][0]].read_pages(ids)]
 
     def write_pages(self, ids: torch.Tensor, k: torch.Tensor, v: torch.Tensor, position: int) -> None:
         for s, c in enumerate(self.shards):
@@ -484,8 +532,8 @@ def _causal(q, k, v, mask, use_flash, attn_impl) -> torch.Tensor:
 
 def _embed_shard(embed, tokens: torch.Tensor, lo: int) -> torch.Tensor:
     """A vocab shard's part of the embedding: the rows it holds, zeros for
-    tokens outside ``[lo, lo + rows)`` (summed over tp, every token's row
-    comes from exactly one shard)."""
+    tokens outside ``[lo, lo + rows)`` (summed over tp or pp, every token's
+    row comes from exactly one shard)."""
     rows = (embed.q if isinstance(embed, QTensor) else embed).shape[0]
     local = tokens.long() - lo
     mine = (local >= 0) & (local < rows)
@@ -524,33 +572,46 @@ def forward(
 
     With ``mesh``: ``params`` is ``parallel/sharding.shard_params``' list,
     ``cache`` a ``MeshCache``, ``moe_impl(hs, lps)`` is required for an MoE
-    config (``parallel/expert.py``), and the logits land on the first
-    shard's device. One device runs the same loop as one shard, its
-    collectives no-ops."""
+    config over tp or ep (``parallel/expert.py``), and the logits land on
+    the first shard's device. One device runs the same loop as one shard,
+    its collectives no-ops. A mesh of sp > 1 holds each row's slots split
+    over sp (``parallel/flash_mesh.py`` joins the shards' attention). A mesh
+    of pp > 1 runs each layer on its stage's shard alone (layer ``l`` on
+    stage ``l // (L/pp)``, against the stage's arena), the activation
+    handed to the next stage at a boundary; its vocabulary is sharded over
+    pp as tp's is over tp, and the last stage's hidden state is broadcast
+    to every stage for its ``lm_head`` columns (``parallel/pipeline.py``)."""
+    pp = 1 if mesh is None else mesh.shape["pp"]
     if mesh is None:
         shards, caches, devs, tp = [params], [cache], [tokens.device], 1
 
-        def reduce(parts):
+        def reduce(parts, axis="tp"):
             return parts
 
         def moe(hs, lps):
             return [moe_impl(hs[0], lps[0]) if moe_impl is not None else _moe_mlp(hs[0], lps[0], cfg)]
 
-        def gather(parts):
+        def gather(parts, axis):
             return parts
     else:
-        if cfg.is_moe and moe_impl is None:
+        if pp > 1:
+            if mesh.size != pp or cache is None:
+                raise ValueError(f"{mesh}: serve-time pp composes with no other axis and needs its staged arena")
+            check_stages(cfg, pp)
+        elif cfg.is_moe and moe_impl is None:
             raise ValueError("a meshed MoE forward needs moe_impl (parallel/expert.py)")
         shards, caches, devs, tp = params, cache.shards if cache is not None else [None] * mesh.size, \
             mesh.device_list, mesh.shape["tp"]
 
-        def reduce(parts):
-            return all_reduce(parts, mesh, "tp")
+        def reduce(parts, axis="tp"):
+            return all_reduce(parts, mesh, axis)
 
-        moe = moe_impl
+        def moe(hs, lps):
+            # a stage runs the dense-einsum MoE of its layers, as one device
+            return moe_impl(hs, lps) if pp == 1 else [_moe_mlp(hs[0], lps[0], cfg)]
 
-        def gather(parts):
-            return all_gather(parts, mesh, "tp", dim=-1)
+        def gather(parts, axis):
+            return all_gather(parts, mesh, axis, dim=-1)
     n = len(shards)
     heads, kv_heads = cfg.n_heads // tp, cfg.n_kv_heads // tp
 
@@ -559,37 +620,45 @@ def forward(
 
     toks, pos, tables = each(tokens), each(positions), each(block_table)
     b, t = tokens.shape
-    attend = make_meshed_cache_attention(paged=block_table is not None)
+    attend = make_meshed_cache_attention(paged=block_table is not None, mesh=mesh)
     masks = [None] * n
     if cache is None and not use_flash and attn_impl is None:
         masks = [causal_mask(t, device=d).expand(b, t, t) for d in devs]
-    vocab = cfg.vocab_size // tp
+    # the vocabulary splits over tp, or over pp (they do not compose)
+    vaxis, n_vocab = ("pp", pp) if pp > 1 else ("tp", tp)
+    vocab = cfg.vocab_size // n_vocab
     xs = reduce([
-        embed_lookup(shards[s]["embed"], toks[s]) if tp == 1
-        else _embed_shard(shards[s]["embed"], toks[s], mesh.index("tp", s) * vocab)
+        embed_lookup(shards[s]["embed"], toks[s]) if n_vocab == 1
+        else _embed_shard(shards[s]["embed"], toks[s], mesh.index(vaxis, s) * vocab)
         for s in range(n)
-    ])
+    ], vaxis)
+    on, per = list(range(n)), cfg.n_layers // pp  # the shards a layer runs on; layers a stage
     for layer in range(cfg.n_layers):
-        lps = [{k: layer_slice(v, layer) for k, v in sh["layers"].items()} for sh in shards]
-        qkv = [_qkv(xs[s], lps[s], cfg, pos[s], heads, kv_heads) for s in range(n)]
+        stage, local = divmod(layer, per)
+        if pp > 1 and local == 0:
+            on, xs = [stage], [xs[0] if stage == 0 else handoff(xs[0], mesh, stage)]
+        lps = [{k: layer_slice(v, local) for k, v in shards[s]["layers"].items()} for s in on]
+        qkv = [_qkv(x, lp, cfg, pos[s], heads, kv_heads) for x, lp, s in zip(xs, lps, on)]
         if cache is not None:
-            attn = attend([q for q, _, _ in qkv], [(k, v) for _, k, v in qkv], caches, layer, pos, tables,
-                          use_kernel=use_flash)
+            attn = attend([q for q, _, _ in qkv], [(k, v) for _, k, v in qkv], [caches[s] for s in on], local,
+                          [pos[s] for s in on], [tables[s] for s in on], use_kernel=use_flash)
         else:
-            attn = [_causal(*qkv[s], masks[s], use_flash, attn_impl) for s in range(n)]
-        outs = reduce([qmatmul(attn[s].reshape(b, t, heads * cfg.head_dim), lps[s]["wo"]) for s in range(n)])
-        xs = [xs[s] + outs[s] for s in range(n)]
-        hs = [rms_norm(xs[s], lps[s]["mlp_norm"], cfg.norm_eps) for s in range(n)]
-        outs = moe(hs, lps) if cfg.is_moe else reduce([_mlp(hs[s], lps[s]) for s in range(n)])
-        xs = [xs[s] + outs[s] for s in range(n)]
+            attn = [_causal(*qkv[i], masks[s], use_flash, attn_impl) for i, s in enumerate(on)]
+        outs = reduce([qmatmul(a.reshape(b, t, heads * cfg.head_dim), lp["wo"]) for a, lp in zip(attn, lps)])
+        xs = [x + o for x, o in zip(xs, outs)]
+        hs = [rms_norm(x, lp["mlp_norm"], cfg.norm_eps) for x, lp in zip(xs, lps)]
+        outs = moe(hs, lps) if cfg.is_moe else reduce([_mlp(h, lp) for h, lp in zip(hs, lps)])
+        xs = [x + o for x, o in zip(xs, outs)]
     if last_index is not None:
         last = each(last_index)
-        xs = [xs[s].gather(1, last[s].long()[:, None, None].expand(-1, 1, xs[s].shape[-1])) for s in range(n)]
+        xs = [x.gather(1, last[s].long()[:, None, None].expand(-1, 1, x.shape[-1])) for x, s in zip(xs, on)]
+    if pp > 1:
+        xs = broadcast(xs[0], mesh, "pp")
     logits = [
         qmatmul(rms_norm(xs[s], shards[s]["final_norm"], cfg.norm_eps), shards[s]["lm_head"]).float()
         for s in range(n)
     ]
-    return gather(logits)[0]
+    return gather(logits, vaxis)[0]
 
 
 @torch.inference_mode()

@@ -26,6 +26,7 @@ from .cuda_attention import (
     flash_attention_causal,
     flash_decode,
     flash_prefill,
+    flash_prefill_plain,
     fused_paged_flash_decode,
     fused_paged_flash_prefill,
 )
@@ -133,7 +134,8 @@ def cache_attention(
     positions: torch.Tensor,  # [B, T] int per-sequence absolute positions
     use_kernel: bool = True,
     rows: torch.Tensor | None = None,  # [B] int arena row of each sequence
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention over the KV arena: row t sees slot j iff j <= positions[b,t].
 
     The serving hot path (ragged cached prefill and T == 1 decode). On the
@@ -142,17 +144,23 @@ def cache_attention(
     reference's ``use_pallas=False`` — it materializes ``cache_mask`` and
     runs the plain reference. ``rows`` sends sequence b to arena row
     rows[b] (the prefill kernel reads it on the device; elsewhere the rows
-    are gathered first)."""
+    are gathered first). ``return_lse`` (a shard of a sequence-sharded
+    arena, ``parallel/flash_mesh.py``): also each row's log-sum-exp, f32
+    ``[B, T, H]``, from the kernels' entries or, off the card, their plain
+    versions (``ops/cuda_attention.py``)."""
     if rows is not None and not (use_kernel and _on_card(q) and q.shape[1] > 1):
         ck, cv = ck.index_select(0, rows.long()), cv.index_select(0, rows.long())
         rows = None
     if use_kernel and _on_card(q):
         pos = positions.to(torch.int32)
         if rows is not None:
-            return flash_prefill(q, ck, cv, pos, rows.to(torch.int32))
+            return flash_prefill(q, ck, cv, pos, rows.to(torch.int32), return_lse=return_lse)
         if q.shape[1] == 1:
-            return flash_decode(q[:, 0], ck, cv, pos[:, 0])[:, None]
-        return flash_prefill(q, ck, cv, pos)
+            got = flash_decode(q[:, 0], ck, cv, pos[:, 0], return_lse=return_lse)
+            return (got[0][:, None], got[1][:, None]) if return_lse else got[:, None]
+        return flash_prefill(q, ck, cv, pos, return_lse=return_lse)
+    if return_lse:
+        return flash_prefill_plain(q, ck, cv, positions, return_lse=True)
     return attention_reference(q, ck, cv, mask=cache_mask(positions, ck.shape[1]))
 
 

@@ -35,6 +35,15 @@ zeros; the output has q's dtype.
   (kv head, lane, split of ``DECODE_SPLIT`` slots) writing f32 partials to
   scratch the wrapper allocates, then a combine that merges the splits in
   fixed order. ``.launches`` counts wrapper calls.
+- ``flash_prefill`` and ``flash_decode`` take ``return_lse=True`` (the
+  entry of a shard of a sequence-sharded arena, ``parallel/flash_mesh.py``)
+  and then also return each query row's log-sum-exp of its scaled scores
+  over the slots it sees, in natural-log units: ``lse = log(sum_j exp(s_j))``
+  with ``s_j = q·k_j / sqrt(hd)``, an f32 ``[B, T, H]`` (prefill) or
+  ``[B, H]`` (decode), and ``NEG_INF`` for a row that sees no slot. The
+  output is the same bits with or without it. Shards ``j`` of one arena
+  give ``(o_j, lse_j)``; their join is ``sum_j exp(lse_j - LSE) o_j`` with
+  ``LSE = log(sum_j exp(lse_j))``, where a ``NEG_INF`` shard weighs 0.
 - ``*_plain`` compute the same functions in plain PyTorch (the paged ones
   gather the lane's pages into a dense view first): the CPU tests hold them
   against the JAX kernels, and the card's check holds the kernels against
@@ -87,7 +96,8 @@ def kernel_supported(n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
 
 def _attend_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor):
     """qg [B, T, KV, G, hd], k/v [B, S, KV, hd], pos [B, T] → f32
-    [B, T, KV, G, hd] under the kernels' masking and l == 0 rules."""
+    [B, T, KV, G, hd] under the kernels' masking and l == 0 rules, and the
+    rows' log-sum-exp f32 [B, T, KV, G] (``NEG_INF`` where l == 0)."""
     s_len = k.shape[1]
     scale = 1.0 / (qg.shape[-1] ** 0.5)
     scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
@@ -98,27 +108,32 @@ def _attend_plain(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch
     p = torch.where(visible, torch.exp(scores - m), torch.zeros_like(scores))
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(l))[..., 0].permute(0, 3, 1, 2)
     l = torch.where(l == 0, torch.ones_like(l), l)  # no visible slot: zeros
-    return out / l.permute(0, 3, 1, 2, 4)
+    return out / l.permute(0, 3, 1, 2, 4), lse
 
 
-def flash_prefill_plain(q, k, v, q_positions, rows=None) -> torch.Tensor:
-    """Plain PyTorch ``flash_prefill``: q [B, T, H, hd] → [B, T, H, hd];
-    with ``rows`` ([B] int), query row b attends over arena row rows[b]."""
+def flash_prefill_plain(q, k, v, q_positions, rows=None, return_lse: bool = False):
+    """Plain PyTorch ``flash_prefill``: q [B, T, H, hd] → [B, T, H, hd]
+    (and the rows' lse f32 [B, T, H] with ``return_lse``); with ``rows``
+    ([B] int), query row b attends over arena row rows[b]."""
     if rows is not None:
         k, v = k.index_select(0, rows.long()), v.index_select(0, rows.long())
     b, t, h, hd = q.shape
     kv = k.shape[2]
-    out = _attend_plain(q.reshape(b, t, kv, h // kv, hd), k, v, q_positions)
-    return out.reshape(b, t, h, hd).to(q.dtype)
+    out, lse = _attend_plain(q.reshape(b, t, kv, h // kv, hd), k, v, q_positions)
+    out = out.reshape(b, t, h, hd).to(q.dtype)
+    return (out, lse.reshape(b, t, h)) if return_lse else out
 
 
-def flash_decode_plain(q, k, v, q_positions) -> torch.Tensor:
-    """Plain PyTorch ``flash_decode``: q [B, H, hd] → [B, H, hd]."""
+def flash_decode_plain(q, k, v, q_positions, return_lse: bool = False):
+    """Plain PyTorch ``flash_decode``: q [B, H, hd] → [B, H, hd] (and the
+    rows' lse f32 [B, H] with ``return_lse``)."""
     b, h, hd = q.shape
     kv = k.shape[2]
-    out = _attend_plain(q.reshape(b, 1, kv, h // kv, hd), k, v, q_positions[:, None])
-    return out.reshape(b, h, hd).to(q.dtype)
+    out, lse = _attend_plain(q.reshape(b, 1, kv, h // kv, hd), k, v, q_positions[:, None])
+    out = out.reshape(b, h, hd).to(q.dtype)
+    return (out, lse.reshape(b, h)) if return_lse else out
 
 
 def paged_flash_prefill_plain(q, pool_k, pool_v, block_table, q_positions) -> torch.Tensor:
@@ -154,11 +169,11 @@ def _lib() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: without argtypes ctypes
     # passes Python ints as 32-bit C ints and cuts the pointers
     lib.atpu_flash_prefill.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
     ]
     lib.atpu_flash_prefill.restype = i32
     lib.atpu_flash_decode.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, strides, ctypes.c_float, vp,
     ]
     lib.atpu_flash_decode.restype = i32
     lib.atpu_paged_flash_prefill.argtypes = [
@@ -268,57 +283,65 @@ def _count(wrapper) -> None:
         wrapper.launches += 1
 
 
-def flash_prefill(q, k, v, q_positions, rows=None) -> torch.Tensor:
+def flash_prefill(q, k, v, q_positions, rows=None, return_lse: bool = False):
     """Ragged cached causal GQA attention: q [B, T, H, hd] over the arena
     k/v [B, S, KV, hd]; row t sees slot j iff j <= q_positions[b, t].
     ``rows`` (an int32 [B] on the device; the arena may then have any number
     of rows) sends query row b to arena row rows[b], read by the kernel, so
-    a CUDA graph of the call serves whichever slot the buffer names."""
+    a CUDA graph of the call serves whichever slot the buffer names.
+    ``return_lse``: also the rows' log-sum-exp, f32 [B, T, H] (module
+    docstring)."""
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, q_positions, rows)
+        return flash_prefill_plain(q, k, v, q_positions, rows, return_lse)
     refuse_grad("flash_prefill", q, k, v)
     _check_cuda("flash_prefill", q, k, v, q_positions, rows=rows)
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, t, h), dtype=torch.float32, device=q.device) if return_lse else None
     st = _strides(
         (q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (q_positions, (0, 1)), (out, (0, 1, 2))
     )
     err = _lib().atpu_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
         rows.data_ptr() if rows is not None else None, out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         _DTYPES[q.dtype], b, t, h, kv, s, st, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_prefill")
     _count(flash_prefill)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0
 flash_prefill.captured = 0
 
 
-def flash_decode(q, k, v, q_positions) -> torch.Tensor:
+def flash_decode(q, k, v, q_positions, return_lse: bool = False):
     """Single-token GQA attention: q [B, H, hd] over the arena k/v
-    [B, S, KV, hd]; lane b sees slot j iff j <= q_positions[b]."""
+    [B, S, KV, hd]; lane b sees slot j iff j <= q_positions[b].
+    ``return_lse``: also the rows' log-sum-exp, f32 [B, H], which the
+    combine kernel writes from the splits it merges (module docstring)."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, q_positions)
+        return flash_decode_plain(q, k, v, q_positions, return_lse)
     refuse_grad("flash_decode", q, k, v)
     _check_cuda("flash_decode", q, k, v, q_positions)
     b, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     st = _strides((q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (q_positions, (0,)), (out, (0, 1)))
     scratch = _decode_scratch(q, s)
     err = _lib().atpu_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         scratch.data_ptr(), _DTYPES[q.dtype], b, h, kv, s, DECODE_SPLIT, st, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_decode")
     _count(flash_decode)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

@@ -1,12 +1,15 @@
 """The only places the shards of a mesh meet (no reference counterpart:
-GSPMD inserts the reference's collectives from its sharding annotations).
+GSPMD inserts the reference's collectives from its sharding annotations,
+and ``ppermute`` the pipeline's).
 
 ``all_reduce`` sums each group's partials on the group's first shard's
 device, in float32, and hands every shard of the group the sum in the
 partials' dtype; ``all_gather`` concatenates each group's slices there and
-hands every shard the whole. On one device the copies are no-ops (every
-shard of a group gets the same tensor); across cards they are peer copies.
-One code path serves both.
+hands every shard the whole; ``handoff`` moves one pipeline stage's
+activation to the next stage's device, and ``broadcast`` one shard's
+tensor to every shard of the mesh. On one device the copies are no-ops
+(every shard of a group gets the same tensor); across cards they are peer
+copies. One code path serves both.
 
 Each call appends its kind, its axes and the elements of one shard's
 operand to the active ``record()`` log, which the collective contracts of
@@ -79,3 +82,21 @@ def all_gather(parts: list[torch.Tensor], mesh: Mesh, axis: str, dim: int) -> li
         for s in group:
             out[s] = whole.to(mesh.device_list[s], non_blocking=True)
     return out
+
+
+def handoff(x: torch.Tensor, mesh: Mesh, dst: int) -> torch.Tensor:
+    """A pipeline stage's activation ``x`` on shard ``dst``'s device: the hop
+    to the next stage (the reference's ``ppermute`` over pp)."""
+    _note("handoff", ("pp",), x.numel())
+    return x.to(mesh.device_list[dst], non_blocking=True)
+
+
+def broadcast(x: torch.Tensor, mesh: Mesh, axes) -> list[torch.Tensor]:
+    """One shard's ``x`` on every shard's device (the reference's masked
+    psum off the last pipeline stage); the mesh is one group over
+    ``axes``."""
+    axes = _axes(axes)
+    if all(mesh.shape[a] == 1 for a in axes):
+        return [x] * mesh.size
+    _note("broadcast", axes, x.numel())
+    return [x.to(d, non_blocking=True) for d in mesh.device_list]

@@ -2,12 +2,16 @@
 
 Reference: ``agentainer_tpu/parallel/sharding.py`` — ``param_specs``,
 ``scale_spec``, ``qtensor_sharding``/``param_shardings_for`` (int8
-leaves), ``cache_specs`` and ``shard_params``. Megatron-style tensor
-parallelism: column-parallel QKV/gate/up, row-parallel output/down,
-vocab-sharded embed/lm_head; expert stacks also split their expert axis
-over ``ep``. A spec is a tuple with one entry per axis of the leaf: a mesh
-axis name, or None for an axis kept whole (the reference's
-``PartitionSpec``).
+leaves), ``cache_specs`` and ``shard_params``; and from
+``agentainer_tpu/parallel/pipeline.py`` ``pipeline_layer_specs`` and
+``pipeline_param_specs``. Megatron-style tensor parallelism: column-
+parallel QKV/gate/up, row-parallel output/down, vocab-sharded
+embed/lm_head; expert stacks also split their expert axis over ``ep``; a
+sequence-parallel arena splits its slots over ``sp``; a pipeline splits
+the layer axis of the weights and of the arena over ``pp`` and the
+vocabulary of embed/lm_head over pp. A spec is a tuple with one entry per
+axis of the leaf: a mesh axis name, or None for an axis kept whole (the
+reference's ``PartitionSpec``).
 
 Where the reference hands the specs to ``jax.device_put`` and GSPMD, the
 port cuts every leaf once at build: ``shard_params`` gives one params dict
@@ -71,10 +75,42 @@ def scale_spec(spec: Spec) -> Spec:
     return tuple(parts)
 
 
-def cache_spec() -> Spec:
-    """Dense KV arena ``[L, B, S, KV, hd]``: batch over dp, kv heads over tp
-    (the reference's ``cache_specs(sp=False)``; sp waits for its slice)."""
-    return (None, "dp", None, "tp", None)
+def pipeline_layer_specs(moe: bool) -> dict:
+    """The ``layers`` subtree with its leading layer axis over pp: each stage
+    holds its ``L/pp`` layers whole (serve-time pp composes with no other
+    axis, so the reference's ``tp=True`` widths are not taken here)."""
+    return {k: ("pp", *([None] * (len(v) - 1))) for k, v in param_specs(moe)["layers"].items()}
+
+
+def pipeline_param_specs(moe: bool) -> dict:
+    """The tree under a pp mesh: layers staged; ``embed`` rows and
+    ``lm_head`` columns vocab-sharded over pp, so no stage replicates the
+    two V × D matrices."""
+    return {
+        "embed": ("pp", None),
+        "layers": pipeline_layer_specs(moe),
+        "final_norm": (None,),
+        "lm_head": (None, "pp"),
+    }
+
+
+def specs_for(mesh: Mesh, moe: bool) -> dict:
+    """The spec tree a mesh cuts the params by: the pipeline's on a pp
+    mesh, else the tp × ep one."""
+    return pipeline_param_specs(moe) if mesh.shape["pp"] > 1 else param_specs(moe)
+
+
+def cache_spec(sp: bool = False) -> Spec:
+    """Dense KV arena ``[L, B, S, KV, hd]``: batch over dp, kv heads over tp,
+    and with ``sp`` the slot axis over sp, so each shard holds ``S/sp`` of
+    every row (the reference's ``cache_specs``)."""
+    return (None, "dp", "sp" if sp else None, "tp", None)
+
+
+def pipeline_cache_spec() -> Spec:
+    """The arena under a pp mesh: its layer axis staged like the weights'
+    (the reference's ``P("pp", None, None, None, None)``)."""
+    return ("pp", None, None, None, None)
 
 
 def pool_spec() -> Spec:
@@ -124,7 +160,7 @@ def shard_params(params: dict, mesh: Mesh, moe: bool | None = None) -> list[dict
             for k, v in tree.items()
         }
 
-    specs = param_specs(_is_moe(params) if moe is None else moe)
+    specs = specs_for(mesh, _is_moe(params) if moe is None else moe)
     return [cut(params, specs, s) for s in range(mesh.size)]
 
 
@@ -151,7 +187,7 @@ def unsharded_bytes(shards: list[dict], mesh: Mesh) -> int:
                 total += v.numel() * v.element_size() * pieces(specs[k])
         return total
 
-    return walk(shards[0], param_specs(_is_moe(shards[0])))
+    return walk(shards[0], specs_for(mesh, _is_moe(shards[0])))
 
 
 def unshard_kv(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -164,3 +200,19 @@ def unshard_kv(parts: list[torch.Tensor]) -> torch.Tensor:
     pin = first.device.type == "cpu" and first.is_pinned()
     shape = (*first.shape[:-2], sum(p.shape[-2] for p in parts), first.shape[-1])
     return torch.cat(parts, dim=-2, out=torch.empty(shape, dtype=first.dtype, pin_memory=pin))
+
+
+
+def unshard_slots(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The sp slices of a KV prefix ``[L, n_j, KV, hd]`` (in sp order) as
+    the unsharded ``[L, n, KV, hd]``: joined along the slot axis, the empty
+    slices (shards past the prefix) dropped; a lone slice is returned
+    itself (a view of its arena)."""
+    live = [p for p in parts if p.shape[1]] or parts[:1]
+    return live[0] if len(live) == 1 else torch.cat(live, dim=1)
+
+
+def unshard_layers(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The pipeline stages' slices ``[L/pp, ...]`` (in stage order) as the
+    unsharded ``[L, ...]``."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)

@@ -84,18 +84,17 @@ exits non-zero):
                  in-flight request (499, its lane free for a newcomer), a
                  burst past the shed watermark (429s, the rest 200). The
                  prefill kernel's launches equal the layers × (prefill
-                 chunks + verify rounds). The paged one runs at
-                 ``CUT_LAYERS`` and its text is not compared with the dense
-                 one's (13b holds a meshed dense and paged pair equal at full
-                 depth).
+                 chunks + verify rounds). Both run at ``CUT_LAYERS`` (14b
+                 serves these features at full depth) and neither text is
+                 compared with the other's (13b holds a meshed dense and
+                 paged pair equal).
    stream      — inside each feature phase (the engines run with the
                  ``streaming`` option): one streamed /chat whose ids run
                  0..n-1 and whose joined deltas and ``done`` equal the
                  buffered /chat of the same prompt in another session,
                  with the buffered request's host syncs.
    graphs      — inside each feature phase, after its served gates, on
-                 the same engine (llama3-8b, full width, bf16; full depth
-                 dense, 8 layers paged):
+                 the same engine (llama3-8b, full width, bf16, 8 layers):
                  from one saved state with lanes 0-3 live at 40 / 300 / 777
                  / 1500 and lanes 4-7 parked and the prefill inputs set for
                  lane 1 from 300, every captured step graph (prefill
@@ -144,7 +143,8 @@ exits non-zero):
                  it streams) and, after it, a ``quant: int8`` engine from the
                  seed-0 random init: the two int8 trees bit-equal leaf by
                  leaf, and the four requests' greedy text equal.
-7. resume      — crash-resume across arenas from that checkpoint, with the
+7. resume      — crash-resume across arenas from that checkpoint (read
+                 through an 8-layer config.json, as 7b-7d), with the
                  reference's default features: a dense engine serves turn
                  one of session s, snapshots it and shuts down; a paged
                  engine serves turns one and two of session u (a snapshot
@@ -160,12 +160,13 @@ exits non-zero):
                  Python front door); a deploy
                  asking for more GPUs than the card's count fails with the
                  scheduler's 409; two ``llm:llama3-8b`` agents with
-                 different personas (full width and depth, random bf16
-                 weights from seed 0, the reference's default features)
+                 different personas (full width, ``CUT_LAYERS`` deep:
+                 phase 6's directory with an 8-layer config.json,
+                 ``_cut_checkpoint``; the reference's default features)
                  become tenants of one engine host on GPU 0 (the daemon's
                  only child with a CUDA context; the daemon has none;
                  nvidia-smi's compute apps agree where they show this pid
-                 namespace); the host's card memory under twice the 16.06
+                 namespace); the host's card memory under twice the 5.59
                  GB of weights. Through the journaled proxy, sessions A and
                  B of the first agent run the same two greedy turns
                  (max_tokens 32) and A its third; once B's snapshot has
@@ -184,8 +185,8 @@ exits non-zero):
 7c. fleet      — the replica fleet on the card, after 7b's daemon and host
                  are gone: the daemon (``mem://``) with ``ATPU_STREAMING=1``, one
                  ``llm:llama3-8b`` agent deployed with ``"replicas": 2``
-                 (full width and depth, random bf16 weights from seed 0,
-                 the reference's default features): two engine hosts on GPU
+                 (7b's 8-layer checkpoint, the reference's default
+                 features): two engine hosts on GPU
                  0, one per replica, the daemon with no CUDA context, each
                  host under twice the weights (nvidia-smi per pid where it
                  sees this pid namespace, else the card's new memory less
@@ -213,8 +214,8 @@ exits non-zero):
                  store with its append-only file and the C++ front door on
                  the public port (the start line must say ``store
                  native://…/store.aof; data plane native``), one
-                 ``llm:llama3-8b`` agent (full width and depth, random bf16
-                 weights from seed 0, the reference's default features,
+                 ``llm:llama3-8b`` agent (7b's 8-layer checkpoint, the
+                 reference's default features,
                  ``ATPU_STREAMING=1``, one replica) whose host reaches the
                  store over the unix socket. Through the C++, A's three and
                  B's two greedy turns (7b's, as ``stream: true`` bodies the
@@ -414,8 +415,8 @@ exits non-zero):
                  existing tolerances, timed beside its bound and library
                  call (``MESH_ROUNDS`` rounds).
    (b) tp=2      llama3-8b bf16: the feature phase's script and gates,
-                 dense at full width and depth, then paged at
-                 ``CUT_LAYERS``, with the runtime contracts (launches per
+                 dense then paged, both at ``CUT_LAYERS`` (14b serves a
+                 full-depth mesh), with the runtime contracts (launches per
                  replay twice the unsharded ones) and the collective
                  contracts (an eager decode, prefill and verify step under
                  ``parallel/collectives.record``: ``NoLargeAllGather`` at
@@ -440,14 +441,53 @@ exits non-zero):
                  forward, logits within ``MESH_FLOOR_FACTOR`` × the noise
                  floor of the unsharded model's, with the same argmax.
 
+14. sp / pp    — the rest of serve-time parallelism, on logical meshes on
+                 this card as in 13:
+   (a) kernels   ``flash_prefill`` and ``flash_decode``'s ``lse`` entries at
+                 one sp=2 shard of a 4,096-slot llama3-8b arena ([8, 2048,
+                 8, 128]), bf16 and f32: rows against the plain versions
+                 at phase 2's tolerances (shard 1's few-slot prefill rows
+                 with the P-rounding bound 2**-9 max|v| of 12a), every lse
+                 within ``SP_LSE_TOL`` (1e-4), the rows bit-equal without
+                 lse, and both shards' rows joined against the unsharded
+                 kernel over the whole arena (two roundings of q's dtype,
+                 relative to the shards' weighted row magnitudes)
+                 for a prefill chunk straddling slot 2048 and decode lanes
+                 on both sides of it;
+                 timed on a shard beside the bound, the plain version and
+                 SDPA (``SP_ROUNDS``), device launches per call.
+   (b) sp=2      llama3-8b bf16 at full depth, ``max_seq`` 4096, the
+                 default features and a persona: a session whose first
+                 turn passes one shard's 2,048 slots, a second turn and a
+                 short session beside it (200 each); every prefill launch
+                 an lse entry (n_layers × 2 shards × (chunks + verify
+                 rounds)); the runtime contracts and the collective ones
+                 (``NoLargeAllGather`` at one shard's KV layer, 8 · 2048 ·
+                 8 · 128 elements; ``HasCrossReduction``); ``_mesh_logits``.
+   (c) tp2×sp2   the same at ``CUT_LAYERS`` over 4 shards, held to the
+                 noise-floor gate (not to 14b's text: another depth), and a
+                 snapshot taken under the mesh restored into a one-device
+                 engine: its KV equal bit for bit, its continuation equal
+                 to the unsharded argmax wherever the margin clears the
+                 limit, and the mesh's continuation leaving it only at a
+                 near tie.
+   (d) pp=2      llama3-8b bf16 at full depth, 16 layers a stage: the four
+                 requests with phase 3's options give phase 3's text; the
+                 forward's logits against the unsharded forward's (bit for
+                 bit, or else the unsharded forward with ``lm_head`` cut
+                 into the stages' halves bit for bit and the difference
+                 reported); per forward pp - 1 handoffs, one embedding
+                 all-reduce, one broadcast and one logits all-gather.
+
 The int8 feature phases (5's int8 pair), the tiering phases (10),
-Mixtral's served phases (11d), the paged feature phase (5),
-the fused paged phase (9), the paged tp=2 phase (13b) and the mesh's int8
-phases (13c-d) run at
+Mixtral's served phases (11d), both feature phases (5), the resume (7),
+the fused paged phase (9), both tp=2 phases (13b), the mesh's int8
+phases (13c-d), tp=2 × sp=2 (14c) and the engine hosts of 7b-7d run at
 ``CUT_LAYERS`` (8) of 32 layers,
 widths kept; their gates count per layer
 (launches, and ``param_hbm_bytes`` from ``CUT_PARAM_BYTES``) or in pages. Each phase's seconds are
-in ``report["phase_s"]``.
+in ``report["phase_s"]``. Timed rows take ``ROUNDS`` (5) rounds, 13a and 14a
+three, and the runtime contracts trace one step key of each kind.
 
 Every served phase runs on the engine's CUDA graphs with pipelined
 readbacks, and must replay graphs (``graph_replays`` > 0); every prefill
@@ -580,7 +620,7 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
-ROUNDS = 10  # timing rounds; each times every function of a row twice, in turns
+ROUNDS = 5  # timing rounds; each times every function of a row twice, in turns
 FLUSH_BYTES = 256 << 20  # rewritten before each timed call: 5x the H100's 50 MB L2
 SPIN_CYCLES = 2_000_000  # ~1 ms of device spin before each call: the host runs ahead
 MARK_CYCLES = 1_000  # the spin that parts a flush from the call after it
@@ -1927,14 +1967,10 @@ def phase_serve_features(paged: bool, n_layers: int, script_texts: list[str] | N
         else:
             graphs = phase_graphs(app.engine, name)
         if contracts:
-            # the meshes trace their greedy keys; the paged mesh one key of
-            # each kind (the dense mesh traces every rung and bucket)
-            keys = None
-            if mesh is not None:
-                keys = {k for k in app.engine._step_keys() if k[2]}
-                if paged:
-                    keys = {("prefill", 32, True), ("decode", 1, True), ("verify", 2, True)}
-            extra["contracts"] = phase_contracts(app, name, keys=keys)
+            # one traced key of each kind, greedy and sampled (the meshes:
+            # greedy), for time; every key is held to its eager step above
+            extra["contracts"] = phase_contracts(app, name, keys=_one_key_per_kind(
+                app.engine, sampled=mesh is None))
         if logits:
             extra["logits"] = _mesh_logits(app.engine, name, quant=quant)
         if moe is not None:
@@ -2054,19 +2090,25 @@ def _approx_sampled(port: int, name: str) -> dict:
 KERNEL_NAMES = {"prefill_kernel", "decode_kernel", "decode_combine_kernel", "w8a16_grouped_kernel"}
 
 
+# the profiled request's tokens: several seconds of decode at 8 layers, so
+# the 0.5-s trace window opens and closes inside it
+PROFILED_TOKENS = 1500
+
+
 def _profile_during_a_request(port: int, trace_dir: str) -> dict:
     """``/profile`` while a long /chat decodes: 200 with the trace
     directory, and its Chrome trace names the port's kernels."""
     box: dict = {}
     th = threading.Thread(target=lambda: box.update(doc=_http(port, "POST", "/chat", {
-        "session": "profiled", "message": "A long answer, please.", "max_tokens": 400,
+        "session": "profiled", "message": "A long answer, please.", "max_tokens": PROFILED_TOKENS,
         "ignore_eos": True,
     })[1]))
     th.start()
     time.sleep(0.3)
     _, doc = _http(port, "POST", "/profile", {"duration_s": 0.5})
     th.join(timeout=300)
-    if doc["trace_dir"] != trace_dir or box.get("doc", {}).get("usage", {}).get("completion_tokens") != 400:
+    served = box.get("doc", {}).get("usage", {}).get("completion_tokens")
+    if doc["trace_dir"] != trace_dir or served != PROFILED_TOKENS:
         raise AssertionError(f"/profile during a request: {doc} {box}")
     names: set = set()
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
@@ -2190,7 +2232,8 @@ def phase_contracts(app, name: str, keys: set | None = None) -> dict:
     if not {"prefill", "decode", "verify"} <= set(kinds):
         raise AssertionError(f"{name} contracts: the second pass dispatched {dict(seen)}")
     park_lanes(engine)
-    shards = engine.mesh.size if engine.mesh is not None else 1
+    # the shards that run each layer (a pipeline stage runs its own layers)
+    shards = engine.mesh.size // engine.pp if engine.mesh is not None else 1
     want = AttentionLaunches(n_layers=engine.cfg.n_layers, paged=engine.paged, shards=shards)
     per_key = {}
     t1 = time.monotonic()
@@ -2217,6 +2260,14 @@ def phase_contracts(app, name: str, keys: set | None = None) -> dict:
     log(f"{name} contracts: the script's second pass in {script_s:.1f}s under capture_budget(0), "
         f"buffers_in_place and no_implicit_sync; steps {dict(kinds)}; launches per replay {per_key}")
     return out
+
+
+def _one_key_per_kind(engine, sampled: bool) -> set:
+    """The smallest captured step key of each kind (prefill bucket, decode
+    rung, verify bucket), greedy, and with ``sampled`` the sampled ones
+    too: the keys ``phase_contracts`` traces."""
+    keys = [k for k in engine._step_keys() if k[2] or sampled]
+    return {k for k in keys if k[1] == min(kk[1] for kk in keys if kk[0] == k[0] and kk[2] == k[2])}
 
 
 def phase_graphs(engine, name: str) -> dict:
@@ -2505,7 +2556,8 @@ def _logit_gap(engine, stream: list[int], a: int, b: int) -> float:
 
 
 def phase_resume(root: str, card: str) -> dict:
-    """Crash-resume across arenas, llama3-8b from the checkpoint with the
+    """Crash-resume across arenas, llama3-8b from the checkpoint ``root``
+    (``_cut_checkpoint``'s, ``CUT_LAYERS`` deep) with the
     reference's default features: a dense engine serves turn one of session
     s, snapshots it and shuts down; a paged engine serves turns one and two
     of session u with the same messages (a snapshot of u after turn one),
@@ -3998,6 +4050,28 @@ DAEMON_TURNS = (
 DAEMON_MAX_TOKENS = 32
 PROXY_PROBES = 10  # /generate probes through the proxy and straight to the host, in turns
 WEIGHT_BYTES_8B = 16_060_522_496  # llama3-8b's bf16 weights
+# the bf16 weights of 7b-7d's hosts: llama3-8b at CUT_LAYERS (embed and
+# lm_head 1,050,673,152 B each, 436,224,000 B a layer, the final norm)
+CUT_WEIGHT_BYTES_8B = 5_591_146_496
+
+
+def _cut_checkpoint(root: str) -> str:
+    """A sibling of phase 6's checkpoint directory whose config.json says
+    ``CUT_LAYERS`` layers: symlinks to its index and shards (the loader
+    reads layers 0-7 and the vocabulary matrices of the same files; phase
+    6's weights, the seed-0 draw). 7b-7d's hosts serve it: their gates
+    are about the control plane, and every boot there is a host's."""
+    sib = root.rstrip("/") + f"-{CUT_LAYERS}l"
+    os.makedirs(sib)
+    for name in os.listdir(root):
+        if name != "config.json":
+            os.symlink(os.path.join(root, name), os.path.join(sib, name))
+    with open(os.path.join(root, "config.json")) as f:
+        doc = json.load(f)
+    doc["num_hidden_layers"] = CUT_LAYERS
+    with open(os.path.join(sib, "config.json"), "w") as f:
+        json.dump(doc, f)
+    return sib
 
 
 def _daemon_call(port: int, method: str, path: str, body: dict | None = None,
@@ -4148,11 +4222,11 @@ def _journal_writes_per_request(requests: int = 20) -> dict:
     return {"store_writes_per_request": per, "requests": requests}
 
 
-def phase_daemon(card: str) -> dict:
+def phase_daemon(card: str, ckpt: str) -> dict:
     """The control plane on the card: the port's daemon as a child process
     (standard library only: it must create no CUDA context), two llama3-8b
-    agents with different personas (full width and depth, random bf16
-    weights from seed 0, the reference's default features) as tenants of
+    agents with different personas (full width, ``CUT_LAYERS`` deep, from
+    ``ckpt``: phase 6's seed-0 weights; the reference's default features) as tenants of
     one engine host on GPU 0. Sessions A and B of the first agent run the
     same two greedy turns through the journaled proxy, A its third too; B's
     snapshot lands in the store; the host is SIGKILLed; B's third turn
@@ -4201,7 +4275,7 @@ def phase_daemon(card: str) -> dict:
         for name, persona in zip(("ada", "bob"), DAEMON_PERSONAS):
             # streaming only changes a body that asks for a stream: the
             # turns' token ids then come back in the engine's SSE frames
-            model = {"engine": "llm", "config": "llama3-8b",
+            model = {"engine": "llm", "config": "llama3-8b", "checkpoint": ckpt,
                      "options": {"system_prompt": persona, "streaming": True}}
             status, doc = call("POST", "/agents", {"name": name, "model": model}, auth=True)
             assert status == 200, doc
@@ -4223,7 +4297,7 @@ def phase_daemon(card: str) -> dict:
             if host not in apps or daemon.pid in apps:
                 raise AssertionError(f"compute apps {apps}: host {host}, daemon {daemon.pid}")
         out["host_gpu_mib"] = _gpu_used_mib() - used0
-        if out["host_gpu_mib"] * 2**20 >= 2 * WEIGHT_BYTES_8B:
+        if out["host_gpu_mib"] * 2**20 >= 2 * CUT_WEIGHT_BYTES_8B:
             raise AssertionError(f"host memory {out['host_gpu_mib']} MiB >= twice the weights")
         _, m = call("GET", f"/agent/{a}/metrics")
         if not (m.get("weights_shared") and m.get("tenants") == 2):
@@ -4396,14 +4470,14 @@ def _wait_pid_gone(pid: int, timeout: float = 30) -> None:
     raise TimeoutError(f"pid {pid} still alive after {timeout} s")
 
 
-def phase_native(card: str, python_door: dict) -> dict:
+def phase_native(card: str, python_door: dict, ckpt: str) -> dict:
     """The daemon's default deployment on the card: ``store_url`` auto in a
     fresh data directory gives the C++ store with AOF durability and the
     C++ front door on the public port (its start line must say so; a
     fallback to ``mem://`` or the Python data plane fails the phase); one
-    ``llm:llama3-8b`` agent (full width and depth, random bf16 weights from
-    seed 0, the reference's default features, ``ATPU_STREAMING=1``, one
-    replica) in a host on GPU 0, whose store calls go over the unix socket.
+    ``llm:llama3-8b`` agent (full width, ``CUT_LAYERS`` deep, from ``ckpt``;
+    the reference's default features, ``ATPU_STREAMING=1``, one replica) in
+    a host on GPU 0, whose store calls go over the unix socket.
     Through the C++: sessions A and B run the same greedy turns as 7b, as
     ``stream: true`` bodies that the C++ answers buffered (whole, with a
     length and a request id); the journal's completed count equals the
@@ -4476,7 +4550,8 @@ def phase_native(card: str, python_door: dict) -> dict:
             raise AssertionError(f"the daemon did not start on the native store and data plane: {start_line!r}")
         if _maps_cuda(d.proc.pid):
             raise AssertionError("the daemon created a CUDA context")
-        status, doc = d.call("POST", "/agents", {"name": "ada", "model": NATIVE_MODEL}, auth=True)
+        status, doc = d.call("POST", "/agents", {"name": "ada", "model": {**NATIVE_MODEL, "checkpoint": ckpt}},
+                             auth=True)
         assert status == 200, doc
         a = doc["data"]["id"]
         t0 = time.monotonic()
@@ -4743,11 +4818,11 @@ def _gaps_ms(times: list[float]) -> dict:
             "tokens": len(times)}
 
 
-def phase_fleet(card: str) -> dict:
+def phase_fleet(card: str, ckpt: str) -> dict:
     """The replica fleet on the card: the port's daemon as a child process
     with ``features.streaming`` on, one llama3-8b agent deployed with
-    ``replicas: 2`` (full width and depth, random bf16 weights from seed 0,
-    the reference's default features): two engine hosts on GPU 0. Gates:
+    ``replicas: 2`` (full width, ``CUT_LAYERS`` deep, from ``ckpt``; the
+    reference's default features): two engine hosts on GPU 0. Gates:
     both replicas loaded, each in its own process, two CUDA processes under
     the daemon and none in it, each host under twice the weights; at least
     8 fresh sessions reach both replicas (power of two choices), both
@@ -4803,7 +4878,8 @@ def phase_fleet(card: str) -> dict:
         wait(lambda: _daemon_call(port, "GET", "/health")[0] == 200, "the daemon", 60)
         if _maps_cuda(d.proc.pid):
             raise AssertionError("the daemon created a CUDA context")
-        status, doc = call("POST", "/agents", {"name": "fleet", "model": FLEET_MODEL, "replicas": 2},
+        status, doc = call("POST", "/agents", {"name": "fleet", "model": {**FLEET_MODEL, "checkpoint": ckpt},
+                                                "replicas": 2},
                            auth=True)
         assert status == 200, doc
         aid = doc["data"]["id"]
@@ -4825,10 +4901,10 @@ def phase_fleet(card: str) -> dict:
         else:
             # nvidia-smi sees another pid namespace: each host holds at
             # most the card's new memory less the other's weights
-            host_mib = {i: used - WEIGHT_BYTES_8B / 2**20 for i in pids}
+            host_mib = {i: used - CUT_WEIGHT_BYTES_8B / 2**20 for i in pids}
             source = f"bound: {used} MiB used less one host's weights"
         out.update(host_mib=host_mib, host_mib_source=source, card_used_mib=used, compute_apps=apps)
-        if any(v * 2**20 >= 2 * WEIGHT_BYTES_8B for v in host_mib.values()):
+        if any(v * 2**20 >= 2 * CUT_WEIGHT_BYTES_8B for v in host_mib.values()):
             raise AssertionError(f"host memory {host_mib} MiB ({source}): a host at or above twice the weights")
 
         # spread: fresh one-turn sessions until both replicas served one
@@ -5016,19 +5092,19 @@ def phase_fleet(card: str) -> dict:
     finally:
         d.close()
     if not out["equal_to_T"]:
-        out["logit_gap"] = _fleet_logit_gap(want1, want2, out["divergence"]["at"], got2)
+        out["logit_gap"] = _fleet_logit_gap(want1, want2, out["divergence"]["at"], got2, ckpt)
         raise AssertionError(f"S's spliced turn two differs from T's: {out['divergence']}, "
                              f"logit gap {out['logit_gap']}")
     return out
 
 
-def _fleet_logit_gap(turn1: list[int], turn2: list[int], j: int, got: list[int]) -> float | None:
+def _fleet_logit_gap(turn1: list[int], turn2: list[int], j: int, got: list[int], ckpt: str) -> float | None:
     """After a failed splice (the daemon gone): the logit of T's token minus
-    S's at the first differing position, after T's stream, through a
-    llama3-8b engine with the hosts' weights (seed 0)."""
+    S's at the first differing position, after T's stream, through an
+    engine with the hosts' weights (``ckpt``)."""
     if j >= min(len(turn2), len(got)):
         return None
-    with _serving({"streaming": True}) as (app, _):
+    with _serving({"streaming": True}, checkpoint=ckpt) as (app, _):
         enc = app.engine.tokenizer.encode
         stream = enc(f"{FLEET_PERSONA}\n\n{DAEMON_TURNS[0]}") + turn1 + enc(DAEMON_TURNS[1]) + turn2[:j]
         gap = _logit_gap(app.engine, stream, turn2[j], got[j])
@@ -5376,14 +5452,15 @@ MESH_SERVED_TOKENS = 48
 
 
 @contextlib.contextmanager
-def _one_card_mesh(tp: int, ep: int):
-    """Inside the block ``LLMEngine.create`` serves on a mesh of tp × ep
-    shards all on cuda:0 (its ``mesh=``)."""
+def _one_card_mesh(tp: int, ep: int, sp: int = 1, pp: int = 1):
+    """Inside the block ``LLMEngine.create`` serves on a mesh of tp × ep ×
+    sp × pp shards all on cuda:0 (its ``mesh=``)."""
     from agentainer_tpu_torch.engine.llm import LLMEngine
     from agentainer_tpu_torch.parallel.mesh import make_mesh
 
     original = LLMEngine.__dict__["create"]
-    mesh = make_mesh(tp * ep, tp=tp, ep=ep, devices=["cuda:0"] * (tp * ep))
+    n = tp * ep * sp * pp
+    mesh = make_mesh(n, tp=tp, ep=ep, sp=sp, pp=pp, devices=["cuda:0"] * n)
 
     def create(cls, config_name, checkpoint="", options=None):
         return original.__func__(cls, config_name, checkpoint, options, mesh=mesh)
@@ -5496,8 +5573,9 @@ def _collective_contracts(engine, name: str) -> dict:
     from agentainer_tpu_torch.analysis.contracts import HasCrossReduction, NoLargeAllGather, check
     from agentainer_tpu_torch.parallel.collectives import record
 
-    shard = engine.cache.shards[0]
-    kv_layer = shard.tensors()[0][0].numel()  # one layer of one shard's arena or pool
+    # one layer of one shard's arena (its slots, the spare one not counted)
+    # or pool
+    kv_layer = engine.cache.shards[0].k[0].numel()
     keys = [k for k in engine._step_keys() if k[2] and k[1] == min(
         kk[1] for kk in engine._step_keys() if kk[0] == k[0])]
     out = {}
@@ -5562,6 +5640,7 @@ def _mesh_logits(engine, name: str, quant: bool = False) -> dict:
     moe = (functools.partial(_moe_mlp_routed, cfg=cfg, capacity_factor=engine.moe_capacity_factor)
            if engine.routed_moe else None)
     kv_heads = cfg.n_kv_heads // mesh.shape["tp"]
+    sp, pp = mesh.shape["sp"], mesh.shape["pp"]
 
     def run(toks, steps=0):
         """The unsharded forward with the kernels and with plain attention,
@@ -5570,7 +5649,8 @@ def _mesh_logits(engine, name: str, quant: bool = False) -> dict:
         three): the logits of every position of each."""
         n = toks.shape[1] + steps
         caches = (KVCache.create(cfg, 1, n, dt, dev), KVCache.create(cfg, 1, n, dt, dev),
-                  MeshCache.create(mesh, lambda d: KVCache.create(cfg, 1, n, dt, d, n_kv_heads=kv_heads)))
+                  MeshCache.create(mesh, lambda d: KVCache.create(
+                      cfg, 1, -(-n // sp), dt, d, n_kv_heads=kv_heads, n_layers=cfg.n_layers // pp)))
         out, chunk = [], toks
         with torch.no_grad():
             for i in range(1 + steps):
@@ -5637,6 +5717,464 @@ def _mesh_logits(engine, name: str, quant: bool = False) -> dict:
     return out
 
 
+# phase 14: sequence and pipeline parallelism, every shard on this card
+SP = 2
+SP_MAX_SEQ = 4096  # llama3-8b at sp=2: create's default, 2,048 slots a shard
+SP_SHARD = SP_MAX_SEQ // SP
+SP_ROUNDS = 3  # timing rounds of 14a's rows
+# the long session's first turn: past one shard's 2,048 slots (one byte a
+# token without a tokenizer.json), then a second turn on it and a short
+# session beside it
+SP_LONG_TURN = ("The on-call log, read back line by line. " * 56)[:2300]
+SP_TURNS = ("Go on with the next line of the log.", "What should the next engineer on call check first?")
+SP_CONTINUE = "Summarize the log in one sentence."
+SP_CONTINUE_TOKENS = 24
+# 14a: a prefill chunk straddling the shards' boundary, and decode lanes in
+# shard 0 only, across it, at its first slot, and parked at the arena's end
+SP_CHUNK_POS = SP_SHARD - 128  # the chunk's first position: 128 rows each side
+SP_DECODE_POS = (0, 300, SP_SHARD - 1, SP_SHARD, SP_SHARD + 1, 3000, SP_MAX_SEQ - 2, SP_MAX_SEQ - 1)
+# the lse is f32 in both dtypes and both kernel bodies, and differs from its
+# plain version by summation order only: a few f32 roundings of an lse of
+# ~8 (9.5e-7 on an H100)
+SP_LSE_TOL = 1e-4
+
+
+def _join_shards(outs, lses):
+    """The sp join of ``parallel/flash_mesh._join_sp`` on one group's rows:
+    ``sum_j exp(lse_j - LSE) o_j`` in f32."""
+    import torch
+
+    lse = torch.stack(lses)
+    w = torch.exp(lse - torch.logsumexp(lse, dim=0))
+    return sum(o.float() * wj[..., None] for o, wj in zip(outs, w))
+
+
+def phase_sp_kernels() -> dict:
+    """14a: the dense kernels' ``lse`` entries at one sp=2 shard of a
+    ``SP_MAX_SEQ`` llama3-8b arena (H 32, KV 8, hd 128; the shard [8, 2048,
+    8, 128]): each entry's rows and lse against its plain version in bf16
+    and in f32 (the rows at phase 2's tolerances, every lse within
+    ``SP_LSE_TOL``), each call without lse bit-equal to the same call with
+    it, and the two
+    shards' rows joined against the unsharded kernel over the whole arena:
+    a 256-token prefill chunk straddling slot 2048 and 8 decode lanes on
+    both sides of it (``SP_DECODE_POS``; a lane in shard 0 only sees
+    nothing of shard 1, whose lse must weigh 0). Each entry timed on shard
+    0 as phase 2 times its kernel (``SP_ROUNDS`` rounds) beside its plain
+    version and SDPA at the shard shape, its bound (the lse's bytes
+    counted) and its device launches per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    checks: dict = {}
+    out: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+        k, v = randn(B, SP_MAX_SEQ, KV, HD), randn(B, SP_MAX_SEQ, KV, HD)
+        shards = [(k[:, j * SP_SHARD:(j + 1) * SP_SHARD], v[:, j * SP_SHARD:(j + 1) * SP_SHARD]) for j in range(SP)]
+        cases = {
+            "prefill": (ca.flash_prefill, ca.flash_prefill_plain, randn(1, 256, H, HD),
+                        (SP_CHUNK_POS + torch.arange(256, device=dev, dtype=torch.int32))[None]),
+            "decode": (ca.flash_decode, ca.flash_decode_plain, randn(B, H, HD),
+                       torch.tensor(SP_DECODE_POS, device=dev, dtype=torch.int32)),
+        }
+        for kind, (fn, plain, q, pos) in cases.items():
+            rows = 1 if kind == "prefill" else B
+            outs, lses, worst = [], [], {"rows": 0.0, "lse": 0.0}
+            # phase 2's tolerances: bf16 within one rounding of the plain
+            # rows, the prefill's P rounding on top (decode rounds nothing)
+            p_atol = BF16_P_ATOL if kind == "prefill" else 0.0
+            for j, (kj, vj) in enumerate(shards):
+                # the chunk's rows on shard 1 see 1 to 128 slots, each with a
+                # large weight: P's rounding there is bounded by 2**-9 max|v|
+                # (a row's weights sum to 1), 12a's bound for rows from
+                # position 0 (tests/test_torch_attention.py)
+                shard_p_atol = p_atol if j == 0 or kind != "prefill" else 2.0**-9 * vj.float().abs().max().item()
+                rtol, atol = (F32_TOL, F32_TOL) if f32 else (BF16_RTOL, BF16_ATOL + shard_p_atol)
+                local = pos - j * SP_SHARD
+                got, lse = fn(q, kj[:rows], vj[:rows], local, return_lse=True)
+                if not torch.equal(got, fn(q, kj[:rows], vj[:rows], local)):
+                    raise AssertionError(f"14a {kind} shard {j} {dname}: the rows differ with and without lse")
+                want, want_lse = plain(q, kj[:rows], vj[:rows], local, return_lse=True)
+                torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol, msg=lambda m: (
+                    f"14a {fn.__name__} shard {j} {dname}: rows off the plain version: {m}"))
+                torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=SP_LSE_TOL, msg=lambda m: (
+                    f"14a {fn.__name__} shard {j} {dname}: lse off the plain version: {m}"))
+                worst["rows"] = max(worst["rows"], (got.float() - want.float()).abs().max().item())
+                worst["lse"] = max(worst["lse"], (lse - want_lse).abs().max().item())
+                outs.append(got)
+                lses.append(lse)
+            joined = _join_shards(outs, lses)
+            whole = fn(q, k[:rows], v[:rows], pos).float()
+            if not torch.isfinite(joined).all():
+                raise AssertionError(f"14a {kind} {dname}: the joined rows hold a non-finite value")
+            # two roundings of q's dtype (a shard's rows, the join) where the
+            # unsharded kernel rounds once; a shard's rounding is relative to
+            # its own rows, so the limit scales with the larger of |whole| and
+            # sum_j w_j |o_j| (the join of the rows' magnitudes: above
+            # |whole| where the shards' rows cancel); the P rounding of phase
+            # 2's prefill rows (shard 1's few-slot rows weigh at most
+            # 128/2176)
+            rtol, atol = (F32_TOL, F32_TOL) if f32 else (2 * BF16_RTOL, BF16_ATOL + p_atol)
+            scale = torch.maximum(whole.abs(), _join_shards([o.abs() for o in outs], lses))
+            over = (joined - whole).abs() - (atol + rtol * scale)
+            if over.max().item() > 0:
+                at = tuple(int(i) for i in torch.nonzero(over == over.max())[0])
+                raise AssertionError(
+                    f"14a {kind} {dname}: the joined shards off the unsharded kernel at {at}: "
+                    f"{joined[at].item()} against {whole[at].item()}, limit {atol} + {rtol} * {scale[at].item()}; "
+                    f"{int((over > 0).sum())} of {over.numel()} over")
+            if kind == "decode":  # lane 0-2 see nothing of shard 1
+                if not (lses[1][:3] == ca.NEG_INF).all():
+                    raise AssertionError(f"14a decode {dname}: shard 1's lse of lanes in shard 0 only: {lses[1][:3]}")
+            checks[f"{kind}_{dname}"] = {
+                "rows_max_abs_err": worst["rows"], "lse_max_abs_err": worst["lse"],
+                "joined_max_abs_err": (joined - whole).abs().max().item(),
+                "joined_tol": f"|d| <= {atol} + {rtol} * max(|whole|, sum_j w_j |o_j|)", "lse_tol": SP_LSE_TOL,
+            }
+        if dtype != torch.bfloat16:
+            continue
+        # timed on shard 0, bf16: the served entries
+        k0, v0 = shards[0]
+        for kind, (fn, plain, q, pos) in cases.items():
+            rows = 1 if kind == "prefill" else B
+            kj, vj = k0[:rows].contiguous(), v0[:rows].contiguous()
+            local = pos.clamp(max=SP_SHARD - 1) if kind == "prefill" else pos
+            if kind == "prefill":
+                qt = q.transpose(1, 2)
+                mask = (torch.arange(SP_SHARD, device=dev)[None, :] <= local[0, :, None])[None, None]
+                visible = (local.clamp(max=SP_SHARD - 1) + 1).sum().item()
+                live = rows * (local.max().item() + 1)
+                lse_bytes = 4 * q.shape[1] * H
+            else:
+                qt = q[:, :, None]
+                mask = (torch.arange(SP_SHARD, device=dev)[None, :] <= local[:, None])[:, None, None]
+                visible = live = (local.clamp(max=SP_SHARD - 1) + 1).sum().item()
+                lse_bytes = 4 * B * H
+            kt, vt = kj.transpose(1, 2), vj.transpose(1, 2)
+            timed = _timed(fn.__name__, rounds=SP_ROUNDS, fns={
+                "kernel": lambda fn=fn, q=q, kj=kj, vj=vj, local=local: fn(q, kj, vj, local, return_lse=True),
+                "plain": lambda plain=plain, q=q, kj=kj, vj=vj, local=local: plain(q, kj, vj, local, return_lse=True),
+                "library": lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            })
+            name = f"{fn.__name__} (lse, sp=2 shard)"
+            out[name] = {
+                "name": name, "route": "cuda", "source": SOURCE,
+                "replaces": f"agentainer_tpu/ops/pallas_attention.py:{157 if kind == 'prefill' else 268}",
+                "timing": TIMING, "library": "scaled_dot_product_attention", **timed,
+                **_bound(2 * (2 * q.numel() + 2 * live * KV * HD) + lse_bytes, 4.0 * H * HD * visible),
+                "max_abs_err": checks[f"{kind}_bfloat16"]["rows_max_abs_err"],
+                "lse_max_abs_err": checks[f"{kind}_bfloat16"]["lse_max_abs_err"],
+                "max_abs_err_f32": checks[f"{kind}_float32"]["rows_max_abs_err"] if f"{kind}_float32" in checks else None,
+                "shape": (f"q[{rows},{q.shape[1] if kind == 'prefill' else ''}{',' if kind == 'prefill' else ''}"
+                          f"{H},{HD}] kv[{rows},{SP_SHARD},{KV},{HD}] bf16 (one sp=2 shard of {SP_MAX_SEQ}), "
+                          f"positions {'%d..%d' % (local.min().item(), local.max().item()) if kind == 'prefill' else local.tolist()}"),
+            }
+            r = out[name]
+            log(f"14a {name}: ms {r['ms']:.4f} [{r['ms_min']:.4f}, {r['ms_max']:.4f}] plain {r['plain_ms']:.4f} "
+                f"sdpa {r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}) launches/call "
+                f"{r['launches_per_call']} card {r['card']}")
+        del k, v, shards
+    for row in out.values():  # the f32 errors are known once both passes ran
+        kind = "prefill" if "prefill" in row["name"] else "decode"
+        row["max_abs_err_f32"] = checks[f"{kind}_float32"]["rows_max_abs_err"]
+    log(f"14a: the lse entries held their plain versions and the joined shards the unsharded kernels "
+        f"{checks} in {time.monotonic() - t0:.1f}s")
+    return {"rows": out, "checks": checks}
+
+
+def _kv_state(engine, session: str):
+    """(k, v, position, pending token) of a settled dense session, read
+    through the engine's cache in the unsharded layout (the tp slices
+    joined)."""
+    import torch
+
+    slot = engine.slots[engine.sessions[session]]
+    parts = engine.cache.read_prefix(slot.idx, slot.position)
+    k, v = (torch.cat([p[i] for p in parts], dim=-2) for i in (0, 1))
+    return k, v, slot.position, slot.pending_token
+
+
+def _sp_snapshot(engine, session: str, limit: float) -> dict:
+    """A snapshot of the long session (engine-side name ``session``) taken
+    under sp, restored into a
+    one-device engine over the same weights (``_unsharded_like``): its KV
+    equals the mesh arena's joined slices bit for bit, and the session
+    continues (``SP_CONTINUE``) on both engines.
+    The one-device continuation's ids equal the unsharded model's argmax,
+    teacher-forced from the restored KV, wherever the top-2 margin clears
+    ``limit``; the first index where the sp engine's ids leave the
+    one-device engine's must be a near tie (margin at or under ``limit``)."""
+    import torch
+
+    from agentainer_tpu_torch.engine.llm import LLMEngine
+    from agentainer_tpu_torch.models.llama import KVCache, forward
+
+    t0 = time.monotonic()
+    engine.snapshot_min_gap_s = 0
+    k_sp, v_sp, position, pending = _kv_state(engine, session)
+    blob = asyncio.run(engine.snapshot_session(session))
+    if not blob:
+        raise AssertionError(f"14b: the sp engine staged no snapshot: {blob!r}")
+    params = _unsharded_like(engine, quant=False)
+    one = LLMEngine(engine.cfg, params, engine.tokenizer, max_batch=B, max_seq=engine.max_seq,
+                    device=engine.device)
+    try:
+        one.warmup()
+        if not asyncio.run(one.restore_session(session, blob)):
+            raise AssertionError("14b: the one-device engine refused the sp snapshot")
+        k1, v1, pos1, pend1 = _kv_state(one, session)
+        if (pos1, pend1) != (position, pending) or not (torch.equal(k1, k_sp) and torch.equal(v1, v_sp)):
+            raise AssertionError(f"14b: the restored KV differs from the sp arena's ({pos1} {pend1} vs "
+                                 f"{position} {pending})")
+        got_one = asyncio.run(one.chat(session, SP_CONTINUE, max_tokens=SP_CONTINUE_TOKENS, ignore_eos=True))
+        got_sp = asyncio.run(engine.chat(session, SP_CONTINUE, max_tokens=SP_CONTINUE_TOKENS, ignore_eos=True))
+        ids_one, ids_sp = got_one["tokens"], got_sp["tokens"]
+        # teacher-forced from the restored KV: the turn's prompt is the
+        # pending token and the encoded message (engine._admit_prologue)
+        prompt = ([pending] if pending is not None else []) + engine.tokenizer.encode(SP_CONTINUE)
+        n = position + len(prompt) + len(ids_one)
+        cache = KVCache.create(engine.cfg, 1, n, engine._kv_dtype, engine.device)
+        cache.write_prefix(0, k_sp, v_sp)
+        toks = torch.tensor([prompt + ids_one[:-1]], device=engine.device)
+        with torch.no_grad():
+            logits = forward(params, engine.cfg, toks, position + torch.arange(
+                toks.shape[1], device=engine.device)[None], cache)[0, len(prompt) - 1:]
+        top2 = logits.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        want = logits.argmax(-1).tolist()
+        wrong = [i for i in range(len(ids_one)) if margin[i] > limit and ids_one[i] != want[i]]
+        if wrong:
+            raise AssertionError(f"14b: the restored session's ids leave the teacher-forced argmax at {wrong}")
+        first = next((i for i, (a, b) in enumerate(zip(ids_one, ids_sp)) if a != b), None)
+        if first is not None and margin[first] > limit:
+            raise AssertionError(f"14b: the sp continuation leaves the one-device one at {first}, where the "
+                                 f"top-2 margin {margin[first]:.4g} clears the limit {limit:.4g}")
+    finally:
+        one.shutdown()
+        del one, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"position": position, "blob_bytes": len(blob), "continuation_tokens": len(ids_one),
+           "first_divergence": first, "margin_there": None if first is None else margin[first],
+           "below_limit": sum(m <= limit for m in margin), "seconds": time.monotonic() - t0}
+    log(f"snapshot under sp restored into one device: {out}")
+    return out
+
+
+def phase_sp_serve(n_layers: int, tp: int = 1) -> dict:
+    """14b (``tp`` 1: llama3-8b at ``n_layers``, full depth) and 14c (``tp``
+    2: tp=2 × sp=2 at ``CUT_LAYERS``): bf16, ``max_seq`` ``SP_MAX_SEQ``,
+    the reference's default features (prefix cache, speculation,
+    deadlines) and a persona, served through ``llm_serve`` on a logical
+    mesh on this card. Traffic: a session whose first turn runs past one
+    shard's 2,048 slots, a second turn on it and a short session beside
+    it, every response 200; every prefill launch an lse entry on a shard
+    (``flash_prefill`` launches = n_layers × shards × (prefill chunks +
+    verify rounds)), ``flash_decode`` launched, no paged kernel; the
+    runtime and collective contracts (``phase_contracts``:
+    ``NoLargeAllGather`` at one shard's KV layer, ``HasCrossReduction``;
+    launches per replay × shards); ``_mesh_logits`` (the noise-floor gate
+    on a chunk, a decode step and the served ids teacher-forced through the
+    unsharded model); with tp a snapshot taken under the mesh restored
+    into a one-device engine (``_sp_snapshot``)."""
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = "llama3-8b" if n_layers == 32 else _cut_config("llama3-8b")
+    name = f"{'tp2x' if tp > 1 else ''}sp{SP} {n_layers}-layer"
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": SP_MAX_SEQ, "system_prompt": PERSONA,
+               "streaming": True}
+    kernels = (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode)
+    out: dict = {}
+    with _one_card_mesh(tp, 1, sp=SP) as mesh, _serving(options, config=model) as (app, load_s):
+        engine, port = app.engine, app.port
+        if (engine.sp, engine.tp, engine.max_seq) != (SP, tp, SP_MAX_SEQ):
+            raise AssertionError(f"{name}: sp {engine.sp} tp {engine.tp} max_seq {engine.max_seq}")
+        log(f"{name} engine loaded in {load_s:.1f}s")
+        _, m0 = _http(port, "GET", "/metrics")
+        for fn in kernels:
+            fn.launches = 0
+        replies: list = []
+        t1 = time.monotonic()
+        first = _chat(port, replies, "long", SP_LONG_TURN, 16)
+        if first["usage"]["prompt_tokens"] <= SP_SHARD:
+            raise AssertionError(f"{name}: the long turn's prompt {first['usage']} does not pass one shard")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            second, short = pool.map(lambda r: _chat(port, replies, *r), (
+                ("long", SP_TURNS[0], 16), ("short", SP_TURNS[1], 16)))
+        position = engine.slots[engine.sessions[app._sess("long")]].position
+        if position <= SP_SHARD:
+            raise AssertionError(f"{name}: the long session's position {position} does not pass one shard")
+        serve_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        _, m1 = _http(port, "GET", "/metrics")
+        out["pipeline"] = _pipeline(name, m0, m1, load_s)
+        shards = mesh.size
+        want = n_layers * shards * (m1["prefill_chunks"] - m0["prefill_chunks"] + m1["spec_rounds"] - m0["spec_rounds"])
+        if launches["flash_prefill"] != want or launches["flash_decode"] <= 0 or any(
+                launches[fn.__name__] for fn in kernels[2:]):
+            raise AssertionError(f"{name}: launches {launches}, flash_prefill want {n_layers} x {shards} shards x "
+                                 f"(prefill chunks + verify rounds) = {want}")
+        if (m1["sp"], m1["tp"], m1["pp"]) != (SP, tp, 1) or m1["worker_errors"]:
+            raise AssertionError(f"{name}: /metrics sp {m1['sp']} tp {m1['tp']} pp {m1['pp']} "
+                                 f"worker_errors {m1['worker_errors']}")
+        out.update(launches=launches, load_s=load_s, serve_s=serve_s, long_position=position,
+                   ttft_ms=[doc["ttft_ms"] for _, doc in replies],
+                   completion_tokens=[doc["usage"]["completion_tokens"] for _, doc in replies],
+                   prompt_tokens=[doc["usage"]["prompt_tokens"] for _, doc in replies],
+                   param_hbm_bytes=m1["param_hbm_bytes"], kv_arena_bytes=m1["kv_arena_bytes"])
+        out["contracts"] = phase_contracts(app, name, keys=_one_key_per_kind(engine, sampled=False))
+        out["logits"] = _mesh_logits(engine, name)
+        _, m2 = _http(port, "GET", "/metrics")
+        if m2["spec_rounds"] <= 0 or m2["prefix_hits"] <= 0:
+            raise AssertionError(f"{name}: the default features took no effect: spec_rounds "
+                                 f"{m2['spec_rounds']} prefix_hits {m2['prefix_hits']}")
+        if tp > 1:  # the tp slices and the sp slices joined into one device's arena
+            out["snapshot"] = _sp_snapshot(engine, app._sess("long"), out["logits"]["limit"])
+        out["itl_ms_p50"] = m2["itl_ms_p50"]
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"{name}: served {len(replies)} requests (200) in {out['serve_s']:.2f}s, long session at "
+        f"{out['long_position']}; launches {out['launches']}; peak {out['peak_memory_bytes']} B")
+    return out
+
+
+def phase_pp_serve(dense_texts: list[str]) -> dict:
+    """14d: llama3-8b bf16 at full depth over pp=2 (16 layers and half the
+    vocabulary a stage) on a logical mesh on this card: the forward's
+    logits against the unsharded forward's on the same inputs (a 256-token
+    prefill chunk and a decode step), expected bit for bit; if not, the
+    unsharded forward with its ``lm_head`` cut into the stages' halves
+    must give the pp logits bit for bit (the difference is then the
+    product's shape alone), and both differences are reported. One forward
+    logs pp - 1 handoffs, one embedding all-reduce, one broadcast of the
+    last hidden state and one logits all-gather. Then the four requests
+    with the features off (phase 3's options) must give phase 3's dense
+    text, through graph replays, every attention launch a dense kernel's
+    (n_layers a forward: each stage its 16)."""
+    import torch
+
+    from agentainer_tpu_torch.models.llama import KVCache, MeshCache, forward
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.parallel.collectives import record
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pp = 2
+    options = {"device": "cuda", "seed": 0, "max_batch": B, "max_seq": S, **FEATURES_OFF}
+    kernels = (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode)
+    out: dict = {}
+    with _one_card_mesh(1, 1, pp=pp) as mesh, _serving(options) as (app, load_s):
+        engine = app.engine
+        cfg, dev, dt = engine.cfg, engine.device, engine._kv_dtype
+        if engine.pp != pp or len(engine.params) != pp:
+            raise AssertionError(f"14d: pp {engine.pp}")
+        log(f"pp=2 engine loaded in {load_s:.1f}s")
+        _, m0 = _http(app.port, "GET", "/metrics")
+        for fn in kernels:
+            fn.launches = 0
+        replies: list = []
+        t1 = time.monotonic()
+        texts = _four_requests(app.port, replies)
+        serve_s = time.monotonic() - t1
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        _, m1 = _http(app.port, "GET", "/metrics")
+        out["pipeline"] = _pipeline("pp=2", m0, m1, load_s)
+        if texts != dense_texts:
+            raise AssertionError(f"14d: the pp=2 text differs from phase 3's dense text: {texts} {dense_texts}")
+        want = cfg.n_layers * (m1["prefill_chunks"] - m0["prefill_chunks"])
+        if launches["flash_prefill"] != want or launches["flash_decode"] <= 0 or any(
+                launches[fn.__name__] for fn in kernels[2:]):
+            raise AssertionError(f"14d: launches {launches}, flash_prefill want {cfg.n_layers} x prefill chunks")
+        out.update(launches=launches, load_s=load_s, serve_s=serve_s, itl_ms_p50=m1["itl_ms_p50"],
+                   ttft_ms=[doc["ttft_ms"] for _, doc in replies], texts_equal_dense=True)
+        # the forward against the unsharded one, on the engine's idle card
+        params = _unsharded_like(engine, quant=False)
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        toks = torch.randint(3, cfg.vocab_size, (1, 256), generator=g, device=dev)
+        caches = (KVCache.create(cfg, 1, 257, dt, dev),
+                  MeshCache.create(mesh, lambda d: KVCache.create(cfg, 1, 257, dt, d, n_layers=cfg.n_layers // pp)))
+        logs, rows = [], {}
+        with torch.no_grad():
+            chunk, p = toks, torch.arange(256, device=dev)[None]
+            for step in ("prefill", "decode"):
+                with record() as log_:
+                    got = forward(engine.params, cfg, chunk, p, caches[1], mesh=mesh)
+                logs.append([e["kind"] for e in log_])
+                want_l = forward(params, cfg, chunk, p, caches[0])
+                rows[step] = (got[0, -1], want_l[0, -1])
+                chunk, p = want_l[:, -1:].argmax(-1), p[:, -1:] + 1
+        want_log = ["all_reduce"] + ["handoff"] * (pp - 1) + ["broadcast", "all_gather"]
+        if any(entry != want_log for entry in logs):
+            raise AssertionError(f"14d: collectives a forward {logs}, want {want_log}")
+        out["collectives_per_forward"] = logs[0]
+        out["logits_bit_equal"] = all(torch.equal(a, b) for a, b in rows.values())
+        out["logits_max_abs_err"] = max((a - b).abs().max().item() for a, b in rows.values())
+        if not out["logits_bit_equal"]:
+            # the unsharded forward with lm_head in the stages' two halves
+            half = cfg.vocab_size // pp
+            cut_rows = {}
+            for step, chunk_p in (("prefill", (toks, torch.arange(256, device=dev)[None])),):
+                parts = []
+                for s in range(pp):
+                    cut = dict(params, lm_head=params["lm_head"][:, s * half:(s + 1) * half].contiguous())
+                    cache = KVCache.create(cfg, 1, 257, dt, dev)
+                    with torch.no_grad():
+                        parts.append(forward(cut, cfg, *chunk_p, cache)[0, -1])
+                cut_rows[step] = torch.cat(parts)
+            out["split_lm_head_bit_equal"] = torch.equal(cut_rows["prefill"], rows["prefill"][0])
+            if not out["split_lm_head_bit_equal"]:
+                raise AssertionError(f"14d: pp logits differ from the unsharded forward by "
+                                     f"{out['logits_max_abs_err']:.4g}, and not by the lm_head's split alone")
+        if not all(torch.equal(a.argmax(), b.argmax()) for a, b in rows.values()):
+            raise AssertionError("14d: the pp forward's argmax differs from the unsharded forward's")
+        del params, caches
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"14d pp=2: served the four requests in {serve_s:.2f}s with phase 3's text; {out}")
+    return out
+
+
+def _phase_14(run, report: dict, kernels: list, sp_kernels: dict, dense_texts: list[str]) -> None:
+    """14b-d after every other engine is gone, and the sp-shard rows of the
+    kernels line: 14a's times beside 14b's launches (every dense attention
+    call of the sp engine is an lse entry on a shard)."""
+    report["mesh_sp2"] = run("mesh_sp2", phase_sp_serve, 32)
+    report["mesh_tp2_sp2"] = run("mesh_tp2_sp2", phase_sp_serve, CUT_LAYERS, tp=2)
+    report["mesh_pp2"] = run("mesh_pp2", phase_pp_serve, dense_texts)
+    for name, row in sp_kernels["rows"].items():
+        base = name.split(" ")[0]
+        row["launches"] = report["mesh_sp2"]["launches"][base]
+        row["launches_tp2_sp2"] = report["mesh_tp2_sp2"]["launches"][base]
+        kernels.append(row)
+    for row in kernels:
+        if row["name"] in ("flash_prefill", "flash_decode"):
+            row["launches_pp"] = report["mesh_pp2"]["launches"][row["name"]]
+    for phase in ("mesh_sp2", "mesh_tp2_sp2", "mesh_pp2"):
+        r = report[phase]
+        log(f"phase {phase}: {report['phase_s'][phase]} s, peak {r['peak_memory_bytes']} B, ITL p50 "
+            f"{r['itl_ms_p50']} ms, capture {r['pipeline']['graph_capture_s']} s")
+
+
 def main() -> int:
     import torch
 
@@ -5672,19 +6210,19 @@ def main() -> int:
     kernels = run("kernels", phase_kernels)
     w8_row = run("w8a16", phase_w8a16)
     grouped_row = run("grouped", phase_grouped)
-    # 13a beside the other timed kernel phases (a profiler trace late in the
-    # run lost device records)
+    # 13a and 14a beside the other timed kernel phases (a profiler trace
+    # late in the run lost device records)
     mesh_kernels = run("mesh_kernels", phase_mesh_kernels)
+    sp_kernels = run("sp_kernels", phase_sp_kernels)
     report = {"tokenizer": report_tokenizer, "serve": run("serve", phase_serve), "phase_s": phase_s}
     dense_texts = report["serve"].pop("texts")
     report["serve_paged"] = run("serve_paged", phase_serve_paged, dense_texts)
     report["fused"] = run("fused", phase_fused_dense, dense_texts, report["serve"])
-    n_layers = 32  # llama3-8b at full depth in the bf16 feature phases
-    report["features"] = run("features", phase_serve_features, False, n_layers, None, contracts=True)
-    # the paged feature phase and the fused paged one run at CUT_LAYERS
-    # (the mesh phases need their seconds): neither text is
-    # compared with a 32-layer phase's (serve_paged holds the dense and
-    # paged texts equal at full depth)
+    # the feature phases and the fused paged one run at CUT_LAYERS (the
+    # mesh phases need their seconds; 14b serves the features at full
+    # depth): no text of theirs is compared with a 32-layer phase's
+    # (serve_paged holds the dense and paged texts equal at full depth)
+    report["features"] = run("features", phase_serve_features, False, CUT_LAYERS, None, contracts=True)
     report["features"].pop("texts")
     report["features_paged"] = run("features_paged", phase_serve_features, True, CUT_LAYERS, None,
                                    contracts=True)
@@ -5701,20 +6239,23 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="atpu-hf-llama3-8b-")
     try:
         report["checkpoint_write"] = run("checkpoint_write", phase_write_checkpoint, root)
+        cut_ckpt = _cut_checkpoint(root)
         report["checkpoint"] = run("checkpoint", phase_checkpoint, root, dense_texts, card)
         report["checkpoint_int8"] = run("checkpoint_int8", phase_checkpoint_int8, root, card)
-        report["resume"] = run("resume", phase_resume, root, card)
+        # the resume's gates compare its own engines: CUT_LAYERS deep
+        report["resume"] = run("resume", phase_resume, cut_ckpt, card)
         # the control plane: the daemon spawns its own engine host on the card
-        report["daemon"] = run("daemon", phase_daemon, card)
+        report["daemon"] = run("daemon", phase_daemon, card, cut_ckpt)
         # the replica fleet: two engine hosts, one killed mid-stream
-        report["fleet"] = run("fleet", phase_fleet, card)
+        report["fleet"] = run("fleet", phase_fleet, card, cut_ckpt)
         # the daemon's default deployment: native store + AOF, the C++ front door
-        report["native"] = run("native", phase_native, card, report["daemon"])
+        report["native"] = run("native", phase_native, card, report["daemon"], cut_ckpt)
         # the operator's tooling through the CLI: phase 6's checkpoint
         # deployed, backed up, exported and restored
         report["operator"] = run("operator", phase_operator, root, report["checkpoint"]["bpe_turn"], card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(root.rstrip("/") + f"-{CUT_LAYERS}l", ignore_errors=True)
     for row in kernels:
         paged = "paged" in row["name"]
         # the main path is the reference's default: the feature phases
@@ -5765,8 +6306,9 @@ def main() -> int:
     prefill_row["launches_train"] = report["train"]["launches"]["flash_prefill"]
     prefill_row["train"]["replaces"] = TRAIN_REPLACES
     # 13b-d: serve-time model parallelism, every shard of a logical mesh
-    # on this card, after every other engine is gone
-    report["mesh_tp2"] = run("mesh_tp2", phase_serve_features, False, 32, None, contracts=True,
+    # on this card, after every other engine is gone; the dense tp=2 mesh
+    # at CUT_LAYERS since 14b serves a full-depth mesh
+    report["mesh_tp2"] = run("mesh_tp2", phase_serve_features, False, CUT_LAYERS, None, contracts=True,
                              mesh=(2, 1), logits=True)
     report["mesh_tp2"].pop("texts")
     # the paged mesh at CUT_LAYERS (for time); the dense and paged meshed
@@ -5796,13 +6338,16 @@ def main() -> int:
     w8_row["launches_mesh_paged"] = report["mesh_tp2_int8_paged"]["launches"]["w8a16_matmul"]
     grouped_row["ep2_shard"] = mesh_kernels["w8a16_grouped_matmul"]
     grouped_row["launches_mesh"] = report["mesh_ep2_moe"]["launches"]["w8a16_grouped_matmul"]
+    # 14b-d: sequence and pipeline parallelism on logical meshes on this card
+    _phase_14(run, report, kernels, sp_kernels, dense_texts)
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {
         phase: report[phase]["pipeline"]
         for phase in ("serve", "serve_paged", "fused", "features", "features_paged", "fused_paged", "int8",
                       "int8_paged", "checkpoint", "moe", "moe_paged", "mesh_tp2", "mesh_tp2_paged",
-                      "mesh_tp2_int8", "mesh_tp2_int8_paged", "mesh_ep2_moe")
+                      "mesh_tp2_int8", "mesh_tp2_int8_paged", "mesh_ep2_moe", "mesh_sp2", "mesh_tp2_sp2",
+                      "mesh_pp2")
     }}))
     print(json.dumps(report))
     print(card)

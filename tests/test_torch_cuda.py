@@ -1303,15 +1303,15 @@ def test_fused_loop_graph_equals_eager_bit_for_bit(dev, case, inloop):
         eng.shutdown()
 
 
-def test_fused_loop_exits_early_on_the_device(dev):
-    """A loop bound of the full cap whose one live lane freezes at its
-    budget of 3 runs 3 iterations: in a profiler trace of the replay the
-    dense decode kernel and its combine launch n_layers x 2 x 3 times, not
-    x nsteps."""
+def _early_exit_trace() -> dict:
+    """The traced replay of ``test_fused_loop_exits_early_on_the_device``:
+    the loop's iterations read back, and the dense decode kernel's and its
+    combine's device launches in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from agentainer_tpu_torch.engine.graphs import live_fused, live_lanes, park_lanes
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     eng = _graph_engine(fused_decode=True, speculative=False)
     try:
         key = ("fused", eng._fused_cap, True)
@@ -1337,10 +1337,38 @@ def test_fused_loop_exits_early_on_the_device(dev):
             combine = sum("decode_combine_kernel" in n for n in names)
             if decode == combine == eng.cfg.n_layers * steps:
                 break
-        assert steps == 3, packed[eng._fused_cap + 1 :]
-        assert decode == combine == eng.cfg.n_layers * steps, (decode, combine)
+        return {"steps": steps, "decode": decode, "combine": combine, "n_layers": eng.cfg.n_layers,
+                "tail": packed[eng._fused_cap + 1:].tolist()}
     finally:
         eng.shutdown()
+
+
+def test_fused_loop_exits_early_on_the_device(dev):
+    """A loop bound of the full cap whose one live lane freezes at its
+    budget of 3 runs 3 iterations: in a profiler trace of the replay the
+    dense decode kernel and its combine launch n_layers x 2 x 3 times, not
+    x nsteps.
+
+    The trace is taken in a fresh interpreter: in a process that has
+    already built and destroyed other loop graphs (this file's earlier
+    tests), CUPTI names the kernels of a new loop's conditional body after
+    the nodes of a destroyed graph whose ids the new one reuses (seen on
+    an H100: the right number of device records, under an earlier in-loop
+    int8 loop's kernel names), so the names are read where no graph came
+    before."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import json, test_torch_cuda as t; print(json.dumps(t._early_exit_trace()))"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([os.path.dirname(here), here])}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["steps"] == 3, got["tail"]
+    assert got["decode"] == got["combine"] == got["n_layers"] * got["steps"], got
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -1749,3 +1777,162 @@ def test_tp_over_two_cards_matches_one_card(dev):
         finally:
             eng.shutdown()
     assert out[0] == out[1]
+
+
+# -- sequence and pipeline parallelism ---------------------------------------
+
+SP_SHARD = 512  # slots of one sp=2 shard here
+# the lse is f32 in both dtypes and both kernel bodies: summation order only
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (32, 8)])
+def test_lse_entries_match_their_plain_versions(dev, dtype, heads, kv_heads):
+    """``return_lse``: each dense entry's rows and row log-sum-exp against
+    its plain version (rows at ``TOL``, lse within ``LSE_TOL``), rows that see
+    no slot included (NEG_INF), and the rows bit-equal to the call
+    without it."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, t, s = 3, 70, 300
+    q = _randn(g, dev, dtype, b, t, heads, 128)
+    k, v = (_randn(g, dev, dtype, b, s, kv_heads, 128) for _ in range(2))
+    pos = (torch.tensor([-80, 77, 260], device=dev)[:, None] + torch.arange(t, device=dev)).int()
+    got, lse = ca.flash_prefill(q, k, v, pos, return_lse=True)
+    want, want_lse = ca.flash_prefill_plain(q, k, v, pos, return_lse=True)
+    assert torch.equal(got, ca.flash_prefill(q, k, v, pos))
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=LSE_TOL)
+    assert (lse[0, :80] == ca.NEG_INF).all() and (got[0, :80] == 0).all()
+    dpos = pos[:, -1].clone()
+    dpos[0] = -1
+    got, lse = ca.flash_decode(q[:, 0], k, v, dpos, return_lse=True)
+    want, want_lse = ca.flash_decode_plain(q[:, 0], k, v, dpos, return_lse=True)
+    assert torch.equal(got, ca.flash_decode(q[:, 0], k, v, dpos))
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=LSE_TOL)
+    assert (lse[0] == ca.NEG_INF).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sp_shards_joined_equal_the_unsharded_kernels(dev, dtype):
+    """Two sp shards of a 1024-slot arena, each through the kernels' lse
+    entries at positions shifted by its first slot, joined as
+    ``parallel/flash_mesh`` joins them: the unsharded kernels over the
+    whole arena, for a prefill chunk straddling slot 512 and decode lanes
+    on both sides of it (one in shard 0 only, one parked at the end)."""
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import KVCache, MeshCache
+    from agentainer_tpu_torch.parallel.flash_mesh import make_meshed_cache_attention
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = get_config("llama3-8b")
+    g = torch.Generator(device=dev).manual_seed(8)
+    mesh = make_mesh(2, sp=2, devices=[dev, dev])
+    attend = make_meshed_cache_attention(mesh=mesh)
+    b = 4
+    full = KVCache.create(cfg, b, 2 * SP_SHARD, dtype, dev, n_layers=1)
+    cache = MeshCache.create(mesh, lambda d: KVCache.create(cfg, b, SP_SHARD, dtype, d, n_layers=1))
+    k, v = (_randn(g, dev, dtype, b, 2 * SP_SHARD, 8, 128) for _ in range(2))
+    for c in (full, cache):
+        for row in range(b):
+            c.write_prefix(row, k[row][None], v[row][None])
+    tol = 2 * TOL[dtype]  # a shard's rows and the join each round to q's dtype
+    q = _randn(g, dev, dtype, b, 96, 32, 128)
+    pos = (SP_SHARD - 48 + torch.arange(96, device=dev))[None].expand(b, 96).int()
+    new_k, new_v = (_randn(g, dev, dtype, b, 96, 8, 128) for _ in range(2))
+    got = attend([q, q], [(new_k, new_v)] * 2, cache.shards, 0, [pos, pos])
+    full.write(0, pos, new_k, new_v)
+    want = ca.flash_prefill(q, full.k[0], full.v[0], pos)
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0].float(), want.float(), rtol=tol, atol=tol)
+    dpos = torch.tensor([100, SP_SHARD, SP_SHARD + 300, 2 * SP_SHARD - 1], device=dev, dtype=torch.int32)
+    qd = _randn(g, dev, dtype, b, 1, 32, 128)
+    dk, dv = (_randn(g, dev, dtype, b, 1, 8, 128) for _ in range(2))
+    got = attend([qd, qd], [(dk, dv)] * 2, cache.shards, 0, [dpos[:, None]] * 2)
+    full.write(0, dpos[:, None], dk, dv)
+    want = ca.flash_decode(qd[:, 0], full.k[0], full.v[0], dpos)
+    torch.testing.assert_close(got[0][:, 0].float(), want.float(), rtol=tol, atol=tol)
+    assert torch.isfinite(got[0]).all()
+
+
+def test_pp_logits_equal_the_unsharded_forward(dev):
+    """A 2-layer llama3-8b-width model over pp=2 (both stages on this
+    card): the stages run the unsharded forward's per-layer ops in order
+    and the embedding's all-reduce adds zeros, so the layers' output is
+    the same bits; the logits are the unsharded forward's with ``lm_head``
+    cut into the stages' two vocab halves, bit for bit, over a prefill
+    chunk and a decode step."""
+    import dataclasses
+
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import KVCache, MeshCache, forward, init_params
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+    from agentainer_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mesh = make_mesh(2, pp=2, devices=[dev, dev])
+    shards = shard_params(params, mesh)
+    half = cfg.vocab_size // 2
+    halves = [dict(params, lm_head=params["lm_head"][:, i * half:(i + 1) * half].contiguous()) for i in (0, 1)]
+    caches = [KVCache.create(cfg, 2, 300, torch.bfloat16, dev) for _ in halves]
+    staged = MeshCache.create(mesh, lambda d: KVCache.create(cfg, 2, 300, torch.bfloat16, d, n_layers=1))
+    toks = torch.randint(3, cfg.vocab_size, (2, 256), generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    pos = torch.arange(256, device=dev)[None].expand(2, 256)
+    with torch.no_grad():
+        for _ in range(2):
+            got = forward(shards, cfg, toks, pos, staged, mesh=mesh)
+            want = torch.cat([forward(h, cfg, toks, pos, c) for h, c in zip(halves, caches)], dim=-1)
+            assert torch.equal(got, want)
+            toks, pos = want[:, -1:].argmax(-1), pos[:, -1:] + 1
+    (k, v), = staged.read_prefix(1, 257)
+    assert torch.equal(k, caches[0].k_store[:, 1, :257]) and torch.equal(v, caches[0].v_store[:, 1, :257])
+
+
+@pytest.mark.parametrize("axis", ["sp", "pp"])
+def test_sp2_and_pp2_engines_on_one_card_serve_through_graphs(dev, axis):
+    """A 2-layer llama3-8b-width engine at sp=2 (a 512-slot arena, 256 a
+    shard, a prompt past the first) or pp=2 (one layer a stage), both
+    shards on this card: every step a graph replay under the runtime
+    contracts, the attention kernels launched per replay by every shard of
+    a layer (sp: 2 × the unsharded launches; pp: the unsharded launches,
+    each stage its layer)."""
+    import asyncio
+    import dataclasses
+
+    from agentainer_tpu_torch.analysis.contracts import (
+        AttentionLaunches,
+        buffers_in_place,
+        capture_budget,
+        check,
+        launches_per_replay,
+    )
+    from agentainer_tpu_torch.engine.graphs import park_lanes
+    from agentainer_tpu_torch.models.configs import get_config
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name="llama3-8b-2l", n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = _mesh_engine(cfg, params, dev, make_mesh(2, devices=[dev, dev], **{axis: 2}))
+    try:
+        with capture_budget(eng, 0), buffers_in_place(eng), no_implicit_sync():
+            got = asyncio.run(eng.generate("a" * 300, max_tokens=24, ignore_eos=True))
+        assert eng.worker_errors == 0, eng.last_worker_error
+        assert got["completion_tokens"] == 24 and eng.metrics()["graph_replays"] > 0
+        assert eng.metrics()[axis] == 2
+        park_lanes(eng)
+        want = AttentionLaunches(n_layers=cfg.n_layers, paged=False, shards=2 if axis == "sp" else 1)
+        for key in eng._step_keys():
+            if not key[2]:
+                continue
+            for _ in range(3):
+                with torch.no_grad(), eng._on_stream():
+                    res = launches_per_replay(eng._graphs, key)
+                if not want.failures(res):
+                    break
+            check(res, want)
+    finally:
+        eng.shutdown()

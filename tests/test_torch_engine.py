@@ -32,7 +32,7 @@ from agentainer_tpu_torch.models.convert import params_from_numpy
 SHAPE = dict(max_batch=4, max_seq=128, prefill_chunk=32, decode_chunk=8)
 
 # what create says of an axis a later slice of the port's parallel/ brings
-LATER_SLICE = r"serve-time (sp|pp) waits for a later slice of the port's parallel/ \(tp and ep serve\)"
+PP_COMPOSE = "serve-time pp does not compose with tp/ep/sp yet"
 
 
 @pytest.fixture(scope="module")
@@ -162,36 +162,36 @@ def test_card_engine_refuses_a_head_the_kernels_do_not_take(monkeypatch):
 @pytest.mark.parametrize(
     "options,match",
     [
-        # prefix_cache, speculative, paged_kv, fused_decode, kv_tiering and
-        # routed are ported: asked beside an unported axis (sp or pp > 1),
-        # only that one is named
+        # every option is ported: what still raises is what the reference
+        # refuses, with its messages — serve-time pp beside another axis,
+        # int8 weights or routed MoE, and an unknown quant scheme
         pytest.param(
-            {"prefix_cache": True, "fused_decode": True, "routed": True, "sp": 2},
-            f"^sp=2: {LATER_SLICE}$", id="options0-prefix_cache",
+            {"prefix_cache": True, "fused_decode": True, "routed": True, "sp": 2, "pp": 2},
+            f"^{PP_COMPOSE}$", id="options0-prefix_cache",
         ),
         pytest.param(
-            {"speculative": True, "paged_kv": True, "kv_tiering": True, "pp": 2},
-            f"^pp=2: {LATER_SLICE}$", id="options1-speculative, paged_kv",
+            {"speculative": True, "paged_kv": True, "kv_tiering": True, "pp": 2, "quant": "int8"},
+            "^serve-time pp does not support quantized weights yet$", id="options1-speculative, paged_kv",
         ),
-        # streaming and approx_topk are ported too
         pytest.param(
-            {"streaming": True, "kv_tiering": True, "tier_quantize": 0, "sp": 2},
-            f"^sp=2: {LATER_SLICE}$", id="options2-streaming",
+            {"streaming": True, "kv_tiering": True, "tier_quantize": 0, "pp": 2, "tp": 2},
+            f"^{PP_COMPOSE}$", id="options2-streaming",
         ),
-        # tp and ep serve (tests/test_torch_llm_tp.py, test_torch_llm_moe_ep.py):
-        # beside them sp and pp still raise
-        pytest.param({"tp": 2, "sp": 2}, "sp=2", id="options3-tp=2"),
+        # tp, ep and sp serve (tests/test_torch_llm_tp.py, test_torch_llm_moe_ep.py,
+        # test_torch_sp.py): beside them pp raises
+        pytest.param({"tp": 2, "pp": 2}, "compose", id="options3-tp=2"),
         # int8 serving is ported: another scheme still raises
         pytest.param({"quant": "int4"}, "unknown quant scheme 'int4'", id="options4-quant"),
         pytest.param(
             {"approx_topk": True, "fused_decode": True, "inloop_spec": False, "ep": 2, "pp": 2},
-            f"^pp=2: {LATER_SLICE}$", id="options5-approx_topk",
+            f"^{PP_COMPOSE}$", id="options5-approx_topk",
         ),
         pytest.param(
-            {"quant": "int8", "synthetic": True, "tp": 2, "sp": 2}, "sp=2", id="options6-synthetic"
+            {"quant": "int8", "synthetic": True, "pp": 2}, "quantized", id="options6-synthetic"
         ),
-        # routed MoE over ep-sharded experts serves; beside pp it raises
-        pytest.param({"routed": True, "ep": 4, "pp": 2}, "^pp=2", id="options7-routed"),
+        # routed MoE over ep-sharded experts serves; under pp it raises
+        pytest.param({"routed": True, "pp": 2}, "^serve-time pp does not support routed MoE yet$",
+                     id="options7-routed"),
     ],
 )
 def test_create_rejects_unported_options(options, match):

@@ -178,8 +178,8 @@ def test_tp_ep_snapshot_restores_into_one_device(jax_engines):
     ({"chips": [0, 1, 2]}, (1, 2)),  # 3 chips: ep 2 divides the experts, one idle
 ])
 def test_ep_first_placement(options, want):
-    tp, ep, devices = tllm._placement(TCFG, {"device": "cpu", **options}, options.get("chips", []))
-    assert (tp, ep) == want and len(devices) == tp * ep
+    tp, ep, sp, pp, devices = tllm._placement(TCFG, {"device": "cpu", **options}, options.get("chips", []))
+    assert (tp, ep) == want and (sp, pp) == (1, 1) and len(devices) == tp * ep
 
 
 def test_create_places_an_moe_agent_ep_first():

@@ -18,7 +18,7 @@ default features on (prefix cache, speculation, deadlines). Held:
 - a tp=2 snapshot restored into tp=2 and into tp=1 continues the session
   token for token, and a tp=1 snapshot restores into tp=2;
 - ``create``'s placement: chips spanned by tp, tp narrowed to an
-  assignment, ``sp``/``pp`` still raising, the card's visible devices
+  assignment, pp beside tp still raising, the card's visible devices
   (monkeypatched: this machine has none);
 - the params and the arena are cut per shard, and ``/metrics`` reports
   tp (``test_tp_engine_shards_params_and_cache``'s port).
@@ -223,8 +223,8 @@ def test_dense_chips_default_to_tp_spanning_the_assignment():
 def test_tp_placement_equals_the_reference(options, want):
     """``_placement`` against the tp the JAX package's ``create`` places
     (values asserted by tests/test_quant.py, tests/test_llm_tp.py)."""
-    tp, ep, devices = tllm._placement(TCFG, {"device": "cpu", **options}, options.get("chips", []))
-    assert (tp, ep) == want and devices == [torch.device("cpu")] * (tp * ep)
+    tp, ep, sp, pp, devices = tllm._placement(TCFG, {"device": "cpu", **options}, options.get("chips", []))
+    assert (tp, ep) == want and (sp, pp) == (1, 1) and devices == [torch.device("cpu")] * (tp * ep)
 
 
 def test_card_placement_clamps_to_visible_devices(monkeypatch):
@@ -232,18 +232,24 @@ def test_card_placement_clamps_to_visible_devices(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cfg = tconfigs.get_config("llama3-8b")
     place = tllm._placement
-    assert place(cfg, {}, [1, 2]) == (2, 1, [torch.device("cuda", 1), torch.device("cuda", 2)])
+    assert place(cfg, {}, [1, 2]) == (2, 1, 1, 1, [torch.device("cuda", 1), torch.device("cuda", 2)])
     # an id past the visible devices: the first ones (the reference's fallback)
-    assert place(cfg, {}, [5, 6]) == (2, 1, [torch.device("cuda", 0), torch.device("cuda", 1)])
-    assert place(cfg, {"tp": 8}, []) == (4, 1, [torch.device("cuda", i) for i in range(4)])
+    assert place(cfg, {}, [5, 6]) == (2, 1, 1, 1, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    assert place(cfg, {"tp": 8}, []) == (4, 1, 1, 1, [torch.device("cuda", i) for i in range(4)])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert place(cfg, {"tp": 2}, [0, 1]) == (1, 1, [torch.device("cuda", 0)])
+    assert place(cfg, {"tp": 2}, [0, 1]) == (1, 1, 1, 1, [torch.device("cuda", 0)])
 
 
 @pytest.mark.parametrize("axis", ["sp", "pp"])
 def test_sp_and_pp_still_raise(axis):
-    with pytest.raises(ValueError, match=f"^{axis}=2: serve-time {axis} waits for a later slice"):
-        TEngine.create("tiny", options={"device": "cpu", axis: 2, "tp": 2})
+    """sp and pp serve (tests/test_torch_sp.py, test_torch_pp.py); what
+    still raises beside tp is the reference's own refusal: a pipeline
+    composed with another axis."""
+    options = {"device": "cpu", axis: 2, "tp": 2, "pp": 2}
+    with pytest.raises(ValueError, match="^serve-time pp does not compose with tp/ep/sp yet$"):
+        TEngine.create("tiny", options=options)
+    with pytest.raises(ValueError, match="compose"):
+        JEngine.create("tiny", options={k: v for k, v in options.items() if k != "device"})
 
 
 def test_serve_layer_hands_the_chips_over_in_the_hosts_numbering():

@@ -81,8 +81,8 @@ def test_the_reference_fleet_flag_list_is_the_ports():
     "env,needle",
     [
         # the assistant flavor and the fleet flags are served now: beside a
-        # deployment that asks for an unported axis (ep > 1), the load fails
-        # on that option alone
+        # deployment that asks for what the reference refuses (pp with tp),
+        # the load fails on that option alone
         pytest.param(
             {"AGENTAINER_ENGINE": "assistant", "ATPU_KV_TIERING": "1"}, "kv_tiering",
             id="env0-not ported yet",
@@ -92,18 +92,18 @@ def test_the_reference_fleet_flag_list_is_the_ports():
     ],
 )
 def test_unported_flavor_and_flags_fail_the_load(env, needle):
-    options = {"device": "cpu", "sp": 2}
+    options = {"device": "cpu", "pp": 2, "tp": 2}  # a refusal of the reference's own
     app = LLMServeApp(env={**ENV, "AGENTAINER_MODEL_OPTIONS": json.dumps(options), **env})
     assert app._engine_options()[needle] is True  # the flag reaches create()
     app._load_engine()
     assert app.engine is None and app.engine_error.endswith(
-        "sp=2: serve-time sp waits for a later slice of the port's parallel/ (tp and ep serve)"
+        "serve-time pp does not compose with tp/ep/sp yet"
     )
     assert needle not in app.engine_error
     health = asyncio.run(app.h_health(Request("GET", "/health", {}, b"")))
     assert health.doc["model_loaded"] is False
     chat = asyncio.run(app.h_chat(Request("POST", "/chat", {}, b'{"message": "hi"}')))
-    assert chat.status == 503 and "sp=2" in chat.doc["error"]
+    assert chat.status == 503 and "does not compose" in chat.doc["error"]
 
 
 def test_root_reports_the_assigned_chips(monkeypatch):
