@@ -7,9 +7,10 @@ one-hot dispatch), ``_attention_block`` (``_qkv``, the cache branches in
 ``parallel/flash_mesh`` and the no-cache causal branch ``_causal``, summed
 into the residual in ``forward``), ``forward`` (with ``moe_impl``) and
 ``greedy_decode``. ``forward``'s ``attn_impl`` is the reference's hook for
-the no-cache path, which the training step (``train.py``) uses; the
-training-time sequence-parallel attentions behind it (``ring_attention``,
-``ulysses``) wait for the training slice of ``parallel/``.
+the no-cache path, which the training step (``train.py``) uses: the
+trainable attention, run on each shard. Over a sequence-sharded mesh the
+shards' blocks need one another's k/v, and ``seq_attn_impl`` takes the
+mesh's attention over all of them (``ring_attention``, ``ulysses``).
 
 ``forward`` runs each layer per shard, one device being one shard (its
 collectives no-ops). Over a mesh (``forward(..., mesh=)``, ``parallel/``)
@@ -22,8 +23,10 @@ engine's ``moe_impl``, ``parallel/expert.py``); a vocab-sharded embedding
 as a masked lookup plus an ``all_reduce``; a vocab-sharded ``lm_head``
 whose logits are ``all_gather``ed. Over sp each shard holds a slice of
 every row's slots and the shards' attention rows are joined over sp; over
-pp each layer runs on its stage's shard, the stages in turn.
-``MeshCache`` holds the shards' arenas or pools.
+pp each layer runs on its stage's shards, the stages in turn. Without a
+cache (training) each shard may take its own dp rows and sp block of the
+tokens, and return its vocab slice of the logits for a vocab-parallel
+loss. ``MeshCache`` holds the shards' arenas or pools.
 
 Every op of the no-cache path keeps autograd intact (``train.py`` takes
 gradients through it): the embedding gather, the layer views, the norms,
@@ -69,7 +72,7 @@ from ..ops.rope import apply_rope
 from ..parallel.collectives import all_gather, all_reduce, broadcast, handoff
 from ..parallel.flash_mesh import make_meshed_cache_attention
 from ..parallel.pipeline import check_stages
-from ..parallel.sharding import unshard_layers, unshard_slots
+from ..parallel.sharding import batch_spec, unshard_layers, unshard_slots, unshard_tensor
 from .configs import ModelConfig
 
 
@@ -544,8 +547,8 @@ def _embed_shard(embed, tokens: torch.Tensor, lo: int) -> torch.Tensor:
 def forward(
     params: dict | list[dict],
     cfg: ModelConfig,
-    tokens: torch.Tensor,  # [B, T] int
-    positions: torch.Tensor,  # [B, T] int
+    tokens,  # [B, T] int, or over a mesh without a cache one [B', T'] per shard
+    positions,  # [B, T] int, likewise
     cache: KVCache | PagedKVCache | MeshCache | None = None,
     use_flash: bool = True,
     block_table: torch.Tensor | None = None,  # [B, n_blocks] int
@@ -553,7 +556,9 @@ def forward(
     moe_impl=None,
     attn_impl=None,
     mesh=None,
-) -> torch.Tensor:
+    local_logits: bool = False,
+    seq_attn_impl=None,
+):
     """Returns logits [B, T, V] in f32; with ``last_index`` only row
     ``last_index[b]`` of each sequence goes through the final norm and
     ``lm_head``, and the logits are [B, 1, V] (a prefill chunk needs its last
@@ -576,39 +581,57 @@ def forward(
     the first shard's device. One device runs the same loop as one shard,
     its collectives no-ops. A mesh of sp > 1 holds each row's slots split
     over sp (``parallel/flash_mesh.py`` joins the shards' attention). A mesh
-    of pp > 1 runs each layer on its stage's shard alone (layer ``l`` on
-    stage ``l // (L/pp)``, against the stage's arena), the activation
-    handed to the next stage at a boundary; its vocabulary is sharded over
-    pp as tp's is over tp, and the last stage's hidden state is broadcast
-    to every stage for its ``lm_head`` columns (``parallel/pipeline.py``)."""
+    of pp > 1 runs each layer on its stage's shards alone (layer ``l`` on
+    stage ``l // (L/pp)``; serving: one shard a stage, against the stage's
+    arena), the activation handed to the next stage at a boundary; its
+    vocabulary is sharded over pp as tp's is over tp, and the last stage's
+    hidden state is broadcast to every stage for its ``lm_head`` columns
+    (``parallel/pipeline.py``).
+
+    Over a mesh without a cache (training, ``train.py``): ``tokens`` and
+    ``positions`` may be one tensor per shard (``parallel/sharding.shard_batch``:
+    each shard its dp rows and its sp block, at their global positions).
+    ``attn_impl(q, k, v)`` runs on each shard's heads and rows, as on one
+    device. Over sp > 1 such a split needs ``seq_attn_impl(qs, ks, vs)``,
+    the mesh's attention over every shard's list (``ring_attention``,
+    ``ulysses``, ``flash_mesh.make_gathered_causal_attention``). pp then
+    composes with dp and tp: a stage is the shards of one pp index.
+    ``local_logits``: the shards' logits before the vocab gather, each its
+    vocab slice, for a vocab-parallel loss; otherwise the whole batch's
+    logits, joined over dp and sp."""
     pp = 1 if mesh is None else mesh.shape["pp"]
+    split = isinstance(tokens, list)
     if mesh is None:
         shards, caches, devs, tp = [params], [cache], [tokens.device], 1
 
-        def reduce(parts, axis="tp"):
+        def reduce(parts, axis="tp", on=None):
             return parts
 
-        def moe(hs, lps):
+        def moe(hs, lps, on):
             return [moe_impl(hs[0], lps[0]) if moe_impl is not None else _moe_mlp(hs[0], lps[0], cfg)]
 
         def gather(parts, axis):
             return parts
     else:
         if pp > 1:
-            if mesh.size != pp or cache is None:
+            if cache is not None and mesh.size != pp:
                 raise ValueError(f"{mesh}: serve-time pp composes with no other axis and needs its staged arena")
+            if cache is None and (mesh.shape["sp"] > 1 or mesh.shape["ep"] > 1):
+                raise ValueError(f"{mesh}: pipeline parallelism does not compose with sp or ep")
             check_stages(cfg, pp)
         elif cfg.is_moe and moe_impl is None:
             raise ValueError("a meshed MoE forward needs moe_impl (parallel/expert.py)")
         shards, caches, devs, tp = params, cache.shards if cache is not None else [None] * mesh.size, \
             mesh.device_list, mesh.shape["tp"]
 
-        def reduce(parts, axis="tp"):
-            return all_reduce(parts, mesh, axis)
+        def reduce(parts, axis="tp", on=None):
+            return all_reduce(parts, mesh, axis, shards=on)
 
-        def moe(hs, lps):
-            # a stage runs the dense-einsum MoE of its layers, as one device
-            return moe_impl(hs, lps) if pp == 1 else [_moe_mlp(hs[0], lps[0], cfg)]
+        def moe(hs, lps, on):
+            # a stage runs the dense-einsum MoE of its layers, widths over tp
+            if pp == 1:
+                return moe_impl(hs, lps)
+            return reduce([_moe_mlp(h, lp, cfg) for h, lp in zip(hs, lps)], "tp", on)
 
         def gather(parts, axis):
             return all_gather(parts, mesh, axis, dim=-1)
@@ -618,13 +641,20 @@ def forward(
     def each(x):
         return [None if x is None else x.to(d, non_blocking=True) for d in devs]
 
-    toks, pos, tables = each(tokens), each(positions), each(block_table)
-    b, t = tokens.shape
+    if split:
+        toks = [x.to(d, non_blocking=True) for x, d in zip(tokens, devs)]
+        pos = [x.to(d, non_blocking=True) for x, d in zip(positions, devs)]
+    else:
+        toks, pos = each(tokens), each(positions)
+    tables = each(block_table)
+    b, t = toks[0].shape
     attend = make_meshed_cache_attention(paged=block_table is not None, mesh=mesh)
+    if split and mesh.shape["sp"] > 1 and seq_attn_impl is None:
+        raise ValueError(f"{mesh}: a sequence-sharded forward needs seq_attn_impl (ring_attention, ulysses)")
     masks = [None] * n
-    if cache is None and not use_flash and attn_impl is None:
+    if cache is None and not use_flash and attn_impl is None and seq_attn_impl is None:
         masks = [causal_mask(t, device=d).expand(b, t, t) for d in devs]
-    # the vocabulary splits over tp, or over pp (they do not compose)
+    # the vocabulary splits over tp, or over pp (they do not share it)
     vaxis, n_vocab = ("pp", pp) if pp > 1 else ("tp", tp)
     vocab = cfg.vocab_size // n_vocab
     xs = reduce([
@@ -636,29 +666,37 @@ def forward(
     for layer in range(cfg.n_layers):
         stage, local = divmod(layer, per)
         if pp > 1 and local == 0:
-            on, xs = [stage], [xs[0] if stage == 0 else handoff(xs[0], mesh, stage)]
+            nxt = [s for s in range(n) if mesh.index("pp", s) == stage]
+            xs = [xs[s] for s in nxt] if stage == 0 else [handoff(x, mesh, s) for x, s in zip(xs, nxt)]
+            on = nxt
         lps = [{k: layer_slice(v, local) for k, v in shards[s]["layers"].items()} for s in on]
         qkv = [_qkv(x, lp, cfg, pos[s], heads, kv_heads) for x, lp, s in zip(xs, lps, on)]
         if cache is not None:
             attn = attend([q for q, _, _ in qkv], [(k, v) for _, k, v in qkv], [caches[s] for s in on], local,
                           [pos[s] for s in on], [tables[s] for s in on], use_kernel=use_flash)
+        elif seq_attn_impl is not None:
+            attn = seq_attn_impl(*([x[i] for x in qkv] for i in range(3)))
         else:
             attn = [_causal(*qkv[i], masks[s], use_flash, attn_impl) for i, s in enumerate(on)]
-        outs = reduce([qmatmul(a.reshape(b, t, heads * cfg.head_dim), lp["wo"]) for a, lp in zip(attn, lps)])
+        outs = reduce([qmatmul(a.reshape(b, t, heads * cfg.head_dim), lp["wo"]) for a, lp in zip(attn, lps)],
+                      "tp", on)
         xs = [x + o for x, o in zip(xs, outs)]
         hs = [rms_norm(x, lp["mlp_norm"], cfg.norm_eps) for x, lp in zip(xs, lps)]
-        outs = moe(hs, lps) if cfg.is_moe else reduce([_mlp(h, lp) for h, lp in zip(hs, lps)])
+        outs = moe(hs, lps, on) if cfg.is_moe else reduce([_mlp(h, lp) for h, lp in zip(hs, lps)], "tp", on)
         xs = [x + o for x, o in zip(xs, outs)]
     if last_index is not None:
         last = each(last_index)
         xs = [x.gather(1, last[s].long()[:, None, None].expand(-1, 1, x.shape[-1])) for x, s in zip(xs, on)]
     if pp > 1:
-        xs = broadcast(xs[0], mesh, "pp")
+        xs = broadcast(xs, mesh, "pp", on)
     logits = [
         qmatmul(rms_norm(xs[s], shards[s]["final_norm"], cfg.norm_eps), shards[s]["lm_head"]).float()
         for s in range(n)
     ]
-    return gather(logits, vaxis)[0]
+    if local_logits:
+        return logits
+    whole = gather(logits, vaxis)
+    return unshard_tensor(whole, batch_spec(), mesh) if split else whole[0]
 
 
 @torch.inference_mode()

@@ -95,36 +95,43 @@ def flash_attention(
 
 class _TrainableCausalAttention(torch.autograd.Function):
     """The reference's ``custom_vjp`` (``parallel/flash_mesh.py:81-122``):
-    the forward is the prefill kernel with positions ``arange(T)`` and
-    keeps only q/k/v; the backward recomputes ``attention_reference``
-    under the causal mask and takes its gradient. No ``[B, KV, G, T, T]``
-    score tensor is kept between the passes; the backward materializes
-    one layer's while it runs."""
+    the forward is the prefill kernel (positions ``arange(T)``, or the
+    queries' own) and keeps only q/k/v; the backward recomputes
+    ``attention_reference`` under the same mask and takes its gradient. No
+    ``[B, KV, G, T, S]`` score tensor is kept between the passes; the
+    backward materializes one layer's while it runs."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return flash_attention_causal(q.detach(), k.detach(), v.detach())
+    def forward(ctx, q, k, v, positions):
+        ctx.save_for_backward(q, k, v, positions)
+        return flash_prefill(q.detach(), k.detach(), v.detach(), positions)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
+        q, k, v, positions = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            b, t = q.shape[0], q.shape[1]
-            mask = causal_mask(t, device=q.device).expand(b, t, t)
-            out = attention_reference(*leaves, mask=mask)
-            return torch.autograd.grad(out, leaves, g)
+            out = attention_reference(*leaves, mask=cache_mask(positions, k.shape[1]))
+            return (*torch.autograd.grad(out, leaves, g), None)
 
 
-def trainable_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def trainable_causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor | None = None
+) -> torch.Tensor:
     """Causal GQA self-attention with a gradient: q ``[B, T, H, hd]``, k/v
-    ``[B, T, KV, hd]`` → ``[B, T, H, hd]``. The forward runs ``flash_prefill``
-    (on a CPU tensor its plain version, so the CPU runs the same autograd
-    seam as the card); on the card a head shape the kernel does not take
-    raises, with no fallback to plain attention. The backward is the plain
-    attention's autograd, recomputed from q/k/v, as in the reference."""
-    return _TrainableCausalAttention.apply(q, k, v)
+    ``[B, S, KV, hd]`` → ``[B, T, H, hd]``; query row t sees slot j iff j <=
+    ``positions[b, t]`` (int32 ``[B, T]``; ``arange(T)`` by default, S = T:
+    self-attention; a sequence shard's queries at their global positions
+    against the whole sequence's k/v otherwise). The forward runs
+    ``flash_prefill`` (on a CPU tensor its plain version, so the CPU runs the
+    same autograd seam as the card); on the card a head shape the kernel
+    does not take raises, with no fallback to plain attention. The backward
+    is the plain attention's autograd, recomputed from q/k/v, as in the
+    reference."""
+    if positions is None:
+        b, t = q.shape[0], q.shape[1]
+        positions = torch.arange(t, dtype=torch.int32, device=q.device).expand(b, t)
+    return _TrainableCausalAttention.apply(q, k, v, positions.to(torch.int32))
 
 
 def cache_attention(

@@ -28,17 +28,32 @@ and the shards' normalized rows are joined over sp as
 returns zeros and ``NEG_INF``, which weighs 0.
 
 This is the serving forward's attention (``models/llama.forward``), on a
-mesh and on one device alike (one shard). The reference's training
-wrappers wait for the training slice, and its interpret switch has no
-counterpart: the port has no interpret mode.
+mesh and on one device alike (one shard).
+
+The training half: ``make_meshed_causal_attention`` (forward only) and
+``make_trainable_causal_attention`` give the causal self-attention without
+a cache that ``models/llama.forward`` runs on each shard's local heads (tp)
+and batch rows (dp), the whole sequence on every shard (sp == 1: an sp
+mesh takes ``ring_attention`` or ``ulysses``): the prefill kernel, and for
+training ``ops/attention.trainable_causal_attention``'s recomputed plain
+backward. The reference wraps them in ``shard_map``; here each shard
+already holds its own tensors. ``make_gathered_causal_attention`` is a
+mesh-level form, ``attend(qs, ks, vs)`` over every shard's list (the
+forward's ``seq_attn_impl``). ``resolve_mesh_flash`` is the reference's one
+policy for both, without its einsum branch: the kernels on the card
+wherever ``supported(cfg, tp)`` holds, a refusal on the card where it does
+not, and the plain versions on the CPU. The reference's ``interpret``
+switch and ``ATPU_FORCE_MESH_FLASH`` (Pallas interpret mode on the CPU)
+have no counterpart: the port has no interpret mode, and on a CPU tensor
+every wrapper already runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.attention import cache_attention, paged_cache_attention, scatter_paged_kv
-from ..ops.cuda_attention import kernel_supported
+from ..ops.attention import cache_attention, paged_cache_attention, scatter_paged_kv, trainable_causal_attention
+from ..ops.cuda_attention import flash_attention_causal, kernel_supported
 from .collectives import all_gather, all_reduce
 
 
@@ -106,3 +121,58 @@ def supported(cfg, tp: int) -> bool:
         and cfg.n_heads % tp == 0
         and kernel_supported(cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim)
     )
+
+
+def _whole_sequence(mesh) -> None:
+    if mesh.shape["sp"] > 1:
+        raise ValueError(f"{mesh}: the sequence is sharded over sp; use ring_attention or ulysses_attention")
+
+
+def make_meshed_causal_attention(mesh):
+    """Causal self-attention for the no-cache path, forward only: the
+    per-shard ``attend(q, k, v)`` → ``[B', T, H/tp, hd]``, the prefill
+    kernel at positions ``arange(T)`` on a shard's heads and rows
+    (sp == 1)."""
+    _whole_sequence(mesh)
+    return flash_attention_causal
+
+
+def make_trainable_causal_attention(mesh):
+    """Differentiable meshed flash for the training path: the per-shard
+    ``trainable_causal_attention`` (the kernel forward, no score tensor
+    kept; the plain attention's autograd recomputed for the backward)."""
+    _whole_sequence(mesh)
+    return trainable_causal_attention
+
+
+def make_gathered_causal_attention(mesh):
+    """Causal self-attention over a sequence-sharded mesh without a ring
+    (the training step's ``seq_attn="none"``): k and v all-gathered over
+    sp, each shard's queries at their global positions (its sp index
+    times its block length on) through ``trainable_causal_attention``."""
+
+    def attend(qs, ks, vs):
+        ks, vs = (all_gather(x, mesh, "sp", dim=1) for x in (ks, vs))
+        outs = []
+        for s, (q, k, v) in enumerate(zip(qs, ks, vs)):
+            b, t = q.shape[:2]
+            pos = mesh.index("sp", s) * t + torch.arange(t, dtype=torch.int32, device=q.device)
+            outs.append(trainable_causal_attention(q, k, v, pos.expand(b, t)))
+        return outs
+
+    return attend
+
+
+def resolve_mesh_flash(cfg, tp: int, devices) -> bool:
+    """True when the shards' attention runs the kernels (every device a
+    card and ``supported(cfg, tp)``), False on the CPU (their plain
+    versions); a card with a per-shard head the kernels do not take
+    raises, as ``LLMEngine.create`` does, instead of running plain
+    attention on the card."""
+    on_card = any(torch.device(d).type == "cuda" for d in devices)
+    if on_card and not supported(cfg, tp):
+        raise ValueError(
+            f"{cfg.name}: no attention kernel for {cfg.n_heads // max(tp, 1)} query / "
+            f"{cfg.n_kv_heads // max(tp, 1)} kv heads of head_dim {cfg.head_dim} on a tp={tp} shard"
+        )
+    return on_card

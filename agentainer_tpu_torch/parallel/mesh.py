@@ -29,10 +29,13 @@ AXES = ("dp", "tp", "sp", "ep", "pp")
 class Mesh:
     """``devices``: an object array ``[dp, tp, sp, ep, pp]`` of
     ``torch.device``. Shard ``s`` is the ``s``-th entry of that grid in
-    row-major order; ``coords[s]`` is its index along every axis."""
+    row-major order; ``coords[s]`` is its index along every axis. ``hosts``:
+    the processes dp spans (1; ``parallel/dcn.host_mesh`` sets it), each
+    holding such a grid of its own devices."""
 
     def __init__(self, devices: np.ndarray):
         self.devices = devices
+        self.hosts = 1
         self.shape = dict(zip(AXES, devices.shape))
         self.size = int(devices.size)
         self.device_list: list[torch.device] = list(devices.reshape(-1))
@@ -64,7 +67,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({dims}; {[str(d) for d in self.device_list]})"
+        hosts = f" x {self.hosts} hosts" if self.hosts > 1 else ""
+        return f"Mesh({dims}{hosts}; {[str(d) for d in self.device_list]})"
 
 
 def make_mesh(

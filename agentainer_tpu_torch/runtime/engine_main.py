@@ -4,10 +4,13 @@ Reference: ``agentainer_tpu/runtime/engine_main.py`` — the analogue of a
 container's CMD. The local backend spawns this with the agent's identity,
 port, GPU assignment and control-plane URL in the environment; the engine
 module is imported lazily by its registry name, so the echo engine never
-imports torch. What the reference adds for JAX (platform pinning, the
-persistent compile cache, joining a multi-host cluster) has no counterpart:
-the GPU an engine sees is set by ``CUDA_VISIBLE_DEVICES`` in the
-environment the backend builds.
+imports torch. A GPU-backed engine joins the multi-host process group at
+boot when ``ATPU_DIST_*`` asks for one (``parallel/dcn.py``), and exits 3
+when it cannot, as the reference's does: an engine configured to span
+hosts must not serve a local-only topology. What the reference adds for
+JAX alone (platform pinning, the persistent compile cache) has no
+counterpart: the GPU an engine sees is set by ``CUDA_VISIBLE_DEVICES`` in
+the environment the backend builds.
 """
 
 from __future__ import annotations
@@ -33,9 +36,20 @@ def main() -> None:
         from .. import faults
 
         faults.arm_from_env()
-    from ..engine import engine_registry
+    from ..engine import engine_registry, is_gpu_engine
 
     engine = os.environ.get("AGENTAINER_ENGINE", "echo")
+    if is_gpu_engine(engine):
+        # the engine processes run the model, so they are what joins the
+        # process group (one engine per host, ATPU_DIST_* set by the
+        # operator); the control plane never blocks on its rendezvous
+        from ..parallel.dcn import init_distributed
+
+        try:
+            init_distributed()
+        except Exception as e:
+            print(f"[engine] torch.distributed init failed: {e}", file=sys.stderr)
+            sys.exit(3)
     module = engine_registry().get(engine)
     if module is None:
         print(f"unknown engine {engine!r}", file=sys.stderr)

@@ -391,11 +391,11 @@ exits non-zero):
                  zero and 2 lr where it is not.
    (c) run       llama3-8b at full width, 8 of 32 layers (f32 AdamW keeps
                  16 B a param: 128.5 GB at full depth), B 2 x T 2048, one
-                 repeated batch of random tokens (seed 0), 10 steps through
+                 repeated batch of random tokens (seed 0), 4 steps through
                  ``make_train_step``: every loss finite, the last below the
-                 first, the prefill kernel launched exactly 8 x 10 times and
+                 first, the prefill kernel launched exactly 8 x 4 times and
                  no other kernel; step ms p50 (CUDA events), forward /
-                 backward / optimizer ms from 2 more steps built from the
+                 backward / optimizer ms from 1 more step built from the
                  same pieces, tokens/s, peak memory beside the AdamW state.
    (d) moe       Mixtral-8x7B at full width, 1 layer, B 1 x T 2048, 3 steps:
                  losses finite and falling, 3 batched ``torch.matmul`` expert
@@ -415,7 +415,7 @@ exits non-zero):
                  existing tolerances, timed beside its bound and library
                  call (``MESH_ROUNDS`` rounds).
    (b) tp=2      llama3-8b bf16: the feature phase's script and gates,
-                 dense then paged, both at ``CUT_LAYERS`` (14b serves a
+                 dense then paged, both at ``CUT_LAYERS`` (14d serves a
                  full-depth mesh), with the runtime contracts (launches per
                  replay twice the unsharded ones) and the collective
                  contracts (an eager decode, prefill and verify step under
@@ -456,7 +456,7 @@ exits non-zero):
                  on both sides of it;
                  timed on a shard beside the bound, the plain version and
                  SDPA (``SP_ROUNDS``), device launches per call.
-   (b) sp=2      llama3-8b bf16 at full depth, ``max_seq`` 4096, the
+   (b) sp=2      llama3-8b bf16 at ``CUT_LAYERS``, ``max_seq`` 4096, the
                  default features and a persona: a session whose first
                  turn passes one shard's 2,048 slots, a second turn and a
                  short session beside it (200 each); every prefill launch
@@ -479,10 +479,44 @@ exits non-zero):
                  reported); per forward pp - 1 handoffs, one embedding
                  all-reduce, one broadcast and one logits all-gather.
 
+15. train mesh — training over a mesh (``train.make_train_step(cfg, mesh)``),
+                 every shard on this card, after every engine is gone:
+   (a) attention ``ring_attention`` and ``ulysses_attention`` over sp=2 at
+                 q [2, 2048, 32, 128] f32: the kernels against their plain
+                 versions (2e-5), dq/dk/dv against autograd through
+                 ``attention_reference`` (1e-6; the ring 2e-5 of each
+                 gradient's largest), sp² / sp launches a call and none in the
+                 backward; ``flash_prefill`` timed at the three per-shard
+                 training shapes (a dp2 × tp2 shard, a ring block, a
+                 Ulysses shard) by CUDA events beside its plain version,
+                 SDPA and its f32 bound.
+   (b-e) meshes  llama3-8b at full width, 4 of 32 layers, f32, B 2 × T
+                 2048, AdamW lr 3e-4 wd 0.01: 4 steps of 12's one-device
+                 path first, then from the same params dp2 × tp2 (b), sp2
+                 through the ring (c), sp2 ``auto`` (Ulysses here, d), pp2
+                 and tp2 × pp2 with 2 microbatches (e), 4 steps each: step
+                 1's loss within 2e-4 of the one-device step's and every
+                 updated leaf, gathered back, as (b) of 12 holds two paths;
+                 step 2's loss below step 1's; ``flash_prefill`` launched as
+                 the code counts (layers × shards running attention ×
+                 blocks or microbatches) and no other kernel; step 1's
+                 collectives by kind and axes; every step's ms, the warm
+                 p50 (steps 2-4) beside one device's, tokens/s, peak.
+   (f) ep2       Mixtral-8x7B at full width, 1 layer, B 1 × T 2048, at ep=2
+                 through the dense-einsum expert path (3 f32 expert
+                 products a shard a layer), against its one-device step.
+   (g) dcn       two processes join one process group over loopback
+                 (``parallel/dcn``), each builds ``host_mesh()`` from this
+                 card, a dp ``all_reduce`` of CPU tensors crosses the
+                 process boundary over gloo (sum 2.0); the same over the
+                 card's tensors goes to NCCL: each process sums 2.0 or
+                 gets NCCL's refusal of two ranks on one device, which is
+                 reported, not routed around; anything else fails.
+
 The int8 feature phases (5's int8 pair), the tiering phases (10),
 Mixtral's served phases (11d), both feature phases (5), the resume (7),
 the fused paged phase (9), both tp=2 phases (13b), the mesh's int8
-phases (13c-d), tp=2 × sp=2 (14c) and the engine hosts of 7b-7d run at
+phases (13c-d), sp=2 and tp=2 × sp=2 (14b-c) and the engine hosts of 7b-7d run at
 ``CUT_LAYERS`` (8) of 32 layers,
 widths kept; their gates count per layer
 (launches, and ``param_hbm_bytes`` from ``CUT_PARAM_BYTES``) or in pages. Each phase's seconds are
@@ -3598,9 +3632,9 @@ def phase_moe_model() -> dict:
 # cut to 8 of 32 layers, since f32 AdamW keeps 16 B a param (param, grad and
 # two moments: 128.5 GB at full depth, 44.7 GB at 8 layers); the reference's
 # defaults
-TRAIN_B, TRAIN_T, TRAIN_LAYERS, TRAIN_STEPS = 2, 2048, 8, 10
+TRAIN_B, TRAIN_T, TRAIN_LAYERS, TRAIN_STEPS = 2, 2048, 8, 4
 TRAIN_LR, TRAIN_WD = 3e-4, 0.01
-TRAIN_SPLIT_STEPS = 2  # steps after the counted run, timed forward / backward / optimizer
+TRAIN_SPLIT_STEPS = 1  # steps after the counted run, timed forward / backward / optimizer
 MOE_TRAIN_T, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2048, 1, 3
 # the f32 gradients of the training attention against autograd through the
 # plain attention: the backward is the same recomputation on the same inputs
@@ -3768,9 +3802,10 @@ def _leaf_names(tree, prefix: str = "") -> list[str]:
     return [prefix.rstrip("/")]
 
 
-def _updated_leaves_close(got: list, want: list, grads: list, names: list) -> dict:
-    """(b): every updated leaf of the kernel path against the plain path's,
-    at ``TRAIN_PARAM_TOL`` where the plain gradient is clear of zero and
+def _updated_leaves_close(got: list, want: list, grads: list, names: list, label: str = "train paths") -> dict:
+    """(b): every updated leaf of the kernel path against the plain path's
+    (15: of a mesh's step against the one-device step's), at
+    ``TRAIN_PARAM_TOL`` where the plain gradient is clear of zero and
     ``TRAIN_PARAM_TOL_NEAR_ZERO`` elsewhere; the gradients within the
     two-path tolerance ``F32_LOGIT_TOL`` of each leaf's largest."""
     out = {"near_zero_elements": 0, "elements": 0, "max_abs_err": 0.0, "max_abs_err_near_zero": 0.0,
@@ -3779,7 +3814,7 @@ def _updated_leaves_close(got: list, want: list, grads: list, names: list) -> di
         scale = gp.abs().max().item()
         g_err = (gk - gp).abs().max().item() / max(scale, 1e-30)
         if g_err > F32_LOGIT_TOL:
-            raise AssertionError(f"train paths: {name} gradient differs by {g_err:.3g} of its largest")
+            raise AssertionError(f"{label}: {name} gradient differs by {g_err:.3g} of its largest")
         # a gradient of exactly zero on both paths (an embedding row no
         # token reads) moves by the decay alone: held to the tight bound
         near = (gp.abs() < max(TRAIN_G_FLOOR, TRAIN_G_REL * scale)) & ((gp != 0) | (gk != 0))
@@ -3787,7 +3822,7 @@ def _updated_leaves_close(got: list, want: list, grads: list, names: list) -> di
         far_err = diff[~near].max().item() if (~near).any() else 0.0
         near_err = diff[near].max().item() if near.any() else 0.0
         if far_err > TRAIN_PARAM_TOL or near_err > TRAIN_PARAM_TOL_NEAR_ZERO:
-            raise AssertionError(f"train paths: {name} updated leaf differs by {far_err:.3g} "
+            raise AssertionError(f"{label}: {name} updated leaf differs by {far_err:.3g} "
                                  f"(near-zero gradients: {near_err:.3g})")
         out["near_zero_elements"] += int(near.sum())
         out["elements"] += near.numel()
@@ -5975,8 +6010,9 @@ def _sp_snapshot(engine, session: str, limit: float) -> dict:
 
 
 def phase_sp_serve(n_layers: int, tp: int = 1) -> dict:
-    """14b (``tp`` 1: llama3-8b at ``n_layers``, full depth) and 14c (``tp``
-    2: tp=2 × sp=2 at ``CUT_LAYERS``): bf16, ``max_seq`` ``SP_MAX_SEQ``,
+    """14b (``tp`` 1: llama3-8b at ``n_layers``, ``CUT_LAYERS`` since the
+    training meshes of 15 took its seconds) and 14c (``tp`` 2: tp=2 × sp=2
+    at ``CUT_LAYERS``): bf16, ``max_seq`` ``SP_MAX_SEQ``,
     the reference's default features (prefix cache, speculation,
     deadlines) and a persona, served through ``llm_serve`` on a logical
     mesh on this card. Traffic: a session whose first turn runs past one
@@ -6154,11 +6190,461 @@ def phase_pp_serve(dense_texts: list[str]) -> dict:
     return out
 
 
+# -- phase 15: training over a mesh, every shard on this card -----------------
+
+# llama3-8b at full width, 4 of 32 layers, f32: 7.7 GB of params, 31 GB with
+# grads and AdamW's moments; phase 12's batch (B 2 x T 2048, seed 0), lr, wd
+MESH_TRAIN_LAYERS = 4
+# step 1 held against the one-device step's; the first optimizer step
+# allocates AdamW's moments, so the warm p50 is over steps 2-4, beside the
+# one-device path's own steps 2-4
+MESH_TRAIN_STEPS = 4
+MESH_TRAIN_ROUNDS = 3  # timing rounds of 15a's rows
+# 15a: the ring's dq/dk/dv (its backward: the plain ring, an online softmax
+# over sp blocks in f32) against autograd through attention_reference over
+# the whole sequence: two f32 summation orders of up to T terms, whose error
+# scales with the largest term, not with each element (as
+# tests/test_torch_train.py's GRAD_ATOL_REL): within 2e-5 of each
+# gradient's largest element (measured at this shape on an H100 80GB HBM3:
+# at most 3.4e-6 of it);
+# Ulysses' backward is the reference's recomputation on each shard's heads:
+# 12a's 1e-6
+RING_GRAD_ATOL_REL = 2e-5
+# (label, mesh axes, shards, make_train_step's options); 15d asks for
+# "auto", which takes Ulysses here (sp=2 divides the 8 kv heads)
+TRAIN_MESHES = (
+    ("15b dp2xtp2", {"tp": 2}, 4, {}),
+    ("15c sp2 ring", {"sp": 2}, 2, {"seq_attn": "ring"}),
+    ("15d sp2 auto", {"sp": 2}, 2, {"seq_attn": "auto"}),
+    ("15e pp2", {"pp": 2}, 2, {"n_microbatch": 2}),
+    ("15e tp2xpp2", {"tp": 2, "pp": 2}, 4, {"n_microbatch": 2}),
+)
+MOE_TRAIN_MESH = ("15f ep2", {"ep": 2}, 2, {})
+DCN_TIMEOUT_S = 150  # the two processes of 15g, started together
+NCCL_ONE_CARD = "Duplicate GPU detected"  # NCCL's refusal of two ranks on one card
+
+
+def phase_train_mesh_attention() -> dict:
+    """15a: the sequence-parallel attentions at the training shape (q [2,
+    2048, 32, 128] f32, k/v [2, 2048, 8, 128]) over sp=2 on this card:
+    ``ring_attention`` and ``ulysses_attention`` (the kernels) against their
+    plain versions at ``F32_TOL``, their dq/dk/dv (no launch) against
+    autograd through ``attention_reference`` over the whole sequence
+    (``TRAIN_GRAD_F32_TOL``; the ring ``RING_GRAD_ATOL_REL`` of each
+    gradient's largest element), sp² (ring) and sp
+    (Ulysses) ``flash_prefill`` launches a call; then ``flash_prefill`` timed
+    at the three per-shard shapes the training meshes give it (a dp2 × tp2
+    shard, a ring block of another shard's past, a Ulysses shard) by CUDA
+    events beside its plain version and SDPA (the same causal GQA f32 call,
+    no lse), with its bound (f32 FLOPs over the CUDA cores' peak, or the
+    bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops.attention import attention_reference, causal_mask
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+    from agentainer_tpu_torch.parallel.ring_attention import ring_attention
+    from agentainer_tpu_torch.parallel.ulysses import ulysses_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    b, t = TRAIN_B, TRAIN_T
+    q, k, v, go = (torch.randn(shape, generator=g, device=dev) for shape in
+                   ((b, t, H, HD), (b, t, KV, HD), (b, t, KV, HD), (b, t, H, HD)))
+    ref_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref_leaves, mask=causal_mask(t, device=dev).expand(b, t, t)),
+                               ref_leaves, go)
+    del ref_leaves
+    mesh = make_mesh(SP, sp=SP, devices=["cuda:0"] * SP)
+    out: dict = {"shape": f"q[{b},{t},{H},{HD}] kv[{b},{t},{KV},{HD}] f32 over sp={SP}"}
+    for kind, fn, calls, grad_rel in (("ring", ring_attention, SP * SP, RING_GRAD_ATOL_REL),
+                                      ("ulysses", ulysses_attention, SP, 0.0)):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = ca.flash_prefill.launches
+        got = fn(*leaves, mesh)
+        fwd = ca.flash_prefill.launches - before
+        grads = torch.autograd.grad(got, leaves, go)
+        torch.cuda.synchronize()
+        bwd = ca.flash_prefill.launches - before - fwd
+        if (fwd, bwd) != (calls, 0):
+            raise AssertionError(f"15a {kind}: flash_prefill launches forward {fwd}, backward {bwd}; want {calls}, 0")
+        plain = fn(q, k, v, mesh, plain=True)
+        torch.testing.assert_close(got.detach(), plain, rtol=F32_TOL, atol=F32_TOL,
+                                   msg=lambda m, kind=kind: f"15a {kind}: the kernels off the plain version: {m}")
+        grad_tols = [max(TRAIN_GRAD_F32_TOL, grad_rel * w.abs().max().item()) for w in want]
+        for key, a, w, tol in zip("qkv", grads, want, grad_tols):
+            torch.testing.assert_close(a, w, rtol=0.0, atol=tol, msg=lambda m, kind=kind, key=key: (
+                f"15a {kind}: d{key} off autograd through attention_reference: {m}"))
+        out[kind] = {"launches_forward": fwd, "launches_backward": bwd,
+                     "forward_max_abs_err": (got.detach() - plain).abs().max().item(), "forward_tolerance": F32_TOL,
+                     "dq_dk_dv_max_abs_err": [(a - w).abs().max().item() for a, w in zip(grads, want)],
+                     "dq_dk_dv_max_abs_err_of_largest": [
+                         (a - w).abs().max().item() / w.abs().max().item() for a, w in zip(grads, want)],
+                     "grad_tolerance": grad_tols}
+        log(f"15a {kind}: {out[kind]}")
+        del leaves, got, grads, plain
+    del want
+    _free_cuda()
+    half, t2 = H // 2, t // SP
+    full = torch.arange(t, device=dev, dtype=torch.int32)
+    shapes = {
+        # one dp2 x tp2 shard: its batch row, its 16 heads, the whole sequence
+        "tp=2 training shard": (q[:1, :, :half], k[:1, :, :KV // 2], v[:1, :, :KV // 2], full[None], True),
+        # shard 1's queries over block 0 (its past: every slot visible), with lse
+        "ring block": (q[:, t2:], k[:, :t2], v[:, :t2], (t2 + torch.arange(t2, device=dev, dtype=torch.int32))
+                       .expand(b, t2), False),
+        # one Ulysses shard after the all-to-all: the whole sequence, 16 heads
+        "Ulysses shard": (q[:, :, :half], k[:, :, :KV // 2], v[:, :, :KV // 2], full.expand(b, t), True),
+    }
+    rows = []
+    for label, (qs, ks, vs, pos, causal) in shapes.items():
+        qs, ks, vs = (x.contiguous() for x in (qs, ks, vs))
+        lse = label == "ring block"
+        got = ca.flash_prefill(qs, ks, vs, pos, return_lse=lse)
+        want_rows = ca.flash_prefill_plain(qs, ks, vs, pos, return_lse=lse)
+        got, want_rows = (got[0], want_rows[0]) if lse else (got, want_rows)
+        torch.testing.assert_close(got, want_rows, rtol=F32_TOL, atol=F32_TOL,
+                                   msg=lambda m, label=label: f"15a {label}: flash_prefill off its plain version: {m}")
+        err = (got - want_rows).abs().max().item()
+        del got, want_rows
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, ks, vs))
+        rows_b, tq, hq = qs.shape[:3]
+        s_len = ks.shape[1]
+        visible = rows_b * (tq * (tq + 1) // 2 if causal else tq * s_len)
+        before = ca.flash_prefill.launches
+        timed = _event_timed({
+            "kernel": lambda qs=qs, ks=ks, vs=vs, pos=pos, lse=lse: ca.flash_prefill(qs, ks, vs, pos, return_lse=lse),
+            "library": lambda qt=qt, kt=kt, vt=vt, causal=causal: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            "plain": lambda qs=qs, ks=ks, vs=vs, pos=pos, lse=lse: ca.flash_prefill_plain(
+                qs, ks, vs, pos, return_lse=lse),
+        }, rounds=MESH_TRAIN_ROUNDS)
+        if ca.flash_prefill.launches - before != 1 + 2 * MESH_TRAIN_ROUNDS:
+            raise AssertionError(f"15a {label}: {ca.flash_prefill.launches - before} kernel calls timed")
+        lse_bytes = 4 * rows_b * tq * hq if lse else 0
+        row = {
+            "name": f"flash_prefill (f32, {label})", "route": "cuda", "source": SOURCE,
+            "replaces": "agentainer_tpu/ops/pallas_attention.py:157", "timing": EVENT_TIMING,
+            "library": "scaled_dot_product_attention" + ("" if causal else " (no mask: every slot visible)"),
+            "shape": (f"q[{rows_b},{tq},{hq},{HD}] kv[{rows_b},{s_len},{ks.shape[2]},{HD}] f32, positions "
+                      f"{pos.min().item()}..{pos.max().item()}{', with lse' if lse else ''}"),
+            "max_abs_err": err, "tolerance": F32_TOL, **timed,
+            **_bound(4 * (2 * qs.numel() + 2 * ks.numel()) + lse_bytes, 4.0 * hq * HD * visible, PEAK_F32_FLOPS),
+        }
+        rows.append(row)
+        log(f"15a {row['name']}: ms {row['ms']:.4f} [{row['ms_min']:.4f}, {row['ms_max']:.4f}] plain "
+            f"{row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+            f"f32 peak) err {err:.3g} card {row['card']}")
+    del q, k, v, go, shapes
+    _free_cuda()
+    out["rows"] = rows
+    return out
+
+
+def _mesh_train_params(cfg):
+    """The seed-0 f32 params of ``cfg`` on the card: every run of 15 starts
+    from this draw."""
+    import torch
+
+    from agentainer_tpu_torch.models.llama import init_params
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return init_params(cfg, g, dtype=torch.float32, device="cuda")
+
+
+def _train_reference(cfg, tokens) -> dict:
+    """``MESH_TRAIN_STEPS`` steps of phase 12's one-device path from
+    ``_mesh_train_params``: step 1's loss, and each leaf's value and
+    gradient by name after it (the optimizer's moments freed); every
+    step's ms by CUDA events."""
+    import torch
+
+    from agentainer_tpu_torch.train import leaves, make_train_step
+
+    init_fn, step_fn, shard_batch = make_train_step(cfg, learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    state = init_fn(params=_mesh_train_params(cfg))
+    batch = shard_batch(tokens)
+    ref: dict = {"step_ms": []}
+    for i in range(MESH_TRAIN_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = step_fn(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ref["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        if i == 0:
+            # the next step updates the values in place and sets new gradients
+            ref["loss"] = loss.item()
+            ref["leaves"] = {n: (p.detach().clone(), p.grad)
+                             for n, p in zip(_leaf_names(state.params), leaves(state.params))}
+    state.opt_state.state.clear()
+    del state
+    _free_cuda()
+    return ref
+
+
+def _gathered_leaves(shards, mesh):
+    """Each leaf of a cut after a step, by name: its value and its
+    gradient (the optimizer leaf's, which holds the sum over its
+    replicas), joined back into the whole leaf, one at a time."""
+    from agentainer_tpu_torch.parallel.sharding import unshard_tensor
+
+    lead = {id(t): leaf for leaf, copies in zip(shards.leaves, shards.copies) for t in (leaf, *copies)}
+
+    def walk(nodes, specs, prefix):
+        for key, node in nodes[0].items():
+            parts = [n[key] for n in nodes]
+            if isinstance(node, dict):
+                yield from walk(parts, specs[key], f"{prefix}{key}/")
+            else:
+                yield (f"{prefix}{key}", unshard_tensor([p.detach() for p in parts], specs[key], mesh),
+                       unshard_tensor([lead[id(p)].grad for p in parts], specs[key], mesh))
+
+    yield from walk(shards.trees, shards.specs, "")
+
+
+def _mesh_train_launches(shards: int, axes: dict, kw: dict, layers: int, seq_attn: str) -> int:
+    """``flash_prefill`` calls a step over ``shards`` makes, from the code:
+    every layer's attention once on each shard that runs it (a stage's
+    shards under pp, each microbatch), a ring call ``sp`` on each shard (one
+    per visiting block)."""
+    pp = axes.get("pp", 1)
+    if pp > 1:
+        return layers * (shards // pp) * kw.get("n_microbatch", pp)
+    return layers * shards * (axes.get("sp", 1) if seq_attn == "ring" else 1)
+
+
+def _train_on_mesh(cfg, label: str, axes: dict, n: int, kw: dict, tokens, ref: dict, card: str,
+                   probe=None) -> dict:
+    """One mesh of 15b-f: ``make_train_step`` over a logical mesh on this
+    card from the reference's params, ``MESH_TRAIN_STEPS`` steps on the
+    batch. Step 1's loss within ``F32_LOGIT_TOL`` of the one-device step's
+    and every updated leaf, gathered back, as ``_updated_leaves_close``
+    holds it against the one-device step's; step 2's loss below step 1's,
+    every loss finite; each step's ``flash_prefill`` launches as
+    ``_mesh_train_launches`` counts them and no other kernel; step 1's
+    collectives by kind and axes; each step's ms by CUDA events, the warm
+    p50 (steps 2 on) beside the one-device path's and tokens/s at it, peak
+    memory."""
+    import collections
+    import statistics
+
+    import torch
+
+    from agentainer_tpu_torch.ops import cuda_attention as ca
+    from agentainer_tpu_torch.ops import cuda_quant as cq
+    from agentainer_tpu_torch.parallel import collectives
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+    from agentainer_tpu_torch.train import make_train_step
+
+    kernels = (ca.flash_prefill, ca.flash_decode, ca.fused_paged_flash_prefill, ca.fused_paged_flash_decode,
+               cq.w8a16_matmul, cq.w8a16_grouped_matmul)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(n, devices=["cuda:0"] * n, **axes)
+    init_fn, step_fn, shard_batch = make_train_step(cfg, mesh, TRAIN_LR, TRAIN_WD, **kw)
+    state = init_fn(params=_mesh_train_params(cfg))
+    batch = shard_batch(tokens)
+    losses, step_ms, launches, logs = [], [], [], []
+    close: dict = {}
+    for i in range(MESH_TRAIN_STEPS):
+        def one():
+            nonlocal state
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            with collectives.record() as record, probe if probe is not None else contextlib.nullcontext():
+                ev[0].record()
+                state, loss = step_fn(state, batch)
+                ev[1].record()
+            torch.cuda.synchronize()
+            return loss.item(), ev[0].elapsed_time(ev[1]), record
+
+        (loss, ms, record), counts = _counted(kernels, one)
+        losses.append(loss)
+        step_ms.append(ms)
+        launches.append(counts)
+        logs.append(record)
+        if i == 0:
+            if not abs(loss - ref["loss"]) <= F32_LOGIT_TOL:
+                raise AssertionError(f"{label}: step 1 loss {loss}, the one-device step's {ref['loss']}")
+            for name, got, grad in _gathered_leaves(state.params, mesh):
+                want, want_grad = ref["leaves"][name]
+                one_leaf = _updated_leaves_close([got], [want], [(grad, want_grad)], [name], label)
+                for key, val in one_leaf.items():
+                    close[key] = close.get(key, 0) + val if "elements" in key else max(close.get(key, 0.0), val)
+                del got, grad
+    seq_attn = "none"
+    kinds = collections.Counter(f"{e['kind']} {'x'.join(e['axes'])}" for e in logs[0])
+    if axes.get("sp", 1) > 1:
+        seq_attn = "ring" if any("ring_shift" in k for k in kinds) else "ulysses" if any(
+            "all_to_all" in k for k in kinds) else "none"
+        if seq_attn != ("ulysses" if kw.get("seq_attn") == "auto" else kw.get("seq_attn")):
+            raise AssertionError(f"{label}: seq_attn {kw.get('seq_attn')} ran {seq_attn} ({dict(kinds)})")
+    want = {k.__name__: 0 for k in kernels} | {
+        "flash_prefill": _mesh_train_launches(n, axes, kw, cfg.n_layers, seq_attn)}
+    if not all(math.isfinite(x) for x in losses) or not losses[1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    if any(c != want for c in launches) or state.step != MESH_TRAIN_STEPS:
+        raise AssertionError(f"{label}: launches per step {launches}, want {want}; step {state.step}")
+    peak = torch.cuda.max_memory_allocated()
+    p50, one_p50 = statistics.median(step_ms[1:]), statistics.median(ref["step_ms"][1:])
+    b, t = tokens.shape[0], tokens.shape[1] - 1
+    out = {"mesh": dict(mesh.shape), "options": kw, "seq_attn": seq_attn, "losses": losses,
+           "one_device_loss": ref["loss"], "one_device_step_ms": ref["step_ms"], "loss_tolerance": F32_LOGIT_TOL,
+           "updated_leaves": close, "launches_per_step": launches[0], "collectives_step_1": dict(kinds),
+           "step_ms": step_ms, "warm_step_ms_p50": p50, "one_device_warm_step_ms_p50": one_p50,
+           "tokens_per_s": b * t / (p50 / 1e3), "peak_memory_bytes": peak, "card": card}
+    if probe is not None:
+        out["expert_matmuls_per_step"] = len(probe.calls) / MESH_TRAIN_STEPS
+    log(f"{label} ({cfg.name}, {dict(mesh.shape)}): losses {[round(x, 5) for x in losses]} against one device "
+        f"{ref['loss']:.5f}; leaves {close}; steps {[round(x, 1) for x in step_ms]} ms, warm p50 {p50:.1f} "
+        f"({out['tokens_per_s']:.0f} tokens/s; one device {[round(x, 1) for x in ref['step_ms']]}, warm p50 "
+        f"{one_p50:.1f}); launches/step {launches[0]}; collectives {dict(kinds)}; peak {peak} B; {card}")
+    del state, batch
+    _free_cuda()
+    return out
+
+
+def phase_train_mesh(card: str) -> dict:
+    """15b-e: llama3-8b at full width, ``MESH_TRAIN_LAYERS`` layers, f32, B 2
+    × T 2048: one step of phase 12's one-device path first (its loss, updated
+    leaves and gradients kept, the rest freed), then each of
+    ``TRAIN_MESHES`` from the same params (``_train_on_mesh``); 15f:
+    Mixtral-8x7B at full width, 1 layer, B 1 × T 2048 at ep=2 through the
+    dense-einsum expert path (3 expert products a shard a layer in f32,
+    ``parallel/expert.moe_expert_parallel``), against its own one-device
+    step."""
+    import dataclasses
+
+    from agentainer_tpu_torch.models.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), name=f"llama3-8b-{MESH_TRAIN_LAYERS}l",
+                              n_layers=MESH_TRAIN_LAYERS)
+    tokens = _train_tokens(cfg, TRAIN_B, TRAIN_T, seed=0)
+    ref = _train_reference(cfg, tokens)
+    out = {"config": f"llama3-8b width, {MESH_TRAIN_LAYERS} of 32 layers, f32, AdamW lr {TRAIN_LR} wd {TRAIN_WD}",
+           "batch": f"B {TRAIN_B} x T {TRAIN_T}, random tokens (seed 0)"}
+    for label, axes, n, kw in TRAIN_MESHES:
+        out[label] = _train_on_mesh(cfg, label, axes, n, kw, tokens, ref, card)
+    del ref
+    _free_cuda()
+    moe = dataclasses.replace(get_config(MIXTRAL), name=f"{MIXTRAL}-1l", n_layers=MOE_TRAIN_LAYERS)
+    tokens = _train_tokens(moe, 1, MOE_TRAIN_T, seed=0)
+    ref = _train_reference(moe, tokens)
+    label, axes, n, kw = MOE_TRAIN_MESH
+    out[label] = _train_on_mesh(moe, label, axes, n, kw, tokens, ref, card,
+                                probe=_expert_matmuls(moe.n_experts // axes["ep"]))
+    if out[label]["expert_matmuls_per_step"] != 3 * MOE_TRAIN_LAYERS * n:
+        raise AssertionError(f"{label}: {out[label]['expert_matmuls_per_step']} expert products a step, want "
+                             f"3 x {MOE_TRAIN_LAYERS} layer x {n} shards")
+    del ref
+    _free_cuda()
+    return out
+
+
+_DCN_WORKER = """
+import json, os, sys, torch
+from agentainer_tpu_torch.parallel import collectives
+from agentainer_tpu_torch.parallel.dcn import DistConfig, backend, host_count, host_mesh, init_distributed
+
+coordinator, pid = sys.argv[1], int(sys.argv[2])
+out = {"pid": pid, "joined": init_distributed(DistConfig(coordinator, 2, pid)), "hosts": host_count(),
+       "backend": backend()}
+mesh = host_mesh()  # this process's card; dp spans the two processes
+out["mesh"] = {"dp": mesh.shape["dp"], "hosts": mesh.hosts, "devices": [str(d) for d in mesh.device_list]}
+cpu = host_mesh(devices=["cpu"])
+out["gloo_sum"] = float(collectives.all_reduce([torch.arange(2, dtype=torch.float32).sum()], cpu, "dp")[0])
+print(json.dumps(out), flush=True)
+try:
+    x = torch.arange(2, dtype=torch.float32, device=mesh.device_list[0]).sum()
+    got = {"nccl_sum": float(collectives.all_reduce([x], mesh, "dp")[0])}
+except Exception as e:
+    got = {"nccl_error": f"{type(e).__name__}: {e}"[:600]}
+print(json.dumps(got), flush=True)
+os._exit(0)
+"""
+
+
+def phase_dcn(card: str) -> dict:
+    """15g: ``parallel/dcn`` on this machine: two processes join one process
+    group over loopback (``init_distributed`` True, ``host_count()`` 2),
+    each builds ``host_mesh()`` from its card (dp spanning the processes),
+    and a dp ``all_reduce`` of CPU tensors (gloo) crosses the process
+    boundary with the reference's sum (each holds [0, 1]: 2.0); then the
+    same over the card's tensors (NCCL): both processes hold the one card,
+    so each must print either the sum 2.0 or NCCL's refusal of two ranks on
+    one device (``NCCL_ONE_CARD``). Any other error, a process cut by the
+    time limit or one that prints no second line fails the phase."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="atpu-15g-") as tmp:
+        script = os.path.join(tmp, "worker.py")
+        with open(script, "w") as f:
+            f.write(_DCN_WORKER)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        for key in ("ATPU_DIST_COORDINATOR", "ATPU_DIST_NUM_PROCESSES", "ATPU_DIST_PROCESS_ID"):
+            env.pop(key, None)
+        procs = [subprocess.Popen([sys.executable, script, coordinator, str(i)], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for i in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=max(1.0, DCN_TIMEOUT_S - (time.monotonic() - t0))))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    outs.append(p.communicate())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    result: dict = {"coordinator": coordinator, "seconds": time.monotonic() - t0, "card": card}
+    for i, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+        if p.returncode != 0 or len(lines) != 2:
+            raise AssertionError(f"15g process {i}: exit {p.returncode}, {len(lines)} of 2 results {lines}; "
+                                 f"stderr {stderr[-2000:]}")
+        doc = lines[0] | lines[1]
+        if not (doc["joined"] and doc["hosts"] == 2 and doc["mesh"]["hosts"] == 2
+                and doc["mesh"]["devices"] == ["cuda:0"] and doc["gloo_sum"] == 2.0):
+            raise AssertionError(f"15g process {i}: {doc}")
+        if not (doc.get("nccl_sum") == 2.0 or NCCL_ONE_CARD in doc.get("nccl_error", "")):
+            raise AssertionError(f"15g process {i}: the NCCL all_reduce gave neither 2.0 nor the one-card refusal: "
+                                 f"{doc}")
+        result[f"process_{i}"] = doc
+    nccl = [result[f"process_{i}"] for i in range(2)]
+    if len({"nccl_sum" in d for d in nccl}) != 1:
+        raise AssertionError(f"15g: one process summed over NCCL and the other was refused: {nccl}")
+    result["collectives"] = {"cpu tensors": "gloo: sum 2.0 across the processes",
+                             "cuda tensors": "nccl: sum 2.0" if "nccl_sum" in nccl[0]
+                             else f"nccl refused: {nccl[0]['nccl_error']}"}
+    log(f"15g: two processes joined over {coordinator} ({nccl[0]['backend']}), host_mesh {nccl[0]['mesh']}; "
+        f"{result['collectives']}; {result['seconds']:.1f}s; {card}")
+    return result
+
+
+def _phase_15(run, report: dict, kernels: list, card: str) -> None:
+    """15a-g after every engine is gone; the three training shapes of
+    ``flash_prefill`` join the kernels line, each with the launches of its
+    mesh's steps (15b, 15c, 15d)."""
+    report["train_mesh_attention"] = run("train_mesh_attention", phase_train_mesh_attention)
+    report["train_mesh"] = run("train_mesh", phase_train_mesh, card)
+    report["dcn"] = run("dcn", phase_dcn, card)
+    for row, label in zip(report["train_mesh_attention"].pop("rows"), ("15b dp2xtp2", "15c sp2 ring", "15d sp2 auto")):
+        row["launches"] = report["train_mesh"][label]["launches_per_step"]["flash_prefill"] * MESH_TRAIN_STEPS
+        kernels.append(row)
+
+
 def _phase_14(run, report: dict, kernels: list, sp_kernels: dict, dense_texts: list[str]) -> None:
     """14b-d after every other engine is gone, and the sp-shard rows of the
     kernels line: 14a's times beside 14b's launches (every dense attention
     call of the sp engine is an lse entry on a shard)."""
-    report["mesh_sp2"] = run("mesh_sp2", phase_sp_serve, 32)
+    report["mesh_sp2"] = run("mesh_sp2", phase_sp_serve, CUT_LAYERS)
     report["mesh_tp2_sp2"] = run("mesh_tp2_sp2", phase_sp_serve, CUT_LAYERS, tp=2)
     report["mesh_pp2"] = run("mesh_pp2", phase_pp_serve, dense_texts)
     for name, row in sp_kernels["rows"].items():
@@ -6219,8 +6705,8 @@ def main() -> int:
     report["serve_paged"] = run("serve_paged", phase_serve_paged, dense_texts)
     report["fused"] = run("fused", phase_fused_dense, dense_texts, report["serve"])
     # the feature phases and the fused paged one run at CUT_LAYERS (the
-    # mesh phases need their seconds; 14b serves the features at full
-    # depth): no text of theirs is compared with a 32-layer phase's
+    # mesh phases need their seconds; the checkpoint and operator phases
+    # serve full depth): no text of theirs is compared with a 32-layer phase's
     # (serve_paged holds the dense and paged texts equal at full depth)
     report["features"] = run("features", phase_serve_features, False, CUT_LAYERS, None, contracts=True)
     report["features"].pop("texts")
@@ -6307,7 +6793,7 @@ def main() -> int:
     prefill_row["train"]["replaces"] = TRAIN_REPLACES
     # 13b-d: serve-time model parallelism, every shard of a logical mesh
     # on this card, after every other engine is gone; the dense tp=2 mesh
-    # at CUT_LAYERS since 14b serves a full-depth mesh
+    # at CUT_LAYERS since 14d serves a full-depth mesh
     report["mesh_tp2"] = run("mesh_tp2", phase_serve_features, False, CUT_LAYERS, None, contracts=True,
                              mesh=(2, 1), logits=True)
     report["mesh_tp2"].pop("texts")
@@ -6339,7 +6825,10 @@ def main() -> int:
     grouped_row["ep2_shard"] = mesh_kernels["w8a16_grouped_matmul"]
     grouped_row["launches_mesh"] = report["mesh_ep2_moe"]["launches"]["w8a16_grouped_matmul"]
     # 14b-d: sequence and pipeline parallelism on logical meshes on this card
+    # (14b and 14c at CUT_LAYERS, 14d at full depth)
     _phase_14(run, report, kernels, sp_kernels, dense_texts)
+    # 15: training over a mesh, every shard on this card
+    _phase_15(run, report, kernels, card)
     report["elapsed_s"] = time.monotonic() - t_start
     log(f"all phases passed in {report['elapsed_s']:.0f}s")
     print(json.dumps({"pipeline": {

@@ -1936,3 +1936,150 @@ def test_sp2_and_pp2_engines_on_one_card_serve_through_graphs(dev, axis):
             check(res, want)
     finally:
         eng.shutdown()
+
+
+# -- training over a mesh ------------------------------------------------------
+
+
+def _train_cfg():
+    """A 2-layer model of head_dim 128 (4 query / 2 kv heads: a tp=2
+    shard's 2 / 1 and a Ulysses sp=2 shard's are the kernels' shapes)."""
+    import dataclasses
+
+    from agentainer_tpu_torch.models.configs import get_config
+
+    return dataclasses.replace(get_config("llama3-8b"), name="hd128-2l", n_layers=2, dim=512, n_heads=4,
+                               n_kv_heads=2, ffn_dim=1024, vocab_size=1024)
+
+
+# the ring's dq/dk/dv (the plain ring recomputed: an online softmax over the
+# blocks) against autograd through attention_reference over the whole
+# sequence: f32 over two summation orders, an error that scales with each
+# gradient's largest element (chip_smoke.py's RING_GRAD_ATOL_REL)
+RING_GRAD_ATOL_REL = 2e-5
+
+
+@pytest.mark.parametrize("kind,sp", [("ring", 2), ("ring", 4), ("ulysses", 2)])
+def test_ring_and_ulysses_kernels_match_plain(dev, kind, sp):
+    """The kernel forward (ring: each visiting block through
+    ``flash_prefill``'s lse entry, joined by lse; Ulysses: each shard's
+    heads through ``trainable_causal_attention``) against the plain version
+    at f32 2e-5, dq/dk/dv against autograd through ``attention_reference``,
+    sp² (ring) or sp (Ulysses) launches a call and none in the backward."""
+    from agentainer_tpu_torch.ops.attention import attention_reference, causal_mask
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+    from agentainer_tpu_torch.parallel.ring_attention import ring_attention
+    from agentainer_tpu_torch.parallel.ulysses import ulysses_attention
+
+    cfg = _train_cfg()
+    g = torch.Generator(device=dev).manual_seed(20)
+    b, t = 2, 512
+    q = _randn(g, dev, torch.float32, b, t, cfg.n_heads, 128)
+    k, v = (_randn(g, dev, torch.float32, b, t, cfg.n_kv_heads, 128) for _ in range(2))
+    go = _randn(g, dev, torch.float32, b, t, cfg.n_heads, 128)
+    mesh = make_mesh(sp, sp=sp, devices=[dev] * sp)
+    fn = ring_attention if kind == "ring" else ulysses_attention
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = ca.flash_prefill.launches
+    got = fn(*leaves, mesh)
+    assert ca.flash_prefill.launches - before == (sp * sp if kind == "ring" else sp)
+    grads = torch.autograd.grad(got, leaves, go)
+    assert ca.flash_prefill.launches - before == (sp * sp if kind == "ring" else sp)
+    torch.testing.assert_close(got.detach(), fn(q, k, v, mesh, plain=True), rtol=2e-5, atol=2e-5)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref, mask=causal_mask(t, device=dev).expand(b, t, t)), ref, go)
+    rel = RING_GRAD_ATOL_REL if kind == "ring" else 0.0
+    for a, w in zip(grads, want):
+        torch.testing.assert_close(a, w, rtol=0.0, atol=max(1e-6, rel * w.abs().max().item()))
+
+
+def _mesh_and_one_device_step(cfg, devices, axes, tokens, **kw):
+    """One step over a mesh of ``devices`` and one on the first of them from
+    the same seed-0 params: (mesh loss, one-device loss, the mesh's
+    gathered leaves and gradients by name, the one-device ones, launches)."""
+    from agentainer_tpu_torch.models.llama import init_params
+    from agentainer_tpu_torch.parallel.mesh import make_mesh
+    from agentainer_tpu_torch.train import leaves, make_train_step
+
+    def params():
+        return init_params(cfg, torch.Generator(device=devices[0]).manual_seed(0), dtype=torch.float32,
+                           device=devices[0])
+
+    init_fn, step_fn, shard_batch = make_train_step(cfg, device=devices[0])
+    state, want = step_fn(init_fn(params=params()), shard_batch(tokens))
+    names = [n for n, _ in _named(state.params)]
+    one = {n: (p.detach(), p.grad) for n, p in zip(names, leaves(state.params))}
+    mesh = make_mesh(len(devices), devices=devices, **axes)
+    init_fn, step_fn, shard_batch = make_train_step(cfg, mesh, **kw)
+    before = ca.flash_prefill.launches
+    mstate, got = step_fn(init_fn(params=params()), shard_batch(tokens))
+    launches = ca.flash_prefill.launches - before
+    shards = mstate.params
+    lead = {id(t): leaf for leaf, copies in zip(shards.leaves, shards.copies) for t in (leaf, *copies)}
+    from agentainer_tpu_torch.parallel.sharding import unshard_params
+
+    vals = dict(_named(unshard_params(shards.trees, mesh, shards.specs, device=devices[0])))
+    grad_trees = [_map_tree(t, lambda x: lead[id(x)].grad) for t in shards.trees]
+    grads = dict(_named(unshard_params(grad_trees, mesh, shards.specs, device=devices[0])))
+    return float(got), float(want), {n: (vals[n], grads[n]) for n in names}, one, launches
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [pair for k, v in tree.items() for pair in _named(v, f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _assert_step_close(got_loss, want_loss, got, want, lr=3e-4):
+    """The loss within 2e-4 (two f32 paths), each gradient within 2e-4 of
+    its leaf's largest, each updated leaf within 2 lr (AdamW's first step
+    moves an element by about lr), and within 1% of lr wherever the
+    gradient is clear of zero."""
+    assert abs(got_loss - want_loss) <= 2e-4, (got_loss, want_loss)
+    for name, (w, gw) in want.items():
+        a, ga = got[name]
+        scale = gw.abs().max().item()
+        assert (ga - gw).abs().max().item() <= 2e-4 * scale, name
+        diff = (a - w).abs()
+        clear = gw.abs() >= max(1e-6, 1e-4 * scale)
+        assert diff.max().item() <= 2 * lr, name
+        assert (diff[clear].max().item() if clear.any() else 0.0) <= 0.01 * lr, name
+
+
+@pytest.mark.parametrize("axes,kw,per_step", [
+    ({"tp": 2}, {}, 2 * 4),  # 2 layers x 4 shards
+    ({"pp": 2}, {"n_microbatch": 2}, 2 * 2),  # 2 layers x 1 shard a stage x 2 microbatches
+    ({"sp": 2}, {"seq_attn": "ring"}, 2 * 2 * 2),  # 2 layers x 2 shards x 2 blocks
+    ({"sp": 2}, {"seq_attn": "ulysses"}, 2 * 2),
+], ids=["dp2xtp2", "pp2", "sp2-ring", "sp2-ulysses"])
+def test_mesh_train_step_matches_one_device(dev, axes, kw, per_step):
+    """One step over a logical mesh on this card against one step on it
+    alone, from the same params: loss, gradients and updated leaves
+    (``_assert_step_close``), and ``flash_prefill`` launched as the code
+    counts."""
+    cfg = _train_cfg()
+    n = 4 if "tp" in axes else 2
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    got_loss, want_loss, got, want, launches = _mesh_and_one_device_step(cfg, [dev] * n, axes, tokens, **kw)
+    assert launches == per_step
+    _assert_step_close(got_loss, want_loss, got, want)
+
+
+def test_mesh_train_over_two_cards_matches_one_card(dev):
+    """dp2 × tp2 over two cards (each shard's slice on its card, the dp
+    copies on the other card separate leaves whose gradients are summed
+    into the slice's, peer copies in the collectives) takes the step one
+    card takes."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("this machine has one GPU: a mesh over two cards needs two")
+    cfg = _train_cfg()
+    devices = [torch.device("cuda", i) for i in (0, 0, 1, 1)]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    got_loss, want_loss, got, want, _ = _mesh_and_one_device_step(cfg, devices, {"tp": 2}, tokens)
+    _assert_step_close(got_loss, want_loss, got, want)

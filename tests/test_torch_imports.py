@@ -68,6 +68,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "agentainer_tpu_torch.parallel.collectives",
         "agentainer_tpu_torch.parallel.flash_mesh",
         "agentainer_tpu_torch.parallel.expert",
+        "agentainer_tpu_torch.parallel.pipeline",
+        "agentainer_tpu_torch.parallel.ring_attention",
+        "agentainer_tpu_torch.parallel.ulysses",
+        "agentainer_tpu_torch.parallel.dcn",
         *CONTROL_PLANE,
         "agentainer_tpu_torch.engine",
         "agentainer_tpu_torch.runtime.engine_main",
@@ -109,6 +113,8 @@ CONTROL_PLANE = (
     "agentainer_tpu_torch.manager.backup",
     "agentainer_tpu_torch.manager.deployconfig",
     "agentainer_tpu_torch.engine.safetensors_meta",
+    "agentainer_tpu_torch.parallel.dcn",
+    "agentainer_tpu_torch.runtime.engine_main",
 )
 
 _STDLIB_PROBE = """
@@ -127,9 +133,11 @@ print(json.dumps(leaked))
 def test_control_plane_imports_no_torch_aiohttp_or_yaml():
     """The daemon never creates a CUDA context and runs where aiohttp,
     yaml and requests are missing: its modules, the CLI, the artifact,
-    backup and deployment modules, the safetensors header reader and the
-    echo engine load, in a fresh interpreter, with none of torch, numpy,
-    aiohttp, yaml, requests or the JAX package."""
+    backup and deployment modules, the safetensors header reader, the
+    echo engine, the engine entry point and the multi-host module (which
+    imports ``torch.distributed`` only when it joins) load, in a fresh
+    interpreter, with none of torch, numpy, aiohttp, yaml, requests or the
+    JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _STDLIB_PROBE.format(names=CONTROL_PLANE)],
         capture_output=True, text=True, timeout=120,
