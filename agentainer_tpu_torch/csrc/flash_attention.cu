@@ -42,9 +42,9 @@
 // the only size kernel_supported admits; the wrapper raises for anything
 // else.
 //
-// What bounds each kernel on an H100 SXM (989 TFLOP/s bf16 dense on the
-// tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s HBM) and what the
-// design does about it:
+// What bounds each kernel on an H100 SXM (989 TFLOP/s bf16 and 495 TFLOP/s
+// TF32 dense on the tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s
+// HBM) and what the design does about it:
 //   - decode reads every live K/V byte once per step and does ~1 FLOP per
 //     byte per query head: it is bounded by the BYTES of live K/V, so what
 //     matters is how many bytes are in flight across the card. The KV axis
@@ -84,9 +84,22 @@
 //     cp.async rather than wgmma and TMA because the paged instance takes
 //     any page size: a TMA box cannot cross a page, a cp.async takes the
 //     per-16-byte lookup.
-//     The f32 body stays on the CUDA cores (TF32 would break the f32
-//     parity the tests hold): 64x64 score tile per block from shared
-//     memory, 4x8 register micro-tile per thread.
+//     The f32 body (training's forward, at T = 1024-2048) runs both
+//     products on the tensor cores too, in three TF32 passes (mma.sync
+//     m16n8k8 .tf32): x = x_hi + x_lo with x_hi = tf32(x) and x_lo = x - x_hi
+//     kept to tf32, and a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. One pass
+//     keeps a 10-bit mantissa (~5e-4 of each product) and misses the f32
+//     tolerance the tests hold (2e-5 on the rows) by ~100x; the split drops
+//     a_lo.b_lo and lo's last bits, ~2^-21 of each product, which is f32's
+//     own rounding scale, and the partial sums leave the tensor cores' short
+//     accumulations for f32 adds on the CUDA cores (the body's note), so
+//     the rows stay as close to the plain f32 version as the CUDA-core body
+//     it replaced. Its least time is 3 x FLOPs over the TF32 peak (2.46x
+//     under the same FLOPs over the 67 TFLOP/s of the CUDA cores); what
+//     holds it above that is the stream of mma.sync and the split's work
+//     in registers (every warp splits every K/V fragment it reads;
+//     scripts/torch_kernel_variants.py times the parts), with 8 warps an SM
+//     at 255 registers a thread.
 //
 // Row log-sum-exp (the sequence-parallel entry): the dense prefill and
 // decode entry points optionally write each query row's natural-log
@@ -122,7 +135,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int HD = 128;           // head_dim
-constexpr int KS = HD + 4;        // padded shared-memory row stride (floats), f32 prefill
 constexpr float NEG_INF = -1e30f;
 constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr unsigned FULL = 0xffffffffu;
@@ -140,17 +152,13 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;  // elements per 16-byte load
-  __device__ static void load(const float* p, float* dst) {
-    float4 x = *reinterpret_cast<const float4*>(p);
-    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-  }
   __device__ static void widen(uint4 r, float* dst) {
     dst[0] = __uint_as_float(r.x); dst[1] = __uint_as_float(r.y);
     dst[2] = __uint_as_float(r.z); dst[3] = __uint_as_float(r.w);
   }
-  __device__ static void load4(const float* p, float* dst) { load(p, dst); }
-  __device__ static void store4(float* p, const float* src) {
-    *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
+  __device__ static void load4(const float* p, float* dst) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
   }
   __device__ static float cvt(float x) { return x; }
 };
@@ -168,22 +176,11 @@ struct Vec<bf16> {
       dst[2 * i + 1] = f.y;
     }
   }
-  __device__ static void load(const bf16* p, float* dst) {
-    widen(*reinterpret_cast<const uint4*>(p), dst);
-  }
   __device__ static void load4(const bf16* p, float* dst) {  // 4 elements, 8 bytes
     const uint2 r = *reinterpret_cast<const uint2*>(p);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
     dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
-  }
-  __device__ static void store4(bf16* p, const float* src) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(src[0], src[1]);
-    __nv_bfloat162 b = __floats2bfloat162_rn(src[2], src[3]);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&a);
-    u.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
   }
   __device__ static bf16 cvt(float x) { return __float2bfloat16(x); }
 };
@@ -305,9 +302,10 @@ struct PagedArena {
 };
 
 // Issue the cp.async copies of slots [k0, k0 + ROWS) of a lane's K and V into
-// shared tiles of row stride kRow<T>; slots at or past S are zero-filled (the
-// TPU kernel zeroes V there). The caller commits the group.
-template <typename T, int ROWS, int NTHREADS, typename Lane>
+// shared tiles of row strides KR and VR (kRow<T> unless given); slots at or
+// past S are zero-filled (the TPU kernel zeroes V there). The caller commits
+// the group.
+template <typename T, int ROWS, int NTHREADS, int KR = kRow<T>, int VR = kRow<T>, typename Lane>
 __device__ __forceinline__ void stage_kv(const Lane& lane, int k0, int S, T* k_s, T* v_s,
                                          int tid) {
   constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
@@ -320,15 +318,16 @@ __device__ __forceinline__ void stage_kv(const Lane& lane, int k0, int S, T* k_s
     const int key = k0 + j;
     const bool in = key < S;
     const int src = in ? key : 0;  // any valid address; nothing is read
-    cp_async16(k_s + j * kRow<T> + c, lane.krow(src) + c, in ? 16 : 0);
-    cp_async16(v_s + j * kRow<T> + c, lane.vrow(src) + c, in ? 16 : 0);
+    cp_async16(k_s + j * KR + c, lane.krow(src) + c, in ? 16 : 0);
+    cp_async16(v_s + j * VR + c, lane.vrow(src) + c, in ? 16 : 0);
   }
 }
 
 // ---- prefill --------------------------------------------------------------
 //
-// Grid (ceil(T / (BM / G)), KV, B). A block owns BM = 64 query rows: BM / G
-// consecutive tokens x the G heads of one kv head, and walks the K/V tiles
+// Grid (ceil(T / (BM / G)), KV, B). A block owns BM query rows (64 in the
+// bf16 body, 128 in the f32 one): BM / G consecutive tokens x the G heads of
+// one kv head, and walks the K/V tiles
 // [0, BK), [BK, 2BK), ... up to the largest position among its rows. Rows
 // past T get position -1 (no visible slot).
 
@@ -574,198 +573,300 @@ __device__ __forceinline__ void prefill_mma(
   }
 }
 
-// f32 body (CUDA cores), 128 threads. Thread (rb, cb) = (tid / 8, tid % 8)
-// holds score rows rb*4..rb*4+3 x key columns cb + 8*jj, and output rows
-// rb*4.. x head_dim columns cb*4 + 32*q .. +3 — both mappings read shared
-// memory without bank conflicts (the padded stride KS puts consecutive rows
-// 4 banks apart).
-constexpr int PF_THREADS = 128;
-constexpr int PF_PS = PF_BK + 1;
-constexpr size_t PF_SMEM =
-    sizeof(float) * (size_t)(PF_BM * KS + 2 * PF_BK * KS + PF_BM * PF_PS) + sizeof(int) * PF_BM;
+// f32 body (tensor cores, three-pass TF32), 256 threads = 8 warps over a
+// block of PF_TF_BM = 128 query rows; warp w owns rows 16w .. 16w + 15 and
+// every warp takes every staged tile, so the block's K/V bytes serve 128
+// rows. Each product runs on mma.sync m16n8k8 .tf32 as
+//   a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi,  x_hi = tf32(x), x_lo = x - x_hi
+// (split_tf32, at each fragment load, in registers), in that order. The
+// tensor cores accumulate with truncation, so a long sum in one accumulator
+// drifts: S's 16 k-steps run as 8 chunks of two, P.V's as one tile, each
+// into a fresh accumulator that the CUDA cores add to S or fold into O
+// (O = alpha O + tile) in f32. The fragments are read as float4 from shared
+// memory: both products sum over an index (head_dim for S = QK^T, the slot
+// for P.V) whose order within a k-step the mma does not see, so thread
+// (g, t) takes A columns t and t + 4 of a k-step to be head_dim 4t and
+// 4t + 1 of a 16-column chunk (4t + 2 and 4t + 3 are the next k-step's),
+// and for P.V slots 2t and 2t + 1: the very columns its S accumulator
+// holds, so P is the A operand with no shuffle. P.V's output columns are
+// permuted too: 8-column tile 4c + e of the accumulator holds columns
+// 32c + 4n + e, n = 0..7, so one float4 of a V row gives four tiles' B
+// fragments. Q and K rows are HD + 16 floats apart (rows g and g + 1 of a
+// float4 phase 16 banks apart), V rows HD + 4 (rows 2t of a phase 8 banks
+// apart): every fragment load is conflict-free. Scores are kept in log2
+// units, as in the bf16 body. K/V tiles stream through a 2-stage cp.async
+// ring; blocks are handed out heaviest first (the last tokens of a causal
+// chunk see the most tiles).
+constexpr int PF_TF_BM = 128;
+constexpr int PF_TF_THREADS = 256;
+constexpr int PF_TF_STAGES = 2;
+constexpr int PF_QKS = HD + 16;  // q and k row stride (floats)
+constexpr int PF_VS = HD + 4;    // v row stride (floats)
+constexpr size_t PF_TF_SMEM =
+    sizeof(float) * (size_t)(PF_TF_BM * PF_QKS + PF_TF_STAGES * PF_BK * (PF_QKS + PF_VS)) +
+    sizeof(int) * (PF_TF_BM + PF_TF_THREADS / 32);
 
-template <typename T, typename Arena>
-__device__ __forceinline__ void prefill_simt(
-    unsigned char* smem_raw, const T* __restrict__ q, const Arena& arena,
-    const int* __restrict__ pos, T* __restrict__ out, float* __restrict__ lse, int T_len, int S,
-    int G, long long q_sb, long long q_st, long long q_sh, long long p_sb, long long p_st,
+// x = hi + lo as two tf32 operands. hi is x rounded to the nearest tf32,
+// ties away from zero (the bits cvt.rna.tf32.f32 gives), by an integer add
+// and mask: the conversion instruction made the body a third slower. lo = x - hi
+// is exact in f32 and goes to the mma as it is: the tensor cores read the
+// upper 19 bits of a tf32 operand, so lo is truncated to tf32: an error
+// below 2^-10 |lo| <= 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d += a (16x8 tf32, row-major) * b (8x8 tf32, col-major), f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a.b in three passes, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+template <typename Arena>
+__device__ __forceinline__ void prefill_tf32(
+    unsigned char* smem, const float* __restrict__ q, const Arena& arena,
+    const int* __restrict__ pos, float* __restrict__ out, float* __restrict__ lse, int T_len,
+    int S, int G, long long q_sb, long long q_st, long long q_sh, long long p_sb, long long p_st,
     long long o_sb, long long o_st, long long o_sh, float scale) {
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  float* q_s = smem;                  // [BM][KS]
-  float* k_s = q_s + PF_BM * KS;      // [BK][KS]
-  float* v_s = k_s + PF_BK * KS;      // [BK][KS]
-  float* p_s = v_s + PF_BK * KS;      // [BM][PS]
-  int* pos_s = reinterpret_cast<int*>(p_s + PF_BM * PF_PS);  // [BM]
-  int* tbl_s = pos_s + PF_BM;         // [table_len] (paged only)
+  constexpr int NT = PF_TF_THREADS;
+  float* q_s = reinterpret_cast<float*>(smem);          // [BM][QKS]
+  float* k_s = q_s + PF_TF_BM * PF_QKS;                 // [STAGES][BK][QKS]
+  float* v_s = k_s + PF_TF_STAGES * PF_BK * PF_QKS;     // [STAGES][BK][VS]
+  int* pos_s = reinterpret_cast<int*>(v_s + PF_TF_STAGES * PF_BK * PF_VS);  // [BM]
+  int* wmax_s = pos_s + PF_TF_BM;                       // [warps]
+  int* tbl_s = wmax_s + NT / 32;                        // [table_len] (paged only)
 
-  constexpr int VN = Vec<T>::N;
-  constexpr int VPR = HD / VN;  // vectors per row
-  const int tid = threadIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tok_per_block = PF_BM / G;
-  const int t0 = blockIdx.x * tok_per_block;
+  const int tid = threadIdx.x, warp = tid / 32, lid = tid % 32;
+  // heaviest first: the grid's linear order walks row blocks from the last
+  const int kv_n = gridDim.y, lanes = kv_n * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + kv_n * blockIdx.z);
+  const int kvh = (lin % lanes) % kv_n;
+  const int b = (lin % lanes) / kv_n;
+  const int t0 = (gridDim.x - 1 - lin / lanes) * (PF_TF_BM / G);
 
-  // stage the q tile (f32) and each row's position; rows past T get pos -1
-  for (int idx = tid; idx < PF_BM * VPR; idx += PF_THREADS) {
-    const int r = idx / VPR, c = (idx % VPR) * VN;
+  // the q tile, as stored (rows past T zero-filled); positions; table row
+#pragma unroll
+  for (int u = 0; u < PF_TF_BM * (HD / 4) / NT; ++u) {
+    const int idx = tid + u * NT;
+    const int r = idx / (HD / 4), c = (idx % (HD / 4)) * 4;
     const int t = t0 + r / G, h = kvh * G + r % G;
-    float buf[VN];
-    if (t < T_len) {
-      Vec<T>::load(q + b * q_sb + t * q_st + h * q_sh + c, buf);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VN; ++e) buf[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VN; ++e) q_s[r * KS + c + e] = buf[e];
+    const bool in = t < T_len;
+    cp_async16(q_s + r * PF_QKS + c, q + b * q_sb + (in ? t : 0) * q_st + h * q_sh + c, in ? 16 : 0);
   }
-  for (int r = tid; r < PF_BM; r += PF_THREADS) {
+  for (int r = tid; r < PF_TF_BM; r += NT) {
     const int t = t0 + r / G;
     pos_s[r] = t < T_len ? pos[b * p_sb + t * p_st] : -1;
   }
-  arena.stage(b, tbl_s, tid, PF_THREADS);
-  __syncthreads();
+  arena.stage(b, tbl_s, tid, NT);
+  __syncthreads();  // positions, and the table row the K/V copies read
   const auto lane = arena.lane(b, kvh, tbl_s);
 
-  // the block's last visible slot: tiles past it are never loaded
-  int kmax = -1;
-  for (int r = 0; r < PF_BM; ++r) kmax = max(kmax, min(pos_s[r], S - 1));
+  // this warp's and the block's last visible slot: tiles past them are
+  // never computed (warp: a wholly masked tile leaves m, l, o unchanged) or
+  // loaded (block)
+  const int wmax = __reduce_max_sync(FULL, min(pos_s[warp * 16 + lid % 16], S - 1));
+  if (lid == 0) wmax_s[warp] = wmax;
+  __syncthreads();
+  int kmax = wmax_s[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) kmax = max(kmax, wmax_s[w]);
   const int n_tiles = kmax < 0 ? 0 : kmax / PF_BK + 1;
+  auto stage_tile = [&](int tile) {
+    const int st = tile % PF_TF_STAGES;
+    stage_kv<float, PF_BK, NT, PF_QKS, PF_VS>(lane, tile * PF_BK, S, k_s + st * PF_BK * PF_QKS,
+                                              v_s + st * PF_BK * PF_VS, tid);
+  };
+  if (n_tiles > 0) stage_tile(0);
+  cp_async_commit();  // group 0: q and the first tile
 
-  const int rb = tid / 8, cb = tid % 8;
-  int prow[4];
-  float m[4], l[4], acc[4][16];
+  const int g = lid / 4, t4 = lid % 4;
+  const int prow[2] = {pos_s[warp * 16 + g], pos_s[warp * 16 + g + 8]};
+  const float sl2 = scale * LOG2E;
+  const float* q0 = q_s + (warp * 16 + g) * PF_QKS + 4 * t4;  // rows g and g + 8
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    prow[i] = pos_s[rb * 4 + i];
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int dn = 0; dn < HD / 8; ++dn)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
+    // the stage refilled here was read in tile - 1, before its closing sync
+    if (tile + 1 < n_tiles) stage_tile(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copies just issued has landed
+    __syncthreads();
     const int k0 = tile * PF_BK;
-    __syncthreads();  // the previous tile's readers are done with k_s/v_s/p_s
-    for (int idx = tid; idx < PF_BK * VPR; idx += PF_THREADS) {
-      const int j = idx / VPR, c = (idx % VPR) * VN;
-      const int key = k0 + j;
-      float kb[VN], vb[VN];
-      if (key < S) {
-        Vec<T>::load(lane.krow(key) + c, kb);
-        Vec<T>::load(lane.vrow(key) + c, vb);
-      } else {  // past the arena: zero, as the TPU kernel zeroes V there
-#pragma unroll
-        for (int e = 0; e < VN; ++e) kb[e] = vb[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        k_s[j * KS + c + e] = kb[e];
-        v_s[j * KS + c + e] = vb[e];
-      }
-    }
-    __syncthreads();
+    if (k0 <= wmax) {
+      const int st = tile % PF_TF_STAGES;
+      const float* kt = k_s + st * PF_BK * PF_QKS + g * PF_QKS + 4 * t4;
+      const float* vt = v_s + st * PF_BK * PF_VS + 2 * t4 * PF_VS + 4 * g;
 
-    // scores: 4 rows x 8 keys per thread
-    float s[4][8];
+      // S = Q K^T: 16 rows x 64 slots per warp, 8 accumulators of 16x8. A
+      // 16-column chunk of head_dim is two k-steps, summed on the tensor
+      // cores into a fresh accumulator and added to S on the CUDA cores: the
+      // tensor cores' accumulation truncates, and over all 16 k-steps its
+      // error would reach the f32 tolerance
+      float s[PF_BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < PF_BK / 8; ++nt)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[8];
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&q_s[(rb * 4 + i) * KS + d]);
+      for (int c = 0; c < HD / 16; ++c) {
+        const float4 qa = *reinterpret_cast<const float4*>(q0 + 16 * c);
+        const float4 qb = *reinterpret_cast<const float4*>(q0 + 8 * PF_QKS + 16 * c);
+        uint32_t ah[2][4], al[2][4];
+        split_tf32(qa.x, ah[0][0], al[0][0]);
+        split_tf32(qb.x, ah[0][1], al[0][1]);
+        split_tf32(qa.y, ah[0][2], al[0][2]);
+        split_tf32(qb.y, ah[0][3], al[0][3]);
+        split_tf32(qa.z, ah[1][0], al[1][0]);
+        split_tf32(qb.z, ah[1][1], al[1][1]);
+        split_tf32(qa.w, ah[1][2], al[1][2]);
+        split_tf32(qb.w, ah[1][3], al[1][3]);
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(&k_s[(cb + 8 * jj) * KS + d]);
+        for (int nt = 0; nt < PF_BK / 8; ++nt) {
+          const float4 kk = *reinterpret_cast<const float4*>(kt + nt * 8 * PF_QKS + 16 * c);
+          uint32_t bh[2][2], bl[2][2];
+          split_tf32(kk.x, bh[0][0], bl[0][0]);
+          split_tf32(kk.y, bh[0][1], bl[0][1]);
+          split_tf32(kk.z, bh[1][0], bl[1][0]);
+          split_tf32(kk.w, bh[1][1], bl[1][1]);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, ah[0], al[0], bh[0], bl[0]);
+          mma_3xtf32(d, ah[1], al[1], bh[1], bl[1]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) s[i][jj] += dot4(qv[i], kv[jj]);
-    }
-
-    // online softmax; the 8 threads sharing a row are lanes 8*k .. 8*k+7
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-      bool valid[8];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int key = k0 + cb + 8 * jj;
-        valid[jj] = key <= prow[i] && key < S;
-        s[i][jj] = valid[jj] ? s[i][jj] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float p = valid[jj] ? expf(s[i][jj] - m_new) : 0.f;
-        sum += p;
-        p_s[(rb * 4 + i) * PF_PS + cb + 8 * jj] = p;
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(FULL, sum, o);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P · V over the tile
-#pragma unroll 2
-    for (int j = 0; j < PF_BK; ++j) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(rb * 4 + i) * PF_PS + j];
-#pragma unroll
-      for (int qd = 0; qd < 4; ++qd) {
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[j * KS + cb * 4 + 32 * qd]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][qd * 4 + 0] += p[i] * vv.x;
-          acc[i][qd * 4 + 1] += p[i] * vv.y;
-          acc[i][qd * 4 + 2] += p[i] * vv.z;
-          acc[i][qd * 4 + 3] += p[i] * vv.w;
+          for (int e = 0; e < 4; ++e) s[nt][e] += d[e];
         }
       }
+
+      // online softmax over the tile; a row's 4 threads are one quad
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nt = 0; nt < PF_BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const bool valid = key <= prow[e >> 1] && key < S;
+          s[nt][e] = valid ? s[nt][e] * sl2 : NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < PF_BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked score is NEG_INF: exp2 of it less a finite m is 0; a
+          // row that sees nothing yet has m = NEG_INF and is zeroed here
+          const float p = m[e >> 1] == NEG_INF ? 0.f : exp2f(s[nt][e] - m[e >> 1]);
+          sum[e >> 1] += p;
+          s[nt][e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];  // this thread's columns
+
+      // O = alpha O + P V over the tile, a k-step per 8 slots; P's A
+      // fragment is this thread's own S accumulator (slots 2t, 2t + 1 of
+      // rows g, g + 8). Each 32-column group of the tile's P V is summed on
+      // the tensor cores into a fresh accumulator and folded into O on the
+      // CUDA cores, as for S
+      uint32_t ph[PF_BK / 8][4], pl[PF_BK / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < PF_BK / 8; ++nt) {
+        split_tf32(s[nt][0], ph[nt][0], pl[nt][0]);
+        split_tf32(s[nt][2], ph[nt][1], pl[nt][1]);
+        split_tf32(s[nt][1], ph[nt][2], pl[nt][2]);
+        split_tf32(s[nt][3], ph[nt][3], pl[nt][3]);
+      }
+#pragma unroll
+      for (int c = 0; c < HD / 32; ++c) {
+        float d[4][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[e][i] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < PF_BK / 8; ++nt) {
+          const float4 v0 = *reinterpret_cast<const float4*>(vt + nt * 8 * PF_VS + 32 * c);
+          const float4 v1 = *reinterpret_cast<const float4*>(vt + (nt * 8 + 1) * PF_VS + 32 * c);
+          const float b0[4] = {v0.x, v0.y, v0.z, v0.w}, b1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint32_t bh[2], bl[2];
+            split_tf32(b0[e], bh[0], bl[0]);
+            split_tf32(b1[e], bh[1], bl[1]);
+            mma_3xtf32(d[e], ph[nt], pl[nt], bh, bl);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[4 * c + e][i] = o[4 * c + e][i] * alpha[i >> 1] + d[e][i];
+      }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rb * 4 + i;
-    const int t = t0 + r / G, h = kvh * G + r % G;
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r] + __shfl_xor_sync(FULL, l[r], 1);
+    lr += __shfl_xor_sync(FULL, lr, 2);
+    const int row = warp * 16 + g + 8 * r;
+    const int t = t0 + row / G, h = kvh * G + row % G;
     if (t >= T_len) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    if (lse != nullptr && cb == 0)  // m in natural units here (scores scaled by scale)
-      lse[((long long)b * T_len + t) * gridDim.y * G + h] = l[i] == 0.f ? NEG_INF : m[i] + logf(l[i]);
-    T* o = out + b * o_sb + t * o_st + h * o_sh;
+    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * T_len + t) * gridDim.y * G + h] =
+          lr == 0.f ? NEG_INF : (m[r] + log2f(lr)) * LN2;
+    // tile 4c + e holds columns 32c + 8t + e (first) and 32c + 8t + 4 + e
+    float* orow = out + b * o_sb + t * o_st + h * o_sh + 8 * t4;
 #pragma unroll
-    for (int qd = 0; qd < 4; ++qd) {
-      float w[4];
+    for (int c = 0; c < HD / 32; ++c) {
+      float w[8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) w[e] = acc[i][qd * 4 + e] * inv;
-      Vec<T>::store4(o + cb * 4 + 32 * qd, w);
+      for (int e = 0; e < 4; ++e) {
+        w[e] = o[4 * c + e][2 * r] * inv;
+        w[4 + e] = o[4 * c + e][2 * r + 1] * inv;
+      }
+      *reinterpret_cast<float4*>(orow + 32 * c) = make_float4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<float4*>(orow + 32 * c + 4) = make_float4(w[4], w[5], w[6], w[7]);
     }
   }
 }
 
 template <typename T>
 constexpr size_t prefill_smem() {
-  return std::is_same<T, bf16>::value ? PF_MMA_SMEM : PF_SMEM;
+  return std::is_same<T, bf16>::value ? PF_MMA_SMEM : PF_TF_SMEM;
 }
 template <typename T>
 constexpr int prefill_threads() {
-  return std::is_same<T, bf16>::value ? PF_MMA_THREADS : PF_THREADS;
+  return std::is_same<T, bf16>::value ? PF_MMA_THREADS : PF_TF_THREADS;
+}
+// query rows per block: BM / G tokens x the G heads of one kv head
+template <typename T>
+constexpr int prefill_rows() {
+  return std::is_same<T, bf16>::value ? PF_BM : PF_TF_BM;
 }
 
 template <typename T, typename Arena>
@@ -779,7 +880,7 @@ __global__ void __launch_bounds__(prefill_threads<T>()) prefill_kernel(
     prefill_mma(smem, q, arena, pos, out, lse, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb,
                 o_st, o_sh, scale);
   else
-    prefill_simt(smem, q, arena, pos, out, lse, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb,
+    prefill_tf32(smem, q, arena, pos, out, lse, T_len, S, G, q_sb, q_st, q_sh, p_sb, p_st, o_sb,
                  o_st, o_sh, scale);
 }
 
@@ -1086,7 +1187,7 @@ cudaError_t launch_prefill(const void* q, const Arena& arena, const int* pos, vo
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = raise_smem_limit<&prefill_kernel<T, Arena>>(smem);
   if (err != cudaSuccess) return err;
-  const int tok_per_block = PF_BM / G;
+  const int tok_per_block = prefill_rows<T>() / G;
   dim3 grid((T_len + tok_per_block - 1) / tok_per_block, KV, B);
   kern<<<grid, prefill_threads<T>(), smem, stream>>>(
       static_cast<const T*>(q), arena, pos, static_cast<T*>(out), lse, T_len, S, G, st[0],

@@ -378,11 +378,15 @@ exits non-zero):
                  phase's tolerances (bf16: with the P-rounding bound 2**-9
                  max|v| in place of ``BF16_P_ATOL``, since rows from
                  position 0 see few slots), dq/dk/dv (no launch) against autograd
-                 through ``attention_reference`` (f32 within 1e-6); the f32
-                 kernel timed beside its bound (over the f32 peak: the
-                 CUDA-core body), its plain version and SDPA, in turns, by
-                 CUDA events (the profiler's trace of this row loses
-                 records).
+                 through ``attention_reference`` (f32 within 1e-6); with q
+                 and k scaled by ``F32_GUARD_SCALE`` (scores up to ~18) the
+                 f32 forward within 2e-5 of plain while the plain version
+                 with TF32 products (one pass) is over 2e-4 off; the f32
+                 kernel timed beside its bounds (three-pass TF32 on the
+                 tensor cores: 3 x FLOPs over the TF32 peak; and the same
+                 FLOPs over the CUDA cores' f32 peak), its plain version
+                 and SDPA, in turns, by CUDA events (the profiler's trace
+                 of this row loses records).
    (b) paths     a 2-layer llama3-8b-width model, one set of params: one
                  ``step_fn`` step (the kernel forward) against the same
                  AdamW step through ``attn_impl=None``: losses within 2e-4,
@@ -489,7 +493,7 @@ exits non-zero):
                  backward; ``flash_prefill`` timed at the three per-shard
                  training shapes (a dp2 × tp2 shard, a ring block, a
                  Ulysses shard) by CUDA events beside its plain version,
-                 SDPA and its f32 bound.
+                 SDPA and its two bounds (as 12a's).
    (b-e) meshes  llama3-8b at full width, 4 of 32 layers, f32, B 2 × T
                  2048, AdamW lr 3e-4 wd 0.01: 4 steps of 12's one-device
                  path first, then from the same params dp2 × tp2 (b), sp2
@@ -561,7 +565,8 @@ import urllib.request
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense (NVIDIA data sheet)
 PEAK_HBM_BPS = 3.35e12
-PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (the f32 prefill body's)
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores (the f32 prefill body's, three passes)
 # Kernel against plain: both accumulate in f32 and round once to q's dtype,
 # so in bf16 they may differ by one rounding (<= 2**-7 * |plain|) and in f32
 # by summation order only (the repo's f32 kernel tolerance,
@@ -978,6 +983,19 @@ def phase_tokenizer(card: str) -> dict:
 def _bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     t_bytes, t_ops = bytes_moved / PEAK_HBM_BPS, flops / peak_flops
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _f32_prefill_bounds(bytes_moved: float, flops: float, ms: float) -> dict:
+    """The f32 prefill body's bounds: it runs both products on the tensor
+    cores in three TF32 passes, so its least time (``bound_ms``) is 3 x its
+    FLOPs over the TF32 peak, or its bytes; beside it the bound of the same
+    FLOPs over the CUDA cores' f32 peak, and the share of each that ``ms``
+    reaches."""
+    out = _bound(bytes_moved, 3 * flops, PEAK_TF32_FLOPS)
+    cuda_cores = _bound(bytes_moved, flops, PEAK_F32_FLOPS)["bound_ms"]
+    return {**out, "bound_basis": "3 x FLOPs over the TF32 peak (three-pass TF32 on the tensor cores)",
+            "bound_share": out["bound_ms"] / ms, "bound_cuda_cores_ms": cuda_cores,
+            "bound_cuda_cores_share": cuda_cores / ms}
 
 
 def _compare(fn, plain, floats, rest, bf16_atol=BF16_ATOL) -> dict:
@@ -3639,6 +3657,11 @@ MOE_TRAIN_T, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2048, 1, 3
 # the f32 gradients of the training attention against autograd through the
 # plain attention: the backward is the same recomputation on the same inputs
 TRAIN_GRAD_F32_TOL = 1e-6
+# 12a's guard that the f32 body's hi/lo split is there: q and k scaled so
+# that the largest score is ~18 (tests/test_torch_cuda.py's F32_GUARD_SCALE),
+# where the kernel holds F32_TOL and one TF32 pass (the plain version with
+# TF32 products) misses it at least tenfold
+F32_GUARD_SCALE = 1.75
 # (b) one step through the kernel path against one through the plain path:
 # a gradient element at least ``TRAIN_G_FLOOR`` (100 eps) and 1e-4 of its
 # leaf's largest gradient moves by lr x a ratio both paths agree on to the
@@ -3712,9 +3735,11 @@ def phase_train_attention() -> dict:
     """(a) ``trainable_causal_attention`` at the training shape, f32 and
     bf16: its forward (one prefill launch) against ``flash_prefill_plain``
     at the kernel phase's tolerances, its dq/dk/dv (no launch) against
-    autograd through ``attention_reference``; then the f32 kernel forward
-    timed beside its bound (f32 FLOPs over the CUDA cores' peak: the f32
-    body), its plain version and SDPA (causal, GQA, f32), in turns."""
+    autograd through ``attention_reference``; the f32 forward with q and k
+    scaled by ``F32_GUARD_SCALE`` against plain, beside one TF32 pass; then
+    the f32 kernel forward timed beside its bounds (``_f32_prefill_bounds``: three-pass TF32 on
+    the tensor cores, and the CUDA cores' f32 peak), its plain version and
+    SDPA (causal, GQA, f32), in turns."""
     import torch
     import torch.nn.functional as F
 
@@ -3773,6 +3798,22 @@ def phase_train_attention() -> dict:
         del q, k, v, go, leaves, ref_leaves, grads, want
         _free_cuda()
     q, k, v = (x.contiguous() for x in base[:3])
+    gq, gk = q * F32_GUARD_SCALE, k * F32_GUARD_SCALE
+    want = ca.flash_prefill_plain(gq, gk, v, pos)
+    guard = {"scale": F32_GUARD_SCALE, "max_abs_err": (ca.flash_prefill(gq, gk, v, pos) - want).abs().max().item(),
+             "max_score": torch.einsum("bthd,bshd->bhts", gq, gk.repeat_interleave(H // KV, dim=2))
+             .abs().max().item() / HD**0.5,
+             "tolerance": F32_TOL}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        guard["one_pass_tf32_max_abs_err"] = (ca.flash_prefill_plain(gq, gk, v, pos) - want).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if guard["max_abs_err"] > F32_TOL or guard["one_pass_tf32_max_abs_err"] < 10 * F32_TOL:
+        raise AssertionError(f"training attention f32 at scores near 18: {guard}")
+    out["float32"]["large_scores"] = guard
+    log(f"training attention f32 at scale {F32_GUARD_SCALE}: {guard}")
+    del gq, gk, want
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     visible = b * t * (t + 1) // 2
     before = ca.flash_prefill.launches
@@ -3782,14 +3823,15 @@ def phase_train_attention() -> dict:
             "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
             "plain": lambda: ca.flash_prefill_plain(q, k, v, pos),
         }),
-        **_bound(4 * (2 * q.numel() + 2 * k.numel()), 4.0 * H * HD * visible, PEAK_F32_FLOPS),
         library="scaled_dot_product_attention", timed="float32", timing=EVENT_TIMING,
     )
+    out.update(_f32_prefill_bounds(4 * (2 * q.numel() + 2 * k.numel()), 4.0 * H * HD * visible, out["ms"]))
     if ca.flash_prefill.launches - before != 1 + 2 * ROUNDS:  # a first call, then the timed ones
         raise AssertionError(f"training attention: {ca.flash_prefill.launches - before} kernel calls timed")
     log(f"training attention f32 kernel: ms {out['ms']:.4f} [{out['ms_min']:.4f}, {out['ms_max']:.4f}] "
         f"plain {out['plain_ms']:.4f} library {out['library_ms']:.4f} bound {out['bound_ms']:.4f} "
-        f"({out['bound_by']}, f32 peak) card {out['card']}")
+        f"({out['bound_by']}, 3xTF32; {out['bound_share']:.0%}) CUDA-core bound {out['bound_cuda_cores_ms']:.4f} "
+        f"({out['bound_cuda_cores_share']:.0%}) card {out['card']}")
     del base, q, k, v, qt, kt, vt
     _free_cuda()
     return out
@@ -6236,8 +6278,8 @@ def phase_train_mesh_attention() -> dict:
     at the three per-shard shapes the training meshes give it (a dp2 × tp2
     shard, a ring block of another shard's past, a Ulysses shard) by CUDA
     events beside its plain version and SDPA (the same causal GQA f32 call,
-    no lse), with its bound (f32 FLOPs over the CUDA cores' peak, or the
-    bytes)."""
+    no lse), with its bounds (``_f32_prefill_bounds``: three-pass TF32 on
+    the tensor cores, and the CUDA cores' f32 peak; or the bytes)."""
     import torch
     import torch.nn.functional as F
 
@@ -6331,12 +6373,14 @@ def phase_train_mesh_attention() -> dict:
             "shape": (f"q[{rows_b},{tq},{hq},{HD}] kv[{rows_b},{s_len},{ks.shape[2]},{HD}] f32, positions "
                       f"{pos.min().item()}..{pos.max().item()}{', with lse' if lse else ''}"),
             "max_abs_err": err, "tolerance": F32_TOL, **timed,
-            **_bound(4 * (2 * qs.numel() + 2 * ks.numel()) + lse_bytes, 4.0 * hq * HD * visible, PEAK_F32_FLOPS),
+            **_f32_prefill_bounds(4 * (2 * qs.numel() + 2 * ks.numel()) + lse_bytes, 4.0 * hq * HD * visible,
+                                  timed["ms"]),
         }
         rows.append(row)
         log(f"15a {row['name']}: ms {row['ms']:.4f} [{row['ms_min']:.4f}, {row['ms_max']:.4f}] plain "
             f"{row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}, "
-            f"f32 peak) err {err:.3g} card {row['card']}")
+            f"3xTF32; {row['bound_share']:.0%}) CUDA-core bound {row['bound_cuda_cores_ms']:.4f} "
+            f"({row['bound_cuda_cores_share']:.0%}) err {err:.3g} card {row['card']}")
     del q, k, v, go, shapes
     _free_cuda()
     out["rows"] = rows

@@ -302,6 +302,108 @@ def test_paged_prefill_equals_dense_at_verify_shapes(dev, dtype, t):
     )
 
 
+# -- the f32 prefill body: three-pass TF32 on the tensor cores ----------------
+
+F32_GROUPS = [(8, 8), (32, 8), (32, 2)]  # G = 1, 4, 16: 128, 32, 8 tokens a block
+
+
+@pytest.mark.parametrize("heads,kv_heads", F32_GROUPS)
+def test_f32_prefill_on_ragged_rows_and_arena(dev, heads, kv_heads):
+    """T = 45 (a multiple of no block's 128 / G tokens) over S = 300 (a
+    multiple of no 64-slot tile): lane 0's rows start at pos -5 (rows that
+    see no slot give zeros), lane 1's run past the arena end, lane 2 sits
+    mid-arena."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, t, s = 3, 45, 300
+    q = _randn(g, dev, torch.float32, b, t, heads, 128)
+    k, v = (_randn(g, dev, torch.float32, b, s, kv_heads, 128) for _ in range(2))
+    pos = (torch.tensor([-5, 280, 150], device=dev)[:, None] + torch.arange(t, device=dev)).int()
+    got, lse = ca.flash_prefill(q, k, v, pos, return_lse=True)
+    want, want_lse = ca.flash_prefill_plain(q, k, v, pos, return_lse=True)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=LSE_TOL)
+    assert (got[0, :5] == 0).all() and (lse[0, :5] == ca.NEG_INF).all()
+
+
+@pytest.mark.parametrize("heads,kv_heads", F32_GROUPS)
+def test_f32_prefill_at_a_ring_block(dev, heads, kv_heads):
+    """The ring's visiting block: every row's position past every slot of a
+    fully visible block (S = 200: its last tile is partly past the arena),
+    with the lse, as ``parallel/ring_attention.py`` calls it."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, t, s = 2, 160, 200
+    q = _randn(g, dev, torch.float32, b, t, heads, 128)
+    k, v = (_randn(g, dev, torch.float32, b, s, kv_heads, 128) for _ in range(2))
+    pos = (s + torch.arange(t, device=dev, dtype=torch.int32)).expand(b, t)
+    got, lse = ca.flash_prefill(q, k, v, pos, return_lse=True)
+    want, want_lse = ca.flash_prefill_plain(q, k, v, pos, return_lse=True)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, rtol=0.0, atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("heads,kv_heads", F32_GROUPS)
+def test_f32_paged_prefill_equals_dense_at_full_arena(dev, heads, kv_heads):
+    """The f32 body through ``PagedArena`` (page size 64, S = 2048,
+    scrambled table) gives the dense body's bits on the same K/V."""
+    from agentainer_tpu_torch.ops.attention import gather_pages
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    b, t, s = 4, 96, 2048
+    pool_k, pool_v, table = _paged_case(g, dev, torch.float32, b, heads, kv_heads, 64, s)
+    k, v = gather_pages(pool_k, pool_v, table)
+    q = _randn(g, dev, torch.float32, b, t, heads, 128)
+    pos = (torch.tensor([0, 700, 1990, 1200], device=dev)[:, None] + torch.arange(t, device=dev)).int()
+    assert torch.equal(
+        ca.fused_paged_flash_prefill(q, pool_k, pool_v, table, pos), ca.flash_prefill(q, k, v, pos)
+    )
+
+
+def test_f32_prefill_gives_the_same_bits_twice(dev):
+    """No atomics and no order that depends on the schedule: two calls at a
+    causal training shape give the same rows and lse."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    b, t = 2, 1024
+    q = _randn(g, dev, torch.float32, b, t, 32, 128)
+    k, v = (_randn(g, dev, torch.float32, b, t, 8, 128) for _ in range(2))
+    pos = torch.arange(t, device=dev, dtype=torch.int32).expand(b, t)
+    first, first_lse = ca.flash_prefill(q, k, v, pos, return_lse=True)
+    second, second_lse = ca.flash_prefill(q, k, v, pos, return_lse=True)
+    assert torch.equal(first, second) and torch.equal(first_lse, second_lse)
+
+
+# q and k scaled by this: the largest |q.k| * scale at the guard's shape is
+# ~17, where one-pass TF32 (10-bit mantissas) moves rows by ~250 TOL and the
+# split's dropped terms (~2**-21 of each product) leave the rows at about
+# half of TOL, as close as the exact f32 CUDA-core body this one replaced
+# came to the plain version there. At ~30 the f32 rounding of the scores
+# alone moves rows by ~2e-5 and no f32 body holds TOL.
+F32_GUARD_SCALE = 1.75
+
+
+def test_f32_prefill_keeps_f32_accuracy_at_large_logits(dev):
+    """The guard that the hi/lo split is there: at scores up to ~17 the
+    kernel holds ``TOL`` against the plain f32 version, while the same plain
+    version with TF32 products (one pass, what a body without the split
+    would compute) misses it tenfold."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, t, s = 2, 256, 512
+    q = _randn(g, dev, torch.float32, b, t, 32, 128) * F32_GUARD_SCALE
+    k = _randn(g, dev, torch.float32, b, s, 8, 128) * F32_GUARD_SCALE
+    v = _randn(g, dev, torch.float32, b, s, 8, 128)
+    pos = (256 + torch.arange(t, device=dev, dtype=torch.int32)).expand(b, t)
+    scores = torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(4, dim=2)) / 128**0.5
+    assert 14 < scores.abs().max().item() < 22
+    want = ca.flash_prefill_plain(q, k, v, pos)
+    got = ca.flash_prefill(q, k, v, pos)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = ca.flash_prefill_plain(q, k, v, pos)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert (one_pass - want).abs().max().item() > 10 * TOL[torch.float32]
+
+
 # -- the int8-weight GEMM ------------------------------------------------------
 
 # (K, N) of llama3-8b's and bench-1b's weights, and a narrow N that is not a
